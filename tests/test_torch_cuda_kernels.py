@@ -1,0 +1,92 @@
+"""The port's CUDA flash-attention kernels (K1-K3) against their plain
+versions, on the card.
+
+Every test here needs an NVIDIA Hopper GPU and skips without one: a CUDA
+kernel has no CPU mode. This file imports no JAX, so it runs where the port
+runs; on a machine with a card (the repo's conftest imports JAX, hence
+``--noconftest``)::
+
+    python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
+
+Tolerances, element by element (bf16 kernels vs the f32 plain math; P and
+dS enter the tensor cores as bf16, outputs are stored as bf16):
+``|got - ref| <= 2e-2 * rms(ref row) + 1e-4 * max|ref| + 1.6e-2 * |ref|``
+with a row one token's head vector, the rule of ``chip_smoke.py``; the LSE
+within 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from veomni_tpu_torch.ops.cuda import flash_attention as fa
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(device, b=2, s=256, hq=4, hkv=2, d=128, packed=True, seed=0):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(device, torch.bfloat16)
+                   for shape in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, hq, d)))
+    seg = np.ones((b, s), np.int32)
+    if packed:
+        seg[:, s // 3:] = 2
+        seg[:, 2 * s // 3:] = 3
+        seg[:, -7:] = 0  # trailing padding segment
+    return q, k, v, do, torch.from_numpy(seg).to(device)
+
+
+RTOL, ATOL_ROW, ATOL_MAX, TOL_LSE = 1.6e-2, 2e-2, 1e-4, 1e-4
+
+
+def _close(got, ref, atol=None, rtol=RTOL):
+    ref = ref.float()
+    if atol is None:
+        atol = ATOL_ROW * ref.pow(2).mean(-1, keepdim=True).sqrt() + ATOL_MAX * ref.abs().max()
+    err = (got.float() - ref).abs()
+    n_over = int((~(err <= atol + rtol * ref.abs())).sum())  # NaN counts as over
+    assert n_over == 0, f"{n_over} elements over the tolerance, max abs err {err.max().item()}"
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_kernels_match_plain_on_card(cuda_device, packed, causal):
+    q, k, v, do, seg = _inputs(cuda_device, packed=packed)
+    scale = q.shape[-1] ** -0.5
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal)
+    out.backward(do)
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, fa.seg_ranges(seg))
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, causal)
+    _close(out, o_p)
+    _close(o_k, o_p)
+    _close(lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+    delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
+    for got, ref in zip((qg.grad, kg.grad, vg.grad),
+                        fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, causal)):
+        _close(got, ref)
+
+
+def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
+    """On CUDA tensors the wrapper launches K1-K3 or raises; it never takes
+    the plain version."""
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain path reached with CUDA tensors")
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", forbidden)
+    monkeypatch.setattr(fa, "flash_bwd_plain", forbidden)
+    q, k, v, do, seg = _inputs(cuda_device)
+    qg, kg, vg = (t.requires_grad_() for t in (q, k, v))
+    fa.reset_counts()
+    fa.flash_attention(qg, kg, vg, segment_ids=seg).backward(do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    with pytest.raises(TypeError):  # f32 is not a kernel input: raise, never fall back
+        fa.flash_attention(q.detach().float(), k.detach().float(), v.detach().float())

@@ -1,0 +1,72 @@
+"""Port flash attention (veomni_tpu_torch/ops/cuda/flash_attention.py) vs the
+JAX Pallas kernel.
+
+The JAX side runs ``veomni_tpu.ops.pallas.flash_attention`` in interpret
+mode on the CPU, as ``tests/test_flash_attention.py`` does; the port's
+wrapper takes its plain version for CPU tensors. Tolerances are those of
+``tests/test_flash_attention.py``: forward 2e-5, grads 5e-4 (f32).
+The CUDA kernels themselves have no CPU mode: ``test_torch_cuda_kernels.py``
+and ``chip_smoke.py`` hold them against this plain version on the card.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from veomni_tpu.ops.attention import _attention_xla as jax_attention_xla
+from veomni_tpu.ops.pallas.flash_attention import _fwd as jax_fwd
+from veomni_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
+from veomni_tpu_torch.ops.cuda import flash_attention as fa
+
+
+def _inputs(b=2, s=256, hq=4, hkv=2, d=32, seed=0, packed=True):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, s, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    seg = np.ones((b, s), np.int32)
+    if packed:
+        seg[:, s // 3:] = 2
+        seg[:, 2 * s // 3:] = 3
+        seg[:, -7:] = 0  # trailing padding segment
+    return q, k, v, seg
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_plain_flash_matches_pallas(packed, causal):
+    """Forward O and LSE (2e-5) and dQ/dK/dV (5e-4), GQA 4/2."""
+    q, k, v, seg = _inputs(packed=packed)
+    d = q.shape[-1]
+    o_j, lse_j = jax_fwd(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2),
+                         jnp.asarray(seg), d ** -0.5, causal, 128, 128)
+    o_t, lse_t = fa.flash_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v, seg)),
+                                    d ** -0.5, causal)
+    np.testing.assert_allclose(o_t.numpy(), np.swapaxes(np.asarray(o_j), 1, 2), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0], rtol=2e-5, atol=2e-5)
+
+    def loss_j(q, k, v):
+        return (jax_flash(q, k, v, segment_ids=jnp.asarray(seg), causal=causal) ** 2).sum()
+
+    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    fa.reset_counts()
+    out = fa.flash_attention(qt, kt, vt, segment_ids=torch.from_numpy(seg), causal=causal)
+    (out ** 2).sum().backward()
+    assert fa.FALLBACK_CALLS == 0 and sum(fa.LAUNCHES.values()) == 0  # CPU: plain path
+    for got, ref, name in zip((qt.grad, kt.grad, vt.grad), g_j, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-4,
+                                   err_msg=f"grad d{name}")
+
+
+def test_explicit_dispatch_rule_for_ragged_seq():
+    """S % 128 != 0 dispatches to the plain ``_attention_xla`` (the
+    reference's feature rule) and counts it in FALLBACK_CALLS."""
+    q, k, v, seg = _inputs(s=100)
+    fa.reset_counts()
+    got = fa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v, seg)), causal=True)
+    assert fa.FALLBACK_CALLS == 1
+    ref = jax_attention_xla(q, k, v, segment_ids=jnp.asarray(seg), causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)

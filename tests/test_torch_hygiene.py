@@ -1,0 +1,103 @@
+"""Import and device hygiene of the PyTorch port.
+
+* ``veomni_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor optax,
+  flax) nor anything of ``veomni_tpu``: checked statically over every source
+  file, and dynamically by importing every module in a fresh subprocess.
+* Entry points called without ``device=`` on a machine without CUDA raise
+  instead of running on the CPU; ``chip_smoke.py`` exits non-zero and prints
+  no result there, and also when it stands alone without the package.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "veomni_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "veomni_tpu")
+
+
+def _run(code_or_args, cwd=REPO, hide_cuda=True):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    if hide_cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_forbidden_imports_in_sources():
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+                names = [node.module]
+            bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+_WALK = r"""
+import importlib, pkgutil, sys
+import veomni_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(veomni_tpu_torch.__path__, "veomni_tpu_torch.")]
+for n in names:
+    importlib.import_module(n)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print(len(names), leaked)
+assert not leaked, leaked
+""" % (FORBIDDEN,)
+
+
+def test_every_module_imports_without_jax():
+    proc = _run(_WALK)
+    assert proc.returncode == 0, proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20, proc.stdout
+
+
+_NO_DEVICE = r"""
+import torch
+from veomni_tpu_torch.models import Transformer
+from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
+from veomni_tpu_torch.utils.device import resolve_device
+assert not torch.cuda.is_available()
+for call in (lambda: resolve_device(),
+             lambda: Transformer(bench_config(preset="qwen3_smoke"), torch.Generator()),
+             lambda: run_train_steps(128, 1, 1, preset="qwen3_smoke")):
+    try:
+        call()
+    except RuntimeError as e:
+        assert "device='cpu'" in str(e), e
+    else:
+        raise AssertionError("ran without a GPU and without device='cpu'")
+print("ok")
+"""
+
+
+def test_entry_points_refuse_to_drop_to_cpu():
+    proc = _run(_NO_DEVICE)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_chip_smoke_fails_without_gpu_or_package(tmp_path):
+    proc = _run(["chip_smoke.py"])
+    assert proc.returncode != 0 and '"ok"' not in proc.stdout, proc.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    alone = _run(["chip_smoke.py"], cwd=str(tmp_path), hide_cuda=False)
+    assert alone.returncode != 0 and '"ok"' not in alone.stdout, alone.stdout

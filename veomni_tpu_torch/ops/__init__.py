@@ -1,0 +1,33 @@
+"""Ops layer: kernel registry + dispatch + plain torch / CUDA implementations.
+
+Port of ``veomni_tpu/ops/__init__.py`` for the dense text train step. The
+plain impls keep the reference's ``xla`` names; the Hopper kernels register
+under their own names (``attention``/``cuda_flash``).
+"""
+
+from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, KernelSpec, resolve_op
+from veomni_tpu_torch.ops import rms_norm as _rms_norm
+from veomni_tpu_torch.ops import rotary as _rotary
+from veomni_tpu_torch.ops import swiglu as _swiglu
+from veomni_tpu_torch.ops import attention as _attention
+from veomni_tpu_torch.ops import cross_entropy as _cross_entropy
+from veomni_tpu_torch.ops.cuda import flash_attention as _flash  # noqa: F401  (registers cuda_flash)
+
+rms_norm = _rms_norm.rms_norm
+apply_rotary = _rotary.apply_rotary
+rotary_tables = _rotary.rotary_tables
+swiglu = _swiglu.swiglu
+attention = _attention.attention
+fused_linear_cross_entropy = _cross_entropy.fused_linear_cross_entropy
+
+__all__ = [
+    "KERNEL_REGISTRY",
+    "KernelSpec",
+    "resolve_op",
+    "rms_norm",
+    "apply_rotary",
+    "rotary_tables",
+    "swiglu",
+    "attention",
+    "fused_linear_cross_entropy",
+]

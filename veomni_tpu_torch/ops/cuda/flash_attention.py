@@ -1,0 +1,302 @@
+"""Flash attention on Hopper: CUDA C++ kernels K1-K3 + their plain versions.
+
+Port of ``veomni_tpu/ops/pallas/flash_attention.py``. The kernels live in
+``veomni_tpu_torch/csrc/flash_attention.cu`` (its header says what bounds
+them on the H100 and how the design answers it):
+
+* K1 ``vt_flash_fwd``     <- ``_fwd_kernel``     (reference ``:49-106``, ``_fwd`` ``:109``)
+* K2 ``vt_flash_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``:155-205``, ``_bwd`` ``:255``)
+* K3 ``vt_flash_bwd_dq``  <- ``_bwd_dq_kernel``  (``:208-252``, ``_bwd`` ``:255``)
+
+Beside each kernel sits its plain PyTorch version (``flash_fwd_plain``,
+``flash_bwd_plain``) with the same inputs and outputs. A wrapper takes the
+plain version only for tensors on the CPU; for CUDA tensors it launches its
+kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch.
+
+``flash_attention`` (registered as ``attention``/``cuda_flash``) keeps the
+reference's feature rule (``:367-380``): sliding window, sinks, an
+asymmetric v-dim, ``S % 128`` or ``Hq % Hkv`` dispatch explicitly to the
+plain ``_attention_xla``. That is the reference's semantics, not a failure
+fallback; ``FALLBACK_CALLS`` counts those dispatches.
+
+Numerics. Fully masked query rows give O = 0 and LSE = -1e30 (reference
+``:99-106``); the kernels and the plain version zero P on masked keys, which
+leaves every row with at least one visible key bit-for-bit the same math as
+the reference. On the card the kernels feed P and dS to the tensor cores as
+bf16 (f32 accumulation), where the reference's backward multiplies them in
+f32: agreement with the plain version is bf16-level, not f32-level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from veomni_tpu_torch.ops.attention import _attention_xla
+from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
+
+SOURCE = "flash_attention.cu"
+HEAD_DIM = 128   # the kernels are compiled for D = 128
+BLOCK = 128      # the reference's block size: S must be a multiple of it
+# tokens per segment-range block; the .cu's RB, checked when the library loads
+SEG_RANGE_BLOCK = 32
+_NEG = -1e30
+
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+FALLBACK_CALLS = 0
+
+
+def reset_counts() -> None:
+    global FALLBACK_CALLS
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+    FALLBACK_CALLS = 0
+
+
+# --------------------------------------------------------------------------
+# Plain versions (the CPU path and the on-card reference for the kernels)
+# --------------------------------------------------------------------------
+def _scores(q, k, seg, scale, causal):
+    """f32 scores [B,Hkv,G,Sq,Sk] and visibility mask [B,1,1,Sq,Sk]."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, s, hkv, hq // hkv, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    mask = (seg[:, :, None] == seg[:, None, :])[:, None, None]
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        mask = mask & (pos[:, None] >= pos[None, :])
+    return sc, mask
+
+
+def flash_fwd_plain(q, k, v, seg, scale: float, causal: bool):
+    """(O [B,S,Hq,D] in q's dtype, LSE [B,Hq,S] f32), as K1 computes them."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    sc, mask = _scores(q, k, seg, scale, causal)
+    sc = torch.where(mask, sc, torch.full_like(sc, _NEG))
+    m = sc.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), torch.zeros_like(sc))
+    l = p.sum(-1)  # [B,Hkv,G,S]
+    acc = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype).float(), v.float())
+    l_bq = l.permute(0, 3, 1, 2)[..., None]  # [B,S,Hkv,G,1]
+    out = torch.where(l_bq == 0, torch.zeros_like(acc), acc / l_bq)
+    lse = torch.where(l == 0, torch.full_like(l, _NEG), m[..., 0] + torch.log(l))
+    return out.reshape(b, s, hq, d).to(q.dtype), lse.reshape(b, hq, s)
+
+
+def flash_bwd_plain(q, k, v, seg, dout, lse, delta, scale: float, causal: bool):
+    """(dQ, dK, dV) in the input dtypes, as K2 and K3 compute them: P is
+    recomputed from the LSE (masked rows use LSE 0, reference ``:188``) and
+    ``delta = rowsum(dO * O)`` [B,Hq,S] comes from the caller."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    sc, mask = _scores(q, k, seg, scale, causal)
+    lse_safe = torch.where(lse <= _NEG / 2, torch.zeros_like(lse), lse)
+    lse_safe = lse_safe.reshape(b, hkv, g, s)[..., None]
+    p = torch.where(mask, torch.exp(sc - lse_safe), torch.zeros_like(sc))
+    do = dout.float().reshape(b, s, hkv, g, d)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, do)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", do, v.float())
+    ds = p * (dp - delta.reshape(b, hkv, g, s)[..., None]) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()).reshape(b, s, hq, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().reshape(b, s, hkv, g, d))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+def _lib() -> ctypes.CDLL:
+    from veomni_tpu_torch.ops.cuda.build import load
+
+    lib = load(SOURCE)
+    if not getattr(lib, "_vt_typed", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
+        lib.vt_flash_bwd_dkv.argtypes = [ptr] * 10 + [i32] * 4 + [f32, i32, ptr]
+        lib.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+        for fn in (lib.vt_flash_fwd, lib.vt_flash_bwd_dkv, lib.vt_flash_bwd_dq,
+                   lib.vt_seg_range_block):
+            fn.restype = ctypes.c_int
+        lib.vt_seg_range_block.argtypes = []
+        if lib.vt_seg_range_block() != SEG_RANGE_BLOCK:
+            raise RuntimeError(f"{SOURCE} reads {lib.vt_seg_range_block()}-token segment "
+                               f"ranges, the wrapper builds {SEG_RANGE_BLOCK}-token ones")
+        lib._vt_typed = True
+    return lib
+
+
+def _check(q, k, v, seg, *extra):
+    """Raise on anything the kernels do not take."""
+    b, s, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
+        raise ValueError(f"flash kernels: q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} mismatch")
+    if d != HEAD_DIM or s % BLOCK or hq % k.shape[2]:
+        raise ValueError(f"flash kernels take D={HEAD_DIM}, S % {BLOCK} == 0, Hq % Hkv == 0; got {tuple(q.shape)}, Hkv={k.shape[2]}")
+    for t in (q, k, v, *extra):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash kernels take bfloat16, got {t.dtype}")
+    if seg.dtype != torch.int32 or tuple(seg.shape) != (b, s):
+        raise TypeError(f"segment ids must be int32 [B,S], got {seg.dtype} {tuple(seg.shape)}")
+    for t in (q, k, v, seg, *extra):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError("flash kernels: all tensors must be on the same CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("flash kernels take contiguous [B,S,H,D] tensors")
+
+
+def seg_ranges(seg):
+    """[B, S/SEG_RANGE_BLOCK, 2] int32: min and max segment id of each block
+    of tokens, so the kernels can skip tile pairs whose segments cannot meet.
+    One call serves K1, K2 and K3 of the same segment ids."""
+    b, s = seg.shape
+    blk = seg.view(b, s // SEG_RANGE_BLOCK, SEG_RANGE_BLOCK)
+    return torch.stack([blk.amin(-1), blk.amax(-1)], dim=-1).contiguous()
+
+
+def _check_ranges(seg, seg_rng):
+    want = (seg.shape[0], seg.shape[1] // SEG_RANGE_BLOCK, 2)
+    if (seg_rng.dtype != torch.int32 or tuple(seg_rng.shape) != want
+            or not seg_rng.is_contiguous() or seg_rng.device != seg.device):
+        raise ValueError(f"seg_rng must be contiguous int32 {want} on the segment ids' device "
+                         f"(see seg_ranges), got {seg_rng.dtype} {tuple(seg_rng.shape)}")
+
+
+def _check_rows(q, lse, delta):
+    b, s, hq, _ = q.shape
+    for t in (lse, delta):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, hq, s) or not t.is_contiguous():
+            raise ValueError(f"lse/delta must be contiguous f32 [B,Hq,S], got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError("lse/delta must be on q's device")
+
+
+def _launch(name: str, tensors, q, k, scale: float, causal: bool) -> None:
+    """Launch ``vt_<name>`` on the current stream, raise on a CUDA error,
+    count the launch."""
+    b, s, hq, _ = q.shape
+    err = getattr(_lib(), "vt_" + name)(
+        *(t.data_ptr() for t in tensors), b, s, hq, k.shape[2], float(scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+# ``seg_rng`` is ``seg_ranges(seg)``, computed once for the kernels of one
+# attention call.
+def flash_fwd_cuda(q, k, v, seg, scale: float, causal: bool, seg_rng):
+    """K1: (O [B,S,Hq,D] bf16, LSE [B,Hq,S] f32)."""
+    _check(q, k, v, seg)
+    _check_ranges(seg, seg_rng)
+    b, s, hq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", (q, k, v, seg, seg_rng, out, lse), q, k, scale, causal)
+    return out, lse
+
+
+def flash_bwd_dkv_cuda(q, k, v, seg, dout, lse, delta, scale: float, causal: bool,
+                       seg_rng):
+    """K2: (dK, dV) [B,S,Hkv,D] bf16, summed over each kv head's q-head group."""
+    _check(q, k, v, seg, dout)
+    _check_rows(q, lse, delta)
+    _check_ranges(seg, seg_rng)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv", (q, k, v, seg, seg_rng, dout, lse, delta, dk, dv),
+            q, k, scale, causal)
+    return dk, dv
+
+
+def flash_bwd_dq_cuda(q, k, v, seg, dout, lse, delta, scale: float, causal: bool,
+                      seg_rng):
+    """K3: dQ [B,S,Hq,D] bf16."""
+    _check(q, k, v, seg, dout)
+    _check_rows(q, lse, delta)
+    _check_ranges(seg, seg_rng)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", (q, k, v, seg, seg_rng, dout, lse, delta, dq),
+            q, k, scale, causal)
+    return dq
+
+
+def flash_fwd(q, k, v, seg, scale: float, causal: bool, seg_rng):
+    """K1 on CUDA tensors, its plain version on CPU tensors (which need no
+    ``seg_rng``)."""
+    if q.is_cuda:
+        return flash_fwd_cuda(q, k, v, seg, scale, causal, seg_rng)
+    return flash_fwd_plain(q, k, v, seg, scale, causal)
+
+
+def flash_bwd(q, k, v, seg, dout, lse, delta, scale: float, causal: bool, seg_rng):
+    """K2 then K3 on CUDA tensors, the plain version on CPU tensors."""
+    if q.is_cuda:
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, seg, dout, lse, delta, scale, causal, seg_rng)
+        dq = flash_bwd_dq_cuda(q, k, v, seg, dout, lse, delta, scale, causal, seg_rng)
+        return dq, dk, dv
+    return flash_bwd_plain(q, k, v, seg, dout, lse, delta, scale, causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1; backward K2 then K3 (the reference's ``custom_vjp``,
+    ``:324-339``). Saves q, k, v, O, the LSE and the segment ranges, so
+    backward never reruns the forward kernel nor recomputes the ranges."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg, scale, causal):
+        seg_rng = seg_ranges(seg) if q.is_cuda else None
+        out, lse = flash_fwd(q, k, v, seg, scale, causal, seg_rng)
+        ctx.save_for_backward(q, k, v, seg, out, lse, seg_rng)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse, seg_rng = ctx.saved_tensors
+        dout = dout.contiguous()
+        # delta = rowsum(dO * O) in plain torch, as the reference does in XLA (:263)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, seg, dout, lse, delta, ctx.scale, ctx.causal, seg_rng)
+        return dq, dk, dv, None, None, None
+
+
+@KERNEL_REGISTRY.register(
+    "attention", "cuda_flash", device_types=("cuda",), priority=10, min_sm=(9, 0)
+)
+def flash_attention(
+    q,
+    k,
+    v,
+    segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    softmax_scale: Optional[float] = None,
+    sliding_window=None,
+    sinks: Optional[torch.Tensor] = None,
+):
+    """[B, S, H, D] facade-layout flash attention (reference ``:348-388``)."""
+    global FALLBACK_CALLS
+    b, s, hq, d = q.shape
+    if (
+        sliding_window is not None
+        or sinks is not None
+        or v.shape[-1] != d
+        or s % BLOCK  # the reference's lane-aligned block tiling (also S < 128)
+        or hq % k.shape[2]
+    ):
+        FALLBACK_CALLS += 1
+        return _attention_xla(
+            q, k, v, segment_ids=segment_ids, causal=causal,
+            softmax_scale=softmax_scale, sliding_window=sliding_window, sinks=sinks,
+        )
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    if segment_ids is None:
+        segment_ids = torch.zeros((b, s), dtype=torch.int32, device=q.device)
+    return _FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        segment_ids.to(torch.int32).contiguous(), scale, causal,
+    )

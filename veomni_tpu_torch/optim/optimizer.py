@@ -1,0 +1,67 @@
+"""Optimizer builder: AdamW matching ``optax.adamw``.
+
+Port of ``veomni_tpu/optim/optimizer.py`` (AdamW only). ``torch.optim.AdamW``
+computes the same update as ``optax.adamw`` (eps outside the square root,
+decoupled weight decay scaled by the learning rate) up to f32 rounding
+order. What differs is bookkeeping, handled here:
+
+* the learning rate follows a closed-form schedule of the update count,
+  read before each update (optax's ``scale_by_learning_rate``);
+* weight decay follows the reference's mask, ``ndim > 1`` taken on the
+  reference's tree (``optimizer.py:21-22``). That tree stacks per-layer
+  leaves on a leading axis, so every per-layer parameter, norm weights
+  included, has ``ndim > 1`` there and is decayed; only the unstacked
+  top-level 1-D parameter (the final ``norm``) is not. The port keeps that
+  behaviour, not the 1-D rule it reads like.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Union
+
+import torch
+from torch import nn
+
+from veomni_tpu_torch.optim.lr_scheduler import Schedule
+
+
+def _decayed(name: str, param: torch.Tensor) -> bool:
+    return param.ndim > 1 or name.startswith("layers.")
+
+
+class AdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose learning rate is ``lr_schedule(n)`` for
+    its ``n``-th update (counted from 0)."""
+
+    def __init__(self, params, lr_schedule: Schedule, **kwargs):
+        super().__init__(params, lr=lr_schedule(0), **kwargs)
+        self.lr_schedule = lr_schedule
+        self.num_updates = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        lr = self.lr_schedule(self.num_updates)
+        for group in self.param_groups:
+            group["lr"] = lr
+        loss = super().step(closure)
+        self.num_updates += 1
+        return loss
+
+
+def build_optimizer(
+    model: nn.Module,
+    *,
+    lr: Union[float, Callable[[int], float]] = 1e-5,
+    betas=(0.9, 0.999),
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+) -> AdamW:
+    """AdamW over ``model``'s parameters (the reference's other optimizers
+    are not ported yet)."""
+    named = list(model.named_parameters())
+    decay = [p for n, p in named if _decayed(n, p)]
+    rest = [p for n, p in named if not _decayed(n, p)]
+    groups = [{"params": decay, "weight_decay": weight_decay},
+              {"params": rest, "weight_decay": 0.0}]
+    schedule = lr if callable(lr) else (lambda n: lr)
+    return AdamW(groups, schedule, betas=betas, eps=eps)

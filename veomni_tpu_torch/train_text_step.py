@@ -1,0 +1,192 @@
+"""Dense text SFT train steps on packed synthetic data (the port's main path).
+
+Port of the train leg of ``bench.py::run_bench`` (``bench.py:313``): build
+the model config (the ``bench.py`` presets, ``:158-197``), the model, AdamW
+with the bench's cosine schedule, the train state and the train step, then
+run N steps over packed batches. The batches come from seeded synthetic
+documents packed by ``TextPackingCollator`` (several documents per row, so
+attention runs with real segment ids). The YAML trainer is a later slice.
+
+Run on the card::
+
+    python -m veomni_tpu_torch.train_text_step --steps 3 --seq-len 4096 --micro-bs 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from veomni_tpu_torch.data import TextPackingCollator, stack_micro_batches
+from veomni_tpu_torch.models import Transformer, TransformerConfig
+from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from veomni_tpu_torch.train import build_train_state, build_train_step
+from veomni_tpu_torch.utils.count_flops import FlopsCounter
+from veomni_tpu_torch.utils.device import DeviceLike, get_device_peak_flops, resolve_device, synchronize
+
+SEED = 0  # model init and synthetic data
+# bench.py:158-172; "qwen3_0p6b" is the repo's headline configuration
+BENCH_PRESETS = {
+    "qwen3_0p6b": dict(hidden_size=1024, intermediate_size=3072,
+                       num_hidden_layers=28, param_dtype="float32"),
+    "qwen3_smoke": dict(hidden_size=256, intermediate_size=512,
+                        num_hidden_layers=2, param_dtype="float32"),
+}
+
+
+def bench_config(preset: str = "qwen3_0p6b", **overrides) -> TransformerConfig:
+    """Qwen3 dense config of ``bench.py::bench_config`` (``:175-197``) with
+    the bench's default ``ctx`` remat (``bench.py:1691``)."""
+    dims = {**BENCH_PRESETS[preset], **overrides}
+    return TransformerConfig(
+        model_type="qwen3",
+        vocab_size=151936,
+        num_attention_heads=16,
+        num_key_value_heads=8,
+        head_dim=128,
+        qk_norm=True,
+        tie_word_embeddings=True,
+        max_position_embeddings=131072,
+        rope_theta=1e6,
+        dtype=torch.bfloat16,
+        remat_policy="ctx",
+        **dims,
+    )
+
+
+def packed_batches(vocab_size: int, seq_len: int, micro_bs: int) -> Iterator[Dict[str, np.ndarray]]:
+    """Endless [1, micro_bs, seq_len] packed batches (one micro-batch per
+    step, as ``run_bench`` feeds them) of seeded synthetic
+    documents (lengths uniform in [seq_len/16, seq_len/2]). Each micro-batch
+    is offered enough documents to fill it, counting the collator's
+    carry-over, so the carry-over stays bounded."""
+    rng = np.random.default_rng(SEED)
+    collator = TextPackingCollator(seq_len, micro_bs)
+    lo, hi = seq_len // 16, seq_len // 2
+    per_micro = 2 * micro_bs * seq_len // (lo + hi) + 1
+    while True:
+        docs = [{"input_ids": rng.integers(0, vocab_size, int(rng.integers(lo, hi + 1)))}
+                for _ in range(per_micro - collator.carryover_len())]
+        yield stack_micro_batches([collator(docs)])
+
+
+def iter_train_steps(
+    seq_len: int = 4096,
+    micro_bs: int = 4,
+    *,
+    preset: str = "qwen3_0p6b",
+    num_layers: Optional[int] = None,
+    attention_impl: Optional[str] = None,
+    device: DeviceLike = None,
+) -> Iterator[Dict[str, float]]:
+    """Build the model and train step as ``run_bench`` does, then yield one
+    record per train step (loss, grad_norm, ntokens, step_ok, step_ms,
+    tokens_per_s and, on a card with a published peak, mfu) for as long as
+    the caller asks. ``attention_impl`` pins the ``attention`` op (e.g.
+    ``"xla"`` for the plain version) until the generator is closed;
+    ``num_layers`` cuts depth."""
+    dev = resolve_device(device)
+    overrides = {} if num_layers is None else {"num_hidden_layers": num_layers}
+    cfg = bench_config(preset, **overrides)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = Transformer(cfg, gen, device=dev)
+    opt = build_optimizer(model, lr=build_lr_scheduler(lr=1e-4, train_steps=1000))  # run_bench's
+    state = build_train_state(model, opt)
+    step = build_train_step(Transformer.loss_fn)
+    tokens = micro_bs * seq_len
+    flops = FlopsCounter.from_config(cfg).batch_flops(tokens, seq_len)
+    peak = get_device_peak_flops(dev) if dev.type == "cuda" else None
+    batches = packed_batches(cfg.vocab_size, seq_len, micro_bs)
+    apply_ops_config({"attention": attention_impl} if attention_impl else None)
+    try:
+        while True:
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
+            synchronize(dev)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            synchronize(dev)
+            dt = time.perf_counter() - t0
+            rec = {k: float(v) for k, v in metrics.items()}
+            rec.update(step_ms=dt * 1e3, tokens_per_s=tokens / dt,
+                       mfu=flops / dt / peak if peak else None)
+            yield rec
+    finally:
+        apply_ops_config(None)
+
+
+def run_train_steps(seq_len: int = 4096, micro_bs: int = 4, steps: int = 3,
+                    **kwargs) -> List[Dict[str, float]]:
+    """``steps`` records of :func:`iter_train_steps` (same keyword options)."""
+    it = iter_train_steps(seq_len, micro_bs, **kwargs)
+    try:
+        return [next(it) for _ in range(steps)]
+    finally:
+        it.close()
+
+
+_KERNEL_CATEGORIES = (  # first match wins; names as CUDA reports them
+    ("flash attention (K1-K3)", ("flash_",)),
+    ("f32 GEMM", ("f32f32", "sgemm")),
+    ("bf16 GEMM", ("nvjet", "gemm")),
+    ("foreach (AdamW, clip)", ("multi_tensor_apply",)),
+    ("copies / casts", ("copy", "Cat")),
+    ("reductions", ("reduce_kernel",)),
+)
+
+
+def kernel_time_breakdown(trace_path: str) -> Dict[str, float]:
+    """Device kernel time (ms) by category from a torch.profiler chrome
+    trace, plus the total and the first-to-last kernel span."""
+    import gzip
+
+    opener = gzip.open if trace_path.endswith(".gz") else open
+    with opener(trace_path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out: Dict[str, float] = {}
+    for e in kernels:
+        name = next((c for c, keys in _KERNEL_CATEGORIES if any(k in e["name"] for k in keys)),
+                    "other elementwise")
+        out[name] = out.get(name, 0.0) + e["dur"] / 1e3
+    out["total"] = sum(e["dur"] for e in kernels) / 1e3
+    out["span"] = (max(e["ts"] + e["dur"] for e in kernels) - min(e["ts"] for e in kernels)) / 1e3
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seq-len", type=int, default=4096)
+    ap.add_argument("--micro-bs", type=int, default=4)
+    ap.add_argument("--num-layers", type=int, default=None)
+    ap.add_argument("--device", default=None)
+    ap.add_argument("--profile", default=None, metavar="TRACE.json",
+                    help="after the steps, profile one more step with torch.profiler: "
+                         "print device time by kernel, write a chrome trace here")
+    args = ap.parse_args(argv)
+    if args.profile and torch.device(args.device or "cuda").type != "cuda":
+        ap.error("--profile measures the card's kernels: run it on a CUDA device")
+    it = iter_train_steps(args.seq_len, args.micro_bs, num_layers=args.num_layers,
+                          device=args.device)
+    for _ in range(args.steps):
+        print(json.dumps(next(it)), flush=True)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            rec = next(it)
+        print(json.dumps({**rec, "profiled": True}), flush=True)
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30), flush=True)
+        prof.export_chrome_trace(args.profile)
+        print(json.dumps({"device_ms": kernel_time_breakdown(args.profile)}), flush=True)
+    it.close()
+
+
+if __name__ == "__main__":
+    main()

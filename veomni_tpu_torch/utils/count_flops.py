@@ -1,0 +1,43 @@
+"""Promised FLOPs per token for MFU (dense part of
+``veomni_tpu/utils/count_flops.py::FlopsCounter``, same formula): q/k/v/o
+projections, causal attention scores and context (half the window), SwiGLU
+MLP and the LM head, forward; backward counts twice the forward."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class FlopsCounter:
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    vocab_size: int
+
+    def flops_per_token_fwd(self, seq_len: int) -> float:
+        h = self.hidden_size
+        q_dim = self.num_heads * self.head_dim
+        kv_dim = self.num_kv_heads * self.head_dim
+        proj = 2 * h * (q_dim + 2 * kv_dim + q_dim)
+        scores = 2 * 2 * self.num_heads * self.head_dim * (seq_len / 2)
+        mlp = 2 * 3 * h * self.intermediate_size
+        return self.num_layers * (proj + scores + mlp) + 2 * h * self.vocab_size
+
+    def batch_flops(self, total_tokens: int, seq_len: int) -> float:
+        return 3.0 * total_tokens * self.flops_per_token_fwd(seq_len)
+
+    @classmethod
+    def from_config(cls, cfg) -> "FlopsCounter":
+        return cls(
+            hidden_size=cfg.hidden_size,
+            intermediate_size=cfg.intermediate_size,
+            num_layers=cfg.num_hidden_layers,
+            num_heads=cfg.num_attention_heads,
+            num_kv_heads=cfg.num_key_value_heads,
+            head_dim=cfg.head_dim,
+            vocab_size=cfg.vocab_size,
+        )
