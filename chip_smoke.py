@@ -6,19 +6,37 @@ Run from the repository root on a machine with one NVIDIA Hopper card::
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernels from ``veomni_tpu_torch/csrc`` with ``nvcc`` and
-   print the card, its power limit and the torch/CUDA versions;
-2. hold each kernel against its plain PyTorch version on the same inputs,
-   in bf16, at the main path's attention shape (B=4, S=4096, Hq=16, Hkv=8,
-   D=128, packed segments); time kernel, plain version and the library
-   yardstick; compute each kernel's bound from this run's inputs;
-3. drive the main path: Qwen3-0.6B (full width, 28 layers, f32 master
+1. build the CUDA kernels from ``veomni_tpu_torch/csrc`` with ``nvcc`` (one
+   process per source, all at once) and print the card, its power limit and
+   the torch/CUDA versions;
+2. launch the probe kernel K7 (``y = 2x``) and compare it exactly;
+3. hold each flash-attention kernel (K1-K3) against its plain PyTorch
+   version on the same inputs, in bf16, at the dense main path's attention
+   shape (B=4, S=4096, Hq=16, Hkv=8, D=128, packed segments) and at the MoE
+   model's head layout (B=1, S=4096, Hq=32, Hkv=4); time kernel, plain
+   version and the library yardstick; compute each kernel's bound from this
+   run's inputs;
+4. the same for the grouped-GEMM kernels K4-K6 at the MoE main path's
+   shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
+   with the group sizes of its real routing (layer 0 on the first packed
+   batch), and on small cases with an empty expert, a single expert,
+   boundaries in the middle of a tile and a row count that is not a
+   multiple of the 128-row tile;
+5. drive the dense main path: Qwen3-0.6B (full width, 28 layers, f32 master
    weights, bf16 compute, ``ctx`` remat, AdamW) for 3 SFT train steps on
    packed seq-4096 batches of micro-batch 4, with every kernel launch
    counter set to 0 just before and read just after;
-4. parity: at depth 2, full width, S=1024, one train step with the kernels
-   against the same step with the plain attention pinned (loss, grad norm),
-   and the q/k/v/o projection gradients of one backward, leaf by leaf.
+6. drive the MoE main path the same way: Qwen3-30B-A3B at full width, depth
+   cut to 4 of 48 layers (a layer holds ~623 M parameters, ~10 GB with its
+   f32 weight, grad and two AdamW moments), 3 steps, printing the router
+   aux loss and the peak device memory;
+7. parity: at depth 2, full width, S=1024, one dense train step with the
+   kernels against the same step with the plain attention pinned (loss,
+   grad norm), and the q/k/v/o projection gradients of one backward, leaf
+   by leaf; at depth 1 (where no grouped GEMM feeds the router, so both
+   legs route alike), full width, S=1024, one MoE step with the grouped-GEMM
+   kernels against the same step with the plain ragged impl pinned, and the
+   router and expert gradients of one backward, leaf by leaf.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -60,11 +78,28 @@ TOL_LSE = 1e-4
 # output flips bf16 roundings downstream, and the plain path rounds dP to
 # bf16 before it subtracts delta, so this holds the pair at bf16 resolution.
 # It catches a wrong mask, scale or head mapping (errors of order 1); the
-# kernel phase's elementwise rule catches the small ones.
+# kernel phase's elementwise rule catches the small ones. The MoE step parity
+# (grouped-GEMM kernels vs the plain ragged impl, depth 1) is held to the
+# same limits: measured loss 1.9e-6, grad norm 9.1e-6, router and expert
+# gradients 8.5e-4 to 2.3e-3 on an H100 (one bf16 rounding flip per
+# differing expert output).
 TOL_LOSS_REL = 1e-4
 TOL_GRAD_NORM_REL = 1e-3
 TOL_LEAF_REL = 5e-2
+# Grouped GEMM vs its plain version, element by element:
+#   |got - ref| <= GMM_ATOL_MAX * max|ref| + GMM_RTOL * |ref|.
+# Both multiply exact bf16 products and accumulate in f32, then round once to
+# bf16; only the summation order differs, so an output may land on the
+# neighbouring bf16 value: GMM_RTOL is one bf16 epsilon (2^-7). Outputs near
+# zero keep the f32 rounding of their larger terms: GMM_ATOL_MAX is 1e-4 of
+# the tensor's largest magnitude. A skipped (tile, expert) pair zeroes whole
+# outputs, a skipped 32-row chunk of K6 moves drhs by ~sqrt(32 / rows of the
+# expert) of its size: each breaks the rule many times over.
+GMM_RTOL = 2.0 ** -7
+GMM_ATOL_MAX = 1e-4
 LAYERS = 28
+MOE_PRESET = "qwen3_30b_a3b"
+MOE_LAYERS = 4
 MAIN_STEPS = 3
 
 
@@ -162,11 +197,32 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, atol=None, rtol
     return max_err
 
 
-def phase_kernels(dev, seg):
+def phase_probe(dev):
+    """K7 first: does a kernel run on this card at all? Exact comparison."""
+    from veomni_tpu_torch.ops.cuda import probe
+
+    x = torch.arange(8 * 128, dtype=torch.float32, device=dev).reshape(8, 128)
+    y = probe.probe_double_cuda(x)
+    torch.cuda.synchronize()
+    if not torch.equal(y, probe.probe_double_plain(x)):
+        raise AssertionError("K7 probe: kernel output differs from 2 * x")
+    log("K7 probe: y = 2x on [8,128] f32, exact")
+    bound = bound_ms(dev, 0.0, 2 * x.numel() * 4)
+    return dict(name="probe_double", route="cuda", source="veomni_tpu_torch/csrc/probe.cu",
+                replaces="scripts/pallas_probe.py:68", max_abs_err=0.0,
+                ms=timed_ms(lambda: probe.probe_double_cuda(x), reps=100),
+                plain_ms=timed_ms(lambda: probe.probe_double_plain(x), reps=100),
+                bound_ms=bound[0], bound_by=bound[1],
+                library_ms=timed_ms(lambda: torch.mul(x, 2.0), reps=100))
+
+
+def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
+    """K1-K3 against their plain versions on packed segments ``seg``, timed
+    beside their plain versions and the library yardstick."""
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
 
     b, s = seg.shape
-    hq, hkv, d = 16, 8, 128
+    d = 128
     scale = d ** -0.5
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
@@ -174,7 +230,7 @@ def phase_kernels(dev, seg):
     v = torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
     do = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
     pairs = visible_pairs(seg)
-    log(f"kernel phase: B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
+    log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
         f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
         f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
         f"segment skip: {kept_tiles(seg, 64, 64):.3f} (K1, K3), {kept_tiles(seg, 32, 64):.3f} (K2)")
@@ -187,14 +243,14 @@ def phase_kernels(dev, seg):
     o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, True, rng)
     torch.cuda.synchronize()
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, True)
-    err_o = check_close("K1 O (autograd path)", out, o_p)
-    check_close("K1 O (wrapper)", o_k, o_p)
-    err_lse = check_close("K1 LSE", lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+    err_o = check_close(f"K1 O (autograd path, {tag})", out, o_p)
+    check_close(f"K1 O (wrapper, {tag})", o_k, o_p)
+    err_lse = check_close(f"K1 LSE ({tag})", lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
     delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
     dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, True)
-    err_dq = check_close("K3 dQ", qg.grad, dq_p)
-    err_dk = check_close("K2 dK", kg.grad, dk_p)
-    err_dv = check_close("K2 dV", vg.grad, dv_p)
+    err_dq = check_close(f"K3 dQ ({tag})", qg.grad, dq_p)
+    err_dk = check_close(f"K2 dK ({tag})", kg.grad, dk_p)
+    err_dv = check_close(f"K2 dV ({tag})", vg.grad, dv_p)
     del o_p, lse_p, dq_p, dk_p, dv_p, qg, kg, vg, out
     torch.cuda.empty_cache()
 
@@ -243,88 +299,299 @@ def phase_kernels(dev, seg):
              bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_bwd),
     ]
     for row in table:
-        log(f"  {row['name']}: {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
+        log(f"  {row['name']} ({tag}): {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
             f"{row['bound_by']}, plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms)")
     log("  (plain_ms of K2 and K3 is the plain backward computing dQ, dK, dV together; "
         "library_ms of K2 and K3 is SDPA's backward, also all three)")
     return table
 
 
-def phase_main(dev, card):
+def moe_group_sizes(dev, seq_len: int, micro_bs: int):
+    """Rows per expert of the MoE main path's layer 0 on its first packed
+    micro-batch: the same seeded weights (layer 0 comes first in the init
+    order, so it does not depend on depth) and the same batch, routed
+    without gradients."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.transformer import expert_counts, route_tokens
+    from veomni_tpu_torch.train_text_step import SEED, bench_config, packed_batches
+
+    cfg = bench_config(MOE_PRESET, num_hidden_layers=1)
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    batch = {k: torch.from_numpy(v[0]).to(dev)
+             for k, v in next(packed_batches(cfg.vocab_size, seq_len, micro_bs)).items()}
+    layer = model.layers[0]
+    with torch.no_grad():
+        hidden, cos, sin = model.embed_and_rotary(batch["input_ids"], batch["position_ids"])
+        q, k, v = layer._qkv(hidden, cos, sin)
+        _, x = layer.mlp_input(hidden, layer._attend(q, k, v, batch["segment_ids"]))
+        idx, _, _ = route_tokens(x.reshape(-1, cfg.hidden_size), layer.router.to(cfg.dtype), cfg)
+        return expert_counts(idx.reshape(-1), cfg.num_experts)
+
+
+def library_gmm(kind: str, lhs, rhs, g, starts):
+    """(ms, name) of one PyTorch call computing what kernel ``kind``
+    computes (timed only, never called by the port): ``torch._grouped_mm``
+    where this torch has it and takes these layouts, else one
+    ``torch.matmul`` of the same M x K x N, named so."""
+    offs = starts[1:]
+    if hasattr(torch, "_grouped_mm"):
+        call = {"fwd": lambda: torch._grouped_mm(lhs, rhs, offs=offs),
+                "dlhs": lambda: torch._grouped_mm(g, rhs.transpose(1, 2), offs=offs),
+                "t": lambda: torch._grouped_mm(lhs.t(), g, offs=offs)}[kind]
+        try:
+            call()
+            return timed_ms(call), "torch._grouped_mm"
+        except RuntimeError as e:  # a yardstick only: say so and time the matmul instead
+            log(f"  torch._grouped_mm ({kind}) refused these inputs: {str(e).splitlines()[0]}")
+    a, b = {"fwd": (lhs, rhs[0]), "dlhs": (g, rhs[0].t()), "t": (lhs.t(), g)}[kind]
+    return timed_ms(lambda: torch.matmul(a, b)), "torch.matmul of the same M x K x N"
+
+
+def gmm_case(dev, sizes, k: int, n: int, tag: str, timed: bool = False):
+    """K4, K5, K6 against their plain versions for one set of group sizes,
+    through the autograd Function and through each wrapper; with ``timed``,
+    also their times, bounds and library yardsticks (the table rows)."""
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+
+    sizes = sizes.to(dev)
+    e = sizes.numel()
+    starts = gg.group_starts(sizes)
+    m = int(starts[-1])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    lhs = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+    rhs = torch.randn(e, k, n, device=dev, generator=gen).bfloat16()
+    g = torch.randn(m, n, device=dev, generator=gen).bfloat16()
+
+    def hold(name, got, ref):
+        return check_close(f"{name} ({tag})", got, ref,
+                           atol=GMM_ATOL_MAX * ref.float().abs().max().item(), rtol=GMM_RTOL)
+
+    lhs_g, rhs_g = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = gg.cuda_group_gemm(lhs_g, rhs_g, sizes)
+    out.backward(g)
+    ref = gg.gmm_plain(lhs, rhs, starts)
+    err = {"fwd": hold("K4 out (autograd path)", out, ref)}
+    hold("K4 out (wrapper)", gg.gmm_cuda(lhs, rhs, starts), ref)
+    ref = gg.gmm_dlhs_plain(g, rhs, starts)
+    err["dlhs"] = hold("K5 dlhs (autograd path)", lhs_g.grad, ref)
+    hold("K5 dlhs (wrapper)", gg.gmm_dlhs_cuda(g, rhs, starts), ref)
+    ref = gg.gmm_t_plain(lhs, g, starts, e)
+    err["t"] = hold("K6 drhs (autograd path)", rhs_g.grad, ref)
+    hold("K6 drhs (wrapper)", gg.gmm_t_cuda(lhs, g, starts, e), ref)
+    del ref, lhs_g, rhs_g, out
+    torch.cuda.empty_cache()
+    if not timed:
+        return None
+
+    used = int((sizes > 0).sum())  # experts whose weights this data needs
+    bf, i32 = 2, 4
+    flops = 2.0 * m * k * n
+    kernels = {
+        "fwd": ("gmm_fwd", 37, m * k * bf + used * k * n * bf + m * n * bf,
+                lambda: gg.gmm_cuda(lhs, rhs, starts), lambda: gg.gmm_plain(lhs, rhs, starts)),
+        "dlhs": ("gmm_dlhs", 104, m * n * bf + used * k * n * bf + m * k * bf,
+                 lambda: gg.gmm_dlhs_cuda(g, rhs, starts),
+                 lambda: gg.gmm_dlhs_plain(g, rhs, starts)),
+        "t": ("gmm_t", 166, m * k * bf + m * n * bf + e * k * n * bf,
+              lambda: gg.gmm_t_cuda(lhs, g, starts, e),
+              lambda: gg.gmm_t_plain(lhs, g, starts, e)),
+    }
+    rows = []
+    for kind, (name, line, nbytes, kernel, plain) in kernels.items():
+        lib_ms, lib_name = library_gmm(kind, lhs, rhs, g, starts)
+        bound = bound_ms(dev, flops, nbytes + (e + 1) * i32)
+        row = dict(name=name, route="cuda", source="veomni_tpu_torch/csrc/grouped_gemm.cu",
+                   replaces=f"veomni_tpu/ops/pallas/grouped_gemm.py:{line}",
+                   max_abs_err=err[kind], ms=timed_ms(kernel),
+                   plain_ms=timed_ms(plain, reps=3, warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+        log(f"  {name} ({tag}): {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
+            f"{row['bound_by']}, plain {row['plain_ms']:.3f} ms, library {lib_ms:.3f} ms "
+            f"[{lib_name}]); {flops / row['ms'] / 1e9:.1f} TFLOP/s")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gmm(dev):
+    """K4-K6 on small edge cases, then at the MoE main path's shapes with
+    its real routing. Returns the table rows of the gate/up shape; the
+    down-projection shape's numbers are printed beside them."""
+    sizes = moe_group_sizes(dev, 4096, 4)
+    torch.cuda.empty_cache()
+    s = sizes.cpu()
+    log(f"grouped GEMM kernels: layer-0 routing of the MoE main path's first batch: "
+        f"M={int(s.sum())} rows over E={s.numel()} experts, rows/expert min {int(s.min())} "
+        f"median {int(s.median())} max {int(s.max())}, empty experts {int((s == 0).sum())}")
+    for tag, case in {"ragged+empty": [100, 156, 0, 256], "single": [0, 512, 0, 0],
+                      "mid-tile": [37, 0, 219, 64, 192],
+                      "unaligned M=420": [37, 0, 219, 64, 100]}.items():
+        gmm_case(dev, torch.tensor(case), 128, 256, f"small {tag}, K=128 N=256")
+    rows = gmm_case(dev, sizes, 2048, 768, "gate/up: K=2048 N=768", timed=True)
+    gmm_case(dev, sizes, 768, 2048, "down: K=768 N=2048", timed=True)
+    return rows
+
+
+def reset_all_counts():
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
-    from veomni_tpu_torch.train_text_step import run_train_steps
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
 
     fa.reset_counts()
+    gg.reset_counts()
+
+
+def read_counts():
+    """(launches by kernel, flash attention's plain-path dispatches)."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+
+    return {**fa.LAUNCHES, **gg.LAUNCHES}, {"flash": fa.FALLBACK_CALLS}
+
+
+def check_steps(records, tag):
+    for r in records:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["step_ok"]):
+            raise AssertionError(f"non-finite {tag} train step: {r}")
+
+
+def check_counts(launches, fallbacks, want, tag):
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{name}: {n} launches on the {tag} main path, "
+                                 f"expected {want.get(name, 0)}")
+    if any(fallbacks.values()):
+        raise AssertionError(f"FALLBACK_CALLS {fallbacks} on the {tag} main path")
+
+
+def phase_main(dev, card):
+    """The dense main path: Qwen3-0.6B, full depth."""
+    from veomni_tpu_torch.train_text_step import run_train_steps
+
+    reset_all_counts()
     records = run_train_steps(4096, 4, MAIN_STEPS, device=dev)
-    launches = dict(fa.LAUNCHES)
-    fallbacks = fa.FALLBACK_CALLS
+    launches, fallbacks = read_counts()
     for i, r in enumerate(records):
         log(f"main step {i}: loss={r['loss']:.6f} grad_norm={r['grad_norm']:.6f} "
             f"step_ms={r['step_ms']:.1f} tokens_per_s={r['tokens_per_s']:.1f} "
             f"mfu={r['mfu']:.4f} ntokens={int(r['ntokens'])} [{card}]")
     log(f"main path launches: {launches}, FALLBACK_CALLS={fallbacks} "
         f"(Qwen3-0.6B, {LAYERS} layers, seq 4096, micro-batch 4, ctx remat)")
-    for r in records:
-        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["step_ok"]):
-            raise AssertionError(f"non-finite train step: {r}")
-    want = LAYERS * MAIN_STEPS  # one micro-batch per step; ctx never reruns K1
-    for name, n in launches.items():
-        if n != want:
-            raise AssertionError(f"{name}: {n} launches on the main path, expected {want}")
-    if fallbacks:
-        raise AssertionError(f"FALLBACK_CALLS={fallbacks} on the main path")
+    check_steps(records, "dense")
+    per_kernel = LAYERS * MAIN_STEPS  # one micro-batch per step; ctx never reruns K1
+    check_counts(launches, fallbacks, {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
+                                       "flash_bwd_dq": per_kernel}, "dense")
     return launches
 
 
-def attention_grads(dev, impl: str):
-    """Gradients of the q/k/v/o projections after one ``loss_fn`` backward
-    at depth 2, full width, S=1024, B=4, with the ``attention`` op pinned."""
+def phase_moe_main(dev, card):
+    """The MoE main path: Qwen3-30B-A3B at full width, MOE_LAYERS deep."""
+    from veomni_tpu_torch.train_text_step import run_train_steps
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    records = run_train_steps(4096, 4, MAIN_STEPS, preset=MOE_PRESET, num_layers=MOE_LAYERS,
+                              device=dev)
+    launches, fallbacks = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for i, r in enumerate(records):
+        log(f"moe step {i}: loss={r['loss']:.6f} moe_aux_loss={r['moe_aux_loss']:.6f} "
+            f"grad_norm={r['grad_norm']:.6f} step_ms={r['step_ms']:.1f} "
+            f"tokens_per_s={r['tokens_per_s']:.1f} mfu={r['mfu']:.4f} "
+            f"ntokens={int(r['ntokens'])} [{card}]")
+    log(f"moe path launches: {launches}, FALLBACK_CALLS={fallbacks}, peak device memory "
+        f"{peak / 2**30:.2f} GiB (Qwen3-30B-A3B width, {MOE_LAYERS} layers, seq 4096, "
+        f"micro-batch 4, ctx remat)")
+    check_steps(records, "MoE")
+    n = MOE_LAYERS * MAIN_STEPS
+    # per MoE layer and step: K4 runs gate, up and down in the forward and
+    # again in the ctx recompute of the post-attention block; backward runs
+    # K5 and K6 once per grouped GEMM; the attention forward is not rerun
+    check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                                       "gmm_fwd": 6 * n, "gmm_dlhs": 3 * n, "gmm_t": 3 * n},
+                 "MoE")
+    return launches
+
+
+def loss_grads(dev, preset: str, layers: int, pins, keep):
+    """Gradients of the parameters whose names end with one of ``keep``
+    after one ``loss_fn`` backward at full width, ``layers`` deep, S=1024,
+    B=4, with the ops pinned as ``pins`` says."""
     from veomni_tpu_torch.models import Transformer
     from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
     from veomni_tpu_torch.train_text_step import SEED, bench_config, packed_batches
 
-    cfg = bench_config(num_hidden_layers=2)
+    cfg = bench_config(preset, num_hidden_layers=layers)
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     batch = {k: torch.from_numpy(v[0]).to(dev)
              for k, v in next(packed_batches(cfg.vocab_size, 1024, 4)).items()}
-    apply_ops_config({"attention": impl})
+    apply_ops_config(pins)
     try:
         loss, _ = model.loss_fn(batch)
         loss.backward()
     finally:
         apply_ops_config(None)
-    return {name: p.grad for name, p in model.named_parameters()
-            if name.endswith(("q_proj", "k_proj", "v_proj", "o_proj"))}
+    return {name: p.grad for name, p in model.named_parameters() if name.endswith(keep)}
 
 
-def phase_parity(dev):
-    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+def step_parity(dev, preset: str, layers: int, pins, tag: str):
+    """One train step with the kernels against the same step with ``pins``."""
     from veomni_tpu_torch.train_text_step import run_train_steps
 
-    kern = run_train_steps(1024, 4, 1, num_layers=2, device=dev)[0]
+    kern = run_train_steps(1024, 4, 1, preset=preset, num_layers=layers, device=dev)[0]
     torch.cuda.empty_cache()
-    plain = run_train_steps(1024, 4, 1, num_layers=2, device=dev, attention_impl="xla")[0]
+    plain = run_train_steps(1024, 4, 1, preset=preset, num_layers=layers, device=dev,
+                            ops_config=pins)[0]
+    torch.cuda.empty_cache()
     d_loss = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
     d_gn = abs(kern["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
-    log(f"parity (2 layers, S=1024, B=4): loss kernels {kern['loss']:.6f} plain {plain['loss']:.6f} "
+    log(f"parity ({tag}): loss kernels {kern['loss']:.6f} plain {plain['loss']:.6f} "
         f"(rel {d_loss:.2e}, tol {TOL_LOSS_REL}); grad_norm kernels {kern['grad_norm']:.6f} "
-        f"plain {plain['grad_norm']:.6f} (rel {d_gn:.2e}, tol {TOL_GRAD_NORM_REL})")
+        f"plain {plain['grad_norm']:.6f} (rel {d_gn:.2e}, tol {TOL_GRAD_NORM_REL}); "
+        f"moe_aux_loss kernels {kern['moe_aux_loss']:.6f} plain {plain['moe_aux_loss']:.6f}")
     if not (d_loss <= TOL_LOSS_REL and d_gn <= TOL_GRAD_NORM_REL):
-        raise AssertionError("kernel step disagrees with the plain-attention step")
-    torch.cuda.empty_cache()
+        raise AssertionError(f"kernel step disagrees with the plain step ({tag})")
 
-    launched = sum(fa.LAUNCHES.values())
-    g_kern = attention_grads(dev, "cuda_flash")
-    if sum(fa.LAUNCHES.values()) - launched != 2 * 3:  # 2 layers x (K1, K2, K3)
-        raise AssertionError(f"kernel leg of the gradient parity launched {fa.LAUNCHES}")
-    g_plain = attention_grads(dev, "xla")
+
+def leaf_parity(g_kern, g_plain):
     worst = 0.0
     for name, ref in g_plain.items():
         rel = ((g_kern[name] - ref).norm() / ref.norm()).item()
         log(f"  grad {name}: |kernels - plain| / |plain| = {rel:.2e} (tol {TOL_LEAF_REL})")
         worst = max(worst, rel) if math.isfinite(rel) else math.inf
     if worst > TOL_LEAF_REL:
-        raise AssertionError(f"attention projection gradients disagree ({worst} > {TOL_LEAF_REL})")
+        raise AssertionError(f"gradients disagree ({worst} > {TOL_LEAF_REL})")
+
+
+def phase_parity(dev):
+    """Dense: 2 layers, kernels vs plain attention."""
+    step_parity(dev, "qwen3_0p6b", 2, {"attention": "xla"}, "dense, 2 layers, S=1024, B=4")
+    launched, _ = read_counts()
+    proj = ("q_proj", "k_proj", "v_proj", "o_proj")
+    g_kern = loss_grads(dev, "qwen3_0p6b", 2, {"attention": "cuda_flash"}, proj)
+    now, _ = read_counts()
+    if sum(now.values()) - sum(launched.values()) != 2 * 3:  # 2 layers x (K1, K2, K3)
+        raise AssertionError(f"kernel leg of the gradient parity launched {now}")
+    g_plain = loss_grads(dev, "qwen3_0p6b", 2, {"attention": "xla"}, proj)
+    leaf_parity(g_kern, g_plain)
+    torch.cuda.empty_cache()
+
+
+def phase_moe_parity(dev):
+    """MoE: 1 layer (the router's input does not depend on any grouped
+    GEMM, so both legs route alike), grouped-GEMM kernels vs the plain
+    ragged impl."""
+    step_parity(dev, MOE_PRESET, 1, {"group_gemm": "xla"}, "MoE, 1 layer, S=1024, B=4")
+    launched, _ = read_counts()
+    moe = ("router", "gate_proj", "up_proj", "down_proj")
+    g_kern = loss_grads(dev, MOE_PRESET, 1, {"group_gemm": "cuda_gmm"}, moe)
+    now, _ = read_counts()
+    if any(now[k] - launched[k] != want for k, want in
+           (("gmm_fwd", 6), ("gmm_dlhs", 3), ("gmm_t", 3))):
+        raise AssertionError(f"kernel leg of the MoE gradient parity launched {now}")
+    torch.cuda.empty_cache()
+    g_plain = loss_grads(dev, MOE_PRESET, 1, {"group_gemm": "xla"}, moe)
+    leaf_parity(g_kern, g_plain)
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -332,6 +599,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+    from veomni_tpu_torch.ops.cuda import probe
     from veomni_tpu_torch.train_text_step import packed_batches
     from veomni_tpu_torch.utils.device import resolve_device
 
@@ -339,20 +608,30 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    phase_build([fa.SOURCE])
+    phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
 
-    # the main path's first packed micro-batch: the kernels' real segment layout
+    table = [phase_probe(dev)]
+    # the dense main path's first packed micro-batch: the kernels' real segment layout
     seg = torch.from_numpy(next(packed_batches(151936, 4096, 4))["segment_ids"][0]).to(dev)
-    table = phase_kernels(dev, seg)
+    table += phase_flash(dev, seg, 16, 8, "Qwen3-0.6B layout")
     torch.cuda.empty_cache()
-    launches = phase_main(dev, card)
+    phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B layout")
+    torch.cuda.empty_cache()
+    table += phase_gmm(dev)
+    torch.cuda.empty_cache()
+    by_path = {"dense": phase_main(dev, card)}
+    torch.cuda.empty_cache()
+    by_path["moe"] = phase_moe_main(dev, card)
     torch.cuda.empty_cache()
     phase_parity(dev)
+    phase_moe_parity(dev)
 
     for row in table:
-        row["launches"] = launches[row["name"]]
+        counts = {path: launches.get(row["name"], 0) for path, launches in by_path.items()}
+        row["launches"] = sum(counts.values())
+        row["launches_by_path"] = counts
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

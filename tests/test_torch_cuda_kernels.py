@@ -1,5 +1,5 @@
-"""The port's CUDA flash-attention kernels (K1-K3) against their plain
-versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card:
+flash attention (K1-K3), grouped GEMM (K4-K6) and the probe (K7).
 
 Every test here needs an NVIDIA Hopper GPU and skips without one: a CUDA
 kernel has no CPU mode. This file imports no JAX, so it runs where the port
@@ -12,7 +12,9 @@ Tolerances, element by element (bf16 kernels vs the f32 plain math; P and
 dS enter the tensor cores as bf16, outputs are stored as bf16):
 ``|got - ref| <= 2e-2 * rms(ref row) + 1e-4 * max|ref| + 1.6e-2 * |ref|``
 with a row one token's head vector, the rule of ``chip_smoke.py``; the LSE
-within 1e-4.
+within 1e-4. Grouped GEMM (bf16 products accumulated in f32 and rounded once
+to bf16 on both sides, so an output may land on the neighbouring bf16
+value): ``|got - ref| <= 1e-4 * max|ref| + 2^-7 * |ref|``. The probe: exact.
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ import pytest
 import torch
 
 from veomni_tpu_torch.ops.cuda import flash_attention as fa
+from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+from veomni_tpu_torch.ops.cuda import probe
 
 
 @pytest.fixture
@@ -54,10 +58,12 @@ def _close(got, ref, atol=None, rtol=RTOL):
     assert n_over == 0, f"{n_over} elements over the tolerance, max abs err {err.max().item()}"
 
 
+@pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
 @pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-def test_kernels_match_plain_on_card(cuda_device, packed, causal):
-    q, k, v, do, seg = _inputs(cuda_device, packed=packed)
+def test_kernels_match_plain_on_card(cuda_device, packed, causal, heads):
+    """gqa8 is the Qwen3-30B-A3B head layout: K2 sums a group of 8 q heads."""
+    q, k, v, do, seg = _inputs(cuda_device, hq=heads[0], hkv=heads[1], packed=packed)
     scale = q.shape[-1] ** -0.5
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal)
@@ -90,3 +96,61 @@ def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
     with pytest.raises(TypeError):  # f32 is not a kernel input: raise, never fall back
         fa.flash_attention(q.detach().float(), k.detach().float(), v.detach().float())
+
+
+GMM_CASES = {"even": [128, 128, 128, 128], "ragged-empty": [100, 156, 0, 256],
+             "single": [0, 512, 0, 0], "mid-tile": [37, 0, 219, 64, 192],
+             "unaligned-m": [37, 0, 219, 64, 100]}  # M = 420: the last row tile is masked
+
+
+def _gmm_close(got, ref):
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    allowed = 1e-4 * ref.abs().max() + 2.0 ** -7 * ref.abs()
+    n_over = int((~(err <= allowed)).sum())  # NaN counts as over
+    assert n_over == 0, f"{n_over} elements over the tolerance, max abs err {err.max().item()}"
+
+
+@pytest.mark.parametrize("sizes", list(GMM_CASES.values()), ids=list(GMM_CASES))
+def test_gmm_kernels_match_plain_on_card(cuda_device, sizes):
+    rng = np.random.default_rng(1)
+    m, k, n, e = sum(sizes), 256, 384, len(sizes)
+    lhs, rhs, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for shape in ((m, k), (e, k, n), (m, n)))
+    group_sizes = torch.tensor(sizes, device=cuda_device)
+    starts = gg.group_starts(group_sizes)
+    a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    gg.reset_counts()
+    gg.cuda_group_gemm(a, b, group_sizes).backward(g)
+    torch.cuda.synchronize()
+    assert gg.LAUNCHES == {"gmm_fwd": 1, "gmm_dlhs": 1, "gmm_t": 1}
+    _gmm_close(gg.gmm_cuda(lhs, rhs, starts), gg.gmm_plain(lhs, rhs, starts))
+    _gmm_close(a.grad, gg.gmm_dlhs_plain(g, rhs, starts))
+    _gmm_close(b.grad, gg.gmm_t_plain(lhs, g, starts, e))
+
+
+def test_gmm_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
+    """On CUDA tensors the grouped-GEMM wrappers launch K4-K6 or raise."""
+
+    def forbidden(*a, **k):
+        raise AssertionError("plain path reached with CUDA tensors")
+
+    for name in ("gmm_plain", "gmm_dlhs_plain", "gmm_t_plain"):
+        monkeypatch.setattr(gg, name, forbidden)
+    lhs = torch.randn(256, 128, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    rhs = torch.randn(2, 128, 128, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    gg.cuda_group_gemm(lhs, rhs, torch.tensor([100, 156], device=cuda_device)).sum().backward()
+    torch.cuda.synchronize()
+    with pytest.raises(TypeError):  # f32 is not a kernel input: raise, never fall back
+        gg.gmm_cuda(lhs.detach().float(), rhs.detach().float(),
+                    gg.group_starts(torch.tensor([100, 156], device=cuda_device)))
+    with pytest.raises(ValueError):  # K = 96: not the kernels' tile, raise, never fall back
+        gg.cuda_group_gemm(lhs.detach()[:, :96].contiguous(), rhs.detach()[:, :96].contiguous(),
+                           torch.tensor([100, 156], device=cuda_device))
+
+
+def test_probe_kernel_on_card(cuda_device):
+    x = torch.randn(8, 128, device=cuda_device)
+    probe.reset_counts()
+    assert torch.equal(probe.probe_double(x), x * 2.0)
+    assert probe.LAUNCHES == {"probe_double": 1}

@@ -16,6 +16,7 @@ itself is held at the default eps=1e-8 by feeding both the same gradients.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from veomni_tpu.data.data_collator import TextPackingCollator as JaxCollator
@@ -37,6 +38,30 @@ LR = dict(lr_decay_style="cosine", lr=1e-3, train_steps=4, lr_warmup_steps=1, lr
 MAX_GRAD_NORM = 1.0
 WEIGHT_DECAY = 0.1
 EPS = 1e-5  # see the module docstring
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_step_metrics_match_jax(moe):
+    """One step of A=2 micro-batches: the same metric keys as the reference's
+    step, the loss fn's scalar extras (loss_sum, moe_aux_loss,
+    moe_dropped_frac) averaged over the micro-batches, values rtol 1e-5."""
+    if moe:
+        from test_torch_moe import moe_models
+
+        jcfg, params, model = moe_models()
+    else:
+        jcfg, params, model = jax_and_torch_models()
+    batch = stack_micro_batches([toy_batch(True, seed=a) for a in range(2)])
+    j_opt = j_build_optimizer(params, lr=1e-3)
+    j_step = j_build_train_step(lambda p, micro: jtf.loss_fn(p, jcfg, micro), j_opt, None)
+    _, jm = j_step(j_build_train_state(params, j_opt), {k: jnp.asarray(v) for k, v in batch.items()})
+    t_step = build_train_step(Transformer.loss_fn)
+    _, tm = t_step(build_train_state(model, build_optimizer(model, lr=1e-3)),
+                   {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert set(tm) == set(jm)
+    for key in jm:
+        np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5, err_msg=key)
+    assert (float(tm["moe_aux_loss"]) > 0) == moe
 
 
 def test_lr_schedule_matches_optax():

@@ -91,8 +91,25 @@ def test_loss_and_grads_match_jax(packed, attention_impl, remat_policy, tie):
     assert_tree_close(to_jax_tree(model, grads=True), grads_j, 1e-5)
 
 
+MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_intermediate_size=64)
+
+
 def test_unported_features_raise():
-    for extra in (dict(num_experts=4, num_experts_per_tok=2), dict(sliding_window=16),
-                  dict(attention_bias=True), dict(remat_policy="dots")):
+    for extra in (dict(MOE, scoring_func="sigmoid"), dict(MOE, n_shared_experts=1),
+                  dict(sliding_window=16), dict(attention_bias=True), dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
+    # the softmax top-k MoE itself is ported
+    Transformer(TransformerConfig(**{**TOY, **MOE}), torch.Generator(), device="cpu")
+
+
+@pytest.mark.parametrize("extra", [
+    dict(scoring_func="sigmoid"), dict(n_group=4, topk_group=2),
+    dict(n_shared_experts=1), dict(shared_expert_intermediate_size=64),
+    dict(first_k_dense_replace=1), dict(router_bias=True), dict(model_type="gpt_oss"),
+    dict(moe_capacity_factor=2.0), dict(mlp_bias=True),
+], ids=["sigmoid", "n_group", "shared", "shared-width", "first-k-dense", "router-bias",
+        "gpt-oss", "capacity-factor", "expert-biases"])
+def test_unported_moe_features_raise(extra):
+    with pytest.raises(NotImplementedError):
+        Transformer(TransformerConfig(**{**TOY, **MOE, **extra}), torch.Generator(), device="cpu")

@@ -1,13 +1,17 @@
-"""Decoder-only transformer, dense llama/qwen3 path.
+"""Decoder-only transformer: the dense llama/qwen3 path and the qwen3_moe path.
 
-Port of ``veomni_tpu/models/transformer.py``: ``init_params`` (``:183``),
-``_standard_attention`` (``:374``), the dense branch of ``_decoder_layer``
-(``:518``), ``forward_hidden`` (``:605``), ``lm_head_kernel`` (``:748``),
-``head_loss`` (``:783``) and ``loss_fn`` (``:805``). PyTorch idiom: one
-``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the reference
-stacks layers on a leading axis and scans them). Parameters keep the
-reference's names and its ``[in, out]`` matrix layout, so ``x @ w`` here is
-``jnp.dot(x, w)`` there.
+Port of ``veomni_tpu/models/transformer.py``: ``init_params`` (``:183``)
+with ``_moe_params`` (``:150``), ``_standard_attention`` (``:374``), the
+dense and MoE branches of ``_decoder_layer`` (``:518``), the softmax branch
+of ``route_tokens`` (``:240``), ``experts_apply_sorted`` (``:307``),
+``_moe_mlp`` (``:333``), ``forward_hidden`` (``:605``), ``lm_head_kernel``
+(``:748``), ``head_loss`` (``:783``) and ``loss_fn`` (``:805``). PyTorch
+idiom: one ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
+reference stacks layers on a leading axis and scans them). Parameters keep
+the reference's names and its ``[in, out]`` matrix layout, so ``x @ w`` here
+is ``jnp.dot(x, w)`` there; a MoE layer holds ``router`` [H,E] and an
+``experts`` submodule with ``gate_proj``/``up_proj`` [E,H,I] and
+``down_proj`` [E,I,H].
 
 Mixed precision as in the reference: master parameters in
 ``cfg.param_dtype`` (f32), cast to ``cfg.dtype`` (bf16) on every forward
@@ -23,9 +27,17 @@ Remat (``_remat_policy``, ``:39-70``) maps to ``torch.utils.checkpoint``:
   (for ``cuda_flash``: q, k, v, the context and its LSE), so backward
   reruns the cheap projections but never the O(S^2) attention forward.
   The reference's ``ctx`` saves only the context and, with its flash
-  kernel, recomputes the forward to rebuild the LSE.
+  kernel, recomputes the forward to rebuild the LSE. A MoE layer's routing
+  and grouped GEMMs sit in the post-attention block, so backward reruns
+  them once (three forward grouped-GEMM launches per layer).
 
-Features outside the dense path raise ``NotImplementedError``.
+The MoE path is the single-device, dropless one (no expert parallelism).
+Its combine is deterministic: each sorted expert output goes back to its
+(token, slot) place by a permutation and the top-k slots are summed, where
+the reference scatter-adds (``.at[token_idx].add``, ``:351``); the token
+dispatch likewise gathers from a k-fold copy of the tokens, so neither
+direction needs atomics. Features outside these paths raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,9 +55,18 @@ from veomni_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every configured feature the dense port does not implement."""
+    """Raise for every configured feature the port does not implement."""
+    moe = cfg.is_moe
     missing = [name for name, on in (
-        ("MoE (num_experts)", cfg.is_moe),
+        (f"MoE scoring_func {cfg.scoring_func!r}", moe and cfg.scoring_func != "softmax"),
+        ("group-limited routing (n_group/topk_group)",
+         moe and bool(cfg.n_group and cfg.topk_group and cfg.n_group > 1)),
+        ("shared experts", moe and bool(cfg.n_shared_experts
+                                        or cfg.shared_expert_intermediate_size)),
+        ("first_k_dense_replace", moe and cfg.first_k_dense_replace > 0),
+        ("router_bias", moe and cfg.router_bias),
+        ("gpt_oss routing", moe and cfg.model_type == "gpt_oss"),
+        ("moe_capacity_factor (expert parallelism)", moe and cfg.moe_capacity_factor > 0),
         ("MLA (kv_lora_rank)", cfg.use_mla),
         ("DSA indexer (index_topk)", cfg.use_dsa),
         ("sliding windows (sliding_window/layer_types)",
@@ -71,9 +92,76 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
 
 
+def route_tokens(x, router, cfg: TransformerConfig):
+    """Softmax router (the qwen-moe lineage, reference ``:240-298``) ->
+    (topk_idx [T,K], topk_weights [T,K] f32, aux_loss). ``x`` [T,H] and
+    ``router`` [H,E] in the compute dtype; the logits are f32 products of
+    them, as ``preferred_element_type=f32`` gives."""
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    topk_w, topk_idx = torch.topk(probs, k, dim=-1)
+    if cfg.norm_topk_prob:
+        topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    if cfg.routed_scaling_factor != 1.0:
+        topk_w = topk_w * cfg.routed_scaling_factor
+    return topk_idx, topk_w, ops.load_balancing_loss(probs, topk_idx, e)
+
+
+def expert_counts(flat_expert, num_experts: int):
+    """Rows per expert, [E] int64, on the device. ``torch.bincount`` would
+    read the largest index on the host first (a stream sync per layer)."""
+    counts = torch.zeros(num_experts, dtype=torch.int64, device=flat_expert.device)
+    return counts.scatter_add_(0, flat_expert, torch.ones_like(flat_expert))
+
+
+def experts_apply_sorted(xs, experts: "Experts", group_sizes, cfg: TransformerConfig):
+    """Grouped-GEMM expert SwiGLU MLP on expert-sorted tokens (``:307``)."""
+    dt = cfg.dtype
+    gate = ops.group_gemm(xs, experts.gate_proj.to(dt), group_sizes)
+    up = ops.group_gemm(xs, experts.up_proj.to(dt), group_sizes)
+    act = ops.swiglu(gate, up).to(xs.dtype)
+    return ops.group_gemm(act, experts.down_proj.to(dt), group_sizes)
+
+
+def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig):
+    """Single-device MoE (``_moe_mlp``, ``:333``): route -> stable sort by
+    expert -> grouped GEMM -> weighted combine. x [T,H] -> ([T,H], aux)."""
+    t, h = x.shape
+    k = cfg.num_experts_per_tok
+    topk_idx, topk_w, aux = route_tokens(x, router, cfg)
+    flat_expert = topk_idx.reshape(-1)  # [T*K], slot j of token i at i*K + j
+    sort_idx = torch.argsort(flat_expert, stable=True)
+    # dispatch: sorted row r is token sort_idx[r] // K, gathered from a K-fold copy
+    xs = x[:, None, :].expand(t, k, h).reshape(t * k, h)[sort_idx]
+    out = experts_apply_sorted(xs, experts, expert_counts(flat_expert, cfg.num_experts), cfg)
+    weighted = out * topk_w.to(x.dtype).reshape(-1)[sort_idx][:, None]
+    # combine: back to (token, slot) order by the inverse permutation, sum the slots
+    inverse = torch.empty_like(sort_idx)
+    inverse[sort_idx] = torch.arange(t * k, device=x.device)
+    return weighted[inverse].view(t, k, h).sum(1), aux
+
+
+class Experts(nn.Module):
+    """A MoE layer's expert weights, stacked on a leading expert axis."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        e, h = cfg.num_experts, cfg.hidden_size
+        im = cfg.moe_intermediate_size or cfg.intermediate_size
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
+
+        self.gate_proj = p(e, h, im)
+        self.up_proj = p(e, h, im)
+        self.down_proj = p(e, im, h)
+
+
 class DecoderLayer(nn.Module):
-    """One dense decoder layer: RMSNorm -> GQA attention with rotary and
-    optional qk-norm -> residual -> RMSNorm -> SwiGLU MLP -> residual."""
+    """One decoder layer: RMSNorm -> GQA attention with rotary and optional
+    qk-norm -> residual -> RMSNorm -> SwiGLU MLP (dense, or routed experts)
+    -> residual. ``forward`` returns (hidden, router aux loss), the aux loss
+    0 for a dense layer."""
 
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
@@ -92,9 +180,13 @@ class DecoderLayer(nn.Module):
             self.q_norm = p(cfg.head_dim)
             self.k_norm = p(cfg.head_dim)
         self.post_attention_layernorm = p(h)
-        self.gate_proj = p(h, inter)
-        self.up_proj = p(h, inter)
-        self.down_proj = p(inter, h)
+        if cfg.is_moe:
+            self.router = p(h, cfg.num_experts)
+            self.experts = Experts(cfg, device)
+        else:
+            self.gate_proj = p(h, inter)
+            self.up_proj = p(h, inter)
+            self.down_proj = p(inter, h)
 
     def _qkv(self, hidden, cos, sin):
         cfg, dt = self.cfg, self.cfg.dtype
@@ -113,13 +205,23 @@ class DecoderLayer(nn.Module):
         return ops.attention(q, k, v, segment_ids=segment_ids, causal=True,
                              softmax_scale=self.cfg.head_dim ** -0.5)
 
-    def _tail(self, hidden, attn):
+    def mlp_input(self, hidden, attn):
+        """(residual stream after attention, its post-attention RMSNorm)."""
         cfg, dt = self.cfg, self.cfg.dtype
         b, s, _ = hidden.shape
         hidden = hidden + attn.reshape(b, s, cfg.q_dim) @ self.o_proj.to(dt)
-        x = ops.rms_norm(hidden, self.post_attention_layernorm.to(dt), cfg.rms_norm_eps)
+        return hidden, ops.rms_norm(hidden, self.post_attention_layernorm.to(dt), cfg.rms_norm_eps)
+
+    def _tail(self, hidden, attn):
+        cfg, dt = self.cfg, self.cfg.dtype
+        hidden, x = self.mlp_input(hidden, attn)
+        if cfg.is_moe:
+            b, s, h = x.shape
+            out, aux = moe_mlp(x.reshape(b * s, h), self.router.to(dt), self.experts, cfg)
+            return hidden + out.view(b, s, h), aux
         act = ops.swiglu(x @ self.gate_proj.to(dt), x @ self.up_proj.to(dt))
-        return hidden + act @ self.down_proj.to(dt)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        return hidden + act @ self.down_proj.to(dt), aux
 
     def _full(self, hidden, cos, sin, segment_ids):
         q, k, v = self._qkv(hidden, cos, sin)
@@ -137,7 +239,7 @@ class DecoderLayer(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense causal LM with the reference's parameter names and layout."""
+    """Causal LM (dense or MoE) with the reference's parameter names and layout."""
 
     def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
                  *, device: DeviceLike = None):
@@ -157,16 +259,24 @@ class Transformer(nn.Module):
             self.lm_head = p(h, cfg.vocab_size)
         init_params(self, generator)
 
-    def forward_hidden(self, input_ids, position_ids, segment_ids=None):
-        """[B,S] ids/positions/segments -> final hidden [B,S,H] in cfg.dtype."""
+    def embed_and_rotary(self, input_ids, position_ids):
+        """(token embeddings [B,S,H], rotary cos, sin) in cfg.dtype."""
         cfg, dt = self.cfg, self.cfg.dtype
         hidden = F.embedding(input_ids, self.embed_tokens.to(dt))
         cos, sin = ops.rotary_tables(position_ids, cfg.head_dim, cfg.rope_theta,
                                      rope_scaling=cfg.rope_scaling)
-        cos, sin = cos.to(dt), sin.to(dt)
+        return hidden, cos.to(dt), sin.to(dt)
+
+    def forward_hidden(self, input_ids, position_ids, segment_ids=None):
+        """[B,S] ids/positions/segments -> (final hidden [B,S,H] in cfg.dtype,
+        router aux loss summed over the layers)."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        hidden, cos, sin = self.embed_and_rotary(input_ids, position_ids)
+        aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for layer in self.layers:
-            hidden = layer(hidden, cos, sin, segment_ids)
-        return ops.rms_norm(hidden, self.norm.to(dt), cfg.rms_norm_eps)
+            hidden, aux = layer(hidden, cos, sin, segment_ids)
+            aux_total = aux_total + aux
+        return ops.rms_norm(hidden, self.norm.to(dt), cfg.rms_norm_eps), aux_total
 
     def lm_head_kernel(self) -> torch.Tensor:
         """[H, V] head matrix (tied: the embedding transposed)."""
@@ -174,23 +284,33 @@ class Transformer(nn.Module):
             return self.embed_tokens.t()
         return self.lm_head
 
-    def head_loss(self, hidden, labels) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """lm-head + chunked CE in token-sum space."""
+    def head_loss(self, hidden, labels, moe_aux) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """lm-head + chunked CE in token-sum space, plus the router aux loss
+        scaled by the token count so both terms normalize alike (``:783-802``).
+        ``moe_dropped_frac`` is 0: the single-device MoE is dropless (the
+        reference drops assignments only under expert parallelism)."""
+        cfg = self.cfg
         b, s, h = hidden.shape
-        kernel = self.lm_head_kernel().to(self.cfg.dtype)
+        kernel = self.lm_head_kernel().to(cfg.dtype)
         loss_sum, ntokens = ops.fused_linear_cross_entropy(
             hidden.reshape(b * s, h), kernel, labels.reshape(b * s)
         )
-        return loss_sum, {"loss_sum": loss_sum, "ntokens": ntokens}
+        metrics = {"loss_sum": loss_sum, "ntokens": ntokens, "moe_aux_loss": moe_aux,
+                   "moe_dropped_frac": torch.zeros_like(moe_aux)}
+        total = loss_sum
+        if cfg.is_moe and cfg.router_aux_loss_coef:
+            total = total + cfg.router_aux_loss_coef * moe_aux * ntokens
+        return total, metrics
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Sum-NLL + valid-token count; the caller normalizes. ``batch`` holds
+        """Sum-NLL (+ the scaled router aux loss) and metrics with the
+        valid-token count; the caller normalizes. ``batch`` holds
         input_ids/position_ids/segment_ids/labels [B,S], labels pre-shifted
         with -100 padding (the collator contract)."""
-        hidden = self.forward_hidden(
+        hidden, moe_aux = self.forward_hidden(
             batch["input_ids"], batch["position_ids"], batch.get("segment_ids")
         )
-        return self.head_loss(hidden, batch["labels"])
+        return self.head_loss(hidden, batch["labels"], moe_aux)
 
 
 @torch.no_grad()

@@ -1,8 +1,9 @@
 """Ops layer: kernel registry + dispatch + plain torch / CUDA implementations.
 
-Port of ``veomni_tpu/ops/__init__.py`` for the dense text train step. The
-plain impls keep the reference's ``xla`` names; the Hopper kernels register
-under their own names (``attention``/``cuda_flash``).
+Port of ``veomni_tpu/ops/__init__.py`` for the dense and MoE text train
+steps. The plain impls keep the reference's ``xla`` names; the Hopper
+kernels register under their own names (``attention``/``cuda_flash``,
+``group_gemm``/``cuda_gmm``).
 """
 
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, KernelSpec, resolve_op
@@ -11,7 +12,10 @@ from veomni_tpu_torch.ops import rotary as _rotary
 from veomni_tpu_torch.ops import swiglu as _swiglu
 from veomni_tpu_torch.ops import attention as _attention
 from veomni_tpu_torch.ops import cross_entropy as _cross_entropy
+from veomni_tpu_torch.ops import load_balancing as _load_balancing
+from veomni_tpu_torch.ops import group_gemm as _group_gemm
 from veomni_tpu_torch.ops.cuda import flash_attention as _flash  # noqa: F401  (registers cuda_flash)
+from veomni_tpu_torch.ops.cuda import grouped_gemm as _gmm  # noqa: F401  (registers cuda_gmm)
 
 rms_norm = _rms_norm.rms_norm
 apply_rotary = _rotary.apply_rotary
@@ -19,6 +23,8 @@ rotary_tables = _rotary.rotary_tables
 swiglu = _swiglu.swiglu
 attention = _attention.attention
 fused_linear_cross_entropy = _cross_entropy.fused_linear_cross_entropy
+load_balancing_loss = _load_balancing.load_balancing_loss
+group_gemm = _group_gemm.group_gemm
 
 __all__ = [
     "KERNEL_REGISTRY",
@@ -30,4 +36,6 @@ __all__ = [
     "swiglu",
     "attention",
     "fused_linear_cross_entropy",
+    "load_balancing_loss",
+    "group_gemm",
 ]

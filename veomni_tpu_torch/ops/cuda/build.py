@@ -4,8 +4,8 @@ Each source under ``veomni_tpu_torch/csrc/`` compiles, at its first use in a
 process, into a shared library with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``),
 cached under ``build/kernels/`` at the repository root by a hash of the
-source, so a rebuild happens only when the source changes. Nothing is built
-at import time.
+source and the shared headers (``csrc/*.cuh``), so a rebuild happens only
+when one of them changes. Nothing is built at import time.
 """
 
 from __future__ import annotations
@@ -36,8 +36,12 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> str:
     """Where the shared library for ``csrc/<source>`` lives once built."""
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest}.so")
 

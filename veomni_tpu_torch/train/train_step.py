@@ -7,6 +7,10 @@ gradients are divided once by the global valid-token count (``:159-176``),
 so packing imbalance never skews them. Then a global-norm clip with
 ``min(1, max / (norm + 1e-6))`` (``:179-186``) and the optimizer update.
 
+The loss fn's other scalar metrics (``loss_sum``, ``moe_aux_loss``, ...)
+come back averaged over the micro-batches, vector ones summed, as the
+reference's extras (``:145-174``).
+
 ``step_ok`` (finite loss and finite grad norm) is always returned; with
 ``skip_nonfinite`` a step that is not ok leaves parameters and optimizer
 state untouched (``:197-204``). The reference gates on device; eager
@@ -48,8 +52,8 @@ def build_train_step(
 
     ``loss_fn(model, micro_batch) -> (token_sum_loss, metrics)`` with
     ``metrics["ntokens"]``; ``batch`` leaves are ``[A, B, S]`` tensors.
-    Metrics: ``loss``, ``grad_norm``, ``ntokens``, ``step_ok`` (0-d tensors
-    on the model's device)."""
+    Metrics: ``loss``, ``grad_norm``, ``ntokens``, ``step_ok`` and the loss
+    fn's extras (tensors on the model's device)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict]:
         params = [p for p in state.model.parameters() if p.requires_grad]
@@ -58,12 +62,18 @@ def build_train_step(
         n_micro = next(iter(batch.values())).shape[0]
         loss_sum = torch.zeros((), dtype=torch.float32, device=params[0].device)
         ntokens = torch.zeros((), dtype=torch.int64, device=params[0].device)
+        extras: Dict[str, torch.Tensor] = {}
         for a in range(n_micro):
             micro = {k: v[a] for k, v in batch.items()}
             loss, metrics = loss_fn(state.model, micro)
             loss.backward()  # token-sum grads accumulate in p.grad
             loss_sum += loss.detach()
             ntokens += metrics["ntokens"]
+            for k, v in metrics.items():
+                if k != "ntokens" and v.ndim <= 1:
+                    extras[k] = extras.get(k, 0.0) + v.detach().float()
+        # scalar extras average over micro-steps; vector extras accumulate
+        extras = {k: v / n_micro if v.ndim == 0 else v for k, v in extras.items()}
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p, g in zip(params, grads):
             p.grad = g
@@ -81,6 +91,7 @@ def build_train_step(
             "grad_norm": grad_norm,
             "ntokens": ntokens,
             "step_ok": step_ok,
+            **extras,
         }
 
     return train_step

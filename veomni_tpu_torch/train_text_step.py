@@ -1,15 +1,19 @@
-"""Dense text SFT train steps on packed synthetic data (the port's main path).
+"""Text SFT train steps on packed synthetic data (the port's main paths).
 
 Port of the train leg of ``bench.py::run_bench`` (``bench.py:313``): build
-the model config (the ``bench.py`` presets, ``:158-197``), the model, AdamW
-with the bench's cosine schedule, the train state and the train step, then
-run N steps over packed batches. The batches come from seeded synthetic
-documents packed by ``TextPackingCollator`` (several documents per row, so
-attention runs with real segment ids). The YAML trainer is a later slice.
+the model config (the ``bench.py`` presets, ``:158-197``, plus the MoE
+model the repo ships a recipe for, ``configs/text/qwen3_moe_ep.yaml``), the
+model, AdamW with the bench's cosine schedule, the train state and the train
+step, then run N steps over packed batches. The batches come from seeded
+synthetic documents packed by ``TextPackingCollator`` (several documents per
+row, so attention runs with real segment ids). The YAML trainer is a later
+slice.
 
-Run on the card::
+Run on the card (the dense Qwen3-0.6B step; the Qwen3-30B-A3B MoE step,
+depth cut to 4 layers to fit one H100)::
 
     python -m veomni_tpu_torch.train_text_step --steps 3 --seq-len 4096 --micro-bs 4
+    python -m veomni_tpu_torch.train_text_step --preset qwen3_30b_a3b --num-layers 4
 """
 
 from __future__ import annotations
@@ -31,20 +35,36 @@ from veomni_tpu_torch.utils.count_flops import FlopsCounter
 from veomni_tpu_torch.utils.device import DeviceLike, get_device_peak_flops, resolve_device, synchronize
 
 SEED = 0  # model init and synthetic data
-# bench.py:158-172; "qwen3_0p6b" is the repo's headline configuration
+# Qwen3-30B-A3B, the published Qwen/Qwen3-30B-A3B config.json: 48 layers of
+# 32/4-head GQA attention (head_dim 128, qk-norm) and 128 experts, top-8,
+# expert width 768 (intermediate_size 6144 is the unused dense width).
+_QWEN3_30B_A3B = dict(
+    model_type="qwen3_moe", hidden_size=2048, intermediate_size=6144, num_hidden_layers=48,
+    num_attention_heads=32, num_key_value_heads=4, tie_word_embeddings=False,
+    max_position_embeddings=40960, rms_norm_eps=1e-6, num_experts=128,
+    num_experts_per_tok=8, moe_intermediate_size=768, norm_topk_prob=True,
+    router_aux_loss_coef=0.001, param_dtype="float32",
+)
+# bench.py:158-172; "qwen3_0p6b" is the repo's headline configuration. The
+# smoke presets are CPU-sized.
 BENCH_PRESETS = {
     "qwen3_0p6b": dict(hidden_size=1024, intermediate_size=3072,
                        num_hidden_layers=28, param_dtype="float32"),
     "qwen3_smoke": dict(hidden_size=256, intermediate_size=512,
                         num_hidden_layers=2, param_dtype="float32"),
+    "qwen3_30b_a3b": _QWEN3_30B_A3B,
+    "qwen3_moe_smoke": {**_QWEN3_30B_A3B, "hidden_size": 256, "intermediate_size": 512,
+                        "num_hidden_layers": 2, "num_attention_heads": 4,
+                        "num_key_value_heads": 2, "num_experts": 8,
+                        "num_experts_per_tok": 2, "moe_intermediate_size": 128},
 }
 
 
 def bench_config(preset: str = "qwen3_0p6b", **overrides) -> TransformerConfig:
-    """Qwen3 dense config of ``bench.py::bench_config`` (``:175-197``) with
-    the bench's default ``ctx`` remat (``bench.py:1691``)."""
-    dims = {**BENCH_PRESETS[preset], **overrides}
-    return TransformerConfig(
+    """Qwen3 config of ``bench.py::bench_config`` (``:175-197``) with the
+    bench's default ``ctx`` remat (``bench.py:1691``); a preset's fields
+    override the dense Qwen3 defaults."""
+    fields = dict(
         model_type="qwen3",
         vocab_size=151936,
         num_attention_heads=16,
@@ -56,8 +76,8 @@ def bench_config(preset: str = "qwen3_0p6b", **overrides) -> TransformerConfig:
         rope_theta=1e6,
         dtype=torch.bfloat16,
         remat_policy="ctx",
-        **dims,
     )
+    return TransformerConfig(**{**fields, **BENCH_PRESETS[preset], **overrides})
 
 
 def packed_batches(vocab_size: int, seq_len: int, micro_bs: int) -> Iterator[Dict[str, np.ndarray]]:
@@ -82,15 +102,15 @@ def iter_train_steps(
     *,
     preset: str = "qwen3_0p6b",
     num_layers: Optional[int] = None,
-    attention_impl: Optional[str] = None,
+    ops_config: Optional[Dict[str, str]] = None,
     device: DeviceLike = None,
 ) -> Iterator[Dict[str, float]]:
     """Build the model and train step as ``run_bench`` does, then yield one
-    record per train step (loss, grad_norm, ntokens, step_ok, step_ms,
-    tokens_per_s and, on a card with a published peak, mfu) for as long as
-    the caller asks. ``attention_impl`` pins the ``attention`` op (e.g.
-    ``"xla"`` for the plain version) until the generator is closed;
-    ``num_layers`` cuts depth."""
+    record per train step (loss, grad_norm, ntokens, step_ok, the loss fn's
+    extras such as moe_aux_loss, step_ms, tokens_per_s and, on a card with a
+    published peak, mfu) for as long as the caller asks. ``ops_config`` pins
+    ops to impls (e.g. ``{"group_gemm": "xla"}`` for the plain version)
+    until the generator is closed; ``num_layers`` cuts depth."""
     dev = resolve_device(device)
     overrides = {} if num_layers is None else {"num_hidden_layers": num_layers}
     cfg = bench_config(preset, **overrides)
@@ -103,7 +123,7 @@ def iter_train_steps(
     flops = FlopsCounter.from_config(cfg).batch_flops(tokens, seq_len)
     peak = get_device_peak_flops(dev) if dev.type == "cuda" else None
     batches = packed_batches(cfg.vocab_size, seq_len, micro_bs)
-    apply_ops_config({"attention": attention_impl} if attention_impl else None)
+    apply_ops_config(ops_config)
     try:
         while True:
             batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
@@ -132,6 +152,7 @@ def run_train_steps(seq_len: int = 4096, micro_bs: int = 4, steps: int = 3,
 
 _KERNEL_CATEGORIES = (  # first match wins; names as CUDA reports them
     ("flash attention (K1-K3)", ("flash_",)),
+    ("grouped GEMM (K4-K6)", ("gmm_",)),
     ("f32 GEMM", ("f32f32", "sgemm")),
     ("bf16 GEMM", ("nvjet", "gemm")),
     ("foreach (AdamW, clip)", ("multi_tensor_apply",)),
@@ -164,7 +185,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seq-len", type=int, default=4096)
     ap.add_argument("--micro-bs", type=int, default=4)
-    ap.add_argument("--num-layers", type=int, default=None)
+    ap.add_argument("--preset", default="qwen3_0p6b", choices=sorted(BENCH_PRESETS))
+    ap.add_argument("--num-layers", type=int, default=None, help="cut the preset's depth")
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", default=None, metavar="TRACE.json",
                     help="after the steps, profile one more step with torch.profiler: "
@@ -172,8 +194,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.profile and torch.device(args.device or "cuda").type != "cuda":
         ap.error("--profile measures the card's kernels: run it on a CUDA device")
-    it = iter_train_steps(args.seq_len, args.micro_bs, num_layers=args.num_layers,
-                          device=args.device)
+    it = iter_train_steps(args.seq_len, args.micro_bs, preset=args.preset,
+                          num_layers=args.num_layers, device=args.device)
     for _ in range(args.steps):
         print(json.dumps(next(it)), flush=True)
     if args.profile:
