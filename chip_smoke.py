@@ -20,8 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
    shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
    with the group sizes of its real routing (layer 0 on the first packed
    batch), and on small cases with an empty expert, a single expert,
-   boundaries in the middle of a tile and a row count that is not a
-   multiple of the 128-row tile;
+   boundaries in the middle of a tile, a row count that is not a multiple of
+   the 128-row tile, fewer rows than one tile, rows that no expert owns
+   (which must come out exactly 0) and 128 experts, most of them empty, with
+   a boundary on a tile edge;
 5. drive the dense main path: Qwen3-0.6B (full width, 28 layers, f32 master
    weights, bf16 compute, ``ctx`` remat, AdamW) for 3 SFT train steps on
    packed seq-4096 batches of micro-batch 4, with every kernel launch
@@ -347,24 +349,33 @@ def library_gmm(kind: str, lhs, rhs, g, starts):
     return timed_ms(lambda: torch.matmul(a, b)), "torch.matmul of the same M x K x N"
 
 
-def gmm_case(dev, sizes, k: int, n: int, tag: str, timed: bool = False):
+def gmm_case(dev, sizes, k: int, n: int, tag: str, timed: bool = False, rows=None):
     """K4, K5, K6 against their plain versions for one set of group sizes,
-    through the autograd Function and through each wrapper; with ``timed``,
-    also their times, bounds and library yardsticks (the table rows)."""
+    through the autograd Function and through each wrapper, over ``rows``
+    rows (default: as many as the groups hold; rows past the groups must come
+    out of K4 and K5 exactly 0); with ``timed``, also their times, bounds and
+    library yardsticks (the table rows)."""
     from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
 
     sizes = sizes.to(dev)
     e = sizes.numel()
     starts = gg.group_starts(sizes)
-    m = int(starts[-1])
+    owned = int(starts[-1])
+    m = owned if rows is None else rows
     gen = torch.Generator(device=dev).manual_seed(2)
     lhs = torch.randn(m, k, device=dev, generator=gen).bfloat16()
     rhs = torch.randn(e, k, n, device=dev, generator=gen).bfloat16()
     g = torch.randn(m, n, device=dev, generator=gen).bfloat16()
 
     def hold(name, got, ref):
-        return check_close(f"{name} ({tag})", got, ref,
-                           atol=GMM_ATOL_MAX * ref.float().abs().max().item(), rtol=GMM_RTOL)
+        err = check_close(f"{name} ({tag})", got, ref,
+                          atol=GMM_ATOL_MAX * ref.float().abs().max().item(), rtol=GMM_RTOL)
+        if not name.startswith("K6") and m > owned:  # rows no expert owns
+            if got[owned:].any():
+                raise AssertionError(f"{name} ({tag}): kernel disagrees with its plain version "
+                                     f"(rows {owned}.. past the groups are not all 0)")
+            log(f"  {name} ({tag}): rows {owned}..{m - 1} past the groups are exactly 0")
+        return err
 
     lhs_g, rhs_g = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
     out = gg.cuda_group_gemm(lhs_g, rhs_g, sizes)
@@ -425,8 +436,17 @@ def phase_gmm(dev):
         f"median {int(s.median())} max {int(s.max())}, empty experts {int((s == 0).sum())}")
     for tag, case in {"ragged+empty": [100, 156, 0, 256], "single": [0, 512, 0, 0],
                       "mid-tile": [37, 0, 219, 64, 192],
-                      "unaligned M=420": [37, 0, 219, 64, 100]}.items():
+                      "unaligned M=420": [37, 0, 219, 64, 100],
+                      "M=65 < one tile": [20, 0, 45]}.items():
         gmm_case(dev, torch.tensor(case), 128, 256, f"small {tag}, K=128 N=256")
+    gmm_case(dev, torch.tensor([100, 0, 200, 0]), 128, 256,
+             "small rows 300..511 past the groups, K=128 N=256", rows=512)
+    # E = 128, most experts empty: a boundary on the tile edge at row 128
+    # after a run of empty experts, one mid-tile, and the other tile widths
+    # (K4 writes 128-column tiles at N = 384, K5 256-column ones at K = 256)
+    edge = torch.zeros(128, dtype=torch.int64)
+    edge[5], edge[64], edge[127] = 128, 200, 156
+    gmm_case(dev, edge, 256, 384, "small E=128 tile-edge, K=256 N=384")
     rows = gmm_case(dev, sizes, 2048, 768, "gate/up: K=2048 N=768", timed=True)
     gmm_case(dev, sizes, 768, 2048, "down: K=768 N=2048", timed=True)
     return rows

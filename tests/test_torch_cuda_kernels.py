@@ -98,9 +98,15 @@ def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
         fa.flash_attention(q.detach().float(), k.detach().float(), v.detach().float())
 
 
-GMM_CASES = {"even": [128, 128, 128, 128], "ragged-empty": [100, 156, 0, 256],
-             "single": [0, 512, 0, 0], "mid-tile": [37, 0, 219, 64, 192],
-             "unaligned-m": [37, 0, 219, 64, 100]}  # M = 420: the last row tile is masked
+_EDGE_128 = [0] * 128  # 128 experts, most empty; a boundary on the tile edge at row 128
+_EDGE_128[5], _EDGE_128[64], _EDGE_128[127] = 128, 200, 156
+# group sizes and the row count M (None: as many as the groups hold)
+GMM_CASES = {"even": ([128, 128, 128, 128], None), "ragged-empty": ([100, 156, 0, 256], None),
+             "single": ([0, 512, 0, 0], None), "mid-tile": ([37, 0, 219, 64, 192], None),
+             "unaligned-m": ([37, 0, 219, 64, 100], None),  # M = 420: the last row tile is masked
+             "m-below-tile": ([20, 0, 45], None),  # M = 65: one partial tile
+             "past-groups": ([100, 0, 200, 0], 512),  # rows 300.. belong to no expert
+             "e128-tile-edge": (_EDGE_128, None)}
 
 
 def _gmm_close(got, ref):
@@ -111,10 +117,14 @@ def _gmm_close(got, ref):
     assert n_over == 0, f"{n_over} elements over the tolerance, max abs err {err.max().item()}"
 
 
-@pytest.mark.parametrize("sizes", list(GMM_CASES.values()), ids=list(GMM_CASES))
-def test_gmm_kernels_match_plain_on_card(cuda_device, sizes):
+@pytest.mark.parametrize("case", list(GMM_CASES.values()), ids=list(GMM_CASES))
+def test_gmm_kernels_match_plain_on_card(cuda_device, case):
+    """K4 and K5 write 128-column tiles at 384 columns and 256-column ones at
+    256; rows past the groups come out exactly 0."""
+    sizes, rows = case
     rng = np.random.default_rng(1)
-    m, k, n, e = sum(sizes), 256, 384, len(sizes)
+    owned, k, n, e = sum(sizes), 256, 384, len(sizes)
+    m = rows or owned
     lhs, rhs, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                    .to(cuda_device, torch.bfloat16) for shape in ((m, k), (e, k, n), (m, n)))
     group_sizes = torch.tensor(sizes, device=cuda_device)
@@ -124,9 +134,11 @@ def test_gmm_kernels_match_plain_on_card(cuda_device, sizes):
     gg.cuda_group_gemm(a, b, group_sizes).backward(g)
     torch.cuda.synchronize()
     assert gg.LAUNCHES == {"gmm_fwd": 1, "gmm_dlhs": 1, "gmm_t": 1}
-    _gmm_close(gg.gmm_cuda(lhs, rhs, starts), gg.gmm_plain(lhs, rhs, starts))
+    out = gg.gmm_cuda(lhs, rhs, starts)
+    _gmm_close(out, gg.gmm_plain(lhs, rhs, starts))
     _gmm_close(a.grad, gg.gmm_dlhs_plain(g, rhs, starts))
     _gmm_close(b.grad, gg.gmm_t_plain(lhs, g, starts, e))
+    assert not out[owned:].any() and not a.grad[owned:].any()
 
 
 def test_gmm_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):

@@ -1,13 +1,15 @@
-"""The planted-fault tool for the grouped-GEMM kernels stays in step with
-their source: each fault's edit applies exactly once to a copy of the tree
-and leaves the checkout's source as it was. (Running the faulted copies
-needs the card: ``python3 -m veomni_tpu_torch.tools.gmm_fault_check``.)"""
+"""The planted-fault and design-variant tools for the grouped-GEMM kernels
+stay in step with their source: each fault's edit applies exactly once to a
+copy of the tree and leaves the checkout's source as it was, and so does
+each variant's. (Running either needs the card: ``python3 -m
+veomni_tpu_torch.tools.gmm_fault_check``, ``... .gmm_variants``.)"""
 
 import os
 
 import pytest
 
 from veomni_tpu_torch.tools import gmm_fault_check as fc
+from veomni_tpu_torch.tools import gmm_variants as gv
 
 
 @pytest.mark.parametrize("fault", fc.FAULTS, ids=[f.name for f in fc.FAULTS])
@@ -25,3 +27,13 @@ def test_fault_plants_once_in_a_copy(fault, tmp_path):
         assert f.read() == original
     with pytest.raises(RuntimeError, match="anchor"):
         fc.plant(str(tmp_path), fault._replace(anchor="no such line"))
+
+
+@pytest.mark.parametrize("name", list(gv.VARIANTS), ids=list(gv.VARIANTS))
+def test_design_variant_edits_apply_once(name):
+    """The design variants timed by ``gmm_variants`` stay in step with the
+    source: each edit's anchor occurs exactly once."""
+    with open(os.path.join(fc.REPO, fc.SOURCE)) as f:
+        text = f.read()
+    for anchor, _ in gv.VARIANTS[name][1]:
+        assert text.count(anchor) == 1, anchor

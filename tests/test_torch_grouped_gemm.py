@@ -6,9 +6,10 @@ The plain versions of K4-K6 (``gmm_plain``, ``gmm_dlhs_plain``,
 in ``tests/test_grouped_gemm.py``; the port's ragged impl and its autograd
 Function (``cuda_group_gemm`` on CPU tensors takes the plain versions)
 against ``_group_gemm_ragged`` (``jax.lax.ragged_dot``) and its gradients.
-Cases: even groups, ragged with an empty expert, a single expert, and
-boundaries in the middle of a 128-row tile, at M=512, K=128, N=256, E=4;
-and a row count that is not a multiple of 128.
+Cases: even groups, ragged with an empty expert, a single expert,
+boundaries in the middle of a 128-row tile, and rows past the groups (which
+every version writes as 0), at M=512, K=128, N=256, E=4; and a row count that
+is not a multiple of 128.
 Inputs are seeded numpy arrays fed to both packages. Tolerance (f32; the
 two frameworks accumulate in other orders): each element within
 ``tol * |ref| + tol * max|ref|``, tol = 1e-5 for the products and 2e-4 for
@@ -34,6 +35,7 @@ CASES = {
     "ragged-empty": [100, 156, 0, 256],
     "single": [512, 0, 0, 0],
     "mid-tile": [37, 219, 64, 192],
+    "past-groups": [100, 0, 200, 0],  # rows 300..511 belong to no expert: 0
 }
 
 

@@ -8,6 +8,16 @@ on the H100 and how the design answers it):
 * K5 ``vt_gmm_dlhs`` <- ``_gmm_dlhs_kernel`` (``:104-130``, ``_gmm_dlhs`` ``:133``)
 * K6 ``vt_gmm_t``    <- ``_gmm_t_kernel``    (``:166-190``, ``_gmm_transpose`` ``:193``)
 
+K4 and K5 are one Hopper kernel template: TMA loads into a ring of
+128-byte-swizzled shared-memory stages completed on mbarriers, ``wgmma``
+from two consumer warpgroups (128 x 256 output tiles, 128 x 128 where the
+output width is not a multiple of 256) fed by one producer thread, one
+expert at a time per tile with an epilogue that writes only that expert's
+rows (rows no expert owns are written as 0), and a persistent schedule of
+one block per SM. Their C entry points encode the two tensor maps per call
+(``csrc/hopper.cuh`` holds the shared TMA, mbarrier and ``wgmma`` helpers).
+K6 is still the ``mma.sync`` / ``cp.async`` kernel of the first port.
+
 Beside each kernel sits its plain PyTorch version (``gmm_plain``,
 ``gmm_dlhs_plain``, ``gmm_t_plain``) with the same inputs and outputs. A
 wrapper takes the plain version only for tensors on the CPU; for CUDA
