@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernels of veomni_tpu/ops/pallas/grouped_gemm.py:
 //   K4 gmm_tma_kernel<false> <- _gmm_kernel      (:37-61, launched by _gmm_raw :79)
 //   K5 gmm_tma_kernel<true>  <- _gmm_dlhs_kernel (:104-130, launched by _gmm_dlhs :133)
-//   K6 gmm_t_kernel          <- _gmm_t_kernel    (:166-190, launched by _gmm_transpose :193)
+//   K6 gmm_t_tma_kernel      <- _gmm_t_kernel    (:166-190, launched by _gmm_transpose :193)
 //
 // What they compute (same as the Pallas kernels). Rows of lhs [M,K] are
 // sorted by expert; expert e owns rows [starts[e], starts[e+1]) (starts
@@ -68,12 +68,33 @@
 //     producer loads the next tile's stages during an epilogue. The ring has
 //     3 stages at TN 256 (5 at 128): the staged tile takes the room of a
 //     fourth.
-// K6 (not yet redesigned: TMA, wgmma and a persistent schedule are later
-// work) owns one (expert, k tile, n tile), loops over its expert's rows
-// masking the tail, 128 x 128 tiles of 8 warps of 64 x 32 with mma.sync
-// m16n8k16 fed by ldmatrix.trans, a 3-stage cp.async pipeline over 32-deep
-// chunks, and writes zeros for an empty expert (the wrapper allocates the
-// output with torch.empty). Offsets are 64 bit: M x K reaches 2.7e8.
+// K6 (gmm_t_tma_kernel) is built from the same blocks and the same ring,
+// tile ring, ticket counters and staged TMA-store epilogue:
+//   * an output tile is 128 rows of K x TN columns of N of one expert's
+//     drhs[e] (TN as above); each consumer warpgroup owns 64 K rows. The
+//     mainloop runs over the expert's rows [starts[e], min(starts[e+1], M))
+//     in 64-row chunks; a stage holds the chunk's lhs rows x the tile's 128
+//     K columns (one 64-column box per consumer warpgroup) and its g rows x
+//     TN columns. The rows are the contraction and the strided dimension of
+//     both, so both operands are MN-major (wgmma's transpose flags for A and
+//     B);
+//   * expert boundaries: a chunk may start at any row, but TMA fills zeros
+//     only past M, so the expert's last chunk reads rows of the next experts.
+//     Option (a) of the design, in the lhs operand: before that chunk's
+//     products each consumer warpgroup zeroes those rows of its own lhs box
+//     (fence.proxy.async, then a 128-thread named barrier; no other
+//     warpgroup reads the box), which makes their products 0. Rows past
+//     starts[E] are only ever read as such a tail, and zeroed. An empty
+//     expert runs no chunk and its tiles are staged as zeros: the wrapper
+//     allocates the output with torch.empty;
+//   * the epilogue overlaps the mainloops around it: the producer runs ahead
+//     into the next tile's stages while the consumers stage the tile, and
+//     the staging buffer is reused once the previous tile's TMA stores have
+//     read it (bulk_wait_read), so the stores run during the next mainloop;
+//   * the persistent schedule draws tiles in order, expert-major, from the
+//     same ticket counters, so the tiles of one expert (48 at the MoE
+//     shapes) share its ~5.8 MB of lhs and g rows in L2.
+// Offsets are 64 bit where they must be: M x K reaches 2.7e8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,162 +107,7 @@
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-// K6's tiling
-constexpr int BM = 128;  // output tile rows (K4 and K5 too)
-constexpr int BN = 128;  // output tile cols
-constexpr int BC = 32;   // contraction depth of one pipeline stage
-constexpr int STAGES = 3;
-constexpr int WM = 64, WN = 32;  // warp tile: 2 x 4 warps cover 128 x 128
-constexpr int NTHREADS = (BM / WM) * (BN / WN) * 32;
-// Padded shared-memory rows (bf16): the 8 row addresses of one ldmatrix
-// phase fall in distinct banks (80 B and 272 B strides).
-constexpr int LD_RC = BC + 8;   // tile stored [128 rows][contraction]
-constexpr int LD_CR = BN + 8;   // tile stored [contraction][128 cols]
-constexpr int RC_ELEMS = BM * LD_RC;
-constexpr int CR_ELEMS = BC * LD_CR;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// 16 bytes global -> shared; with pred false the destination is zero-filled
-// and nothing is read.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One 32-deep contraction chunk into the accumulators of this warp's 64 x 32
-// sub-tile. A is the [out rows x contraction] operand, B the [contraction x
-// out cols] one. A_T / B_T: the stage stores that operand contraction-major
-// ([BC][LD_CR]) and ldmatrix transposes it; otherwise it is stored
-// [128][LD_RC] with the contraction contiguous.
-template <bool A_T, bool B_T>
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][4][4], const bf16* As, const bf16* Bs,
-                                          int wm, int wn, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < BC; kk += 16) {
-    uint32_t a[4][4], b[4][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int mr = wm * WM + i * 16;
-      if (A_T) {
-        ldsm_x4_t(a[i], As + (kk + (lane & 7) + (lane >> 4) * 8) * LD_CR + mr + ((lane >> 3) & 1) * 8);
-      } else {
-        ldsm_x4(a[i], As + (mr + (lane & 15)) * LD_RC + kk + (lane >> 4) * 8);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; j += 2) {
-      const int nb = wn * WN + j * 8;
-      uint32_t r[4];
-      if (B_T) {
-        ldsm_x4_t(r, Bs + (kk + (lane & 15)) * LD_CR + nb + (lane >> 4) * 8);
-      } else {
-        ldsm_x4(r, Bs + (nb + (lane & 7) + (lane >> 4) * 8) * LD_RC + kk + ((lane >> 3) & 1) * 8);
-      }
-      b[j][0] = r[0];
-      b[j][1] = r[1];
-      b[j + 1][0] = r[2];
-      b[j + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma16816(acc[i][j], a[i], b[j]);
-  }
-}
-
-// BC rows x 128 columns of a row-major matrix into a [BC][LD_CR] stage:
-// rows row0.., columns col0..; a row is zero-filled unless below hi.
-__device__ __forceinline__ void load_cr(bf16* dst, const bf16* src, int64_t ld, int row0,
-                                        int col0, int hi) {
-#pragma unroll
-  for (int i = 0; i < BC * BN / 8 / NTHREADS; ++i) {
-    const int id = threadIdx.x + i * NTHREADS;
-    const int r = id >> 4, c = (id & 15) * 8;
-    const int row = row0 + r;
-    const bool ok = row < hi;
-    cp_async16(dst + r * LD_CR + c, ok ? src + (int64_t)row * ld + col0 + c : src, ok);
-  }
-}
-
-// The multi-stage cp.async pipeline over nchunks contraction chunks;
-// load(As, Bs, chunk) issues one chunk's copies into a stage.
-template <bool A_T, bool B_T, typename Load>
-__device__ __forceinline__ void run_pipeline(float (&acc)[4][4][4], bf16* smem, int nchunks,
-                                             Load load, int wm, int wn, int lane) {
-  constexpr int A_ELEMS = A_T ? CR_ELEMS : RC_ELEMS;
-  constexpr int STAGE = A_ELEMS + (B_T ? CR_ELEMS : RC_ELEMS);
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nchunks) load(smem + s * STAGE, smem + s * STAGE + A_ELEMS, s);
-    cp_async_commit();
-  }
-  for (int c = 0; c < nchunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; and chunk c-1's stage is free
-    const int nxt = c + STAGES - 1;
-    if (nxt < nchunks) {
-      bf16* st = smem + (nxt % STAGES) * STAGE;
-      load(st, st + A_ELEMS, nxt);
-    }
-    cp_async_commit();
-    const bf16* st = smem + (c % STAGES) * STAGE;
-    mma_chunk<A_T, B_T>(acc, st, st + A_ELEMS, wm, wn, lane);
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the stages may be refilled by the next call
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[4][4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-}
-
-// The 128 x 128 tile at (row0, col0) of a row-major [rows, ld] bf16 output;
-// rows at or past `rows` (the masked tail of the last row tile) are not written.
-__device__ __forceinline__ void store_tile(bf16* out, int64_t ld, int rows, int row0, int col0,
-                                           const float (&acc)[4][4][4], int wm, int wn, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + wm * WM + i * 16 + g;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + wn * WN + j * 8 + 2 * t;
-      if (r < rows)
-        *reinterpret_cast<uint32_t*>(out + (int64_t)r * ld + c) = pack_f32(acc[i][j][0], acc[i][j][1]);
-      if (r + 8 < rows)
-        *reinterpret_cast<uint32_t*>(out + (int64_t)(r + 8) * ld + c) =
-            pack_f32(acc[i][j][2], acc[i][j][3]);
-    }
-  }
-}
-
-constexpr size_t stage_bytes(bool a_t, bool b_t) {
-  return (size_t)((a_t ? CR_ELEMS : RC_ELEMS) + (b_t ? CR_ELEMS : RC_ELEMS)) * sizeof(bf16);
-}
-constexpr size_t T_PIPE = STAGES * stage_bytes(true, true);
+constexpr int BM = 128;  // output tile rows (K6: rows of drhs[e], i.e. K)
 
 // First expert whose rows end after row lo (E if none); gs is non-decreasing.
 __device__ __forceinline__ int first_expert(const int* gs, int E, int lo) {
@@ -561,31 +427,222 @@ int launch_gmm(const void* a, const void* rhs, const void* starts, void* out, in
 }
 
 // ---------------------------------------------------------------- K6 dRHS
-// grid (N / BN, K / BM, E); out tile rows k0.., cols n0.. of drhs[e] [K,N]
-__global__ void __launch_bounds__(NTHREADS, 2)
-gmm_t_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ g,
-             const int* __restrict__ starts, bf16* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* pipe = reinterpret_cast<bf16*>(smem_raw);
-  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * BM, e = blockIdx.z;
-  // rows of expert e, clamped to the M rows that exist (the only reads not
-  // bounded by an output tile)
-  const int hi = min(starts[e + 1], M), lo = min(starts[e], hi);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 2, wn = warp & 3;
-  float acc[4][4][4];
-  zero_acc(acc);
-  // rows lo.. in chunks of BC; the last chunk is masked at hi
-  run_pipeline<true, true>(acc, pipe, (hi - lo + BC - 1) / BC, [&](bf16* As, bf16* Bs, int c) {
-    load_cr(As, lhs, K, lo + c * BC, k0, hi);
-    load_cr(Bs, g, N, lo + c * BC, n0, hi);
-  }, wm, wn, lane);
-  store_tile(out + (int64_t)e * K * N, N, K, k0, n0, acc, wm, wn, lane);
+// One output tile t of drhs, drawn expert-major: expert t / (k_tiles *
+// n_tiles), then its k tile, then its n tile, so the tiles of one expert
+// (48 at the MoE shapes) run at about the same time and share its lhs and g
+// rows in L2. Calls expert(e, k0, n0, lo, hi, nchunks) with the tile's first
+// row k0 and column n0 of drhs[e], the expert's rows [lo, hi) clamped to M
+// and the BK-row chunks that cover them (0 for an empty expert). The
+// producer and the consumers walk the same tiles, so they agree on every
+// stage of the ring.
+template <int TN, typename Expert>
+__device__ __forceinline__ void walk_t_tile(const int* gs, int M, int k_tiles, int n_tiles, int t,
+                                            Expert expert) {
+  const int per_expert = k_tiles * n_tiles;
+  const int e = t / per_expert, r = t % per_expert;
+  const int hi = min(gs[e + 1], M), lo = min(gs[e], hi);
+  expert(e, r / n_tiles * BM, r % n_tiles * TN, lo, hi, (hi - lo + BK - 1) / BK);
 }
 
-template <typename Kern>
-cudaError_t allow_smem(Kern kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Rows [valid, BK) of one BK-row x 128-byte box of a stage become zeros
+// (128 threads; whole 128-byte rows, so the swizzle does not matter).
+__device__ __forceinline__ void zero_box_rows(unsigned char* box, int valid, int tid) {
+  for (int i = tid; i < (BK - valid) * 8; i += 128)
+    *reinterpret_cast<uint4*>(box + valid * 128 + i * 16) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int TN>
+__device__ __forceinline__ void wgmma_t_tile(float (&d)[TN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (TN == 256) {
+    wgmma_m64n256k16<1, 1>(d, desc_a, desc_b, 1);
+  } else {
+    wgmma_m64n128k16<1, 1>(d, desc_a, desc_b, 1);
+  }
+}
+
+// K6: drhs [E, K, N] from lhs [M, K] and g [M, N]. tm_lhs, tm_g: BK x 64
+// boxes (rows are the contraction, so both operands are MN-major for
+// wgmma); tm_out: drhs as [E*K, N] in BM x 64 boxes. grid: min(tiles, SMs);
+// block: GMM_THREADS. Shared memory is laid out as in gmm_tma_kernel
+// (TmaTile<TN>): a stage holds a chunk's lhs rows x the tile's 128 K
+// columns (two boxes, one per consumer warpgroup) and its g rows x the
+// tile's TN columns.
+template <int TN>
+__global__ void __launch_bounds__(GMM_THREADS, 1)
+gmm_t_tma_kernel(__grid_constant__ const CUtensorMap tm_lhs, __grid_constant__ const CUtensorMap tm_g,
+                 __grid_constant__ const CUtensorMap tm_out, const int* __restrict__ starts, int M,
+                 int K, int N, int E, int slot) {
+  typedef TmaTile<TN> T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t stg = ring + T::STAGES * T::STAGE_BYTES;
+  const uint32_t full_bar = stg + T::STG_BYTES;
+  const uint32_t empty_bar = full_bar + 8 * T::STAGES;
+  const uint32_t tile_full = empty_bar + 8 * T::STAGES;
+  const uint32_t tile_empty = tile_full + 16;
+  int* tile_id = reinterpret_cast<int*>(smem_raw + (tile_empty + 16 - raw));
+  int* gs = tile_id + 4;
+  for (int i = threadIdx.x; i <= E; i += GMM_THREADS) gs[i] = starts[i];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, 8);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(tile_full + 8 * s, 1);
+      mbar_init(tile_empty + 8 * s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int k_tiles = K / BM, n_tiles = N / TN;
+  const int tiles = E * k_tiles * n_tiles;
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread keeps the ring full; it runs ahead into the
+    // next tile's stages while the consumers stage this tile's output
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* map_lhs = &tm_lhs;
+      const CUtensorMap* map_g = &tm_g;
+      const uint64_t keep = l2_evict_last();  // every tile of the expert reads these rows
+      int stage = 0;
+      uint32_t phase = 0;
+      auto load = [&](int, int k0, int n0, int lo, int, int n) {
+            for (int c = 0; c < n; ++c) {
+              mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+              const uint32_t full = full_bar + 8 * stage;
+              const uint32_t a = ring + stage * T::STAGE_BYTES, b = a + A_BYTES;
+              const int r0 = lo + c * BK;  // any row: a TMA box may start anywhere
+              mbar_arrive_expect_tx(full, T::STAGE_BYTES);
+              tma_load_2d_hint(a, map_lhs, full, k0, r0, keep);
+              tma_load_2d_hint(a + A_BYTES / 2, map_lhs, full, k0 + 64, r0, keep);
+#pragma unroll
+              for (int j = 0; j < TN / 64; ++j)
+                tma_load_2d_hint(b + j * B_BLOCK, map_g, full, n0 + 64 * j, r0, keep);
+              if (++stage == T::STAGES) {
+                stage = 0;
+                phase ^= 1;
+              }
+            }
+          };
+      unsigned int* counter = &g_tickets[slot];  // the schedule of gmm_tma_kernel
+      const int last = tiles + (int)gridDim.x - 1;
+      int t = (int)atomicAdd(counter, 1u);
+      if (t == last) atomicExch(counter, 0u);
+      for (int i = 0;; ++i) {
+        const int s = i & 1;
+        mbar_wait(tile_empty + 8 * s, ((i >> 1) & 1) ^ 1);
+        tile_id[s] = t;
+        mbar_arrive(tile_full + 8 * s);
+        if (t >= tiles) break;
+        const int next = (int)atomicAdd(counter, 1u);
+        walk_t_tile<TN>(gs, M, k_tiles, n_tiles, t, load);
+        if (next == last) atomicExch(counter, 0u);
+        t = next;
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw computes K rows 64 cw.. of each tile
+    setmaxnreg_inc<232>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31;
+    const int row = cw * 64 + ((threadIdx.x / 32) & 3) * 16 + lane / 4;
+    const int col = 2 * (lane & 3);
+    unsigned char* stg_p = smem_raw + (stg - raw);
+    const CUtensorMap* map_out = &tm_out;
+    const bool storer = threadIdx.x == 128;
+    float acc[T::ACC];
+    zero_regs(acc);
+    int stage = 0;
+    uint32_t phase = 0;
+    auto compute = [&](int e, int k0, int n0, int lo, int hi, int n) {
+          int used = 0;
+          for (int c = 0; c < n; ++c) {
+            mbar_wait(full_bar + 8 * stage, phase);
+            // this warpgroup's 64 K columns of the chunk's lhs rows; the g rows
+            const uint32_t a = ring + stage * T::STAGE_BYTES + cw * (A_BYTES / 2);
+            const uint32_t b = ring + stage * T::STAGE_BYTES + A_BYTES;
+            // The expert boundary: TMA fills zeros only past M, so the
+            // expert's last chunk brings rows of the next experts (or rows no
+            // expert owns). They become zeros in this warpgroup's own lhs box,
+            // which no other warpgroup reads, before the chunk's products.
+            const int valid = min(hi - (lo + c * BK), BK);  // rows of the chunk that are e's
+            if (valid < BK) {
+              zero_box_rows(smem_raw + (a - raw), valid, threadIdx.x & 127);
+              fence_proxy_async();  // wgmma (the async proxy) sees the zeros
+              if (cw == 0) named_barrier<2, 128>(); else named_barrier<3, 128>();
+            }
+            fence_regs(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int k = 0; k < BK / 16; ++k)  // 16 contraction rows of 128 bytes per step
+              wgmma_t_tile<TN>(acc, wgmma_desc(a + 2048 * k, B_BLOCK, 1024),
+                               wgmma_desc(b + 2048 * k, B_BLOCK, 1024));
+            wgmma_commit();
+            wgmma_wait<1>();
+            if (c > 0 && lane == 0) mbar_arrive(empty_bar + 8 * used);
+            used = stage;
+            if (++stage == T::STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+          wgmma_wait<0>();
+          fence_regs(acc);
+          if (n > 0 && lane == 0) mbar_arrive(empty_bar + 8 * used);
+          // The epilogue stages the tile (zeros for an empty expert: the
+          // output is not zeroed beforehand) once the previous tile's stores
+          // have read the buffer, which they did while this tile's mainloop
+          // ran; this tile's stores run during the next tile's mainloop.
+          if (storer) bulk_wait_read<0>();
+          named_barrier<1, 256>();
+          stage_rows<TN, false>(stg_p, 0, row, col, 0, BM, acc);
+          fence_proxy_async();
+          named_barrier<1, 256>();
+          if (storer) {
+#pragma unroll
+            for (int j = 0; j < TN / 64; ++j)
+              tma_store_2d(map_out, stg + j * BM * 128, n0 + 64 * j, e * K + k0);
+            bulk_commit();
+          }
+          zero_regs(acc);  // the next tile's sum
+        };
+    for (int i = 0;; ++i) {
+      const int s = i & 1;
+      mbar_wait(tile_full + 8 * s, (i >> 1) & 1);
+      const int t = tile_id[s];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(tile_empty + 8 * s);
+      if (t >= tiles) break;
+      walk_t_tile<TN>(gs, M, k_tiles, n_tiles, t, compute);
+    }
+    if (storer) bulk_wait<0>();
+  }
+}
+
+template <int TN>
+int launch_gmm_t(const void* lhs, const void* g, const void* starts, void* out, int M, int K, int N,
+                 int E, cudaStream_t stream) {
+  const size_t smem = TmaTile<TN>::smem_bytes(E);
+  // a runtime call first: autograd runs K6 on its backward thread (launch_gmm_tma)
+  cudaError_t e = cudaFuncSetAttribute(gmm_t_tma_kernel<TN>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  CUtensorMap tm_lhs, tm_g, tm_out;
+  int err = encode_bf16_2d(&tm_lhs, lhs, M, K, BK, 64);
+  if (!err) err = encode_bf16_2d(&tm_g, g, M, N, BK, 64);
+  if (!err) err = encode_bf16_2d(&tm_out, out, (uint64_t)E * K, N, BM, 64);
+  if (err) return err;
+  const int slot = (int)(g_launches.fetch_add(1) % TICKET_SLOTS);
+  const int tiles = E * (K / BM) * (N / TN), sms = sm_count();
+  gmm_t_tma_kernel<TN><<<tiles < sms ? tiles : sms, GMM_THREADS, smem, stream>>>(
+      tm_lhs, tm_g, tm_out, (const int*)starts, M, K, N, E, slot);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -611,11 +668,9 @@ int vt_gmm_dlhs(const void* g, const void* rhs, const void* starts, void* out, i
 
 int vt_gmm_t(const void* lhs, const void* g, const void* starts, void* out, int M, int K, int N,
              int E, void* stream) {
-  cudaError_t err = allow_smem(gmm_t_kernel, T_PIPE);
-  if (err != cudaSuccess) return (int)err;
-  gmm_t_kernel<<<dim3(N / BN, K / BM, E), NTHREADS, T_PIPE, (cudaStream_t)stream>>>(
-      (const bf16*)lhs, (const bf16*)g, (const int*)starts, (bf16*)out, M, K, N);
-  return (int)cudaGetLastError();
+  return N % 256 == 0
+             ? launch_gmm_t<256>(lhs, g, starts, out, M, K, N, E, (cudaStream_t)stream)
+             : launch_gmm_t<128>(lhs, g, starts, out, M, K, N, E, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""Design variants of the grouped-GEMM kernels K4 and K5, timed side by side.
+"""Design variants of the grouped-GEMM kernels K4-K6, timed side by side.
 
 Each variant in ``VARIANTS`` is a list of exact edits to a copy of
 ``veomni_tpu_torch/csrc/grouped_gemm.cu`` (the default is the source as it
@@ -47,12 +47,22 @@ VARIANTS = {
                         ("tma_load_2d_hint(b + j * B_BLOCK, map_b, full, w0 + 64 * j, "
                          "e * K + c * BK, keep);",
                          "tma_load_2d(b + j * B_BLOCK, map_b, full, w0 + 64 * j, e * K + c * BK);")]),
-    "mainloop-only": ("diagnostic: no epilogue (nothing staged, nothing stored)",
+    "mainloop-only": ("diagnostic: K4/K5 without epilogue (nothing staged, nothing stored)",
                       [("stage_rows<TN, false>(stg_p, m0, row, col, lo, hi, acc);", ""),
                        ("stage_rows<TN, true>(stg_p, m0, row, col, gs[E], M, acc);", ""),
                        ("tma_store_2d(map_out, stg + j * BM * 128, w0 + 64 * j, m0);", ";")]),
+    # K6 (the kind "t")
+    "t-no-epilogue": ("diagnostic: K6 without epilogue (nothing staged, nothing stored)",
+                      [("stage_rows<TN, false>(stg_p, 0, row, col, 0, BM, acc);", ""),
+                       ("tma_store_2d(map_out, stg + j * BM * 128, n0 + 64 * j, e * K + k0);",
+                        ";")]),
+    "t-serial-epilogue": ("K6 with its epilogue not overlapped: each tile's stores are waited "
+                          "for before the next tile's mainloop",
+                          [("zero_regs(acc);  // the next tile's sum",
+                            "if (storer) bulk_wait<0>();\n          named_barrier<1, 256>();\n"
+                            "          zero_regs(acc);")]),
 }
-DIAGNOSTIC = ("mainloop-only",)
+DIAGNOSTIC = ("mainloop-only", "t-no-epilogue")
 
 
 def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
@@ -77,7 +87,7 @@ def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}\n{proc.stderr}")
     cdll = ctypes.CDLL(lib)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    for fn in (cdll.vt_gmm_fwd, cdll.vt_gmm_dlhs):
+    for fn in (cdll.vt_gmm_fwd, cdll.vt_gmm_dlhs, cdll.vt_gmm_t):
         fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         fn.restype = ctypes.c_int
     return cdll
@@ -118,19 +128,24 @@ def main(argv=None) -> int:
             rhs = torch.randn(e, k, n, device=dev, generator=gen).bfloat16()
             g = torch.randn(m, n, device=dev, generator=gen).bfloat16()
             refs = {"fwd": gg.gmm_plain(lhs, rhs, starts).float(),
-                    "dlhs": gg.gmm_dlhs_plain(g, rhs, starts).float()}
+                    "dlhs": gg.gmm_dlhs_plain(g, rhs, starts).float(),
+                    "t": gg.gmm_t_plain(lhs, g, starts, e).float()}
             outs = {"fwd": torch.empty(m, n, device=dev, dtype=torch.bfloat16),
-                    "dlhs": torch.empty(m, k, device=dev, dtype=torch.bfloat16)}
+                    "dlhs": torch.empty(m, k, device=dev, dtype=torch.bfloat16),
+                    "t": torch.empty(e, k, n, device=dev, dtype=torch.bfloat16)}
             calls = {name: {
                 "fwd": lambda lib=lib: lib.vt_gmm_fwd(lhs.data_ptr(), rhs.data_ptr(),
                                                      starts.data_ptr(), outs["fwd"].data_ptr(),
                                                      m, k, n, e, stream),
                 "dlhs": lambda lib=lib: lib.vt_gmm_dlhs(g.data_ptr(), rhs.data_ptr(),
                                                        starts.data_ptr(), outs["dlhs"].data_ptr(),
-                                                       m, k, n, e, stream)}
+                                                       m, k, n, e, stream),
+                "t": lambda lib=lib: lib.vt_gmm_t(lhs.data_ptr(), g.data_ptr(),
+                                                 starts.data_ptr(), outs["t"].data_ptr(),
+                                                 m, k, n, e, stream)}
                 for name, lib in libs.items()}
             flops = 2.0 * m * k * n
-            for kind in ("fwd", "dlhs"):
+            for kind in ("fwd", "dlhs", "t"):
                 ms = {name: [] for name in libs}
                 for name in libs:
                     if calls[name][kind]() != 0:
@@ -146,7 +161,7 @@ def main(argv=None) -> int:
                 for name in libs:
                     best = min(ms[name])
                     results[f"K={k} N={n} {kind} {name}"] = best
-                    print(f"K={k} N={n} {kind:4s} {name:15s} {best:.4f} ms "
+                    print(f"K={k} N={n} {kind:4s} {name:17s} {best:.4f} ms "
                           f"({flops / best / 1e9:.0f} TFLOP/s)  [{VARIANTS[name][0]}]", flush=True)
             del lhs, rhs, g, refs, outs, calls
             torch.cuda.empty_cache()
