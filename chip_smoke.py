@@ -15,15 +15,20 @@ Phases (any failure exits non-zero and prints no result line):
    shape (B=4, S=4096, Hq=16, Hkv=8, D=128, packed segments) and at the MoE
    model's head layout (B=1, S=4096, Hq=32, Hkv=4); time kernel, plain
    version and the library yardstick; compute each kernel's bound from this
-   run's inputs;
+   run's inputs, and time K1 on a single-segment batch of the same shape (the
+   function SDPA computes); then K1-K3 on edge cases: S = 128 (one tile), one
+   segment, many short segments (boundaries inside K1's 128-row tiles),
+   boundaries on tile edges, causal and full, Hq/Hkv 4/2 and 32/4;
 4. the same for the grouped-GEMM kernels K4-K6 at the MoE main path's
    shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
    with the group sizes of its real routing (layer 0 on the first packed
    batch), and on small cases with an empty expert, a single expert,
    boundaries in the middle of a tile, a row count that is not a multiple of
    the 128-row tile, fewer rows than one tile, rows that no expert owns
-   (which must come out exactly 0) and 128 experts, most of them empty, with
-   a boundary on a tile edge;
+   (which must come out exactly 0 from K4 and K5; K6 must not count them),
+   experts that end on an edge of K6's 64-row chunks, inside one, or hold
+   fewer rows than one, empty experts (whose drhs K6 must write as exactly
+   0) and 128 experts, most of them empty, with a boundary on a tile edge;
 5. drive the dense main path: Qwen3-0.6B (full width, 28 layers, f32 master
    weights, bf16 compute, ``ctx`` remat, AdamW) for 3 SFT train steps on
    packed seq-4096 batches of micro-batch 4, with every kernel launch
@@ -95,7 +100,7 @@ TOL_LEAF_REL = 5e-2
 # neighbouring bf16 value: GMM_RTOL is one bf16 epsilon (2^-7). Outputs near
 # zero keep the f32 rounding of their larger terms: GMM_ATOL_MAX is 1e-4 of
 # the tensor's largest magnitude. A skipped (tile, expert) pair zeroes whole
-# outputs, a skipped 32-row chunk of K6 moves drhs by ~sqrt(32 / rows of the
+# outputs, a 64-row chunk of K6 lost moves drhs by ~sqrt(64 / rows of the
 # expert) of its size: each breaks the rule many times over.
 GMM_RTOL = 2.0 ** -7
 GMM_ATOL_MAX = 1e-4
@@ -235,7 +240,8 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
         f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
         f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
-        f"segment skip: {kept_tiles(seg, 64, 64):.3f} (K1, K3), {kept_tiles(seg, 32, 64):.3f} (K2)")
+        f"segment skip: {kept_tiles(seg, 128, 128):.3f} (K1), {kept_tiles(seg, 64, 64):.3f} (K3), "
+        f"{kept_tiles(seg, 32, 64):.3f} (K2)")
 
     # K1 through the autograd Function, then K2 + K3 from its backward
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
@@ -263,6 +269,11 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
         "dq": timed_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse_k, delta, scale,
                                                     True, rng)),
     }
+    # K1 on a single-segment batch of the same shape: the function SDPA
+    # computes below, so the like-for-like yardstick of K1
+    seg1 = torch.zeros_like(seg)
+    rng1 = fa.seg_ranges(seg1)
+    single_ms = timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1))
     plain_fwd = timed_ms(lambda: fa.flash_fwd_plain(q, k, v, seg, scale, True), reps=3, warmup=1)
     plain_bwd = timed_ms(lambda: fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, True),
                          reps=3, warmup=1)
@@ -292,7 +303,8 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     table = [
         dict(name="flash_fwd", route="cuda", source=src, replaces=f"{ref}:49",
              max_abs_err=max(err_o, err_lse), ms=ms["fwd"], plain_ms=plain_fwd,
-             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd),
+             bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
+             single_segment_ms=single_ms),
         dict(name="flash_bwd_dkv", route="cuda", source=src, replaces=f"{ref}:155",
              max_abs_err=max(err_dk, err_dv), ms=ms["dkv"], plain_ms=plain_bwd,
              bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=lib_bwd),
@@ -303,9 +315,61 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     for row in table:
         log(f"  {row['name']} ({tag}): {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
             f"{row['bound_by']}, plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms)")
+    log(f"  flash_fwd ({tag}): {4 * d * hq * pairs / ms['fwd'] / 1e9:.1f} TFLOP/s on the "
+        f"visible pairs; on a single-segment batch of the same shape (the function SDPA "
+        f"computes) {single_ms:.3f} ms against SDPA's {lib_fwd:.3f} ms "
+        f"({single_ms / lib_fwd:.2f}x), {4 * d * hq * (b * s * (s + 1) // 2) / single_ms / 1e9:.1f} "
+        f"TFLOP/s")
     log("  (plain_ms of K2 and K3 is the plain backward computing dQ, dK, dV together; "
         "library_ms of K2 and K3 is SDPA's backward, also all three)")
     return table
+
+
+def edge_segments(layout: str) -> torch.Tensor:
+    """[1, S] segment ids of one K1 edge case (K1's tiles are 128 rows)."""
+    if layout == "S=128 one tile":
+        return torch.ones(1, 128, dtype=torch.int32)
+    if layout == "one segment":
+        return torch.ones(1, 512, dtype=torch.int32)
+    if layout == "short segments":  # many boundaries inside each 128-row tile
+        lengths = torch.tensor([5, 17, 40, 3, 60, 1, 33, 96]).repeat(8)
+        return torch.repeat_interleave(torch.arange(1, 65, dtype=torch.int32), lengths)[None, :512]
+    if layout == "tile edges":  # boundaries exactly on tile edges
+        return torch.tensor([1] * 128 + [2] * 256 + [3] * 128, dtype=torch.int32)[None]
+    raise ValueError(layout)
+
+
+def phase_flash_edges(dev):
+    """K1 where its per-tile decisions (skip, mask or not) can break: one
+    tile, one segment, segment boundaries inside tiles and on tile edges,
+    causal and full, at both head layouts; K2 and K3 through the same
+    autograd calls."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+
+    log("flash kernels, edge cases (B=1):")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for layout in ("S=128 one tile", "one segment", "short segments", "tile edges"):
+        seg = edge_segments(layout).to(dev)
+        s = seg.shape[1]
+        for hq, hkv in ((4, 2), (32, 4)):
+            q = torch.randn(1, s, hq, 128, device=dev, generator=gen).bfloat16()
+            k = torch.randn(1, s, hkv, 128, device=dev, generator=gen).bfloat16()
+            v = torch.randn(1, s, hkv, 128, device=dev, generator=gen).bfloat16()
+            do = torch.randn(1, s, hq, 128, device=dev, generator=gen).bfloat16()
+            for causal in (True, False):
+                tag = f"{layout}, S={s} Hq={hq} Hkv={hkv}, {'causal' if causal else 'full'}"
+                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal)
+                out.backward(do)
+                o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, 128 ** -0.5, causal)
+                o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, 128 ** -0.5, causal, fa.seg_ranges(seg))
+                check_close(f"K1 O (edge: {tag})", out, o_p)
+                check_close(f"K1 LSE (edge: {tag})", lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+                delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
+                refs = fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, 128 ** -0.5, causal)
+                for name, got, ref in zip(("K3 dQ", "K2 dK", "K2 dV"),
+                                          (qg.grad, kg.grad, vg.grad), refs):
+                    check_close(f"{name} (edge: {tag})", got, ref)
 
 
 def moe_group_sizes(dev, seq_len: int, micro_bs: int):
@@ -370,6 +434,12 @@ def gmm_case(dev, sizes, k: int, n: int, tag: str, timed: bool = False, rows=Non
     def hold(name, got, ref):
         err = check_close(f"{name} ({tag})", got, ref,
                           atol=GMM_ATOL_MAX * ref.float().abs().max().item(), rtol=GMM_RTOL)
+        if name.startswith("K6") and (sizes == 0).any():  # K6 writes them: torch.empty output
+            if got[sizes == 0].any():
+                raise AssertionError(f"{name} ({tag}): kernel disagrees with its plain version "
+                                     f"(the drhs of an empty expert is not all 0)")
+            log(f"  {name} ({tag}): the drhs of each of {int((sizes == 0).sum())} empty "
+                f"experts is exactly 0")
         if not name.startswith("K6") and m > owned:  # rows no expert owns
             if got[owned:].any():
                 raise AssertionError(f"{name} ({tag}): kernel disagrees with its plain version "
@@ -437,7 +507,10 @@ def phase_gmm(dev):
     for tag, case in {"ragged+empty": [100, 156, 0, 256], "single": [0, 512, 0, 0],
                       "mid-tile": [37, 0, 219, 64, 192],
                       "unaligned M=420": [37, 0, 219, 64, 100],
-                      "M=65 < one tile": [20, 0, 45]}.items():
+                      "M=65 < one tile": [20, 0, 45],
+                      # K6's 64-row chunks: experts ending on a chunk edge (64,
+                      # 192), shorter than a chunk (40), mid-chunk (100)
+                      "chunk edges": [64, 128, 0, 40, 192, 100]}.items():
         gmm_case(dev, torch.tensor(case), 128, 256, f"small {tag}, K=128 N=256")
     gmm_case(dev, torch.tensor([100, 0, 200, 0]), 128, 256,
              "small rows 300..511 past the groups, K=128 N=256", rows=512)
@@ -637,6 +710,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B layout")
     torch.cuda.empty_cache()
+    phase_flash_edges(dev)
     table += phase_gmm(dev)
     torch.cuda.empty_cache()
     by_path = {"dense": phase_main(dev, card)}
@@ -652,7 +726,9 @@ def main() -> int:
         row["launches_by_path"] = counts
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in table]}), flush=True)
+    # single_segment_ms: K1 only (its like-for-like yardstick against SDPA)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("single_segment_ms",) if k in row}
+                                  for row in table]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -79,6 +79,42 @@ def test_kernels_match_plain_on_card(cuda_device, packed, causal, heads):
         _close(got, ref)
 
 
+def _edge_segments(layout):
+    """[1, S] segment ids of one K1 edge case (K1's tiles are 128 rows)."""
+    if layout == "one-tile":  # S = 128: the diagonal tile is the only tile
+        return np.ones((1, 128), np.int32)
+    if layout == "one-segment":
+        return np.ones((1, 512), np.int32)
+    if layout == "short-segments":  # many boundaries inside each 128-row tile
+        lengths = np.resize([5, 17, 40, 3, 60, 1, 33, 96], 64)
+        return np.repeat(np.arange(1, 65, dtype=np.int32), lengths)[None, :512]
+    if layout == "tile-edge":  # boundaries exactly on tile edges
+        seg = np.ones((1, 512), np.int32)
+        seg[:, 128:384] = 2
+        seg[:, 384:] = 3
+        return seg
+    raise ValueError(layout)
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("layout", ["one-tile", "one-segment", "short-segments", "tile-edge"])
+def test_flash_fwd_edge_cases_on_card(cuda_device, layout, causal, heads):
+    """K1 decides per k tile whether it needs the per-element mask (the causal
+    diagonal, more than one segment) and skips disjoint tiles: each layout
+    here puts a segment boundary somewhere else relative to its tiles."""
+    seg = torch.from_numpy(_edge_segments(layout)).to(cuda_device)
+    rng = np.random.default_rng(3)
+    s = seg.shape[1]
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, h, 128)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for h in (heads[0], heads[1], heads[1]))
+    scale = 128 ** -0.5
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, fa.seg_ranges(seg))
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, causal)
+    _close(o_k, o_p)
+    _close(lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+
+
 def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
     """On CUDA tensors the wrapper launches K1-K3 or raises; it never takes
     the plain version."""
@@ -106,7 +142,10 @@ GMM_CASES = {"even": ([128, 128, 128, 128], None), "ragged-empty": ([100, 156, 0
              "unaligned-m": ([37, 0, 219, 64, 100], None),  # M = 420: the last row tile is masked
              "m-below-tile": ([20, 0, 45], None),  # M = 65: one partial tile
              "past-groups": ([100, 0, 200, 0], 512),  # rows 300.. belong to no expert
-             "e128-tile-edge": (_EDGE_128, None)}
+             "e128-tile-edge": (_EDGE_128, None),
+             # K6 reads 64-row chunks: experts that end exactly on a chunk edge
+             # (64, 192), one shorter than a chunk (40) and one mid-chunk (100)
+             "chunk-edges": ([64, 128, 0, 40, 192, 100], None)}
 
 
 def _gmm_close(got, ref):
@@ -120,7 +159,9 @@ def _gmm_close(got, ref):
 @pytest.mark.parametrize("case", list(GMM_CASES.values()), ids=list(GMM_CASES))
 def test_gmm_kernels_match_plain_on_card(cuda_device, case):
     """K4 and K5 write 128-column tiles at 384 columns and 256-column ones at
-    256; rows past the groups come out exactly 0."""
+    256, K6 128-column ones at N = 384; rows past the groups come out exactly
+    0 from K4 and K5, and the drhs of an empty expert exactly 0 from K6
+    (which writes it: the output is not zeroed beforehand)."""
     sizes, rows = case
     rng = np.random.default_rng(1)
     owned, k, n, e = sum(sizes), 256, 384, len(sizes)
@@ -139,6 +180,9 @@ def test_gmm_kernels_match_plain_on_card(cuda_device, case):
     _gmm_close(a.grad, gg.gmm_dlhs_plain(g, rhs, starts))
     _gmm_close(b.grad, gg.gmm_t_plain(lhs, g, starts, e))
     assert not out[owned:].any() and not a.grad[owned:].any()
+    empty = torch.tensor(sizes) == 0
+    assert not b.grad[empty.to(cuda_device)].any()
+    assert not gg.gmm_t_cuda(lhs, g, starts, e)[empty.to(cuda_device)].any()
 
 
 def test_gmm_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):

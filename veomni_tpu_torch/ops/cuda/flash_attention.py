@@ -2,7 +2,9 @@
 
 Port of ``veomni_tpu/ops/pallas/flash_attention.py``. The kernels live in
 ``veomni_tpu_torch/csrc/flash_attention.cu`` (its header says what bounds
-them on the H100 and how the design answers it):
+them on the H100 and how the design answers it: K1 is a Hopper kernel with
+TMA, an mbarrier ring and ``wgmma``, 128-row q tiles on two consumer
+warpgroups; K2 and K3 still use ``mma.sync``):
 
 * K1 ``vt_flash_fwd``     <- ``_fwd_kernel``     (reference ``:49-106``, ``_fwd`` ``:109``)
 * K2 ``vt_flash_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``:155-205``, ``_bwd`` ``:255``)

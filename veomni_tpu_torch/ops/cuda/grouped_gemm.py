@@ -14,9 +14,13 @@ from two consumer warpgroups (128 x 256 output tiles, 128 x 128 where the
 output width is not a multiple of 256) fed by one producer thread, one
 expert at a time per tile with an epilogue that writes only that expert's
 rows (rows no expert owns are written as 0), and a persistent schedule of
-one block per SM. Their C entry points encode the two tensor maps per call
+one block per SM. K6 is built the same way: a tile is 128 K rows x 256 (or
+128) N columns of one expert's drhs, the mainloop runs over the expert's
+rows in 64-row chunks (both operands MN-major), the rows of the next
+expert in its last chunk are zeroed in the lhs stage, an empty expert's
+tiles are written as zeros, and the staged TMA-store epilogue overlaps the
+next tile's mainloop. The C entry points encode the tensor maps per call
 (``csrc/hopper.cuh`` holds the shared TMA, mbarrier and ``wgmma`` helpers).
-K6 is still the ``mma.sync`` / ``cp.async`` kernel of the first port.
 
 Beside each kernel sits its plain PyTorch version (``gmm_plain``,
 ``gmm_dlhs_plain``, ``gmm_t_plain``) with the same inputs and outputs. A

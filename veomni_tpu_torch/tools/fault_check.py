@@ -1,13 +1,15 @@
-"""Planted faults in the grouped-GEMM kernels K4-K6: do ``chip_smoke.py``'s checks bite?
+"""Planted faults in the port's kernels: do ``chip_smoke.py``'s checks bite?
 
 For each fault in ``FAULTS``, copy ``chip_smoke.py`` and ``veomni_tpu_torch/``
 into a fresh directory outside the checkout (under the system temp
-directory), apply one edit to the copy's ``csrc/grouped_gemm.cu`` and run the
-copy's ``chip_smoke.py``. A fault is caught when that run exits non-zero,
-prints no result line and stops at the check named for the fault. Run from
-the repository root on a machine with one NVIDIA Hopper card::
+directory), apply one edit to the fault's source file in the copy (the
+grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash forward K1
+in ``csrc/flash_attention.cu``) and run the copy's ``chip_smoke.py``. A
+fault is caught when that run exits non-zero, prints no result line and
+stops at the check named for the fault. Run from the repository root on a
+machine with one NVIDIA Hopper card::
 
-    python3 -m veomni_tpu_torch.tools.gmm_fault_check [--log-dir DIR]
+    python3 -m veomni_tpu_torch.tools.fault_check [--log-dir DIR] [--only K1,K6]
 
 It prints, for each fault, the edit, the exit code and the failing check's
 log line (with its worst error/allowed ratio), then one JSON summary line,
@@ -30,17 +32,20 @@ import tempfile
 from typing import NamedTuple
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join("veomni_tpu_torch", "csrc", "grouped_gemm.cu")
+GMM_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "grouped_gemm.cu")
+FLASH_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "flash_attention.cu")
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
+# and expert 0's 100 rows are two 64-row chunks for K6
 CASE = "(small ragged+empty, K=128 N=256)"
-RUN_TIMEOUT_S = 900  # one faulted chip_smoke.py run stops at its grouped-GEMM phase
+RUN_TIMEOUT_S = 900  # one faulted chip_smoke.py run stops at its kernel phases
 
 
 class Fault(NamedTuple):
     name: str
     what: str
-    anchor: str  # occurs exactly once in SOURCE
+    source: str  # the file the edit applies to, relative to the repository root
+    anchor: str  # occurs exactly once in source
     replacement: str
     check: str  # the chip_smoke.py check that must fail
 
@@ -60,23 +65,35 @@ def _skip_first_expert(kernel: str) -> str:
 
 FAULTS = (
     Fault("K4", "K4 skips the first expert of (m tile 3, n tile 0): its rows come out 0",
-          _EXPERT_CALL, _skip_first_expert("!DLHS"), f"K4 out (autograd path) {CASE}"),
+          GMM_SOURCE, _EXPERT_CALL, _skip_first_expert("!DLHS"),
+          f"K4 out (autograd path) {CASE}"),
     Fault("K5", "K5 skips the first expert of (m tile 3, k tile 0): its rows come out 0",
-          _EXPERT_CALL, _skip_first_expert("DLHS"), f"K5 dlhs (autograd path) {CASE}"),
-    Fault("K6", "K6 loads 32-row chunk 1 of expert 0's lhs rows as zeros",
-          "load_cr(As, lhs, K, lo + c * BC, k0, hi);",
-          "load_cr(As, lhs, K, lo + c * BC, k0, (e == 0 && c == 1) ? lo : hi);",
+          GMM_SOURCE, _EXPERT_CALL, _skip_first_expert("DLHS"),
+          f"K5 dlhs (autograd path) {CASE}"),
+    # the consumers take every row of chunk 1 of expert 0 for a row of the next
+    # expert and zero it in the lhs stage: that chunk adds nothing (the
+    # producer and the consumers still walk the same chunks)
+    Fault("K6", "K6 zeroes 64-row chunk 1 of expert 0 in the lhs stage",
+          GMM_SOURCE, "const int valid = min(hi - (lo + c * BK), BK);",
+          "const int valid = (e == 0 && c == 1) ? 0 : min(hi - (lo + c * BK), BK);",
           f"K6 drhs (autograd path) {CASE}"),
+    # the shared walk of K1 skips k tile 0 for q tile 1 (rows 128-255): every
+    # row of the dense path's first batch begins with a document of 256 or
+    # more tokens, so the pair is visible in every row and head
+    Fault("K1", "K1 skips the pair (q tile 1, k tile 0) in the walk both roles share",
+          FLASH_SOURCE, "if (disjoint(qr, kr)) continue;  // no visible pair",
+          "if (disjoint(qr, kr) || (q0 == 128 && k0 == 0)) continue;  // no visible pair",
+          "K1 O (autograd path, Qwen3-0.6B layout)"),
 )
 
 
 def plant(root: str, fault: Fault) -> None:
-    """Apply ``fault`` to the grouped-GEMM source under ``root``."""
-    path = os.path.join(root, SOURCE)
+    """Apply ``fault`` to its source file under ``root``."""
+    path = os.path.join(root, fault.source)
     with open(path) as f:
         text = f.read()
     if text.count(fault.anchor) != 1:
-        raise RuntimeError(f"{fault.name}: anchor not found exactly once in {SOURCE}")
+        raise RuntimeError(f"{fault.name}: anchor not found exactly once in {fault.source}")
     with open(path, "w") as f:
         f.write(text.replace(fault.anchor, fault.replacement))
 
@@ -94,7 +111,7 @@ def make_copy(dst: str) -> None:
 
 
 def run_fault(fault: Fault, log_dir: str | None) -> dict:
-    with tempfile.TemporaryDirectory(prefix="gmm_fault_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="fault_check_") as tmp:
         make_copy(tmp)
         plant(tmp, fault)
         env = {**os.environ, "PYTHONPATH": tmp}
@@ -115,11 +132,13 @@ def run_fault(fault: Fault, log_dir: str | None) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-dir", default=None, help="write each run's full output here")
+    ap.add_argument("--only", default=None, help="comma-separated fault names (default: all)")
     args = ap.parse_args(argv)
+    faults = [f for f in FAULTS if not args.only or f.name in args.only.split(",")]
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
     results = []
-    for fault in FAULTS:
+    for fault in faults:
         print(f"{fault.name}: {fault.what}\n  edit: {fault.anchor.strip()!r}\n"
               f"     -> {fault.replacement.strip()!r}", flush=True)
         r = run_fault(fault, args.log_dir)
