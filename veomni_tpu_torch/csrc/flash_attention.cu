@@ -357,6 +357,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
+      fence_regs(p);
       if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage's K and V are consumed
       if (++stage == KV_STAGES) {
         stage = 0;

@@ -171,6 +171,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for registers that a wgmma reads (its register A operand): they
+// stay untouched until this point, after the wgmma_wait that covers it.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // d[64 x N] (+)= A[64 x 16] * B[16 x N], bf16 operands from shared memory,
 // f32 accumulators in registers (the m64nNk16 fragment: thread t of the
 // warpgroup holds rows 16 (t/32) + (t%32)/4 (+8) and, per 8 columns j,

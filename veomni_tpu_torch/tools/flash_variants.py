@@ -22,11 +22,11 @@ from __future__ import annotations
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
+
+from veomni_tpu_torch.tools.gmm_variants import build_edited
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = "flash_attention.cu"
@@ -41,30 +41,18 @@ VARIANTS = {
     "q64": ("64-row q tiles: one consumer warpgroup per block, so each K/V tile is loaded "
             "once per 64 q rows",
             [("constexpr int FWD_CW = 2;", "constexpr int FWD_CW = 1;")]),
+    "kv-3-stages": ("a 3-stage K/V ring (~225 KB of shared memory) instead of 2",
+                    [("constexpr int KV_STAGES = 2;", "constexpr int KV_STAGES = 3;")]),
+    "regs-24-240": ("24 registers for the producer warpgroup, 240 for the consumers "
+                    "(40 and 232)",
+                    [("setmaxnreg_dec<40>();", "setmaxnreg_dec<24>();"),
+                     ("setmaxnreg_inc<CW == 2 ? 232 : 240>();", "setmaxnreg_inc<240>();")]),
 }
 
 
 def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
     """Build csrc with ``edits`` applied to the flash-attention source."""
-    from veomni_tpu_torch.ops.cuda import build
-
-    vdir = os.path.join(workdir, name)
-    shutil.copytree(build.CSRC_DIR, vdir)
-    path = os.path.join(vdir, SOURCE)
-    with open(path) as f:
-        text = f.read()
-    for anchor, replacement in edits:
-        if text.count(anchor) != 1:
-            raise RuntimeError(f"{name}: anchor not found exactly once: {anchor!r}")
-        text = text.replace(anchor, replacement)
-    with open(path, "w") as f:
-        f.write(text)
-    lib = os.path.join(vdir, "lib.so")
-    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib, path],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}\n{proc.stderr}")
-    cdll = ctypes.CDLL(lib)
+    cdll = build_edited(SOURCE, name, edits, workdir)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     cdll.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
     cdll.vt_flash_fwd.restype = ctypes.c_int

@@ -65,13 +65,15 @@ VARIANTS = {
 DIAGNOSTIC = ("mainloop-only", "t-no-epilogue")
 
 
-def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
-    """Build csrc with ``edits`` applied to the grouped-GEMM source."""
+def build_edited(source: str, name: str, edits, workdir: str) -> ctypes.CDLL:
+    """Copy csrc to ``workdir/name``, apply ``edits`` (each anchor must occur
+    exactly once) to ``source`` there, build it with the package's nvcc flags
+    and load it."""
     from veomni_tpu_torch.ops.cuda import build
 
     vdir = os.path.join(workdir, name)
     shutil.copytree(build.CSRC_DIR, vdir)
-    path = os.path.join(vdir, SOURCE)
+    path = os.path.join(vdir, source)
     with open(path) as f:
         text = f.read()
     for anchor, replacement in edits:
@@ -85,7 +87,12 @@ def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}\n{proc.stderr}")
-    cdll = ctypes.CDLL(lib)
+    return ctypes.CDLL(lib)
+
+
+def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
+    """Build csrc with ``edits`` applied to the grouped-GEMM source."""
+    cdll = build_edited(SOURCE, name, edits, workdir)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     for fn in (cdll.vt_gmm_fwd, cdll.vt_gmm_dlhs, cdll.vt_gmm_t):
         fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
