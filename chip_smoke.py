@@ -108,6 +108,9 @@ LAYERS = 28
 MOE_PRESET = "qwen3_30b_a3b"
 MOE_LAYERS = 4
 MAIN_STEPS = 3
+# the numbers of a flash kernel's row that are kept for its MoE head layout
+LAYOUT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+               "single_segment_ms")
 
 
 def log(msg: str) -> None:
@@ -204,6 +207,22 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor, atol=None, rtol
     return max_err
 
 
+def check_deterministic(tag, q, k, v, seg, do, lse, delta, scale, causal, rng):
+    """K2 and K3 twice on the same inputs: dQ, dK and dV must be bit-identical
+    (no atomics, fixed summation orders)."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+
+    runs = [(*fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse, delta, scale, causal, rng),
+             fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse, delta, scale, causal, rng))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("K2 dK", "K2 dV", "K3 dQ"), *runs):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} ({tag}): two launches on the same inputs differ in "
+                                 f"{int((a != b).sum())} elements")
+    log(f"  K2 dK, dV and K3 dQ ({tag}): bit-identical over two launches")
+
+
 def phase_probe(dev):
     """K7 first: does a kernel run on this card at all? Exact comparison."""
     from veomni_tpu_torch.ops.cuda import probe
@@ -237,11 +256,15 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     v = torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
     do = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
     pairs = visible_pairs(seg)
+    split = fa.dkv_group_split(b, s, hq, hkv, torch.cuda.get_device_properties(dev).multi_processor_count)
     log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
         f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
         f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
-        f"segment skip: {kept_tiles(seg, 128, 128):.3f} (K1), {kept_tiles(seg, 64, 64):.3f} (K3), "
-        f"{kept_tiles(seg, 32, 64):.3f} (K2)")
+        f"segment skip: {kept_tiles(seg, 128, 128):.3f} (K1: 128 q x 128 keys), "
+        f"{kept_tiles(seg, 64, 128):.3f} (K2: 64 q x 128 keys), "
+        f"{kept_tiles(seg, fa.DQ_ROWS, fa.DQ_KEYS):.3f} (K3: {fa.DQ_ROWS} q x {fa.DQ_KEYS} "
+        f"keys); "
+        f"K2's q-head group split {split}")
 
     # K1 through the autograd Function, then K2 + K3 from its backward
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
@@ -261,6 +284,7 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     err_dv = check_close(f"K2 dV ({tag})", vg.grad, dv_p)
     del o_p, lse_p, dq_p, dk_p, dv_p, qg, kg, vg, out
     torch.cuda.empty_cache()
+    check_deterministic(f"{tag}, K2 split {split}", q, k, v, seg, do, lse_k, delta, scale, True, rng)
 
     ms = {
         "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg, scale, True, rng)),
@@ -269,11 +293,19 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
         "dq": timed_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse_k, delta, scale,
                                                     True, rng)),
     }
-    # K1 on a single-segment batch of the same shape: the function SDPA
-    # computes below, so the like-for-like yardstick of K1
+    # K1-K3 on a single-segment batch of the same shape: the function SDPA
+    # computes below, so their like-for-like yardstick
     seg1 = torch.zeros_like(seg)
     rng1 = fa.seg_ranges(seg1)
-    single_ms = timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1))
+    _, lse1 = fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1)
+    single = {
+        "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1)),
+        "dkv": timed_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, seg1, do, lse1, delta, scale,
+                                                      True, rng1)),
+        "dq": timed_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, seg1, do, lse1, delta, scale,
+                                                    True, rng1)),
+    }
+    del lse1
     plain_fwd = timed_ms(lambda: fa.flash_fwd_plain(q, k, v, seg, scale, True), reps=3, warmup=1)
     plain_bwd = timed_ms(lambda: fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, True),
                          reps=3, warmup=1)
@@ -304,22 +336,34 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
         dict(name="flash_fwd", route="cuda", source=src, replaces=f"{ref}:49",
              max_abs_err=max(err_o, err_lse), ms=ms["fwd"], plain_ms=plain_fwd,
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
-             single_segment_ms=single_ms),
+             single_segment_ms=single["fwd"]),
         dict(name="flash_bwd_dkv", route="cuda", source=src, replaces=f"{ref}:155",
              max_abs_err=max(err_dk, err_dv), ms=ms["dkv"], plain_ms=plain_bwd,
-             bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=lib_bwd),
+             bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=lib_bwd,
+             single_segment_ms=single["dkv"]),
         dict(name="flash_bwd_dq", route="cuda", source=src, replaces=f"{ref}:208",
              max_abs_err=err_dq, ms=ms["dq"], plain_ms=plain_bwd,
-             bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_bwd),
+             bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_bwd,
+             single_segment_ms=single["dq"]),
     ]
     for row in table:
         log(f"  {row['name']} ({tag}): {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
             f"{row['bound_by']}, plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms)")
+    full_pairs = b * s * (s + 1) // 2
     log(f"  flash_fwd ({tag}): {4 * d * hq * pairs / ms['fwd'] / 1e9:.1f} TFLOP/s on the "
         f"visible pairs; on a single-segment batch of the same shape (the function SDPA "
-        f"computes) {single_ms:.3f} ms against SDPA's {lib_fwd:.3f} ms "
-        f"({single_ms / lib_fwd:.2f}x), {4 * d * hq * (b * s * (s + 1) // 2) / single_ms / 1e9:.1f} "
+        f"computes) {single['fwd']:.3f} ms against SDPA's {lib_fwd:.3f} ms "
+        f"({single['fwd'] / lib_fwd:.2f}x), {4 * d * hq * full_pairs / single['fwd'] / 1e9:.1f} "
         f"TFLOP/s")
+    bwd = ms["dkv"] + ms["dq"]
+    bwd1 = single["dkv"] + single["dq"]
+    # useful work of a backward: 5 products of 2*D FLOPs per visible pair (S, dP,
+    # dV, dK, dQ), as SDPA's backward does them; K2 and K3 each recompute S and dP
+    log(f"  flash backward ({tag}): K2 + K3 {bwd:.3f} ms ({ms['dkv']:.3f} + {ms['dq']:.3f}), "
+        f"{10 * d * hq * pairs / bwd / 1e9:.1f} TFLOP/s of useful work on the visible pairs; "
+        f"on the single-segment batch {bwd1:.3f} ms ({single['dkv']:.3f} + {single['dq']:.3f}) "
+        f"against SDPA's backward {lib_bwd:.3f} ms ({bwd1 / lib_bwd:.2f}x), "
+        f"{10 * d * hq * full_pairs / bwd1 / 1e9:.1f} TFLOP/s of useful work")
     log("  (plain_ms of K2 and K3 is the plain backward computing dQ, dK, dV together; "
         "library_ms of K2 and K3 is SDPA's backward, also all three)")
     return table
@@ -336,6 +380,8 @@ def edge_segments(layout: str) -> torch.Tensor:
         return torch.repeat_interleave(torch.arange(1, 65, dtype=torch.int32), lengths)[None, :512]
     if layout == "tile edges":  # boundaries exactly on tile edges
         return torch.tensor([1] * 128 + [2] * 256 + [3] * 128, dtype=torch.int32)[None]
+    if layout == "three k tiles":  # S = 384: an odd number of 128-key tiles
+        return torch.tensor([1] * 200 + [2] * 184, dtype=torch.int32)[None]
     raise ValueError(layout)
 
 
@@ -347,17 +393,20 @@ def phase_flash_edges(dev):
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
 
     log("flash kernels, edge cases (B=1):")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(3)
-    for layout in ("S=128 one tile", "one segment", "short segments", "tile edges"):
+    for layout in ("S=128 one tile", "one segment", "short segments", "tile edges",
+                   "three k tiles"):
         seg = edge_segments(layout).to(dev)
         s = seg.shape[1]
-        for hq, hkv in ((4, 2), (32, 4)):
+        for hq, hkv in ((4, 2), (32, 4)):  # K2 splits the group: 2 and 8 ways
             q = torch.randn(1, s, hq, 128, device=dev, generator=gen).bfloat16()
             k = torch.randn(1, s, hkv, 128, device=dev, generator=gen).bfloat16()
             v = torch.randn(1, s, hkv, 128, device=dev, generator=gen).bfloat16()
             do = torch.randn(1, s, hq, 128, device=dev, generator=gen).bfloat16()
             for causal in (True, False):
-                tag = f"{layout}, S={s} Hq={hq} Hkv={hkv}, {'causal' if causal else 'full'}"
+                tag = (f"{layout}, S={s} Hq={hq} Hkv={hkv}, {'causal' if causal else 'full'}, "
+                       f"K2 split {fa.dkv_group_split(1, s, hq, hkv, n_sm)}")
                 qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
                 out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal)
                 out.backward(do)
@@ -370,6 +419,46 @@ def phase_flash_edges(dev):
                 for name, got, ref in zip(("K3 dQ", "K2 dK", "K2 dV"),
                                           (qg.grad, kg.grad, vg.grad), refs):
                     check_close(f"{name} (edge: {tag})", got, ref)
+                check_deterministic(f"edge: {tag}", q, k, v, seg, do, lse_k, delta, 128 ** -0.5,
+                                    causal, fa.seg_ranges(seg))
+    phase_flash_empty_walk(dev)
+
+
+def phase_flash_empty_walk(dev):
+    """K2 on a key tile whose walk is empty, and K3 on the q tile of the same
+    tokens. In self-attention a key tile always sees its own q tiles, so an
+    empty walk needs segment ranges that say no pair is visible: tokens
+    128..255 are a segment of their own, and the ranges of their blocks are
+    empty (min 100 > max 99), which meets no range, their own included.
+    Their dK, dV (from K2) and dQ (from K3) must
+    come out exactly 0 (the outputs are torch.empty); every other token's is
+    held to the plain version, which that segment does not touch."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(5)
+    scale = 128 ** -0.5
+    for b, hq, hkv in ((1, 4, 2), (1, 32, 4), (4, 16, 8)):
+        seg = torch.tensor([[1] * 128 + [7] * 128 + [2] * 256] * b, dtype=torch.int32, device=dev)
+        rng = fa.seg_ranges(seg)
+        empty = torch.tensor([100, 99], device=dev)  # min > max: meets no range
+        rng[:, 128 // fa.SEG_RANGE_BLOCK:256 // fa.SEG_RANGE_BLOCK] = empty
+        q, do = (torch.randn(b, 512, hq, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, 512, hkv, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
+        o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, True, fa.seg_ranges(seg))
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
+        dq = fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
+        refs = fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, True)
+        tag = (f"empty walk of tokens 128..255, B={b} S=512 Hq={hq} Hkv={hkv}, "
+               f"K2 split {fa.dkv_group_split(b, 512, hq, hkv, n_sm)}")
+        other = torch.cat([torch.arange(128), torch.arange(256, 512)]).to(dev)
+        for name, got, ref in zip(("K3 dQ", "K2 dK", "K2 dV"), (dq, dk, dv), refs):
+            check_close(f"{name} (edge: {tag}, other tokens)", got[:, other], ref[:, other])
+            if got[:, 128:256].any():
+                raise AssertionError(f"{name} (edge: {tag}): kernel disagrees with its plain "
+                                     f"version (the tokens of the empty walk are not all 0)")
+        log(f"  K3 dQ, K2 dK and dV (edge: {tag}): the empty walk's tokens are exactly 0")
 
 
 def moe_group_sizes(dev, seq_len: int, micro_bs: int):
@@ -706,9 +795,12 @@ def main() -> int:
     table = [phase_probe(dev)]
     # the dense main path's first packed micro-batch: the kernels' real segment layout
     seg = torch.from_numpy(next(packed_batches(151936, 4096, 4))["segment_ids"][0]).to(dev)
-    table += phase_flash(dev, seg, 16, 8, "Qwen3-0.6B layout")
+    flash = phase_flash(dev, seg, 16, 8, "Qwen3-0.6B layout")
     torch.cuda.empty_cache()
-    phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B layout")
+    moe_rows = phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B layout")
+    for row, moe in zip(flash, moe_rows):  # the same kernels at the MoE model's head layout
+        row["moe_layout"] = {k: moe[k] for k in LAYOUT_KEYS}
+    table += flash
     torch.cuda.empty_cache()
     phase_flash_edges(dev)
     table += phase_gmm(dev)
@@ -726,9 +818,10 @@ def main() -> int:
         row["launches_by_path"] = counts
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    # single_segment_ms: K1 only (its like-for-like yardstick against SDPA)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("single_segment_ms",) if k in row}
-                                  for row in table]}), flush=True)
+    # flash K1-K3 only: single_segment_ms (the like-for-like yardstick against
+    # SDPA) and moe_layout (the same numbers at B=1, Hq=32, Hkv=4)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("single_segment_ms", "moe_layout")
+                                   if k in row} for row in table]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

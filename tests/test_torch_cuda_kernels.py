@@ -62,7 +62,8 @@ def _close(got, ref, atol=None, rtol=RTOL):
 @pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_kernels_match_plain_on_card(cuda_device, packed, causal, heads):
-    """gqa8 is the Qwen3-30B-A3B head layout: K2 sums a group of 8 q heads."""
+    """gqa8 is the Qwen3-30B-A3B head layout: K2 sums a group of 8 q heads
+    (split across work items at B = 2, S = 256)."""
     q, k, v, do, seg = _inputs(cuda_device, hq=heads[0], hkv=heads[1], packed=packed)
     scale = q.shape[-1] ** -0.5
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
@@ -93,12 +94,17 @@ def _edge_segments(layout):
         seg[:, 128:384] = 2
         seg[:, 384:] = 3
         return seg
+    if layout == "three-k-tiles":  # S = 384: an odd number of 128-key tiles
+        seg = np.ones((1, 384), np.int32)
+        seg[:, 200:] = 2
+        return seg
     raise ValueError(layout)
 
 
 @pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("layout", ["one-tile", "one-segment", "short-segments", "tile-edge"])
+@pytest.mark.parametrize("layout", ["one-tile", "one-segment", "short-segments", "tile-edge",
+                                    "three-k-tiles"])
 def test_flash_fwd_edge_cases_on_card(cuda_device, layout, causal, heads):
     """K1 decides per k tile whether it needs the per-element mask (the causal
     diagonal, more than one segment) and skips disjoint tiles: each layout
@@ -113,6 +119,55 @@ def test_flash_fwd_edge_cases_on_card(cuda_device, layout, causal, heads):
     o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, causal)
     _close(o_k, o_p)
     _close(lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("layout", ["one-tile", "one-segment", "short-segments", "tile-edge",
+                                    "three-k-tiles"])
+def test_flash_bwd_edge_cases_on_card(cuda_device, layout, causal, heads):
+    """K2 and K3 where their per-tile decisions can break; at B = 1 K2 splits
+    the q-head group (2 and 8 ways). Two launches on the same inputs give
+    bit-identical dQ, dK and dV."""
+    seg = torch.from_numpy(_edge_segments(layout)).to(cuda_device)
+    rng = np.random.default_rng(4)
+    s = seg.shape[1]
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, s, h, 128)).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for h in (heads[0], heads[1], heads[1], heads[0]))
+    scale = 128 ** -0.5
+    seg_rng = fa.seg_ranges(seg)
+    o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, seg_rng)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [fa.flash_bwd(q, k, v, seg, do, lse, delta, scale, causal, seg_rng) for _ in range(2)]
+    for got, again, ref in zip(*runs, fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, causal)):
+        _close(got, ref)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 2), (1, 32, 4), (4, 16, 8)], ids=["gqa2", "gqa8", "b4"])
+def test_flash_bwd_empty_walk_on_card(cuda_device, shape):
+    """A key tile whose walk is empty writes dK = dV = 0, and the q tile of
+    the same tokens dQ = 0: tokens 128..255 are a segment of their own whose
+    blocks' segment ranges are empty (min 100 > max 99), so they meet no
+    range (in self-attention a tile always sees itself, so only the ranges
+    can empty a walk)."""
+    b, hq, hkv = shape
+    seg = torch.tensor([[1] * 128 + [7] * 128 + [2] * 256] * b, dtype=torch.int32,
+                       device=cuda_device)
+    seg_rng = fa.seg_ranges(seg)
+    empty = torch.tensor([100, 99], device=cuda_device)  # min > max: meets no range
+    seg_rng[:, 128 // fa.SEG_RANGE_BLOCK:256 // fa.SEG_RANGE_BLOCK] = empty
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, 512, h, 128)).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    scale = 128 ** -0.5
+    o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, True, fa.seg_ranges(seg))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    got = fa.flash_bwd(q, k, v, seg, do, lse, delta, scale, True, seg_rng)
+    other = torch.cat([torch.arange(128), torch.arange(256, 512)]).to(cuda_device)
+    for g, ref in zip(got, fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, True)):
+        assert not g[:, 128:256].any()
+        _close(g[:, other], ref[:, other])
 
 
 def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):

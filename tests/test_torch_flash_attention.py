@@ -70,3 +70,30 @@ def test_explicit_dispatch_rule_for_ragged_seq():
     assert fa.FALLBACK_CALLS == 1
     ref = jax_attention_xla(q, k, v, segment_ids=jnp.asarray(seg), causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("layout", [
+    # (B, S, Hq, Hkv, split K2 is built for on 132 SMs)
+    (4, 4096, 16, 8, 1),   # Qwen3-0.6B main path: 1024 items, the group of 2 in each
+    (1, 4096, 32, 4, 4),   # Qwen3-30B-A3B head layout at B=1: 128 items, 512 after the split
+    (4, 4096, 32, 4, 1),   # the MoE main path's micro-batch of 4: 512 items
+    (1, 512, 32, 4, 8),    # too few items for any split: the whole group of 8
+    (1, 512, 4, 2, 2),
+], ids=["dense", "moe-b1", "moe-b4", "small-gqa8", "small-gqa2"])
+def test_dkv_group_split_rule(layout):
+    """K2's q-head group split: the smallest divisor of the group that gives
+    at least SPLIT_ITEMS_PER_SM work items per SM, the whole group if none
+    does; the f32 workspace the wrapper allocates follows from it."""
+    b, s, hq, hkv, want = layout
+    split = fa.dkv_group_split(b, s, hq, hkv, 132)
+    assert split == want
+    assert (hq // hkv) % split == 0
+    items = b * hkv * (s // fa.DKV_KEYS) * split
+    assert items >= fa.SPLIT_ITEMS_PER_SM * 132 or split == hq // hkv
+    shape = fa.dkv_workspace_shape(b, s, hkv, split)
+    if split == 1:
+        assert shape is None
+    else:
+        # dK's partials, then dV's: [2, split, B, S, Hkv, D] f32
+        assert shape == (2, split, b, s, hkv, fa.HEAD_DIM)
+        assert np.prod(shape) * 4 == 2 * split * b * s * hkv * 128 * 4

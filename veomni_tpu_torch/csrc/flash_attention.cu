@@ -47,12 +47,25 @@
 // that reach past the diagonal or whose q rows and keys are not all one
 // segment; producer and consumers walk one list of k tiles (walk_k_tiles).
 // O / l leaves through the warpgroup's Q boxes by TMA stores.
-// K2 and K3 are the first port's kernels: each warp owns 16 rows and issues
+// K2 (flash_bwd_dkv_tma_kernel) is built the same way, around a 128-key
+// tile of one kv head (64 keys per consumer warpgroup): K and V are loaded
+// once and are the K-major A operands of S^T = K Q^T and dP^T = V dO^T
+// (wgmma m64n64k16); Q and dO stream in 64-row q tiles through a 2-stage
+// ring, with their rows' LSE, delta and segment ids (1-D bulk copies on the
+// same barrier). P^T = exp2(S^T scale log2 e - LSE log2 e) and dS^T = P^T
+// (dP^T - delta) scale go to bf16 in registers and are the register A
+// operands of dV += P^T dO and dK += dS^T Q, with dO and Q MN-major. A work
+// item walks (q head, q tile) pairs from the causal diagonal on and skips
+// disjoint segment ranges (walk_q_tiles); dK and dV are summed over the
+// q-head group on chip and written once in bf16 (the reference writes
+// per-q-head f32 dK/dV and group-sums them in XLA, :297-299). Where a batch
+// gives too few work items to fill the card, the wrapper splits each group
+// over `split` items (dkv_group_split), which write f32 partials to a
+// workspace; a second kernel of the same call sums them in a fixed order,
+// so the result is the same bit for bit in every launch (no atomics).
+// K3 is still the first port's kernel: each warp owns 16 rows and issues
 // mma.sync m16n8k16 with the S accumulator reused in registers as the A
-// operand; K2 loops over the q heads of one kv group inside the CTA, so
-// dK/dV are summed over the group on chip and written once in bf16 (the
-// reference writes per-q-head f32 dK/dV and group-sums them in XLA,
-// :297-299). Their redesign is later work.
+// operand. Its redesign is next.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,9 +85,6 @@ constexpr float NEG = -1e30f;
 // dq (K3): 64 q rows per CTA (16 per warp), 64-key tiles
 constexpr int FQ = 64;
 constexpr int FK = 64;
-// dkv: 64 keys per CTA (16 per warp), 32-query tiles
-constexpr int BK2 = 64;
-constexpr int BQ2 = 32;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -142,8 +152,8 @@ __device__ __forceinline__ int2 seg_range(const int* rng, int b, int S, int t0, 
 __device__ __forceinline__ bool disjoint(int2 a, int2 b) { return a.y < b.x || b.y < a.x; }
 
 // ---------------------------------------------------------------- K1 forward
-// K1 is the Hopper design (TMA, an mbarrier ring, wgmma, warp roles); K2 and
-// K3 below are still the first port's mma.sync kernels.
+// K1 and K2 are the Hopper design (TMA, an mbarrier ring, wgmma, warp roles);
+// K3 below is still the first port's mma.sync kernel.
 constexpr int KV_TILE = 128;         // keys per K/V tile
 constexpr int FWD_CW = 2;            // consumer warpgroups: 64 q rows each
 constexpr int KV_STAGES = 2;
@@ -539,138 +549,329 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 // ---------------------------------------------------------------- K2 dK, dV
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                     const int* __restrict__ seg_rng, const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int S, int Hq, int Hkv, float scale,
-                     int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + BK2 * LD;
-  __nv_bfloat16* Qs = Vs + BK2 * LD;
-  __nv_bfloat16* dOs = Qs + BQ2 * LD;
-  float* lses = reinterpret_cast<float*>(dOs + BQ2 * LD);
-  float* dls = lses + BQ2;
-  int* segq = reinterpret_cast<int*>(dls + BQ2);
+// A work item is a 128-key tile of one kv head (two consumer warpgroups of
+// 64 keys each) and the q heads h0 .. h0 + nh - 1 of its group; K and V are
+// loaded once, Q, dO and their rows' LSE, delta and segment ids stream in
+// 64-row q tiles through a 2-stage ring.
+constexpr int DKV_KT = 128;                  // keys per work item
+constexpr int DKV_QT = 64;                   // q rows per streamed tile
+constexpr int DKV_STAGES = 2;
+constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;  // setmaxnreg
+// The per-element mask on every q tile, not only on those walk_q_tiles flags:
+// with the two paths in one loop ptxas spills the accumulators (540 bytes of
+// spill stores against 312) and the kernel takes ~1.5x as long (flash_variants)
+constexpr bool DKV_MASK_EVERY_TILE = true;
+constexpr int DKV_ROW_BYTES = DKV_QT * 4;    // one tile's LSE (or delta, or segment ids)
+constexpr int DKV_STAGE = 4 * Q_BOX + 1024;  // Q's two boxes, dO's two, the three rows (padded)
+// 1024 bytes of alignment slack, K's two boxes and V's two, the ring, then the
+// barriers: K and V's, and per stage full and empty
+constexpr size_t DKV_SMEM = 1024 + 4 * KV_BOX + DKV_STAGES * DKV_STAGE + 8 * (1 + 2 * DKV_STAGES);
 
-  const int jk = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int k0 = jk * BK2;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qstride = (int64_t)Hq * D, kstride = (int64_t)Hkv * D;
-
-  load_tile<BK2>(Ks, k + ((int64_t)b * S + k0) * kstride + (int64_t)hk * D, kstride);
-  load_tile<BK2>(Vs, v + ((int64_t)b * S + k0) * kstride + (int64_t)hk * D, kstride);
-
-  const int kj0 = k0 + warp * 16 + g, kj1 = kj0 + 8;  // key rows held by this thread
-  const int sk0 = seg[(int64_t)b * S + kj0], sk1 = seg[(int64_t)b * S + kj1];
-
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[i][e] = dva[i][e] = 0.f;
-
-  const int iq_start = causal ? k0 / BQ2 : 0;
-  const int nq = S / BQ2;
-  const int2 kr = seg_range(seg_rng, b, S, k0, BK2);
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = hk * group + hh;
-    const float* lrow = lse + ((int64_t)b * Hq + h) * S;
-    const float* drow = delta + ((int64_t)b * Hq + h) * S;
-    for (int iq = iq_start; iq < nq; ++iq) {
-      const int q0 = iq * BQ2;
-      if (disjoint(kr, seg_range(seg_rng, b, S, q0, BQ2))) continue;  // uniform over the CTA
-      __syncthreads();
-      load_tile<BQ2>(Qs, q + ((int64_t)b * S + q0) * qstride + (int64_t)h * D, qstride);
-      load_tile<BQ2>(dOs, dout + ((int64_t)b * S + q0) * qstride + (int64_t)h * D, qstride);
-      for (int i = threadIdx.x; i < BQ2; i += NTHREADS) {
-        const float l = lrow[q0 + i];
-        lses[i] = l <= 0.5f * NEG ? 0.f : l;
-        dls[i] = drow[q0 + i];
-        segq[i] = seg[(int64_t)b * S + q0 + i];
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ2 queries
-      float s[BQ2 / 8][4], dp[BQ2 / 8][4];
-#pragma unroll
-      for (int n = 0; n < BQ2 / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) {
-        uint32_t a[4], av[4];
-        load_a(a, Ks, warp * 16, kd * 16, g, t);
-        load_a(av, Vs, warp * 16, kd * 16, g, t);
-#pragma unroll
-        for (int n = 0; n < BQ2 / 8; ++n) {
-          uint32_t bb[2];
-          load_bt(bb, Qs, n * 8, kd * 16, g, t);
-          mma16816(s[n], a, bb);
-          load_bt(bb, dOs, n * 8, kd * 16, g, t);
-          mma16816(dp[n], av, bb);
-        }
-      }
-      // P^T on visible pairs; dS^T = P^T * (dP^T - delta) * scale
-#pragma unroll
-      for (int n = 0; n < BQ2 / 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + 2 * t + (e & 1);
-          const int qi = q0 + col;
-          const bool vis = e < 2 ? visible(qi, kj0, segq[col], sk0, causal)
-                                 : visible(qi, kj1, segq[col], sk1, causal);
-          const float p = vis ? expf(s[n][e] * scale - lses[col]) : 0.f;
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dls[col]) * scale;
-        }
-      }
-      // dV += P^T dO ; dK += dS^T Q
-#pragma unroll
-      for (int kq = 0; kq < BQ2 / 16; ++kq) {
-        uint32_t ap[4], ad[4];
-        ap[0] = pack_f32(s[2 * kq][0], s[2 * kq][1]);
-        ap[1] = pack_f32(s[2 * kq][2], s[2 * kq][3]);
-        ap[2] = pack_f32(s[2 * kq + 1][0], s[2 * kq + 1][1]);
-        ap[3] = pack_f32(s[2 * kq + 1][2], s[2 * kq + 1][3]);
-        ad[0] = pack_f32(dp[2 * kq][0], dp[2 * kq][1]);
-        ad[1] = pack_f32(dp[2 * kq][2], dp[2 * kq][3]);
-        ad[2] = pack_f32(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
-        ad[3] = pack_f32(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
-#pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          uint32_t bb[2];
-          load_b(bb, dOs, kq * 16, nd * 8, g, t);
-          mma16816(dva[nd], ap, bb);
-          load_b(bb, Qs, kq * 16, nd * 8, g, t);
-          mma16816(dka[nd], ad, bb);
-        }
-      }
+// The (q head, q tile) pairs that keys [k0, k0 + DKV_KT) of row b see, in
+// order: for each q head h0 .. h0 + nh - 1, the 64-row q tiles from the
+// causal diagonal on whose segment range meets the keys' (a pair of disjoint
+// ranges has no visible (query, key) pair and is skipped); masked as in
+// walk_k_tiles: the tile reaches the causal diagonal, or the keys and the q
+// rows are not all of one and the same segment. The producer and the
+// consumers walk the same list.
+template <typename Tile>
+__device__ __forceinline__ void walk_q_tiles(const int* rng, int b, int S, int k0, int h0, int nh,
+                                             bool causal, Tile tile) {
+  const int2 kr = seg_range(rng, b, S, k0, DKV_KT);
+  const int first = causal ? k0 / DKV_QT : 0;
+  for (int h = h0; h < h0 + nh; ++h) {
+    for (int iq = first; iq < S / DKV_QT; ++iq) {
+      const int q0 = iq * DKV_QT;
+      const int2 qr = seg_range(rng, b, S, q0, DKV_QT);
+      if (disjoint(kr, qr)) continue;  // no visible pair
+      const bool masked = (causal && q0 < k0 + DKV_KT - 1) || kr.x != kr.y || qr.x != kr.x || qr.y != kr.x;
+      tile(h, q0, masked);
     }
-  }
-
-  __nv_bfloat16* k_0 = dk + ((int64_t)b * S + kj0) * kstride + (int64_t)hk * D;
-  __nv_bfloat16* k_1 = dk + ((int64_t)b * S + kj1) * kstride + (int64_t)hk * D;
-  __nv_bfloat16* v_0 = dv + ((int64_t)b * S + kj0) * kstride + (int64_t)hk * D;
-  __nv_bfloat16* v_1 = dv + ((int64_t)b * S + kj1) * kstride + (int64_t)hk * D;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(k_0 + col) = pack_f32(dka[nd][0], dka[nd][1]);
-    *reinterpret_cast<uint32_t*>(k_1 + col) = pack_f32(dka[nd][2], dka[nd][3]);
-    *reinterpret_cast<uint32_t*>(v_0 + col) = pack_f32(dva[nd][0], dva[nd][1]);
-    *reinterpret_cast<uint32_t*>(v_1 + col) = pack_f32(dva[nd][2], dva[nd][3]);
   }
 }
 
+// 1-D grid of B * Hkv * (S / DKV_KT) * split work items, the first key tiles
+// (the heaviest under a causal mask) first; block 384 threads: warpgroup 0
+// the producer, 1 and 2 the consumers. tm_q, tm_do: [B*S, Hq*128] in 64 x 64
+// boxes; tm_k, tm_v: [B*S, Hkv*128] in 128 x 64 boxes; tm_dk, tm_dv: the same
+// in 64 x 64 boxes. With split > 1 the item's f32 partial sums go to ws
+// [split, B, S, Hkv, D] (dK), then [split, B, S, Hkv, D] (dV), else dK and dV
+// leave in bf16 by TMA stores.
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
+                         __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
+                         __grid_constant__ const CUtensorMap tm_dk, __grid_constant__ const CUtensorMap tm_dv,
+                         const int* __restrict__ seg, const int* __restrict__ seg_rng,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ ws, int B, int S, int Hq, int Hkv, int split, float scale,
+                         int causal) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t kv_smem = (raw + 1023) & ~1023u;  // K box j at j KV_BOX, V box j at (2 + j) KV_BOX
+  const uint32_t ring = kv_smem + 4 * KV_BOX;      // stage s at s DKV_STAGE
+  const uint32_t kv_full = ring + DKV_STAGES * DKV_STAGE;
+  const uint32_t full = kv_full + 8;               // stage s: + 8 s
+  const uint32_t empty = full + 8 * DKV_STAGES;
+  const int per_tile = B * Hkv * split;
+  const int k0 = ((int)blockIdx.x / per_tile) * DKV_KT;  // the first key tiles first
+  const int rest = (int)blockIdx.x % per_tile;
+  const int b = rest / (Hkv * split), hk = rest / split % Hkv, sp = rest % split;
+  const int group = Hq / Hkv, nh = group / split;
+  const int h0 = hk * group + sp * nh;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < DKV_STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads K and V once, then Q, dO and the rows tile by tile
+    setmaxnreg_dec<DKV_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* map_q = &tm_q;
+      const CUtensorMap* map_do = &tm_do;
+      mbar_arrive_expect_tx(kv_full, 4 * KV_BOX);
+      for (int j = 0; j < 2; ++j) {
+        tma_load_2d(kv_smem + j * KV_BOX, &tm_k, kv_full, hk * D + 64 * j, b * S + k0);
+        tma_load_2d(kv_smem + (2 + j) * KV_BOX, &tm_v, kv_full, hk * D + 64 * j, b * S + k0);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int h, int q0, bool) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = ring + stage * DKV_STAGE;
+        const uint32_t bar = full + 8 * stage;
+        mbar_arrive_expect_tx(bar, 4 * Q_BOX + 3 * DKV_ROW_BYTES);
+        for (int j = 0; j < 2; ++j) {
+          tma_load_2d(st + j * Q_BOX, map_q, bar, h * D + 64 * j, b * S + q0);
+          tma_load_2d(st + (2 + j) * Q_BOX, map_do, bar, h * D + 64 * j, b * S + q0);
+        }
+        const int64_t row = ((int64_t)b * Hq + h) * S + q0;
+        bulk_load_1d(st + 4 * Q_BOX, lse + row, DKV_ROW_BYTES, bar);
+        bulk_load_1d(st + 4 * Q_BOX + DKV_ROW_BYTES, delta + row, DKV_ROW_BYTES, bar);
+        bulk_load_1d(st + 4 * Q_BOX + 2 * DKV_ROW_BYTES, seg + (int64_t)b * S + q0, DKV_ROW_BYTES, bar);
+        if (++stage == DKV_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      });
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns keys k0 + 64 cw ..
+    setmaxnreg_inc<DKV_CONSUMER_REGS>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r0 = ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // fragment rows r0, r0 + 8 of the 64
+    const int kj0 = k0 + 64 * cw + r0, kj1 = kj0 + 8;
+    const int sk0 = seg[(int64_t)b * S + kj0], sk1 = seg[(int64_t)b * S + kj1];
+    const float sl2 = scale * LOG2E;  // scores in log2 units: exp2 instead of exp
+    const uint32_t ka = kv_smem + cw * Q_BOX;  // this warpgroup's 64 rows of K's first box
+    const uint32_t va = ka + 2 * KV_BOX;       // and of V's
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(kv_full, 0);
+    walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int, int q0, bool flagged) {
+      const bool masked = DKV_MASK_EVERY_TILE || flagged;
+      const uint32_t st = ring + stage * DKV_STAGE;
+      const unsigned char* rows = smem_raw + (st + 4 * Q_BOX - raw);
+      const float* lse_t = reinterpret_cast<const float*>(rows);
+      const float* delta_t = reinterpret_cast<const float*>(rows + DKV_ROW_BYTES);
+      const int* seg_t = reinterpret_cast<const int*>(rows + 2 * DKV_ROW_BYTES);
+      // S^T = K Q^T and dP^T = V dO^T, all four operands K-major; the first
+      // step of each ignores the accumulator (scale_d 0)
+      float s[32], dp[32];
+      mbar_wait(full + 8 * stage, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint32_t off = (kd / 4) * KV_BOX + 32 * (kd % 4);
+        wgmma_m64n64k16<0>(s, wgmma_desc(ka + off, 16, 1024),
+                           wgmma_desc(st + (kd / 4) * Q_BOX + 32 * (kd % 4), 16, 1024), kd > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint32_t off = (kd / 4) * KV_BOX + 32 * (kd % 4);
+        wgmma_m64n64k16<0>(dp, wgmma_desc(va + off, 16, 1024),
+                           wgmma_desc(st + (2 + kd / 4) * Q_BOX + 32 * (kd % 4), 16, 1024), kd > 0);
+      }
+      wgmma_commit();
+      // P^T = exp2(S^T scale log2 e - LSE log2 e) in the accumulator layout:
+      // this thread holds keys r0 (s[4j], s[4j+1]) and r0 + 8 (s[4j+2],
+      // s[4j+3]), q columns 8j + 2t (+1); a row without a visible key has
+      // LSE -1e30, read as 0 (reference :188)
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 l = *reinterpret_cast<const float2*>(lse_t + c);
+        const float l0 = (l.x <= 0.5f * NEG ? 0.f : l.x) * LOG2E;
+        const float l1 = (l.y <= 0.5f * NEG ? 0.f : l.y) * LOG2E;
+        if (masked) {
+          const int2 sq = *reinterpret_cast<const int2*>(seg_t + c);
+          s[4 * j + 0] = visible(q0 + c, kj0, sq.x, sk0, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -l0)) : 0.f;
+          s[4 * j + 1] = visible(q0 + c + 1, kj0, sq.y, sk0, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -l1)) : 0.f;
+          s[4 * j + 2] = visible(q0 + c, kj1, sq.x, sk1, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -l0)) : 0.f;
+          s[4 * j + 3] = visible(q0 + c + 1, kj1, sq.y, sk1, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -l1)) : 0.f;
+        } else {
+          s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], sl2, -l0));
+          s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -l1));
+          s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -l0));
+          s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -l1));
+        }
+      }
+      // dS^T = P^T (dP^T - delta) scale
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(delta_t + 8 * j + 2 * t);
+        dp[4 * j + 0] = s[4 * j + 0] * (dp[4 * j + 0] - dl.x) * scale;
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - dl.y) * scale;
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale;
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale;
+      }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T in bf16 registers (A),
+      // dO and Q MN-major (B, head dims contiguous: two 64-column boxes
+      // Q_BOX apart), 16 q rows per step
+      uint32_t p[16], ds[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        p[i] = pack_f32(s[2 * i], s[2 * i + 1]);
+        ds[i] = pack_f32(dp[2 * i], dp[2 * i + 1]);
+      }
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DKV_QT / 16; ++kk)
+        wgmma_m64n128k16_rs<1>(dv, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                               wgmma_desc(st + 2 * Q_BOX + 2048 * kk, Q_BOX, 1024), 1);
+#pragma unroll
+      for (int kk = 0; kk < DKV_QT / 16; ++kk)
+        wgmma_m64n128k16_rs<1>(dk, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
+                               wgmma_desc(st + 2048 * kk, Q_BOX, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(p);
+      fence_regs(ds);
+      if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage is consumed
+      if (++stage == DKV_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    });
+
+    if (split == 1) {
+      // dK and dV in bf16 into this warpgroup's rows of the K and V boxes
+      // (no longer read) in the 128-byte swizzle, then TMA stores
+      unsigned char* kb = smem_raw + (ka - raw);
+      unsigned char* vb = smem_raw + (va - raw);
+      const int sw = r0 & 7;  // the same for r0 + 8
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int off = (j / 8) * KV_BOX + ((j & 7) ^ sw) * 16 + 4 * t;
+        *reinterpret_cast<uint32_t*>(kb + off + r0 * 128) = pack_f32(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(kb + off + (r0 + 8) * 128) = pack_f32(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(vb + off + r0 * 128) = pack_f32(dv[4 * j], dv[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(vb + off + (r0 + 8) * 128) = pack_f32(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+      fence_proxy_async();
+      if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
+      if ((threadIdx.x & 127) == 0) {
+        for (int j = 0; j < 2; ++j) {
+          tma_store_2d(&tm_dk, ka + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
+          tma_store_2d(&tm_dv, va + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
+        }
+        bulk_commit();
+        bulk_wait<0>();  // the block's shared memory outlives the stores
+      }
+    } else {
+      // f32 partial sums of this item's q heads, summed by dkv_split_sum_kernel
+      const int64_t plane = (int64_t)B * S * Hkv * D;
+      float* wk = ws + sp * plane + ((int64_t)b * S + kj0) * Hkv * D + (int64_t)hk * D;
+      float* wv = wk + split * plane;
+      const int64_t row8 = 8 * (int64_t)Hkv * D;  // key row r0 + 8
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(wk + c) = make_float2(dk[4 * j], dk[4 * j + 1]);
+        *reinterpret_cast<float2*>(wk + row8 + c) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
+        *reinterpret_cast<float2*>(wv + c) = make_float2(dv[4 * j], dv[4 * j + 1]);
+        *reinterpret_cast<float2*>(wv + row8 + c) = make_float2(dv[4 * j + 2], dv[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// dK, dV [B,S,Hkv,D] bf16 = the sum of ws's split partials (dK's, then dV's),
+// split 0 first: the same order in every launch, so the same bits. Four
+// values per thread.
+__global__ void dkv_split_sum_kernel(const float* __restrict__ ws, __nv_bfloat16* __restrict__ dk,
+                                     __nv_bfloat16* __restrict__ dv, int64_t n, int split) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= n) return;
+#pragma unroll
+  for (int which = 0; which < 2; ++which) {
+    const float* src = ws + which * split * n + i;
+    float4 acc = *reinterpret_cast<const float4*>(src);
+    for (int p = 1; p < split; ++p) {
+      const float4 x = *reinterpret_cast<const float4*>(src + p * n);
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    uint2 out = make_uint2(pack_f32(acc.x, acc.y), pack_f32(acc.z, acc.w));
+    *reinterpret_cast<uint2*>((which ? dv : dk) + i) = out;
+  }
+}
+
+int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
+                         const void* seg_rng, const void* dout, const void* lse, const void* delta,
+                         void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
+                         float scale, int causal, cudaStream_t stream) {
+  if (split < 1 || (Hq / Hkv) % split || (split > 1 && !ws)) return (int)cudaErrorInvalidValue;
+  // a runtime call first: it makes the device's context current on this
+  // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
+  const uint64_t rows = (uint64_t)B * S;
+  int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, DKV_QT, 64);
+  if (!err) err = encode_bf16_2d(&tm_do, dout, rows, (uint64_t)Hq * D, DKV_QT, 64);
+  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, DKV_KT, 64);
+  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, DKV_KT, 64);
+  if (!err) err = encode_bf16_2d(&tm_dk, dk, rows, (uint64_t)Hkv * D, 64, 64);
+  if (!err) err = encode_bf16_2d(&tm_dv, dv, rows, (uint64_t)Hkv * D, 64, 64);
+  if (err) return err;
+  const int items = B * Hkv * (S / DKV_KT) * split;
+  flash_bwd_dkv_tma_kernel<<<items, 384, DKV_SMEM, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, (const int*)seg, (const int*)seg_rng,
+      (const float*)lse, (const float*)delta, (float*)ws, B, S, Hq, Hkv, split, scale, causal);
+  if (split > 1) {
+    const int64_t n = (int64_t)B * S * Hkv * D;
+    dkv_split_sum_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
+        (const float*)ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, split);
+  }
+  return (int)cudaGetLastError();
+}
+
 constexpr size_t DQ_SMEM = (size_t)(2 * FQ + 2 * FK) * LD * sizeof(__nv_bfloat16) + FK * sizeof(int);
-constexpr size_t DKV_SMEM =
-    (size_t)(2 * BK2 + 2 * BQ2) * LD * sizeof(__nv_bfloat16) + 3 * BQ2 * sizeof(float);
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -696,16 +897,11 @@ int vt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
 
 int vt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
                      const void* seg_rng, const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int B, int S, int Hq, int Hkv, float scale, int causal,
-                     void* stream) {
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / BK2, Hkv, B);
-  flash_bwd_dkv_kernel<<<grid, NTHREADS, DKV_SMEM, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)seg, (const int*)seg_rng, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, Hq, Hkv, scale, causal);
-  return (int)cudaGetLastError();
+                     void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
+                     float scale, int causal, void* stream) {
+  const int nsplit = split;  // the wrapper's dkv_group_split; ws holds 2 * split f32 planes
+  return launch_flash_bwd_dkv(q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws, nsplit, B, S,
+                              Hq, Hkv, scale, causal, (cudaStream_t)stream);
 }
 
 int vt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg,

@@ -2,9 +2,10 @@
 
 Port of ``veomni_tpu/ops/pallas/flash_attention.py``. The kernels live in
 ``veomni_tpu_torch/csrc/flash_attention.cu`` (its header says what bounds
-them on the H100 and how the design answers it: K1 is a Hopper kernel with
-TMA, an mbarrier ring and ``wgmma``, 128-row q tiles on two consumer
-warpgroups; K2 and K3 still use ``mma.sync``):
+them on the H100 and how the design answers it: K1 and K2 are Hopper
+kernels with TMA, an mbarrier ring and ``wgmma``, K1 on 128-row q tiles and
+K2 on 128-key tiles, each on two consumer warpgroups; K3 still uses
+``mma.sync``):
 
 * K1 ``vt_flash_fwd``     <- ``_fwd_kernel``     (reference ``:49-106``, ``_fwd`` ``:109``)
 * K2 ``vt_flash_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``:155-205``, ``_bwd`` ``:255``)
@@ -119,7 +120,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_vt_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
-        lib.vt_flash_bwd_dkv.argtypes = [ptr] * 10 + [i32] * 4 + [f32, i32, ptr]
+        lib.vt_flash_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 5 + [f32, i32, ptr]
         lib.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
         for fn in (lib.vt_flash_fwd, lib.vt_flash_bwd_dkv, lib.vt_flash_bwd_dq,
                    lib.vt_seg_range_block):
@@ -151,6 +152,36 @@ def _check(q, k, v, seg, *extra):
             raise ValueError("flash kernels take contiguous [B,S,H,D] tensors")
 
 
+# K3's tiles: DQ_ROWS q rows of one q head per block, DQ_KEYS keys per k tile
+DQ_ROWS = 64
+DQ_KEYS = 64
+# K2's work items: DKV_KEYS keys of one kv head; at least SPLIT_ITEMS_PER_SM
+# items per SM before the q-head group is split across items
+DKV_KEYS = 128
+SPLIT_ITEMS_PER_SM = 2
+
+
+def dkv_group_split(b: int, s: int, hq: int, hkv: int, n_sm: int) -> int:
+    """How many work items share one kv head's q-head group in K2: the
+    smallest divisor ``split`` of the group (Hq / Hkv) that gives at least
+    SPLIT_ITEMS_PER_SM items per SM, the whole group if none does. With
+    ``split`` > 1 each item sums its Hq / Hkv / split heads into an f32
+    workspace ``[2, split, B, S, Hkv, D]`` (dkv_workspace_shape) that K2 then
+    sums in a fixed order."""
+    group = hq // hkv
+    items = b * hkv * (s // DKV_KEYS)
+    for split in range(1, group + 1):
+        if group % split == 0 and items * split >= SPLIT_ITEMS_PER_SM * n_sm:
+            return split
+    return group
+
+
+def dkv_workspace_shape(b: int, s: int, hkv: int, split: int):
+    """f32 workspace of K2 at ``split`` (None: no workspace): dK's partials,
+    then dV's."""
+    return None if split == 1 else (2, split, b, s, hkv, HEAD_DIM)
+
+
 def seg_ranges(seg):
     """[B, S/SEG_RANGE_BLOCK, 2] int32: min and max segment id of each block
     of tokens, so the kernels can skip tile pairs whose segments cannot meet.
@@ -177,13 +208,14 @@ def _check_rows(q, lse, delta):
             raise ValueError("lse/delta must be on q's device")
 
 
-def _launch(name: str, tensors, q, k, scale: float, causal: bool) -> None:
+def _launch(name: str, tensors, q, k, scale: float, causal: bool, ints=()) -> None:
     """Launch ``vt_<name>`` on the current stream, raise on a CUDA error,
-    count the launch."""
+    count the launch. ``tensors`` may hold None (a null pointer); ``ints``
+    go before the shape."""
     b, s, hq, _ = q.shape
     err = getattr(_lib(), "vt_" + name)(
-        *(t.data_ptr() for t in tensors), b, s, hq, k.shape[2], float(scale), int(causal),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        *(0 if t is None else t.data_ptr() for t in tensors), *ints, b, s, hq, k.shape[2],
+        float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -209,9 +241,15 @@ def flash_bwd_dkv_cuda(q, k, v, seg, dout, lse, delta, scale: float, causal: boo
     _check(q, k, v, seg, dout)
     _check_rows(q, lse, delta)
     _check_ranges(seg, seg_rng)
+    b, s, hq, _ = q.shape
+    hkv = k.shape[2]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    split = dkv_group_split(b, s, hq, hkv, n_sm)
+    shape = dkv_workspace_shape(b, s, hkv, split)
+    ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", (q, k, v, seg, seg_rng, dout, lse, delta, dk, dv),
-            q, k, scale, causal)
+    _launch("flash_bwd_dkv", (q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws),
+            q, k, scale, causal, ints=(split,))
     return dk, dv
 
 

@@ -3,7 +3,7 @@
 For each fault in ``FAULTS``, copy ``chip_smoke.py`` and ``veomni_tpu_torch/``
 into a fresh directory outside the checkout (under the system temp
 directory), apply one edit to the fault's source file in the copy (the
-grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash forward K1
+grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash kernels K1-K3
 in ``csrc/flash_attention.cu``) and run the copy's ``chip_smoke.py``. A
 fault is caught when that run exits non-zero, prints no result line and
 stops at the check named for the fault. Run from the repository root on a
@@ -84,6 +84,19 @@ FAULTS = (
           FLASH_SOURCE, "if (disjoint(qr, kr)) continue;  // no visible pair",
           "if (disjoint(qr, kr) || (q0 == 128 && k0 == 0)) continue;  // no visible pair",
           "K1 O (autograd path, Qwen3-0.6B layout)"),
+    # the shared walk of K2 skips q tile 2 (rows 128-191) of the first q head
+    # of every work item for key tile 0: visible in every row of that batch
+    Fault("K2", "K2 skips the pair (first q head, q tile 2) of key tile 0 in the walk both "
+                "roles share",
+          FLASH_SOURCE, "if (disjoint(kr, qr)) continue;  // no visible pair",
+          "if (disjoint(kr, qr) || (h == h0 && q0 == 128 && k0 == 0)) continue;  // no visible pair",
+          "K2 dK (Qwen3-0.6B layout)"),
+    # at the Qwen3-30B-A3B layout (B = 1) K2 splits each group of 8 q heads
+    # over 4 work items; the fixed-order sum leaves out dV's last partial
+    Fault("K2-split", "K2's fixed-order sum of the split partials leaves out dV's last split",
+          FLASH_SOURCE, "for (int p = 1; p < split; ++p) {",
+          "for (int p = 1; p < split - which; ++p) {",
+          "K2 dV (Qwen3-30B-A3B layout)"),
 )
 
 
