@@ -1,9 +1,9 @@
 // Flash attention for Hopper (sm_90a): forward (K1), dK/dV (K2), dQ (K3).
 //
 // Replaces the Pallas TPU kernels of veomni_tpu/ops/pallas/flash_attention.py:
-//   K1 flash_fwd_tma_kernel <- _fwd_kernel      (:49-106, launched by _fwd :109)
-//   K2 flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (:155-205, launched by _bwd :255)
-//   K3 flash_bwd_dq_kernel  <- _bwd_dq_kernel   (:208-252, launched by _bwd :255)
+//   K1 flash_fwd_tma_kernel     <- _fwd_kernel      (:49-106, launched by _fwd :109)
+//   K2 flash_bwd_dkv_tma_kernel <- _bwd_dkv_kernel  (:155-205, launched by _bwd :255)
+//   K3 flash_bwd_dq_tma_kernel  <- _bwd_dq_kernel   (:208-252, launched by _bwd :255)
 //
 // What they compute (same as the Pallas kernels): causal or full attention
 // over packed sequences, where a query attends only to keys of its own
@@ -63,9 +63,14 @@
 // over `split` items (dkv_group_split), which write f32 partials to a
 // workspace; a second kernel of the same call sums them in a fixed order,
 // so the result is the same bit for bit in every launch (no atomics).
-// K3 is still the first port's kernel: each warp owns 16 rows and issues
-// mma.sync m16n8k16 with the S accumulator reused in registers as the A
-// operand. Its redesign is next.
+// K3 (flash_bwd_dq_tma_kernel) is K1's skeleton with dO loaded beside Q:
+// a 128-row q tile per block on two consumer warpgroups, Q and dO loaded
+// once, K and V in DQ_KT-key tiles through a 2-stage ring (K and V on
+// barriers of their own). S = Q K^T and dP = dO V^T have K-major operands;
+// dS = P (dP - delta) scale goes to bf16 in registers and is the register A
+// operand of dQ += dS K, with K read MN-major from the same box that S read
+// K-major. Producer and consumers walk walk_k_tiles at DQ_KT keys. dQ leaves
+// through the warpgroup's Q boxes by TMA stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,60 +82,7 @@
 namespace {
 
 constexpr int D = 128;        // head dim
-constexpr int LD = D + 8;     // padded smem row (bf16): 68 words, conflict-free fragments
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = NWARPS * 32;
 constexpr float NEG = -1e30f;
-
-// dq (K3): 64 q rows per CTA (16 per warp), 64-key tiles
-constexpr int FQ = 64;
-constexpr int FK = 64;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16 lo, const __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// A fragment (16x16, row-major) of rows r0..r0+15, cols c0..c0+15 of an smem tile.
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* s, int r0, int c0,
-                                       int g, int t) {
-  const __nv_bfloat16* p = s + (r0 + g) * LD + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B fragment (16x8) where B[k][n] = s[n0 + n][k0 + k]  (B = tile^T; consecutive in k)
-__device__ __forceinline__ void load_bt(uint32_t b[2], const __nv_bfloat16* s, int n0, int k0,
-                                        int g, int t) {
-  const __nv_bfloat16* p = s + (n0 + g) * LD + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment (16x8) where B[k][n] = s[k0 + k][n0 + n]  (B = tile; strided in k)
-__device__ __forceinline__ void load_b(uint32_t b[2], const __nv_bfloat16* s, int k0, int n0,
-                                       int g, int t) {
-  const __nv_bfloat16* p = s + (k0 + 2 * t) * LD + n0 + g;
-  b[0] = pack_bf16(p[0], p[LD]);
-  b[1] = pack_bf16(p[8 * LD], p[9 * LD]);
-}
-
-// rows x D tile of a [B,S,H,D] tensor (rows along S) into padded smem.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int64_t row_stride) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * row_stride + c * 8);
-  }
-}
 
 __device__ __forceinline__ bool visible(int qi, int kj, int sq, int sk, bool causal) {
   return sq == sk && (!causal || qi >= kj);
@@ -152,8 +104,7 @@ __device__ __forceinline__ int2 seg_range(const int* rng, int b, int S, int t0, 
 __device__ __forceinline__ bool disjoint(int2 a, int2 b) { return a.y < b.x || b.y < a.x; }
 
 // ---------------------------------------------------------------- K1 forward
-// K1 and K2 are the Hopper design (TMA, an mbarrier ring, wgmma, warp roles);
-// K3 below is still the first port's mma.sync kernel.
+// K1, K2 and K3 are built alike: TMA, an mbarrier ring, wgmma, warp roles.
 constexpr int KV_TILE = 128;         // keys per K/V tile
 constexpr int FWD_CW = 2;            // consumer warpgroups: 64 q rows each
 constexpr int KV_STAGES = 2;
@@ -173,22 +124,22 @@ struct FwdTile {
   static constexpr size_t SMEM = 1024 + Q_BYTES + KV_STAGES * KV_STAGE + 8 * (1 + 3 * KV_STAGES);
 };
 
-// The k tiles that q rows [q0, q0 + bq) of row b see, in order: tile(k0,
+// The KT-key tiles that q rows [q0, q0 + bq) of row b see, in order: tile(k0,
 // masked) for each tile whose segment range meets the q rows' (a pair of
 // disjoint ranges has no visible (query, key) pair and is skipped); masked
 // is true where the per-element mask is needed: the tile reaches past the
 // causal diagonal, or the q rows and the keys are not all of one and the
 // same segment. The producer and the consumers walk the same list.
-template <typename Tile>
+template <int KT, typename Tile>
 __device__ __forceinline__ void walk_k_tiles(const int* rng, int b, int S, int q0, int bq,
                                              bool causal, Tile tile) {
   const int2 qr = seg_range(rng, b, S, q0, bq);
-  const int nk = causal ? (q0 + bq - 1) / KV_TILE + 1 : S / KV_TILE;
+  const int nk = causal ? (q0 + bq - 1) / KT + 1 : S / KT;
   for (int jk = 0; jk < nk; ++jk) {
-    const int k0 = jk * KV_TILE;
-    const int2 kr = seg_range(rng, b, S, k0, KV_TILE);
+    const int k0 = jk * KT;
+    const int2 kr = seg_range(rng, b, S, k0, KT);
     if (disjoint(qr, kr)) continue;  // no visible pair
-    const bool masked = (causal && k0 + KV_TILE - 1 > q0) || qr.x != qr.y || kr.x != qr.x || kr.y != qr.x;
+    const bool masked = (causal && k0 + KT - 1 > q0) || qr.x != qr.y || kr.x != qr.x || kr.y != qr.x;
     tile(k0, masked);
   }
 }
@@ -238,7 +189,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
           tma_load_2d(q_smem + (2 * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
       int stage = 0;
       uint32_t phase = 0;
-      walk_k_tiles(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool) {
+      walk_k_tiles<KV_TILE>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t st = ring + stage * KV_STAGE;
         mbar_arrive_expect_tx(k_full + 8 * stage, 2 * KV_BOX);
@@ -271,7 +222,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(q_full, 0);
-    walk_k_tiles(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool masked) {
+    walk_k_tiles<KV_TILE>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool masked) {
       const uint32_t st = ring + stage * KV_STAGE;
       // S = Q K^T: both K-major; 16 head dims (32 bytes of a swizzled row) per
       // step. The first step ignores s (scale_d 0), so no value of s lives
@@ -434,118 +385,6 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, const void* se
       tm_q, tm_k, tm_v, tm_o, (const int*)seg, (const int*)seg_rng, (float*)lse, S, Hq, Hkv, scale,
       causal);
   return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- K3 dQ
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const int* __restrict__ seg,
-                    const int* __restrict__ seg_rng, const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq,
-                    int S, int Hq, int Hkv, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dOs = Qs + FQ * LD;
-  __nv_bfloat16* Ks = dOs + FQ * LD;
-  __nv_bfloat16* Vs = Ks + FK * LD;
-  int* segk = reinterpret_cast<int*>(Vs + FK * LD);
-
-  const int nq = S / FQ;
-  const int iq = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const int q0 = iq * FQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qstride = (int64_t)Hq * D, kstride = (int64_t)Hkv * D;
-
-  load_tile<FQ>(Qs, q + ((int64_t)b * S + q0) * qstride + (int64_t)h * D, qstride);
-  load_tile<FQ>(dOs, dout + ((int64_t)b * S + q0) * qstride + (int64_t)h * D, qstride);
-
-  const int r_lo = warp * 16 + g;
-  const int qi0 = q0 + r_lo, qi1 = qi0 + 8;
-  const int sq0 = seg[(int64_t)b * S + qi0], sq1 = seg[(int64_t)b * S + qi1];
-  const float* lrow = lse + ((int64_t)b * Hq + h) * S;
-  const float* drow = delta + ((int64_t)b * Hq + h) * S;
-  float ls0 = lrow[qi0], ls1 = lrow[qi1];
-  ls0 = ls0 <= 0.5f * NEG ? 0.f : ls0;
-  ls1 = ls1 <= 0.5f * NEG ? 0.f : ls1;
-  const float dl0 = drow[qi0], dl1 = drow[qi1];
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  const int2 qr = seg_range(seg_rng, b, S, q0, FQ);
-  const int nk = causal ? (q0 + FQ - 1) / FK + 1 : S / FK;
-  for (int jk = 0; jk < nk; ++jk) {
-    const int k0 = jk * FK;
-    if (disjoint(qr, seg_range(seg_rng, b, S, k0, FK))) continue;  // uniform over the CTA
-    __syncthreads();
-    load_tile<FK>(Ks, k + ((int64_t)b * S + k0) * kstride + (int64_t)hk * D, kstride);
-    load_tile<FK>(Vs, v + ((int64_t)b * S + k0) * kstride + (int64_t)hk * D, kstride);
-    for (int i = threadIdx.x; i < FK; i += NTHREADS) segk[i] = seg[(int64_t)b * S + k0 + i];
-    __syncthreads();
-
-    float s[FK / 8][4], dp[FK / 8][4];
-#pragma unroll
-    for (int n = 0; n < FK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < D / 16; ++kd) {
-      uint32_t a[4], ad[4];
-      load_a(a, Qs, warp * 16, kd * 16, g, t);
-      load_a(ad, dOs, warp * 16, kd * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < FK / 8; ++n) {
-        uint32_t bb[2];
-        load_bt(bb, Ks, n * 8, kd * 16, g, t);
-        mma16816(s[n], a, bb);
-        load_bt(bb, Vs, n * 8, kd * 16, g, t);
-        mma16816(dp[n], ad, bb);
-      }
-    }
-    // dS = P * (dP - delta) * scale, with P = exp(S * scale - LSE) on visible keys
-#pragma unroll
-    for (int n = 0; n < FK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * t + (e & 1);
-        const int kj = k0 + col;
-        const bool lo = e < 2;
-        const bool vis = lo ? visible(qi0, kj, sq0, segk[col], causal)
-                            : visible(qi1, kj, sq1, segk[col], causal);
-        const float p = vis ? expf(s[n][e] * scale - (lo ? ls0 : ls1)) : 0.f;
-        s[n][e] = p * (dp[n][e] - (lo ? dl0 : dl1)) * scale;
-      }
-    }
-    // dQ += dS @ K
-#pragma unroll
-    for (int kk = 0; kk < FK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        uint32_t bb[2];
-        load_b(bb, Ks, kk * 16, nd * 8, g, t);
-        mma16816(acc[nd], a, bb);
-      }
-    }
-  }
-
-  __nv_bfloat16* d0 = dq + ((int64_t)b * S + qi0) * qstride + (int64_t)h * D;
-  __nv_bfloat16* d1 = dq + ((int64_t)b * S + qi1) * qstride + (int64_t)h * D;
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    const int col = nd * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(d0 + col) = pack_f32(acc[nd][0], acc[nd][1]);
-    *reinterpret_cast<uint32_t*>(d1 + col) = pack_f32(acc[nd][2], acc[nd][3]);
-  }
 }
 
 // ---------------------------------------------------------------- K2 dK, dV
@@ -871,11 +710,244 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
   return (int)cudaGetLastError();
 }
 
-constexpr size_t DQ_SMEM = (size_t)(2 * FQ + 2 * FK) * LD * sizeof(__nv_bfloat16) + FK * sizeof(int);
+// ---------------------------------------------------------------- K3 dQ
+// K1's skeleton: a 128-row q tile of one q head per block (64 rows per
+// consumer warpgroup); Q and dO are loaded once, K and V arrive in DQ_KT-key
+// tiles through a 2-stage ring (K and V on barriers of their own).
+constexpr int DQ_BQ = 128;                   // q rows per block
+constexpr int DQ_KT = 64;                    // keys per K/V tile
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_PRODUCER_REGS = 40, DQ_CONSUMER_REGS = 232;  // setmaxnreg
+constexpr int DQ_KBOX = DQ_KT * 128;         // one DQ_KT-key x 64-column box of K or V, bytes
+constexpr int DQ_STAGE = 4 * DQ_KBOX;        // a stage: K's two boxes, then V's
+// The per-element mask on every k tile, not only on those walk_k_tiles flags
+constexpr bool DQ_MASK_EVERY_TILE = false;
+// 1024 bytes of alignment slack, Q's four boxes and dO's four (dQ staged in
+// Q's place), the ring, then the barriers: Q and dO's, and per stage K full,
+// V full, empty
+constexpr size_t DQ_SMEM = 1024 + 8 * Q_BOX + DQ_STAGES * DQ_STAGE + 8 * (1 + 3 * DQ_STAGES);
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// d (+)= A B with both operands in shared memory, at the accumulator's width:
+// 64 x 64 (32 registers) or 64 x 128 (64)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_m64n64k16<TRANS_B>(d, a, b, scale_d);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_m64n128k16<TRANS_B>(d, a, b, scale_d);
+}
+
+// grid (Hq, B, S / DQ_BQ), the last (heaviest causal) q tiles first; block
+// 384 threads: warpgroup 0 the producer, 1 and 2 the consumers. tm_q, tm_do,
+// tm_dq: [B*S, Hq*128] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*128] in
+// DQ_KT x 64 boxes.
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
+                        __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
+                        __grid_constant__ const CUtensorMap tm_dq, const int* __restrict__ seg,
+                        const int* __restrict__ seg_rng, const float* __restrict__ lse,
+                        const float* __restrict__ delta, int S, int Hq, int Hkv, float scale, int causal) {
+  constexpr int NS = DQ_KT / 2;  // accumulators of a 64 x DQ_KT score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_smem = (raw + 1023) & ~1023u;  // Q box (warpgroup w, half j) at (2w + j) Q_BOX
+  const uint32_t do_smem = q_smem + 4 * Q_BOX;     // dO's the same
+  const uint32_t ring = do_smem + 4 * Q_BOX;       // stage s at s DQ_STAGE
+  const uint32_t q_full = ring + DQ_STAGES * DQ_STAGE;
+  const uint32_t k_full = q_full + 8;              // stage s: + 8 s
+  const uint32_t v_full = k_full + 8 * DQ_STAGES;
+  const uint32_t empty = v_full + 8 * DQ_STAGES;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * DQ_BQ;  // heaviest causal tiles first
+  const int hk = h / (Hq / Hkv);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: one thread loads Q and dO once, then K and V tile by tile
+    setmaxnreg_dec<DQ_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* map_k = &tm_k;
+      const CUtensorMap* map_v = &tm_v;
+      mbar_arrive_expect_tx(q_full, 8 * Q_BOX);
+      for (int w = 0; w < 2; ++w)
+        for (int j = 0; j < 2; ++j) {
+          tma_load_2d(q_smem + (2 * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+          tma_load_2d(do_smem + (2 * w + j) * Q_BOX, &tm_do, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+        }
+      int stage = 0;
+      uint32_t phase = 0;
+      walk_k_tiles<DQ_KT>(seg_rng, b, S, q0, DQ_BQ, causal, [&](int k0, bool) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = ring + stage * DQ_STAGE;
+        mbar_arrive_expect_tx(k_full + 8 * stage, 2 * DQ_KBOX);
+        tma_load_2d(st, map_k, k_full + 8 * stage, hk * D, b * S + k0);
+        tma_load_2d(st + DQ_KBOX, map_k, k_full + 8 * stage, hk * D + 64, b * S + k0);
+        mbar_arrive_expect_tx(v_full + 8 * stage, 2 * DQ_KBOX);
+        tma_load_2d(st + 2 * DQ_KBOX, map_v, v_full + 8 * stage, hk * D, b * S + k0);
+        tma_load_2d(st + 3 * DQ_KBOX, map_v, v_full + 8 * stage, hk * D + 64, b * S + k0);
+        if (++stage == DQ_STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      });
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns q rows q0 + 64 cw ..
+    setmaxnreg_inc<DQ_CONSUMER_REGS>();
+    const int cw = threadIdx.x / 128 - 1;
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r0 = ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // fragment rows r0, r0 + 8 of the 64
+    const int qi0 = q0 + 64 * cw + r0, qi1 = qi0 + 8;
+    const int* segb = seg + (int64_t)b * S;
+    const int sq0 = segb[qi0], sq1 = segb[qi1];
+    // each row's LSE (in log2 units; a row without a visible key has LSE
+    // -1e30, read as 0, reference :188) and delta, once per q tile
+    const float* lrow = lse + ((int64_t)b * Hq + h) * S;
+    const float* drow = delta + ((int64_t)b * Hq + h) * S;
+    const float ls0 = (lrow[qi0] <= 0.5f * NEG ? 0.f : lrow[qi0]) * LOG2E;
+    const float ls1 = (lrow[qi1] <= 0.5f * NEG ? 0.f : lrow[qi1]) * LOG2E;
+    const float dl0 = drow[qi0], dl1 = drow[qi1];
+    const float sl2 = scale * LOG2E;  // scores in log2 units: exp2 instead of exp
+    const uint32_t qa = q_smem + 2 * cw * Q_BOX;
+    const uint32_t da = do_smem + 2 * cw * Q_BOX;
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(q_full, 0);
+    walk_k_tiles<DQ_KT>(seg_rng, b, S, q0, DQ_BQ, causal, [&](int k0, bool flagged) {
+      const bool masked = DQ_MASK_EVERY_TILE || flagged;
+      const uint32_t st = ring + stage * DQ_STAGE;
+      // S = Q K^T and dP = dO V^T, all four operands K-major; the first step
+      // of each ignores the accumulator (scale_d 0)
+      float s[NS], dp[NS];
+      mbar_wait(k_full + 8 * stage, phase);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint32_t off = 32 * (kd % 4);
+        wgmma_ss<0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),
+                    wgmma_desc(st + (kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
+      }
+      wgmma_commit();
+      mbar_wait(v_full + 8 * stage, phase);
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd) {
+        const uint32_t off = 32 * (kd % 4);
+        wgmma_ss<0>(dp, wgmma_desc(da + (kd / 4) * Q_BOX + off, 16, 1024),
+                    wgmma_desc(st + (2 + kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
+      }
+      wgmma_commit();
+      // P = exp2(S scale log2 e - LSE log2 e) in the accumulator layout: this
+      // thread holds rows r0 (s[4j], s[4j+1]) and r0 + 8 (s[4j+2], s[4j+3]),
+      // keys 8j + 2t (+1)
+      wgmma_wait<1>();
+      fence_regs(s);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
+          const int kj = k0 + 8 * j + 2 * t;
+          const int2 sk = *reinterpret_cast<const int2*>(segb + kj);
+          s[4 * j + 0] = visible(qi0, kj, sq0, sk.x, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -ls0)) : 0.f;
+          s[4 * j + 1] = visible(qi0, kj + 1, sq0, sk.y, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -ls0)) : 0.f;
+          s[4 * j + 2] = visible(qi1, kj, sq1, sk.x, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -ls1)) : 0.f;
+          s[4 * j + 3] = visible(qi1, kj + 1, sq1, sk.y, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -ls1)) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NS / 4; ++j) {
+          s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], sl2, -ls0));
+          s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -ls0));
+          s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -ls1));
+          s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -ls1));
+        }
+      }
+      // dS = P (dP - delta) scale, in bf16 registers: the A operand of
+      // dQ += dS K, with K MN-major (head dims contiguous: K's two boxes
+      // DQ_KBOX apart) from the box S read K-major, 16 keys per step
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t ds[NS / 2];
+#pragma unroll
+      for (int j = 0; j < NS / 4; ++j) {
+        ds[2 * j] = pack_f32(s[4 * j + 0] * (dp[4 * j + 0] - dl0) * scale,
+                             s[4 * j + 1] * (dp[4 * j + 1] - dl0) * scale);
+        ds[2 * j + 1] = pack_f32(s[4 * j + 2] * (dp[4 * j + 2] - dl1) * scale,
+                                 s[4 * j + 3] * (dp[4 * j + 3] - dl1) * scale);
+      }
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DQ_KT / 16; ++kk)
+        wgmma_m64n128k16_rs<1>(dq, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
+                               wgmma_desc(st + 2048 * kk, DQ_KBOX, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      fence_regs(ds);
+      if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage's K and V are consumed
+      if (++stage == DQ_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    });
+
+    // Epilogue: dQ in bf16 into this warpgroup's Q boxes (its Q is no longer
+    // read) in the 128-byte swizzle, then two TMA stores
+    unsigned char* qb = smem_raw + (qa - raw);
+    const int sw = r0 & 7;  // the same for r0 + 8
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      unsigned char* pj = qb + (j / 8) * Q_BOX + ((j & 7) ^ sw) * 16 + 4 * t;
+      *reinterpret_cast<uint32_t*>(pj + r0 * 128) = pack_f32(dq[4 * j], dq[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(pj + (r0 + 8) * 128) = pack_f32(dq[4 * j + 2], dq[4 * j + 3]);
+    }
+    fence_proxy_async();
+    if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
+    if ((threadIdx.x & 127) == 0) {
+      for (int j = 0; j < 2; ++j) tma_store_2d(&tm_dq, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
+      bulk_commit();
+      bulk_wait<0>();  // the block's shared memory outlives the stores
+    }
+  }
+}
+
+int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg,
+                        const void* seg_rng, const void* dout, const void* lse, const void* delta,
+                        void* dq, int B, int S, int Hq, int Hkv, float scale, int causal,
+                        cudaStream_t stream) {
+  // a runtime call first: it makes the device's context current on this
+  // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return (int)e;
+  }
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
+  const uint64_t rows = (uint64_t)B * S;
+  int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, 64, 64);
+  if (!err) err = encode_bf16_2d(&tm_do, dout, rows, (uint64_t)Hq * D, 64, 64);
+  if (!err) err = encode_bf16_2d(&tm_dq, dq, rows, (uint64_t)Hq * D, 64, 64);
+  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, DQ_KT, 64);
+  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, DQ_KT, 64);
+  if (err) return err;
+  dim3 grid(Hq, B, S / DQ_BQ);
+  flash_bwd_dq_tma_kernel<<<grid, 384, DQ_SMEM, stream>>>(
+      tm_q, tm_do, tm_k, tm_v, tm_dq, (const int*)seg, (const int*)seg_rng, (const float*)lse,
+      (const float*)delta, S, Hq, Hkv, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -908,14 +980,8 @@ int vt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg
                     const void* seg_rng, const void* dout, const void* lse, const void* delta,
                     void* dq, int B, int S, int Hq, int Hkv, float scale, int causal,
                     void* stream) {
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(S / FQ, Hq, B);
-  flash_bwd_dq_kernel<<<grid, NTHREADS, DQ_SMEM, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const int*)seg, (const int*)seg_rng, (const __nv_bfloat16*)dout, (const float*)lse,
-      (const float*)delta, (__nv_bfloat16*)dq, S, Hq, Hkv, scale, causal);
-  return (int)cudaGetLastError();
+  return launch_flash_bwd_dq(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv, scale,
+                             causal, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,19 +1,10 @@
-// Tensor-core helpers shared by the port's CUDA kernels (sm_90a).
+// bf16 packing shared by the port's CUDA kernels (sm_90a).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
-
-// c += a (16x16, row-major bf16) * b (16x8, col-major bf16), f32 accumulators.
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // two floats rounded to bf16, lo in the low half
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {

@@ -2,10 +2,9 @@
 
 Port of ``veomni_tpu/ops/pallas/flash_attention.py``. The kernels live in
 ``veomni_tpu_torch/csrc/flash_attention.cu`` (its header says what bounds
-them on the H100 and how the design answers it: K1 and K2 are Hopper
-kernels with TMA, an mbarrier ring and ``wgmma``, K1 on 128-row q tiles and
-K2 on 128-key tiles, each on two consumer warpgroups; K3 still uses
-``mma.sync``):
+them on the H100 and how the design answers it: all three are Hopper
+kernels with TMA, an mbarrier ring and ``wgmma`` on two consumer
+warpgroups, K1 and K3 on 128-row q tiles, K2 on 128-key tiles):
 
 * K1 ``vt_flash_fwd``     <- ``_fwd_kernel``     (reference ``:49-106``, ``_fwd`` ``:109``)
 * K2 ``vt_flash_bwd_dkv`` <- ``_bwd_dkv_kernel`` (``:155-205``, ``_bwd`` ``:255``)
@@ -152,8 +151,9 @@ def _check(q, k, v, seg, *extra):
             raise ValueError("flash kernels take contiguous [B,S,H,D] tensors")
 
 
-# K3's tiles: DQ_ROWS q rows of one q head per block, DQ_KEYS keys per k tile
-DQ_ROWS = 64
+# K3's tiles (the .cu's DQ_BQ and DQ_KT): DQ_ROWS q rows of one q head per
+# block, DQ_KEYS keys per k tile
+DQ_ROWS = 128
 DQ_KEYS = 64
 # K2's work items: DKV_KEYS keys of one kv head; at least SPLIT_ITEMS_PER_SM
 # items per SM before the q-head group is split across items

@@ -91,6 +91,12 @@ FAULTS = (
           FLASH_SOURCE, "if (disjoint(kr, qr)) continue;  // no visible pair",
           "if (disjoint(kr, qr) || (h == h0 && q0 == 128 && k0 == 0)) continue;  // no visible pair",
           "K2 dK (Qwen3-0.6B layout)"),
+    # the walk K1 and K3 share skips, at K3's 64-key tiles only, k tile 0 for
+    # q tile 1 (rows 128-255): visible in every row and head of that batch
+    Fault("K3", "K3 skips the pair (q tile 1, k tile 0) in its walk (K1's 128-key walk as it is)",
+          FLASH_SOURCE, "if (disjoint(qr, kr)) continue;  // no visible pair",
+          "if (disjoint(qr, kr) || (KT == 64 && q0 == 128 && k0 == 0)) continue;  // no visible pair",
+          "K3 dQ (Qwen3-0.6B layout)"),
     # at the Qwen3-30B-A3B layout (B = 1) K2 splits each group of 8 q heads
     # over 4 work items; the fixed-order sum leaves out dV's last partial
     Fault("K2-split", "K2's fixed-order sum of the split partials leaves out dV's last split",

@@ -39,8 +39,8 @@ KERNELS = ("K1", "K2", "K3")
 VARIANTS = {
     "default": ("the source as it is", []),
     "mask-every-tile": ("the per-element mask on every k tile, not only on diagonal or "
-                              "mixed-segment ones",
-                        [("const bool masked = (causal && k0 + KV_TILE - 1 > q0) || qr.x != qr.y "
+                        "mixed-segment ones (in the walk K1 and K3 share)",
+                        [("const bool masked = (causal && k0 + KT - 1 > q0) || qr.x != qr.y "
                           "|| kr.x != qr.x || kr.y != qr.x;", "const bool masked = true;")]),
     "q64": ("64-row q tiles: one consumer warpgroup per block, so each K/V tile is loaded "
                   "once per 64 q rows",
@@ -64,11 +64,16 @@ VARIANTS = {
                               "(40 and 232)",
                         [("constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;",
                           "constexpr int DKV_PRODUCER_REGS = 24, DKV_CONSUMER_REGS = 240;")]),
+    "dq-mask-every-tile": ("the per-element mask on every k tile of K3 (K1 as it is)",
+                           [("constexpr bool DQ_MASK_EVERY_TILE = false;",
+                             "constexpr bool DQ_MASK_EVERY_TILE = true;")]),
+    "dq-kt-128": ("K3 on 128-key K/V tiles instead of 64 (~193 KB of shared memory)",
+                  [("constexpr int DQ_KT = 64;", "constexpr int DQ_KT = 128;")]),
 }
 # the kernel each variant is about (the default: all)
 ABOUT = {"mask-every-tile": "K1", "q64": "K1", "kv-3-stages": "K1", "regs-24-240": "K1",
          "dkv-no-split": "K2", "dkv-mask-flagged": "K2", "dkv-3-stages": "K2",
-         "dkv-regs-24-240": "K2"}
+         "dkv-regs-24-240": "K2", "dq-mask-every-tile": "K3", "dq-kt-128": "K3"}
 
 
 def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
