@@ -13,12 +13,17 @@ Phases (any failure exits non-zero and prints no result line):
 3. hold each flash-attention kernel (K1-K3) against its plain PyTorch
    version on the same inputs, in bf16, at the dense main path's attention
    shape (B=4, S=4096, Hq=16, Hkv=8, D=128, packed segments) and at the MoE
-   model's head layout (B=1, S=4096, Hq=32, Hkv=4); time kernel, plain
-   version and the library yardstick; compute each kernel's bound from this
-   run's inputs, and time K1 on a single-segment batch of the same shape (the
-   function SDPA computes); then K1-K3 on edge cases: S = 128 (one tile), one
-   segment, many short segments (boundaries inside K1's 128-row tiles),
-   boundaries on tile edges, causal and full, Hq/Hkv 4/2 and 32/4;
+   model's head layout (B=1, S=4096, Hq=32, Hkv=4, where K2 splits each
+   q-head group over several work items); time kernel, plain version and the
+   library yardstick; compute each kernel's bound from this run's inputs, and
+   time K1-K3 on a single-segment batch of the same shape (the function SDPA
+   computes); then K1-K3 on edge cases: S = 128 (one tile), one segment, many
+   short segments (boundaries inside the 128-row tiles), boundaries on tile
+   edges, S = 384 (three 128-key tiles), causal and full, Hq/Hkv 4/2 and
+   32/4 (K2 splits the group 2 and 8 ways), and a key tile whose walk is
+   empty (its dK, dV and dQ must come out exactly 0); K2 and K3 are launched
+   twice on the same inputs at both layouts and in every edge case, and
+   their dQ, dK and dV must be bit-identical;
 4. the same for the grouped-GEMM kernels K4-K6 at the MoE main path's
    shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
    with the group sizes of its real routing (layer 0 on the first packed
@@ -256,14 +261,14 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     v = torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
     do = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
     pairs = visible_pairs(seg)
-    split = fa.dkv_group_split(b, s, hq, hkv, torch.cuda.get_device_properties(dev).multi_processor_count)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = fa.dkv_group_split(b, s, hq, hkv, n_sm)
     log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
         f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
         f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
         f"segment skip: {kept_tiles(seg, 128, 128):.3f} (K1: 128 q x 128 keys), "
         f"{kept_tiles(seg, 64, 128):.3f} (K2: 64 q x 128 keys), "
-        f"{kept_tiles(seg, fa.DQ_ROWS, fa.DQ_KEYS):.3f} (K3: {fa.DQ_ROWS} q x {fa.DQ_KEYS} "
-        f"keys); "
+        f"{kept_tiles(seg, 128, 64):.3f} (K3: 128 q x 64 keys); "
         f"K2's q-head group split {split}")
 
     # K1 through the autograd Function, then K2 + K3 from its backward

@@ -1,7 +1,7 @@
 """The planted-fault and design-variant tools stay in step with the kernel
 sources: each fault's edit applies exactly once to its file in a copy of the
 tree and leaves the checkout's source as it was, and each variant's edits
-(grouped GEMM K4-K6, flash forward K1) find their anchors exactly once.
+(grouped GEMM K4-K6, flash K1-K3) find their anchors exactly once.
 (Running the tools needs the card: ``python3 -m
 veomni_tpu_torch.tools.fault_check``, ``... .gmm_variants``,
 ``... .flash_variants``.)"""
@@ -44,7 +44,7 @@ def test_design_variant_edits_apply_once(name):
 
 @pytest.mark.parametrize("name", list(fv.VARIANTS), ids=list(fv.VARIANTS))
 def test_flash_variant_edits_apply_once(name):
-    """The K1 variants timed by ``flash_variants`` stay in step with the
+    """The K1-K3 variants timed by ``flash_variants`` stay in step with the
     source: each edit's anchor occurs exactly once."""
     with open(os.path.join(fc.REPO, fc.FLASH_SOURCE)) as f:
         text = f.read()

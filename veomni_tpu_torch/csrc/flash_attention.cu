@@ -720,7 +720,9 @@ constexpr int DQ_STAGES = 2;
 constexpr int DQ_PRODUCER_REGS = 40, DQ_CONSUMER_REGS = 232;  // setmaxnreg
 constexpr int DQ_KBOX = DQ_KT * 128;         // one DQ_KT-key x 64-column box of K or V, bytes
 constexpr int DQ_STAGE = 4 * DQ_KBOX;        // a stage: K's two boxes, then V's
-// The per-element mask on every k tile, not only on those walk_k_tiles flags
+// The per-element mask on every k tile, not only on those walk_k_tiles flags:
+// off, as in K1 (K3 has the registers for both paths; masking every tile
+// takes 1.16-1.71x as long, flash_variants)
 constexpr bool DQ_MASK_EVERY_TILE = false;
 // 1024 bytes of alignment slack, Q's four boxes and dO's four (dQ staged in
 // Q's place), the ring, then the barriers: Q and dO's, and per stage K full,

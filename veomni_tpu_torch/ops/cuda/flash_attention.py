@@ -149,12 +149,10 @@ def _check(q, k, v, seg, *extra):
             raise ValueError("flash kernels: all tensors must be on the same CUDA device")
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous [B,S,H,D] tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernels take 16-byte aligned tensors (TMA and bulk copies)")
 
 
-# K3's tiles (the .cu's DQ_BQ and DQ_KT): DQ_ROWS q rows of one q head per
-# block, DQ_KEYS keys per k tile
-DQ_ROWS = 128
-DQ_KEYS = 64
 # K2's work items: DKV_KEYS keys of one kv head; at least SPLIT_ITEMS_PER_SM
 # items per SM before the q-head group is split across items
 DKV_KEYS = 128
@@ -206,6 +204,8 @@ def _check_rows(q, lse, delta):
             raise ValueError(f"lse/delta must be contiguous f32 [B,Hq,S], got {t.dtype} {tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError("lse/delta must be on q's device")
+        if t.data_ptr() % 16:
+            raise ValueError("lse/delta must be 16-byte aligned (K2 reads them by bulk copies)")
 
 
 def _launch(name: str, tensors, q, k, scale: float, causal: bool, ints=()) -> None:

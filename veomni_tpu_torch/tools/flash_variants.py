@@ -15,8 +15,10 @@ NVIDIA Hopper card::
 
     python3 -m veomni_tpu_torch.tools.flash_variants [--only default,q64]
 
-It prints one line per (batch, kernel, variant) and then one JSON line with
-every time.
+It prints each library's ptxas report per kernel (registers, spill stores,
+whether ptxas serialized its wgmma for want of registers) with a census of
+its SASS (HGMMA instructions, wgmma waits), one line per (batch, kernel,
+variant), and then one JSON line with every time.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +38,7 @@ from veomni_tpu_torch.tools.gmm_variants import build_edited
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = "flash_attention.cu"
 KERNELS = ("K1", "K2", "K3")
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "split_sum")  # in the .cu's symbols
 
 # name -> (what, edits); every variant computes the same function
 VARIANTS = {
@@ -43,25 +48,24 @@ VARIANTS = {
                         [("const bool masked = (causal && k0 + KT - 1 > q0) || qr.x != qr.y "
                           "|| kr.x != qr.x || kr.y != qr.x;", "const bool masked = true;")]),
     "q64": ("64-row q tiles: one consumer warpgroup per block, so each K/V tile is loaded "
-                  "once per 64 q rows",
+            "once per 64 q rows",
             [("constexpr int FWD_CW = 2;", "constexpr int FWD_CW = 1;")]),
     "kv-3-stages": ("a 3-stage K/V ring (~225 KB of shared memory) instead of 2",
                     [("constexpr int KV_STAGES = 2;", "constexpr int KV_STAGES = 3;")]),
     "regs-24-240": ("24 registers for the producer warpgroup, 240 for the consumers "
-                          "(40 and 232)",
+                    "(40 and 232)",
                     [("setmaxnreg_dec<40>();", "setmaxnreg_dec<24>();"),
                      ("setmaxnreg_inc<CW == 2 ? 232 : 240>();", "setmaxnreg_inc<240>();")]),
-    "dkv-no-split": ("the whole q-head group in every work item, whatever the wrapper's "
-                           "split",
+    "dkv-no-split": ("the whole q-head group in every work item, whatever the wrapper's split",
                      [("const int nsplit = split;", "const int nsplit = 1;")]),
-    "dkv-mask-flagged": ("the per-element mask only on the q tiles that walk_q_tiles "
-                               "flags (diagonal or mixed-segment), as K1 does",
+    "dkv-mask-flagged": ("the per-element mask only on the q tiles that walk_q_tiles flags "
+                         "(diagonal or mixed-segment), as K1 does",
                          [("constexpr bool DKV_MASK_EVERY_TILE = true;",
                            "constexpr bool DKV_MASK_EVERY_TILE = false;")]),
     "dkv-3-stages": ("a 3-stage Q/dO ring (~168 KB of shared memory) instead of 2",
                      [("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;")]),
     "dkv-regs-24-240": ("24 registers for the producer warpgroup, 240 for the consumers "
-                              "(40 and 232)",
+                        "(40 and 232)",
                         [("constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;",
                           "constexpr int DKV_PRODUCER_REGS = 24, DKV_CONSUMER_REGS = 240;")]),
     "dq-mask-every-tile": ("the per-element mask on every k tile of K3 (K1 as it is)",
@@ -87,18 +91,43 @@ def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     with open(os.path.join(workdir, name, "lib.so.log")) as f:
         cdll.ptxas = spills(f.read())
+    for kernel, census in sass_census(os.path.join(workdir, name, "lib.so")).items():
+        cdll.ptxas[kernel] = cdll.ptxas.get(kernel, "") + census
     return cdll
 
 
+def sass_census(lib: str) -> dict:
+    """{kernel: ", N HGMMA, M wgmma waits"} from the library's SASS (cuobjdump,
+    where the toolkit has it): a wait after every HGMMA is a serialized
+    kernel, one per group of products a pipelined one."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+    out = {}
+    for func in sass.split("Function : ")[1:]:
+        kernel = next((k for k in KERNEL_NAMES if k in func.split("\n")[0]), None)
+        if kernel:
+            out[kernel] = (f", {func.count('HGMMA')} HGMMA, "
+                           f"{func.count('WARPGROUP.DEPBAR')} wgmma waits")
+    return out
+
+
 def spills(log: str) -> dict:
-    """{kernel: "N registers, M bytes of spill stores"} from nvcc's -Xptxas -v report."""
+    """{kernel: "N registers, M bytes spill stores"} from nvcc's -Xptxas -v
+    report, with ", wgmma serialized" where ptxas says (C7512) that it
+    serialized the kernel's wgmma for want of registers."""
+    names = KERNEL_NAMES
     out, kernel = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "split_sum")
-                           if k in line), line)
+            kernel = next((k for k in names if k in line), line)
+        elif "C7512" in line:
+            serialized = next((k for k in names if k in line), None)
+            if serialized:
+                out[serialized] = out.get(serialized, "") + ", wgmma serialized"
         elif kernel and "spill stores" in line:
-            out[kernel] = line.strip().split(",")[1].strip()
+            out[kernel] = line.strip().split(",")[1].strip() + out.get(kernel, "")
         elif kernel and "Used" in line:
             out[kernel] = f"{line.split('Used')[1].split(',')[0].strip()}, {out.get(kernel, '')}"
     return out
