@@ -12,18 +12,20 @@ Phases (any failure exits non-zero and prints no result line):
 2. launch the probe kernel K7 (``y = 2x``) and compare it exactly;
 3. hold each flash-attention kernel (K1-K3) against its plain PyTorch
    version on the same inputs, in bf16, at the dense main path's attention
-   shape (B=4, S=4096, Hq=16, Hkv=8, D=128, packed segments) and at the MoE
-   model's head layout (B=1, S=4096, Hq=32, Hkv=4, where K2 splits each
-   q-head group over several work items); time kernel, plain version and the
-   library yardstick; compute each kernel's bound from this run's inputs, and
-   time K1-K3 on a single-segment batch of the same shape (the function SDPA
-   computes); then K1-K3 on edge cases: S = 128 (one tile), one segment, many
-   short segments (boundaries inside the 128-row tiles), boundaries on tile
-   edges, S = 384 (three 128-key tiles), causal and full, Hq/Hkv 4/2 and
-   32/4 (K2 splits the group 2 and 8 ways), and a key tile whose walk is
-   empty (its dK, dV and dQ must come out exactly 0); K2 and K3 are launched
-   twice on the same inputs at both layouts and in every edge case, and
-   their dQ, dK and dV must be bit-identical;
+   shape (B=4, S=4096, Hq=16, Hkv=8, D=128, packed segments), at the MoE
+   main path's (the same batch at Hq=32, Hkv=4: K2 walks each whole group
+   of 8 q heads in one work item) and at the MoE model's micro-batch 1 (the
+   first row alone, where K2 splits each group over 4 work items); time
+   kernel, plain version and the library yardstick; compute each kernel's
+   bound from this run's inputs, and time K1-K3 on a single-segment batch of
+   the same shape (the function SDPA computes); then K1-K3 on edge cases:
+   S = 128 (one tile), one segment, many short segments (boundaries inside
+   the 128-row tiles), boundaries on tile edges, S = 384 (three 128-key
+   tiles), causal and full, Hq/Hkv 4/2 and 32/4 (K2 splits the group 2 and
+   8 ways), and a key tile whose walk is empty (its dK, dV and dQ must come
+   out exactly 0); K2 and K3 are launched twice on the same inputs at every
+   layout and in every edge case, and their dQ, dK and dV must be
+   bit-identical;
 4. the same for the grouped-GEMM kernels K4-K6 at the MoE main path's
    shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
    with the group sizes of its real routing (layer 0 on the first packed
@@ -42,7 +44,11 @@ Phases (any failure exits non-zero and prints no result line):
    cut to 4 of 48 layers (a layer holds ~623 M parameters, ~10 GB with its
    f32 weight, grad and two AdamW moments), 3 steps, printing the router
    aux loss and the peak device memory;
-7. parity: at depth 2, full width, S=1024, one dense train step with the
+7. the MoE step at micro-batch 1, the micro-batch of the repo's
+   Qwen3-30B-A3B config (``configs/text/qwen3_moe_ep.yaml``), where K2 splits
+   each q-head group over 4 work items: legs with the split and without it
+   alternate, same seed, same batches, and their losses must agree;
+8. parity: at depth 2, full width, S=1024, one dense train step with the
    kernels against the same step with the plain attention pinned (loss,
    grad norm), and the q/k/v/o projection gradients of one backward, leaf
    by leaf; at depth 1 (where no grouped GEMM feeds the router, so both
@@ -113,7 +119,8 @@ LAYERS = 28
 MOE_PRESET = "qwen3_30b_a3b"
 MOE_LAYERS = 4
 MAIN_STEPS = 3
-# the numbers of a flash kernel's row that are kept for its MoE head layout
+MB1_STEPS = 6  # per leg of the micro-batch-1 MoE step; the first two warm up
+# the numbers of a flash kernel's row that are kept for its other layouts
 LAYOUT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "single_segment_ms")
 
@@ -430,40 +437,40 @@ def phase_flash_edges(dev):
 
 
 def phase_flash_empty_walk(dev):
-    """K2 on a key tile whose walk is empty, and K3 on the q tile of the same
-    tokens. In self-attention a key tile always sees its own q tiles, so an
-    empty walk needs segment ranges that say no pair is visible: tokens
-    128..255 are a segment of their own, and the ranges of their blocks are
-    empty (min 100 > max 99), which meets no range, their own included.
-    Their dK, dV (from K2) and dQ (from K3) must
-    come out exactly 0 (the outputs are torch.empty); every other token's is
-    held to the plain version, which that segment does not touch."""
+    """An item whose walk is empty must write zeros, not leave the
+    ``torch.empty`` outputs as they were. No caller can reach that state: in
+    self-attention every key tile sees its own q tiles, and every q tile its
+    own keys. So this check forges it: tokens 128..255 are a segment of their
+    own whose blocks' ranges are given as empty (min 100 > max 99), which
+    meets no range. Their dK, dV (K2) and dQ (K3) must come out exactly 0
+    (against no reference: the true values are not 0); every other token's
+    is held to the plain version, which that segment does not touch."""
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(5)
     scale = 128 ** -0.5
-    for b, hq, hkv in ((1, 4, 2), (1, 32, 4), (4, 16, 8)):
-        seg = torch.tensor([[1] * 128 + [7] * 128 + [2] * 256] * b, dtype=torch.int32, device=dev)
-        rng = fa.seg_ranges(seg)
-        empty = torch.tensor([100, 99], device=dev)  # min > max: meets no range
-        rng[:, 128 // fa.SEG_RANGE_BLOCK:256 // fa.SEG_RANGE_BLOCK] = empty
-        q, do = (torch.randn(b, 512, hq, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
-        k, v = (torch.randn(b, 512, hkv, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
-        o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, True, fa.seg_ranges(seg))
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
-        dq = fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
-        refs = fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, True)
-        tag = (f"empty walk of tokens 128..255, B={b} S=512 Hq={hq} Hkv={hkv}, "
-               f"K2 split {fa.dkv_group_split(b, 512, hq, hkv, n_sm)}")
-        other = torch.cat([torch.arange(128), torch.arange(256, 512)]).to(dev)
-        for name, got, ref in zip(("K3 dQ", "K2 dK", "K2 dV"), (dq, dk, dv), refs):
-            check_close(f"{name} (edge: {tag}, other tokens)", got[:, other], ref[:, other])
-            if got[:, 128:256].any():
-                raise AssertionError(f"{name} (edge: {tag}): kernel disagrees with its plain "
-                                     f"version (the tokens of the empty walk are not all 0)")
-        log(f"  K3 dQ, K2 dK and dV (edge: {tag}): the empty walk's tokens are exactly 0")
+    b, hq, hkv = 1, 32, 4
+    seg = torch.tensor([[1] * 128 + [7] * 128 + [2] * 256] * b, dtype=torch.int32, device=dev)
+    rng = fa.seg_ranges(seg)
+    empty = torch.tensor([100, 99], device=dev)  # min > max: meets no range
+    rng[:, 128 // fa.SEG_RANGE_BLOCK:256 // fa.SEG_RANGE_BLOCK] = empty
+    q, do = (torch.randn(b, 512, hq, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(b, 512, hkv, 128, device=dev, generator=gen).bfloat16() for _ in range(2))
+    o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, True, fa.seg_ranges(seg))
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse, delta, scale, True, rng)
+    refs = fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, True)
+    tag = (f"forged empty walk of tokens 128..255, B={b} S=512 Hq={hq} Hkv={hkv}, "
+           f"K2 split {fa.dkv_group_split(b, 512, hq, hkv, n_sm)}")
+    other = torch.cat([torch.arange(128), torch.arange(256, 512)]).to(dev)
+    for name, got, ref in zip(("K3 dQ", "K2 dK", "K2 dV"), (dq, dk, dv), refs):
+        check_close(f"{name} (edge: {tag}, other tokens)", got[:, other], ref[:, other])
+        if got[:, 128:256].any():
+            raise AssertionError(f"{name} (edge: {tag}): the tokens of the empty walk are "
+                                 f"not all 0")
+    log(f"  K3 dQ, K2 dK and dV (edge: {tag}): the empty walk's tokens are exactly 0")
 
 
 def moe_group_sizes(dev, seq_len: int, micro_bs: int):
@@ -699,6 +706,68 @@ def phase_moe_main(dev, card):
     return launches
 
 
+def phase_moe_micro_batch_1(dev, card):
+    """The MoE main path at micro-batch 1, the micro-batch of the repo's
+    Qwen3-30B-A3B config (``configs/text/qwen3_moe_ep.yaml``, seq 4096). One
+    row gives K2 128 work items (4 kv heads x 32 key tiles), so
+    dkv_group_split splits each group of 8 q heads over 4 items. Legs with
+    the split and without it (SPLIT_ITEMS_PER_SM 0: the whole group in every
+    item, the TMA-store epilogue) alternate, twice each, every leg a fresh
+    model from the same seed on the same batches, so all four do the same
+    work; their losses and grad norms must agree step by step. Returns the
+    median step_ms of the steps after the first two, by leg."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.train_text_step import run_train_steps
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule = fa.SPLIT_ITEMS_PER_SM
+    n = MOE_LAYERS * MB1_STEPS
+    legs = {"split": [], "no split": []}
+    try:
+        for leg in ("split", "no split", "split", "no split"):
+            fa.SPLIT_ITEMS_PER_SM = rule if leg == "split" else 0
+            split = fa.dkv_group_split(1, 4096, 32, 4, n_sm)
+            if (split > 1) != (leg == "split"):
+                raise AssertionError(f"moe micro-batch 1 ({leg}): K2 split {split}")
+            reset_all_counts()
+            records = run_train_steps(4096, 1, MB1_STEPS, preset=MOE_PRESET,
+                                      num_layers=MOE_LAYERS, device=dev)
+            launches, fallbacks = read_counts()
+            torch.cuda.empty_cache()
+            for i, r in enumerate(records):
+                log(f"moe micro-batch 1 step {i} ({leg}, K2 split {split}): "
+                    f"loss={r['loss']:.6f} grad_norm={r['grad_norm']:.6f} "
+                    f"step_ms={r['step_ms']:.1f} tokens_per_s={r['tokens_per_s']:.1f} "
+                    f"mfu={r['mfu']:.4f} [{card}]")
+            check_steps(records, f"MoE micro-batch 1 ({leg})")
+            check_counts(launches, fallbacks, {
+                "flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                "gmm_fwd": 6 * n, "gmm_dlhs": 3 * n, "gmm_t": 3 * n}, f"MoE micro-batch 1 ({leg})")
+            legs[leg].append(records)
+    finally:
+        fa.SPLIT_ITEMS_PER_SM = rule
+    base = legs["split"][0]
+    for leg, runs in legs.items():
+        for records in runs:
+            for r, ref in zip(records, base):
+                d_loss = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+                d_gn = abs(r["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+                if not (d_loss <= TOL_LOSS_REL and d_gn <= TOL_GRAD_NORM_REL):
+                    raise AssertionError(f"moe micro-batch 1 ({leg}) departs from the first "
+                                         f"split leg: loss rel {d_loss}, grad_norm rel {d_gn}")
+    ms = {leg: sorted(r["step_ms"] for records in runs for r in records[2:])
+          for leg, runs in legs.items()}
+    med = {leg: v[len(v) // 2] for leg, v in ms.items()}
+    log(f"moe micro-batch 1 (Qwen3-30B-A3B width, {MOE_LAYERS} layers, seq 4096, ctx remat): "
+        f"steps 2.. with K2's split {', '.join(f'{x:.1f}' for x in ms['split'])} ms, median "
+        f"{med['split']:.1f}; without {', '.join(f'{x:.1f}' for x in ms['no split'])} ms, "
+        f"median {med['no split']:.1f}; the split saves "
+        f"{med['no split'] - med['split']:.1f} ms a step; losses and grad norms of all legs "
+        f"agree (rel tol {TOL_LOSS_REL}, {TOL_GRAD_NORM_REL}); launches per leg K1-K3 {n}, "
+        f"K4 {6 * n}, K5 {3 * n}, K6 {3 * n}")
+    return med
+
+
 def loss_grads(dev, preset: str, layers: int, pins, keep):
     """Gradients of the parameters whose names end with one of ``keep``
     after one ``loss_fn`` backward at full width, ``layers`` deep, S=1024,
@@ -802,9 +871,14 @@ def main() -> int:
     seg = torch.from_numpy(next(packed_batches(151936, 4096, 4))["segment_ids"][0]).to(dev)
     flash = phase_flash(dev, seg, 16, 8, "Qwen3-0.6B layout")
     torch.cuda.empty_cache()
-    moe_rows = phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B layout")
-    for row, moe in zip(flash, moe_rows):  # the same kernels at the MoE model's head layout
+    # the same batch at the MoE model's head layout, as the MoE main path runs it
+    moe_rows = phase_flash(dev, seg, 32, 4, "Qwen3-30B-A3B layout")
+    torch.cuda.empty_cache()
+    # its first row alone: micro-batch 1, where K2 splits the q-head group
+    mb1_rows = phase_flash(dev, seg[:1].contiguous(), 32, 4, "Qwen3-30B-A3B, micro-batch 1")
+    for row, moe, mb1 in zip(flash, moe_rows, mb1_rows):
         row["moe_layout"] = {k: moe[k] for k in LAYOUT_KEYS}
+        row["moe_micro_batch_1"] = {k: mb1[k] for k in LAYOUT_KEYS}
     table += flash
     torch.cuda.empty_cache()
     phase_flash_edges(dev)
@@ -814,6 +888,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["moe"] = phase_moe_main(dev, card)
     torch.cuda.empty_cache()
+    phase_moe_micro_batch_1(dev, card)
     phase_parity(dev)
     phase_moe_parity(dev)
 
@@ -824,9 +899,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
     # flash K1-K3 only: single_segment_ms (the like-for-like yardstick against
-    # SDPA) and moe_layout (the same numbers at B=1, Hq=32, Hkv=4)
-    print(json.dumps({"kernels": [{k: row[k] for k in keys + ("single_segment_ms", "moe_layout")
-                                   if k in row} for row in table]}), flush=True)
+    # SDPA), moe_layout (the same numbers at Hq=32, Hkv=4 on the same batch)
+    # and moe_micro_batch_1 (at Hq=32, Hkv=4 on its first row alone)
+    extra = ("single_segment_ms", "moe_layout", "moe_micro_batch_1")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
+                                  for row in table]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -144,30 +144,27 @@ def test_flash_bwd_edge_cases_on_card(cuda_device, layout, causal, heads):
         assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("shape", [(1, 4, 2), (1, 32, 4), (4, 16, 8)], ids=["gqa2", "gqa8", "b4"])
-def test_flash_bwd_empty_walk_on_card(cuda_device, shape):
-    """A key tile whose walk is empty writes dK = dV = 0, and the q tile of
-    the same tokens dQ = 0: tokens 128..255 are a segment of their own whose
-    blocks' segment ranges are empty (min 100 > max 99), so they meet no
-    range (in self-attention a tile always sees itself, so only the ranges
-    can empty a walk)."""
-    b, hq, hkv = shape
-    seg = torch.tensor([[1] * 128 + [7] * 128 + [2] * 256] * b, dtype=torch.int32,
-                       device=cuda_device)
+@pytest.mark.parametrize("split", [1, 2, 4, 8], ids=["whole-group", "split2", "split4",
+                                                  "split8"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_bwd_every_group_split_on_card(cuda_device, monkeypatch, causal, split):
+    """K2 at the Qwen3-30B-A3B head layout (a group of 8 q heads) with every
+    split of the group over work items: split 1 walks all 8 heads in one item
+    and stores dK/dV by TMA, as the MoE main path's micro-batch 4 does; the
+    others sum f32 partials in a fixed order. Each matches the plain version
+    and gives bit-identical dK and dV over two launches."""
+    monkeypatch.setattr(fa, "dkv_group_split", lambda *shape: split)
+    q, k, v, do, seg = _inputs(cuda_device, hq=32, hkv=4)
+    scale = q.shape[-1] ** -0.5
     seg_rng = fa.seg_ranges(seg)
-    empty = torch.tensor([100, 99], device=cuda_device)  # min > max: meets no range
-    seg_rng[:, 128 // fa.SEG_RANGE_BLOCK:256 // fa.SEG_RANGE_BLOCK] = empty
-    rng = np.random.default_rng(5)
-    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, 512, h, 128)).astype(np.float32))
-                   .to(cuda_device, torch.bfloat16) for h in (hq, hkv, hkv, hq))
-    scale = 128 ** -0.5
-    o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, True, fa.seg_ranges(seg))
+    o, lse = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, seg_rng)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    got = fa.flash_bwd(q, k, v, seg, do, lse, delta, scale, True, seg_rng)
-    other = torch.cat([torch.arange(128), torch.arange(256, 512)]).to(cuda_device)
-    for g, ref in zip(got, fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, True)):
-        assert not g[:, 128:256].any()
-        _close(g[:, other], ref[:, other])
+    runs = [fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse, delta, scale, causal, seg_rng)
+            for _ in range(2)]
+    _, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, seg, do, lse, delta, scale, causal)
+    for got, again, ref in zip(*runs, (dk_p, dv_p)):
+        _close(got, ref)
+        assert torch.equal(got, again)
 
 
 def test_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):

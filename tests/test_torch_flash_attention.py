@@ -75,8 +75,8 @@ def test_explicit_dispatch_rule_for_ragged_seq():
 @pytest.mark.parametrize("layout", [
     # (B, S, Hq, Hkv, split K2 is built for on 132 SMs)
     (4, 4096, 16, 8, 1),   # Qwen3-0.6B main path: 1024 items, the group of 2 in each
-    (1, 4096, 32, 4, 4),   # Qwen3-30B-A3B head layout at B=1: 128 items, 512 after the split
-    (4, 4096, 32, 4, 1),   # the MoE main path's micro-batch of 4: 512 items
+    (1, 4096, 32, 4, 4),   # Qwen3-30B-A3B at micro-batch 1 (its config's): 128 items, 512 split
+    (4, 4096, 32, 4, 1),   # the MoE main path's micro-batch of 4: 512 items, no split
     (1, 512, 32, 4, 8),    # too few items for any split: the whole group of 8
     (1, 512, 4, 2, 2),
 ], ids=["dense", "moe-b1", "moe-b4", "small-gqa8", "small-gqa2"])

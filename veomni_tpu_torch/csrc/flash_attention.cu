@@ -55,22 +55,23 @@
 // same barrier). P^T = exp2(S^T scale log2 e - LSE log2 e) and dS^T = P^T
 // (dP^T - delta) scale go to bf16 in registers and are the register A
 // operands of dV += P^T dO and dK += dS^T Q, with dO and Q MN-major. A work
-// item walks (q head, q tile) pairs from the causal diagonal on and skips
-// disjoint segment ranges (walk_q_tiles); dK and dV are summed over the
-// q-head group on chip and written once in bf16 (the reference writes
-// per-q-head f32 dK/dV and group-sums them in XLA, :297-299). Where a batch
+// item walks (q head, q tile) pairs from the causal diagonal on, skips
+// disjoint segment ranges (walk_q_tiles) and masks every q tile it walks
+// element by element; dK and dV are summed over the q-head group on chip
+// and written once in bf16 (the reference writes per-q-head f32 dK/dV and
+// group-sums them in XLA, :297-299). Where a batch
 // gives too few work items to fill the card, the wrapper splits each group
 // over `split` items (dkv_group_split), which write f32 partials to a
 // workspace; a second kernel of the same call sums them in a fixed order,
 // so the result is the same bit for bit in every launch (no atomics).
 // K3 (flash_bwd_dq_tma_kernel) is K1's skeleton with dO loaded beside Q:
 // a 128-row q tile per block on two consumer warpgroups, Q and dO loaded
-// once, K and V in DQ_KT-key tiles through a 2-stage ring (K and V on
+// once, K and V in 64-key (DQ_KT) tiles through a 2-stage ring (K and V on
 // barriers of their own). S = Q K^T and dP = dO V^T have K-major operands;
 // dS = P (dP - delta) scale goes to bf16 in registers and is the register A
 // operand of dQ += dS K, with K read MN-major from the same box that S read
-// K-major. Producer and consumers walk walk_k_tiles at DQ_KT keys. dQ leaves
-// through the warpgroup's Q boxes by TMA stores.
+// K-major. Producer and consumers walk walk_k_tiles at DQ_KT keys, masking
+// as K1 does. dQ leaves through the warpgroup's Q boxes by TMA stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -396,10 +397,6 @@ constexpr int DKV_KT = 128;                  // keys per work item
 constexpr int DKV_QT = 64;                   // q rows per streamed tile
 constexpr int DKV_STAGES = 2;
 constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;  // setmaxnreg
-// The per-element mask on every q tile, not only on those walk_q_tiles flags:
-// with the two paths in one loop ptxas spills the accumulators (540 bytes of
-// spill stores against 312) and the kernel takes ~1.5x as long (flash_variants)
-constexpr bool DKV_MASK_EVERY_TILE = true;
 constexpr int DKV_ROW_BYTES = DKV_QT * 4;    // one tile's LSE (or delta, or segment ids)
 constexpr int DKV_STAGE = 4 * Q_BOX + 1024;  // Q's two boxes, dO's two, the three rows (padded)
 // 1024 bytes of alignment slack, K's two boxes and V's two, the ring, then the
@@ -409,10 +406,11 @@ constexpr size_t DKV_SMEM = 1024 + 4 * KV_BOX + DKV_STAGES * DKV_STAGE + 8 * (1 
 // The (q head, q tile) pairs that keys [k0, k0 + DKV_KT) of row b see, in
 // order: for each q head h0 .. h0 + nh - 1, the 64-row q tiles from the
 // causal diagonal on whose segment range meets the keys' (a pair of disjoint
-// ranges has no visible (query, key) pair and is skipped); masked as in
-// walk_k_tiles: the tile reaches the causal diagonal, or the keys and the q
-// rows are not all of one and the same segment. The producer and the
-// consumers walk the same list.
+// ranges has no visible (query, key) pair and is skipped). The producer and
+// the consumers walk the same list. The consumers mask every tile they walk:
+// a second, unmasked path in their loop makes ptxas spill the accumulators
+// (540 bytes of spill stores against 312) and takes ~1.5x as long
+// (flash_variants' dkv-mask-flagged).
 template <typename Tile>
 __device__ __forceinline__ void walk_q_tiles(const int* rng, int b, int S, int k0, int h0, int nh,
                                              bool causal, Tile tile) {
@@ -423,8 +421,7 @@ __device__ __forceinline__ void walk_q_tiles(const int* rng, int b, int S, int k
       const int q0 = iq * DKV_QT;
       const int2 qr = seg_range(rng, b, S, q0, DKV_QT);
       if (disjoint(kr, qr)) continue;  // no visible pair
-      const bool masked = (causal && q0 < k0 + DKV_KT - 1) || kr.x != kr.y || qr.x != kr.x || qr.y != kr.x;
-      tile(h, q0, masked);
+      tile(h, q0);
     }
   }
 }
@@ -480,7 +477,7 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       }
       int stage = 0;
       uint32_t phase = 0;
-      walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int h, int q0, bool) {
+      walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int h, int q0) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t st = ring + stage * DKV_STAGE;
         const uint32_t bar = full + 8 * stage;
@@ -516,8 +513,7 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(kv_full, 0);
-    walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int, int q0, bool flagged) {
-      const bool masked = DKV_MASK_EVERY_TILE || flagged;
+    walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int, int q0) {
       const uint32_t st = ring + stage * DKV_STAGE;
       const unsigned char* rows = smem_raw + (st + 4 * Q_BOX - raw);
       const float* lse_t = reinterpret_cast<const float*>(rows);
@@ -554,18 +550,11 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
         const float2 l = *reinterpret_cast<const float2*>(lse_t + c);
         const float l0 = (l.x <= 0.5f * NEG ? 0.f : l.x) * LOG2E;
         const float l1 = (l.y <= 0.5f * NEG ? 0.f : l.y) * LOG2E;
-        if (masked) {
-          const int2 sq = *reinterpret_cast<const int2*>(seg_t + c);
-          s[4 * j + 0] = visible(q0 + c, kj0, sq.x, sk0, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -l0)) : 0.f;
-          s[4 * j + 1] = visible(q0 + c + 1, kj0, sq.y, sk0, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -l1)) : 0.f;
-          s[4 * j + 2] = visible(q0 + c, kj1, sq.x, sk1, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -l0)) : 0.f;
-          s[4 * j + 3] = visible(q0 + c + 1, kj1, sq.y, sk1, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -l1)) : 0.f;
-        } else {
-          s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], sl2, -l0));
-          s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -l1));
-          s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -l0));
-          s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -l1));
-        }
+        const int2 sq = *reinterpret_cast<const int2*>(seg_t + c);
+        s[4 * j + 0] = visible(q0 + c, kj0, sq.x, sk0, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -l0)) : 0.f;
+        s[4 * j + 1] = visible(q0 + c + 1, kj0, sq.y, sk0, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -l1)) : 0.f;
+        s[4 * j + 2] = visible(q0 + c, kj1, sq.x, sk1, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -l0)) : 0.f;
+        s[4 * j + 3] = visible(q0 + c + 1, kj1, sq.y, sk1, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -l1)) : 0.f;
       }
       // dS^T = P^T (dP^T - delta) scale
       wgmma_wait<0>();
@@ -715,30 +704,15 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
 // consumer warpgroup); Q and dO are loaded once, K and V arrive in DQ_KT-key
 // tiles through a 2-stage ring (K and V on barriers of their own).
 constexpr int DQ_BQ = 128;                   // q rows per block
-constexpr int DQ_KT = 64;                    // keys per K/V tile
+constexpr int DQ_KT = 64;                    // keys per K/V tile: the n of S's and dP's m64n64 wgmma
 constexpr int DQ_STAGES = 2;
 constexpr int DQ_PRODUCER_REGS = 40, DQ_CONSUMER_REGS = 232;  // setmaxnreg
 constexpr int DQ_KBOX = DQ_KT * 128;         // one DQ_KT-key x 64-column box of K or V, bytes
 constexpr int DQ_STAGE = 4 * DQ_KBOX;        // a stage: K's two boxes, then V's
-// The per-element mask on every k tile, not only on those walk_k_tiles flags:
-// off, as in K1 (K3 has the registers for both paths; masking every tile
-// takes 1.16-1.71x as long, flash_variants)
-constexpr bool DQ_MASK_EVERY_TILE = false;
 // 1024 bytes of alignment slack, Q's four boxes and dO's four (dQ staged in
 // Q's place), the ring, then the barriers: Q and dO's, and per stage K full,
 // V full, empty
 constexpr size_t DQ_SMEM = 1024 + 8 * Q_BOX + DQ_STAGES * DQ_STAGE + 8 * (1 + 3 * DQ_STAGES);
-
-// d (+)= A B with both operands in shared memory, at the accumulator's width:
-// 64 x 64 (32 registers) or 64 x 128 (64)
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
-  wgmma_m64n64k16<TRANS_B>(d, a, b, scale_d);
-}
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
-  wgmma_m64n128k16<TRANS_B>(d, a, b, scale_d);
-}
 
 // grid (Hq, B, S / DQ_BQ), the last (heaviest causal) q tiles first; block
 // 384 threads: warpgroup 0 the producer, 1 and 2 the consumers. tm_q, tm_do,
@@ -828,8 +802,7 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(q_full, 0);
-    walk_k_tiles<DQ_KT>(seg_rng, b, S, q0, DQ_BQ, causal, [&](int k0, bool flagged) {
-      const bool masked = DQ_MASK_EVERY_TILE || flagged;
+    walk_k_tiles<DQ_KT>(seg_rng, b, S, q0, DQ_BQ, causal, [&](int k0, bool masked) {
       const uint32_t st = ring + stage * DQ_STAGE;
       // S = Q K^T and dP = dO V^T, all four operands K-major; the first step
       // of each ignores the accumulator (scale_d 0)
@@ -839,16 +812,16 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t off = 32 * (kd % 4);
-        wgmma_ss<0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),
-                    wgmma_desc(st + (kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
+        wgmma_m64n64k16<0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),
+                           wgmma_desc(st + (kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
       }
       wgmma_commit();
       mbar_wait(v_full + 8 * stage, phase);
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t off = 32 * (kd % 4);
-        wgmma_ss<0>(dp, wgmma_desc(da + (kd / 4) * Q_BOX + off, 16, 1024),
-                    wgmma_desc(st + (2 + kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
+        wgmma_m64n64k16<0>(dp, wgmma_desc(da + (kd / 4) * Q_BOX + off, 16, 1024),
+                           wgmma_desc(st + (2 + kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
       }
       wgmma_commit();
       // P = exp2(S scale log2 e - LSE log2 e) in the accumulator layout: this
@@ -973,8 +946,8 @@ int vt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* se
                      const void* seg_rng, const void* dout, const void* lse, const void* delta,
                      void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
                      float scale, int causal, void* stream) {
-  const int nsplit = split;  // the wrapper's dkv_group_split; ws holds 2 * split f32 planes
-  return launch_flash_bwd_dkv(q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws, nsplit, B, S,
+  // split: the wrapper's dkv_group_split; ws holds 2 * split f32 planes when split > 1
+  return launch_flash_bwd_dkv(q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws, split, B, S,
                               Hq, Hkv, scale, causal, (cudaStream_t)stream);
 }
 

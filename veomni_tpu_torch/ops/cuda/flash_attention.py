@@ -154,7 +154,10 @@ def _check(q, k, v, seg, *extra):
 
 
 # K2's work items: DKV_KEYS keys of one kv head; at least SPLIT_ITEMS_PER_SM
-# items per SM before the q-head group is split across items
+# items per SM before the q-head group is split across items. Qwen3-30B-A3B
+# at micro-batch 1 and seq 4096 (configs/text/qwen3_moe_ep.yaml) gives 128
+# items for 132 SMs and splits 4 ways; micro-batch 4 (512 items) and
+# Qwen3-0.6B at micro-batch 4 (1024) do not split.
 DKV_KEYS = 128
 SPLIT_ITEMS_PER_SM = 2
 

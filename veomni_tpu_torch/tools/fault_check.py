@@ -97,12 +97,13 @@ FAULTS = (
           FLASH_SOURCE, "if (disjoint(qr, kr)) continue;  // no visible pair",
           "if (disjoint(qr, kr) || (KT == 64 && q0 == 128 && k0 == 0)) continue;  // no visible pair",
           "K3 dQ (Qwen3-0.6B layout)"),
-    # at the Qwen3-30B-A3B layout (B = 1) K2 splits each group of 8 q heads
-    # over 4 work items; the fixed-order sum leaves out dV's last partial
+    # at the Qwen3-30B-A3B head layout and micro-batch 1 K2 splits each group
+    # of 8 q heads over 4 work items; the fixed-order sum leaves out dV's
+    # last partial (the MoE main path's micro-batch 4 takes no split)
     Fault("K2-split", "K2's fixed-order sum of the split partials leaves out dV's last split",
           FLASH_SOURCE, "for (int p = 1; p < split; ++p) {",
           "for (int p = 1; p < split - which; ++p) {",
-          "K2 dV (Qwen3-30B-A3B layout)"),
+          "K2 dV (Qwen3-30B-A3B, micro-batch 1)"),
 )
 
 

@@ -7,18 +7,17 @@ library of its own under the system temp directory (one ``nvcc`` per
 variant, all at once); every library's K1, K2 and K3 are checked against the
 plain version (O and LSE; dQ, dK, dV) and timed in turns with CUDA events,
 best of three runs of 20 launches, on the dense main path's first packed
-batch at the Qwen3-0.6B head layout (B=4, S=4096, Hq=16, Hkv=8) and at the
-Qwen3-30B-A3B one (its first row, Hq=32, Hkv=4), and on a single-segment
-batch of the dense shape. K2 takes the group split of the wrapper's
-``dkv_group_split``. Run from the repository root on a machine with one
-NVIDIA Hopper card::
+batch at the Qwen3-0.6B head layout (B=4, S=4096, Hq=16, Hkv=8), at the
+Qwen3-30B-A3B one (Hq=32, Hkv=4) on the same batch, as the MoE step runs it,
+and on its first row alone (micro-batch 1, where K2 splits each q-head
+group over 4 work items), and on a single-segment batch of the dense
+shape. K2 takes the group split of the wrapper's ``dkv_group_split``. Run
+from the repository root on a machine with one NVIDIA Hopper card::
 
     python3 -m veomni_tpu_torch.tools.flash_variants [--only default,q64]
 
-It prints each library's ptxas report per kernel (registers, spill stores,
-whether ptxas serialized its wgmma for want of registers) with a census of
-its SASS (HGMMA instructions, wgmma waits), one line per (batch, kernel,
-variant), and then one JSON line with every time.
+It prints one line per (batch, kernel, variant), and then one JSON line
+with every time.
 """
 
 from __future__ import annotations
@@ -27,8 +26,6 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
-import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
@@ -38,7 +35,29 @@ from veomni_tpu_torch.tools.gmm_variants import build_edited
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = "flash_attention.cu"
 KERNELS = ("K1", "K2", "K3")
-KERNEL_NAMES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "split_sum")  # in the .cu's symbols
+
+# K2's P^T loop body as it is (every tile masked), and branched on the walk's flag
+DKV_MASKED_P = """\
+        const int2 sq = *reinterpret_cast<const int2*>(seg_t + c);
+        s[4 * j + 0] = visible(q0 + c, kj0, sq.x, sk0, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -l0)) : 0.f;
+        s[4 * j + 1] = visible(q0 + c + 1, kj0, sq.y, sk0, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -l1)) : 0.f;
+        s[4 * j + 2] = visible(q0 + c, kj1, sq.x, sk1, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -l0)) : 0.f;
+        s[4 * j + 3] = visible(q0 + c + 1, kj1, sq.y, sk1, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -l1)) : 0.f;
+"""
+DKV_BRANCHED_P = """\
+        if (masked) {
+          const int2 sq = *reinterpret_cast<const int2*>(seg_t + c);
+          s[4 * j + 0] = visible(q0 + c, kj0, sq.x, sk0, causal) ? exp2f(fmaf(s[4 * j + 0], sl2, -l0)) : 0.f;
+          s[4 * j + 1] = visible(q0 + c + 1, kj0, sq.y, sk0, causal) ? exp2f(fmaf(s[4 * j + 1], sl2, -l1)) : 0.f;
+          s[4 * j + 2] = visible(q0 + c, kj1, sq.x, sk1, causal) ? exp2f(fmaf(s[4 * j + 2], sl2, -l0)) : 0.f;
+          s[4 * j + 3] = visible(q0 + c + 1, kj1, sq.y, sk1, causal) ? exp2f(fmaf(s[4 * j + 3], sl2, -l1)) : 0.f;
+        } else {
+          s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], sl2, -l0));
+          s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], sl2, -l1));
+          s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], sl2, -l0));
+          s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], sl2, -l1));
+        }
+"""
 
 # name -> (what, edits); every variant computes the same function
 VARIANTS = {
@@ -57,11 +76,16 @@ VARIANTS = {
                     [("setmaxnreg_dec<40>();", "setmaxnreg_dec<24>();"),
                      ("setmaxnreg_inc<CW == 2 ? 232 : 240>();", "setmaxnreg_inc<240>();")]),
     "dkv-no-split": ("the whole q-head group in every work item, whatever the wrapper's split",
-                     [("const int nsplit = split;", "const int nsplit = 1;")]),
-    "dkv-mask-flagged": ("the per-element mask only on the q tiles that walk_q_tiles flags "
-                         "(diagonal or mixed-segment), as K1 does",
-                         [("constexpr bool DKV_MASK_EVERY_TILE = true;",
-                           "constexpr bool DKV_MASK_EVERY_TILE = false;")]),
+                     [("dk, dv, ws, split, B, S,", "dk, dv, ws, 1, B, S,")]),
+    "dkv-mask-flagged": ("the per-element mask only on the q tiles that reach the causal "
+                         "diagonal or hold more than one segment, as K1 does: walk_q_tiles "
+                         "flags them, the consumers branch on the flag",
+                         [("      tile(h, q0);",
+                           "      tile(h, q0, (causal && q0 < k0 + DKV_KT - 1) || kr.x != kr.y "
+                           "|| qr.x != kr.x || qr.y != kr.x);"),
+                          ("causal, [&](int h, int q0) {", "causal, [&](int h, int q0, bool) {"),
+                          ("causal, [&](int, int q0) {", "causal, [&](int, int q0, bool masked) {"),
+                          (DKV_MASKED_P, DKV_BRANCHED_P)]),
     "dkv-3-stages": ("a 3-stage Q/dO ring (~168 KB of shared memory) instead of 2",
                      [("constexpr int DKV_STAGES = 2;", "constexpr int DKV_STAGES = 3;")]),
     "dkv-regs-24-240": ("24 registers for the producer warpgroup, 240 for the consumers "
@@ -69,10 +93,16 @@ VARIANTS = {
                         [("constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;",
                           "constexpr int DKV_PRODUCER_REGS = 24, DKV_CONSUMER_REGS = 240;")]),
     "dq-mask-every-tile": ("the per-element mask on every k tile of K3 (K1 as it is)",
-                           [("constexpr bool DQ_MASK_EVERY_TILE = false;",
-                             "constexpr bool DQ_MASK_EVERY_TILE = true;")]),
-    "dq-kt-128": ("K3 on 128-key K/V tiles instead of 64 (~193 KB of shared memory)",
-                  [("constexpr int DQ_KT = 64;", "constexpr int DQ_KT = 128;")]),
+                           [("causal, [&](int k0, bool masked) {\n      const uint32_t st = ring + "
+                             "stage * DQ_STAGE;",
+                             "causal, [&](int k0, bool) {\n      const bool masked = true;\n"
+                             "      const uint32_t st = ring + stage * DQ_STAGE;")]),
+    "dq-kt-128": ("K3 on 128-key K/V tiles instead of 64 (~193 KB of shared memory; S and "
+                  "dP as wgmma m64n128)",
+                  [("constexpr int DQ_KT = 64;", "constexpr int DQ_KT = 128;"),
+                   ("wgmma_m64n64k16<0>(s, wgmma_desc(qa", "wgmma_m64n128k16<0>(s, wgmma_desc(qa"),
+                   ("wgmma_m64n64k16<0>(dp, wgmma_desc(da",
+                    "wgmma_m64n128k16<0>(dp, wgmma_desc(da")]),
 }
 # the kernel each variant is about (the default: all)
 ABOUT = {"mask-every-tile": "K1", "q64": "K1", "kv-3-stages": "K1", "regs-24-240": "K1",
@@ -89,48 +119,7 @@ def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
     cdll.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
     for fn in (cdll.vt_flash_fwd, cdll.vt_flash_bwd_dkv, cdll.vt_flash_bwd_dq):
         fn.restype = ctypes.c_int
-    with open(os.path.join(workdir, name, "lib.so.log")) as f:
-        cdll.ptxas = spills(f.read())
-    for kernel, census in sass_census(os.path.join(workdir, name, "lib.so")).items():
-        cdll.ptxas[kernel] = cdll.ptxas.get(kernel, "") + census
     return cdll
-
-
-def sass_census(lib: str) -> dict:
-    """{kernel: ", N HGMMA, M wgmma waits"} from the library's SASS (cuobjdump,
-    where the toolkit has it): a wait after every HGMMA is a serialized
-    kernel, one per group of products a pipelined one."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return {}
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
-    out = {}
-    for func in sass.split("Function : ")[1:]:
-        kernel = next((k for k in KERNEL_NAMES if k in func.split("\n")[0]), None)
-        if kernel:
-            out[kernel] = (f", {func.count('HGMMA')} HGMMA, "
-                           f"{func.count('WARPGROUP.DEPBAR')} wgmma waits")
-    return out
-
-
-def spills(log: str) -> dict:
-    """{kernel: "N registers, M bytes spill stores"} from nvcc's -Xptxas -v
-    report, with ", wgmma serialized" where ptxas says (C7512) that it
-    serialized the kernel's wgmma for want of registers."""
-    names = KERNEL_NAMES
-    out, kernel = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            kernel = next((k for k in names if k in line), line)
-        elif "C7512" in line:
-            serialized = next((k for k in names if k in line), None)
-            if serialized:
-                out[serialized] = out.get(serialized, "") + ", wgmma serialized"
-        elif kernel and "spill stores" in line:
-            out[kernel] = line.strip().split(",")[1].strip() + out.get(kernel, "")
-        elif kernel and "Used" in line:
-            out[kernel] = f"{line.split('Used')[1].split(',')[0].strip()}, {out.get(kernel, '')}"
-    return out
 
 
 def main(argv=None) -> int:
@@ -153,7 +142,8 @@ def main(argv=None) -> int:
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     seg = torch.from_numpy(next(packed_batches(151936, 4096, 4))["segment_ids"][0]).to(dev)
     batches = {"Qwen3-0.6B layout": (seg, 16, 8),
-               "Qwen3-30B-A3B layout": (seg[:1].contiguous(), 32, 4),
+               "Qwen3-30B-A3B layout": (seg, 32, 4),
+               "Qwen3-30B-A3B, micro-batch 1": (seg[:1].contiguous(), 32, 4),
                "single segment, Qwen3-0.6B layout": (torch.zeros_like(seg), 16, 8)}
     stream = torch.cuda.current_stream().cuda_stream
     results = {}
@@ -162,8 +152,6 @@ def main(argv=None) -> int:
             built = {name: pool.submit(build_variant, name, edits, tmp)
                      for name, (_, edits) in variants.items()}
             libs = {name: f.result() for name, f in built.items()}
-        for name, lib in libs.items():
-            print(f"ptxas, {name}: {lib.ptxas}", flush=True)
         for tag, (sg, hq, hkv) in batches.items():
             b, s = sg.shape
             gen = torch.Generator(device=dev).manual_seed(1)

@@ -87,8 +87,6 @@ def build_edited(source: str, name: str, edits, workdir: str) -> ctypes.CDLL:
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}\n{proc.stderr}")
-    with open(lib + ".log", "w") as f:  # the -Xptxas -v report
-        f.write(proc.stdout + proc.stderr)
     return ctypes.CDLL(lib)
 
 
