@@ -48,7 +48,18 @@ Phases (any failure exits non-zero and prints no result line):
    Qwen3-30B-A3B config (``configs/text/qwen3_moe_ep.yaml``), where K2 splits
    each q-head group over 4 work items: legs with the split and without it
    alternate, same seed, same batches, and their losses must agree;
-8. parity: at depth 2, full width, S=1024, one dense train step with the
+8. drive the trainer (``veomni_tpu_torch.tasks.train_text``, the user's
+   entry point) at Qwen3-0.6B's full width and depth on a seeded
+   pretokenized corpus written to a temporary directory: leg A, six straight
+   steps of ``TextTrainer`` from the parsed YAML; leg B1, three steps and an
+   (async) checkpoint; leg B2, a fresh ``main()`` that auto-resumes from it
+   and runs to six. B2's losses at steps 4-6 and its final parameters, AdamW
+   moments and ``num_updates`` must equal leg A's bit for bit, K1-K3 must
+   launch 28 times a step with no plain-path dispatch, and A's step-1 loss
+   must equal the one ``train_text_step``'s ``build_train_step`` gives on
+   the same initial weights and batch; it prints step ms, tokens/s, the
+   checkpoint's size, save and restore seconds and peak memory;
+9. parity: at depth 2, full width, S=1024, one dense train step with the
    kernels against the same step with the plain attention pinned (loss,
    grad norm), and the q/k/v/o projection gradients of one backward, leaf
    by leaf; at depth 1 (where no grouped GEMM feeds the router, so both
@@ -65,8 +76,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -120,6 +135,7 @@ MOE_PRESET = "qwen3_30b_a3b"
 MOE_LAYERS = 4
 MAIN_STEPS = 3
 MB1_STEPS = 6  # per leg of the micro-batch-1 MoE step; the first two warm up
+TRAINER_SAVE_AT = 3  # the trainer phase's resumed leg saves here, then runs to 6
 # the numbers of a flash kernel's row that are kept for its other layouts
 LAYOUT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "single_segment_ms")
@@ -768,6 +784,208 @@ def phase_moe_micro_batch_1(dev, card):
     return med
 
 
+def state_digest(train_state):
+    """Per tensor (parameters, then each one's AdamW exp_avg and
+    exp_avg_sq), on the card: the sum of its 32-bit words and their sum
+    weighted by a position hash, in int64; plus the update count. Any
+    changed word changes the weighted sum."""
+    model, opt = train_state.model, train_state.optimizer
+    out = []
+    with torch.no_grad():
+        for _, p in model.named_parameters():
+            for t in (p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]):
+                words = t.detach().contiguous().view(-1).view(torch.int32)
+                s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+                s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+                for lo in range(0, words.numel(), 1 << 24):
+                    w = words[lo:lo + (1 << 24)].long()
+                    pos = torch.arange(lo, lo + w.numel(), device=t.device, dtype=torch.int64)
+                    s1 += w.sum()
+                    s2 += (w * ((pos * 2654435761) % 2147483647 + 1)).sum()
+                out.append((int(s1), int(s2)))
+    out.append(opt.num_updates)
+    return out
+
+
+def phase_trainer(dev, card):
+    """The trainer path: see phase 8 of the module docstring. Returns the
+    straight leg's launch counts."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.observability.metrics import get_registry
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.tasks.train_text import main as train_text_main
+    from veomni_tpu_torch.tools.trainer_profile import SEED as TRAINER_SEED
+    from veomni_tpu_torch.tools.trainer_profile import STEPS as TRAINER_STEPS
+    from veomni_tpu_torch.tools.trainer_profile import write_config
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.train_text_step import bench_config
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    class Record(Callback):
+        """Per synced step: loss, grad norm, valid tokens, host time; the
+        first batch as the loop shipped it."""
+
+        def __init__(self, stop_at=None):
+            self.steps, self.first_batch, self.stop_at = {}, None, stop_at
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(
+                loss=m["loss"], grad_norm=m["grad_norm"], ntokens=m["ntokens"],
+                t=time.perf_counter())
+            if self.stop_at is not None and state.global_step >= self.stop_at:
+                state.should_stop = True
+
+    reg = get_registry()
+
+    def span_sum(name):
+        return reg.histogram_sum(f"span.{name}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        cfg_path = write_config(tmp)
+        log(f"trainer: a corpus of 512 documents (lengths uniform in [256, 2048], tokens "
+            f"uniform over 151936) and the config {cfg_path} (tools/trainer_profile.py)")
+
+        # leg A: six straight steps of TextTrainer from the parsed YAML
+        args = parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={tmp}/a"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        trainer = TextTrainer(args)
+        rec_a = Record()
+        trainer.callbacks.append(rec_a)
+        trainer.train()
+        trainer.checkpointer.close()
+        launches, fallbacks = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        digest_a = state_digest(trainer.train_state)
+        if not torch.are_deterministic_algorithms_enabled():
+            raise AssertionError("trainer: enable_full_determinism did not turn on "
+                                 "torch.use_deterministic_algorithms")
+        a = rec_a.steps
+        first_batch = rec_a.first_batch
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, TRAINER_STEPS + 1)]
+        for i in range(1, TRAINER_STEPS + 1):
+            r = a[i]
+            extra = (f" step_ms={ms[i - 2]:.1f} "
+                     f"valid_tokens_per_s={r['ntokens'] / ms[i - 2] * 1e3:.1f}"
+                     if i >= 2 else " (first step: warm-up, not timed)")
+            log(f"trainer step {i} (leg A): loss={r['loss']:.6f} grad_norm={r['grad_norm']:.6f} "
+                f"ntokens={int(r['ntokens'])}{extra} [{card}]")
+        med = sorted(ms)[len(ms) // 2]
+        log(f"trainer (Qwen3-0.6B, 28 layers, seq 4096, micro-batch 4, ctx remat, "
+            f"deterministic algorithms): warm steps 2-{TRAINER_STEPS} "
+            f"{', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} ms, "
+            f"{4 * 4096 / med * 1e3:.1f} tokens/s (packed rows, padding included), peak device "
+            f"memory {peak / 2**30:.2f} GiB; launches {launches}, FALLBACK_CALLS={fallbacks} "
+            f"[{card}]")
+        check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                     for r in a.values()], "trainer")
+        n = LAYERS * TRAINER_STEPS
+        check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n,
+                                           "flash_bwd_dq": n}, "trainer")
+        shutil.rmtree(os.path.join(tmp, "a"), ignore_errors=True)
+        del trainer
+        destroy_parallel_state()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: train_text_step's build_train_step on the same
+        # initial weights (same seed, same init) and the trainer's first batch
+        cfg = bench_config("qwen3_0p6b")
+        model = Transformer(cfg, torch.Generator(device=dev).manual_seed(TRAINER_SEED), device=dev)
+        state = build_train_state(model, build_optimizer(
+            model, lr=build_lr_scheduler(lr=1e-4, train_steps=TRAINER_STEPS)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first_batch.items()}
+        _, m = build_train_step(Transformer.loss_fn)(state, batch)
+        bench_loss = float(m["loss"])
+        rel = abs(a[1]["loss"] - bench_loss) / abs(bench_loss)
+        log(f"trainer step-1 parity: trainer loss {a[1]['loss']:.6f}, train_text_step's "
+            f"build_train_step {bench_loss:.6f} (rel {rel:.2e}, tol {TOL_LOSS_REL})")
+        if not rel <= TOL_LOSS_REL:
+            raise AssertionError(f"trainer step-1 loss departs from build_train_step's ({rel})")
+        del model, state, batch, m
+        torch.cuda.empty_cache()
+
+        # leg B1: three steps and a checkpoint (save_steps), stopped there
+        args = parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={tmp}/b",
+                                            f"--train.save_steps={TRAINER_SAVE_AT}"])
+        reset_all_counts()
+        save0, wait0 = span_sum("ckpt.save"), span_sum("ckpt.wait")
+        trainer = TextTrainer(args)
+        rec_b1 = Record(stop_at=TRAINER_SAVE_AT)
+        trainer.callbacks.append(rec_b1)
+        trainer.train()
+        trainer.checkpointer.close()
+        save_s, wait_s = span_sum("ckpt.save") - save0, span_sum("ckpt.wait") - wait0
+        b1_launches, b1_fallbacks = read_counts()
+        step_dir = os.path.join(tmp, "b", "checkpoints", f"global_step_{TRAINER_SAVE_AT}")
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, files in os.walk(step_dir) for f in files)
+        del trainer
+        destroy_parallel_state()
+        torch.cuda.empty_cache()
+
+        # leg B2: a fresh main() that auto-resumes from step 3 and runs to 6
+        reset_all_counts()
+        restore0 = span_sum("ckpt.restore")
+        t0 = time.perf_counter()
+        trainer = train_text_main([cfg_path, f"--train.output_dir={tmp}/b",
+                                   f"--train.save_steps={TRAINER_SAVE_AT}"])
+        trainer.checkpointer.close()
+        b2_s = time.perf_counter() - t0
+        restore_s = span_sum("ckpt.restore") - restore0
+        b2_launches, b2_fallbacks = read_counts()
+        digest_b = state_digest(trainer.train_state)
+        b = {}
+        with open(os.path.join(tmp, "b", "metrics_rank0.jsonl")) as f:
+            for line in f:
+                doc = json.loads(line)
+                if "loss" in doc:
+                    b[doc["step"]] = doc["loss"]
+        del trainer
+        destroy_parallel_state()
+        torch.cuda.empty_cache()
+
+        log(f"trainer checkpoint (step {TRAINER_SAVE_AT}, async save, size-mode manifest): "
+            f"{ckpt_bytes / 1e9:.3f} GB on disk; save {save_s + wait_s:.2f} s "
+            f"({save_s:.2f} s blocking the loop: host snapshot + dispatch; {wait_s:.2f} s "
+            f"waiting for the write and the manifest at train end); restore {restore_s:.2f} s "
+            f"(read + copy into the live model and AdamW); leg B2 {b2_s:.1f} s in all [{card}]")
+        for i in range(1, TRAINER_STEPS + 1):
+            got = rec_b1.steps[i]["loss"] if i <= TRAINER_SAVE_AT else b.get(i)
+            log(f"trainer step {i}: leg A loss {a[i]['loss']!r}, "
+                f"{'leg B1' if i <= TRAINER_SAVE_AT else 'leg B2 (resumed)'} loss {got!r}")
+            if got != a[i]["loss"]:
+                raise AssertionError(f"trainer resume: step {i} loss {got!r} != the straight "
+                                     f"leg's {a[i]['loss']!r}")
+        if digest_b != digest_a:
+            bad = sum(x != y for x, y in zip(digest_a, digest_b))
+            raise AssertionError(f"trainer resume: the final state differs from the straight "
+                                 f"leg's in {bad} of {len(digest_a)} digest entries "
+                                 f"(num_updates {digest_b[-1]} vs {digest_a[-1]})")
+        log(f"trainer resume: losses of steps {TRAINER_SAVE_AT + 1}-{TRAINER_STEPS} and the final "
+            f"parameters, AdamW moments and num_updates ({digest_a[-1]}) equal the straight "
+            f"leg's bit for bit ({len(digest_a) - 1} tensors)")
+        half = LAYERS * TRAINER_SAVE_AT
+        for tag, got_l, got_f in (("trainer leg B1", b1_launches, b1_fallbacks),
+                                  ("trainer leg B2", b2_launches, b2_fallbacks)):
+            check_counts(got_l, got_f, {"flash_fwd": half, "flash_bwd_dkv": half,
+                                        "flash_bwd_dq": half}, tag)
+        return launches
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def loss_grads(dev, preset: str, layers: int, pins, keep):
     """Gradients of the parameters whose names end with one of ``keep``
     after one ``loss_fn`` backward at full width, ``layers`` deep, S=1024,
@@ -885,6 +1103,8 @@ def main() -> int:
     table += phase_gmm(dev)
     torch.cuda.empty_cache()
     by_path = {"dense": phase_main(dev, card)}
+    torch.cuda.empty_cache()
+    by_path["trainer"] = phase_trainer(dev, card)
     torch.cuda.empty_cache()
     by_path["moe"] = phase_moe_main(dev, card)
     torch.cuda.empty_cache()

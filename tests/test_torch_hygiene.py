@@ -3,9 +3,11 @@
 * ``veomni_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor optax,
   flax) nor anything of ``veomni_tpu``: checked statically over every source
   file, and dynamically by importing every module in a fresh subprocess.
-* Entry points called without ``device=`` on a machine without CUDA raise
-  instead of running on the CPU; ``chip_smoke.py`` exits non-zero and prints
-  no result there, and also when it stands alone without the package.
+* Entry points called without ``device=`` (the trainer and
+  ``tasks/train_text.py`` without ``train.platform: cpu``) on a machine
+  without CUDA raise instead of running on the CPU; ``chip_smoke.py``
+  exits non-zero and prints no result there, and also when it stands alone
+  without the package.
 """
 
 import ast
@@ -68,18 +70,45 @@ def test_every_module_imports_without_jax():
     proc = _run(_WALK)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 20, proc.stdout
+    assert n_modules >= 60, proc.stdout
+    for name in PORTED_HOST_MODULES:
+        assert os.path.exists(os.path.join(PKG, *name.split("."))
+                              + ".py"), name
+
+
+# the trainer path's host modules: each must import without JAX (the walk
+# above imports every module of the package; this list pins that they exist)
+PORTED_HOST_MODULES = (
+    "utils.registry", "utils.helper", "utils.determinism", "observability.metrics",
+    "observability.spans", "observability.flight_recorder", "observability.goodput",
+    "observability.callback", "resilience.faults", "resilience.retry", "resilience.integrity",
+    "resilience.elastic", "resilience.supervisor", "data.dataset", "data.data_transform",
+    "data.data_loader", "arguments.arguments_types", "arguments.parser", "arguments.compat",
+    "parallel.parallel_state", "models.auto", "checkpoint.checkpointer", "trainer.callbacks",
+    "trainer.base", "trainer.text_trainer", "tasks.train_text",
+)
 
 
 _NO_DEVICE = r"""
 import torch
+from veomni_tpu_torch.arguments import VeOmniArguments
 from veomni_tpu_torch.models import Transformer
+from veomni_tpu_torch.tasks.train_text import main
 from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
+from veomni_tpu_torch.trainer import TextTrainer
 from veomni_tpu_torch.utils.device import resolve_device
 assert not torch.cuda.is_available()
+args = VeOmniArguments()
+args.train.save_hf_weights = False
+args.train.prefetch_depth = 0
+args.train.output_dir = %r
+flags = ["--train.save_hf_weights=false", "--train.prefetch_depth=0",
+         "--train.output_dir=" + args.train.output_dir]
 for call in (lambda: resolve_device(),
              lambda: Transformer(bench_config(preset="qwen3_smoke"), torch.Generator()),
-             lambda: run_train_steps(128, 1, 1, preset="qwen3_smoke")):
+             lambda: run_train_steps(128, 1, 1, preset="qwen3_smoke"),
+             lambda: TextTrainer(args),
+             lambda: main(flags)):
     try:
         call()
     except RuntimeError as e:
@@ -90,8 +119,8 @@ print("ok")
 """
 
 
-def test_entry_points_refuse_to_drop_to_cpu():
-    proc = _run(_NO_DEVICE)
+def test_entry_points_refuse_to_drop_to_cpu(tmp_path):
+    proc = _run(_NO_DEVICE % str(tmp_path / "out"))
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 

@@ -99,7 +99,11 @@ def route_tokens(x, router, cfg: TransformerConfig):
     them, as ``preferred_element_type=f32`` gives."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     probs = torch.softmax(x.float() @ router.float(), dim=-1)
-    topk_w, topk_idx = torch.topk(probs, k, dim=-1)
+    # the first k of a stable descending sort: among equal probabilities the
+    # lower expert index wins, as with the reference's lax.top_k (torch.topk
+    # makes no promise about ties)
+    sorted_w, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topk_w, topk_idx = sorted_w[..., :k], sorted_idx[..., :k]
     if cfg.norm_topk_prob:
         topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp(min=1e-9)
     if cfg.routed_scaling_factor != 1.0:

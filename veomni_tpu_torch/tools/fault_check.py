@@ -1,12 +1,13 @@
-"""Planted faults in the port's kernels: do ``chip_smoke.py``'s checks bite?
+"""Planted faults in the port: do ``chip_smoke.py``'s checks bite?
 
 For each fault in ``FAULTS``, copy ``chip_smoke.py`` and ``veomni_tpu_torch/``
 into a fresh directory outside the checkout (under the system temp
 directory), apply one edit to the fault's source file in the copy (the
 grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash kernels K1-K3
-in ``csrc/flash_attention.cu``) and run the copy's ``chip_smoke.py``. A
-fault is caught when that run exits non-zero, prints no result line and
-stops at the check named for the fault. Run from the repository root on a
+in ``csrc/flash_attention.cu``, the trainer's resume in
+``checkpoint/checkpointer.py`` and ``trainer/base.py``) and run the copy's
+``chip_smoke.py``. A fault is caught when that run exits non-zero, prints no
+result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
 
     python3 -m veomni_tpu_torch.tools.fault_check [--log-dir DIR] [--only K1,K6]
@@ -34,11 +35,13 @@ from typing import NamedTuple
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 GMM_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "grouped_gemm.cu")
 FLASH_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "flash_attention.cu")
+CKPT_SOURCE = os.path.join("veomni_tpu_torch", "checkpoint", "checkpointer.py")
+TRAINER_SOURCE = os.path.join("veomni_tpu_torch", "trainer", "base.py")
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
 CASE = "(small ragged+empty, K=128 N=256)"
-RUN_TIMEOUT_S = 900  # one faulted chip_smoke.py run stops at its kernel phases
+RUN_TIMEOUT_S = 900  # one faulted chip_smoke.py run stops at its check
 
 
 class Fault(NamedTuple):
@@ -47,7 +50,12 @@ class Fault(NamedTuple):
     source: str  # the file the edit applies to, relative to the repository root
     anchor: str  # occurs exactly once in source
     replacement: str
-    check: str  # the chip_smoke.py check that must fail
+    check: str  # the chip_smoke.py check that must fail (its log line starts so)
+    failure: str = ""  # its error message; default: the kernel-vs-plain one
+
+    @property
+    def error(self) -> str:
+        return self.failure or f"{self.check}: kernel disagrees"
 
 
 # K4 and K5 share one kernel template and one work schedule (the producer and
@@ -104,6 +112,21 @@ FAULTS = (
           FLASH_SOURCE, "for (int p = 1; p < split; ++p) {",
           "for (int p = 1; p < split - which; ++p) {",
           "K2 dV (Qwen3-30B-A3B, micro-batch 1)"),
+    # the trainer phase's resumed leg B2 continues from step 3: restoring the
+    # moments but not the update count restarts the learning-rate schedule,
+    # so step 4's update takes lr(0) for lr(3) and step 5's loss departs
+    Fault("resume-num-updates", "the restore copies parameters and AdamW moments but leaves "
+                                "num_updates at 0",
+          CKPT_SOURCE, '    train_state.optimizer.num_updates = int(opt["num_updates"])\n',
+          "    train_state.optimizer.num_updates = 0\n",
+          "trainer step 5:", "trainer resume: step 5 loss"),
+    # ... and dropping the dataloader cursor feeds step 4 the first batch again
+    Fault("resume-cursor", "auto-resume restores the train state but drops the dataloader "
+                           "cursor",
+          TRAINER_SOURCE, 'if extra.get("dataloader") and hasattr(self.dataloader, '
+                          '"load_state_dict"):',
+          'if False and extra.get("dataloader"):',
+          "trainer step 4:", "trainer resume: step 4 loss"),
 )
 
 
@@ -142,9 +165,9 @@ def run_fault(fault: Fault, log_dir: str | None) -> dict:
         with open(os.path.join(log_dir, f"{fault.name}.log"), "w") as f:
             f.write(out)
     line = next((ln.strip() for ln in proc.stdout.splitlines()
-                 if ln.strip().startswith(fault.check + ": max_abs_err")), None)
+                 if ln.strip().startswith(fault.check)), None)
     caught = (proc.returncode != 0 and '"ok": true' not in proc.stdout
-              and f"{fault.check}: kernel disagrees" in proc.stderr)
+              and fault.error in proc.stderr)
     return {"name": fault.name, "fault": fault.what, "rc": proc.returncode, "caught": caught,
             "check": fault.check, "line": line}
 

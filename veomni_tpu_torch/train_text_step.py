@@ -152,6 +152,9 @@ def run_train_steps(seq_len: int = 4096, micro_bs: int = 4, steps: int = 3,
 
 _KERNEL_CATEGORIES = (  # first match wins; names as CUDA reports them
     ("flash attention (K1-K3)", ("flash_",)),
+    # zeros and, under deterministic algorithms, the NaN fill of every
+    # uninitialized allocation
+    ("fills", ("FillFunctor",)),
     ("grouped GEMM (K4-K6)", ("gmm_",)),
     ("f32 GEMM", ("f32f32", "sgemm")),
     ("bf16 GEMM", ("nvjet", "gemm")),

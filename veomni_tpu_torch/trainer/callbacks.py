@@ -1,0 +1,230 @@
+"""Trainer callbacks: hooks + the stock set.
+
+Port of ``veomni_tpu/trainer/callbacks.py``: ``TrainerControlState``, the
+hook protocol, ``LoggingCallback``, ``EnvironMeterCallback``,
+``CheckpointCallback`` (``:196``) and ``ProfileCallback``, which drives
+``torch.profiler`` where the reference drives ``jax.profiler``. The
+reference's ``HFCheckpointCallback`` (needs ``hf_io``), ``EvaluateCallback``
+and ``WandbCallback`` are not ported yet; the trainer's feature gate
+(``trainer/base.py::check_supported``) raises for the knobs that add them.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+from typing import Any, Dict
+
+from veomni_tpu_torch.utils.logging import _process_index, get_logger
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class TrainerControlState:
+    """Mutable loop state shared with callbacks (reference TrainerState)."""
+
+    global_step: int = 0
+    train_steps: int = 0
+    epoch: int = 0
+    metrics: Dict[str, float] = field(default_factory=dict)
+    should_stop: bool = False
+    # True on steps where the loop materialized metrics to host floats (log
+    # cadence + final step). On other steps metrics hold device tensors;
+    # callbacks that read values must gate on this to keep the loop async.
+    synced: bool = True
+    # set when a SIGTERM/preemption request stopped the loop early (the
+    # final checkpoint was still taken; the process should exit 0)
+    preempted: bool = False
+    # resilience supervisor rollup (anomalies, rollbacks, watchdog stalls)
+    resilience: Dict[str, Any] = field(default_factory=dict)
+
+
+class Callback:
+    def on_train_begin(self, trainer, state: TrainerControlState):
+        pass
+
+    def on_train_end(self, trainer, state: TrainerControlState):
+        pass
+
+    def on_step_begin(self, trainer, state: TrainerControlState):
+        pass
+
+    def on_step_end(self, trainer, state: TrainerControlState):
+        pass
+
+    def close(self):
+        """Exception-safe teardown: BaseTrainer calls this in its finally
+        block, so resource holders (profiler trace) release even when the
+        loop raises and ``on_train_end`` never fires. Must be idempotent."""
+        pass
+
+
+def _export_payload(state: TrainerControlState) -> Dict[str, Any]:
+    """The metric payload consumers log: the observability registry's
+    export for this step (ObservabilityCallback publishes before the
+    logging callbacks run), falling back to ``state.metrics`` when the
+    observability layer isn't in the callback list (trainer-free tests)."""
+    from veomni_tpu_torch.observability.metrics import get_registry
+
+    payload = get_registry().last_export(step=state.global_step)
+    return payload if payload is not None else state.metrics
+
+
+class LoggingCallback(Callback):
+    """Console log on the loop's sync cadence (train.log_steps), fed from
+    the observability registry's export (one merged payload: step metrics +
+    goodput split + span/subsystem rollups)."""
+
+    KEYS = ("loss", "grad_norm", "lr", "tokens_per_sec_per_chip", "mfu",
+            "goodput_pct", "data_wait_frac")
+
+    def on_step_end(self, trainer, state):
+        if state.synced:
+            payload = _export_payload(state)
+            parts = [f"step {state.global_step}/{state.train_steps}"]
+            for k in self.KEYS:
+                if k in payload:
+                    parts.append(f"{k}={payload[k]:.4g}")
+            logger.info_rank0(" | ".join(parts))
+
+
+class EnvironMeterCallback(Callback):
+    """Feeds the MFU meter (reference EnvironMeterCallback), text batches
+    only: the reference's ViT and DiT tower terms belong to the model
+    families of slice F.
+
+    With the async loop, per-step wall time measures dispatch, not compute —
+    only the fetch at a sync step absorbs the real device time. The meter is
+    therefore rolled up once per sync window (state.synced) so
+    throughput/MFU are window averages over real elapsed time."""
+
+    def __init__(self, meter):
+        self.meter = meter
+
+    def on_step_begin(self, trainer, state):
+        batch = trainer.current_batch
+        if batch is None:
+            return
+        labels = batch["labels"]
+        self.meter.add(int((labels != -100).sum()), seq_len=labels.shape[-1])
+
+    def on_step_end(self, trainer, state):
+        if state.synced:
+            state.metrics.update(self.meter.step())
+
+
+class CheckpointCallback(Callback):
+    """Periodic train-state save + exact resume
+    (reference CheckpointerCallback, checkpoint_callback.py:35-170)."""
+
+    def __init__(self, checkpointer, save_steps: int = 0):
+        self.checkpointer = checkpointer
+        self.save_steps = save_steps
+
+    def _extra_state(self, trainer, state) -> Dict[str, Any]:
+        return {
+            "global_step": state.global_step,
+            "epoch": state.epoch,
+            "meter": trainer.meter.state_dict() if trainer.meter else None,
+            # any stateful callback rides along
+            "callbacks": {
+                type(cb).__name__: cb.state_dict()
+                for cb in trainer.callbacks
+                if hasattr(cb, "state_dict")
+            },
+        }
+
+    def _rank_state(self, trainer) -> Dict[str, Any]:
+        # rank-LOCAL: the dataloader cursor + packing carry-over buffer hold
+        # this process's data shard; each rank saves/restores its own.
+        src = trainer.dataloader
+        return {
+            "dataloader": src.state_dict()
+            if hasattr(src, "state_dict")
+            else None,
+        }
+
+    def on_train_begin(self, trainer, state):
+        if not trainer.args.train.auto_resume:
+            return
+        restored, extra = trainer.try_resume()
+        if restored and extra:
+            trainer.apply_restored_extra(state, extra)
+
+    def on_step_end(self, trainer, state):
+        if self.save_steps and state.global_step % self.save_steps == 0:
+            self.checkpointer.save(
+                state.global_step, trainer.train_state,
+                self._extra_state(trainer, state),
+                rank_state=self._rank_state(trainer),
+            )
+
+    def on_train_end(self, trainer, state):
+        self.checkpointer.save(
+            state.global_step, trainer.train_state,
+            self._extra_state(trainer, state),
+            rank_state=self._rank_state(trainer),
+        )
+        self.checkpointer.wait()
+
+
+class ProfileCallback(Callback):
+    """``torch.profiler`` trace over [start_step, end_step): host ops and,
+    on a card, CUDA kernels, written as a chrome trace
+    ``<output_dir>/profile_trace/trace_rank<R>.json.gz`` (the reference
+    writes a ``jax.profiler`` trace to the same directory).
+
+    ``VEOMNI_PROFILE_START`` / ``VEOMNI_PROFILE_END`` override the
+    configured window. Stop is exception-safe and idempotent: the trainer's
+    finally block calls :meth:`close`, so a raise inside the traced window
+    never leaks an active profiler."""
+
+    def __init__(self, output_dir: str, start_step: int = 3, end_step: int = 5):
+        self.dir = os.path.join(output_dir, "profile_trace")
+        self.start = int(os.environ.get("VEOMNI_PROFILE_START", start_step))
+        self.end = int(os.environ.get("VEOMNI_PROFILE_END", end_step))
+        self._prof = None
+
+    def _stop(self):
+        if self._prof is None:
+            return  # double-stop guard
+        prof, self._prof = self._prof, None
+        from veomni_tpu_torch.observability.spans import set_profiler_active
+
+        set_profiler_active(False)
+        try:
+            prof.stop()
+            path = os.path.join(self.dir, f"trace_rank{_process_index()}.json.gz")
+            prof.export_chrome_trace(path)
+        except Exception as e:
+            # never let trace teardown mask the original failure
+            logger.warning_rank0("profiler stop failed: %s", e)
+            return
+        logger.info_rank0("profile trace written to %s", path)
+
+    def on_step_begin(self, trainer, state):
+        if state.global_step == self.start and self._prof is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            os.makedirs(self.dir, exist_ok=True)
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.start()
+            # host spans mirror into record_function ranges while it runs
+            from veomni_tpu_torch.observability.spans import set_profiler_active
+
+            set_profiler_active(True)
+
+    def on_step_end(self, trainer, state):
+        if state.global_step >= self.end:
+            self._stop()
+
+    def on_train_end(self, trainer, state):
+        self._stop()
+
+    def close(self):
+        self._stop()
