@@ -25,7 +25,10 @@ Phases (any failure exits non-zero and prints no result line):
    8 ways), and a key tile whose walk is empty (its dK, dV and dQ must come
    out exactly 0); K2 and K3 are launched twice on the same inputs at every
    layout and in every edge case, and their dQ, dK and dV must be
-   bit-identical;
+   bit-identical; then the same at head dim 64 on the HF trainer phase's own
+   first packed batch at TinyLlama-1.1B's heads (B=4, S=2048, Hq=32, Hkv=4)
+   and on its first row (K2 splits each group 8 ways), and at head dim 256
+   at Gemma-7B's heads (B=1, S=4096, Hq=16, Hkv=16);
 4. the same for the grouped-GEMM kernels K4-K6 at the MoE main path's
    shapes (M = 131072 routed rows, E = 128, K/N = 2048/768 and 768/2048)
    with the group sizes of its real routing (layer 0 on the first packed
@@ -36,6 +39,9 @@ Phases (any failure exits non-zero and prints no result line):
    experts that end on an edge of K6's 64-row chunks, inside one, or hold
    fewer rows than one, empty experts (whose drhs K6 must write as exactly
    0) and 128 experts, most of them empty, with a boundary on a tile edge;
+   then K and N multiples of 8 but not of the tiles (small cases at K=136
+   N=200 and K=776 N=64, and the MoE routing at (K, N) = (2048, 776),
+   (776, 2048) and the reference CLI config's (2048, 64));
 5. drive the dense main path: Qwen3-0.6B (full width, 28 layers, f32 master
    weights, bf16 compute, ``ctx`` remat, AdamW) for 3 SFT train steps on
    packed seq-4096 batches of micro-batch 4, with every kernel launch
@@ -59,7 +65,20 @@ Phases (any failure exits non-zero and prints no result line):
    must equal the one ``train_text_step``'s ``build_train_step`` gives on
    the same initial weights and batch; it prints step ms, tokens/s, the
    checkpoint's size, save and restore seconds and peak memory;
-9. parity: at depth 2, full width, S=1024, one dense train step with the
+9. the HF-directory trainer: TinyLlama-1.1B (the published config.json,
+   ``train_text_step.HF_CONFIGS``; 22 layers, hidden 2048, head dim 64,
+   nothing cut) as random bf16 weights from seed 0 written by the port's
+   ``save_hf_checkpoint`` in three shards with an index, loaded back
+   bit-equal; then ``TextTrainer`` on a YAML with ``config_path``,
+   ``model_path``, ``dataset_type: streaming`` over 4 jsonl shards,
+   ``dyn_bsz``, seq 2048 x micro-batch 4, prefetch 2, ``save_hf_weights``
+   and deterministic algorithms for 6 steps: K1-K3 launch 22 times a step
+   each, all at head dim 64, flash ``FALLBACK_CALLS`` stays 0, the exported
+   HF directory reads back bit-equal to the final parameters, the step-1
+   loss equals ``build_train_step``'s on the same weights and batch, and a
+   leg with prefetch 0 gives the same losses bit for bit; it prints step ms,
+   tokens/s, peak memory and the HF write, load and export seconds;
+10. parity: at depth 2, full width, S=1024, one dense train step with the
    kernels against the same step with the plain attention pinned (loss,
    grad norm), and the q/k/v/o projection gradients of one backward, leaf
    by leaf; at depth 1 (where no grouped GEMM feeds the router, so both
@@ -74,9 +93,11 @@ limit as ``nvidia-smi`` gives them, and the device record
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -136,6 +157,13 @@ MOE_LAYERS = 4
 MAIN_STEPS = 3
 MB1_STEPS = 6  # per leg of the micro-batch-1 MoE step; the first two warm up
 TRAINER_SAVE_AT = 3  # the trainer phase's resumed leg saves here, then runs to 6
+# the HF-directory trainer phase: TinyLlama-1.1B (train_text_step.HF_CONFIGS)
+HF_PRESET = "tinyllama_1p1b"
+HF_STEPS = 6
+HF_SEQ = 2048  # the model's own context (max_position_embeddings)
+HF_MICRO_BS = 4
+HF_DOCS = 512
+HF_SHARD_BYTES = 1 << 30  # its 2.2 GB of bf16 weights in three shards: the index path runs
 # the numbers of a flash kernel's row that are kept for its other layouts
 LAYOUT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "single_segment_ms")
@@ -173,6 +201,20 @@ def phase_build(sources):
         paths = list(pool.map(build.build, sources))
     for p in paths:
         log(f"built {p}")
+        # ptxas' report per kernel (the .log beside the library): registers,
+        # spills, and wgmma serialization warnings
+        kernel = None
+        if not os.path.exists(p + ".log"):
+            continue
+        with open(p + ".log") as f:
+            for line in f:
+                if "Compiling entry function" in line:
+                    # the mangled name without its namespace and parameters:
+                    # the kernel and its template arguments (ILi64E... = <64, ...>)
+                    kernel = re.sub(r"^.*?_cu_[0-9a-f]+\d+", "", line.split("'")[1])
+                    kernel = kernel.split("EEv")[0].split("Ev")[0][:60]
+                elif kernel and ("registers" in line or "spill" in line or "C75" in line):
+                    log(f"  ptxas {kernel}: {line.strip()[:160]}")
 
 
 def visible_pairs(seg: torch.Tensor) -> int:
@@ -270,13 +312,13 @@ def phase_probe(dev):
                 library_ms=timed_ms(lambda: torch.mul(x, 2.0), reps=100))
 
 
-def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
-    """K1-K3 against their plain versions on packed segments ``seg``, timed
-    beside their plain versions and the library yardstick."""
+def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
+    """K1-K3 at head dim ``d`` against their plain versions on packed
+    segments ``seg``, timed beside their plain versions and the library
+    yardstick."""
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
 
     b, s = seg.shape
-    d = 128
     scale = d ** -0.5
     g = torch.Generator(device=dev).manual_seed(1)
     q = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
@@ -285,14 +327,15 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     do = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
     pairs = visible_pairs(seg)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    split = fa.dkv_group_split(b, s, hq, hkv, n_sm)
+    split = fa.dkv_group_split(b, s, hq, hkv, n_sm, d)
+    fwd_keys = 64 if d == 256 else 128  # K1's key tile
     log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
         f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
         f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
-        f"segment skip: {kept_tiles(seg, 128, 128):.3f} (K1: 128 q x 128 keys), "
+        f"segment skip: {kept_tiles(seg, 128, fwd_keys):.3f} (K1: 128 q x {fwd_keys} keys), "
         f"{kept_tiles(seg, 64, 128):.3f} (K2: 64 q x 128 keys), "
         f"{kept_tiles(seg, 128, 64):.3f} (K3: 128 q x 64 keys); "
-        f"K2's q-head group split {split}")
+        f"K2's q-head group split {split}{', dK/dV in two 128-column halves' if d == 256 else ''}")
 
     # K1 through the autograd Function, then K2 + K3 from its backward
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
@@ -360,16 +403,17 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str):
     dq_bound = bound_ms(dev, 6 * d * hq * pairs, 2 * nq + 2 * nkv + segb + 2 * rows + nq)
     src = "veomni_tpu_torch/csrc/flash_attention.cu"
     ref = "veomni_tpu/ops/pallas/flash_attention.py"
+    held = dict(head_dim=d, layout=f"{tag}: B={b} S={s} Hq={hq} Hkv={hkv} D={d}")
     table = [
-        dict(name="flash_fwd", route="cuda", source=src, replaces=f"{ref}:49",
+        dict(name="flash_fwd", route="cuda", source=src, replaces=f"{ref}:49", **held,
              max_abs_err=max(err_o, err_lse), ms=ms["fwd"], plain_ms=plain_fwd,
              bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=lib_fwd,
              single_segment_ms=single["fwd"]),
-        dict(name="flash_bwd_dkv", route="cuda", source=src, replaces=f"{ref}:155",
+        dict(name="flash_bwd_dkv", route="cuda", source=src, replaces=f"{ref}:155", **held,
              max_abs_err=max(err_dk, err_dv), ms=ms["dkv"], plain_ms=plain_bwd,
              bound_ms=dkv_bound[0], bound_by=dkv_bound[1], library_ms=lib_bwd,
              single_segment_ms=single["dkv"]),
-        dict(name="flash_bwd_dq", route="cuda", source=src, replaces=f"{ref}:208",
+        dict(name="flash_bwd_dq", route="cuda", source=src, replaces=f"{ref}:208", **held,
              max_abs_err=err_dq, ms=ms["dq"], plain_ms=plain_bwd,
              bound_ms=dq_bound[0], bound_by=dq_bound[1], library_ms=lib_bwd,
              single_segment_ms=single["dq"]),
@@ -599,7 +643,8 @@ def gmm_case(dev, sizes, k: int, n: int, tag: str, timed: bool = False, rows=Non
         lib_ms, lib_name = library_gmm(kind, lhs, rhs, g, starts)
         bound = bound_ms(dev, flops, nbytes + (e + 1) * i32)
         row = dict(name=name, route="cuda", source="veomni_tpu_torch/csrc/grouped_gemm.cu",
-                   replaces=f"veomni_tpu/ops/pallas/grouped_gemm.py:{line}",
+                   replaces=f"veomni_tpu/ops/pallas/grouped_gemm.py:{line}", k=k, n=n,
+                   layout=f"{tag}: M={m} E={e}",
                    max_abs_err=err[kind], ms=timed_ms(kernel),
                    plain_ms=timed_ms(plain, reps=3, warmup=1),
                    bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
@@ -637,8 +682,22 @@ def phase_gmm(dev):
     edge = torch.zeros(128, dtype=torch.int64)
     edge[5], edge[64], edge[127] = 128, 200, 156
     gmm_case(dev, edge, 256, 384, "small E=128 tile-edge, K=256 N=384")
+    # K and N multiples of 8 but not of the tiles: the last tiles reach past
+    # the tensors' edges (K4's contraction tail, K5's and K6's output tails)
+    for tag, case in {"ragged+empty": [100, 156, 0, 256], "unaligned M=420": [37, 0, 219, 64, 100],
+                      "chunk edges": [64, 128, 0, 40, 192, 100]}.items():
+        gmm_case(dev, torch.tensor(case), 136, 200, f"small {tag}, K=136 N=200")
+    gmm_case(dev, torch.tensor([100, 0, 200, 0]), 776, 64,
+             "small rows 300..511 past the groups, K=776 N=64", rows=512)
     rows = gmm_case(dev, sizes, 2048, 768, "gate/up: K=2048 N=768", timed=True)
     gmm_case(dev, sizes, 768, 2048, "down: K=768 N=2048", timed=True)
+    # the same routing at widths the tiles do not divide: 776 = 6 x 128 + 8
+    # (K and N), and the reference CLI config's expert width 64
+    # (tests/test_cli_subprocess.py:41), held and timed; no main path runs them
+    for k, n, what in ((2048, 776, "gate/up"), (776, 2048, "down"), (2048, 64, "gate/up")):
+        for row in gmm_case(dev, sizes, k, n, f"{what} at K={k} N={n}", timed=True):
+            row["on_main_path"] = False
+            rows.append(row)
     return rows
 
 
@@ -986,6 +1045,267 @@ def phase_trainer(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+HF_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+data:
+  train_path: {data}
+  dataset_type: streaming
+  data_type: pretokenized
+  max_seq_len: {seq}
+  dyn_bsz: true
+train:
+  micro_batch_size: {micro_bs}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  lr_decay_style: cosine
+  enable_full_determinism: true
+  seed: 0
+  save_hf_weights: true
+  prefetch_depth: 2
+  log_steps: 1
+"""
+
+
+def write_hf_run(tmp: str) -> str:
+    """The HF phase's inputs under ``tmp``: the corpus (HF_DOCS pretokenized
+    documents, lengths uniform in [256, 2048], tokens uniform over
+    TinyLlama's 32000, from seed 0) as 4 jsonl shards, and the YAML; returns
+    the YAML's path. The HF directory itself is written by phase_hf_trainer."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    data = os.path.join(tmp, "shards")
+    os.makedirs(data)
+    for shard in range(4):
+        with open(os.path.join(data, f"shard-{shard:03d}.jsonl"), "w") as f:
+            for _ in range(HF_DOCS // 4):
+                n = int(rng.integers(256, 2049))
+                f.write(json.dumps({"input_ids": rng.integers(0, 32000, n).tolist()}) + "\n")
+    path = os.path.join(tmp, "tinyllama_hf.yaml")
+    with open(path, "w") as f:
+        f.write(HF_YAML.format(hf=os.path.join(tmp, "hf"), data=data, seq=HF_SEQ,
+                               micro_bs=HF_MICRO_BS, steps=HF_STEPS))
+    return path
+
+
+def hf_first_batch(yaml_path: str):
+    """The first packed micro-batch the HF phase's trainer trains on, built
+    by the same pieces the trainer builds (streaming shards, pretokenized
+    transform, packing collator, token-budget dynamic batching), as numpy
+    [1, B, S] arrays; phase_hf_trainer checks the trainer's against it."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.data.data_collator import TextPackingCollator
+    from veomni_tpu_torch.data.data_transform import build_data_transform
+    from veomni_tpu_torch.data.dataset import build_dataset
+    from veomni_tpu_torch.data.dynamic_batching import DynamicBatchDataloader
+
+    args = parse_args(VeOmniArguments, [yaml_path])
+    d, t = args.data, args.train
+    transform = build_data_transform(d.data_type, tokenizer=None, text_keys=d.text_keys,
+                                     max_seq_len=d.max_seq_len, channel_list=d.channel_list,
+                                     chat_template=d.chat_template)
+    ds = build_dataset(d.dataset_type, path=d.train_path, transform=transform,
+                       skip_budget=t.data_skip_budget)
+    collator = TextPackingCollator(seq_len=d.max_seq_len, micro_batch_size=t.micro_batch_size)
+    loader = DynamicBatchDataloader(ds, collator, token_budget=t.micro_batch_size * d.max_seq_len,
+                                    grad_accum_steps=args.compute_grad_accum(1),
+                                    buffer_size=d.dyn_bsz_buffer_size, seed=t.seed)
+    return next(iter(loader))
+
+
+def phase_hf_trainer(dev, card, yaml_path: str, first_batch):
+    """The HF-directory trainer path: see phase 9 of the module docstring.
+    Returns leg A's launch counts."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.models import Transformer, TransformerConfig
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.models.hf_io import INDEX_NAME, hf_to_params, save_hf_checkpoint
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    class Record(Callback):
+        """Per step: loss, grad norm, valid tokens, host time; the first
+        batch as the loop shipped it."""
+
+        def __init__(self):
+            self.steps, self.first_batch = {}, None
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(loss=m["loss"], grad_norm=m["grad_norm"],
+                                                 ntokens=m["ntokens"], t=time.perf_counter())
+
+    def leg(out_dir, *overrides):
+        args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={out_dir}",
+                                            *overrides])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        trainer = TextTrainer(args)
+        rec = Record()
+        trainer.callbacks.append(rec)
+        export = {}
+        save_hf = trainer.model.save_hf
+
+        def timed_save_hf(*a, **k):  # HFCheckpointCallback's export, timed
+            t0 = time.perf_counter()
+            save_hf(*a, **k)
+            export["s"] = time.perf_counter() - t0
+
+        trainer.model.save_hf = timed_save_hf
+        trainer.train()
+        trainer.checkpointer.close()
+        del trainer.model.save_hf  # the wrapper's cycle would keep the model alive
+        launches, fallbacks = read_counts()
+        by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        shutil.rmtree(os.path.join(out_dir, "checkpoints"), ignore_errors=True)
+        return trainer, rec, launches, fallbacks, by_dim, peak, export.get("s")
+
+    def params_equal(got, want, what):
+        bad = [n for (n, a), (_, b) in zip(got.named_parameters(), want.named_parameters())
+               if not torch.equal(a.float(), b.float())]
+        if bad:
+            raise AssertionError(f"hf trainer: {what} differ from the written ones in "
+                                 f"{len(bad)} tensors, e.g. {bad[:3]}")
+
+    tmp = os.path.dirname(yaml_path)
+    hf_dir = os.path.join(tmp, "hf")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        # random bf16 weights from seed 0, written by the port's own export in
+        # HF_SHARD_BYTES shards; config.json is the published one
+        published = HF_CONFIGS[HF_PRESET]
+        cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
+        written = Transformer(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        t0 = time.perf_counter()
+        save_hf_checkpoint(written, cfg, hf_dir, max_shard_bytes=HF_SHARD_BYTES)
+        write_s = time.perf_counter() - t0
+        with open(os.path.join(hf_dir, "config.json"), "w") as f:
+            json.dump(published, f, indent=2)
+        shards = sorted(f for f in os.listdir(hf_dir) if f.endswith(".safetensors"))
+        hf_bytes = sum(os.path.getsize(os.path.join(hf_dir, f)) for f in shards)
+        if len(shards) < 2 or not os.path.exists(os.path.join(hf_dir, INDEX_NAME)):
+            raise AssertionError(f"hf trainer: the written checkpoint has shards {shards}")
+        t0 = time.perf_counter()
+        loaded = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev).module
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        params_equal(loaded, written, "loaded parameters")
+        n_params = sum(p.numel() for p in loaded.parameters())
+        log(f"hf trainer: TinyLlama-1.1B ({cfg.num_hidden_layers} layers, hidden "
+            f"{cfg.hidden_size}, heads {cfg.num_attention_heads}/{cfg.num_key_value_heads}, "
+            f"head dim {cfg.head_dim}, {n_params} parameters) written as random bf16 weights "
+            f"(seed 0) in {len(shards)} shards ({hf_bytes / 1e9:.3f} GB, index "
+            f"{INDEX_NAME}) in {write_s:.2f} s; loaded by build_foundation_model(config_path, "
+            f"weights_path) onto the card in {load_s:.2f} s as f32: the loaded parameters "
+            f"are bit-equal to the written ones [{card}]")
+        if cfg.head_dim != 64:
+            raise AssertionError(f"hf trainer: head dim {cfg.head_dim}, expected 64")
+        del loaded, written
+        torch.cuda.empty_cache()
+
+        # leg A: the YAML as it is (streaming, dyn_bsz, prefetch 2, HF export)
+        trainer, rec_a, launches, fallbacks, by_dim, peak, export_s = leg(os.path.join(tmp, "a"))
+        a = rec_a.steps
+        shapes = {k: v.shape for k, v in rec_a.first_batch.items()}
+        for k in ("input_ids", "segment_ids", "position_ids", "labels"):
+            if not (rec_a.first_batch[k] == first_batch[k]).all():
+                raise AssertionError(f"hf trainer: the trainer's first batch ({k}) is not the "
+                                     f"one the D=64 kernel gates held")
+        seq = shapes["input_ids"][-1]
+        log(f"hf trainer: dyn_bsz batches are {shapes['input_ids']} (seq {seq}"
+            f"{'' if seq % 128 == 0 else ', NOT a multiple of 128'}); the first is the one the "
+            f"D=64 kernel gates held")
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, HF_STEPS + 1)]
+        for i in range(1, HF_STEPS + 1):
+            extra = (f" step_ms={ms[i - 2]:.1f} valid_tokens_per_s="
+                     f"{float(a[i]['ntokens']) / ms[i - 2] * 1e3:.1f}"
+                     if i >= 2 else " (first step: warm-up, not timed)")
+            log(f"hf trainer step {i} (leg A, prefetch 2): loss={float(a[i]['loss']):.6f} "
+                f"grad_norm={float(a[i]['grad_norm']):.6f} ntokens={int(a[i]['ntokens'])}"
+                f"{extra} [{card}]")
+        check_steps([dict(loss=float(r["loss"]), grad_norm=float(r["grad_norm"]), step_ok=True)
+                     for r in a.values()], "hf trainer")
+        n = cfg.num_hidden_layers * HF_STEPS
+        check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n,
+                                           "flash_bwd_dq": n}, "hf trainer")
+        if any(by_dim[d][k] != (n if d == 64 else 0) for d in by_dim for k in by_dim[d]):
+            raise AssertionError(f"hf trainer: launches by head dim {by_dim}, expected "
+                                 f"{n} of each at D=64")
+        med = sorted(ms)[len(ms) // 2]
+        log(f"hf trainer (TinyLlama-1.1B, {cfg.num_hidden_layers} layers, seq {HF_SEQ}, micro-batch {HF_MICRO_BS}, "
+            f"dyn_bsz, streaming jsonl shards, prefetch 2, ctx remat, deterministic algorithms): "
+            f"warm steps 2-{HF_STEPS} {', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} "
+            f"ms, {HF_MICRO_BS * HF_SEQ / med * 1e3:.1f} tokens/s (packed rows, padding "
+            f"included), peak device memory {peak / 2**30:.2f} GiB; HF export (f32) "
+            f"{export_s:.2f} s; launches {launches} (all at D=64), FALLBACK_CALLS={fallbacks} "
+            f"[{card}]")
+
+        # the export reads back bit-equal to the final parameters
+        out = os.path.join(tmp, "a", "hf_ckpt")
+        final = trainer.train_state.model
+        back = hf_to_params(out, final.cfg, Transformer(final.cfg, None, device=dev))
+        params_equal(back, final, "exported parameters read back")
+        export_bytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+        log(f"hf trainer: the HF export ({export_bytes / 1e9:.3f} GB) reads back bit-equal to "
+            f"the final parameters")
+        del trainer, final, back
+        destroy_parallel_state()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: the bare build_train_step on the same weights and batch
+        model = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev).module
+        state = build_train_state(model, build_optimizer(
+            model, lr=build_lr_scheduler(lr=1e-4, train_steps=HF_STEPS)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in rec_a.first_batch.items()}
+        _, m = build_train_step(Transformer.loss_fn)(state, batch)
+        bare = float(m["loss"])
+        rel = abs(float(a[1]["loss"]) - bare) / abs(bare)
+        log(f"hf trainer step-1 parity: trainer loss {float(a[1]['loss']):.6f}, "
+            f"build_train_step {bare:.6f} (rel {rel:.2e}, tol {TOL_LOSS_REL})")
+        if not rel <= TOL_LOSS_REL:
+            raise AssertionError(f"hf trainer step-1 loss departs from build_train_step's ({rel})")
+        del model, state, batch, m
+        torch.cuda.empty_cache()
+
+        # leg B: prefetch 0 (no export): the same losses bit for bit
+        trainer, rec_b, b_launches, b_fallbacks, _, _, _ = leg(
+            os.path.join(tmp, "b"), "--train.prefetch_depth=0", "--train.save_hf_weights=false")
+        del trainer
+        destroy_parallel_state()
+        torch.cuda.empty_cache()
+        check_counts(b_launches, b_fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n,
+                                               "flash_bwd_dq": n}, "hf trainer leg B")
+        for i in range(1, HF_STEPS + 1):
+            la, lb = float(a[i]["loss"]), float(rec_b.steps[i]["loss"])
+            if la != lb:
+                raise AssertionError(f"hf trainer: step {i} loss with prefetch 2 {la!r} != "
+                                     f"with prefetch 0 {lb!r}")
+        log(f"hf trainer: losses of steps 1-{HF_STEPS} with prefetch 2 and prefetch 0 are the "
+            f"same bit for bit")
+        return launches
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        gc.collect()  # a trainer's reference cycles would hold its ~18 GB of state
+        torch.cuda.empty_cache()
+
+
 def loss_grads(dev, preset: str, layers: int, pins, keep):
     """Gradients of the parameters whose names end with one of ``keep``
     after one ``loss_fn`` backward at full width, ``layers`` deep, S=1024,
@@ -1075,7 +1395,6 @@ def main() -> int:
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
     from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
     from veomni_tpu_torch.ops.cuda import probe
-    from veomni_tpu_torch.train_text_step import packed_batches
     from veomni_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device("cuda")
@@ -1083,6 +1402,15 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
+    hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+    try:
+        return run_phases(dev, card, hf_tmp)
+    finally:
+        shutil.rmtree(hf_tmp, ignore_errors=True)
+
+
+def run_phases(dev, card, hf_tmp) -> int:
+    from veomni_tpu_torch.train_text_step import packed_batches
 
     table = [phase_probe(dev)]
     # the dense main path's first packed micro-batch: the kernels' real segment layout
@@ -1100,28 +1428,55 @@ def main() -> int:
     table += flash
     torch.cuda.empty_cache()
     phase_flash_edges(dev)
+    # head dim 64 on the HF trainer phase's own first packed batch
+    # (TinyLlama-1.1B: 32 q / 4 kv heads), and its first row alone (K2 splits
+    # each group of 8 q heads over 8 work items)
+    hf_yaml = write_hf_run(hf_tmp)
+    hf_batch = hf_first_batch(hf_yaml)
+    hf_seg = torch.from_numpy(hf_batch["segment_ids"][0]).to(dev)
+    d64 = phase_flash(dev, hf_seg, 32, 4, "TinyLlama-1.1B layout", d=64)
+    torch.cuda.empty_cache()
+    d64_mb1 = phase_flash(dev, hf_seg[:1].contiguous(), 32, 4, "TinyLlama-1.1B, micro-batch 1",
+                          d=64)
+    for row, mb1 in zip(d64, d64_mb1):
+        row["micro_batch_1"] = {k: mb1[k] for k in LAYOUT_KEYS}
+    table += d64
+    torch.cuda.empty_cache()
+    # head dim 256 at Gemma-7B's heads (16 q, 16 kv) on the dense batch's first row
+    table += phase_flash(dev, seg[:1].contiguous(), 16, 16, "Gemma-7B heads, S=4096", d=256)
+    torch.cuda.empty_cache()
     table += phase_gmm(dev)
     torch.cuda.empty_cache()
-    by_path = {"dense": phase_main(dev, card)}
+    # each main path with the head dim its attention runs at
+    by_path = {"dense": (phase_main(dev, card), 128)}
     torch.cuda.empty_cache()
-    by_path["trainer"] = phase_trainer(dev, card)
+    by_path["trainer"] = (phase_trainer(dev, card), 128)
     torch.cuda.empty_cache()
-    by_path["moe"] = phase_moe_main(dev, card)
+    by_path["hf_trainer"] = (phase_hf_trainer(dev, card, hf_yaml, hf_batch), 64)
+    torch.cuda.empty_cache()
+    by_path["moe"] = (phase_moe_main(dev, card), 128)
     torch.cuda.empty_cache()
     phase_moe_micro_batch_1(dev, card)
     phase_parity(dev)
     phase_moe_parity(dev)
 
     for row in table:
-        counts = {path: launches.get(row["name"], 0) for path, launches in by_path.items()}
+        # a flash row counts the paths at its head dim; a grouped-GEMM row at
+        # widths no main path runs counts none
+        counts = {path: (launches.get(row["name"], 0)
+                         if row.get("head_dim", d) == d and row.get("on_main_path", True) else 0)
+                  for path, (launches, d) in by_path.items()}
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "launches_by_path")
-    # flash K1-K3 only: single_segment_ms (the like-for-like yardstick against
-    # SDPA), moe_layout (the same numbers at Hq=32, Hkv=4 on the same batch)
-    # and moe_micro_batch_1 (at Hq=32, Hkv=4 on its first row alone)
-    extra = ("single_segment_ms", "moe_layout", "moe_micro_batch_1")
+    # flash K1-K3: head_dim and layout (what the row holds), single_segment_ms
+    # (the like-for-like yardstick against SDPA), and for D=128 moe_layout
+    # (the same numbers at Hq=32, Hkv=4 on the same batch) and
+    # moe_micro_batch_1 (at Hq=32, Hkv=4 on its first row alone), for D=64
+    # micro_batch_1; grouped GEMM K4-K6: k, n and layout
+    extra = ("head_dim", "k", "n", "layout", "single_segment_ms", "moe_layout",
+             "moe_micro_batch_1", "micro_batch_1")
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in table]}), flush=True)
     print(card, flush=True)

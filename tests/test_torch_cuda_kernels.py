@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card:
-flash attention (K1-K3), grouped GEMM (K4-K6) and the probe (K7).
+flash attention (K1-K3, at head dims 64, 128 and 256), grouped GEMM (K4-K6,
+at K and N multiples of the tiles and of 8 only) and the probe (K7).
 
 Every test here needs an NVIDIA Hopper GPU and skips without one: a CUDA
 kernel has no CPU mode. This file imports no JAX, so it runs where the port
@@ -78,6 +79,37 @@ def test_kernels_match_plain_on_card(cuda_device, packed, causal, heads):
     for got, ref in zip((qg.grad, kg.grad, vg.grad),
                         fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, causal)):
         _close(got, ref)
+
+
+@pytest.mark.parametrize("split", ["wrapper", 2], ids=["wrapper-split", "split2"])
+@pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 256], ids=["d64", "d256"])
+def test_kernels_match_plain_on_card_at_head_dims(cuda_device, monkeypatch, d, causal, heads,
+                                                  split):
+    """K1-K3 at head dims 64 (TinyLlama) and 256 (Gemma-7B; K1 on 64-key
+    tiles, K2 in two 128-column halves, 1-stage rings) on packed segments,
+    with the wrapper's group split and with the group split in two; K2 and
+    K3 launched twice give bit-identical dQ, dK and dV."""
+    if split != "wrapper":
+        monkeypatch.setattr(fa, "dkv_group_split", lambda *a, **k: split)
+    q, k, v, do, seg = _inputs(cuda_device, hq=heads[0], hkv=heads[1], d=d, seed=d)
+    scale = d ** -0.5
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal)
+    out.backward(do)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, causal)
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, fa.seg_ranges(seg))
+    _close(out, o_p)
+    _close(lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
+    delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
+    refs = fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, causal)
+    for got, ref in zip((qg.grad, kg.grad, vg.grad), refs):
+        _close(got, ref)
+    runs = [fa.flash_bwd(q, k, v, seg, do, lse_k, delta, scale, causal, fa.seg_ranges(seg))
+            for _ in range(2)]
+    for got, again in zip(*runs):
+        assert torch.equal(got, again)
 
 
 def _edge_segments(layout):
@@ -237,6 +269,35 @@ def test_gmm_kernels_match_plain_on_card(cuda_device, case):
     assert not gg.gmm_t_cuda(lhs, g, starts, e)[empty.to(cuda_device)].any()
 
 
+@pytest.mark.parametrize("kn", [(2048, 776), (776, 2048), (2048, 64), (64, 2048), (136, 200)],
+                         ids=["k2048-n776", "k776-n2048", "k2048-n64", "k64-n2048", "k136-n200"])
+@pytest.mark.parametrize("case", ["ragged-empty", "past-groups"])
+def test_gmm_kernels_match_plain_at_unaligned_widths(cuda_device, case, kn):
+    """K and N multiples of 8 but not of the tiles: TMA reads zeros past
+    each edge and stores nothing past it; K4's contraction tail reads the
+    expert's own rows (its 3-D map of rhs) and K6's K tail writes into the
+    expert's own drhs (its 3-D map of drhs). Rows past the groups and the
+    drhs of an empty expert are exactly 0."""
+    sizes, rows = GMM_CASES[case]
+    k, n = kn
+    rng = np.random.default_rng(2)
+    owned, e = sum(sizes), len(sizes)
+    m = rows or owned
+    lhs, rhs, g = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                   .to(cuda_device, torch.bfloat16) for shape in ((m, k), (e, k, n), (m, n)))
+    group_sizes = torch.tensor(sizes, device=cuda_device)
+    starts = gg.group_starts(group_sizes)
+    a, b = lhs.clone().requires_grad_(), rhs.clone().requires_grad_()
+    out = gg.cuda_group_gemm(a, b, group_sizes)
+    out.backward(g)
+    torch.cuda.synchronize()
+    _gmm_close(out, gg.gmm_plain(lhs, rhs, starts))
+    _gmm_close(a.grad, gg.gmm_dlhs_plain(g, rhs, starts))
+    _gmm_close(b.grad, gg.gmm_t_plain(lhs, g, starts, e))
+    assert not out[owned:].any() and not a.grad[owned:].any()
+    assert not b.grad[torch.tensor(sizes, device=cuda_device) == 0].any()
+
+
 def test_gmm_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
     """On CUDA tensors the grouped-GEMM wrappers launch K4-K6 or raise."""
 
@@ -252,8 +313,8 @@ def test_gmm_cuda_tensors_never_reach_the_plain_path(cuda_device, monkeypatch):
     with pytest.raises(TypeError):  # f32 is not a kernel input: raise, never fall back
         gg.gmm_cuda(lhs.detach().float(), rhs.detach().float(),
                     gg.group_starts(torch.tensor([100, 156], device=cuda_device)))
-    with pytest.raises(ValueError):  # K = 96: not the kernels' tile, raise, never fall back
-        gg.cuda_group_gemm(lhs.detach()[:, :96].contiguous(), rhs.detach()[:, :96].contiguous(),
+    with pytest.raises(ValueError):  # K = 90: not a multiple of 8, raise, never fall back
+        gg.cuda_group_gemm(lhs.detach()[:, :90].contiguous(), rhs.detach()[:, :90].contiguous(),
                            torch.tensor([100, 156], device=cuda_device))
 
 

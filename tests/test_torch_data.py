@@ -124,3 +124,194 @@ def test_datasets_and_states_match(tmp_path):
         assert nxt == nxt_resumed
         results.append((order, first, it_state, draws, w_state, nxt))
     assert results[0] == results[1]
+
+
+# --------------------------------------------------------------------------
+# dynamic batching, prefetch, streaming (copies of the reference's modules)
+# --------------------------------------------------------------------------
+def dyn_loader(mods, dyn_mod, path, *, warmup_steps=0, accum=2, buffer_size=24):
+    ds_mod, tf_mod, col_mod, _ = mods
+    ds = ds_mod.build_dataset("mapping", path=str(path),
+                              transform=tf_mod.build_data_transform("pretokenized"))
+    collator = col_mod.TextPackingCollator(seq_len=128, micro_batch_size=2)
+    return dyn_mod.DynamicBatchDataloader(ds, collator, token_budget=2 * 128,
+                                          grad_accum_steps=accum, buffer_size=buffer_size,
+                                          warmup_steps=warmup_steps, seed=5)
+
+
+@pytest.mark.parametrize("warmup_steps", [0, 6], ids=["steady", "warmup-ramp"])
+def test_dyn_bsz_batches_and_cursor_match(tmp_path, warmup_steps):
+    """DynamicBatchDataloader: byte-identical batches and equal cursors
+    across an epoch boundary (with the warmup ramp too); the cursor
+    round-trips through JSON into a fresh port loader, which yields what
+    the original yields next."""
+    from veomni_tpu.data import dynamic_batching as j_dyn
+    from veomni_tpu_torch.data import dynamic_batching
+
+    _write_dummy_data(tmp_path / "data.jsonl", n=64)
+    port = dyn_loader(PORT, dynamic_batching, tmp_path / "data.jsonl", warmup_steps=warmup_steps)
+    ref = dyn_loader(REF, j_dyn, tmp_path / "data.jsonl", warmup_steps=warmup_steps)
+    assert len(port) == len(ref)
+    it_p, it_r = iter(port), iter(ref)
+    for _ in range(12):
+        assert_same_batch(next(it_p), next(it_r))
+        assert port.state_dict() == ref.state_dict()
+    assert port.state_dict()["epoch"] >= 1 and port.state_dict()["buffer"]["buffer"]
+    saved = json.loads(json.dumps(port.state_dict()))
+    ahead = [next(it_p) for _ in range(4)]
+    resumed = dyn_loader(PORT, dynamic_batching, tmp_path / "data.jsonl",
+                         warmup_steps=warmup_steps)
+    resumed.load_state_dict(saved)
+    it = iter(resumed)
+    for want in ahead:
+        assert_same_batch(next(it), want)
+    assert resumed.state_dict() == port.state_dict()
+
+
+class _StatefulLoader:
+    """The reference prefetch test's loader: an explicit cursor."""
+
+    def __init__(self, n=20, start=0):
+        self.n = n
+        self.cursor = start
+
+    def __iter__(self):
+        import numpy as np
+
+        while self.cursor < self.n:
+            item = {"x": np.full((2,), self.cursor)}
+            self.cursor += 1
+            yield item
+
+    def state_dict(self):
+        return {"cursor": self.cursor}
+
+
+def test_prefetch_consumed_cursor_goes_into_checkpoints():
+    """The reference's ``test_prefetcher_consumed_state_resume``: the saved
+    cursor is the last CONSUMED batch's, not the worker's."""
+    from veomni_tpu_torch.data.prefetch import BackgroundPrefetcher
+
+    pf = BackgroundPrefetcher(_StatefulLoader(n=20), depth=3)
+    it = iter(pf)
+    assert [int(next(it)["x"][0]) for _ in range(7)] == list(range(7))
+    state = pf.state_dict()
+    pf.close()
+    assert state["cursor"] == 7
+    pf2 = BackgroundPrefetcher(_StatefulLoader(n=20, start=state["cursor"]), depth=3)
+    assert [int(b["x"][0]) for b in pf2] == list(range(7, 20))
+    pf2.close()
+
+
+def test_prefetch_worker_error_keeps_its_traceback():
+    """The reference's exhaustion, error and traceback tests: the worker's
+    exception reaches the consumer with the worker's own frames."""
+    import traceback
+
+    import numpy as np
+
+    from veomni_tpu_torch.data.prefetch import BackgroundPrefetcher
+
+    assert len(list(BackgroundPrefetcher(_StatefulLoader(n=3), depth=2))) == 3
+
+    def deep_failure():
+        raise RuntimeError("shard corrupted")
+
+    class _Boom:
+        def __iter__(self):
+            yield {"x": np.zeros(1)}
+            deep_failure()
+
+    pf = BackgroundPrefetcher(_Boom(), depth=2)
+    it = iter(pf)
+    next(it)
+    with pytest.raises(RuntimeError, match="shard corrupted") as excinfo:
+        next(it)
+    frames = [f.name for f in traceback.extract_tb(excinfo.value.__traceback__)]
+    assert "deep_failure" in frames and "_worker" in frames
+    pf.close()
+    with pytest.raises(ValueError):
+        BackgroundPrefetcher(_StatefulLoader(), depth=0)
+
+
+def test_prefetch_close_is_idempotent_and_wakes_a_blocked_consumer():
+    """The reference's close test: close() wakes a consumer blocked on the
+    empty queue with PrefetcherClosed, promptly, and may be called again."""
+    import threading
+    import time
+
+    import numpy as np
+
+    from veomni_tpu_torch.data.prefetch import BackgroundPrefetcher, PrefetcherClosed
+
+    release = threading.Event()
+
+    class _Stuck:
+        def __iter__(self):
+            yield {"x": np.zeros(1)}
+            release.wait(30.0)
+
+    pf = BackgroundPrefetcher(_Stuck(), depth=1)
+    it = iter(pf)
+    next(it)
+    threading.Timer(0.3, pf.close).start()
+    t0 = time.monotonic()
+    with pytest.raises(PrefetcherClosed):
+        next(it)
+    assert time.monotonic() - t0 < 5.0
+    pf.close()
+    pf.close()
+    release.set()
+
+
+def _shards(tmp_path):
+    """A jsonl/tar corpus: 4 jsonl shards and one webdataset tar shard."""
+    import io
+    import tarfile
+
+    d = tmp_path / "shards"
+    d.mkdir()
+    for s in range(5):
+        rows = [{"input_ids": list(range(s * 100 + i, s * 100 + i + 3 + i % 5))}
+                for i in range(7)]
+        if s < 4:
+            with open(d / f"shard-{s:03d}.jsonl", "w") as f:
+                for r in rows:
+                    f.write(json.dumps(r) + "\n")
+        else:
+            with tarfile.open(d / f"shard-{s:03d}.tar", "w") as tf:
+                for i, r in enumerate(rows):
+                    raw = json.dumps(r).encode()
+                    info = tarfile.TarInfo(name=f"{i:05d}.json")
+                    info.size = len(raw)
+                    tf.addfile(info, io.BytesIO(raw))
+    return str(d)
+
+
+@pytest.mark.parametrize("dp", [(0, 1), (1, 2)], ids=["one-rank", "rank1-of-2"])
+def test_streaming_records_and_cursors_match(tmp_path, dp):
+    """StreamingShardDataset: the same records in the same order over an
+    epoch, equal cursors after every record, random access alike, and a JSON
+    round-tripped mid-epoch cursor resumes the port's stream where it
+    stopped."""
+    path = _shards(tmp_path)
+
+    def build(mod):
+        return mod.build_dataset("streaming", path=path, seed=3, dp_rank=dp[0], dp_size=dp[1],
+                                 transform=None)
+
+    port, ref = build(dataset), build(j_dataset)
+    assert len(port) == len(ref) and [port[i] for i in range(len(port))] == \
+        [ref[i] for i in range(len(ref))]
+    got, states = [], []
+    it_r = iter(ref)
+    for a in port:
+        assert a == next(it_r) and port.state_dict() == ref.state_dict()
+        got.append(a)
+        states.append(json.loads(json.dumps(port.state_dict())))
+    assert next(it_r, None) is None and len(got) > 10
+    assert port.state_dict() == ref.state_dict()  # the next epoch's cursor
+    half = len(got) // 2
+    resumed = build(dataset)
+    resumed.load_state_dict(states[half - 1])
+    assert list(resumed) == got[half:]

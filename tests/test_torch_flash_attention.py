@@ -95,5 +95,52 @@ def test_dkv_group_split_rule(layout):
         assert shape is None
     else:
         # dK's partials, then dV's: [2, split, B, S, Hkv, D] f32
-        assert shape == (2, split, b, s, hkv, fa.HEAD_DIM)
+        assert shape == (2, split, b, s, hkv, 128)
         assert np.prod(shape) * 4 == 2 * split * b * s * hkv * 128 * 4
+
+
+@pytest.mark.parametrize("d", [64, 256], ids=["d64", "d256"])
+def test_plain_flash_matches_pallas_at_head_dims(d):
+    """The head dims the kernels now take besides 128 (TinyLlama's 64,
+    Gemma-7B's 256): forward O and LSE (2e-5) and dQ/dK/dV (5e-4) of the
+    plain version against the Pallas kernel in interpret mode, GQA 2/1."""
+    q, k, v, seg = _inputs(b=1, s=256, hq=2, hkv=1, d=d, seed=d)
+    o_j, lse_j = jax_fwd(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2),
+                         jnp.asarray(seg), d ** -0.5, True, 128, 128)
+    o_t, lse_t = fa.flash_fwd_plain(*(torch.from_numpy(x) for x in (q, k, v, seg)),
+                                    d ** -0.5, True)
+    np.testing.assert_allclose(o_t.numpy(), np.swapaxes(np.asarray(o_j), 1, 2), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0], rtol=2e-5, atol=2e-5)
+
+    def loss_j(q, k, v):
+        return (jax_flash(q, k, v, segment_ids=jnp.asarray(seg), causal=True) ** 2).sum()
+
+    g_j = jax.grad(loss_j, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (fa.flash_attention(qt, kt, vt, segment_ids=torch.from_numpy(seg)) ** 2).sum().backward()
+    for got, ref, name in zip((qt.grad, kt.grad, vt.grad), g_j, "qkv"):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=5e-4, atol=5e-4,
+                                   err_msg=f"grad d{name}")
+
+
+def test_kernel_domain_raises_naming_the_plain_pin():
+    """Head dims outside 64/128/256 and non-bf16 inputs raise before any
+    launch (the feature rule does not send them to the plain path), and the
+    message names the ops_config pin to the plain attention."""
+    q, k, v, seg = (torch.from_numpy(x) for x in _inputs(b=1, s=128, hq=2, hkv=1, d=96))
+    with pytest.raises(ValueError, match="ops_config: {attention: xla}"):
+        fa.flash_fwd_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16(), seg, 1.0, True, None)
+    q, k, v, seg = (torch.from_numpy(x) for x in _inputs(b=1, s=128, hq=2, hkv=1, d=64))
+    with pytest.raises(TypeError, match="ops_config: {attention: xla}"):
+        fa.flash_fwd_cuda(q, k, v, seg, 1.0, True, None)
+
+
+def test_dkv_group_split_counts_the_d256_halves():
+    """At D = 256 K2 runs each key tile's dK/dV as two 128-column halves, so
+    a batch has twice the work items, and its workspace is D wide."""
+    assert fa.dkv_halves(256) == 2 and fa.dkv_halves(64) == fa.dkv_halves(128) == 1
+    # 1 x 16 kv heads x 16 key tiles x 2 halves = 512 items: no split needed;
+    # at D = 128, 256 items are fewer than 2 per SM: the group of 2 splits
+    assert fa.dkv_group_split(1, 2048, 32, 16, 132, d=256) == 1
+    assert fa.dkv_group_split(1, 2048, 32, 16, 132, d=128) == 2
+    assert fa.dkv_workspace_shape(1, 1024, 16, 2, d=64) == (2, 2, 1, 1024, 16, 64)

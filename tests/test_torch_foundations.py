@@ -404,13 +404,13 @@ def test_parallel_state_world_size_one():
         init_parallel_state(dp_shard_size=0)
 
 
-def test_models_auto_text_branch():
+def test_models_auto_text_branch(tmp_path):
     from veomni_tpu_torch.models.auto import build_config, build_foundation_model
     from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, apply_ops_config
 
     cfg = build_config("qwen3", vocab_size=64, hidden_size=32, intermediate_size=64,
                        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
-                       head_dim=16)
+                       head_dim=16, qk_norm=True)
     try:
         fm = build_foundation_model(None, config=cfg, ops_implementation={"attention": "xla"})
         assert KERNEL_REGISTRY.pinned("attention") == "xla"
@@ -420,7 +420,12 @@ def test_models_auto_text_branch():
         apply_ops_config(None)
     with pytest.raises(NotImplementedError, match="slice F"):
         build_config("qwen2_vl")
-    with pytest.raises(NotImplementedError, match="hf_io"):
-        build_foundation_model("/some/dir")
-    with pytest.raises(NotImplementedError, match="hf_io"):
-        fm.save_hf("/tmp/x")
+    # an HF directory: config.json and weights round-trip through the family
+    with pytest.raises(FileNotFoundError):
+        build_foundation_model(str(tmp_path / "missing"))
+    fm.save_hf(str(tmp_path / "hf"))
+    back = build_foundation_model(str(tmp_path / "hf"), weights_path=str(tmp_path / "hf"),
+                                  device="cpu", dtype=cfg.dtype)
+    assert back.config.head_dim == 16 and back.config.qk_norm
+    for (name, a), (_, b) in zip(back.module.named_parameters(), module.named_parameters()):
+        assert torch.equal(a, b), name

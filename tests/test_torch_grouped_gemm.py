@@ -23,7 +23,8 @@ import pytest
 import torch
 
 from veomni_tpu.ops.group_gemm import _group_gemm_ragged as j_ragged
-from veomni_tpu.ops.pallas.grouped_gemm import _gmm_dlhs, _gmm_raw, _gmm_transpose
+from veomni_tpu.ops.pallas.grouped_gemm import (_gmm_dlhs, _gmm_raw, _gmm_transpose,
+                                                _pallas_group_gemm)
 from veomni_tpu_torch.ops import group_gemm
 from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
 from veomni_tpu_torch.ops.group_gemm import _group_gemm_ragged
@@ -94,8 +95,8 @@ def test_unaligned_shapes_take_the_ragged_path():
     """Ragged shapes: a row count M that is not a multiple of 128 goes
     through the autograd Function (on the card, the kernels mask the last
     row tile) and matches ragged_dot and its gradients; K or N not a
-    multiple of 128 raises, on every device, where the reference would take
-    its plain ragged impl."""
+    multiple of 8 raises, on every device (a TMA row is a multiple of 16
+    bytes), where the reference would take its plain ragged impl."""
     sizes = [37, 0, 219, 64]  # M = 320: the last 128-row tile holds 64 rows
     lhs, rhs, _, gs, _ = _inputs(sizes, m=sum(sizes))
 
@@ -109,10 +110,37 @@ def test_unaligned_shapes_take_the_ragged_path():
     _close(out, j_ragged(lhs, rhs, jnp.asarray(gs)), 1e-5)
     _close(a.grad, d_lhs, 2e-4)
     _close(b.grad, d_rhs, 2e-4)
-    for k, n in ((64, 256), (128, 96)):
+    for k, n in ((60, 256), (128, 100)):
         lhs, rhs, _, gs, _ = _inputs(sizes, m=sum(sizes), k=k, n=n)
-        with pytest.raises(ValueError, match="multiples of 128"):
+        with pytest.raises(ValueError, match="multiples of 8"):
             gg.cuda_group_gemm(T(lhs), T(rhs), T(gs))
+
+
+@pytest.mark.parametrize("kn", [(64, 256), (128, 96), (64, 776), (776, 64)],
+                         ids=["k64", "n96", "k64-n776", "k776-n64"])
+def test_unaligned_widths_match_the_reference_ragged_path(kn):
+    """K or N a multiple of 8 but not of 128 (the reference CLI config's
+    moe_intermediate_size 64; 776 = 6 x 128 + 8): the reference's op sends
+    such shapes to its ragged path (``_pallas_group_gemm``, ``:266-269``);
+    the port's op runs them in its kernels, whose plain versions (the CPU
+    path of the autograd Function) match that path and its gradients."""
+    k, n = kn
+    sizes = [37, 0, 219, 64]
+    lhs, rhs, _, gs, _ = _inputs(sizes, m=sum(sizes), k=k, n=n, seed=1)
+
+    def loss_j(a, b):
+        return (_pallas_group_gemm(a, b, jnp.asarray(gs)) ** 2).sum()
+
+    ref = _pallas_group_gemm(lhs, rhs, jnp.asarray(gs))
+    d_lhs, d_rhs = jax.grad(loss_j, argnums=(0, 1))(lhs, rhs)
+    a, b = T(lhs).requires_grad_(), T(rhs).requires_grad_()
+    gg.reset_counts()
+    out = gg.cuda_group_gemm(a, b, T(gs))
+    (out ** 2).sum().backward()
+    assert gg.LAUNCHES == {"gmm_fwd": 0, "gmm_dlhs": 0, "gmm_t": 0}  # CPU: plain versions
+    _close(out, ref, 1e-5)
+    _close(a.grad, d_lhs, 2e-4)
+    _close(b.grad, d_rhs, 2e-4)
 
 
 def test_ragged_rows_past_the_groups_are_zero():

@@ -1,8 +1,9 @@
 """Import and device hygiene of the PyTorch port.
 
 * ``veomni_tpu_torch`` and ``chip_smoke.py`` import neither JAX (nor optax,
-  flax) nor anything of ``veomni_tpu``: checked statically over every source
-  file, and dynamically by importing every module in a fresh subprocess.
+  flax) nor anything of ``veomni_tpu``, nor ``safetensors`` or
+  ``transformers``: checked statically over every source file, and
+  dynamically by importing every module in a fresh subprocess.
 * Entry points called without ``device=`` (the trainer and
   ``tasks/train_text.py`` without ``train.platform: cpu``) on a machine
   without CUDA raise instead of running on the CPU; ``chip_smoke.py``
@@ -18,7 +19,10 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "veomni_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "veomni_tpu")
+# the JAX stack and the reference package; and the HF packages, which the
+# card's machine does not have (the port reads and writes safetensors itself)
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "orbax", "veomni_tpu", "safetensors",
+             "transformers")
 
 
 def _run(code_or_args, cwd=REPO, hide_cuda=True):
@@ -85,7 +89,8 @@ PORTED_HOST_MODULES = (
     "resilience.elastic", "resilience.supervisor", "data.dataset", "data.data_transform",
     "data.data_loader", "arguments.arguments_types", "arguments.parser", "arguments.compat",
     "parallel.parallel_state", "models.auto", "checkpoint.checkpointer", "trainer.callbacks",
-    "trainer.base", "trainer.text_trainer", "tasks.train_text",
+    "trainer.base", "trainer.text_trainer", "tasks.train_text", "models.hf_io",
+    "data.dynamic_batching", "data.prefetch", "data.streaming",
 )
 
 

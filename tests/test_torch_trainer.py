@@ -18,6 +18,11 @@
 * The entry point ``python -m veomni_tpu_torch.tasks.train_text`` in a
   subprocess on a YAML with ``platform: cpu`` (the twin of
   ``tests/test_cli_subprocess.py``).
+* From an HF directory (the JAX ``save_hf_checkpoint`` of the toy's initial
+  weights, ``config_path`` and ``model_path``) with ``dyn_bsz``, prefetch 2
+  and ``save_hf_weights``: the port's ``TextTrainer`` against the JAX one
+  for 8 steps (loss and grad_norm within rtol 1e-5), and the JAX
+  ``hf_to_params`` reads the port's export equal to its final parameters.
 * The feature gate raises ``NotImplementedError`` naming each knob whose
   module is not ported yet; ``train.platform`` other than cpu/cuda and a
   launcher asking for several processes raise too.
@@ -137,6 +142,58 @@ def test_trainer_matches_jax_trainer(tmp_path):
     np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-5, err_msg="loss")
     np.testing.assert_allclose(got[:, 1], ref[:, 1], rtol=1e-5, err_msg="grad_norm")
     assert got[-2:, 0].mean() < got[:2, 0].mean()  # it trains
+
+
+def test_hf_dir_trainer_matches_jax_trainer(tmp_path):
+    """The toy from an HF directory with dyn_bsz, prefetch 2 and the HF
+    export at train end, in both trainers on the same arguments: 8 steps'
+    loss and grad_norm within rtol 1e-5; the port's export read by the JAX
+    hf_to_params equals the port's final parameters (f32, exactly)."""
+    import jax
+
+    from veomni_tpu.models.config import TransformerConfig as JaxConfig
+    from veomni_tpu.models.hf_io import hf_to_params as j_hf_to_params
+    from veomni_tpu.models.hf_io import save_hf_checkpoint as j_save
+    from veomni_tpu.models.transformer import init_params as j_init
+    from veomni_tpu.parallel.parallel_state import destroy_parallel_state as j_destroy
+    from veomni_tpu.trainer import TextTrainer as JaxTextTrainer
+    from veomni_tpu_torch.models.jax_weights import to_jax_tree
+
+    _write_dummy_data(tmp_path / "data.jsonl")
+    j_cfg = JaxConfig(**TOY)
+    hf = str(tmp_path / "hf")
+    j_save(j_init(jax.random.PRNGKey(0), j_cfg), j_cfg, hf, max_shard_bytes=100_000)
+    assert os.path.exists(os.path.join(hf, "model.safetensors.index.json"))
+
+    def hf_args(args):
+        args.model.config_overrides = {}
+        args.model.config_path = args.model.model_path = hf
+        args.data.dyn_bsz = True
+        args.train.prefetch_depth = 2
+        args.train.save_hf_weights = True
+        return args
+
+    j_trainer = JaxTextTrainer(hf_args(_make_args(tmp_path)))
+    j_seen = record_steps(j_trainer)
+    j_trainer.train()
+    j_trainer.checkpointer.close()
+    j_destroy()
+
+    trainer = TextTrainer(hf_args(port_args(tmp_path)))
+    seen = record_steps(trainer)
+    ctl = trainer.train()
+    assert ctl.global_step == 8 and len(seen) == len(j_seen) == 8
+    got, ref = np.array(seen), np.array(j_seen)
+    np.testing.assert_allclose(got[:, 0], ref[:, 0], rtol=1e-5, err_msg="loss")
+    np.testing.assert_allclose(got[:, 1], ref[:, 1], rtol=1e-5, err_msg="grad_norm")
+    export = os.path.join(str(tmp_path / "port"), "hf_ckpt")
+    back = j_hf_to_params(export, JaxConfig.from_pretrained(export))
+    final = to_jax_tree(trainer.train_state.model)
+    flat_back = jax.tree_util.tree_leaves_with_path(back)
+    flat_final = dict(jax.tree_util.tree_leaves_with_path(final))
+    assert len(flat_back) == len(flat_final)
+    for path, leaf in flat_back:
+        np.testing.assert_array_equal(np.asarray(leaf), flat_final[path], err_msg=str(path))
 
 
 @pytest.mark.parametrize("async_save", [False, True], ids=["sync", "async"])
@@ -270,15 +327,9 @@ train:
 
 
 GATED = [
-    ("model", "config_path", "/nonexistent", "model.config_path"),
-    ("model", "model_path", "/nonexistent", "model.model_path"),
-    ("train", "save_hf_weights", True, "train.save_hf_weights"),
     ("model", "lora", {"rank": 8}, "model.lora"),
     ("model", "freeze_modules", ["^embed"], "model.freeze_modules"),
     ("train", "optimizer", "muon", "train.optimizer 'muon'"),
-    ("data", "dyn_bsz", True, "data.dyn_bsz"),
-    ("train", "prefetch_depth", 2, "train.prefetch_depth"),
-    ("data", "dataset_type", "streaming", "data.dataset_type streaming"),
     ("data", "data_type", "conversation", "data.data_type 'conversation'"),
     ("data", "eval_path", "/nonexistent", "data.eval_path"),
     ("data", "channel_list", ["code"], "data.channel_list"),

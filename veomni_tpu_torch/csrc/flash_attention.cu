@@ -17,7 +17,22 @@
 // Layout: q/o/dq [B,S,Hq,D], k/v/dk/dv [B,S,Hkv,D] contiguous bf16 (the
 // facade layout, so the reference wrapper's [B,S,H,D] <-> [B,H,S,D] swaps are
 // not copies here), seg [B,S] int32, lse/delta [B,Hq,S] f32, seg_rng
-// [B,S/32,2] int32 (per 32-token block: min and max segment id). D = 128.
+// [B,S/32,2] int32 (per 32-token block: min and max segment id). D is 64,
+// 128 or 256: each kernel is a template on D, instantiated at those three.
+//
+// Head dims. TMA and wgmma see a row of D bf16 values as D / 64 boxes of 64
+// columns (one 128-byte swizzled row each), so D changes how many boxes a
+// tile has, the N of the products whose output is D wide (O += P V, dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q: wgmma m64n64 at D = 64) and the depth
+// of the ones that contract over D (S, dP: D / 16 steps), not the layout of
+// a box. D = 64 keeps D = 128's tiles and stages with half the bytes and
+// registers. D = 256 has to give up some: K1 walks 64-key tiles (O is 128
+// f32 accumulators a thread beside S's 32); K2 computes dK and dV in two
+// 128-column halves, each a work item of its own that recomputes S^T and
+// dP^T in full (dK and dV together would be 256 accumulators a thread), on a
+// 1-stage Q/dO ring (K and V of a 128-key tile take 128 KB); K3 keeps its
+// 64-key tiles on a 1-stage K/V ring (Q and dO take 128 KB) and holds dQ's
+// 128 accumulators a thread.
 //
 // What bounds them on the H100: at S = 4096 every kernel does ~100-200
 // FLOPs per byte it must move, so the tensor cores bound them (989 TFLOP/s
@@ -35,11 +50,11 @@
 // K1 (flash_fwd_tma_kernel) is built from csrc/hopper.cuh like the grouped
 // GEMMs: a 128-row q tile per block on two consumer warpgroups of 64 rows
 // and one producer thread (setmaxnreg moves the registers). Q, K, V and O
-// are 2-D tensor maps over [B*S, H*128] in boxes of 64 head dims (S % 128 ==
+// are 2-D tensor maps over [B*S, H*D] in boxes of 64 head dims (S % 128 ==
 // 0, so a 128-row box never straddles two batch rows); Q is loaded once, K
 // and V in 128-key tiles through a 2-stage ring of mbarriers (K and V on
 // barriers of their own, so Q K^T starts before V lands; ~161 KB of shared
-// memory). S = Q K^T is wgmma m64n128k16 with both operands K-major; the
+// memory at D = 128). S = Q K^T is wgmma m64n128k16 with both operands K-major; the
 // online softmax runs in the accumulator layout with exp2f (scale * log2 e
 // folded in) and quad shuffles; P goes to bf16 in registers and is wgmma's
 // register A operand for O += P V, with V MN-major (the transpose flag). The
@@ -82,7 +97,6 @@
 
 namespace {
 
-constexpr int D = 128;        // head dim
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ bool visible(int qi, int kj, int sq, int sk, bool causal) {
@@ -106,23 +120,26 @@ __device__ __forceinline__ bool disjoint(int2 a, int2 b) { return a.y < b.x || b
 
 // ---------------------------------------------------------------- K1 forward
 // K1, K2 and K3 are built alike: TMA, an mbarrier ring, wgmma, warp roles.
-constexpr int KV_TILE = 128;         // keys per K/V tile
+constexpr int KV_TILE = 128;         // keys per K/V tile (64 at D = 256)
 constexpr int FWD_CW = 2;            // consumer warpgroups: 64 q rows each
 constexpr int KV_STAGES = 2;
 constexpr int Q_BOX = 64 * 128;      // one 64-row x 64-column box of Q (or O), bytes
 constexpr int KV_BOX = KV_TILE * 128;  // one 128-key x 64-column box of K or V
-constexpr int KV_STAGE = 4 * KV_BOX;   // a stage: K's two boxes, then V's
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int CW>
+template <int D, int CW>
 struct FwdTile {
+  static constexpr int NB = D / 64;                    // 64-column boxes of a head row
+  static constexpr int KT = D == 256 ? 64 : KV_TILE;   // keys per K/V tile
+  static constexpr int KBOX = KT * 128;                // one KT-key x 64-column box of K or V
+  static constexpr int STAGE = 2 * NB * KBOX;          // a stage: K's NB boxes, then V's
   static constexpr int BQ = 64 * CW;         // q rows per block
   static constexpr int THREADS = 128 * (CW + 1);
-  static constexpr int Q_BYTES = CW * 2 * Q_BOX;
+  static constexpr int Q_BYTES = CW * NB * Q_BOX;
   // 1024 bytes of alignment slack, Q (O staged in its place), the ring, then
   // the barriers: Q's, and per stage K full, V full, empty
-  static constexpr size_t SMEM = 1024 + Q_BYTES + KV_STAGES * KV_STAGE + 8 * (1 + 3 * KV_STAGES);
+  static constexpr size_t SMEM = 1024 + Q_BYTES + KV_STAGES * STAGE + 8 * (1 + 3 * KV_STAGES);
 };
 
 // The KT-key tiles that q rows [q0, q0 + bq) of row b see, in order: tile(k0,
@@ -146,21 +163,22 @@ __device__ __forceinline__ void walk_k_tiles(const int* rng, int b, int S, int q
 }
 
 // grid (Hq, B, S / BQ), the last (heaviest causal) q tiles first; block
-// FwdTile<CW>::THREADS: warpgroup 0 the producer, 1..CW the consumers.
-// tm_q, tm_o: [B*S, Hq*128] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*128] in
-// 128 x 64 boxes.
-template <int CW>
-__global__ void __launch_bounds__(FwdTile<CW>::THREADS, 1)
+// FwdTile::THREADS: warpgroup 0 the producer, 1..CW the consumers.
+// tm_q, tm_o: [B*S, Hq*D] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*D] in
+// KT x 64 boxes.
+template <int D, int CW>
+__global__ void __launch_bounds__(FwdTile<D, CW>::THREADS, 1)
 flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
                      __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_o,
                      const int* __restrict__ seg, const int* __restrict__ seg_rng,
                      float* __restrict__ lse, int S, int Hq, int Hkv, float scale, int causal) {
-  typedef FwdTile<CW> T;
+  typedef FwdTile<D, CW> T;
+  constexpr int NB = T::NB, KT = T::KT, KBOX = T::KBOX;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t q_smem = (raw + 1023) & ~1023u;  // box (warpgroup w, half j) at (2w + j) Q_BOX
-  const uint32_t ring = q_smem + T::Q_BYTES;       // stage s at s KV_STAGE
-  const uint32_t q_full = ring + KV_STAGES * KV_STAGE;
+  const uint32_t q_smem = (raw + 1023) & ~1023u;  // box (warpgroup w, column box j) at (NB w + j) Q_BOX
+  const uint32_t ring = q_smem + T::Q_BYTES;       // stage s at s STAGE
+  const uint32_t q_full = ring + KV_STAGES * T::STAGE;
   const uint32_t k_full = q_full + 8;               // stage s: + 8 s
   const uint32_t v_full = k_full + 8 * KV_STAGES;
   const uint32_t empty = v_full + 8 * KV_STAGES;
@@ -186,19 +204,18 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       const CUtensorMap* map_v = &tm_v;
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int w = 0; w < CW; ++w)
-        for (int j = 0; j < 2; ++j)
-          tma_load_2d(q_smem + (2 * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+        for (int j = 0; j < NB; ++j)
+          tma_load_2d(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
       int stage = 0;
       uint32_t phase = 0;
-      walk_k_tiles<KV_TILE>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool) {
+      walk_k_tiles<KT>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
-        const uint32_t st = ring + stage * KV_STAGE;
-        mbar_arrive_expect_tx(k_full + 8 * stage, 2 * KV_BOX);
-        tma_load_2d(st, map_k, k_full + 8 * stage, hk * D, b * S + k0);
-        tma_load_2d(st + KV_BOX, map_k, k_full + 8 * stage, hk * D + 64, b * S + k0);
-        mbar_arrive_expect_tx(v_full + 8 * stage, 2 * KV_BOX);
-        tma_load_2d(st + 2 * KV_BOX, map_v, v_full + 8 * stage, hk * D, b * S + k0);
-        tma_load_2d(st + 3 * KV_BOX, map_v, v_full + 8 * stage, hk * D + 64, b * S + k0);
+        const uint32_t st = ring + stage * T::STAGE;
+        mbar_arrive_expect_tx(k_full + 8 * stage, NB * KBOX);
+        for (int j = 0; j < NB; ++j) tma_load_2d(st + j * KBOX, map_k, k_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+        mbar_arrive_expect_tx(v_full + 8 * stage, NB * KBOX);
+        for (int j = 0; j < NB; ++j)
+          tma_load_2d(st + (NB + j) * KBOX, map_v, v_full + 8 * stage, hk * D + 64 * j, b * S + k0);
         if (++stage == KV_STAGES) {
           stage = 0;
           phase ^= 1;
@@ -215,27 +232,27 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     const int* segb = seg + (int64_t)b * S;
     const int sq0 = segb[qi0], sq1 = segb[qi1];
     const float sl2 = scale * LOG2E;  // scores in log2 units: exp2 instead of exp
-    const uint32_t qa = q_smem + 2 * cw * Q_BOX;
-    float o[64];
+    const uint32_t qa = q_smem + NB * cw * Q_BOX;
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m0 = NEG, m1 = NEG, l0 = 0.f, l1 = 0.f;  // running max (log2 units), partial sums
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(q_full, 0);
-    walk_k_tiles<KV_TILE>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool masked) {
-      const uint32_t st = ring + stage * KV_STAGE;
+    walk_k_tiles<KT>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool masked) {
+      const uint32_t st = ring + stage * T::STAGE;
       // S = Q K^T: both K-major; 16 head dims (32 bytes of a swizzled row) per
-      // step. The first step ignores s (scale_d 0), so no value of s lives
-      // from one tile to the next.
-      float s[64];
+      // step, D / 16 steps over the NB boxes. The first step ignores s
+      // (scale_d 0), so no value of s lives from one tile to the next.
+      float s[KT / 2];
       mbar_wait(k_full + 8 * stage, phase);
       wgmma_fence();
 #pragma unroll
       for (int kd = 0; kd < D / 16; ++kd) {
-        const uint32_t off = 32 * (kd % 4);
-        wgmma_m64n128k16<0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),
-                            wgmma_desc(st + (kd / 4) * KV_BOX + off, 16, 1024), kd > 0);
+        const uint32_t off = 32 * (kd % 4);  // the 32-byte chunk of Q's and K's swizzled rows
+        wgmma_ss<KT, 0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),
+                        wgmma_desc(st + (kd / 4) * KBOX + off, 16, 1024), kd > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -245,7 +262,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       float mx0 = NEG, mx1 = NEG;
       if (masked) {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           const int kj = k0 + 8 * j + 2 * t;
           const int2 sk = *reinterpret_cast<const int2*>(segb + kj);
           s[4 * j + 0] = visible(qi0, kj, sq0, sk.x, causal) ? s[4 * j + 0] * sl2 : NEG;
@@ -255,10 +272,10 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
         }
       } else {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) s[i] *= sl2;
+        for (int i = 0; i < KT / 2; ++i) s[i] *= sl2;
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
         mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
@@ -275,7 +292,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       l1 *= al1;
       if (masked) {  // a masked key holds NEG: its P is 0 even while the row's max is NEG
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           s[4 * j + 0] = s[4 * j + 0] > 0.5f * NEG ? exp2f(s[4 * j + 0] - mn0) : 0.f;
           s[4 * j + 1] = s[4 * j + 1] > 0.5f * NEG ? exp2f(s[4 * j + 1] - mn0) : 0.f;
           s[4 * j + 2] = s[4 * j + 2] > 0.5f * NEG ? exp2f(s[4 * j + 2] - mn1) : 0.f;
@@ -283,7 +300,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
         }
       } else {
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < KT / 8; ++j) {
           s[4 * j + 0] = exp2f(s[4 * j + 0] - mn0);
           s[4 * j + 1] = exp2f(s[4 * j + 1] - mn0);
           s[4 * j + 2] = exp2f(s[4 * j + 2] - mn1);
@@ -291,19 +308,22 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
         }
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < KT / 8; ++j) {
         l0 += s[4 * j] + s[4 * j + 1];
         l1 += s[4 * j + 2] + s[4 * j + 3];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
         o[4 * j] *= al0;
         o[4 * j + 1] *= al0;
         o[4 * j + 2] *= al1;
         o[4 * j + 3] *= al1;
       }
       // O += P V: P in bf16 registers (A), V MN-major (B, head dims
-      // contiguous: two 64-column blocks KV_BOX apart), 16 keys per step
-      uint32_t p[32];
+      // contiguous: NB 64-column blocks KBOX apart), 16 keys per step
+      uint32_t p[KT / 4];
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KT / 16; ++kk) {
         p[4 * kk + 0] = pack_f32(s[8 * kk + 0], s[8 * kk + 1]);
         p[4 * kk + 1] = pack_f32(s[8 * kk + 2], s[8 * kk + 3]);
         p[4 * kk + 2] = pack_f32(s[8 * kk + 4], s[8 * kk + 5]);
@@ -313,9 +333,9 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < KV_TILE / 16; ++kk)
-        wgmma_m64n128k16_rs<1>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                               wgmma_desc(st + 2 * KV_BOX + 2048 * kk, KV_BOX, 1024), 1);
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wgmma_rs<D, 1>(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                       wgmma_desc(st + NB * KBOX + 2048 * kk, KBOX, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -328,7 +348,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     });
 
     // Epilogue: O / l in bf16 into this warpgroup's Q boxes (its Q is no
-    // longer read) in the 128-byte swizzle, then two TMA stores; the LSE
+    // longer read) in the 128-byte swizzle, then NB TMA stores; the LSE
     // in natural-log units. A row with no visible key: O = 0, LSE = NEG.
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
@@ -338,9 +358,9 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     const float inv0 = l0 == 0.f ? 0.f : 1.f / l0;
     const float inv1 = l1 == 0.f ? 0.f : 1.f / l1;
     unsigned char* ob = smem_raw + (qa - raw);
-    const int sw = r0 & 7;  // the same for r0 + 8
+    const int sw = r0 & 7;  // O's swizzle: the same for r0 + 8
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       unsigned char* pj = ob + (j / 8) * Q_BOX + ((j & 7) ^ sw) * 16 + 4 * t;
       *reinterpret_cast<uint32_t*>(pj + r0 * 128) = pack_f32(o[4 * j] * inv0, o[4 * j + 1] * inv0);
       *reinterpret_cast<uint32_t*>(pj + (r0 + 8) * 128) =
@@ -349,7 +369,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     fence_proxy_async();
     if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
     if ((threadIdx.x & 127) == 0) {
-      for (int j = 0; j < 2; ++j) tma_store_2d(&tm_o, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
+      for (int j = 0; j < NB; ++j) tma_store_2d(&tm_o, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
       bulk_commit();
       bulk_wait<0>();  // the block's shared memory outlives the stores
     }
@@ -361,14 +381,14 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
   }
 }
 
-template <int CW>
+template <int D, int CW>
 int launch_flash_fwd(const void* q, const void* k, const void* v, const void* seg, const void* seg_rng,
                      void* o, void* lse, int B, int S, int Hq, int Hkv, float scale, int causal,
                      cudaStream_t stream) {
-  typedef FwdTile<CW> T;
+  typedef FwdTile<D, CW> T;
   // a runtime call first: it makes the device's context current on this
   // thread, which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tma_kernel<CW>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tma_kernel<D, CW>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -378,11 +398,11 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, const void* se
   const uint64_t rows = (uint64_t)B * S;
   int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, 64, 64);
   if (!err) err = encode_bf16_2d(&tm_o, o, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, KV_TILE, 64);
-  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, KV_TILE, 64);
+  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, T::KT, 64);
+  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, T::KT, 64);
   if (err) return err;
   dim3 grid(Hq, B, S / T::BQ);
-  flash_fwd_tma_kernel<CW><<<grid, T::THREADS, T::SMEM, stream>>>(
+  flash_fwd_tma_kernel<D, CW><<<grid, T::THREADS, T::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_o, (const int*)seg, (const int*)seg_rng, (float*)lse, S, Hq, Hkv, scale,
       causal);
   return (int)cudaGetLastError();
@@ -390,18 +410,28 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, const void* se
 
 // ---------------------------------------------------------------- K2 dK, dV
 // A work item is a 128-key tile of one kv head (two consumer warpgroups of
-// 64 keys each) and the q heads h0 .. h0 + nh - 1 of its group; K and V are
-// loaded once, Q, dO and their rows' LSE, delta and segment ids stream in
-// 64-row q tiles through a 2-stage ring.
+// 64 keys each), the q heads h0 .. h0 + nh - 1 of its group and (at D = 256)
+// one 128-column half of dK and dV; K and V are loaded once, Q, dO and their
+// rows' LSE, delta and segment ids stream in 64-row q tiles through a ring
+// of 2 stages (1 at D = 256).
 constexpr int DKV_KT = 128;                  // keys per work item
 constexpr int DKV_QT = 64;                   // q rows per streamed tile
 constexpr int DKV_STAGES = 2;
 constexpr int DKV_PRODUCER_REGS = 40, DKV_CONSUMER_REGS = 232;  // setmaxnreg
 constexpr int DKV_ROW_BYTES = DKV_QT * 4;    // one tile's LSE (or delta, or segment ids)
-constexpr int DKV_STAGE = 4 * Q_BOX + 1024;  // Q's two boxes, dO's two, the three rows (padded)
-// 1024 bytes of alignment slack, K's two boxes and V's two, the ring, then the
-// barriers: K and V's, and per stage full and empty
-constexpr size_t DKV_SMEM = 1024 + 4 * KV_BOX + DKV_STAGES * DKV_STAGE + 8 * (1 + 2 * DKV_STAGES);
+
+template <int D>
+struct DkvTile {
+  static constexpr int NB = D / 64;                   // 64-column boxes of a head row
+  static constexpr int OB = D == 256 ? 2 : NB;        // boxes of dK and dV per work item
+  static constexpr int HALVES = NB / OB;              // work items per (key tile, q heads)
+  static constexpr int DH = 64 * OB;                  // dK and dV columns per work item
+  static constexpr int STAGES = D == 256 ? 1 : DKV_STAGES;
+  static constexpr int STAGE = 2 * NB * Q_BOX + 1024;  // Q's NB boxes, dO's NB, the three rows (padded)
+  // 1024 bytes of alignment slack, K's NB boxes and V's NB, the ring, then
+  // the barriers: K and V's, and per stage full and empty
+  static constexpr size_t SMEM = 1024 + 2 * NB * KV_BOX + STAGES * STAGE + 8 * (1 + 2 * STAGES);
+};
 
 // The (q head, q tile) pairs that keys [k0, k0 + DKV_KT) of row b see, in
 // order: for each q head h0 .. h0 + nh - 1, the 64-row q tiles from the
@@ -426,13 +456,14 @@ __device__ __forceinline__ void walk_q_tiles(const int* rng, int b, int S, int k
   }
 }
 
-// 1-D grid of B * Hkv * (S / DKV_KT) * split work items, the first key tiles
-// (the heaviest under a causal mask) first; block 384 threads: warpgroup 0
-// the producer, 1 and 2 the consumers. tm_q, tm_do: [B*S, Hq*128] in 64 x 64
-// boxes; tm_k, tm_v: [B*S, Hkv*128] in 128 x 64 boxes; tm_dk, tm_dv: the same
-// in 64 x 64 boxes. With split > 1 the item's f32 partial sums go to ws
-// [split, B, S, Hkv, D] (dK), then [split, B, S, Hkv, D] (dV), else dK and dV
-// leave in bf16 by TMA stores.
+// 1-D grid of B * Hkv * (S / DKV_KT) * split * HALVES work items, the first
+// key tiles (the heaviest under a causal mask) first; block 384 threads:
+// warpgroup 0 the producer, 1 and 2 the consumers. tm_q, tm_do: [B*S, Hq*D]
+// in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*D] in 128 x 64 boxes; tm_dk,
+// tm_dv: the same in 64 x 64 boxes. With split > 1 the item's f32 partial
+// sums go to ws [split, B, S, Hkv, D] (dK), then [split, B, S, Hkv, D] (dV),
+// else dK and dV leave in bf16 by TMA stores.
+template <int D>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
                          __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
@@ -441,22 +472,25 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ ws, int B, int S, int Hq, int Hkv, int split, float scale,
                          int causal) {
+  typedef DkvTile<D> T;
+  constexpr int NB = T::NB, OB = T::OB, DH = T::DH, STAGES = T::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t kv_smem = (raw + 1023) & ~1023u;  // K box j at j KV_BOX, V box j at (2 + j) KV_BOX
-  const uint32_t ring = kv_smem + 4 * KV_BOX;      // stage s at s DKV_STAGE
-  const uint32_t kv_full = ring + DKV_STAGES * DKV_STAGE;
+  const uint32_t kv_smem = (raw + 1023) & ~1023u;  // K box j at j KV_BOX, V box j at (NB + j) KV_BOX
+  const uint32_t ring = kv_smem + 2 * NB * KV_BOX;  // stage s at s STAGE
+  const uint32_t kv_full = ring + STAGES * T::STAGE;
   const uint32_t full = kv_full + 8;               // stage s: + 8 s
-  const uint32_t empty = full + 8 * DKV_STAGES;
-  const int per_tile = B * Hkv * split;
+  const uint32_t empty = full + 8 * STAGES;
+  const int per_tile = B * Hkv * split * T::HALVES;
   const int k0 = ((int)blockIdx.x / per_tile) * DKV_KT;  // the first key tiles first
   const int rest = (int)blockIdx.x % per_tile;
-  const int b = rest / (Hkv * split), hk = rest / split % Hkv, sp = rest % split;
+  const int b = rest / (Hkv * split * T::HALVES), hk = rest / (split * T::HALVES) % Hkv;
+  const int sp = rest / T::HALVES % split, half = rest % T::HALVES;
   const int group = Hq / Hkv, nh = group / split;
   const int h0 = hk * group + sp * nh;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < DKV_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
     }
@@ -470,27 +504,27 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
     if (threadIdx.x == 0) {
       const CUtensorMap* map_q = &tm_q;
       const CUtensorMap* map_do = &tm_do;
-      mbar_arrive_expect_tx(kv_full, 4 * KV_BOX);
-      for (int j = 0; j < 2; ++j) {
+      mbar_arrive_expect_tx(kv_full, 2 * NB * KV_BOX);
+      for (int j = 0; j < NB; ++j) {
         tma_load_2d(kv_smem + j * KV_BOX, &tm_k, kv_full, hk * D + 64 * j, b * S + k0);
-        tma_load_2d(kv_smem + (2 + j) * KV_BOX, &tm_v, kv_full, hk * D + 64 * j, b * S + k0);
+        tma_load_2d(kv_smem + (NB + j) * KV_BOX, &tm_v, kv_full, hk * D + 64 * j, b * S + k0);
       }
       int stage = 0;
       uint32_t phase = 0;
       walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int h, int q0) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
-        const uint32_t st = ring + stage * DKV_STAGE;
+        const uint32_t st = ring + stage * T::STAGE;
         const uint32_t bar = full + 8 * stage;
-        mbar_arrive_expect_tx(bar, 4 * Q_BOX + 3 * DKV_ROW_BYTES);
-        for (int j = 0; j < 2; ++j) {
+        mbar_arrive_expect_tx(bar, 2 * NB * Q_BOX + 3 * DKV_ROW_BYTES);
+        for (int j = 0; j < NB; ++j) {
           tma_load_2d(st + j * Q_BOX, map_q, bar, h * D + 64 * j, b * S + q0);
-          tma_load_2d(st + (2 + j) * Q_BOX, map_do, bar, h * D + 64 * j, b * S + q0);
+          tma_load_2d(st + (NB + j) * Q_BOX, map_do, bar, h * D + 64 * j, b * S + q0);
         }
         const int64_t row = ((int64_t)b * Hq + h) * S + q0;
-        bulk_load_1d(st + 4 * Q_BOX, lse + row, DKV_ROW_BYTES, bar);
-        bulk_load_1d(st + 4 * Q_BOX + DKV_ROW_BYTES, delta + row, DKV_ROW_BYTES, bar);
-        bulk_load_1d(st + 4 * Q_BOX + 2 * DKV_ROW_BYTES, seg + (int64_t)b * S + q0, DKV_ROW_BYTES, bar);
-        if (++stage == DKV_STAGES) {
+        bulk_load_1d(st + 2 * NB * Q_BOX, lse + row, DKV_ROW_BYTES, bar);
+        bulk_load_1d(st + 2 * NB * Q_BOX + DKV_ROW_BYTES, delta + row, DKV_ROW_BYTES, bar);
+        bulk_load_1d(st + 2 * NB * Q_BOX + 2 * DKV_ROW_BYTES, seg + (int64_t)b * S + q0, DKV_ROW_BYTES, bar);
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -506,21 +540,21 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
     const int sk0 = seg[(int64_t)b * S + kj0], sk1 = seg[(int64_t)b * S + kj1];
     const float sl2 = scale * LOG2E;  // scores in log2 units: exp2 instead of exp
     const uint32_t ka = kv_smem + cw * Q_BOX;  // this warpgroup's 64 rows of K's first box
-    const uint32_t va = ka + 2 * KV_BOX;       // and of V's
-    float dk[64], dv[64];
+    const uint32_t va = ka + NB * KV_BOX;      // and of V's
+    float dk[DH / 2], dv[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(kv_full, 0);
     walk_q_tiles(seg_rng, b, S, k0, h0, nh, causal, [&](int, int q0) {
-      const uint32_t st = ring + stage * DKV_STAGE;
-      const unsigned char* rows = smem_raw + (st + 4 * Q_BOX - raw);
+      const uint32_t st = ring + stage * T::STAGE;
+      const unsigned char* rows = smem_raw + (st + 2 * NB * Q_BOX - raw);
       const float* lse_t = reinterpret_cast<const float*>(rows);
       const float* delta_t = reinterpret_cast<const float*>(rows + DKV_ROW_BYTES);
       const int* seg_t = reinterpret_cast<const int*>(rows + 2 * DKV_ROW_BYTES);
-      // S^T = K Q^T and dP^T = V dO^T, all four operands K-major; the first
-      // step of each ignores the accumulator (scale_d 0)
+      // S^T = K Q^T and dP^T = V dO^T, all four operands K-major, over all D
+      // head dims; the first step of each ignores the accumulator (scale_d 0)
       float s[32], dp[32];
       mbar_wait(full + 8 * stage, phase);
       wgmma_fence();
@@ -535,7 +569,7 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t off = (kd / 4) * KV_BOX + 32 * (kd % 4);
         wgmma_m64n64k16<0>(dp, wgmma_desc(va + off, 16, 1024),
-                           wgmma_desc(st + (2 + kd / 4) * Q_BOX + 32 * (kd % 4), 16, 1024), kd > 0);
+                           wgmma_desc(st + (NB + kd / 4) * Q_BOX + 32 * (kd % 4), 16, 1024), kd > 0);
       }
       wgmma_commit();
       // P^T = exp2(S^T scale log2 e - LSE log2 e) in the accumulator layout:
@@ -567,26 +601,27 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
         dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - dl.x) * scale;
         dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - dl.y) * scale;
       }
-      // dV += P^T dO and dK += dS^T Q: P^T and dS^T in bf16 registers (A),
-      // dO and Q MN-major (B, head dims contiguous: two 64-column boxes
-      // Q_BOX apart), 16 q rows per step
+      // dV += P^T dO and dK += dS^T Q over this item's DH columns: P^T and
+      // dS^T in bf16 registers (A), dO and Q MN-major (B, head dims
+      // contiguous: 64-column boxes Q_BOX apart), 16 q rows per step
       uint32_t p[16], ds[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) {
         p[i] = pack_f32(s[2 * i], s[2 * i + 1]);
         ds[i] = pack_f32(dp[2 * i], dp[2 * i + 1]);
       }
+      const uint32_t q_half = st + half * OB * Q_BOX;  // Q's boxes of this item's columns
       fence_regs(dv);
       fence_regs(dk);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DKV_QT / 16; ++kk)
-        wgmma_m64n128k16_rs<1>(dv, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                               wgmma_desc(st + 2 * Q_BOX + 2048 * kk, Q_BOX, 1024), 1);
+        wgmma_rs<DH, 1>(dv, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+                        wgmma_desc(q_half + NB * Q_BOX + 2048 * kk, Q_BOX, 1024), 1);
 #pragma unroll
       for (int kk = 0; kk < DKV_QT / 16; ++kk)
-        wgmma_m64n128k16_rs<1>(dk, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
-                               wgmma_desc(st + 2048 * kk, Q_BOX, 1024), 1);
+        wgmma_rs<DH, 1>(dk, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
+                        wgmma_desc(q_half + 2048 * kk, Q_BOX, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv);
@@ -594,20 +629,20 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       fence_regs(p);
       fence_regs(ds);
       if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage is consumed
-      if (++stage == DKV_STAGES) {
+      if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
     });
 
     if (split == 1) {
-      // dK and dV in bf16 into this warpgroup's rows of the K and V boxes
-      // (no longer read) in the 128-byte swizzle, then TMA stores
-      unsigned char* kb = smem_raw + (ka - raw);
-      unsigned char* vb = smem_raw + (va - raw);
+      // dK and dV in bf16 into this warpgroup's rows of this item's K and V
+      // boxes (no longer read) in the 128-byte swizzle, then TMA stores
+      unsigned char* kb = smem_raw + (ka - raw) + half * OB * KV_BOX;
+      unsigned char* vb = smem_raw + (va - raw) + half * OB * KV_BOX;
       const int sw = r0 & 7;  // the same for r0 + 8
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < DH / 8; ++j) {
         const int off = (j / 8) * KV_BOX + ((j & 7) ^ sw) * 16 + 4 * t;
         *reinterpret_cast<uint32_t*>(kb + off + r0 * 128) = pack_f32(dk[4 * j], dk[4 * j + 1]);
         *reinterpret_cast<uint32_t*>(kb + off + (r0 + 8) * 128) = pack_f32(dk[4 * j + 2], dk[4 * j + 3]);
@@ -617,7 +652,7 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       fence_proxy_async();
       if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
       if ((threadIdx.x & 127) == 0) {
-        for (int j = 0; j < 2; ++j) {
+        for (int j = half * OB; j < half * OB + OB; ++j) {
           tma_store_2d(&tm_dk, ka + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
           tma_store_2d(&tm_dv, va + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
         }
@@ -627,11 +662,11 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
     } else {
       // f32 partial sums of this item's q heads, summed by dkv_split_sum_kernel
       const int64_t plane = (int64_t)B * S * Hkv * D;
-      float* wk = ws + sp * plane + ((int64_t)b * S + kj0) * Hkv * D + (int64_t)hk * D;
+      float* wk = ws + sp * plane + ((int64_t)b * S + kj0) * Hkv * D + (int64_t)hk * D + half * DH;
       float* wv = wk + split * plane;
       const int64_t row8 = 8 * (int64_t)Hkv * D;  // key row r0 + 8
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < DH / 8; ++j) {
         const int c = 8 * j + 2 * t;
         *reinterpret_cast<float2*>(wk + c) = make_float2(dk[4 * j], dk[4 * j + 1]);
         *reinterpret_cast<float2*>(wk + row8 + c) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
@@ -665,15 +700,17 @@ __global__ void dkv_split_sum_kernel(const float* __restrict__ ws, __nv_bfloat16
   }
 }
 
+template <int D>
 int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
                          const void* seg_rng, const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
                          float scale, int causal, cudaStream_t stream) {
+  typedef DkvTile<D> T;
   if (split < 1 || (Hq / Hkv) % split || (split > 1 && !ws)) return (int)cudaErrorInvalidValue;
   // a runtime call first: it makes the device's context current on this
   // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tma_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DKV_SMEM);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -687,8 +724,8 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
   if (!err) err = encode_bf16_2d(&tm_dk, dk, rows, (uint64_t)Hkv * D, 64, 64);
   if (!err) err = encode_bf16_2d(&tm_dv, dv, rows, (uint64_t)Hkv * D, 64, 64);
   if (err) return err;
-  const int items = B * Hkv * (S / DKV_KT) * split;
-  flash_bwd_dkv_tma_kernel<<<items, 384, DKV_SMEM, stream>>>(
+  const int items = B * Hkv * (S / DKV_KT) * split * T::HALVES;
+  flash_bwd_dkv_tma_kernel<D><<<items, 384, T::SMEM, stream>>>(
       tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, (const int*)seg, (const int*)seg_rng,
       (const float*)lse, (const float*)delta, (float*)ws, B, S, Hq, Hkv, split, scale, causal);
   if (split > 1) {
@@ -702,44 +739,54 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
 // ---------------------------------------------------------------- K3 dQ
 // K1's skeleton: a 128-row q tile of one q head per block (64 rows per
 // consumer warpgroup); Q and dO are loaded once, K and V arrive in DQ_KT-key
-// tiles through a 2-stage ring (K and V on barriers of their own).
+// tiles through a ring of 2 stages (1 at D = 256; K and V on barriers of
+// their own).
 constexpr int DQ_BQ = 128;                   // q rows per block
 constexpr int DQ_KT = 64;                    // keys per K/V tile: the n of S's and dP's m64n64 wgmma
 constexpr int DQ_STAGES = 2;
 constexpr int DQ_PRODUCER_REGS = 40, DQ_CONSUMER_REGS = 232;  // setmaxnreg
 constexpr int DQ_KBOX = DQ_KT * 128;         // one DQ_KT-key x 64-column box of K or V, bytes
-constexpr int DQ_STAGE = 4 * DQ_KBOX;        // a stage: K's two boxes, then V's
-// 1024 bytes of alignment slack, Q's four boxes and dO's four (dQ staged in
-// Q's place), the ring, then the barriers: Q and dO's, and per stage K full,
-// V full, empty
-constexpr size_t DQ_SMEM = 1024 + 8 * Q_BOX + DQ_STAGES * DQ_STAGE + 8 * (1 + 3 * DQ_STAGES);
+
+template <int D>
+struct DqTile {
+  static constexpr int NB = D / 64;                    // 64-column boxes of a head row
+  static constexpr int STAGES = D == 256 ? 1 : DQ_STAGES;
+  static constexpr int STAGE = 2 * NB * DQ_KBOX;       // a stage: K's NB boxes, then V's
+  // 1024 bytes of alignment slack, Q's 2 NB boxes and dO's 2 NB (dQ staged
+  // in Q's place), the ring, then the barriers: Q and dO's, and per stage K
+  // full, V full, empty
+  static constexpr size_t SMEM = 1024 + 4 * NB * Q_BOX + STAGES * STAGE + 8 * (1 + 3 * STAGES);
+};
 
 // grid (Hq, B, S / DQ_BQ), the last (heaviest causal) q tiles first; block
 // 384 threads: warpgroup 0 the producer, 1 and 2 the consumers. tm_q, tm_do,
-// tm_dq: [B*S, Hq*128] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*128] in
+// tm_dq: [B*S, Hq*D] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*D] in
 // DQ_KT x 64 boxes.
+template <int D>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
                         __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
                         __grid_constant__ const CUtensorMap tm_dq, const int* __restrict__ seg,
                         const int* __restrict__ seg_rng, const float* __restrict__ lse,
                         const float* __restrict__ delta, int S, int Hq, int Hkv, float scale, int causal) {
+  typedef DqTile<D> T;
+  constexpr int NB = T::NB, STAGES = T::STAGES, DQ_STAGE = T::STAGE;
   constexpr int NS = DQ_KT / 2;  // accumulators of a 64 x DQ_KT score tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
-  const uint32_t q_smem = (raw + 1023) & ~1023u;  // Q box (warpgroup w, half j) at (2w + j) Q_BOX
-  const uint32_t do_smem = q_smem + 4 * Q_BOX;     // dO's the same
-  const uint32_t ring = do_smem + 4 * Q_BOX;       // stage s at s DQ_STAGE
-  const uint32_t q_full = ring + DQ_STAGES * DQ_STAGE;
+  const uint32_t q_smem = (raw + 1023) & ~1023u;  // Q box (warpgroup w, column box j) at (NB w + j) Q_BOX
+  const uint32_t do_smem = q_smem + 2 * NB * Q_BOX;  // dO's the same
+  const uint32_t ring = do_smem + 2 * NB * Q_BOX;    // stage s at s DQ_STAGE
+  const uint32_t q_full = ring + STAGES * DQ_STAGE;
   const uint32_t k_full = q_full + 8;              // stage s: + 8 s
-  const uint32_t v_full = k_full + 8 * DQ_STAGES;
-  const uint32_t empty = v_full + 8 * DQ_STAGES;
+  const uint32_t v_full = k_full + 8 * STAGES;
+  const uint32_t empty = v_full + 8 * STAGES;
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = ((int)gridDim.z - 1 - (int)blockIdx.z) * DQ_BQ;  // heaviest causal tiles first
   const int hk = h / (Hq / Hkv);
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < DQ_STAGES; ++s) {
+    for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + 8 * s, 1);
       mbar_init(v_full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8);  // one arrival per consumer warp
@@ -754,24 +801,24 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
     if (threadIdx.x == 0) {
       const CUtensorMap* map_k = &tm_k;
       const CUtensorMap* map_v = &tm_v;
-      mbar_arrive_expect_tx(q_full, 8 * Q_BOX);
+      mbar_arrive_expect_tx(q_full, 4 * NB * Q_BOX);
       for (int w = 0; w < 2; ++w)
-        for (int j = 0; j < 2; ++j) {
-          tma_load_2d(q_smem + (2 * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
-          tma_load_2d(do_smem + (2 * w + j) * Q_BOX, &tm_do, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_2d(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+          tma_load_2d(do_smem + (NB * w + j) * Q_BOX, &tm_do, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
         }
       int stage = 0;
       uint32_t phase = 0;
       walk_k_tiles<DQ_KT>(seg_rng, b, S, q0, DQ_BQ, causal, [&](int k0, bool) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t st = ring + stage * DQ_STAGE;
-        mbar_arrive_expect_tx(k_full + 8 * stage, 2 * DQ_KBOX);
-        tma_load_2d(st, map_k, k_full + 8 * stage, hk * D, b * S + k0);
-        tma_load_2d(st + DQ_KBOX, map_k, k_full + 8 * stage, hk * D + 64, b * S + k0);
-        mbar_arrive_expect_tx(v_full + 8 * stage, 2 * DQ_KBOX);
-        tma_load_2d(st + 2 * DQ_KBOX, map_v, v_full + 8 * stage, hk * D, b * S + k0);
-        tma_load_2d(st + 3 * DQ_KBOX, map_v, v_full + 8 * stage, hk * D + 64, b * S + k0);
-        if (++stage == DQ_STAGES) {
+        mbar_arrive_expect_tx(k_full + 8 * stage, NB * DQ_KBOX);
+        for (int j = 0; j < NB; ++j)
+          tma_load_2d(st + j * DQ_KBOX, map_k, k_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+        mbar_arrive_expect_tx(v_full + 8 * stage, NB * DQ_KBOX);
+        for (int j = 0; j < NB; ++j)
+          tma_load_2d(st + (NB + j) * DQ_KBOX, map_v, v_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
@@ -794,11 +841,11 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
     const float ls1 = (lrow[qi1] <= 0.5f * NEG ? 0.f : lrow[qi1]) * LOG2E;
     const float dl0 = drow[qi0], dl1 = drow[qi1];
     const float sl2 = scale * LOG2E;  // scores in log2 units: exp2 instead of exp
-    const uint32_t qa = q_smem + 2 * cw * Q_BOX;
-    const uint32_t da = do_smem + 2 * cw * Q_BOX;
-    float dq[64];
+    const uint32_t qa = q_smem + NB * cw * Q_BOX;
+    const uint32_t da = do_smem + NB * cw * Q_BOX;
+    float dq[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
     int stage = 0;
     uint32_t phase = 0;
     mbar_wait(q_full, 0);
@@ -821,7 +868,7 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
       for (int kd = 0; kd < D / 16; ++kd) {
         const uint32_t off = 32 * (kd % 4);
         wgmma_m64n64k16<0>(dp, wgmma_desc(da + (kd / 4) * Q_BOX + off, 16, 1024),
-                           wgmma_desc(st + (2 + kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
+                           wgmma_desc(st + (NB + kd / 4) * DQ_KBOX + off, 16, 1024), kd > 0);
       }
       wgmma_commit();
       // P = exp2(S scale log2 e - LSE log2 e) in the accumulator layout: this
@@ -849,7 +896,7 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
         }
       }
       // dS = P (dP - delta) scale, in bf16 registers: the A operand of
-      // dQ += dS K, with K MN-major (head dims contiguous: K's two boxes
+      // dQ += dS K, with K MN-major (head dims contiguous: K's NB boxes
       // DQ_KBOX apart) from the box S read K-major, 16 keys per step
       wgmma_wait<0>();
       fence_regs(dp);
@@ -865,25 +912,25 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DQ_KT / 16; ++kk)
-        wgmma_m64n128k16_rs<1>(dq, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
-                               wgmma_desc(st + 2048 * kk, DQ_KBOX, 1024), 1);
+        wgmma_rs<D, 1>(dq, ds[4 * kk], ds[4 * kk + 1], ds[4 * kk + 2], ds[4 * kk + 3],
+                       wgmma_desc(st + 2048 * kk, DQ_KBOX, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dq);
       fence_regs(ds);
       if (lane == 0) mbar_arrive(empty + 8 * stage);  // the stage's K and V are consumed
-      if (++stage == DQ_STAGES) {
+      if (++stage == STAGES) {
         stage = 0;
         phase ^= 1;
       }
     });
 
     // Epilogue: dQ in bf16 into this warpgroup's Q boxes (its Q is no longer
-    // read) in the 128-byte swizzle, then two TMA stores
+    // read) in the 128-byte swizzle, then NB TMA stores
     unsigned char* qb = smem_raw + (qa - raw);
     const int sw = r0 & 7;  // the same for r0 + 8
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < D / 8; ++j) {
       unsigned char* pj = qb + (j / 8) * Q_BOX + ((j & 7) ^ sw) * 16 + 4 * t;
       *reinterpret_cast<uint32_t*>(pj + r0 * 128) = pack_f32(dq[4 * j], dq[4 * j + 1]);
       *reinterpret_cast<uint32_t*>(pj + (r0 + 8) * 128) = pack_f32(dq[4 * j + 2], dq[4 * j + 3]);
@@ -891,21 +938,23 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
     fence_proxy_async();
     if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
     if ((threadIdx.x & 127) == 0) {
-      for (int j = 0; j < 2; ++j) tma_store_2d(&tm_dq, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
+      for (int j = 0; j < NB; ++j) tma_store_2d(&tm_dq, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
       bulk_commit();
       bulk_wait<0>();  // the block's shared memory outlives the stores
     }
   }
 }
 
+template <int D>
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg,
                         const void* seg_rng, const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int S, int Hq, int Hkv, float scale, int causal,
                         cudaStream_t stream) {
+  typedef DqTile<D> T;
   // a runtime call first: it makes the device's context current on this
   // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM);
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
     return (int)e;
@@ -919,7 +968,7 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
   if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, DQ_KT, 64);
   if (err) return err;
   dim3 grid(Hq, B, S / DQ_BQ);
-  flash_bwd_dq_tma_kernel<<<grid, 384, DQ_SMEM, stream>>>(
+  flash_bwd_dq_tma_kernel<D><<<grid, 384, T::SMEM, stream>>>(
       tm_q, tm_do, tm_k, tm_v, tm_dq, (const int*)seg, (const int*)seg_rng, (const float*)lse,
       (const float*)delta, S, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
@@ -928,35 +977,57 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
-// after its launch on the given stream; the caller checks shapes, types and
-// contiguity (S % 128 == 0, Hq % Hkv == 0, D == 128, 16-byte aligned).
+// after its launch on the given stream (cudaErrorInvalidValue for a head dim
+// it was not built for); the caller checks shapes, types and contiguity
+// (S % 128 == 0, Hq % Hkv == 0, D in 64 / 128 / 256, 16-byte aligned).
 extern "C" {
 
 // tokens per block of the seg_rng argument, so the caller can check its layout
 int vt_seg_range_block(void) { return RB; }
 
 int vt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
-                 const void* seg_rng, void* o, void* lse, int B, int S, int Hq, int Hkv,
+                 const void* seg_rng, void* o, void* lse, int B, int S, int Hq, int Hkv, int D,
                  float scale, int causal, void* stream) {
-  return launch_flash_fwd<FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal,
-                                  (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return launch_flash_fwd<64, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
+    case 128: return launch_flash_fwd<128, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
+    case 256: return launch_flash_fwd<256, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int vt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
                      const void* seg_rng, const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
+                     void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv, int D,
                      float scale, int causal, void* stream) {
   // split: the wrapper's dkv_group_split; ws holds 2 * split f32 planes when split > 1
-  return launch_flash_bwd_dkv(q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws, split, B, S,
-                              Hq, Hkv, scale, causal, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return launch_flash_bwd_dkv<64>(q, k, v, seg, seg_rng, dout, lse, delta,
+                                             dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
+    case 128: return launch_flash_bwd_dkv<128>(q, k, v, seg, seg_rng, dout, lse, delta,
+                                               dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
+    case 256: return launch_flash_bwd_dkv<256>(q, k, v, seg, seg_rng, dout, lse, delta,
+                                               dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int vt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg,
                     const void* seg_rng, const void* dout, const void* lse, const void* delta,
-                    void* dq, int B, int S, int Hq, int Hkv, float scale, int causal,
+                    void* dq, int B, int S, int Hq, int Hkv, int D, float scale, int causal,
                     void* stream) {
-  return launch_flash_bwd_dq(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv, scale,
-                             causal, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 64: return launch_flash_bwd_dq<64>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
+                                            scale, causal, st);
+    case 128: return launch_flash_bwd_dq<128>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
+                                              scale, causal, st);
+    case 256: return launch_flash_bwd_dq<256>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
+                                              scale, causal, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -14,7 +14,21 @@
 // Products are bf16 x bf16 on the tensor cores with f32 accumulation; each
 // output is written once, in bf16. A row outside every expert (at or past
 // starts[E]) gives 0 (K4, K5). M may be any positive count; K and N are
-// multiples of 128.
+// multiples of 8 (TMA's rule: a row of a tensor map is a multiple of 16
+// bytes).
+//
+// Widths that are not a multiple of the tiles (128 rows of K6's K, 128 or
+// 256 output columns, 64-deep contraction chunks): the last tiles reach past
+// the tensor, and TMA's out-of-bounds handling covers them. A load fills the
+// part of a box outside the tensor with zeros, so a contraction tail adds
+// nothing (its lhs or g columns are zeros), and a store leaves out the part
+// outside, so an output tail is never written. For that the box must meet
+// the tensor's own edge, not the next expert's rows: K4 reads rhs as a 3-D
+// tensor [E, K, N] (its contraction tail of expert e reads zeros, not the
+// rows of e + 1) and K6 writes drhs as [E, K, N] (its K tail of e is not
+// written over e + 1's first rows). K5's B tile holds output rows of rhs[e]:
+// its K tail reads e + 1's rows, and their products land in output columns
+// at or past K, which the store leaves out.
 //
 // Layout: every tensor is contiguous row-major bf16, so rhs is N-contiguous
 // ([E,K,N]). K5 reads it as a K x N block contracted along N, without a
@@ -210,8 +224,9 @@ __device__ __forceinline__ void stage_rows(unsigned char* stg, int m0, int r0, i
 
 // K4 (DLHS false): out [M, W = N] from A = lhs [M, C = K] and rhs [E, K, N].
 // K5 (DLHS true):  out [M, W = K] from A = g [M, C = N] and rhs [E, K, N].
-// tm_a: A in BM x BK boxes; tm_b: rhs as [E*K, N] in BK x 64 boxes (K4) or
-// TN x BK boxes (K5). grid: min(tiles, SMs); block: GMM_THREADS.
+// tm_a: A in BM x BK boxes; tm_b: rhs as [E, K, N] in BK x 64 boxes of one
+// expert (K4) or as [E*K, N] in TN x BK boxes (K5). grid: min(tiles, SMs);
+// block: GMM_THREADS.
 template <bool DLHS, int TN>
 __global__ void __launch_bounds__(GMM_THREADS, 1)
 gmm_tma_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const CUtensorMap tm_b,
@@ -242,8 +257,8 @@ gmm_tma_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const
     mbar_fence_init();
   }
   __syncthreads();
-  const int nchunks = C / BK;
-  const int col_tiles = W / TN;
+  const int nchunks = (C + BK - 1) / BK;  // the last chunk's tail reads zeros
+  const int col_tiles = (W + TN - 1) / TN;  // the last tile's tail is not stored
   const int tiles = (M + BM - 1) / BM * col_tiles;
 
   if (threadIdx.x < 128) {
@@ -267,7 +282,7 @@ gmm_tma_kernel(__grid_constant__ const CUtensorMap tm_a, __grid_constant__ const
               } else {  // contraction rows c*BK.. of rhs[e], 64 columns at a time
 #pragma unroll
                 for (int j = 0; j < TN / 64; ++j)
-                  tma_load_2d_hint(b + j * B_BLOCK, map_b, full, w0 + 64 * j, e * K + c * BK, keep);
+                  tma_load_3d_hint(b + j * B_BLOCK, map_b, full, w0 + 64 * j, c * BK, e, keep);
               }
               if (++stage == T::STAGES) {
                 stage = 0;
@@ -406,11 +421,13 @@ int launch_gmm_tma(const void* a, const void* rhs, const void* starts, void* out
   }
   CUtensorMap tm_a, tm_b, tm_out;
   int err = encode_bf16_2d(&tm_a, a, M, C, BM, BK);
-  if (!err) err = encode_bf16_2d(&tm_b, rhs, (uint64_t)E * K, N, DLHS ? TN : BK, DLHS ? BK : 64);
+  if (!err)
+    err = DLHS ? encode_bf16_2d(&tm_b, rhs, (uint64_t)E * K, N, TN, BK)
+               : encode_bf16_3d(&tm_b, rhs, E, K, N, BK, 64);
   if (!err) err = encode_bf16_2d(&tm_out, out, M, W, BM, 64);
   if (err) return err;
   const int slot = (int)(g_launches.fetch_add(1) % TICKET_SLOTS);
-  const int tiles = (M + BM - 1) / BM * (W / TN), sms = sm_count();
+  const int tiles = (M + BM - 1) / BM * ((W + TN - 1) / TN), sms = sm_count();
   gmm_tma_kernel<DLHS, TN><<<tiles < sms ? tiles : sms, GMM_THREADS, smem, stream>>>(
       tm_a, tm_b, tm_out, (const int*)starts, M, K, W, C, E, slot);
   return (int)cudaGetLastError();
@@ -462,7 +479,7 @@ __device__ __forceinline__ void wgmma_t_tile(float (&d)[TN / 2], uint64_t desc_a
 
 // K6: drhs [E, K, N] from lhs [M, K] and g [M, N]. tm_lhs, tm_g: BK x 64
 // boxes (rows are the contraction, so both operands are MN-major for
-// wgmma); tm_out: drhs as [E*K, N] in BM x 64 boxes. grid: min(tiles, SMs);
+// wgmma); tm_out: drhs as [E, K, N] in BM x 64 boxes of one expert. grid: min(tiles, SMs);
 // block: GMM_THREADS. Shared memory is laid out as in gmm_tma_kernel
 // (TmaTile<TN>): a stage holds a chunk's lhs rows x the tile's 128 K
 // columns (two boxes, one per consumer warpgroup) and its g rows x the
@@ -496,7 +513,7 @@ gmm_t_tma_kernel(__grid_constant__ const CUtensorMap tm_lhs, __grid_constant__ c
     mbar_fence_init();
   }
   __syncthreads();
-  const int k_tiles = K / BM, n_tiles = N / TN;
+  const int k_tiles = (K + BM - 1) / BM, n_tiles = (N + TN - 1) / TN;  // tails: zeros in, not stored
   const int tiles = E * k_tiles * n_tiles;
 
   if (threadIdx.x < 128) {
@@ -604,7 +621,7 @@ gmm_t_tma_kernel(__grid_constant__ const CUtensorMap tm_lhs, __grid_constant__ c
           if (storer) {
 #pragma unroll
             for (int j = 0; j < TN / 64; ++j)
-              tma_store_2d(map_out, stg + j * BM * 128, n0 + 64 * j, e * K + k0);
+              tma_store_3d(map_out, stg + j * BM * 128, n0 + 64 * j, k0, e);
             bulk_commit();
           }
           zero_regs(acc);  // the next tile's sum
@@ -636,10 +653,10 @@ int launch_gmm_t(const void* lhs, const void* g, const void* starts, void* out, 
   CUtensorMap tm_lhs, tm_g, tm_out;
   int err = encode_bf16_2d(&tm_lhs, lhs, M, K, BK, 64);
   if (!err) err = encode_bf16_2d(&tm_g, g, M, N, BK, 64);
-  if (!err) err = encode_bf16_2d(&tm_out, out, (uint64_t)E * K, N, BM, 64);
+  if (!err) err = encode_bf16_3d(&tm_out, out, E, K, N, BM, 64);
   if (err) return err;
   const int slot = (int)(g_launches.fetch_add(1) % TICKET_SLOTS);
-  const int tiles = E * (K / BM) * (N / TN), sms = sm_count();
+  const int tiles = E * ((K + BM - 1) / BM) * ((N + TN - 1) / TN), sms = sm_count();
   gmm_t_tma_kernel<TN><<<tiles < sms ? tiles : sms, GMM_THREADS, smem, stream>>>(
       tm_lhs, tm_g, tm_out, (const int*)starts, M, K, N, E, slot);
   return (int)cudaGetLastError();
@@ -649,12 +666,13 @@ int launch_gmm_t(const void* lhs, const void* g, const void* starts, void* out, 
 
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after its launch on the given stream; the caller checks shapes, types and
-// contiguity (M > 0; K, N multiples of 128; starts [E+1] int32,
+// contiguity (M > 0; K, N multiples of 8; starts [E+1] int32,
 // non-decreasing, starts[0] = 0; rows past M are never read).
 extern "C" {
 
-// output tile edge; the wrapper checks its alignment rule against it
-int vt_gmm_tile(void) { return BM; }
+// what K and N must be multiples of (16 bytes of bf16: TMA's row rule); the
+// wrapper checks its widths against it
+int vt_gmm_align(void) { return 8; }
 
 int vt_gmm_fwd(const void* lhs, const void* rhs, const void* starts, void* out, int M, int K,
                int N, int E, void* stream) {

@@ -6,20 +6,23 @@ Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``),
 here is the port's ``Transformer`` module (``models/transformer.py``), which
 raises ``NotImplementedError`` for any configured feature it does not have
 (``check_supported``). The reference's other families (VLM, omni, janus,
-deepseek_v4, diffusion) belong to slice F of the port; loading a config or
-weights from an HF directory (``config_path``/``model_path``) needs
-``hf_io``, the next slice. Both raise here instead of building something
-else.
+deepseek_v4, diffusion) belong to slice F of the port and raise here
+instead of building something else. A config and weights from an HF
+directory (``config_path``, ``weights_path``) go through
+``TransformerConfig.from_hf_config`` and ``models/hf_io.py``, the family's
+``load_hf`` and ``save_hf`` (reference ``:40-41``, ``:445-453``).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 
+from veomni_tpu_torch.models import hf_io
 from veomni_tpu_torch.models.config import TransformerConfig
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.utils.device import DeviceLike
@@ -72,15 +75,18 @@ class FoundationModel:
     def loss_fn(self, module: Transformer, batch):
         return module.loss_fn(batch)
 
-    def load_hf(self, model_dir: str):
-        raise NotImplementedError(
-            "loading HF weights (model_path) needs models/hf_io.py, not ported yet "
-            "(queue 1, item 3)")
+    def load_hf(self, model_dir: str, *, device: DeviceLike = None) -> Transformer:
+        """Build the model on ``device`` with the weights of the HF
+        checkpoint in ``model_dir`` (no random init first)."""
+        self.module = hf_io.hf_to_params(
+            model_dir, self.config, Transformer(self.config, None, device=device))
+        return self.module
 
-    def save_hf(self, out_dir: str):
-        raise NotImplementedError(
-            "saving HF weights (save_hf_weights) needs models/hf_io.py, not ported yet "
-            "(queue 1, item 3)")
+    def save_hf(self, out_dir: str, module: Optional[Transformer] = None) -> None:
+        """HF-format export of ``module`` (default: this model's) with its
+        config.json."""
+        hf_io.save_hf_checkpoint(module if module is not None else self.module,
+                                 self.config, out_dir)
 
 
 def build_foundation_model(
@@ -89,19 +95,28 @@ def build_foundation_model(
     config: Optional[TransformerConfig] = None,
     weights_path: Optional[str] = None,
     ops_implementation: Optional[Dict[str, str]] = None,
+    device: DeviceLike = None,
     **config_overrides,
 ) -> FoundationModel:
-    """Reference ``build_foundation_model``: resolve the config, pin ops,
-    return the (not yet initialized) model."""
+    """Reference ``build_foundation_model``: resolve the config (from
+    ``config_path``/config.json with ``config_overrides`` on top, or
+    ``config``), pin ops, return the model; with ``weights_path`` its
+    weights are loaded onto ``device``, else it is not yet initialized."""
     from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
 
     if config is None:
         if config_path is None:
             raise ValueError("need config_path or config")
-        raise NotImplementedError(
-            "config_path: building a config from an HF config.json needs models/hf_io.py "
-            "and TransformerConfig.from_hf_config, not ported yet (queue 1, item 3); "
-            "give model.config_overrides instead")
+        with open(os.path.join(config_path, "config.json")) as f:
+            hf_dict = json.load(f)
+        model_type = hf_dict.get("model_type", "")
+        if (model_type in NOT_PORTED_MODEL_TYPES + ("qwen2_5_omni_thinker", "qwen3_omni_moe_thinker")
+                or hf_dict.get("_class_name")):
+            raise NotImplementedError(
+                f"{config_path}: model_type {model_type or hf_dict.get('_class_name')!r}: "
+                f"only the text families are ported ({', '.join(TEXT_MODEL_TYPES)}); the "
+                "others are slice F of the port")
+        config = TransformerConfig.from_hf_config(hf_dict, **config_overrides)
     if config.model_type not in TEXT_MODEL_TYPES:
         logger.warning_rank0(
             "model_type %r not registered; using llama-family core", config.model_type
@@ -109,21 +124,15 @@ def build_foundation_model(
     apply_ops_config(ops_implementation)
     model = FoundationModel(config=config)
     if weights_path:
-        model.load_hf(weights_path)
+        model.load_hf(weights_path, device=device)
     return model
 
 
 def build_tokenizer(path: str):
-    """HF tokenizer from a local directory (reference ``build_tokenizer``),
-    its read retried like the other I/O edges. A hub id would need the
-    network, which the port never uses: it raises."""
-    if not os.path.isdir(path):
-        raise FileNotFoundError(f"tokenizer path {path!r} is not a local directory")
-    from transformers import AutoTokenizer
-
-    from veomni_tpu_torch.resilience.retry import retry_call
-
-    return retry_call(
-        AutoTokenizer.from_pretrained, path, trust_remote_code=True,
-        description=f"tokenizer load {path}",
-    )
+    """The reference's HF tokenizer (``auto.py:535``) needs ``transformers``,
+    which the card's machine does not have, and the port reads no tokenizer
+    files itself yet: it raises (queue 1, with ``data/chat_template.py``).
+    Pretokenized data needs no tokenizer."""
+    raise NotImplementedError(
+        f"tokenizer {path!r}: an HF tokenizer needs transformers, which the port does not "
+        "use (queue 1, with data/chat_template.py); use data_type: pretokenized")

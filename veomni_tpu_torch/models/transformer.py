@@ -42,7 +42,7 @@ direction needs atomics. Features outside these paths raise
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -245,8 +245,10 @@ class DecoderLayer(nn.Module):
 class Transformer(nn.Module):
     """Causal LM (dense or MoE) with the reference's parameter names and layout."""
 
-    def __init__(self, cfg: TransformerConfig, generator: torch.Generator,
+    def __init__(self, cfg: TransformerConfig, generator: Optional[torch.Generator],
                  *, device: DeviceLike = None):
+        """``generator`` None leaves the parameters uninitialized, for a
+        checkpoint to fill (``models/hf_io.py::hf_to_params``)."""
         super().__init__()
         check_supported(cfg)
         dev = resolve_device(device)
@@ -261,7 +263,8 @@ class Transformer(nn.Module):
         self.norm = p(h)
         if not cfg.tie_word_embeddings:
             self.lm_head = p(h, cfg.vocab_size)
-        init_params(self, generator)
+        if generator is not None:
+            init_params(self, generator)
 
     def embed_and_rotary(self, input_ids, position_ids):
         """(token embeddings [B,S,H], rotary cos, sin) in cfg.dtype."""

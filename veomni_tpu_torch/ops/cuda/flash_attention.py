@@ -13,7 +13,10 @@ warpgroups, K1 and K3 on 128-row q tiles, K2 on 128-key tiles):
 Beside each kernel sits its plain PyTorch version (``flash_fwd_plain``,
 ``flash_bwd_plain``) with the same inputs and outputs. A wrapper takes the
 plain version only for tensors on the CPU; for CUDA tensors it launches its
-kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch.
+kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch, and
+``LAUNCHES_BY_HEAD_DIM`` the same by head dim. The kernels take head dims
+64, 128 and 256 (``HEAD_DIMS``) in bf16; other head dims and dtypes raise,
+naming the ``ops_config`` pin to the plain attention.
 
 ``flash_attention`` (registered as ``attention``/``cuda_flash``) keeps the
 reference's feature rule (``:367-380``): sliding window, sinks, an
@@ -40,13 +43,15 @@ from veomni_tpu_torch.ops.attention import _attention_xla
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
 
 SOURCE = "flash_attention.cu"
-HEAD_DIM = 128   # the kernels are compiled for D = 128
+HEAD_DIMS = (64, 128, 256)  # the head dims the kernels are built for
 BLOCK = 128      # the reference's block size: S must be a multiple of it
 # tokens per segment-range block; the .cu's RB, checked when the library loads
 SEG_RANGE_BLOCK = 32
 _NEG = -1e30
 
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+# the same launches split by the head dim they ran at
+LAUNCHES_BY_HEAD_DIM = {d: dict.fromkeys(LAUNCHES, 0) for d in HEAD_DIMS}
 FALLBACK_CALLS = 0
 
 
@@ -54,6 +59,8 @@ def reset_counts() -> None:
     global FALLBACK_CALLS
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        for counts in LAUNCHES_BY_HEAD_DIM.values():
+            counts[name] = 0
     FALLBACK_CALLS = 0
 
 
@@ -118,9 +125,9 @@ def _lib() -> ctypes.CDLL:
     lib = load(SOURCE)
     if not getattr(lib, "_vt_typed", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
-        lib.vt_flash_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 5 + [f32, i32, ptr]
-        lib.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+        lib.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, ptr]
+        lib.vt_flash_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+        lib.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
         for fn in (lib.vt_flash_fwd, lib.vt_flash_bwd_dkv, lib.vt_flash_bwd_dq,
                    lib.vt_seg_range_block):
             fn.restype = ctypes.c_int
@@ -132,16 +139,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+# what a caller whose shapes or dtypes the kernels do not take sets instead
+PLAIN_PIN = "ops_config: {attention: xla} (the plain attention)"
+
+
 def _check(q, k, v, seg, *extra):
     """Raise on anything the kernels do not take."""
     b, s, hq, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != s or k.shape[3] != d:
         raise ValueError(f"flash kernels: q {tuple(q.shape)} / k {tuple(k.shape)} / v {tuple(v.shape)} mismatch")
-    if d != HEAD_DIM or s % BLOCK or hq % k.shape[2]:
-        raise ValueError(f"flash kernels take D={HEAD_DIM}, S % {BLOCK} == 0, Hq % Hkv == 0; got {tuple(q.shape)}, Hkv={k.shape[2]}")
+    if d not in HEAD_DIMS or s % BLOCK or hq % k.shape[2]:
+        raise ValueError(f"flash kernels take D in {HEAD_DIMS}, S % {BLOCK} == 0, Hq % Hkv == 0; "
+                         f"got {tuple(q.shape)}, Hkv={k.shape[2]}; for other shapes set {PLAIN_PIN}")
     for t in (q, k, v, *extra):
         if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernels take bfloat16, got {t.dtype}")
+            raise TypeError(f"flash kernels take bfloat16, got {t.dtype}; for other dtypes set "
+                            f"{PLAIN_PIN}")
     if seg.dtype != torch.int32 or tuple(seg.shape) != (b, s):
         raise TypeError(f"segment ids must be int32 [B,S], got {seg.dtype} {tuple(seg.shape)}")
     for t in (q, k, v, seg, *extra):
@@ -157,12 +170,18 @@ def _check(q, k, v, seg, *extra):
 # items per SM before the q-head group is split across items. Qwen3-30B-A3B
 # at micro-batch 1 and seq 4096 (configs/text/qwen3_moe_ep.yaml) gives 128
 # items for 132 SMs and splits 4 ways; micro-batch 4 (512 items) and
-# Qwen3-0.6B at micro-batch 4 (1024) do not split.
+# Qwen3-0.6B at micro-batch 4 (1024) do not split. At D = 256 K2 computes dK
+# and dV in two 128-column halves, each in work items of its own.
 DKV_KEYS = 128
 SPLIT_ITEMS_PER_SM = 2
 
 
-def dkv_group_split(b: int, s: int, hq: int, hkv: int, n_sm: int) -> int:
+def dkv_halves(d: int) -> int:
+    """Work items per key tile and q heads in K2: 2 at D = 256, else 1."""
+    return 2 if d == 256 else 1
+
+
+def dkv_group_split(b: int, s: int, hq: int, hkv: int, n_sm: int, d: int = 128) -> int:
     """How many work items share one kv head's q-head group in K2: the
     smallest divisor ``split`` of the group (Hq / Hkv) that gives at least
     SPLIT_ITEMS_PER_SM items per SM, the whole group if none does. With
@@ -170,17 +189,17 @@ def dkv_group_split(b: int, s: int, hq: int, hkv: int, n_sm: int) -> int:
     workspace ``[2, split, B, S, Hkv, D]`` (dkv_workspace_shape) that K2 then
     sums in a fixed order."""
     group = hq // hkv
-    items = b * hkv * (s // DKV_KEYS)
+    items = b * hkv * (s // DKV_KEYS) * dkv_halves(d)
     for split in range(1, group + 1):
         if group % split == 0 and items * split >= SPLIT_ITEMS_PER_SM * n_sm:
             return split
     return group
 
 
-def dkv_workspace_shape(b: int, s: int, hkv: int, split: int):
+def dkv_workspace_shape(b: int, s: int, hkv: int, split: int, d: int = 128):
     """f32 workspace of K2 at ``split`` (None: no workspace): dK's partials,
     then dV's."""
-    return None if split == 1 else (2, split, b, s, hkv, HEAD_DIM)
+    return None if split == 1 else (2, split, b, s, hkv, d)
 
 
 def seg_ranges(seg):
@@ -215,14 +234,15 @@ def _launch(name: str, tensors, q, k, scale: float, causal: bool, ints=()) -> No
     """Launch ``vt_<name>`` on the current stream, raise on a CUDA error,
     count the launch. ``tensors`` may hold None (a null pointer); ``ints``
     go before the shape."""
-    b, s, hq, _ = q.shape
+    b, s, hq, d = q.shape
     err = getattr(_lib(), "vt_" + name)(
-        *(0 if t is None else t.data_ptr() for t in tensors), *ints, b, s, hq, k.shape[2],
+        *(0 if t is None else t.data_ptr() for t in tensors), *ints, b, s, hq, k.shape[2], d,
         float(scale), int(causal), torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_HEAD_DIM[d][name] += 1
 
 
 # ``seg_rng`` is ``seg_ranges(seg)``, computed once for the kernels of one
@@ -244,11 +264,11 @@ def flash_bwd_dkv_cuda(q, k, v, seg, dout, lse, delta, scale: float, causal: boo
     _check(q, k, v, seg, dout)
     _check_rows(q, lse, delta)
     _check_ranges(seg, seg_rng)
-    b, s, hq, _ = q.shape
+    b, s, hq, d = q.shape
     hkv = k.shape[2]
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    split = dkv_group_split(b, s, hq, hkv, n_sm)
-    shape = dkv_workspace_shape(b, s, hkv, split)
+    split = dkv_group_split(b, s, hq, hkv, n_sm, d)
+    shape = dkv_workspace_shape(b, s, hkv, split, d)
     ws = None if shape is None else torch.empty(shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", (q, k, v, seg, seg_rng, dout, lse, delta, dk, dv, ws),

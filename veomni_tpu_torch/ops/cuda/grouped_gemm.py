@@ -32,9 +32,10 @@ plain versions read them on the host).
 
 ``cuda_group_gemm`` (registered as ``group_gemm``/``cuda_gmm``) takes any
 row count M: the kernels mask the last row tile. K and N must be multiples
-of 128 (the kernels' tile), on every device; other widths raise
-``ValueError``. The reference (``:258-273``) sends such shapes to its plain
-ragged path instead; the port has no second path on the card. Its autograd
+of 8 (TMA's 16-byte row rule), on every device; other widths raise
+``ValueError``. Widths that are not a multiple of the kernels' tiles (the
+reference's ragged-path shapes, ``:266-269``) run in the kernels: TMA reads
+zeros past a tensor's edge and does not store past it. Its autograd
 Function is the reference's ``custom_vjp`` (``:222-240``): forward K4;
 backward K5 (dlhs) and K6 (drhs).
 
@@ -53,7 +54,7 @@ import torch
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
 
 SOURCE = "grouped_gemm.cu"
-TILE = 128  # the kernels' tile: K and N must be multiples of it
+ALIGN = 8  # K and N must be multiples of it (16 bytes of bf16: TMA's row rule)
 
 LAUNCHES = {"gmm_fwd": 0, "gmm_dlhs": 0, "gmm_t": 0}
 
@@ -114,17 +115,19 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.vt_gmm_fwd, lib.vt_gmm_dlhs, lib.vt_gmm_t):
             fn.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             fn.restype = ctypes.c_int
-        lib.vt_gmm_tile.argtypes = []
-        lib.vt_gmm_tile.restype = ctypes.c_int
-        if lib.vt_gmm_tile() != TILE:
-            raise RuntimeError(f"{SOURCE} tiles by {lib.vt_gmm_tile()}, the wrapper checks {TILE}")
+        lib.vt_gmm_align.argtypes = []
+        lib.vt_gmm_align.restype = ctypes.c_int
+        if lib.vt_gmm_align() != ALIGN:
+            raise RuntimeError(f"{SOURCE} takes widths in multiples of {lib.vt_gmm_align()}, "
+                               f"the wrapper checks {ALIGN}")
         lib._vt_typed = True
     return lib
 
 
 def _check_widths(k: int, n: int) -> None:
-    if k % TILE or n % TILE:
-        raise ValueError(f"grouped GEMM takes K and N multiples of {TILE}; got K={k} N={n}")
+    if k % ALIGN or n % ALIGN:
+        raise ValueError(f"grouped GEMM takes K and N multiples of {ALIGN} (a TMA row is a "
+                         f"multiple of 16 bytes); got K={k} N={n}")
 
 
 def _check(a, b, starts, m: int, k: int, n: int, num_experts: int):
@@ -232,6 +235,6 @@ class _GroupGemm(torch.autograd.Function):
 def cuda_group_gemm(tokens, weights, group_sizes):
     """tokens [M,K] sorted by expert; weights [E,K,N]; group_sizes [E] -> [M,N]
     (reference ``_pallas_group_gemm``, ``:258-273``). Any M; K and N
-    multiples of 128."""
+    multiples of 8."""
     _check_widths(tokens.shape[1], weights.shape[2])
     return _GroupGemm.apply(tokens.contiguous(), weights.contiguous(), group_starts(group_sizes))

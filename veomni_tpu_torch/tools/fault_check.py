@@ -5,7 +5,8 @@ into a fresh directory outside the checkout (under the system temp
 directory), apply one edit to the fault's source file in the copy (the
 grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash kernels K1-K3
 in ``csrc/flash_attention.cu``, the trainer's resume in
-``checkpoint/checkpointer.py`` and ``trainer/base.py``) and run the copy's
+``checkpoint/checkpointer.py`` and ``trainer/base.py``, the HF weight load in
+``models/hf_io.py``) and run the copy's
 ``chip_smoke.py``. A fault is caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -37,6 +38,7 @@ GMM_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "grouped_gemm.cu")
 FLASH_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "flash_attention.cu")
 CKPT_SOURCE = os.path.join("veomni_tpu_torch", "checkpoint", "checkpointer.py")
 TRAINER_SOURCE = os.path.join("veomni_tpu_torch", "trainer", "base.py")
+HF_IO_SOURCE = os.path.join("veomni_tpu_torch", "models", "hf_io.py")
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
@@ -112,6 +114,33 @@ FAULTS = (
           FLASH_SOURCE, "for (int p = 1; p < split; ++p) {",
           "for (int p = 1; p < split - which; ++p) {",
           "K2 dV (Qwen3-30B-A3B, micro-batch 1)"),
+    # K1 at head dim 64 reads Q's 32-byte chunks of each swizzled row in the
+    # wrong order (chunk c for c ^ 1) while K's stay right: S = Q K^T pairs
+    # the wrong head dims (D = 128 and 256 as they are)
+    Fault("K1-d64-swizzle", "K1 at D = 64 reads Q's swizzled rows with chunks 0/1 and 2/3 "
+                            "swapped in S = Q K^T",
+          FLASH_SOURCE, "wgmma_ss<KT, 0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + off, 16, 1024),",
+          "wgmma_ss<KT, 0>(s, wgmma_desc(qa + (kd / 4) * Q_BOX + (D == 64 ? off ^ 32 : off), 16, "
+          "1024),",
+          "K1 O (autograd path, TinyLlama-1.1B layout)"),
+    # K4's epilogue leaves out the 64-column stores that reach past the
+    # output's width: at N = 200 columns 192-199 are never written (K5 as it is)
+    Fault("K4-n-tail", "K4 drops the TMA stores of the N tail (the boxes that reach past N)",
+          GMM_SOURCE,
+          "for (int j = 0; j < TN / 64; ++j) tma_store_2d(map_out, stg + j * BM * 128, w0 + 64 * j, m0);",
+          "for (int j = 0; j < TN / 64; ++j)\n"
+          "              if (DLHS || w0 + 64 * j + 64 <= W)\n"
+          "                tma_store_2d(map_out, stg + j * BM * 128, w0 + 64 * j, m0);",
+          "K4 out (autograd path) (small ragged+empty, K=136 N=200)"),
+    # the HF load reads q_proj without its transpose: TinyLlama's q_proj is
+    # square (2048 x 2048), so the shape check passes and the weights land
+    # transposed
+    Fault("hf-transposed-q", "hf_to_params loads q_proj untransposed ([out, in] for [in, out])",
+          HF_IO_SOURCE,
+          'put(param, fetch(f"layers.{i}.{suffix}", transpose), f"layers.{i}.{pname}")',
+          'put(param, fetch(f"layers.{i}.{suffix}", transpose != (pname == "q_proj")), '
+          'f"layers.{i}.{pname}")',
+          "hf trainer:", "hf trainer: loaded parameters differ"),
     # the trainer phase's resumed leg B2 continues from step 3: restoring the
     # moments but not the update count restarts the learning-rate schedule,
     # so step 4's update takes lr(0) for lr(3) and step 5's loss departs

@@ -76,7 +76,9 @@ VARIANTS = {
                     [("setmaxnreg_dec<40>();", "setmaxnreg_dec<24>();"),
                      ("setmaxnreg_inc<CW == 2 ? 232 : 240>();", "setmaxnreg_inc<240>();")]),
     "dkv-no-split": ("the whole q-head group in every work item, whatever the wrapper's split",
-                     [("dk, dv, ws, split, B, S,", "dk, dv, ws, 1, B, S,")]),
+                     [("  // split: the wrapper's dkv_group_split; ws holds 2 * split f32 planes "
+                       "when split > 1\n",
+                       "  split = 1;  // the variant: the whole group in every item\n")]),
     "dkv-mask-flagged": ("the per-element mask only on the q tiles that reach the causal "
                          "diagonal or hold more than one segment, as K1 does: walk_q_tiles "
                          "flags them, the consumers branch on the flag",
@@ -114,9 +116,9 @@ def build_variant(name: str, edits, workdir: str) -> ctypes.CDLL:
     """Build csrc with ``edits`` applied to the flash-attention source."""
     cdll = build_edited(SOURCE, name, edits, workdir)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    cdll.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 4 + [f32, i32, ptr]
-    cdll.vt_flash_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 5 + [f32, i32, ptr]
-    cdll.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 4 + [f32, i32, ptr]
+    cdll.vt_flash_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [f32, i32, ptr]
+    cdll.vt_flash_bwd_dkv.argtypes = [ptr] * 11 + [i32] * 6 + [f32, i32, ptr]
+    cdll.vt_flash_bwd_dq.argtypes = [ptr] * 9 + [i32] * 5 + [f32, i32, ptr]
     for fn in (cdll.vt_flash_fwd, cdll.vt_flash_bwd_dkv, cdll.vt_flash_bwd_dq):
         fn.restype = ctypes.c_int
     return cdll
@@ -170,7 +172,7 @@ def main(argv=None) -> int:
             o, dq, dk, dv = (torch.empty_like(x) for x in (q, q, k, v))
             lse = torch.empty(b, hq, s, device=dev, dtype=torch.float32)
             p = [x.data_ptr() for x in (q, k, v, sg, rng)]
-            tail = (b, s, hq, hkv, scale, 1, stream)
+            tail = (b, s, hq, hkv, 128, scale, 1, stream)
             calls = {name: {
                 "K1": lambda lib=lib: lib.vt_flash_fwd(*p, o.data_ptr(), lse.data_ptr(), *tail),
                 "K2": lambda lib=lib: lib.vt_flash_bwd_dkv(

@@ -41,12 +41,9 @@ VARIANTS = {
                           "const int next = t + (int)gridDim.x;")]),
     "tile-128": ("128 x 128 output tiles at every width (5 ring stages)",
                  [("return W % 256 == 0", "return false")]),
-    "no-weight-hint": ("the weights' TMA loads without the L2 evict-last hint",
+    "no-weight-hint": ("K5's weight TMA loads without the L2 evict-last hint",
                        [("tma_load_2d_hint(b, map_b, full, c * BK, e * K + w0, keep);",
-                         "tma_load_2d(b, map_b, full, c * BK, e * K + w0);"),
-                        ("tma_load_2d_hint(b + j * B_BLOCK, map_b, full, w0 + 64 * j, "
-                         "e * K + c * BK, keep);",
-                         "tma_load_2d(b + j * B_BLOCK, map_b, full, w0 + 64 * j, e * K + c * BK);")]),
+                         "tma_load_2d(b, map_b, full, c * BK, e * K + w0);")]),
     "mainloop-only": ("diagnostic: K4/K5 without epilogue (nothing staged, nothing stored)",
                       [("stage_rows<TN, false>(stg_p, m0, row, col, lo, hi, acc);", ""),
                        ("stage_rows<TN, true>(stg_p, m0, row, col, gs[E], M, acc);", ""),
@@ -54,7 +51,7 @@ VARIANTS = {
     # K6 (the kind "t")
     "t-no-epilogue": ("diagnostic: K6 without epilogue (nothing staged, nothing stored)",
                       [("stage_rows<TN, false>(stg_p, 0, row, col, 0, BM, acc);", ""),
-                       ("tma_store_2d(map_out, stg + j * BM * 128, n0 + 64 * j, e * K + k0);",
+                       ("tma_store_3d(map_out, stg + j * BM * 128, n0 + 64 * j, k0, e);",
                         ";")]),
     "t-serial-epilogue": ("K6 with its epilogue not overlapped: each tile's stores are waited "
                           "for before the next tile's mainloop",

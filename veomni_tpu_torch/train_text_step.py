@@ -60,6 +60,39 @@ BENCH_PRESETS = {
 }
 
 
+# Published HF config.json files, kept here as values (no download): a run
+# writes one into an HF directory and builds the model from it
+# (``TransformerConfig.from_hf_config``). TinyLlama-1.1B is
+# huggingface.co/TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T/config.json:
+# llama, 22 layers, hidden 2048, 32 query / 4 kv heads (head dim 64), SwiGLU
+# width 5632, vocab 32000, untied head, rope theta 10000, no rope scaling.
+HF_CONFIGS = {
+    "tinyllama_1p1b": {
+        "architectures": ["LlamaForCausalLM"],
+        "attention_bias": False,
+        "bos_token_id": 1,
+        "eos_token_id": 2,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "initializer_range": 0.02,
+        "intermediate_size": 5632,
+        "max_position_embeddings": 2048,
+        "model_type": "llama",
+        "num_attention_heads": 32,
+        "num_hidden_layers": 22,
+        "num_key_value_heads": 4,
+        "pretraining_tp": 1,
+        "rms_norm_eps": 1e-05,
+        "rope_scaling": None,
+        "rope_theta": 10000.0,
+        "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "vocab_size": 32000,
+    },
+}
+
+
 def bench_config(preset: str = "qwen3_0p6b", **overrides) -> TransformerConfig:
     """Qwen3 config of ``bench.py::bench_config`` (``:175-197``) with the
     bench's default ``ctx`` remat (``bench.py:1691``); a preset's fields

@@ -16,9 +16,16 @@ log steps (``ctl.synced``); in between, callbacks see device tensors.
 (With ``resilience_skip_nonfinite``, the port's step itself reads its
 finite flag on the host once per step before the optimizer update.)
 
-Features whose modules are not ported yet raise ``NotImplementedError``
-from one gate, :func:`check_supported`, naming the knob and the queue item
-of ``ROADMAP.md`` that ports it.
+A model comes from ``model.config_overrides`` or from an HF directory
+(``model.config_path``, ``model.model_path``: ``models/hf_io.py``, loaded
+onto the run's device), and leaves as an HF export at train end
+(``train.save_hf_weights``). The data path takes ``data.dyn_bsz``
+(``data/dynamic_batching.py``), ``train.prefetch_depth``
+(``data/prefetch.py``, closed on SIGTERM and before a rollback) and
+``dataset_type: streaming`` (``data/streaming.py``). Features whose modules
+are not ported yet raise ``NotImplementedError`` from one gate,
+:func:`check_supported`, naming the knob and the queue item of
+``ROADMAP.md`` that ports it.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from veomni_tpu_torch.data.data_collator import TextPackingCollator
 from veomni_tpu_torch.data.data_loader import build_dataloader
 from veomni_tpu_torch.data.data_transform import build_data_transform
 from veomni_tpu_torch.data.dataset import build_dataset
-from veomni_tpu_torch.models.auto import build_config, build_foundation_model, build_tokenizer
+from veomni_tpu_torch.models.auto import build_config, build_foundation_model
 from veomni_tpu_torch.observability.flight_recorder import (
     configure_flight_recorder,
     dump_postmortem,
@@ -48,6 +55,7 @@ from veomni_tpu_torch.train import build_train_state, build_train_step
 from veomni_tpu_torch.trainer.callbacks import (
     CheckpointCallback,
     EnvironMeterCallback,
+    HFCheckpointCallback,
     LoggingCallback,
     ProfileCallback,
     TrainerControlState,
@@ -60,8 +68,8 @@ from veomni_tpu_torch.utils.logging import _process_index, get_logger
 logger = get_logger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "position_ids", "segment_ids")
-# the data transforms the port runs: ``conversation`` needs
-# data/chat_template.py, the multimodal ones slice F
+# the data transforms the port has: ``conversation`` needs
+# data/chat_template.py and an HF tokenizer, the multimodal ones slice F
 SUPPORTED_DATA_TYPES = ("pretokenized", "plaintext")
 
 
@@ -72,26 +80,18 @@ def check_supported(args: VeOmniArguments) -> None:
     m, d, t = args.model, args.data, args.train
     metrics_port = os.environ.get("VEOMNI_METRICS_PORT", "")
     missing = [f"{knob} ({why})" for knob, why, on in (
-        ("model.config_path", "HF config load, models/hf_io.py: queue 1 item 3; "
-         "give model.config_overrides", bool(m.config_path)),
-        ("model.model_path", "HF weight load, models/hf_io.py: queue 1 item 3",
-         bool(m.model_path)),
-        ("train.save_hf_weights", "HF weight export, models/hf_io.py: queue 1 item 3; "
-         "set train.save_hf_weights: false, as the reference's own e2e tests do",
-         t.save_hf_weights),
         ("model.lora", "lora/*: slice F", bool(m.lora) or bool(m.lora_adapter_path)),
         ("model.freeze_modules / train.module_lr_scales",
          "optimizer param groups, optim/optimizer.py::with_param_groups: slice F",
          bool(m.freeze_modules) or bool(t.module_lr_scales)),
         (f"train.optimizer {t.optimizer!r}", "only adamw is ported; optim/muon.py: slice F",
          t.optimizer != "adamw"),
-        ("data.dyn_bsz", "data/dynamic_batching.py: queue 1 item 2", d.dyn_bsz),
-        ("train.prefetch_depth", "data/prefetch.py: queue 1 item 2; set it to 0",
-         t.prefetch_depth > 0),
-        ("data.dataset_type streaming", "data/streaming.py: queue 1 item 2",
-         d.dataset_type == "streaming"),
-        (f"data.data_type {d.data_type!r}", "data/chat_template.py and the multimodal "
-         "transforms: queue 1 item 2 and slice F", d.data_type not in SUPPORTED_DATA_TYPES),
+        (f"data.data_type {d.data_type!r}", "data/chat_template.py needs an HF tokenizer "
+         "and the card's machine has no transformers: queue 1; the multimodal transforms: "
+         "slice F", d.data_type not in SUPPORTED_DATA_TYPES),
+        (f"model.tokenizer_path for data_type {d.data_type!r}", "an HF tokenizer needs "
+         "transformers, which the port does not use: queue 1; pretokenized data needs none",
+         bool(m.tokenizer_path) and d.data_type != "pretokenized"),
         ("data.eval_path", "EvaluateCallback and the eval loop: queue 1", bool(d.eval_path)),
         ("data.channel_list", "train/channel_loss.py: queue 1", bool(d.channel_list)),
         ("train.use_wandb", "WandbCallback: queue 1", t.use_wandb),
@@ -210,17 +210,20 @@ class BaseTrainer:
             ops_pins["attention"] = m.attn_implementation
         if m.moe_implementation not in ("auto", ""):
             ops_pins["group_gemm"] = m.moe_implementation
-        self.model = build_foundation_model(
-            None,
-            config=build_config(overrides.get("model_type", ""), **{
-                k: v for k, v in overrides.items() if k != "model_type"}),
-            ops_implementation=ops_pins,
-        )
-        # pretokenized data needs no tokenizer
-        needs_tokenizer = self.args.data.data_type not in ("pretokenized",)
+        if m.config_path:  # config.json, with the overrides on top
+            self.model = build_foundation_model(
+                m.config_path, ops_implementation=ops_pins, **overrides)
+        else:
+            self.model = build_foundation_model(
+                None,
+                config=build_config(overrides.get("model_type", ""), **{
+                    k: v for k, v in overrides.items() if k != "model_type"}),
+                ops_implementation=ops_pins,
+            )
+        # no tokenizer: check_supported lets one through for no data_type
+        # (models/auto.py::build_tokenizer is gated), and pretokenized data
+        # needs none
         self.tokenizer = None
-        if m.tokenizer_path and needs_tokenizer:
-            self.tokenizer = build_tokenizer(m.tokenizer_path)
 
     def _build_data_transform(self):
         d = self.args.data
@@ -232,8 +235,13 @@ class BaseTrainer:
 
     def _build_dataset(self):
         d = self.args.data
+        kwargs = {}
+        if d.dataset_type == "streaming":
+            # poison-record skip budget (resilience/integrity.py), replayed
+            # bit-exactly across resume through the cursor state
+            kwargs["skip_budget"] = self.args.train.data_skip_budget
         self.dataset = build_dataset(
-            d.dataset_type, path=d.train_path, transform=self.data_transform,
+            d.dataset_type, path=d.train_path, transform=self.data_transform, **kwargs,
         )
 
     def _build_dataloader(self):
@@ -246,19 +254,33 @@ class BaseTrainer:
             micro_batch_size=local_mb,
             sp_size=ps.sp_size,
         )
-        self.dataloader = build_dataloader(
-            d.dataloader_type,
-            dataset=self.dataset,
-            collate_fn=collator,
-            micro_batch_size=local_mb,
-            grad_accum_steps=self.grad_accum_steps,
-            samples_per_micro_batch=max(1, d.samples_per_micro_batch * local_mb),
-            seed=t.seed,
-            dp_rank=0,
-            dp_size=1,
-            drop_last=d.drop_last,
-            infinite=True,
-        )
+        if d.dyn_bsz:
+            from veomni_tpu_torch.data.dynamic_batching import DynamicBatchDataloader
+
+            self.dataloader = DynamicBatchDataloader(
+                self.dataset,
+                collator,
+                token_budget=local_mb * d.max_seq_len,
+                grad_accum_steps=self.grad_accum_steps,
+                buffer_size=d.dyn_bsz_buffer_size,
+                seed=t.seed,
+                dp_rank=0,
+                dp_size=1,
+            )
+        else:
+            self.dataloader = build_dataloader(
+                d.dataloader_type,
+                dataset=self.dataset,
+                collate_fn=collator,
+                micro_batch_size=local_mb,
+                grad_accum_steps=self.grad_accum_steps,
+                samples_per_micro_batch=max(1, d.samples_per_micro_batch * local_mb),
+                seed=t.seed,
+                dp_rank=0,
+                dp_size=1,
+                drop_last=d.drop_last,
+                infinite=True,
+            )
 
     def _build_parallelized_state(self):
         """Schedule, model init on the run's device, AdamW, train state,
@@ -271,7 +293,12 @@ class BaseTrainer:
             t.lr_decay_style, lr=t.lr, train_steps=steps,
             lr_warmup_ratio=t.lr_warmup_ratio, lr_min=t.lr_min,
         )
-        module = self.model.init(self.generator, device=self.device)
+        if self.args.model.model_path:
+            # train.broadcast_weights_from_rank0 is a no-op at world size 1:
+            # the one process reads every tensor itself
+            module = self.model.load_hf(self.args.model.model_path, device=self.device)
+        else:
+            module = self.model.init(self.generator, device=self.device)
         self.optimizer = build_optimizer(
             module, lr=self.lr_schedule, betas=tuple(t.betas), weight_decay=t.weight_decay,
         )
@@ -314,6 +341,8 @@ class BaseTrainer:
             self.callbacks.append(
                 ProfileCallback(t.output_dir, t.profile_start_step, t.profile_end_step)
             )
+        if t.save_hf_weights:
+            self.callbacks.append(HFCheckpointCallback())
 
     # ----------------------------------------------------------------- resume
     def try_resume(self, step: Optional[int] = None,
@@ -366,6 +395,26 @@ class BaseTrainer:
         for cb in self.callbacks:
             getattr(cb, hook)(self, state)
 
+    def _start_data_iter(self):
+        """(Re)build the prefetcher and the iterator: at train start and after
+        a supervisor rollback restored the dataloader cursor (the prefetch
+        thread starts pulling at construction, so the cursor must already be
+        in place)."""
+        t = self.args.train
+        self._prefetcher = None
+        if t.prefetch_depth > 0:
+            from veomni_tpu_torch.data.prefetch import BackgroundPrefetcher
+
+            self._prefetcher = BackgroundPrefetcher(self.dataloader, depth=t.prefetch_depth)
+        return iter(self._prefetcher or self.dataloader)
+
+    def _close_prefetcher(self):
+        """Idempotent; also invoked from the SIGTERM handler to wake a
+        consumer blocked on the prefetch queue."""
+        pf = getattr(self, "_prefetcher", None)
+        if pf is not None:
+            pf.close()
+
     def _close_callbacks(self):
         """Exception-safe teardown for resource-holding callbacks (an
         active profiler trace) — runs on both the loop's exit paths and a
@@ -416,6 +465,7 @@ class BaseTrainer:
             "anomaly escalation: rolling back from step %d to the latest "
             "committed checkpoint", ctl.global_step,
         )
+        self._close_prefetcher()
         try:
             self.checkpointer.wait()  # an in-flight save may be the target
         except Exception as e:
@@ -441,7 +491,7 @@ class BaseTrainer:
             )
         self.apply_restored_extra(ctl, extra)
         sup.note_rollback(to_step=ctl.global_step)
-        return iter(self.dataloader)
+        return self._start_data_iter()
 
     def _fetch(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
         """Device metrics -> host floats (scalars) and arrays."""
@@ -479,19 +529,21 @@ class BaseTrainer:
                 self._fire("on_train_begin", ctl)
                 flight_record("train.begin", cid=str(ctl.global_step),
                               train_steps=self.train_steps)
-                # after on_train_begin: auto-resume restores the cursor there
-                data_iter = iter(self.dataloader)
+                # after on_train_begin: auto-resume restores the cursor there,
+                # and the prefetch thread starts pulling at construction
+                data_iter = self._start_data_iter()
             except BaseException as e:
                 dump_postmortem(
                     f"exception:{type(e).__name__}",
                     extra=self._postmortem_extra(e, ctl.global_step),
                 )
+                self._close_prefetcher()
                 self._close_callbacks()
                 raise
             # SIGTERM = cluster preemption notice: finish the current step,
             # take one final synchronous checkpoint, return (exit 0) so the
             # restarted job resumes bit-exactly
-            shutdown = GracefulShutdown()
+            shutdown = GracefulShutdown(on_request=self._close_prefetcher)
             watchdog = Watchdog(
                 t.resilience_watchdog_s, on_stall=sup.note_stall,
                 description="train loop",
@@ -502,8 +554,13 @@ class BaseTrainer:
                         while ctl.global_step < self.train_steps and not ctl.should_stop:
                             if shutdown.requested:
                                 break
-                            with span("data.wait"):
-                                batch_np = next(data_iter)
+                            try:
+                                with span("data.wait"):
+                                    batch_np = next(data_iter)
+                            except Exception:
+                                if shutdown.requested:
+                                    break  # prefetcher closed by the handler
+                                raise
                             self.current_batch = batch_np
                             fault_point("step.delay")
                             act = fault_point("step.params")
@@ -607,5 +664,6 @@ class BaseTrainer:
                 )
                 raise
             finally:
+                self._close_prefetcher()
                 self._close_callbacks()
         return ctl

@@ -2,10 +2,10 @@
 
 Port of ``veomni_tpu/trainer/callbacks.py``: ``TrainerControlState``, the
 hook protocol, ``LoggingCallback``, ``EnvironMeterCallback``,
-``CheckpointCallback`` (``:196``) and ``ProfileCallback``, which drives
-``torch.profiler`` where the reference drives ``jax.profiler``. The
-reference's ``HFCheckpointCallback`` (needs ``hf_io``), ``EvaluateCallback``
-and ``WandbCallback`` are not ported yet; the trainer's feature gate
+``CheckpointCallback`` (``:196``), ``HFCheckpointCallback`` (``:254``) and
+``ProfileCallback``, which drives ``torch.profiler`` where the reference
+drives ``jax.profiler``. The reference's ``EvaluateCallback`` and
+``WandbCallback`` are not ported yet; the trainer's feature gate
 (``trainer/base.py::check_supported``) raises for the knobs that add them.
 """
 
@@ -137,8 +137,10 @@ class CheckpointCallback(Callback):
 
     def _rank_state(self, trainer) -> Dict[str, Any]:
         # rank-LOCAL: the dataloader cursor + packing carry-over buffer hold
-        # this process's data shard; each rank saves/restores its own.
-        src = trainer.dataloader
+        # this process's data shard; each rank saves/restores its own. With
+        # background prefetch the thread runs ahead of the trainer, so the
+        # cursor comes from the prefetcher (the last CONSUMED batch).
+        src = getattr(trainer, "_prefetcher", None) or trainer.dataloader
         return {
             "dataloader": src.state_dict()
             if hasattr(src, "state_dict")
@@ -167,6 +169,17 @@ class CheckpointCallback(Callback):
             rank_state=self._rank_state(trainer),
         )
         self.checkpointer.wait()
+
+
+class HFCheckpointCallback(Callback):
+    """HF-format safetensors export of the trained model to
+    ``<output_dir>/hf_ckpt`` at the end of training (reference
+    ``trainer/callbacks.py:254``; LoRA's merged and adapter exports are
+    slice F)."""
+
+    def on_train_end(self, trainer, state):
+        out = os.path.join(trainer.args.train.output_dir, "hf_ckpt")
+        trainer.model.save_hf(out, module=trainer.train_state.model)
 
 
 class ProfileCallback(Callback):
