@@ -84,7 +84,21 @@ Phases (any failure exits non-zero and prints no result line):
    by leaf; at depth 1 (where no grouped GEMM feeds the router, so both
    legs route alike), full width, S=1024, one MoE step with the grouped-GEMM
    kernels against the same step with the plain ragged impl pinned, and the
-   router and expert gradients of one backward, leaf by leaf.
+   router and expert gradients of one backward, leaf by leaf;
+11. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
+   28 layers, over 32 requests in two waves, legs (a) prefix cache and
+   512-token chunks, (b) neither, (c) (a) with ngram speculation, (d) (a)
+   and (c) sampled; every token held to an f32 teacher-forced re-score
+   through the training forward (eps a recorded constant per phase, and
+   the engine's first-token spread held under a ceiling), no leaked block,
+   pools that keep their storage, cached tokens within the shared prefix;
+12. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
+   every MoE layer of every pass, then K4 alone at the engine's decode and
+   prefill-chunk shapes.
+
+``--phases serve_dense,serve_moe`` runs the build and those phases alone
+(after ``main`` or ``trainer``, the dense loop or the trainer, when named
+first) and prints no result line.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -93,6 +107,9 @@ limit as ``nvidia-smi`` gives them, and the device record
 
 from __future__ import annotations
 
+import argparse
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -105,6 +122,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # Kernel vs plain version, held element by element:
@@ -1388,7 +1406,512 @@ def phase_moe_parity(dev):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+# --------------------------------------------------------------------------
+# Serving: the paged-KV engine at Qwen3-0.6B and Qwen3-30B-A3B
+# --------------------------------------------------------------------------
+SERVE_DENSE_PRESET = "qwen3_0p6b"
+SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=32, wave=16, wave_ticks=4,
+                   prompt=(64, 1536), shared_prefix=512, max_new=128)
+SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
+                 prompt=(64, 1024), shared_prefix=0, max_new=64)
+SERVE_CHUNK = 512
+SERVE_GREEDY_PROMPTS = 8  # held against greedy_generate (its contiguous loop: ~4 s a prompt)
+SERVE_SPEC_K = 4
+SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
+# The re-score gate: an engine token's logit may sit below its row's maximum
+# in the f32 teacher-forced re-score by at most eps = EPS_FACTOR x the
+# phase's recorded delta, a constant: delta is the largest |engine -
+# re-score| over the vocabulary of the engine's first-token logits of every
+# prompt of the phase (its contiguous prefill, in the compute dtype), as
+# read on an NVIDIA H100 80GB HBM3 at this script's seeds. A greedy token's
+# gap is at most twice its row's |engine - re-score| (it is the engine's
+# argmax), so 2 x delta bounds rows like the recorded ones; EPS_FACTOR = 4
+# leaves a factor 2 for rows whose error runs above the first tokens'
+# (decode rows attend over a bf16 cache the prefill wrote). A sampled token
+# must be in the re-score's top-k/top-p keep-set with the threshold lowered
+# by eps / temperature. Each run measures delta again and fails above
+# DELTA_CEILING x the recorded value: the contiguous prefill shares its layer
+# functions with the paged steps, so a fault there shows in delta, while eps
+# stays where the sound code put it.
+SERVE_DELTA = {"serve dense": 0.0481, "serve moe": 0.0917}
+EPS_FACTOR = 4.0
+DELTA_CEILING = 2.0
+
+
+def serve_traffic(vocab: int, spec: dict, seed: int = 0):
+    """Prompts of the phase from one numpy seed: lengths uniform in
+    spec["prompt"]; every other request (from the first) carries one shared
+    system prefix of spec["shared_prefix"] tokens ahead of its own."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, spec["shared_prefix"]).tolist()
+    lo, hi = spec["prompt"]
+    prompts = []
+    for i in range(spec["requests"]):
+        own = rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist()
+        prompts.append((system if i % 2 == 0 else []) + own)
+    return prompts
+
+
+def shared_blocks(prompts, block: int):
+    """Per prompt, the tokens of the longest block-aligned prefix it shares
+    with any other prompt: all a prefix cache may serve it."""
+    out = []
+    for i, p in enumerate(prompts):
+        best = 0
+        for j, q in enumerate(prompts):
+            if i != j:
+                n = 0
+                while n < min(len(p), len(q)) and p[n] == q[n]:
+                    n += 1
+                best = max(best, n)
+        out.append(best // block * block)
+    return out
+
+
+@contextlib.contextmanager
+def f32_rescore(model):
+    """The model's training forward in f32 (every compute-dtype cast of the
+    weights an f32 one) with the plain attention and grouped GEMM pinned:
+    a path that shares no code with the paged decode."""
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+
+    cfg = model.cfg
+    modules = [model, *model.layers]
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    for m in modules:
+        m.cfg = f32
+    apply_ops_config({"attention": "xla", "group_gemm": "xla"})
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        apply_ops_config(None)
+        for m in modules:
+            m.cfg = cfg
+
+
+def rescore_rows(model, ids, first: int):
+    """f32 logits [len(ids) - first, V]: row j is the next-token
+    distribution after ids[:first + j] (teacher forcing). Call under
+    f32_rescore."""
+    dev = model.embed_tokens.device
+    t = torch.tensor(ids, device=dev)[None]
+    hidden, _ = model.forward_hidden(t, torch.arange(len(ids), device=dev)[None])
+    return hidden[0, first - 1:len(ids) - 1].float() @ model.lm_head_kernel().float()
+
+
+def first_token_spread(model, cfg, compute, prompts, tag):
+    """delta: the largest |engine - re-score| over the vocabulary of the
+    first-token logits of every prompt (the engine's contiguous prefill).
+    Returns (delta, eps, ceiling) with eps and the ceiling from the phase's
+    recorded delta."""
+    from veomni_tpu_torch.models import decode as tdec
+
+    dev = model.embed_tokens.device
+    t0 = time.perf_counter()
+    engine_rows = []
+    for p in prompts:
+        pb = tdec._bucket_pow2(len(p), floor=16)
+        tokens = torch.zeros((1, pb), dtype=torch.long, device=dev)
+        tokens[0, :len(p)] = torch.tensor(p, device=dev)
+        engine_rows.append(tdec.prefill(compute, cfg, tokens, len(p), pb, pb)[0][0])
+    spreads = []
+    with f32_rescore(model):
+        for p, row in zip(prompts, engine_rows):
+            # a placeholder next token: causal rows before it do not see it
+            spreads.append((row - rescore_rows(model, p + [0], len(p))[0]).abs().max().item())
+    delta = max(spreads)
+    recorded = SERVE_DELTA[tag]
+    eps, ceiling = EPS_FACTOR * recorded, DELTA_CEILING * recorded
+    log(f"{tag}: first-token logits, engine (bf16 contiguous prefill) vs f32 re-score over "
+        f"{len(prompts)} prompts: max |diff| median {sorted(spreads)[len(spreads) // 2]:.4f}, "
+        f"max {delta:.4f} (ceiling {DELTA_CEILING:g} x the recorded {recorded:.4f} = "
+        f"{ceiling:.4f}); eps = {EPS_FACTOR:g} x {recorded:.4f} = {eps:.4f} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return delta, eps, ceiling
+
+
+def keep_floor(scaled, top_k: int, top_p: float):
+    """Per row of temperature-scaled logits [R,V], the least logit of its
+    sampling keep-set [R]: the top_k largest, then the shortest prefix of
+    them (renormalised, in f64) whose mass before each member is below
+    top_p."""
+    top = torch.sort(scaled.double(), dim=-1, descending=True).values[:, :top_k]
+    prob = torch.softmax(top, dim=-1)
+    before = torch.cumsum(prob, dim=-1) - prob
+    count = torch.clamp_min((before < top_p).sum(-1), 1)
+    return top.gather(1, (count - 1)[:, None])[:, 0]
+
+
+def rescore_gate(model, prompts, outs, sampling, eps):
+    """Worst ratio over every emitted token: greedy, (row max - token's
+    logit) / eps; sampled, (keep floor - token's scaled logit) /
+    (eps / temperature), both floored at 0. Returns (ratio, tokens held)."""
+    worst, n = 0.0, 0
+    with f32_rescore(model):
+        for p, out in zip(prompts, outs):
+            ids = p + out.token_ids
+            rows = rescore_rows(model, ids, len(p))
+            tok = torch.tensor(out.token_ids, device=rows.device)
+            mine = rows.gather(1, tok[:, None])[:, 0]
+            if sampling.get("temperature", 0.0) > 0:
+                temp = sampling["temperature"]
+                below = keep_floor(rows / temp, sampling["top_k"], sampling["top_p"]) - mine / temp
+                worst = max(worst, (below.clamp_min(0) / (eps / temp)).max().item())
+            else:
+                worst = max(worst, ((rows.max(-1).values - mine) / eps).max().item())
+            n += len(out.token_ids)
+    return worst, n
+
+
+def host_state(tag):
+    """Log what earlier phases leave in this process that a host-bound
+    serving tick can feel: threads, span tracing, deterministic algorithms,
+    the objects the garbage collector tracks."""
+    import threading
+
+    from veomni_tpu_torch.observability import spans
+
+    threads = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
+    log(f"{tag}: host state: threads besides main {threads}; spans "
+        f"{'on' if spans.spans_enabled() else 'off'}; deterministic algorithms "
+        f"{torch.are_deterministic_algorithms_enabled()}; torch threads "
+        f"{torch.get_num_threads()}; {len(gc.get_objects())} objects tracked by gc")
+
+
+def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
+              chunk=SERVE_CHUNK, spec_k=0, sampling=None):
+    """One engine run over the phase's traffic: two waves, the second
+    ``wave_ticks`` ticks after the first. Returns (outputs in submit order,
+    stats) with every kernel launch counter set to 0 just before the engine
+    is driven and read just after."""
+    from veomni_tpu_torch.serving import EngineConfig, InferenceEngine, Request, SamplingParams
+
+    sampling = sampling or {}
+    eng = InferenceEngine(model, cfg, EngineConfig(
+        num_slots=spec["slots"], block_size=spec["block"], max_model_len=spec["max_model_len"],
+        prefix_cache=prefix_cache, prefill_chunk=chunk, spec_k=spec_k), device=dev)
+    ptrs = (eng.k_pool.data_ptr(), eng.v_pool.data_ptr())
+    reqs = [Request(prompt_ids=p, sampling=SamplingParams(
+        max_new_tokens=spec["max_new"], seed=i, **sampling)) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_all_counts()
+    eng.metrics()  # opens the throughput window
+    # host time the leg spends in the garbage collector, and the device
+    # allocations the caching allocator makes (cudaMalloc) during the leg
+    gc_spent = {"s": 0.0, "n": 0, "full": 0, "t": None}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_spent["t"] = time.perf_counter()
+        elif gc_spent["t"] is not None:
+            gc_spent["s"] += time.perf_counter() - gc_spent["t"]
+            gc_spent["n"] += 1
+            gc_spent["full"] += info["generation"] == 2
+
+    mallocs = torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        ids = [eng.submit(r) for r in reqs[:spec["wave"]]]
+        ticks = 0
+        for _ in range(spec["wave_ticks"]):
+            eng.step()
+            ticks += 1
+        ids += [eng.submit(r) for r in reqs[spec["wave"]:]]
+        while eng.has_work:
+            eng.step()
+            ticks += 1
+        torch.cuda.synchronize()
+    finally:
+        gc.callbacks.remove(on_gc)
+    wall = time.perf_counter() - t0
+    mallocs = torch.cuda.memory_stats(dev).get("num_device_alloc", 0) - mallocs
+    launches, fallbacks = read_counts()
+    m = eng.metrics()
+    outs = eng.run()
+    outs = [outs[i] for i in ids]
+    bm = eng.blocks
+    ttft = sorted(o.ttft_s for o in outs)
+    tpot = sorted(o.tpot_s for o in outs if o.tpot_s is not None)
+    stats = dict(
+        wall_s=wall, ticks=ticks, generated=int(m["generated_tokens"]),
+        decode_tokens_per_s=m["decode_tokens_per_sec"],
+        ttft_p50_s=ttft[len(ttft) // 2], ttft_p99_s=ttft[min(len(ttft) - 1,
+                                                             int(0.99 * len(ttft)))],
+        tpot_median_ms=1e3 * tpot[len(tpot) // 2] if tpot else float("nan"),
+        prefix_hit_rate=m["prefix_hit_rate"], spec_proposed=int(m["spec_proposed"]),
+        spec_accepted=int(m["spec_accepted"]),
+        spec_acceptance=m["spec_accepted"] / max(1.0, m["spec_proposed"]),
+        prefill_chunks=int(m["prefill_chunks"]), decode_steps=eng.decode_steps,
+        kv_pool_bytes=eng.kv_capacity()["pool_bytes"],
+        max_concurrent_seqs=int(eng.kv_capacity()["max_concurrent_seqs"]),
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        launches=launches, fallbacks=fallbacks, preemptions=eng.scheduler.preemption_count,
+        leak_free=(bm.num_used == 0
+                   and bm.num_free_uncached + bm.num_cached == bm.num_blocks - 1),
+        pools_fixed=(eng.k_pool.data_ptr(), eng.v_pool.data_ptr()) == ptrs,
+        cached_tokens=[o.cached_tokens for o in outs],
+        gc_s=gc_spent["s"], gc_collections=gc_spent["n"], gc_full=gc_spent["full"],
+        device_mallocs=mallocs,
+    )
+    log(f"{tag}: {len(outs)} requests, {stats['generated']} tokens in {ticks} ticks, "
+        f"{wall:.2f} s; TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms p99 "
+        f"{stats['ttft_p99_s'] * 1e3:.1f} ms; TPOT median {stats['tpot_median_ms']:.2f} ms; "
+        f"decode {stats['decode_tokens_per_s']:.1f} tok/s; prefix hit rate "
+        f"{stats['prefix_hit_rate']:.4f}; spec accepted {stats['spec_accepted']}/"
+        f"{stats['spec_proposed']} ({stats['spec_acceptance']:.4f}); prefill chunks "
+        f"{stats['prefill_chunks']}, decode steps {stats['decode_steps']}, preemptions "
+        f"{stats['preemptions']}; KV pool {stats['kv_pool_bytes'] / 2**30:.3f} GiB, "
+        f"max_concurrent_seqs {stats['max_concurrent_seqs']}; peak "
+        f"{stats['peak_gib']:.2f} GiB; host time in gc {stats['gc_s']:.3f} s over "
+        f"{stats['gc_collections']} collections ({stats['gc_full']} full); cudaMalloc calls "
+        f"{mallocs}; launches {launches}, FALLBACK_CALLS {fallbacks} [{card}]")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return outs, stats
+
+
+def check_serve_leg(tag, model, prompts, outs, stats, spread, max_new, sampling=None,
+                    allowed_cached=None, want_launches=None):
+    """Every check of one leg, all logged before the first failure raises.
+    spread: the phase's (delta, eps, ceiling) from first_token_spread."""
+    delta, eps, ceiling = spread
+    t0 = time.perf_counter()
+    ratio, n = rescore_gate(model, prompts, outs, sampling or {}, eps)
+    checks = [("re-score gate", ratio <= 1.0,
+               f"worst (gap / eps) = {ratio:.4f} over {n} tokens (eps = {eps:.4f}; "
+               f"{time.perf_counter() - t0:.1f} s)"),
+              ("first-token spread", delta <= ceiling,
+               f"max |engine - re-score| {delta:.4f} / ceiling {ceiling:.4f} = "
+               f"{delta / ceiling:.4f}")]
+    checks.append(("block leak", stats["leak_free"], "free_uncached + cached == pool - null"))
+    checks.append(("pool storage", stats["pools_fixed"], "k/v pools kept their storage"))
+    if allowed_cached is not None:
+        over = [(c, a) for c, a in zip(stats["cached_tokens"], allowed_cached) if c > a]
+        checks.append(("prefix cache", not over,
+                       f"cached tokens within each prompt's shared block-aligned prefix "
+                       f"(over: {over[:3]})"))
+    checks.append(("fallback", not any(stats["fallbacks"].values()),
+                   f"FALLBACK_CALLS {stats['fallbacks']}"))
+    want = want_launches or {}
+    bad = {k: v for k, v in stats["launches"].items() if v != want.get(k, 0)}
+    checks.append(("launches", not bad, f"launches {stats['launches']}, expected {want}"))
+    checks.append(("lengths", all(len(o.token_ids) == max_new and o.finish_reason == "length"
+                                  for o in outs), "every request finished at max_new_tokens"))
+    for name, ok, what in checks:
+        log(f"  {tag}: {name}: {'ok' if ok else 'FAILED'}: {what}")
+    failed = [f"{name} ({what})" for name, ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+    return ratio
+
+
+def match_share(a, b):
+    return sum(x == y for x, y in zip(a, b)) / len(a)
+
+
+def common_prefix(a, b):
+    """Mean length of the common prefix of paired token lists: bf16 GEMMs of
+    other shapes may flip a near-tie, after which a stream diverges."""
+    total = 0
+    for x, y in zip(a, b):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        total += n
+    return total / len(a)
+
+
+def phase_serve_dense(dev, card):
+    """The serving main path at Qwen3-0.6B, full width and depth: legs (a)
+    prefix cache + chunked prefill, (b) cache off + monolithic prefill,
+    (c) = (a) + ngram speculation, (d) (a) and (c) sampled."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.train_text_step import SEED, bench_config
+
+    host_state("serve dense")
+    spec = SERVE_DENSE
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = serve_traffic(cfg.vocab_size, spec)
+    allowed = shared_blocks(prompts, spec["block"])
+    lens = [len(p) for p in prompts]
+    log(f"serve dense: Qwen3-0.6B ({cfg.num_hidden_layers} layers, bf16 weights from seed "
+        f"{SEED}), {spec['slots']} slots, block {spec['block']}, max_model_len "
+        f"{spec['max_model_len']}; {len(prompts)} requests of {min(lens)}-{max(lens)} prompt "
+        f"tokens ({len(prompts) // 2} behind one {spec['shared_prefix']}-token prefix), "
+        f"{spec['max_new']} new tokens each, waves of {spec['wave']} [{card}]")
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts, "serve dense")
+    legs = {}
+    for leg, kw in (("a", {}), ("b", dict(prefix_cache=False, chunk=0)),
+                    ("c", dict(spec_k=SERVE_SPEC_K)), ("d-a", dict(sampling=SERVE_SAMPLING)),
+                    ("d-c", dict(spec_k=SERVE_SPEC_K, sampling=SERVE_SAMPLING))):
+        tag = f"serve dense leg ({leg})"
+        outs, stats = serve_leg(model, cfg, dev, card, prompts, spec, tag, **kw)
+        stats["gate"] = check_serve_leg(tag, model, prompts, outs, stats, spread, spec["max_new"],
+                                        sampling=kw.get("sampling"),
+                                        allowed_cached=allowed if kw.get("prefix_cache", True)
+                                        else [0] * len(prompts))
+        legs[leg] = (outs, stats)
+    t0 = time.perf_counter()
+    greedy = [tdec.greedy_generate(model, cfg, p, max_new_tokens=spec["max_new"])[len(p):]
+              for p in prompts[:SERVE_GREEDY_PROMPTS]]
+    log(f"serve dense: greedy_generate of the first {len(greedy)} prompts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    a = [o.token_ids for o in legs["a"][0]]
+    pairs = {"(a)/(b)": (a, [o.token_ids for o in legs["b"][0]]),
+             "(a)/(c)": (a, [o.token_ids for o in legs["c"][0]]),
+             "(a)/greedy_generate": (a[:len(greedy)], greedy),
+             "sampled (a)/(c)": ([o.token_ids for o in legs["d-a"][0]],
+                                 [o.token_ids for o in legs["d-c"][0]])}
+    log("serve dense: agreement between legs (share of requests with identical tokens; mean "
+        "length of the common prefix of each pair, of " + str(spec["max_new"]) + "): "
+        + "; ".join(f"{k} {match_share(x, y):.3f}, {common_prefix(x, y):.1f}"
+                    for k, (x, y) in pairs.items()))
+    summary = {leg: {k: v for k, v in st.items() if k not in ("cached_tokens", "launches",
+                                                                "fallbacks")}
+               for leg, (_, st) in legs.items()}
+    log("serve dense summary: " + json.dumps(summary))
+    launches = {k: sum(st["launches"][k] for _, st in legs.values())
+                for k in legs["a"][1]["launches"]}
+    del model, legs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def capture_group_sizes(model, cfg, dev, prompts, spec):
+    """Layer 0's group sizes of one prefill chunk (M = top-k x chunk rows)
+    and of one decode step (M = top-k x slots) of the serving engine: the K4 shapes
+    of the serving path. A short run of its own, with a recording impl
+    pinned for the grouped GEMM (it calls the kernel)."""
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+    from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, apply_ops_config
+    from veomni_tpu_torch.serving import EngineConfig, InferenceEngine, Request, SamplingParams
+
+    seen = {}
+
+    def record(tokens, weights, group_sizes):
+        seen.setdefault(tokens.shape[0], group_sizes.clone())
+        return gg.cuda_group_gemm(tokens, weights, group_sizes)
+
+    KERNEL_REGISTRY.register("group_gemm", "__serve_capture", device_types=("cuda",))(record)
+    eng = InferenceEngine(model, cfg, EngineConfig(
+        num_slots=spec["slots"], block_size=spec["block"], max_model_len=spec["max_model_len"],
+        prefill_chunk=SERVE_CHUNK), device=dev)
+    apply_ops_config({"group_gemm": "__serve_capture"})
+    try:
+        ids = [eng.submit(Request(prompt_ids=(p * 2)[:SERVE_CHUNK],
+                                  sampling=SamplingParams(max_new_tokens=2)))
+               for p in prompts[:spec["slots"]]]
+        eng.step()
+    finally:
+        apply_ops_config(None)
+        KERNEL_REGISTRY._ops["group_gemm"].pop("__serve_capture")
+        KERNEL_REGISTRY._resolve.cache_clear()
+    for rid in ids:
+        eng.cancel(rid)
+    del eng
+    torch.cuda.empty_cache()
+    top_k = cfg.num_experts_per_tok
+    return seen[top_k * SERVE_CHUNK], seen[top_k * spec["slots"]]
+
+
+def gmm_fwd_rows(dev, sizes, tag):
+    """K4 alone at a serving shape, (K, N) = (2048, 768) and (768, 2048):
+    held against its plain version, then its time, the plain version's,
+    torch._grouped_mm's and the bound (bytes: lhs, the weights of the
+    experts this routing uses, out)."""
+    from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
+
+    sizes = sizes.to(dev)
+    e = sizes.numel()
+    starts = gg.group_starts(sizes)
+    m = int(starts[-1])
+    used = int((sizes > 0).sum())
+    rows = []
+    for k, n, what in ((2048, 768, "gate/up"), (768, 2048, "down")):
+        gen = torch.Generator(device=dev).manual_seed(3)
+        lhs = torch.randn(m, k, device=dev, generator=gen).bfloat16()
+        rhs = torch.randn(e, k, n, device=dev, generator=gen).bfloat16()
+        ref = gg.gmm_plain(lhs, rhs, starts)
+        err = check_close(f"K4 out ({tag} {what}: K={k} N={n})", gg.gmm_cuda(lhs, rhs, starts),
+                          ref, atol=GMM_ATOL_MAX * ref.float().abs().max().item(), rtol=GMM_RTOL)
+        lib_ms, lib_name = library_gmm("fwd", lhs, rhs, None, starts)
+        bound = bound_ms(dev, 2.0 * m * k * n, (m * k + used * k * n + m * n) * 2 + (e + 1) * 4)
+        row = dict(name="gmm_fwd", route="cuda", source="veomni_tpu_torch/csrc/grouped_gemm.cu",
+                   replaces="veomni_tpu/ops/pallas/grouped_gemm.py:37", k=k, n=n,
+                   layout=f"{tag} {what}: M={m} E={e}, {used} experts non-empty",
+                   max_abs_err=err, ms=timed_ms(lambda: gg.gmm_cuda(lhs, rhs, starts), reps=50),
+                   plain_ms=timed_ms(lambda: gg.gmm_plain(lhs, rhs, starts), reps=3, warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+        log(f"  K4 ({tag} {what}, K={k} N={n}, M={m}, {used}/{e} experts): {row['ms']:.4f} ms "
+            f"(bound {row['bound_ms']:.4f} ms by {row['bound_by']}, plain {row['plain_ms']:.3f} ms, "
+            f"library {lib_ms:.4f} ms [{lib_name}])")
+        rows.append(row)
+        del lhs, rhs, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve_moe(dev, card):
+    """The serving main path at Qwen3-30B-A3B, full width and all 48 layers
+    (bf16 weights, no master copy): leg (a) with K4 on every MoE layer of
+    every prefill chunk and decode step; then K4 alone at the serving
+    shapes. Returns (launches, K4 table rows)."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.train_text_step import SEED, bench_config
+
+    held = torch.cuda.memory_allocated(dev)
+    log(f"serve moe: device memory allocated before the phase {held / 2**20:.1f} MiB")
+    if held > 256 * 2**20:
+        raise AssertionError(f"serve moe: {held / 2**30:.2f} GiB still allocated by earlier phases")
+    host_state("serve moe")
+    spec = SERVE_MOE
+    cfg = bench_config(MOE_PRESET, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serve moe: Qwen3-30B-A3B, {cfg.num_hidden_layers} layers, {n_params / 1e9:.2f} B "
+        f"parameters in bf16 ({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB) made on the "
+        f"card from seed {SEED} in {time.perf_counter() - t0:.1f} s; {spec['slots']} slots, "
+        f"block {spec['block']}, max_model_len {spec['max_model_len']}; {spec['requests']} "
+        f"requests of {spec['prompt'][0]}-{spec['prompt'][1]} prompt tokens, "
+        f"{spec['max_new']} new tokens each [{card}]")
+    prompts = serve_traffic(cfg.vocab_size, spec)
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts, "serve moe")
+    tag = "serve moe leg (a)"
+    outs, stats = serve_leg(model, cfg, dev, card, prompts, spec, tag)
+    passes = stats["prefill_chunks"] + stats["decode_steps"]
+    want = {"gmm_fwd": 3 * cfg.num_hidden_layers * passes}
+    log(f"  {tag}: K4 launches {stats['launches']['gmm_fwd']} = 3 x {cfg.num_hidden_layers} x "
+        f"({stats['prefill_chunks']} prefill chunks + {stats['decode_steps']} decode steps) "
+        f"expected {want['gmm_fwd']}")
+    check_serve_leg(tag, model, prompts, outs, stats, spread, spec["max_new"],
+                    allowed_cached=shared_blocks(prompts, spec["block"]), want_launches=want)
+    launches = stats["launches"]
+    prefill_sizes, decode_sizes = capture_group_sizes(model, cfg, dev, prompts, spec)
+    del model, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = (gmm_fwd_rows(dev, decode_sizes, "serve decode step")
+            + gmm_fwd_rows(dev, prefill_sizes, f"serve prefill chunk of {SERVE_CHUNK}"))
+    return launches, rows
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="",
+                    help="run only these phases after the build, in order: serve_dense, "
+                         "serve_moe, and before them main (the dense loop) or trainer; "
+                         "such a partial run prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -1402,6 +1925,14 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
     phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
+    if args.phases:
+        phases = {"main": phase_main, "trainer": phase_trainer,
+                  "serve_dense": phase_serve_dense, "serve_moe": phase_serve_moe}
+        for name in args.phases.split(","):
+            phases[name](dev, card)
+            torch.cuda.empty_cache()
+        log(f"phases {args.phases} passed (a partial run: no result line)")
+        return 0
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     try:
         return run_phases(dev, card, hf_tmp)
@@ -1459,6 +1990,12 @@ def run_phases(dev, card, hf_tmp) -> int:
     phase_moe_micro_batch_1(dev, card)
     phase_parity(dev)
     phase_moe_parity(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["serve_dense"] = (phase_serve_dense(dev, card), 128)
+    moe_launches, serve_rows = phase_serve_moe(dev, card)
+    by_path["serve_moe"] = (moe_launches, 128)
+    table += serve_rows
 
     for row in table:
         # a flash row counts the paths at its head dim; a grouped-GEMM row at

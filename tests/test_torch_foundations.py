@@ -275,6 +275,7 @@ def test_spans_feed_histograms_trace_and_profiler(tmp_path):
     from veomni_tpu_torch.observability.goodput import GoodputTracker
     from veomni_tpu_torch.observability.metrics import MetricsRegistry, get_registry
 
+    spans.disable_spans()  # a trainer run earlier in this process leaves them on
     assert spans.span("x") is spans.span("y")  # disabled: the shared no-op
     spans.enable_spans()
     try:

@@ -5,7 +5,8 @@
   ``transformers``: checked statically over every source file, and
   dynamically by importing every module in a fresh subprocess.
 * Entry points called without ``device=`` (the trainer and
-  ``tasks/train_text.py`` without ``train.platform: cpu``) on a machine
+  ``tasks/train_text.py`` without ``train.platform: cpu``, the serving
+  engine and ``tasks/serve.py`` without ``--device cpu``) on a machine
   without CUDA raise instead of running on the CPU; ``chip_smoke.py``
   exits non-zero and prints no result there, and also when it stands alone
   without the package.
@@ -91,6 +92,11 @@ PORTED_HOST_MODULES = (
     "parallel.parallel_state", "models.auto", "checkpoint.checkpointer", "trainer.callbacks",
     "trainer.base", "trainer.text_trainer", "tasks.train_text", "models.hf_io",
     "data.dynamic_batching", "data.prefetch", "data.streaming",
+    # the serving slice
+    "ops.quantization", "ops.paged_attention", "ops.threefry", "models.decode",
+    "observability.request_trace", "serving.api", "serving.kv_block_manager",
+    "serving.prefix_cache", "serving.scheduler", "serving.spec_decode", "serving.engine",
+    "tasks.serve",
 )
 
 
@@ -98,11 +104,14 @@ _NO_DEVICE = r"""
 import torch
 from veomni_tpu_torch.arguments import VeOmniArguments
 from veomni_tpu_torch.models import Transformer
+from veomni_tpu_torch.serving import InferenceEngine
+from veomni_tpu_torch.tasks import serve
 from veomni_tpu_torch.tasks.train_text import main
 from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
 from veomni_tpu_torch.trainer import TextTrainer
 from veomni_tpu_torch.utils.device import resolve_device
 assert not torch.cuda.is_available()
+cfg = bench_config(preset="qwen3_smoke")
 args = VeOmniArguments()
 args.train.save_hf_weights = False
 args.train.prefetch_depth = 0
@@ -113,7 +122,9 @@ for call in (lambda: resolve_device(),
              lambda: Transformer(bench_config(preset="qwen3_smoke"), torch.Generator()),
              lambda: run_train_steps(128, 1, 1, preset="qwen3_smoke"),
              lambda: TextTrainer(args),
-             lambda: main(flags)):
+             lambda: main(flags),
+             lambda: InferenceEngine(Transformer(cfg, torch.Generator(), device="cpu"), cfg),
+             lambda: serve.main(["--synthetic", "1"])):
     try:
         call()
     except RuntimeError as e:

@@ -1,9 +1,9 @@
 """Ops layer: kernel registry + dispatch + plain torch / CUDA implementations.
 
 Port of ``veomni_tpu/ops/__init__.py`` for the dense and MoE text train
-steps. The plain impls keep the reference's ``xla`` names; the Hopper
-kernels register under their own names (``attention``/``cuda_flash``,
-``group_gemm``/``cuda_gmm``).
+steps and the serving engine's decode path. The plain impls keep the
+reference's ``xla`` names; the Hopper kernels register under their own names
+(``attention``/``cuda_flash``, ``group_gemm``/``cuda_gmm``).
 """
 
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, KernelSpec, resolve_op
@@ -14,6 +14,8 @@ from veomni_tpu_torch.ops import attention as _attention
 from veomni_tpu_torch.ops import cross_entropy as _cross_entropy
 from veomni_tpu_torch.ops import load_balancing as _load_balancing
 from veomni_tpu_torch.ops import group_gemm as _group_gemm
+from veomni_tpu_torch.ops import paged_attention as _paged_attention
+from veomni_tpu_torch.ops import quantization as _quantization
 from veomni_tpu_torch.ops.cuda import flash_attention as _flash  # noqa: F401  (registers cuda_flash)
 from veomni_tpu_torch.ops.cuda import grouped_gemm as _gmm  # noqa: F401  (registers cuda_gmm)
 
@@ -25,6 +27,14 @@ attention = _attention.attention
 fused_linear_cross_entropy = _cross_entropy.fused_linear_cross_entropy
 load_balancing_loss = _load_balancing.load_balancing_loss
 group_gemm = _group_gemm.group_gemm
+cache_attend = _paged_attention.cache_attend
+gather_block_kv = _paged_attention.gather_block_kv
+paged_attend = _paged_attention.paged_attend
+paged_prefill_attend = _paged_attention.paged_prefill_attend
+quantize_decode_params = _quantization.quantize_decode_params
+make_kv_pool = _quantization.make_kv_pool
+kv_block_nbytes = _quantization.kv_block_nbytes
+decode_dot = _quantization.decode_dot
 
 __all__ = [
     "KERNEL_REGISTRY",
@@ -38,4 +48,12 @@ __all__ = [
     "fused_linear_cross_entropy",
     "load_balancing_loss",
     "group_gemm",
+    "cache_attend",
+    "gather_block_kv",
+    "paged_attend",
+    "paged_prefill_attend",
+    "quantize_decode_params",
+    "make_kv_pool",
+    "kv_block_nbytes",
+    "decode_dot",
 ]

@@ -84,6 +84,9 @@ class _KernelRegistry:
                 raise KeyError(f"op {op_name!r} has no impl {pin!r}: {sorted(impls)}")
         return pin
 
+    def impls(self, op_name: str) -> Dict[str, KernelSpec]:
+        return dict(self._ops.get(op_name, {}))
+
     def resolve(self, op_name: str, device) -> Callable:
         """The impl of ``op_name`` for tensors on ``device``."""
         return self._resolve(op_name, torch.device(device))

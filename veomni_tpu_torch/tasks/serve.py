@@ -1,0 +1,267 @@
+"""Command-line front end of the continuous-batching inference engine.
+
+Port of ``scripts/serve.py`` for the bare engine. Operates on token ids:
+synthetic random-prompt requests (``--synthetic N``), explicit prompts
+(``--prompt-ids 5,17,3``, repeatable) and/or ``--requests-json`` (a JSON
+list of request objects: ``{"prompt_ids": [...], "priority": ...,
+"tenant": ..., "deadline_s": ..., "max_new_tokens": ..., "temperature":
+..., "top_k": ..., "top_p": ..., "eos_id": ..., "seed": ...,
+"request_id": ...}``, every field but ``prompt_ids`` optional; ``-`` reads
+stdin). Prints the pool capacity line, one JSON line per token event, the
+engine metrics, the terminal-status census and one line per request.
+
+By default a tiny random-weight qwen3-style model; ``--preset`` takes a
+``train_text_step.bench_config`` preset (``qwen3_0p6b``,
+``qwen3_30b_a3b``, ...) with random weights from ``--seed``. Runs on the
+card unless ``--device cpu``::
+
+    python -m veomni_tpu_torch.tasks.serve --synthetic 8 --max-new 32
+    python -m veomni_tpu_torch.tasks.serve --device cpu --synthetic 4 --max-new 8
+    python -m veomni_tpu_torch.tasks.serve --preset qwen3_0p6b --synthetic 16 \
+        --synthetic-len 512 --max-model-len 4096 --slots 16 --prefill-chunk 512
+
+Env knobs (flags win): VEOMNI_SERVE_SLOTS, VEOMNI_SERVE_BLOCK,
+VEOMNI_SERVE_MAX_LEN, VEOMNI_SERVE_LOG_STEPS, VEOMNI_SERVE_PREFIX_CACHE,
+VEOMNI_SERVE_PREFILL_CHUNK, VEOMNI_SERVE_SPEC_K, VEOMNI_SERVE_SPEC_DRAFT,
+VEOMNI_SERVE_QUEUE_BOUND, VEOMNI_SERVE_CLASSES, VEOMNI_SERVE_TENANT_INFLIGHT,
+VEOMNI_SERVE_KV_QUANT, VEOMNI_SERVE_WEIGHT_QUANT, VEOMNI_SERVE_REPLICAS,
+VEOMNI_SERVE_PUBLISH_FROM, VEOMNI_SERVE_OUT (post-mortem dump dir).
+VEOMNI_FAULT_PLAN arms the serving fault points (serve.admit /
+serve.prefill / serve.decode_tick). The scale-out router (``--replicas`` >
+1), weight publication (``--publish-from``), the quantized tiers
+(``--kv-quant``/``--weight-quant`` other than ``none``) and the metrics
+exporter (VEOMNI_METRICS_PORT) are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from veomni_tpu_torch.models import Transformer, TransformerConfig
+from veomni_tpu_torch.utils.device import resolve_device
+
+# the ROADMAP items of slice D the unported knobs wait on
+_NEXT_SLICE = "ROADMAP.md, slice D"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    env = os.environ.get
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--prompt-ids", action="append", default=[],
+                    help="comma-separated token ids; repeatable")
+    ap.add_argument("--synthetic", type=int, default=0, help="also enqueue N random prompts")
+    ap.add_argument("--synthetic-len", type=int, default=24)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--eos-id", type=int, default=-1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--preset", default="",
+                    help="train_text_step.bench_config preset instead of the tiny demo")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--slots", type=int, default=int(env("VEOMNI_SERVE_SLOTS", 4)))
+    ap.add_argument("--block-size", type=int, default=int(env("VEOMNI_SERVE_BLOCK", 16)))
+    ap.add_argument("--max-model-len", type=int, default=int(env("VEOMNI_SERVE_MAX_LEN", 2048)))
+    ap.add_argument("--log-steps", type=int, default=int(env("VEOMNI_SERVE_LOG_STEPS", 0)))
+    ap.add_argument("--prefix-cache", type=int, choices=(0, 1),
+                    default=int(env("VEOMNI_SERVE_PREFIX_CACHE", 1)),
+                    help="share prompt KV blocks across requests (0: exclusive blocks)")
+    ap.add_argument("--prefill-chunk", type=int, default=int(env("VEOMNI_SERVE_PREFILL_CHUNK", 0)),
+                    help="max tokens prefilled per engine tick (0 = whole prompt at once)")
+    ap.add_argument("--spec-k", type=int, default=int(env("VEOMNI_SERVE_SPEC_K", 0)),
+                    help="speculative decoding: max drafted tokens per slot per tick (0 = off)")
+    ap.add_argument("--spec-draft", default=env("VEOMNI_SERVE_SPEC_DRAFT", "ngram"),
+                    help="drafting strategy registry impl (`ngram`, `off`)")
+    ap.add_argument("--kv-quant", choices=("none", "int8", "fp8"),
+                    default=env("VEOMNI_SERVE_KV_QUANT", "none"),
+                    help="KV block storage (only `none` is ported)")
+    ap.add_argument("--weight-quant", choices=("none", "int8"),
+                    default=env("VEOMNI_SERVE_WEIGHT_QUANT", "none"),
+                    help="decode weight storage (only `none` is ported)")
+    ap.add_argument("--queue-bound", type=int, default=int(env("VEOMNI_SERVE_QUEUE_BOUND", 0)),
+                    help="max waiting requests before submissions are load-shed (0 = unbounded)")
+    ap.add_argument("--classes", default=env("VEOMNI_SERVE_CLASSES", "interactive:4,batch:1"),
+                    help="QoS classes 'name:weight,...', highest priority first")
+    ap.add_argument("--tenant-inflight", type=int,
+                    default=int(env("VEOMNI_SERVE_TENANT_INFLIGHT", 0)),
+                    help="per-tenant waiting+running cap (0 = uncapped)")
+    ap.add_argument("--replicas", type=int, default=int(env("VEOMNI_SERVE_REPLICAS", 1)),
+                    help="engine replicas behind the router (only 1, the bare engine, is ported)")
+    ap.add_argument("--priority", default="interactive", help="QoS class for CLI-built requests")
+    ap.add_argument("--tenant", default="", help="tenant id for CLI-built requests")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="end-to-end deadline for CLI-built requests (0 = none)")
+    ap.add_argument("--requests-json", default="",
+                    help="JSON list of request objects; '-' reads stdin")
+    ap.add_argument("--publish-from", default=env("VEOMNI_SERVE_PUBLISH_FROM", ""),
+                    help="checkpoint step dir to hot-publish (not ported yet)")
+    return ap
+
+
+def check_supported(args) -> None:
+    """Raise ``NotImplementedError`` naming every requested feature whose
+    module is not ported yet."""
+    missing = [f"{knob} ({why})" for knob, why, on in (
+        ("--replicas > 1", f"serving/replica.py, serving/router.py: {_NEXT_SLICE}",
+         args.replicas > 1),
+        ("--publish-from", f"serving/weights.py: {_NEXT_SLICE}", bool(args.publish_from)),
+        (f"--kv-quant {args.kv_quant}", f"the int8/fp8 KV tier: {_NEXT_SLICE}",
+         args.kv_quant != "none"),
+        (f"--weight-quant {args.weight_quant}", f"the int8 decode weights: {_NEXT_SLICE}",
+         args.weight_quant != "none"),
+        ("VEOMNI_METRICS_PORT", "observability/exporter.py: slice E",
+         bool(os.environ.get("VEOMNI_METRICS_PORT", ""))),
+    ) if on]
+    if missing:
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+
+
+def build_model(args, device: torch.device):
+    """The ``--preset`` model (or the tiny demo), random weights from ``--seed``."""
+    if args.preset:
+        from veomni_tpu_torch.train_text_step import bench_config
+
+        # serving holds no f32 master copy: the weights are made in the
+        # compute dtype (Qwen3-30B-A3B's 30.5 B parameters fit one card so)
+        cfg = bench_config(preset=args.preset, param_dtype="bfloat16")
+    else:  # tiny random demo model
+        cfg = TransformerConfig(
+            model_type="qwen3", vocab_size=256, hidden_size=64, intermediate_size=128,
+            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+            qk_norm=True, dtype=torch.float32,
+        )
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return Transformer(cfg, gen, device=device), cfg
+
+
+def build_requests(args, cfg, ap):
+    from veomni_tpu_torch.serving import Request, SamplingParams
+
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+                              max_new_tokens=args.max_new, eos_id=args.eos_id, seed=args.seed)
+    cli_deadline = args.deadline_s if args.deadline_s > 0 else None
+    prompts = [[int(t) for t in s.split(",")] for s in args.prompt_ids]
+    rng = np.random.default_rng(args.seed)
+    prompts += [[int(t) for t in rng.integers(1, cfg.vocab_size, args.synthetic_len)]
+                for _ in range(args.synthetic)]
+    reqs = [Request(prompt_ids=p, sampling=sampling, priority=args.priority, tenant=args.tenant,
+                    deadline_s=cli_deadline) for p in prompts]
+    if args.requests_json:
+        if args.requests_json == "-":
+            docs = json.load(sys.stdin)
+        else:
+            with open(args.requests_json) as f:
+                docs = json.load(f)
+        for d in docs:
+            # absent falls back to the CLI default; <= 0 means no deadline
+            if d.get("deadline_s") is None:
+                dl = cli_deadline
+            else:
+                dl = float(d["deadline_s"])
+                dl = dl if dl > 0 else None
+            reqs.append(Request(
+                prompt_ids=[int(t) for t in d["prompt_ids"]],
+                sampling=SamplingParams(
+                    temperature=float(d.get("temperature", args.temperature)),
+                    top_k=int(d.get("top_k", args.top_k)),
+                    top_p=float(d.get("top_p", args.top_p)),
+                    max_new_tokens=int(d.get("max_new_tokens", args.max_new)),
+                    eos_id=int(d.get("eos_id", args.eos_id)),
+                    seed=int(d.get("seed", args.seed)),
+                ),
+                request_id=str(d.get("request_id", "")),
+                priority=str(d.get("priority", args.priority)),
+                tenant=str(d.get("tenant", args.tenant)),
+                deadline_s=dl,
+            ))
+    if not reqs:
+        ap.error("nothing to do: pass --prompt-ids, --synthetic N and/or --requests-json")
+    return reqs
+
+
+def main(argv: Optional[List[str]] = None):
+    """Serve as the command line (or ``argv``) says; returns the outputs."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.replicas < 1:
+        ap.error("--replicas must be >= 1")
+    check_supported(args)
+    device = resolve_device(args.device)
+
+    from veomni_tpu_torch.observability.flight_recorder import (
+        configure_flight_recorder,
+        dump_postmortem,
+    )
+    from veomni_tpu_torch.resilience.faults import arm_from_env
+    from veomni_tpu_torch.serving import EngineConfig, InferenceEngine
+
+    arm_from_env()
+    model, cfg = build_model(args, device)
+    engine = InferenceEngine(model, cfg, EngineConfig(
+        num_slots=args.slots, block_size=args.block_size, max_model_len=args.max_model_len,
+        log_every_steps=args.log_steps, prefix_cache=bool(args.prefix_cache),
+        prefill_chunk=args.prefill_chunk, spec_k=args.spec_k, spec_draft=args.spec_draft,
+        classes=args.classes, queue_bound=args.queue_bound,
+        tenant_max_inflight=args.tenant_inflight, kv_quant=args.kv_quant,
+        weight_quant=args.weight_quant,
+    ), device=device)
+    cap = engine.kv_capacity()
+    print(json.dumps({
+        "kv_quant": args.kv_quant, "weight_quant": args.weight_quant,
+        "replicas": args.replicas, "kv_pool_bytes": cap["pool_bytes"],
+        "kv_block_bytes": cap["block_bytes"],
+        "kv_max_concurrent_seqs": cap["max_concurrent_seqs"],
+    }), flush=True)
+    # post-mortems land somewhere deliberate, not whatever CWD the operator
+    # launched from
+    configure_flight_recorder(dump_dir=os.environ.get("VEOMNI_SERVE_OUT", "."))
+    reqs = build_requests(args, cfg, ap)
+    try:
+        for ev in engine.generate(reqs):
+            line = {"request_id": ev.request_id, "index": ev.index, "token": ev.token}
+            if ev.finished:
+                line["finished"] = ev.finish_reason
+            print(json.dumps(line), flush=True)
+        outs = engine.run()  # no-op drain; collects final outputs
+    except BaseException as e:
+        # a pump that dies mid-decode leaves its request/event history in a
+        # post-mortem
+        dump_postmortem(f"exception:{type(e).__name__}", extra={"error": str(e)[:2000]})
+        raise
+    print(json.dumps({"metrics": engine.metrics()}), flush=True)
+    # terminal-status census: shed/expired requests are reported distinctly
+    by_status = {"ok": 0, "rejected": 0, "deadline": 0, "cancelled": 0}
+    for o in outs.values():
+        by_status[o.finish_reason if o.finish_reason in by_status else "ok"] += 1
+    print(json.dumps({
+        "completed": by_status["ok"],
+        "rejected": by_status["rejected"],
+        "deadline_cancelled": by_status["deadline"],
+        "cancelled": by_status["cancelled"],
+        "deadline_missed": sum(1 for o in outs.values() if o.deadline_missed),
+    }), flush=True)
+    for rid in sorted(outs):
+        o = outs[rid]
+        line = {
+            "request_id": rid, "tokens": o.token_ids, "finish_reason": o.finish_reason,
+            "ttft_s": round(o.ttft_s, 4) if o.ttft_s is not None else None,
+            "cached_tokens": o.cached_tokens,
+            "spec_accepted_tokens": o.spec_accepted_tokens,
+            "kv_quant": args.kv_quant, "weight_quant": args.weight_quant,
+        }
+        if o.deadline_missed:
+            line["deadline_missed"] = True
+        print(json.dumps(line), flush=True)
+    return outs
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,10 @@ directory), apply one edit to the fault's source file in the copy (the
 grouped-GEMM kernels K4-K6 in ``csrc/grouped_gemm.cu``, the flash kernels K1-K3
 in ``csrc/flash_attention.cu``, the trainer's resume in
 ``checkpoint/checkpointer.py`` and ``trainer/base.py``, the HF weight load in
-``models/hf_io.py``) and run the copy's
-``chip_smoke.py``. A fault is caught when that run exits non-zero, prints no
+``models/hf_io.py``, the serving engine's paged gather, decode rotary, the
+rotary tables its steps share with the contiguous prefill, and prefix-cache
+match) and run the copy's ``chip_smoke.py`` (for a serving
+fault, its dense serving phase alone: ``--phases serve_dense``). A fault is caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
 
@@ -39,6 +41,9 @@ FLASH_SOURCE = os.path.join("veomni_tpu_torch", "csrc", "flash_attention.cu")
 CKPT_SOURCE = os.path.join("veomni_tpu_torch", "checkpoint", "checkpointer.py")
 TRAINER_SOURCE = os.path.join("veomni_tpu_torch", "trainer", "base.py")
 HF_IO_SOURCE = os.path.join("veomni_tpu_torch", "models", "hf_io.py")
+PAGED_SOURCE = os.path.join("veomni_tpu_torch", "ops", "paged_attention.py")
+DECODE_SOURCE = os.path.join("veomni_tpu_torch", "models", "decode.py")
+PREFIX_SOURCE = os.path.join("veomni_tpu_torch", "serving", "prefix_cache.py")
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
@@ -54,6 +59,7 @@ class Fault(NamedTuple):
     replacement: str
     check: str  # the chip_smoke.py check that must fail (its log line starts so)
     failure: str = ""  # its error message; default: the kernel-vs-plain one
+    args: tuple = ()  # chip_smoke.py's arguments (a serving fault runs its phase alone)
 
     @property
     def error(self) -> str:
@@ -156,6 +162,48 @@ FAULTS = (
                           '"load_state_dict"):',
           'if False and extra.get("dataloader"):',
           "trainer step 4:", "trainer resume: step 4 loss"),
+    # serving: each runs chip_smoke.py's dense serving phase alone (the
+    # earlier phases do not run the serving code). The paged gather reads
+    # every table entry's next block, so each slot attends over other rows
+    Fault("serve-gather", "gather_block_kv reads the next block of every table entry",
+          PAGED_SOURCE,
+          "    k = k_pool[block_tables].reshape(s, nb * bs, hkv, d)\n"
+          "    v = v_pool[block_tables].reshape(s, nb * bs, hkv, d)\n",
+          "    nxt = (block_tables + 1) % k_pool.shape[0]\n"
+          "    k = k_pool[nxt].reshape(s, nb * bs, hkv, d)\n"
+          "    v = v_pool[nxt].reshape(s, nb * bs, hkv, d)\n",
+          "serve dense leg (a): re-score gate:", "serve dense leg (a): re-score gate",
+          ("--phases", "serve_dense")),
+    # the one-token decode step rotates its query and key one position late
+    # (prefill and verify as they are)
+    Fault("serve-rope", "paged_decode_step ropes at position + 1",
+          DECODE_SOURCE,
+          "    positions = positions[:, None]\n    cos, sin = _rope_tables(cfg, positions)\n",
+          "    positions = positions[:, None]\n    cos, sin = _rope_tables(cfg, positions + 1)\n",
+          "serve dense leg", "re-score gate", ("--phases", "serve_dense")),
+    # a function the contiguous prefill shares with the paged steps: every
+    # rotary table of the decode module is built at the default theta 10000
+    # for Qwen3's 1e6, so the engine's first-token logits (which set no
+    # tolerance: eps is the phase's recorded constant) move with the tokens
+    Fault("serve-rope-theta", "_rope_tables builds its tables at theta 10000 (the decode "
+                              "module's every step)",
+          DECODE_SOURCE,
+          "    cos, sin = ops.rotary_tables(positions, cfg.head_dim, cfg.rope_theta,\n",
+          "    cos, sin = ops.rotary_tables(positions, cfg.head_dim, 10000.0,\n",
+          "serve dense leg (a): re-score gate:", "serve dense leg (a): re-score gate",
+          ("--phases", "serve_dense")),
+    # the radix match claims the next block of a sibling path where the
+    # prompt leaves the tree: its KV is another prompt's (the phase's
+    # prefix-cache check fails too)
+    Fault("serve-prefix", "PrefixCache.match reports one block more than it matched",
+          PREFIX_SOURCE,
+          "            if child is None:\n                break\n",
+          "            if child is None:\n"
+          "                if node.children:\n"
+          "                    out.append(next(iter(node.children.values())).block)\n"
+          "                break\n",
+          "serve dense leg (a): re-score gate:", "serve dense leg (a): re-score gate",
+          ("--phases", "serve_dense")),
 )
 
 
@@ -187,14 +235,15 @@ def run_fault(fault: Fault, log_dir: str | None) -> dict:
         make_copy(tmp)
         plant(tmp, fault)
         env = {**os.environ, "PYTHONPATH": tmp}
-        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp, env=env,
+        proc = subprocess.run([sys.executable, "chip_smoke.py", *fault.args], cwd=tmp, env=env,
                               capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
     out = proc.stdout + proc.stderr
     if log_dir:
         with open(os.path.join(log_dir, f"{fault.name}.log"), "w") as f:
             f.write(out)
-    line = next((ln.strip() for ln in proc.stdout.splitlines()
-                 if ln.strip().startswith(fault.check)), None)
+    lines = [ln.strip() for ln in proc.stdout.splitlines() if ln.strip().startswith(fault.check)]
+    # a check that logs its verdict (the serving phases) names the failure
+    line = next((ln for ln in lines if "FAILED" in ln), lines[0] if lines else None)
     caught = (proc.returncode != 0 and '"ok": true' not in proc.stdout
               and fault.error in proc.stderr)
     return {"name": fault.name, "fault": fault.what, "rc": proc.returncode, "caught": caught,
