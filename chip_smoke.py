@@ -85,20 +85,41 @@ Phases (any failure exits non-zero and prints no result line):
    legs route alike), full width, S=1024, one MoE step with the grouped-GEMM
    kernels against the same step with the plain ragged impl pinned, and the
    router and expert gradients of one backward, leaf by leaf;
-11. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
+11. the dense HF dialects, each from an HF directory written by the
+   port's ``save_hf_checkpoint`` (random bf16 weights from seed 0, Gemma's
+   norm weights at 0 as HF initialises them, and the published config.json
+   of ``train_text_step.HF_CONFIGS``) through
+   ``TextTrainer`` at full width and depth, seq 4096 x micro-batch 4, f32
+   master, bf16 compute, ctx remat, AdamW: Gemma-3-1B (26 layers, 4 full
+   attention and 22 with a 512-token window, head dim 256, 4/1 heads) for 6
+   steps with its HF export read back bit-equal, then Llama-3.2-1B (llama3
+   rope scaling, 32/8 heads, head dim 64) and Qwen2.5-1.5B (q/k/v biases,
+   12/2, head dim 128) for 3 steps each. K1-K3 launch once a step per
+   full-attention layer, all at the model's head dim; FALLBACK_CALLS counts
+   one a step per windowed layer (the reference's feature dispatch to the
+   plain attention); the step-1 loss is held to the same step with the
+   plain attention pinned (rel 1e-4, nothing cut). After each, K1-K3 are
+   held and timed at its head layout on its own first packed batch
+   (Gemma-3-1B also on its first row alone);
+12. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
    28 layers, over 32 requests in two waves, legs (a) prefix cache and
    512-token chunks, (b) neither, (c) (a) with ngram speculation, (d) (a)
    and (c) sampled; every token held to an f32 teacher-forced re-score
    through the training forward (eps a recorded constant per phase, and
    the engine's first-token spread held under a ceiling), no leaked block,
    pools that keep their storage, cached tokens within the shared prefix;
-12. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
+13. serve: after the dense phase of 12, Gemma-3-1B, all 26
+   layers, leg (a) over 32 requests of 208-1921 tokens (16 behind a shared
+   512-token prefix), so its 512-token windows bite, under the same gate;
+14. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
    every MoE layer of every pass, then K4 alone at the engine's decode and
    prefill-chunk shapes.
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
-first) and prints no result line.
+first) and prints no result line; ``--phases
+hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
+(11 and 13) alone.
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -1407,6 +1428,299 @@ def phase_moe_parity(dev):
 
 
 # --------------------------------------------------------------------------
+# The dense HF dialects: Gemma-3-1B, Llama-3.2-1B, Qwen2.5-1.5B from HF
+# directories through TextTrainer
+# --------------------------------------------------------------------------
+DIALECT_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+data:
+  train_path: {data}
+  data_type: pretokenized
+  max_seq_len: {seq}
+train:
+  micro_batch_size: {micro_bs}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  lr_decay_style: cosine
+  seed: 0
+  save_hf_weights: {save_hf}
+  log_steps: 1
+"""
+DIALECT_SEQ = 4096
+DIALECT_MICRO_BS = 4
+GEMMA_PRESET = "gemma3_1b"
+GEMMA_STEPS = 6
+DIALECT_STEPS = 3
+DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
+DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
+                 "qwen2p5_1p5b": "Qwen2.5-1.5B"}
+
+
+def random_model(dev, cfg, seed: int = 0):
+    """The port's random init from ``seed``, with zero-centered norm weights
+    at 0, as HF initialises Gemma3's norms (a gain of 1). The reference's
+    init puts every norm weight at 1 (``init_params``), a gain of 2 under a
+    zero-centered norm at each of Gemma's four norms a layer: the random
+    model is then chaotic in bf16 (at 26 layers its bf16 first-token logits
+    sit up to 6.8 from the f32 re-score, the logits' own spread ~1.4), so no
+    bf16-against-f32 gate could tell a fault from that."""
+    from veomni_tpu_torch.models import Transformer
+
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    if cfg.norm_zero_centered:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("norm"):
+                    p.zero_()
+    return model
+
+
+def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool) -> str:
+    """A run's inputs under ``tmp``: the HF directory (random bf16 weights
+    from seed 0 by ``random_model``, written by the port's
+    save_hf_checkpoint, then the published config.json), a pretokenized corpus (documents of S/16-S/2 tokens,
+    256-2048 at S 4096, uniform over the model's vocabulary, seed 0) and
+    the YAML; returns the YAML's path."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models.hf_io import save_hf_checkpoint
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS
+
+    published = HF_CONFIGS[preset]
+    cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
+    hf_dir = os.path.join(tmp, "hf")
+    written = random_model(dev, cfg)
+    save_hf_checkpoint(written, cfg, hf_dir)
+    del written
+    torch.cuda.empty_cache()
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(published, f, indent=2)
+    rng = np.random.default_rng(0)
+    data = os.path.join(tmp, "corpus.jsonl")
+    # the loader offers 8 documents a row to the packing collator, a
+    # micro-batch at a time: enough for every step's offer, in one epoch
+    with open(data, "w") as f:
+        for _ in range(8 * DIALECT_MICRO_BS * (steps + 2)):
+            n = int(rng.integers(DIALECT_SEQ // 16, DIALECT_SEQ // 2 + 1))
+            f.write(json.dumps({"input_ids": rng.integers(0, cfg.vocab_size, n).tolist()}) + "\n")
+    path = os.path.join(tmp, f"{preset}.yaml")
+    with open(path, "w") as f:
+        f.write(DIALECT_YAML.format(hf=hf_dir, data=data, seq=DIALECT_SEQ,
+                                    micro_bs=DIALECT_MICRO_BS, steps=steps,
+                                    save_hf=str(save_hf).lower()))
+    return path
+
+
+def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
+    """One dense HF dialect at full width and depth through ``TextTrainer``
+    from an HF directory: ``steps`` steps at seq 4096, f32 master, bf16
+    compute, ctx remat, AdamW. K1-K3 launch once a step for each
+    full-attention layer, all at the model's head dim; each windowed layer
+    is one of the reference's feature dispatches to the plain attention
+    (``FALLBACK_CALLS``). The step-1 loss is held to the same step with
+    the plain attention pinned; with ``export`` the HF export at the end
+    reads back bit-equal to the final parameters. Returns (launches, the
+    first packed batch's segment ids [B, S] on the card)."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.models.hf_io import hf_to_params
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+    from veomni_tpu_torch.utils.count_flops import FlopsCounter
+    from veomni_tpu_torch.utils.device import get_device_peak_flops
+
+    name = DIALECT_NAMES[preset]
+    tag = f"hf dialect {name}"
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps, self.first_batch = {}, None
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(loss=float(m["loss"]),
+                                                 grad_norm=float(m["grad_norm"]),
+                                                 t=time.perf_counter())
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{preset}_")
+    try:
+        t0 = time.perf_counter()
+        yaml_path = write_dialect_run(dev, tmp, preset, steps, export)
+        write_s = time.perf_counter() - t0
+        args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={tmp}/out"])
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        trainer = TextTrainer(args)
+        cfg = trainer.train_state.model.cfg
+        # the trainer phase holds checkpoints; this one saves none (a full
+        # f32 state of 16-25 GB would cost the run ~30 s)
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
+        rec = Record()
+        trainer.callbacks.append(rec)
+        trainer.train()
+        trainer.checkpointer.close()
+        launches, fallbacks = read_counts()
+        by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        windows = [cfg.window_for_layer(i) for i in range(cfg.num_hidden_layers)]
+        n_full = windows.count(0)
+        n_params = sum(p.numel() for p in trainer.train_state.model.parameters())
+        log(f"{tag}: {cfg.num_hidden_layers} layers ({n_full} full attention, "
+            f"{len(windows) - n_full} with window {max(windows)}), hidden {cfg.hidden_size}, "
+            f"heads {cfg.num_attention_heads}/{cfg.num_key_value_heads}, head dim "
+            f"{cfg.head_dim}, vocab {cfg.vocab_size}, {n_params} parameters; HF directory "
+            f"and corpus written in {write_s:.1f} s; TextTrainer at seq {DIALECT_SEQ}, "
+            f"micro-batch {DIALECT_MICRO_BS}, f32 master, bf16 compute, ctx remat, AdamW "
+            f"[{card}]")
+        a = rec.steps
+        check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                     for r in a.values()], tag)
+        tokens = DIALECT_MICRO_BS * DIALECT_SEQ
+        flops = FlopsCounter.from_config(cfg).batch_flops(tokens, DIALECT_SEQ)
+        peak_flops = get_device_peak_flops(dev)
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+        for i in range(1, steps + 1):
+            extra = (f" step_ms={ms[i - 2]:.1f} tokens_per_s={tokens / ms[i - 2] * 1e3:.1f} "
+                     f"mfu={flops / (ms[i - 2] / 1e3) / peak_flops:.4f}" if i >= 2
+                     else " (first step: warm-up, not timed)")
+            log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f}"
+                f"{extra} [{card}]")
+        want = {"flash_fwd": n_full * steps, "flash_bwd_dkv": n_full * steps,
+                "flash_bwd_dq": n_full * steps}
+        bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+        if bad or fallbacks["flash"] != (len(windows) - n_full) * steps:
+            raise AssertionError(f"{tag}: launches {launches} (expected {want}), "
+                                 f"FALLBACK_CALLS {fallbacks} (expected "
+                                 f"{(len(windows) - n_full) * steps}: the windowed layers)")
+        if any(by_dim[d][k] != (want[k] if d == cfg.head_dim else 0)
+               for d in by_dim for k in by_dim[d]):
+            raise AssertionError(f"{tag}: launches by head dim {by_dim}, expected all at "
+                                 f"D={cfg.head_dim}")
+        med = sorted(ms)[len(ms) // 2]
+        log(f"{tag}: warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, median "
+            f"{med:.1f} ms, {tokens / med * 1e3:.1f} tokens/s (packed rows, padding included), "
+            f"MFU {flops / (med / 1e3) / peak_flops:.4f} (full causal attention counted on "
+            f"every layer, as the reference's FlopsCounter does); peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches} (all at D={cfg.head_dim}: "
+            f"{n_full} full-attention layers x {steps} steps), FALLBACK_CALLS {fallbacks} "
+            f"({len(windows) - n_full} windowed layers x {steps} steps, the reference's "
+            f"dispatch to the plain attention) [{card}]")
+        if export:
+            out = os.path.join(tmp, "out", "hf_ckpt")
+            final = trainer.train_state.model
+            back = hf_to_params(out, final.cfg, Transformer(final.cfg, None, device=dev))
+            bad = [n for (n, x), (_, y) in zip(back.named_parameters(), final.named_parameters())
+                   if not torch.equal(x, y)]
+            if bad:
+                raise AssertionError(f"{tag}: the HF export differs from the final parameters "
+                                     f"in {len(bad)} tensors, e.g. {bad[:3]}")
+            nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+            log(f"{tag}: the HF export ({nbytes / 1e9:.3f} GB) reads back bit-equal to the "
+                f"final parameters")
+            del final, back
+        first = rec.first_batch
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: the same weights and batch with the plain attention
+        # pinned (every layer through _attention_xla: its blockwise form at
+        # S 4096)
+        hf_dir = os.path.join(tmp, "hf")
+        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev,
+                                    ops_implementation={"attention": "xla"},
+                                    remat_policy="ctx")
+        model = fm.module
+        state = build_train_state(model, build_optimizer(
+            model, lr=build_lr_scheduler(lr=1e-4, train_steps=steps)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+        reset_all_counts()
+        try:
+            _, m = build_train_step(Transformer.loss_fn)(state, batch)
+        finally:
+            from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+
+            apply_ops_config(None)
+        plain = float(m["loss"])
+        plain_launches, _ = read_counts()
+        rel = abs(a[1]["loss"] - plain) / abs(plain)
+        log(f"{tag} step-1 parity: trainer (kernels) loss {a[1]['loss']:.6f}, plain attention "
+            f"{plain:.6f} (rel {rel:.2e}, tol {TOL_LOSS_REL}; {cfg.num_hidden_layers} layers, "
+            f"nothing cut; the plain leg launched {plain_launches})")
+        if not rel <= TOL_LOSS_REL or any(plain_launches.values()):
+            raise AssertionError(f"{tag}: step-1 loss departs from the plain attention's "
+                                 f"({rel}) or the plain leg launched kernels")
+        del fm, model, state, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        seg = torch.from_numpy(first["segment_ids"][0]).to(dev)
+        return launches, seg
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# per preset: (q heads, kv heads, head dim) of its kernel rows
+DIALECT_HEADS = {"gemma3_1b": (4, 1, 256), "llama3p2_1b": (32, 8, 64),
+                 "qwen2p5_1p5b": (12, 2, 128)}
+
+
+def dialect_rows(dev, preset: str, seg):
+    """K1-K3 held and timed at the preset's head layout on its trainer
+    phase's own first packed batch; Gemma-3-1B's rows also carry its first
+    row alone (micro-batch 1). Each row counts the launches of its preset's
+    paths only (``path_layout``)."""
+    hq, hkv, d = DIALECT_HEADS[preset]
+    name = DIALECT_NAMES[preset]
+    rows = phase_flash(dev, seg, hq, hkv, f"{name} layout", d=d)
+    torch.cuda.empty_cache()
+    if preset == GEMMA_PRESET:
+        mb1 = phase_flash(dev, seg[:1].contiguous(), hq, hkv, f"{name}, micro-batch 1", d=d)
+        for row, one in zip(rows, mb1):
+            row["micro_batch_1"] = {k: one[k] for k in LAYOUT_KEYS}
+        torch.cuda.empty_cache()
+    for row in rows:
+        row["path_layout"] = preset
+    return rows
+
+
+def phase_hf_trainer_gemma3(dev, card):
+    """Gemma-3-1B at full width and all 26 layers, 6 steps, HF export; then
+    K1-K3 on its first packed batch. Returns ({path: (launches, head dim,
+    preset)}, kernel rows)."""
+    launches, seg = phase_hf_dialect(dev, card, GEMMA_PRESET, GEMMA_STEPS, export=True)
+    paths = {"hf_trainer_gemma3": (launches, DIALECT_HEADS[GEMMA_PRESET][2], GEMMA_PRESET)}
+    return paths, dialect_rows(dev, GEMMA_PRESET, seg)
+
+
+def phase_dialects(dev, card):
+    """Llama-3.2-1B and Qwen2.5-1.5B at full width and depth, 3 steps each,
+    each followed by K1-K3 on its first packed batch."""
+    paths, rows = {}, []
+    for preset in DIALECT_PRESETS:
+        launches, seg = phase_hf_dialect(dev, card, preset, DIALECT_STEPS, export=False)
+        paths[f"dialects_{preset}"] = (launches, DIALECT_HEADS[preset][2], preset)
+        rows += dialect_rows(dev, preset, seg)
+    return paths, rows
+
+
+# --------------------------------------------------------------------------
 # Serving: the paged-KV engine at Qwen3-0.6B and Qwen3-30B-A3B
 # --------------------------------------------------------------------------
 SERVE_DENSE_PRESET = "qwen3_0p6b"
@@ -1433,7 +1747,8 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 # DELTA_CEILING x the recorded value: the contiguous prefill shares its layer
 # functions with the paged steps, so a fault there shows in delta, while eps
 # stays where the sound code put it.
-SERVE_DELTA = {"serve dense": 0.0481, "serve moe": 0.0917}
+# Gemma-3-1B's (0.0652) with its norm weights at 0 (``random_model``).
+SERVE_DELTA = {"serve dense": 0.0481, "serve moe": 0.0917, "serve gemma3": 0.0652}
 EPS_FACTOR = 4.0
 DELTA_CEILING = 2.0
 
@@ -1492,12 +1807,14 @@ def f32_rescore(model):
 
 def rescore_rows(model, ids, first: int):
     """f32 logits [len(ids) - first, V]: row j is the next-token
-    distribution after ids[:first + j] (teacher forcing). Call under
-    f32_rescore."""
+    distribution after ids[:first + j] (teacher forcing), with the config's
+    final softcap. Call under f32_rescore."""
     dev = model.embed_tokens.device
     t = torch.tensor(ids, device=dev)[None]
     hidden, _ = model.forward_hidden(t, torch.arange(len(ids), device=dev)[None])
-    return hidden[0, first - 1:len(ids) - 1].float() @ model.lm_head_kernel().float()
+    logits = hidden[0, first - 1:len(ids) - 1].float() @ model.lm_head_kernel().float()
+    cap = model.cfg.final_logit_softcap
+    return cap * torch.tanh(logits / cap) if cap else logits
 
 
 def first_token_spread(model, cfg, compute, prompts, tag):
@@ -1784,6 +2101,49 @@ def phase_serve_dense(dev, card):
     return launches
 
 
+SERVE_GEMMA = dict(slots=16, block=16, max_model_len=4096, requests=32, wave=16, wave_ticks=4,
+                   prompt=(64, 1536), shared_prefix=512, max_new=128)
+
+
+def phase_serve_gemma3(dev, card):
+    """Gemma-3-1B, all 26 layers in bf16, through the engine: leg (a) of
+    the dense phase (prefix cache, 512-token chunks) over prompts of
+    64-2048 tokens, every other one behind a shared 512-token prefix, so
+    the 512-token window of its 22 sliding layers bites."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS, SEED
+
+    host_state("serve gemma3")
+    spec = SERVE_GEMMA
+    cfg = TransformerConfig.from_hf_config(HF_CONFIGS[GEMMA_PRESET], param_dtype=torch.bfloat16)
+    model = random_model(dev, cfg, SEED)
+    prompts = serve_traffic(cfg.vocab_size, spec)
+    allowed = shared_blocks(prompts, spec["block"])
+    lens = [len(p) for p in prompts]
+    windows = [cfg.window_for_layer(i) for i in range(cfg.num_hidden_layers)]
+    log(f"serve gemma3: Gemma-3-1B ({cfg.num_hidden_layers} layers, {windows.count(0)} full "
+        f"attention, {len(windows) - windows.count(0)} with window {max(windows)}, bf16 weights "
+        f"from seed {SEED}, norm weights 0), {spec['slots']} slots, block {spec['block']}, max_model_len "
+        f"{spec['max_model_len']}; {len(prompts)} requests of {min(lens)}-{max(lens)} prompt "
+        f"tokens ({len(prompts) // 2} behind one {spec['shared_prefix']}-token prefix), "
+        f"{spec['max_new']} new tokens each, waves of {spec['wave']} [{card}]")
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts,
+                                "serve gemma3")
+    tag = "serve gemma3 leg (a)"
+    outs, stats = serve_leg(model, cfg, dev, card, prompts, spec, tag)
+    check_serve_leg(tag, model, prompts, outs, stats, spread, spec["max_new"],
+                    allowed_cached=allowed)
+    summary = {k: v for k, v in stats.items() if k not in ("cached_tokens", "launches",
+                                                           "fallbacks")}
+    log("serve gemma3 summary: " + json.dumps(summary))
+    launches = stats["launches"]
+    del model, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def capture_group_sizes(model, cfg, dev, prompts, spec):
     """Layer 0's group sizes of one prefill chunk (M = top-k x chunk rows)
     and of one decode step (M = top-k x slots) of the serving engine: the K4 shapes
@@ -1909,8 +2269,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build, in order: serve_dense, "
-                         "serve_moe, and before them main (the dense loop) or trainer; "
-                         "such a partial run prints no result line")
+                         "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, and "
+                         "before them main (the dense loop) or trainer; such a partial run "
+                         "prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
@@ -1927,7 +2288,9 @@ def main(argv=None) -> int:
     phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
     if args.phases:
         phases = {"main": phase_main, "trainer": phase_trainer,
-                  "serve_dense": phase_serve_dense, "serve_moe": phase_serve_moe}
+                  "serve_dense": phase_serve_dense, "serve_moe": phase_serve_moe,
+                  "hf_trainer_gemma3": phase_hf_trainer_gemma3,
+                  "serve_gemma3": phase_serve_gemma3, "dialects": phase_dialects}
         for name in args.phases.split(","):
             phases[name](dev, card)
             torch.cuda.empty_cache()
@@ -1978,31 +2341,42 @@ def run_phases(dev, card, hf_tmp) -> int:
     torch.cuda.empty_cache()
     table += phase_gmm(dev)
     torch.cuda.empty_cache()
-    # each main path with the head dim its attention runs at
-    by_path = {"dense": (phase_main(dev, card), 128)}
+    # each main path with the head dim its attention runs at, and the
+    # preset whose layout rows count it (None: the rows above)
+    by_path = {"dense": (phase_main(dev, card), 128, None)}
     torch.cuda.empty_cache()
-    by_path["trainer"] = (phase_trainer(dev, card), 128)
+    by_path["trainer"] = (phase_trainer(dev, card), 128, None)
     torch.cuda.empty_cache()
-    by_path["hf_trainer"] = (phase_hf_trainer(dev, card, hf_yaml, hf_batch), 64)
+    by_path["hf_trainer"] = (phase_hf_trainer(dev, card, hf_yaml, hf_batch), 64, None)
     torch.cuda.empty_cache()
-    by_path["moe"] = (phase_moe_main(dev, card), 128)
+    by_path["moe"] = (phase_moe_main(dev, card), 128, None)
     torch.cuda.empty_cache()
     phase_moe_micro_batch_1(dev, card)
     phase_parity(dev)
     phase_moe_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["serve_dense"] = (phase_serve_dense(dev, card), 128)
+    # the dense HF dialects, each path followed by its kernel rows
+    for phase in (phase_hf_trainer_gemma3, phase_dialects):
+        paths, rows = phase(dev, card)
+        by_path.update(paths)
+        table += rows
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path["serve_dense"] = (phase_serve_dense(dev, card), 128, None)
+    by_path["serve_gemma3"] = (phase_serve_gemma3(dev, card), DIALECT_HEADS[GEMMA_PRESET][2],
+                               GEMMA_PRESET)
     moe_launches, serve_rows = phase_serve_moe(dev, card)
-    by_path["serve_moe"] = (moe_launches, 128)
+    by_path["serve_moe"] = (moe_launches, 128, None)
     table += serve_rows
 
     for row in table:
-        # a flash row counts the paths at its head dim; a grouped-GEMM row at
-        # widths no main path runs counts none
+        # a flash row counts the paths at its head dim and layout; a
+        # grouped-GEMM row at widths no main path runs counts none
         counts = {path: (launches.get(row["name"], 0)
-                         if row.get("head_dim", d) == d and row.get("on_main_path", True) else 0)
-                  for path, (launches, d) in by_path.items()}
+                         if row.get("head_dim", d) == d and row.get("on_main_path", True)
+                         and row.get("path_layout") == layout else 0)
+                  for path, (launches, d, layout) in by_path.items()}
         row["launches"] = sum(counts.values())
         row["launches_by_path"] = counts
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

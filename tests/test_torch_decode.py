@@ -1,8 +1,10 @@
 """Port KV-cache decoding (``veomni_tpu_torch.models.decode``) vs the JAX reference.
 
 f32 on the CPU, on the reference's serving toys ``QWEN3`` and ``QWEN3_MOE``
-(``tests/test_serving.py``), weights carried from JAX ``init_params`` by
-``load_jax_params``; inputs from numpy seeds.
+(``tests/test_serving.py``) and the dense dialect toys ``GEMMA3`` (sliding
+windows shorter than the prompts) and ``QWEN2`` (biases, llama3 rope
+scaling), weights carried from JAX ``init_params`` (their biases and norm
+weights drawn at random) by ``load_jax_params``; inputs from numpy seeds.
 
 * ``paged_prefill_step`` (a chunk after a cached prefix, null-padded table),
   ``paged_decode_step`` (an inactive slot included), ``paged_verify_step``,
@@ -52,9 +54,41 @@ QWEN3_MOE = dict(
     num_key_value_heads=2, head_dim=16, qk_norm=True, num_experts=4,
     num_experts_per_tok=2, moe_intermediate_size=32,
 )
-CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE}
+# the dense HF dialects at the same width: gemma3 with windows (8) that the
+# prompts outgrow, dual rope, sandwich and zero-centered norms, embedding
+# scale, GELU and softcap; qwen2 with q/k/v biases under llama3 rope scaling
+GEMMA3 = dict(
+    model_type="gemma3", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    qk_norm=True, norm_zero_centered=True, sandwich_norms=True, embed_scale=8.0,
+    query_pre_attn_scalar=16, sliding_window=8, rope_local_base_freq=1e4, rope_theta=1e6,
+    layer_types=["sliding_attention", "sliding_attention", "full_attention"],
+    hidden_act="gelu_pytorch_tanh", final_logit_softcap=30.0, tie_word_embeddings=True,
+)
+QWEN2 = dict(
+    model_type="qwen2", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, attention_bias=True,
+    rope_theta=5e5, rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                                  "high_freq_factor": 4.0,
+                                  "original_max_position_embeddings": 16},
+)
+CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3, "qwen2": QWEN2}
 TOL = dict(atol=1e-5, rtol=1e-5)
 T = torch.from_numpy
+
+
+def perturb(params, seed=0):
+    """The init's biases (0) and norm weights (1) drawn at random, so that a
+    misplaced one shows."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        name = jax.tree_util.keystr(path)
+        if "bias" in name or name.endswith("norm']"):
+            x = np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.1
+        return jnp.asarray(x)
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,6 +96,8 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
+    if name in ("gemma3", "qwen2"):
+        params = perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, params))
@@ -344,7 +380,9 @@ def test_unsupported_configs_raise():
             model_type="deepseek_v3", vocab_size=64, hidden_size=64, num_hidden_layers=1,
             num_attention_heads=4, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
             v_head_dim=8))
-    for extra in (dict(sliding_window=8, layer_types=["sliding_attention", "full_attention"]),
-                  dict(attention_sinks=True), dict(attention_bias=True)):
+    # sliding windows and biases are ported (tests/test_torch_dialects.py);
+    # sinks, the gpt_oss GLU and chunk_mbs are not
+    for extra in (dict(attention_sinks=True), dict(hidden_act="gpt_oss_glu"),
+                  dict(chunk_mbs=64)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **extra}))

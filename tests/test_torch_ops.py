@@ -53,7 +53,8 @@ def test_rotary_tables_and_apply():
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError):
-        rotary_tables(T(pos), 16, 1e6, rope_scaling={"rope_type": "linear", "factor": 2.0})
+        rotary_tables(T(pos), 16, 1e6, rope_scaling={"rope_type": "mrope",
+                                                     "mrope_section": [4, 2, 2]})
 
 
 def test_swiglu():

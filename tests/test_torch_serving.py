@@ -1,7 +1,8 @@
 """Port serving engine (``veomni_tpu_torch.serving``) vs the JAX reference.
 
 f32 on the CPU, on the reference's serving toys ``QWEN3`` and ``QWEN3_MOE``
-(``tests/test_serving.py``) with the JAX weights carried into the port
+(``tests/test_serving.py``) and a ``GEMMA3`` toy whose sliding windows (8)
+are shorter than its prompts, with the JAX weights carried into the port
 (``load_jax_params``); prompts from numpy seeds.
 
 * Engine parity: the port's ``InferenceEngine`` and the JAX one run the same
@@ -71,7 +72,31 @@ QWEN3_MOE = dict(
     num_key_value_heads=2, head_dim=16, qk_norm=True, num_experts=4,
     num_experts_per_tok=2, moe_intermediate_size=32,
 )
-CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE}
+# gemma3 at the same width, its sliding windows (16) shorter than the prompts
+GEMMA3 = dict(
+    model_type="gemma3", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    qk_norm=True, norm_zero_centered=True, sandwich_norms=True, embed_scale=8.0,
+    query_pre_attn_scalar=16, sliding_window=16, rope_local_base_freq=1e4, rope_theta=1e6,
+    layer_types=["sliding_attention", "sliding_attention", "full_attention"],
+    hidden_act="gelu_pytorch_tanh", final_logit_softcap=30.0, tie_word_embeddings=True,
+)
+CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3,
+           # a window of 8, below the engine's least prefill bucket (16)
+           "gemma3_w8": {**GEMMA3, "sliding_window": 8}}
+
+
+def _perturb(params, seed=0):
+    """gemma3's norm weights (1 at init) drawn at random, so that a norm
+    read at the wrong place shows."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        if jax.tree_util.keystr(path).endswith("norm']"):
+            x = np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.1
+        return jnp.asarray(x)
+
+    return jax.tree_util.tree_map_with_path(leaf, params)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,6 +104,8 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
+    if name.startswith("gemma3"):
+        params = _perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, params))
@@ -182,8 +209,8 @@ def _system_prompts(seed, n_system, suffixes):
     return [system + [int(t) for t in rng.integers(1, 128, n)] for n in suffixes]
 
 
-def _cow_script():
-    rng = np.random.default_rng(12)
+def _cow_script(seed=12):
+    rng = np.random.default_rng(seed)
     base = [int(t) for t in rng.integers(1, 128, 16)]  # 2 blocks of 8
     diverged = base[:12] + [int(t) for t in rng.integers(1, 128, 4)]
     return [("submit", base, _greedy(5)), ("drain",), ("submit", base, _greedy(5)),
@@ -231,6 +258,16 @@ SCENARIOS = {
         lambda: _staggered(_system_prompts(21, 17, (5, 9, 3)), 2, 2, lambda i: (
             _greedy(6) if i != 1 else dict(max_new_tokens=6, temperature=0.9, top_k=20,
                                            seed=3)))),
+    # gemma3, prompts of 21-43 tokens past its window of 16: staggered
+    # arrivals, a shared 30-token prefix, 8-token prefill chunks, a sampled
+    # request, 12 new tokens each
+    "gemma3_staggered_chunked": (
+        "gemma3", dict(num_slots=2, block_size=8, max_model_len=96, prefill_chunk=8),
+        lambda: _staggered(_system_prompts(23, 30, (5, 9, 2, 13)), 2, 3, lambda i: (
+            _greedy(12) if i != 2 else dict(max_new_tokens=12, temperature=0.8, top_k=20,
+                                            seed=4)))),
+    "gemma3_cow_replay": ("gemma3", dict(num_slots=2, block_size=8, max_model_len=64),
+                          lambda: _cow_script(seed=13)),
     "moe_preemption": ("qwen3_moe", dict(num_slots=3, block_size=8, max_model_len=40,
                                          num_blocks=8, prefix_cache=False),
                        lambda: [("submit", p, _greedy(10)) for p in _prompts((9, 11, 7), seed=1)]
@@ -246,18 +283,35 @@ def test_engine_matches_jax_engine(scenario):
         assert stats["preemptions"] > 0
     if scenario == "eviction":
         assert stats["evictions"] > 0 and stats["preemptions"] == 0
-    if scenario == "cow_replay":
+    if scenario in ("cow_replay", "gemma3_cow_replay"):
         # both exact replays copy their divergence block; the cached blocks
         # are never written (the last replay still matches 15 tokens)
         assert stats["cow"] == 2
         assert sorted(o[2] for o in outs.values()) == [0, 8, 15, 15]
-    if scenario == "shared_prefix_chunked":
+    if scenario in ("shared_prefix_chunked", "gemma3_staggered_chunked"):
         assert all(outs[f"req-{i}"][2] >= 16 for i in (2, 3))
     if scenario == "chunked_interleave":
         # the short request kept emitting while the long one prefilled
         first_long = next(i for i, e in enumerate(events) if e[0] == "req-1")
         assert sum(1 for e in events[:first_long] if e[0] == "req-0") >= 4
     assert sum(traces.values()) > 0
+
+
+def test_window_below_the_prefill_bucket_stays_finite():
+    """A window (8) below the engine's least prefill bucket (16): a padded
+    chunk row's window can end before the gathered context begins. The
+    port's rows with no valid key emit 0 (``ops.cache_attend``), so every
+    request equals ``greedy_generate``; the reference's emit NaN into the
+    null block, and its engine's replay of a cached prompt returns token 0
+    from NaN logits (ROADMAP.md queue 3)."""
+    script = _cow_script(seed=13)
+    _, outs, _, stats = drive("torch", "gemma3_w8", dict(num_slots=2, block_size=8,
+                                                         max_model_len=64), script)
+    _, _, model, cfg = models("gemma3_w8")
+    prompts = [args[0] for op, *args in script if op == "submit"]
+    for rid, p in zip(sorted(outs, key=lambda r: int(r.split("-")[1])), prompts):
+        assert outs[rid][0] == tdec.greedy_generate(model, cfg, p, max_new_tokens=5)[len(p):]
+    assert stats["cow"] == 2
 
 
 def test_engine_pools_keep_their_storage():

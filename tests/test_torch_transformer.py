@@ -96,7 +96,9 @@ MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_int
 
 def test_unported_features_raise():
     for extra in (dict(MOE, scoring_func="sigmoid"), dict(MOE, n_shared_experts=1),
-                  dict(sliding_window=16), dict(attention_bias=True), dict(remat_policy="dots")):
+                  dict(attention_sinks=True), dict(rope_scaling={"type": "mrope",
+                                                                 "mrope_section": [4, 2, 2]}),
+                  dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
     # the softmax top-k MoE itself is ported

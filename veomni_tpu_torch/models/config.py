@@ -2,13 +2,13 @@
 
 The same dataclass fields as the reference, so a configuration carries over
 field for field, with torch dtypes in place of jnp ones. The dense path of
-``models/transformer.py`` implements the llama/qwen3 dialect (qk-norm, GQA,
-tied or untied head); it raises ``NotImplementedError`` for every field
+``models/transformer.py`` implements the llama (with rope scaling), qwen2,
+qwen3 and gemma3 dialects; it raises ``NotImplementedError`` for every field
 whose feature is not ported yet instead of ignoring it. The HF config
 round-trip (``from_hf_config``, ``from_pretrained``, ``to_hf_config``;
 reference ``:185-360``) is the reference's mapping, key for key: a dialect
-whose features the port does not build (rope scaling, biases, gemma) maps
-as there, and ``models/transformer.py::check_supported`` raises for it.
+whose features the port does not build (MLA, DSA, gpt_oss) maps as there,
+and ``models/transformer.py::check_supported`` raises for it.
 """
 
 from __future__ import annotations
@@ -122,6 +122,16 @@ class TransformerConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_key_value_heads * self.head_dim
+
+    def window_for_layer(self, i: int) -> int:
+        """Per-layer sliding window (0 = full attention), read from
+        ``layer_types`` alone as the reference does (``:162-168``): a config
+        with ``sliding_window`` but no ``layer_types`` windows every layer."""
+        if self.layer_types is not None:
+            sliding = self.layer_types[i] == "sliding_attention"
+        else:
+            sliding = self.sliding_window is not None
+        return int(self.sliding_window or 0) if sliding else 0
 
     # ------------------------------------------------------------------ HF io
     _HF_FIELDS = (

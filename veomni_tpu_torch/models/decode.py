@@ -18,8 +18,9 @@ PyTorch idiom in place of the reference's jitted programs:
   pool tensor): the reference returns new pools from donated buffers, and a
   functional update here would copy the whole pool every tick. The steps
   return only their logits or tokens.
-* The layer scan is a Python loop over the layers, with the mask built once
-  (the ported dialect set has no per-layer windows).
+* The layer scan is a Python loop over the layers (``_layer_meta`` gives
+  each its window and rope, as the reference's scanned per-layer arrays
+  do), with one mask built per distinct window.
 * ``TRACE_COUNTS`` counts the distinct bucket shapes each program has seen:
   the number of traces the reference's jits would make on the same stream
   (one per new shape, per engine for the engine's steps and per model
@@ -29,10 +30,12 @@ Sampling draws with the threefry port (``ops/threefry.py``), so a sampled
 token is a function of (seed, token index, logits) exactly as in the
 reference, whatever else shares the batch.
 
-Scope: the dialects ``models/transformer.py::check_supported`` admits
-(GQA with qk-norm, full rotary without scaling, SwiGLU, dense or softmax-
-routed MoE). Sliding windows, sinks, biases, the gemma dialect, MLA/DSA and
-hybrid linear attention raise.
+Scope: the dialects ``models/transformer.py::check_supported`` admits (GQA
+with qk-norm, HF rope scaling and partial or dual rotary, sliding windows
+per layer, q/k/v/o and MLP biases, gemma3's zero-centered and sandwich
+norms, embedding scale, ``query_pre_attn_scalar``, GELU and final logit
+softcap, dense or softmax-routed MoE). Sinks, MLA/DSA and hybrid linear
+attention raise.
 """
 
 from __future__ import annotations
@@ -94,26 +97,59 @@ def _compute_cast(model, cfg: TransformerConfig) -> Dict:
 
 
 def _rope_tables(cfg: TransformerConfig, positions):
-    """(cos, sin) [..., head_dim] in the compute dtype."""
-    cos, sin = ops.rotary_tables(positions, cfg.head_dim, cfg.rope_theta,
+    """{False: the global (cos, sin), True: the local ones} [..., rope_dim]
+    in the compute dtype (``:72-83``); without a dual rope both are global."""
+    rope_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
+    cos, sin = ops.rotary_tables(positions, rope_dim, cfg.rope_theta,
                                  rope_scaling=cfg.rope_scaling)
-    return cos.to(cfg.dtype), sin.to(cfg.dtype)
+    tables = {False: (cos.to(cfg.dtype), sin.to(cfg.dtype))}
+    tables[True] = tables[False]
+    if cfg.rope_local_base_freq:
+        cos, sin = ops.rotary_tables(positions, rope_dim, cfg.rope_local_base_freq)
+        tables[True] = (cos.to(cfg.dtype), sin.to(cfg.dtype))
+    return tables
+
+
+def _layer_meta(cfg: TransformerConfig):
+    """Per layer (window, local rope): the window 0 for full attention
+    (``:225-236``)."""
+    return [(cfg.window_for_layer(i),
+             bool(cfg.rope_local_base_freq) and cfg.window_for_layer(i) > 0)
+            for i in range(cfg.num_hidden_layers)]
+
+
+def _window_masks(cfg: TransformerConfig, valid, qpos, kpos):
+    """{window: the causal+length mask ``valid`` AND the window} for each
+    distinct window of the config."""
+    return {w: valid if w == 0 else valid & (qpos - kpos < w)
+            for w in {w for w, _ in _layer_meta(cfg)}}
 
 
 def _norm(x, w, cfg: TransformerConfig):
-    return ops.rms_norm(x, w, cfg.rms_norm_eps)
+    return ops.rms_norm(x, w, cfg.rms_norm_eps, zero_centered=cfg.norm_zero_centered)
 
 
-def _embed(compute, tokens):
-    return F.embedding(tokens, compute["embed_tokens"])
+def _embed(compute, cfg: TransformerConfig, tokens):
+    """Token embeddings, gemma's ``embed_scale`` multiplied in the compute
+    dtype (``:589-590``)."""
+    hidden = F.embedding(tokens, compute["embed_tokens"])
+    if cfg.embed_scale:
+        hidden = hidden * torch.tensor(cfg.embed_scale, dtype=cfg.dtype, device=hidden.device)
+    return hidden
+
+
+def _proj(x, lp, weight: str, bias: str):
+    out = ops.decode_dot(x, lp[weight])
+    return out + lp[bias] if bias in lp else out
 
 
 def _qkv(x, lp, cfg: TransformerConfig, cos, sin):
-    """x [B,T,H] -> q [B,T,hq,d], k/v [B,T,hkv,d] with norms + rope applied."""
+    """x [B,T,H] -> q [B,T,hq,d], k/v [B,T,hkv,d] with biases, norms and
+    rope (partial where the tables are narrower than the head) applied."""
     b, t, _ = x.shape
-    q = ops.decode_dot(x, lp["q_proj"]).view(b, t, cfg.num_attention_heads, cfg.head_dim)
-    k = ops.decode_dot(x, lp["k_proj"]).view(b, t, cfg.num_key_value_heads, cfg.head_dim)
-    v = ops.decode_dot(x, lp["v_proj"]).view(b, t, cfg.num_key_value_heads, cfg.head_dim)
+    q = _proj(x, lp, "q_proj", "q_bias").view(b, t, cfg.num_attention_heads, cfg.head_dim)
+    k = _proj(x, lp, "k_proj", "k_bias").view(b, t, cfg.num_key_value_heads, cfg.head_dim)
+    v = _proj(x, lp, "v_proj", "v_bias").view(b, t, cfg.num_key_value_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = _norm(q, lp["q_norm"], cfg)
         k = _norm(k, lp["k_norm"], cfg)
@@ -123,7 +159,9 @@ def _qkv(x, lp, cfg: TransformerConfig, cos, sin):
 
 def _attn_params(cfg: TransformerConfig) -> Tuple[int, float]:
     """(GQA repeat factor, softmax scale) of the cache-attention paths."""
-    return cfg.num_attention_heads // cfg.num_key_value_heads, cfg.head_dim ** -0.5
+    scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
+             else cfg.head_dim ** -0.5)
+    return cfg.num_attention_heads // cfg.num_key_value_heads, scale
 
 
 def _mlp(x, lp, cfg: TransformerConfig):
@@ -131,15 +169,26 @@ def _mlp(x, lp, cfg: TransformerConfig):
         b, t, h = x.shape
         out, _ = moe_mlp(x.reshape(b * t, h), lp["router"], lp["experts"], cfg)
         return out.view(b, t, h)
-    act = ops.swiglu(ops.decode_dot(x, lp["gate_proj"]), ops.decode_dot(x, lp["up_proj"]))
-    return ops.decode_dot(act, lp["down_proj"])
+    act = ops.gated_act(_proj(x, lp, "gate_proj", "gate_bias"),
+                        _proj(x, lp, "up_proj", "up_bias"), cfg.hidden_act)
+    return _proj(act, lp, "down_proj", "down_bias")
 
 
 def _layer_tail(hidden, attn, lp, cfg: TransformerConfig):
-    """o_proj + residual + FFN, shared by every layer variant."""
+    """o_proj + residual + FFN, shared by every layer variant; with sandwich
+    norms the attention and MLP outputs are normalised before their
+    residual adds and ``pre_feedforward_layernorm`` is the MLP's input norm
+    (``:148-163``)."""
     b, t = attn.shape[:2]
-    hidden = hidden + ops.decode_dot(attn.reshape(b, t, cfg.q_dim), lp["o_proj"])
-    return hidden + _mlp(_norm(hidden, lp["post_attention_layernorm"], cfg), lp, cfg)
+    out = _proj(attn.reshape(b, t, cfg.q_dim), lp, "o_proj", "o_bias")
+    if cfg.sandwich_norms:
+        out = _norm(out, lp["post_attention_layernorm"], cfg)
+    hidden = hidden + out
+    pre = lp["pre_feedforward_layernorm"] if cfg.sandwich_norms else lp["post_attention_layernorm"]
+    out = _mlp(_norm(hidden, pre, cfg), lp, cfg)
+    if cfg.sandwich_norms:
+        out = _norm(out, lp["post_feedforward_layernorm"], cfg)
+    return hidden + out
 
 
 def _layer(hidden, lp, cfg: TransformerConfig, cos, sin, k_cache, v_cache, valid_mask,
@@ -171,44 +220,54 @@ def _paged_layer(hidden, lp, cfg: TransformerConfig, cos, sin, k_pool, v_pool, b
     return _layer_tail(hidden, attn, lp, cfg)
 
 
-def _walk(compute, cfg: TransformerConfig, hidden, caches, write_idx: int, cos, sin, valid):
-    """All layers against the contiguous caches (k, v [L,B,M,hkv,d])."""
+def _walk(compute, cfg: TransformerConfig, hidden, caches, write_idx: int, tables, valid):
+    """All layers against the contiguous caches (k, v [L,B,M,hkv,d]); valid
+    [B,T,M] is the causal+length mask, each layer's window AND-ed on
+    (``:297-316``)."""
     k_all, v_all = caches
-    for layer, lp in enumerate(compute["layers"]):
-        hidden = _layer(hidden, lp, cfg, cos, sin, k_all[layer], v_all[layer], valid, write_idx)
+    kpos = torch.arange(k_all.shape[2], device=hidden.device)[None, None]
+    qpos = write_idx + torch.arange(hidden.shape[1], device=hidden.device)[None, :, None]
+    masks = _window_masks(cfg, valid, qpos, kpos)
+    for layer, (lp, (window, local)) in enumerate(zip(compute["layers"], _layer_meta(cfg))):
+        hidden = _layer(hidden, lp, cfg, *tables[local], k_all[layer], v_all[layer],
+                        masks[window], write_idx)
     return hidden
 
 
 def _paged_walk(compute, cfg: TransformerConfig, hidden, pools, block_tables, positions,
-                real, cos, sin, attend):
+                real, tables, attend):
     """All layers against the block pools (k, v [L,NB,BS,hkv,d]).
     block_tables [S,nb] (null-padded); positions [S,T] are each query row's
     absolute write/query position; ``real`` [S,T] marks the rows that write
     their k/v to the table (the others write to the null block). Block-table
     order is sequence order, so gathered index j sits at position j and the
-    causal mask is the contiguous path's."""
+    causal and window masks are the contiguous path's."""
     k_all, v_all = pools
     bs = k_all.shape[2]
     nb = block_tables.shape[1]
     kpos = torch.arange(nb * bs, device=positions.device)
-    valid = kpos <= positions[:, :, None]  # [S,T,ctx]
+    qpos = positions[:, :, None]
+    masks = _window_masks(cfg, kpos <= qpos, qpos, kpos)  # each [S,T,ctx]
     # the clip keeps the table gather in bounds for padded rows whose
     # position overruns the table; they are rerouted to block 0 anyway
     blk_idx = torch.clamp(torch.div(positions, bs, rounding_mode="floor"), 0, nb - 1)
     write_blocks = torch.where(real, block_tables.gather(1, blk_idx), 0)
     write_offs = positions % bs
-    for layer, lp in enumerate(compute["layers"]):
-        hidden = _paged_layer(hidden, lp, cfg, cos, sin, k_all[layer], v_all[layer],
-                              block_tables, write_blocks, write_offs, valid, attend)
+    for layer, (lp, (window, local)) in enumerate(zip(compute["layers"], _layer_meta(cfg))):
+        hidden = _paged_layer(hidden, lp, cfg, *tables[local], k_all[layer], v_all[layer],
+                              block_tables, write_blocks, write_offs, masks[window], attend)
     return hidden
 
 
 def _logits(compute, cfg: TransformerConfig, hidden):
     """Final norm + LM head: compute-dtype operands, f32 products (the
-    reference's ``preferred_element_type=f32``)."""
+    reference's ``preferred_element_type=f32``), then the final softcap."""
     hidden = _norm(hidden, compute["norm"], cfg)
     kernel = compute["embed_tokens"].t() if cfg.tie_word_embeddings else compute["lm_head"]
-    return hidden.float() @ kernel.float()
+    logits = hidden.float() @ kernel.float()
+    if cfg.final_logit_softcap:
+        logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+    return logits
 
 
 # --------------------------------------------------------------------------
@@ -226,10 +285,11 @@ def paged_prefill_step(compute, cfg: TransformerConfig, pools, block_table, star
     the last real chunk row [1,V]."""
     dev = tokens.device
     positions = start_pos + torch.arange(chunk_bucket, device=dev)
-    cos, sin = _rope_tables(cfg, positions[None])
+    tables = _rope_tables(cfg, positions[None])
     real = (torch.arange(chunk_bucket, device=dev) < chunk_len)[None]
-    hidden = _paged_walk(compute, cfg, _embed(compute, tokens[None]), pools, block_table[None],
-                         positions[None], real, cos, sin, ops.paged_prefill_attend)
+    hidden = _paged_walk(compute, cfg, _embed(compute, cfg, tokens[None]), pools,
+                         block_table[None], positions[None], real, tables,
+                         ops.paged_prefill_attend)
     return _logits(compute, cfg, hidden[:, chunk_len - 1])
 
 
@@ -248,10 +308,10 @@ def paged_decode_step(compute, cfg: TransformerConfig, pools, block_tables, posi
     block_tables [S,nb] padded with the null block 0. Writes the pools in
     place; returns the f32 logits [S,V]."""
     positions = positions[:, None]
-    cos, sin = _rope_tables(cfg, positions)
-    hidden = _paged_walk(compute, cfg, _embed(compute, tokens[:, None]), pools, block_tables,
-                         positions, torch.ones_like(positions, dtype=torch.bool), cos, sin,
-                         ops.paged_attend)
+    tables = _rope_tables(cfg, positions)
+    hidden = _paged_walk(compute, cfg, _embed(compute, cfg, tokens[:, None]), pools,
+                         block_tables, positions, torch.ones_like(positions, dtype=torch.bool),
+                         tables, ops.paged_attend)
     return _logits(compute, cfg, hidden)[:, 0]
 
 
@@ -266,10 +326,10 @@ def paged_verify_step(compute, cfg: TransformerConfig, pools, block_tables, posi
     kb = tokens.shape[1]
     rows = torch.arange(kb, device=tokens.device)
     pos_rows = positions[:, None] + rows[None]
-    cos, sin = _rope_tables(cfg, pos_rows)
+    tables = _rope_tables(cfg, pos_rows)
     real = rows[None] < n_input[:, None]
-    hidden = _paged_walk(compute, cfg, _embed(compute, tokens), pools, block_tables, pos_rows,
-                         real, cos, sin, ops.paged_attend)
+    hidden = _paged_walk(compute, cfg, _embed(compute, cfg, tokens), pools, block_tables,
+                         pos_rows, real, tables, ops.paged_attend)
     return _logits(compute, cfg, hidden)
 
 
@@ -380,11 +440,10 @@ def _prefill_impl(compute, cfg: TransformerConfig, tokens, prompt_len: int, prom
     caches = (torch.zeros(shape, dtype=cfg.dtype, device=dev),
               torch.zeros(shape, dtype=cfg.dtype, device=dev))
     positions = torch.arange(prompt_bucket, device=dev).expand(b, prompt_bucket)
-    cos, sin = _rope_tables(cfg, positions)
     valid = (torch.arange(max_len, device=dev)[None, None]
              <= torch.arange(prompt_bucket, device=dev)[None, :, None])
-    hidden = _walk(compute, cfg, _embed(compute, tokens[:, :prompt_bucket]), caches, 0,
-                   cos, sin, valid)
+    hidden = _walk(compute, cfg, _embed(compute, cfg, tokens[:, :prompt_bucket]), caches, 0,
+                   _rope_tables(cfg, positions), valid)
     return _logits(compute, cfg, hidden[:, prompt_len - 1]), caches
 
 
@@ -398,9 +457,8 @@ def _decode_impl(compute, cfg: TransformerConfig, caches, first_token, start_pos
     token, out = first_token, []
     for pos in range(start_pos, start_pos + n_steps):
         positions = torch.full((token.shape[0], 1), pos, device=dev)
-        cos, sin = _rope_tables(cfg, positions)
-        hidden = _walk(compute, cfg, _embed(compute, token[:, None]), caches, pos, cos, sin,
-                       kpos <= pos)
+        hidden = _walk(compute, cfg, _embed(compute, cfg, token[:, None]), caches, pos,
+                       _rope_tables(cfg, positions), kpos <= pos)
         key, sub = threefry.split(key)
         token = _select_token(_logits(compute, cfg, hidden)[:, 0], sub, temperature, top_k,
                               top_p)

@@ -4,8 +4,10 @@ Port of ``veomni_tpu/models/hf_io.py``: the key map (``_LAYER_MAP``,
 ``_EXPERT_MAP``), the lazy per-tensor reader (``LazyHFTensors``, ``:100``),
 ``hf_to_params`` (``:162``), ``params_to_hf`` (``:461``) and
 ``save_hf_checkpoint`` (``:539``, the same shard names and index JSON), for
-the families the port builds: llama, qwen3 and qwen3_moe (per-expert HF
-tensors stacked into ``experts.*`` [E, in, out]).
+the families the port builds: llama (rope scaling included), qwen2 (q/k/v
+biases), qwen3, gemma3 (sandwich norms; its zero-centered norm weights are
+stored as HF stores them) and qwen3_moe (per-expert HF tensors stacked into
+``experts.*`` [E, in, out]).
 
 The card's machine has neither ``safetensors`` nor ``transformers``, so this
 module reads and writes the safetensors format itself: an 8-byte
@@ -47,12 +49,21 @@ _LAYER_MAP: Dict[str, Tuple[str, bool]] = {
     "k_proj": ("self_attn.k_proj.weight", True),
     "v_proj": ("self_attn.v_proj.weight", True),
     "o_proj": ("self_attn.o_proj.weight", True),
+    "q_bias": ("self_attn.q_proj.bias", False),
+    "k_bias": ("self_attn.k_proj.bias", False),
+    "v_bias": ("self_attn.v_proj.bias", False),
+    "o_bias": ("self_attn.o_proj.bias", False),
     "q_norm": ("self_attn.q_norm.weight", False),
     "k_norm": ("self_attn.k_norm.weight", False),
     "post_attention_layernorm": ("post_attention_layernorm.weight", False),
+    "pre_feedforward_layernorm": ("pre_feedforward_layernorm.weight", False),
+    "post_feedforward_layernorm": ("post_feedforward_layernorm.weight", False),
     "gate_proj": ("mlp.gate_proj.weight", True),
     "up_proj": ("mlp.up_proj.weight", True),
     "down_proj": ("mlp.down_proj.weight", True),
+    "gate_bias": ("mlp.gate_proj.bias", False),
+    "up_bias": ("mlp.up_proj.bias", False),
+    "down_bias": ("mlp.down_proj.bias", False),
     "router": ("mlp.gate.weight", True),
 }
 # stacked experts [E, in, out] <- per-expert HF [out, in]

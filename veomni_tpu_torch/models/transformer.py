@@ -1,11 +1,19 @@
-"""Decoder-only transformer: the dense llama/qwen3 path and the qwen3_moe path.
+"""Decoder-only transformer: the dense llama/qwen2/qwen3/gemma3 paths and qwen3_moe.
 
 Port of ``veomni_tpu/models/transformer.py``: ``init_params`` (``:183``)
-with ``_moe_params`` (``:150``), ``_standard_attention`` (``:374``), the
-dense and MoE branches of ``_decoder_layer`` (``:518``), the softmax branch
-of ``route_tokens`` (``:240``), ``experts_apply_sorted`` (``:307``),
+with ``_attn_params``/``_dense_mlp_params`` (``:80-147``) and
+``_moe_params`` (``:150``), ``_standard_attention`` (``:374``), the dense
+and MoE branches of ``_decoder_layer`` (``:518``), the softmax branch of
+``route_tokens`` (``:240``), ``experts_apply_sorted`` (``:307``),
 ``_moe_mlp`` (``:333``), ``forward_hidden`` (``:605``), ``lm_head_kernel``
-(``:748``), ``head_loss`` (``:783``) and ``loss_fn`` (``:805``). PyTorch
+(``:748``), ``forward_logits`` (``:754``), ``head_loss`` (``:783``) and
+``loss_fn`` (``:805``). The dense dialects: HF rope scaling (linear, llama3,
+yarn), partial rotary, q/k/v/o and MLP biases (qwen2), and gemma3's sliding
+windows on a per-layer pattern, dual rope, zero-centered and sandwich
+norms, embedding scale, ``query_pre_attn_scalar``, GELU and logit softcap.
+A windowed layer reaches the plain attention through the reference's own
+feature dispatch (``ops/cuda/flash_attention.py``); a full-attention layer
+keeps the flash kernels. PyTorch
 idiom: one ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
 reference stacks layers on a leading axis and scans them). Parameters keep
 the reference's names and its ``[in, out]`` matrix layout, so ``x @ w`` here
@@ -55,41 +63,37 @@ from veomni_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Raise for every configured feature the port does not implement."""
+    """Raise for every configured feature the port does not implement, each
+    naming its item in ROADMAP.md queue 1."""
     moe = cfg.is_moe
     missing = [name for name, on in (
-        (f"MoE scoring_func {cfg.scoring_func!r}", moe and cfg.scoring_func != "softmax"),
-        ("group-limited routing (n_group/topk_group)",
+        (f"MoE scoring_func {cfg.scoring_func!r} (slice B item 1)",
+         moe and cfg.scoring_func != "softmax"),
+        ("group-limited routing, n_group/topk_group (slice B item 1)",
          moe and bool(cfg.n_group and cfg.topk_group and cfg.n_group > 1)),
-        ("shared experts", moe and bool(cfg.n_shared_experts
-                                        or cfg.shared_expert_intermediate_size)),
-        ("first_k_dense_replace", moe and cfg.first_k_dense_replace > 0),
-        ("router_bias", moe and cfg.router_bias),
-        ("gpt_oss routing", moe and cfg.model_type == "gpt_oss"),
-        ("moe_capacity_factor (expert parallelism)", moe and cfg.moe_capacity_factor > 0),
-        ("MLA (kv_lora_rank)", cfg.use_mla),
-        ("DSA indexer (index_topk)", cfg.use_dsa),
-        ("sliding windows (sliding_window/layer_types)",
-         cfg.sliding_window is not None or cfg.layer_types is not None),
-        ("attention sinks", cfg.attention_sinks),
-        ("rope_scaling (incl. mrope/yarn)", cfg.rope_scaling is not None),
-        ("partial rotary", cfg.partial_rotary_factor != 1.0),
-        ("dual rope (rope_local_base_freq)", bool(cfg.rope_local_base_freq)),
-        ("attention/o/mlp biases", cfg.attention_bias or cfg.o_bias or cfg.mlp_bias),
-        (f"hidden_act {cfg.hidden_act!r}", cfg.hidden_act != "silu"),
-        ("gemma dialect (zero-centered/sandwich norms, embed scale, softcap, "
-         "query_pre_attn_scalar)",
-         cfg.norm_zero_centered or cfg.sandwich_norms or bool(cfg.embed_scale)
-         or bool(cfg.final_logit_softcap) or bool(cfg.query_pre_attn_scalar)),
-        ("linear attention / output gate (qwen3_next)",
+        ("shared experts (slice B item 2)", moe and bool(cfg.n_shared_experts
+                                                         or cfg.shared_expert_intermediate_size)),
+        ("first_k_dense_replace (slice B item 3)", moe and cfg.first_k_dense_replace > 0),
+        ("router_bias (slice B item 4)", moe and cfg.router_bias),
+        ("expert biases, mlp_bias on a MoE (slice B item 4)", moe and cfg.mlp_bias),
+        ("gpt_oss routing (slice B item 4)", moe and cfg.model_type == "gpt_oss"),
+        ("moe_capacity_factor, expert parallelism (slice B item 5)",
+         moe and cfg.moe_capacity_factor > 0),
+        ("MLA, kv_lora_rank (slice A item 5)", cfg.use_mla),
+        ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
+        ("attention sinks (slice B item 4, with gpt_oss)", cfg.attention_sinks),
+        ("mrope (slice F)", ops.is_mrope(cfg.rope_scaling)),
+        (f"hidden_act {cfg.hidden_act!r} (slice B item 4)",
+         cfg.hidden_act not in ops.GATED_ACTS),
+        ("linear attention / output gate, qwen3_next (slice F)",
          bool(cfg.linear_num_value_heads) or cfg.attn_output_gate),
-        ("chunk_mbs", bool(cfg.chunk_mbs)),
-        ("ulysses_async_chunks", bool(cfg.ulysses_async_chunks)),
-        (f"remat_policy {cfg.remat_policy!r}",
+        ("chunk_mbs (slice A item 5)", bool(cfg.chunk_mbs)),
+        ("ulysses_async_chunks (slice C)", bool(cfg.ulysses_async_chunks)),
+        (f"remat_policy {cfg.remat_policy!r} (slice A item 5)",
          cfg.remat and cfg.remat_policy not in ("nothing", "ctx")),
     ) if on]
     if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(missing))
 
 
 def route_tokens(x, router, cfg: TransformerConfig):
@@ -162,14 +166,27 @@ class Experts(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """One decoder layer: RMSNorm -> GQA attention with rotary and optional
-    qk-norm -> residual -> RMSNorm -> SwiGLU MLP (dense, or routed experts)
-    -> residual. ``forward`` returns (hidden, router aux loss), the aux loss
-    0 for a dense layer."""
+    """One decoder layer: RMSNorm -> GQA attention with rotary, optional
+    qk-norm, q/k/v/o biases and this layer's sliding window -> (gemma: its
+    post-attention norm) -> residual -> RMSNorm -> gated MLP (dense, or
+    routed experts) -> (gemma: its post-feedforward norm) -> residual.
+    ``forward`` returns (hidden, router aux loss), the aux loss 0 for a dense
+    layer.
 
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    With sandwich norms (gemma3, reference ``:548-556``)
+    ``post_attention_layernorm`` normalises the attention output and
+    ``pre_feedforward_layernorm`` is the MLP's input norm; in llama/qwen
+    ``post_attention_layernorm`` is the MLP's input norm."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device, layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
+        # 0 = full attention; a windowed layer of a dual-rope model (gemma3)
+        # rotates with the local tables
+        self.window = cfg.window_for_layer(layer_idx)
+        self.local_rope = bool(cfg.rope_local_base_freq) and self.window > 0
+        self.scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
+                      else cfg.head_dim ** -0.5)
         h, inter = cfg.hidden_size, cfg.intermediate_size
 
         def p(*shape):
@@ -180,10 +197,19 @@ class DecoderLayer(nn.Module):
         self.k_proj = p(h, cfg.kv_dim)
         self.v_proj = p(h, cfg.kv_dim)
         self.o_proj = p(cfg.q_dim, h)
+        if cfg.attention_bias:
+            self.q_bias = p(cfg.q_dim)
+            self.k_bias = p(cfg.kv_dim)
+            self.v_bias = p(cfg.kv_dim)
+        if cfg.o_bias:
+            self.o_bias = p(h)
         if cfg.qk_norm:
             self.q_norm = p(cfg.head_dim)
             self.k_norm = p(cfg.head_dim)
         self.post_attention_layernorm = p(h)
+        if cfg.sandwich_norms:
+            self.pre_feedforward_layernorm = p(h)
+            self.post_feedforward_layernorm = p(h)
         if cfg.is_moe:
             self.router = p(h, cfg.num_experts)
             self.experts = Experts(cfg, device)
@@ -191,30 +217,50 @@ class DecoderLayer(nn.Module):
             self.gate_proj = p(h, inter)
             self.up_proj = p(h, inter)
             self.down_proj = p(inter, h)
+            if cfg.mlp_bias:
+                self.gate_bias = p(inter)
+                self.up_bias = p(inter)
+                self.down_bias = p(h)
+
+    def _norm(self, x, name: str):
+        cfg = self.cfg
+        return ops.rms_norm(x, getattr(self, name).to(cfg.dtype), cfg.rms_norm_eps,
+                            zero_centered=cfg.norm_zero_centered)
+
+    def _linear(self, x, weight: str, bias: str):
+        """x @ weight (+ bias when the layer has it), in the compute dtype."""
+        dt = self.cfg.dtype
+        out = x @ getattr(self, weight).to(dt)
+        b = getattr(self, bias, None)
+        return out if b is None else out + b.to(dt)
 
     def _qkv(self, hidden, cos, sin):
-        cfg, dt = self.cfg, self.cfg.dtype
+        cfg = self.cfg
         b, s, _ = hidden.shape
-        x = ops.rms_norm(hidden, self.input_layernorm.to(dt), cfg.rms_norm_eps)
-        q = (x @ self.q_proj.to(dt)).view(b, s, cfg.num_attention_heads, cfg.head_dim)
-        k = (x @ self.k_proj.to(dt)).view(b, s, cfg.num_key_value_heads, cfg.head_dim)
-        v = (x @ self.v_proj.to(dt)).view(b, s, cfg.num_key_value_heads, cfg.head_dim)
+        x = self._norm(hidden, "input_layernorm")
+        q = self._linear(x, "q_proj", "q_bias").view(b, s, cfg.num_attention_heads, cfg.head_dim)
+        k = self._linear(x, "k_proj", "k_bias").view(b, s, cfg.num_key_value_heads, cfg.head_dim)
+        v = self._linear(x, "v_proj", "v_bias").view(b, s, cfg.num_key_value_heads, cfg.head_dim)
         if cfg.qk_norm:
-            q = ops.rms_norm(q, self.q_norm.to(dt), cfg.rms_norm_eps)
-            k = ops.rms_norm(k, self.k_norm.to(dt), cfg.rms_norm_eps)
+            q = self._norm(q, "q_norm")
+            k = self._norm(k, "k_norm")
         q, k = ops.apply_rotary(q, k, cos, sin)
         return q, k, v
 
     def _attend(self, q, k, v, segment_ids):
         return ops.attention(q, k, v, segment_ids=segment_ids, causal=True,
-                             softmax_scale=self.cfg.head_dim ** -0.5)
+                             softmax_scale=self.scale, sliding_window=self.window or None)
 
     def mlp_input(self, hidden, attn):
-        """(residual stream after attention, its post-attention RMSNorm)."""
-        cfg, dt = self.cfg, self.cfg.dtype
+        """(residual stream after attention, the MLP's input norm of it)."""
+        cfg = self.cfg
         b, s, _ = hidden.shape
-        hidden = hidden + attn.reshape(b, s, cfg.q_dim) @ self.o_proj.to(dt)
-        return hidden, ops.rms_norm(hidden, self.post_attention_layernorm.to(dt), cfg.rms_norm_eps)
+        out = self._linear(attn.reshape(b, s, cfg.q_dim), "o_proj", "o_bias")
+        if cfg.sandwich_norms:
+            out = self._norm(out, "post_attention_layernorm")
+        hidden = hidden + out
+        pre = "pre_feedforward_layernorm" if cfg.sandwich_norms else "post_attention_layernorm"
+        return hidden, self._norm(hidden, pre)
 
     def _tail(self, hidden, attn):
         cfg, dt = self.cfg, self.cfg.dtype
@@ -222,10 +268,15 @@ class DecoderLayer(nn.Module):
         if cfg.is_moe:
             b, s, h = x.shape
             out, aux = moe_mlp(x.reshape(b * s, h), self.router.to(dt), self.experts, cfg)
-            return hidden + out.view(b, s, h), aux
-        act = ops.swiglu(x @ self.gate_proj.to(dt), x @ self.up_proj.to(dt))
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        return hidden + act @ self.down_proj.to(dt), aux
+            out = out.view(b, s, h)
+        else:
+            act = ops.gated_act(self._linear(x, "gate_proj", "gate_bias"),
+                                self._linear(x, "up_proj", "up_bias"), cfg.hidden_act)
+            out = self._linear(act, "down_proj", "down_bias")
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if cfg.sandwich_norms:
+            out = self._norm(out, "post_feedforward_layernorm")
+        return hidden + out, aux
 
     def _full(self, hidden, cos, sin, segment_ids):
         q, k, v = self._qkv(hidden, cos, sin)
@@ -259,31 +310,57 @@ class Transformer(nn.Module):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=dev))
 
         self.embed_tokens = p(cfg.vocab_size, h)
-        self.layers = nn.ModuleList(DecoderLayer(cfg, dev) for _ in range(cfg.num_hidden_layers))
+        self.layers = nn.ModuleList(DecoderLayer(cfg, dev, i)
+                                    for i in range(cfg.num_hidden_layers))
         self.norm = p(h)
         if not cfg.tie_word_embeddings:
             self.lm_head = p(h, cfg.vocab_size)
         if generator is not None:
             init_params(self, generator)
 
-    def embed_and_rotary(self, input_ids, position_ids):
-        """(token embeddings [B,S,H], rotary cos, sin) in cfg.dtype."""
+    def embed(self, input_ids):
+        """Token embeddings [B,S,H] in cfg.dtype; gemma's ``embed_scale`` is
+        multiplied in the compute dtype, as the reference does (``:630-631``:
+        sqrt(1152) is 34.0 in bf16)."""
         cfg, dt = self.cfg, self.cfg.dtype
         hidden = F.embedding(input_ids, self.embed_tokens.to(dt))
-        cos, sin = ops.rotary_tables(position_ids, cfg.head_dim, cfg.rope_theta,
+        if cfg.embed_scale:
+            hidden = hidden * torch.tensor(cfg.embed_scale, dtype=dt, device=hidden.device)
+        return hidden
+
+    def rotary(self, position_ids):
+        """{False: the global (cos, sin), True: the local ones} in cfg.dtype,
+        [B,S,rope_dim]; the local tables (gemma3's windowed layers,
+        ``rope_local_base_freq``) are the global ones without a dual rope."""
+        cfg, dt = self.cfg, self.cfg.dtype
+        rope_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
+        cos, sin = ops.rotary_tables(position_ids, rope_dim, cfg.rope_theta,
                                      rope_scaling=cfg.rope_scaling)
-        return hidden, cos.to(dt), sin.to(dt)
+        tables = {False: (cos.to(dt), sin.to(dt))}
+        tables[True] = tables[False]
+        if cfg.rope_local_base_freq:
+            cos, sin = ops.rotary_tables(position_ids, rope_dim, cfg.rope_local_base_freq)
+            tables[True] = (cos.to(dt), sin.to(dt))
+        return tables
+
+    def embed_and_rotary(self, input_ids, position_ids):
+        """(token embeddings [B,S,H], the global rotary cos, sin) in cfg.dtype."""
+        return (self.embed(input_ids), *self.rotary(position_ids)[False])
 
     def forward_hidden(self, input_ids, position_ids, segment_ids=None):
         """[B,S] ids/positions/segments -> (final hidden [B,S,H] in cfg.dtype,
-        router aux loss summed over the layers)."""
+        router aux loss summed over the layers). Each layer attends with its
+        own window and rope (``:641-668``): a full-attention layer keeps the
+        ``cuda_flash`` kernels, a windowed one takes the plain attention."""
         cfg, dt = self.cfg, self.cfg.dtype
-        hidden, cos, sin = self.embed_and_rotary(input_ids, position_ids)
+        hidden = self.embed(input_ids)
+        tables = self.rotary(position_ids)
         aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for layer in self.layers:
-            hidden, aux = layer(hidden, cos, sin, segment_ids)
+            hidden, aux = layer(hidden, *tables[layer.local_rope], segment_ids)
             aux_total = aux_total + aux
-        return ops.rms_norm(hidden, self.norm.to(dt), cfg.rms_norm_eps), aux_total
+        return ops.rms_norm(hidden, self.norm.to(dt), cfg.rms_norm_eps,
+                            zero_centered=cfg.norm_zero_centered), aux_total
 
     def lm_head_kernel(self) -> torch.Tensor:
         """[H, V] head matrix (tied: the embedding transposed)."""
@@ -291,16 +368,28 @@ class Transformer(nn.Module):
             return self.embed_tokens.t()
         return self.lm_head
 
+    def forward_logits(self, input_ids, position_ids, segment_ids=None):
+        """f32 logits [B,S,V] from compute-dtype operands, with the final
+        softcap (``:754-760``)."""
+        cfg = self.cfg
+        hidden, _ = self.forward_hidden(input_ids, position_ids, segment_ids)
+        logits = hidden.float() @ self.lm_head_kernel().to(cfg.dtype).float()
+        if cfg.final_logit_softcap:
+            logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
+        return logits
+
     def head_loss(self, hidden, labels, moe_aux) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """lm-head + chunked CE in token-sum space, plus the router aux loss
-        scaled by the token count so both terms normalize alike (``:783-802``).
+        """lm-head + chunked CE in token-sum space (softcapped logits where
+        the config caps them), plus the router aux loss scaled by the token
+        count so both terms normalize alike (``:783-802``).
         ``moe_dropped_frac`` is 0: the single-device MoE is dropless (the
         reference drops assignments only under expert parallelism)."""
         cfg = self.cfg
         b, s, h = hidden.shape
         kernel = self.lm_head_kernel().to(cfg.dtype)
         loss_sum, ntokens = ops.fused_linear_cross_entropy(
-            hidden.reshape(b * s, h), kernel, labels.reshape(b * s)
+            hidden.reshape(b * s, h), kernel, labels.reshape(b * s),
+            logit_softcap=cfg.final_logit_softcap or None,
         )
         metrics = {"loss_sum": loss_sum, "ntokens": ntokens, "moe_aux_loss": moe_aux,
                    "moe_dropped_frac": torch.zeros_like(moe_aux)}
@@ -323,13 +412,16 @@ class Transformer(nn.Module):
 @torch.no_grad()
 def init_params(model: Transformer, generator: torch.Generator) -> None:
     """Random init with the reference's scheme (``init_params``, ``:183``):
-    norms at 1, matrices ~ N(0, initializer_range). The numbers differ from
-    JAX's for the same seed; parity tests carry weights across instead
+    norms at 1 (zero-centered ones too, as there), biases at 0, matrices ~
+    N(0, initializer_range). The numbers differ from JAX's for the same
+    seed; parity tests carry weights across instead
     (``models/jax_weights.py``)."""
     std = model.cfg.initializer_range
     for name, param in model.named_parameters():
         if name.endswith("norm"):
             param.fill_(1.0)
+        elif name.endswith("_bias"):
+            param.zero_()
         else:
             noise = torch.randn(param.shape, generator=generator, dtype=torch.float32,
                                 device=param.device)

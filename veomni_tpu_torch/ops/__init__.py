@@ -22,7 +22,10 @@ from veomni_tpu_torch.ops.cuda import grouped_gemm as _gmm  # noqa: F401  (regis
 rms_norm = _rms_norm.rms_norm
 apply_rotary = _rotary.apply_rotary
 rotary_tables = _rotary.rotary_tables
+is_mrope = _rotary.is_mrope
 swiglu = _swiglu.swiglu
+gated_act = _swiglu.gated_act
+GATED_ACTS = _swiglu.GATED_ACTS
 attention = _attention.attention
 fused_linear_cross_entropy = _cross_entropy.fused_linear_cross_entropy
 load_balancing_loss = _load_balancing.load_balancing_loss
@@ -43,7 +46,10 @@ __all__ = [
     "rms_norm",
     "apply_rotary",
     "rotary_tables",
+    "is_mrope",
     "swiglu",
+    "gated_act",
+    "GATED_ACTS",
     "attention",
     "fused_linear_cross_entropy",
     "load_balancing_loss",

@@ -1,11 +1,13 @@
 """Attention facade with packing (segment-id) support.
 
 Port of ``veomni_tpu/ops/attention.py``: the plain impls ``_attention_dense``
-and ``_attention_xla`` (registered as ``attention``/``xla``, the name the
-reference uses) and the ``attention()`` facade without the sequence-parallel
-branch (the parallel layer is a later slice). ``xla_twopass`` is TPU-only in
-the reference and has no port; ``xla_chunked`` is not ported yet, so
-``_attention_xla`` always takes the dense path.
+(``:327``) and ``_attention_xla`` (registered as ``attention``/``xla``, the
+name the reference uses, ``:305``), the blockwise ``_attention_xla_chunked``
+(``attention``/``xla_chunked``, ``:65``) that ``_attention_xla`` switches to
+above ``VEOMNI_ATTN_CHUNK_THRESHOLD`` tokens, and the ``attention()`` facade
+without the sequence-parallel branch (the parallel layer is a later slice).
+``xla_twopass`` is registered for TPUs only in the reference and has no
+port. Every impl takes a causal sliding window and per-head sink logits.
 
 Layouts: q [B, S, Hq, D]; k/v [B, S, Hkv, D]; segment_ids [B, S] int32.
 Returns [B, S, Hq, D].
@@ -16,8 +18,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, resolve_op
+from veomni_tpu_torch.utils.env import get_env
 
 _NEG = -1e30
 
@@ -38,45 +42,109 @@ def _normalize_mask_mod(mm):
     return mm
 
 
-def _attention_dense(
+def _in_window(qpos, kpos, sliding_window):
+    """Keys less than ``sliding_window`` positions behind the query; a
+    window <= 0 is full attention (``:360-363``)."""
+    if sliding_window <= 0:
+        return torch.ones_like(qpos >= kpos)
+    return qpos - kpos < sliding_window
+
+
+def _best_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (the chunked block size)."""
+    best = 1
+    for c in range(1, min(n, target) + 1):
+        if n % c == 0:
+            best = c
+    return best
+
+
+def _kv_block(acc, m, l, qi, kj, vj, mask, scale: float):
+    """One (q block, kv block) step of the online softmax (``kv_block``,
+    ``:110-138``): acc [B,H,Cq,D], m/l [B,H,Cq] f32; mask [B,H,Cq,Ck]."""
+    s_blk = torch.einsum("bhqd,bhkd->bhqk", qi.float(), kj.float()) * scale
+    s_blk = torch.where(mask, s_blk, torch.full_like(s_blk, _NEG))
+    m_new = torch.maximum(m, s_blk.amax(-1))
+    p = torch.where(mask, torch.exp(s_blk - m_new[..., None]), torch.zeros_like(s_blk))
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    acc = acc * alpha[..., None] + torch.einsum(
+        "bhqk,bhkd->bhqd", p.to(qi.dtype).float(), vj.float())
+    return acc, m_new, l
+
+
+@KERNEL_REGISTRY.register("attention", "xla_chunked")
+def _attention_xla_chunked(
     q,
     k,
     v,
     segment_ids: Optional[torch.Tensor] = None,
     causal: bool = True,
     softmax_scale: Optional[float] = None,
+    sliding_window=None,
+    sinks: Optional[torch.Tensor] = None,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
     mask_mod=None,
 ):
-    """Materialized [B,H,Sq,Sk] f32 scores (``attention.py:327``).
-    ``mask_mod(q_idx, k_idx) -> bool`` (broadcastable position grids)
-    composes with the causal and segment masks. A row with every key masked
-    out emits 0 (``attention.py:380-383``)."""
-    _, sq, hq, d = q.shape
+    """Blockwise online-softmax attention in plain torch (``:65-180``):
+    O(S * chunk) live memory instead of the dense impl's [B, H, S, S] f32
+    scores. Blocks wholly above the causal diagonal are skipped, and each
+    block step runs under ``torch.utils.checkpoint`` when autograd records,
+    so the backward recomputes block scores as a flash backward does."""
+    b, sq, hq, d = q.shape
     sk = k.shape[1]
+    cq = _best_chunk(sq, q_chunk)
+    ck = _best_chunk(sk, k_chunk)
+    if cq < 128 or ck < 128:
+        # pathological (prime-ish) lengths: blockwise gains nothing
+        return _attention_dense(q, k, v, segment_ids, causal, softmax_scale,
+                                sliding_window, sinks, mask_mod=mask_mod)
     n_rep = hq // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = None
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None]
-        ki = torch.arange(sk, device=q.device)[None, :]
-        mask = (qi >= ki)[None, None]
+    nq, nk = sq // cq, sk // ck
+    # [B,H,n,C,D] block layout
+    qt = q.transpose(1, 2).reshape(b, hq, nq, cq, d)
+    kt = k.transpose(1, 2).reshape(b, hq, nk, ck, d)
+    vt = v.transpose(1, 2).reshape(b, hq, nk, ck, d)
+    seg_q = seg_k = None
     if segment_ids is not None:
-        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]  # [B,1,q,k]
-        mask = seg if mask is None else (mask & seg)
-    if mask_mod is not None:
-        pos_q = torch.arange(sq, device=q.device)[:, None]
-        pos_k = torch.arange(sk, device=q.device)[None, :]
-        mm = _normalize_mask_mod(mask_mod(pos_q, pos_k))
-        mask = mm if mask is None else (mask & mm)
-    if mask is not None:
-        scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    if mask is not None:
-        probs = torch.where(mask.any(-1, keepdim=True), probs, torch.zeros_like(probs))
-    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
+        seg_q = segment_ids.reshape(b, nq, cq)
+        seg_k = segment_ids.reshape(b, nk, ck)
+    recompute = torch.is_grad_enabled()
+    out_blocks = []
+    for i in range(nq):
+        qi = qt[:, :, i]
+        acc = torch.zeros((b, hq, cq, d), dtype=torch.float32, device=q.device)
+        m = torch.full((b, hq, cq), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hq, cq), dtype=torch.float32, device=q.device)
+        qpos = i * cq + torch.arange(cq, device=q.device)[:, None]
+        for j in range(nk):
+            if causal and j * ck > i * cq + cq - 1:
+                continue  # the whole block lies above the diagonal
+            kpos = j * ck + torch.arange(ck, device=q.device)[None, :]
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask = qpos >= kpos
+                if sliding_window is not None:
+                    mask = mask & _in_window(qpos, kpos, sliding_window)
+            mask = mask[None, None].expand(b, hq, cq, ck)
+            if seg_q is not None:
+                mask = mask & (seg_q[:, i][:, None, :, None] == seg_k[:, j][:, None, None, :])
+            if mask_mod is not None:
+                mask = mask & _normalize_mask_mod(mask_mod(qpos, kpos))
+            args = (acc, m, l, qi, kt[:, :, j], vt[:, :, j], mask, scale)
+            if recompute:
+                acc, m, l = checkpoint(_kv_block, *args, use_reentrant=False)
+            else:
+                acc, m, l = _kv_block(*args)
+        if sinks is not None:
+            l = l + torch.exp(sinks.float()[None, :, None] - m)
+        out_blocks.append((acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype))
+    # nq x [B,H,Cq,D] -> [B,S,H,D]
+    return torch.cat(out_blocks, dim=2).transpose(1, 2)
 
 
 @KERNEL_REGISTRY.register("attention", "xla", priority=1)
@@ -89,13 +157,66 @@ def _attention_xla(
     softmax_scale: Optional[float] = None,
     sliding_window=None,
     sinks: Optional[torch.Tensor] = None,
+    mask_mod=None,
 ):
-    """Plain attention (``attention.py:305``). The reference switches to its
-    blockwise ``xla_chunked`` form above ``VEOMNI_ATTN_CHUNK_THRESHOLD``;
-    that memory optimisation is not ported, so this is always dense."""
-    if sliding_window is not None or sinks is not None:
-        raise NotImplementedError("sliding windows and attention sinks are not ported yet")
-    return _attention_dense(q, k, v, segment_ids, causal, softmax_scale)
+    """Plain attention (``:305-325``): dense up to
+    ``VEOMNI_ATTN_CHUNK_THRESHOLD`` query tokens, blockwise above."""
+    if q.shape[1] > int(get_env("VEOMNI_ATTN_CHUNK_THRESHOLD")):
+        return _attention_xla_chunked(q, k, v, segment_ids, causal, softmax_scale,
+                                      sliding_window, sinks, mask_mod=mask_mod)
+    return _attention_dense(q, k, v, segment_ids, causal, softmax_scale, sliding_window,
+                            sinks, mask_mod=mask_mod)
+
+
+def _attention_dense(
+    q,
+    k,
+    v,
+    segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    softmax_scale: Optional[float] = None,
+    sliding_window=None,
+    sinks: Optional[torch.Tensor] = None,
+    mask_mod=None,
+):
+    """Materialized [B,H,Sq,Sk] f32 scores (``:327-385``).
+    ``mask_mod(q_idx, k_idx) -> bool`` (broadcastable position grids)
+    composes with the causal, window and segment masks. ``sinks`` [Hq] are
+    per-head logits that join the softmax denominator only. Without sinks a
+    row with every key masked out emits 0 (``:380-383``)."""
+    b, sq, hq, d = q.shape
+    sk = k.shape[1]
+    n_rep = hq // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = None
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None]
+        ki = torch.arange(sk, device=q.device)[None, :]
+        mask = qi >= ki
+        if sliding_window is not None:
+            mask = mask & _in_window(qi, ki, sliding_window)
+        mask = mask[None, None]
+    if segment_ids is not None:
+        seg = (segment_ids[:, :, None] == segment_ids[:, None, :])[:, None]  # [B,1,q,k]
+        mask = seg if mask is None else (mask & seg)
+    if mask_mod is not None:
+        pos_q = torch.arange(sq, device=q.device)[:, None]
+        pos_k = torch.arange(sk, device=q.device)[None, :]
+        mm = _normalize_mask_mod(mask_mod(pos_q, pos_k))
+        mask = mm if mask is None else (mask & mm)
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, _NEG))
+    if sinks is not None:
+        sink = sinks.float()[None, :, None, None].expand(b, hq, sq, 1)
+        probs = torch.softmax(torch.cat([scores, sink], dim=-1), dim=-1)[..., :sk].to(q.dtype)
+    else:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        if mask is not None:
+            probs = torch.where(mask.any(-1, keepdim=True), probs, torch.zeros_like(probs))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(q.dtype)
 
 
 def attention(

@@ -14,12 +14,15 @@ the reference's to f32 rounding of the accumulation order. The chunked
 product stays ``torch.matmul``: the reference leaves it to XLA outside any
 Pallas kernel.
 
+``logit_softcap`` (gemma's ``final_logit_softcapping``) squashes the f32
+logits to ``cap * tanh(logits / cap)`` before the softmax (``:29-30``).
+
 Returns (loss_sum, valid_token_count); labels use -100 as ignore index.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -29,8 +32,10 @@ from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, resolve_op
 IGNORE_INDEX = -100
 
 
-def _chunk_ce(h, lab, kernel_f32):
+def _chunk_ce(h, lab, kernel_f32, logit_softcap: Optional[float] = None):
     logits = h.float() @ kernel_f32  # [C, V] f32
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
     valid = lab != IGNORE_INDEX
     lab_safe = torch.where(valid, lab, torch.zeros_like(lab))
     logz = torch.logsumexp(logits, dim=-1)
@@ -41,7 +46,7 @@ def _chunk_ce(h, lab, kernel_f32):
 
 @KERNEL_REGISTRY.register("fused_linear_cross_entropy", "xla_chunked", priority=1)
 def _flce_chunked(
-    hidden, kernel, labels, *, chunk_size: int = 4096
+    hidden, kernel, labels, *, chunk_size: int = 4096, logit_softcap: Optional[float] = None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden [T,H], kernel [H,V], labels [T] -> (loss_sum f32, ntokens int)."""
     kernel_f32 = kernel.float()
@@ -51,9 +56,10 @@ def _flce_chunked(
         h = hidden[lo:lo + chunk_size]
         lab = labels[lo:lo + chunk_size]
         if torch.is_grad_enabled():
-            nll, n = checkpoint(_chunk_ce, h, lab, kernel_f32, use_reentrant=False)
+            nll, n = checkpoint(_chunk_ce, h, lab, kernel_f32, logit_softcap,
+                                use_reentrant=False)
         else:
-            nll, n = _chunk_ce(h, lab, kernel_f32)
+            nll, n = _chunk_ce(h, lab, kernel_f32, logit_softcap)
         loss_sum = loss_sum + nll
         ntokens = ntokens + n
     return loss_sum, ntokens

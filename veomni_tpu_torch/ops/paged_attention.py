@@ -34,13 +34,22 @@ def cache_attend(q, k_cache, v_cache, valid_mask, *, num_rep: int = 1, scale: fl
     """q [B,T,hq,d] against a cache [B,M,hkv,d]; valid_mask [B,T,M] bool
     (broadcastable over B/T). ``sinks`` [hq] are learned attention-sink
     logits folded into the softmax denominator. Returns [B,T,hq,d] in q's
-    dtype."""
+    dtype.
+
+    A row with no valid key emits 0, as ``ops/attention.py::_attention_dense``
+    does, where the reference's exp(-inf - -inf) emits NaN. Only padding
+    rows reach it: a padded row of a prefill chunk whose sliding window ends
+    before the gathered context begins (bucket > window). Its NaN would be
+    written into the null block's K/V, and from there reach real rows as 0 *
+    NaN through their masked keys (ROADMAP.md queue 3). Every row with a
+    valid key computes exactly what the reference computes."""
     b, t, hq, d = q.shape
     hkv = k_cache.shape[2]
     qg = q.float().view(b, t, hkv, num_rep, d)
     s = torch.einsum("btgrd,bmgd->bgrtm", qg, k_cache.float()).reshape(b, hq, t, -1) * scale
     s = s.masked_fill(~valid_mask[:, None], float("-inf"))
     m = s.amax(-1, keepdim=True)
+    m = m.masked_fill(m == float("-inf"), 0.0)  # rows with no valid key
     if sinks is not None:
         sink = sinks.float()[None, :, None, None]
         m = torch.maximum(m, sink)
@@ -50,6 +59,7 @@ def cache_attend(q, k_cache, v_cache, valid_mask, *, num_rep: int = 1, scale: fl
         denom = denom + torch.exp(sink[..., 0] - m[..., 0])
     pg = p.to(q.dtype).float().view(b, hkv, num_rep, t, -1)
     o = torch.einsum("bgrtm,bmgd->btgrd", pg, v_cache.float()).reshape(b, t, hq, d)
+    denom = denom.masked_fill(denom == 0, 1.0)
     return (o / denom.transpose(1, 2)[..., None]).to(q.dtype)
 
 

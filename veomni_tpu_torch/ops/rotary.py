@@ -1,23 +1,111 @@
 """Rotary position embeddings (port of ``veomni_tpu/ops/rotary.py``):
-llama-style half rotation driven by position ids. Only the unscaled tables
-(``rope_scaling=None``) are ported; scaled variants raise."""
+llama-style half rotation driven by position ids, with HF ``rope_scaling``
+(``linear``, ``llama3``, ``yarn``; ``default``/``dynamic`` keep the base
+frequencies). ``mrope`` (the qwen-vl position streams) raises: it comes with
+the VLM models of slice F (ROADMAP.md queue 1). Partial rotary is the
+caller's: it asks for tables of ``rope_dim < head_dim``.
+
+The inverse frequencies are f32 and computed in the reference's order of
+operations: at position 4096 and theta 5e5 another order already shows at
+bf16 in the tables."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, resolve_op
 
 
+def _rope_type(rope_scaling) -> str:
+    return rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
+
+
+def is_mrope(rope_scaling) -> bool:
+    rs = rope_scaling or {}
+    return "mrope" in str(_rope_type(rs)) or bool(rs.get("mrope_section"))
+
+
+def yarn_get_mscale(factor: float, mscale: float = 1.0) -> float:
+    if factor <= 1.0:
+        return 1.0
+    return 0.1 * mscale * math.log(factor) + 1.0
+
+
+def _scale_inv_freq(inv_freq, rope_scaling, head_dim: int, theta: float):
+    """HF rope_scaling applied to the base frequencies (``rotary.py:24-70``).
+    Returns (inv_freq, attention-scale multiplier)."""
+    if not rope_scaling:
+        return inv_freq, 1.0
+    rtype = _rope_type(rope_scaling)
+    factor = float(rope_scaling.get("factor", 1.0))
+    if rtype == "linear":
+        return inv_freq / factor, 1.0
+    if rtype == "llama3":
+        low = float(rope_scaling.get("low_freq_factor", 1.0))
+        high = float(rope_scaling.get("high_freq_factor", 4.0))
+        orig = float(rope_scaling.get("original_max_position_embeddings", 8192))
+        wavelen = 2 * math.pi / inv_freq
+        # long wavelengths fully scaled, short ones untouched, a ramp between
+        smooth = torch.clamp((orig / wavelen - low) / (high - low), 0.0, 1.0)
+        scaled = inv_freq / factor
+        return (1 - smooth) * scaled + smooth * inv_freq, 1.0
+    if rtype == "yarn":
+        orig = float(rope_scaling.get("original_max_position_embeddings", 4096))
+        beta_fast = float(rope_scaling.get("beta_fast", 32))
+        beta_slow = float(rope_scaling.get("beta_slow", 1))
+
+        def correction_dim(num_rot):
+            return (head_dim / 2) * math.log(orig / (num_rot * 2 * math.pi)) / math.log(theta)
+
+        low = max(math.floor(correction_dim(beta_fast)), 0)
+        high = min(math.ceil(correction_dim(beta_slow)), head_dim // 2 - 1)
+        idx = torch.arange(head_dim // 2, dtype=torch.float32, device=inv_freq.device)
+        ramp = torch.clamp((idx - low) / max(high - low, 1e-3), 0.0, 1.0)
+        extrap_mask = 1.0 - ramp  # 1 where high-frequency (keep the base)
+        inv = inv_freq / factor * (1 - extrap_mask) + inv_freq * extrap_mask
+        return inv, yarn_attention_factor(rope_scaling, head_dim)
+    if rtype in ("default", "dynamic"):
+        return inv_freq, 1.0
+    if is_mrope(rope_scaling):
+        raise NotImplementedError(
+            "mrope is not ported yet (ROADMAP.md queue 1, slice F: the VLM models)")
+    raise ValueError(f"unsupported rope_scaling type {rtype!r}")
+
+
+def yarn_attention_factor(rope_scaling, head_dim: int) -> float:
+    """Softmax-scale multiplier for yarn (the deepseek mscale^2 correction)."""
+    if not rope_scaling or _rope_type(rope_scaling) != "yarn":
+        return 1.0
+    factor = float(rope_scaling.get("factor", 1.0))
+    mscale_all_dim = float(rope_scaling.get("mscale_all_dim", 0.0))
+    if not mscale_all_dim:
+        return 1.0
+    return yarn_get_mscale(factor, mscale_all_dim) ** 2
+
+
 def rotary_tables(positions, head_dim: int, theta: float = 10000.0, rope_scaling=None):
-    """positions [B,S] int -> (cos, sin) each [B,S,head_dim] f32."""
-    if rope_scaling:
-        raise NotImplementedError(f"rope_scaling {rope_scaling!r} is not ported yet")
+    """positions [B,S] int -> (cos, sin) each [B,S,head_dim] f32; yarn
+    scales both by its mscale ratio (``rotary.py:141-148``)."""
+    if is_mrope(rope_scaling):
+        raise NotImplementedError(
+            "mrope is not ported yet (ROADMAP.md queue 1, slice F: the VLM models)")
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     inv_freq = 1.0 / (theta ** exponent)
+    inv_freq, _ = _scale_inv_freq(inv_freq, rope_scaling, head_dim, theta)
     ang = positions.float()[..., None] * inv_freq  # [B,S,D/2]
     ang = torch.cat([ang, ang], dim=-1)
-    return torch.cos(ang), torch.sin(ang)
+    scale = 1.0
+    if rope_scaling and _rope_type(rope_scaling) == "yarn":
+        factor = float(rope_scaling.get("factor", 1.0))
+        mscale = float(rope_scaling.get("mscale", 1.0))
+        mscale_all = float(rope_scaling.get("mscale_all_dim", 0.0))
+        if mscale_all:
+            scale = yarn_get_mscale(factor, mscale) / yarn_get_mscale(factor, mscale_all)
+        else:
+            scale = yarn_get_mscale(factor, 1.0)
+    return torch.cos(ang) * scale, torch.sin(ang) * scale
 
 
 def _rotate_half(x):
@@ -38,4 +126,11 @@ def _apply_rotary_plain(q, k, cos, sin):
 
 
 def apply_rotary(q, k, cos, sin):
+    """Rotate q and k by the tables; tables narrower than the head (partial
+    rotary) rotate its leading dims and pass the rest through
+    (``transformer.py:390-395``)."""
+    rot = cos.shape[-1]
+    if rot < q.shape[-1]:
+        q_r, k_r = resolve_op("rotary", q.device)(q[..., :rot], k[..., :rot], cos, sin)
+        return (torch.cat([q_r, q[..., rot:]], dim=-1), torch.cat([k_r, k[..., rot:]], dim=-1))
     return resolve_op("rotary", q.device)(q, k, cos, sin)

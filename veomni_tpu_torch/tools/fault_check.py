@@ -178,8 +178,8 @@ FAULTS = (
     # (prefill and verify as they are)
     Fault("serve-rope", "paged_decode_step ropes at position + 1",
           DECODE_SOURCE,
-          "    positions = positions[:, None]\n    cos, sin = _rope_tables(cfg, positions)\n",
-          "    positions = positions[:, None]\n    cos, sin = _rope_tables(cfg, positions + 1)\n",
+          "    positions = positions[:, None]\n    tables = _rope_tables(cfg, positions)\n",
+          "    positions = positions[:, None]\n    tables = _rope_tables(cfg, positions + 1)\n",
           "serve dense leg", "re-score gate", ("--phases", "serve_dense")),
     # a function the contiguous prefill shares with the paged steps: every
     # rotary table of the decode module is built at the default theta 10000
@@ -188,8 +188,8 @@ FAULTS = (
     Fault("serve-rope-theta", "_rope_tables builds its tables at theta 10000 (the decode "
                               "module's every step)",
           DECODE_SOURCE,
-          "    cos, sin = ops.rotary_tables(positions, cfg.head_dim, cfg.rope_theta,\n",
-          "    cos, sin = ops.rotary_tables(positions, cfg.head_dim, 10000.0,\n",
+          "    cos, sin = ops.rotary_tables(positions, rope_dim, cfg.rope_theta,\n",
+          "    cos, sin = ops.rotary_tables(positions, rope_dim, 10000.0,\n",
           "serve dense leg (a): re-score gate:", "serve dense leg (a): re-score gate",
           ("--phases", "serve_dense")),
     # the radix match claims the next block of a sibling path where the

@@ -90,6 +90,100 @@ HF_CONFIGS = {
         "use_cache": True,
         "vocab_size": 32000,
     },
+    # huggingface.co/google/gemma-3-1b-pt/config.json, with ``layer_types``
+    # written out (five sliding, one full; full at layers 5, 11, 17, 23) as
+    # transformers >= 4.53 saves it: the file on the hub names only
+    # ``sliding_window_pattern`` 6, which the reference's
+    # ``TransformerConfig.window_for_layer`` does not read (it would window
+    # every layer; ROADMAP.md queue 3)
+    "gemma3_1b": {
+        "architectures": ["Gemma3ForCausalLM"],
+        "attention_bias": False,
+        "attention_dropout": 0.0,
+        "attn_logit_softcapping": None,
+        "bos_token_id": 2,
+        "cache_implementation": "hybrid",
+        "eos_token_id": 1,
+        "final_logit_softcapping": None,
+        "head_dim": 256,
+        "hidden_activation": "gelu_pytorch_tanh",
+        "hidden_size": 1152,
+        "initializer_range": 0.02,
+        "intermediate_size": 6912,
+        "layer_types": ["full_attention" if (i + 1) % 6 == 0 else "sliding_attention"
+                        for i in range(26)],
+        "max_position_embeddings": 32768,
+        "model_type": "gemma3_text",
+        "num_attention_heads": 4,
+        "num_hidden_layers": 26,
+        "num_key_value_heads": 1,
+        "pad_token_id": 0,
+        "query_pre_attn_scalar": 256,
+        "rms_norm_eps": 1e-06,
+        "rope_local_base_freq": 10000,
+        "rope_scaling": None,
+        "rope_theta": 1000000,
+        "sliding_window": 512,
+        "sliding_window_pattern": 6,
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "vocab_size": 262144,
+    },
+    # huggingface.co/meta-llama/Llama-3.2-1B/config.json
+    "llama3p2_1b": {
+        "architectures": ["LlamaForCausalLM"],
+        "attention_bias": False,
+        "attention_dropout": 0.0,
+        "bos_token_id": 128000,
+        "eos_token_id": 128001,
+        "head_dim": 64,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "initializer_range": 0.02,
+        "intermediate_size": 8192,
+        "max_position_embeddings": 131072,
+        "mlp_bias": False,
+        "model_type": "llama",
+        "num_attention_heads": 32,
+        "num_hidden_layers": 16,
+        "num_key_value_heads": 8,
+        "pretraining_tp": 1,
+        "rms_norm_eps": 1e-05,
+        "rope_scaling": {"factor": 32.0, "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                         "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+        "rope_theta": 500000.0,
+        "tie_word_embeddings": True,
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "vocab_size": 128256,
+    },
+    # huggingface.co/Qwen/Qwen2.5-1.5B/config.json (q/k/v biases: the qwen2
+    # dialect; its sliding_window is off, use_sliding_window false)
+    "qwen2p5_1p5b": {
+        "architectures": ["Qwen2ForCausalLM"],
+        "attention_dropout": 0.0,
+        "bos_token_id": 151643,
+        "eos_token_id": 151643,
+        "hidden_act": "silu",
+        "hidden_size": 1536,
+        "initializer_range": 0.02,
+        "intermediate_size": 8960,
+        "max_position_embeddings": 131072,
+        "max_window_layers": 28,
+        "model_type": "qwen2",
+        "num_attention_heads": 12,
+        "num_hidden_layers": 28,
+        "num_key_value_heads": 2,
+        "rms_norm_eps": 1e-06,
+        "rope_theta": 1000000.0,
+        "sliding_window": 131072,
+        "tie_word_embeddings": True,
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "use_mrope": False,
+        "use_sliding_window": False,
+        "vocab_size": 151936,
+    },
 }
 
 

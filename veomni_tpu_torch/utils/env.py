@@ -16,6 +16,10 @@ ENV_DEFAULTS: Dict[str, Any] = {
     # Force all kernel-registry ops to the eager "xla"-named plain torch impl
     # (skip the CUDA kernels). An explicit request, never a failure fallback.
     "VEOMNI_FORCE_EAGER_OPS": "0",
+    # Seq length above which the plain attention switches to its blockwise
+    # online-softmax form (``ops/attention.py::_attention_xla_chunked``)
+    # instead of materializing the [B, H, S, S] score tensor.
+    "VEOMNI_ATTN_CHUNK_THRESHOLD": "2048",
 }
 
 
