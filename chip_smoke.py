@@ -113,13 +113,35 @@ Phases (any failure exits non-zero and prints no result line):
    512-token prefix), so its 512-token windows bite, under the same gate;
 14. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
    every MoE layer of every pass, then K4 alone at the engine's decode and
-   prefill-chunk shapes.
+   prefill-chunk shapes;
+15. the deepseek MoE dialect (run after the dense dialects of 11): first
+   ``route_tokens`` at DeepSeek-V3's router width (4096 tokens, hidden
+   7168, 256 experts in 8 groups, top-4 groups, top-8, sigmoid with a
+   nonzero correction bias) on the card against the same call on the CPU
+   and against chip_smoke's own routing; then Moonlight-16B-A3B at its
+   published widths (the config.json of ``train_text_step.HF_CONFIGS``),
+   depth cut to 4 of 27 layers (the leading dense layer and 3 MoE layers,
+   ~2.5 B parameters), as random bf16 weights from seed 0 with router
+   correction biases drawn nonzero, written to an HF directory: its
+   parameter count against the one counted here from the config, its first
+   MoE layer (MLA q/k, the MLA block, the MoE block) held token by token to
+   chip_smoke's own f32 layer, then ``TextTrainer`` at seq 4096 x
+   micro-batch 2 for 4 steps with its HF export read back bit-equal: K4
+   launches 6 times, K5 and K6 3 times, per MoE layer and step, K1-K3
+   never (MLA's v head dim is not q's: one ``FALLBACK_CALLS`` per layer and
+   step), and the step-1 loss, grad norm and router aux loss equal the same
+   step's with the plain ragged grouped GEMM pinned; then K4-K6 held and
+   timed at its expert widths (K/N 2048/1408 and 1408/2048) on its layer
+   1's routing of a packed batch (M = 49152); then DeepSeek-V2-Lite
+   (softmax greedy routing without renorm, yarn rope with its mscale on the
+   softmax scale) the same way at 2 layers for 3 steps.
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
 first) and prints no result line; ``--phases
 hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
-(11 and 13) alone.
+(11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
+deepseek ones (15).
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -1463,7 +1485,9 @@ DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
 
 
 def random_model(dev, cfg, seed: int = 0):
-    """The port's random init from ``seed``, with zero-centered norm weights
+    """The port's random init from ``seed``, with router correction biases
+    drawn from N(0, CORRECTION_BIAS_STD) (the init's 0 would let noaux-tc
+    pick by score order alone), and zero-centered norm weights
     at 0, as HF initialises Gemma3's norms (a gain of 1). The reference's
     init puts every norm weight at 1 (``init_params``), a gain of 2 under a
     zero-centered norm at each of Gemma's four norms a layer: the random
@@ -1473,25 +1497,32 @@ def random_model(dev, cfg, seed: int = 0):
     from veomni_tpu_torch.models import Transformer
 
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
-    if cfg.norm_zero_centered:
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith("norm"):
-                    p.zero_()
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if cfg.norm_zero_centered and name.endswith("norm"):
+                p.zero_()
+            elif name.endswith("e_score_correction_bias"):  # noaux-tc: off the score order
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * CORRECTION_BIAS_STD)
     return model
 
 
-def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool) -> str:
+def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool,
+                      layers=None, micro_bs: int = DIALECT_MICRO_BS) -> str:
     """A run's inputs under ``tmp``: the HF directory (random bf16 weights
     from seed 0 by ``random_model``, written by the port's
-    save_hf_checkpoint, then the published config.json), a pretokenized corpus (documents of S/16-S/2 tokens,
-    256-2048 at S 4096, uniform over the model's vocabulary, seed 0) and
-    the YAML; returns the YAML's path."""
+    save_hf_checkpoint, then the published config.json, with
+    ``num_hidden_layers`` set to ``layers`` where the depth is cut), a
+    pretokenized corpus (documents of S/16-S/2 tokens, 256-2048 at S 4096,
+    uniform over the model's vocabulary, seed 0) and the YAML; returns the
+    YAML's path."""
     from veomni_tpu_torch.models import TransformerConfig
     from veomni_tpu_torch.models.hf_io import save_hf_checkpoint
     from veomni_tpu_torch.train_text_step import HF_CONFIGS
 
-    published = HF_CONFIGS[preset]
+    published = dict(HF_CONFIGS[preset])
+    if layers is not None:
+        published["num_hidden_layers"] = layers
     cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
     hf_dir = os.path.join(tmp, "hf")
     written = random_model(dev, cfg)
@@ -1505,15 +1536,32 @@ def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool) -> 
     # the loader offers 8 documents a row to the packing collator, a
     # micro-batch at a time: enough for every step's offer, in one epoch
     with open(data, "w") as f:
-        for _ in range(8 * DIALECT_MICRO_BS * (steps + 2)):
+        for _ in range(8 * micro_bs * (steps + 2)):
             n = int(rng.integers(DIALECT_SEQ // 16, DIALECT_SEQ // 2 + 1))
             f.write(json.dumps({"input_ids": rng.integers(0, cfg.vocab_size, n).tolist()}) + "\n")
     path = os.path.join(tmp, f"{preset}.yaml")
     with open(path, "w") as f:
         f.write(DIALECT_YAML.format(hf=hf_dir, data=data, seq=DIALECT_SEQ,
-                                    micro_bs=DIALECT_MICRO_BS, steps=steps,
+                                    micro_bs=micro_bs, steps=steps,
                                     save_hf=str(save_hf).lower()))
     return path
+
+
+def check_hf_export(dev, tag: str, out: str, final) -> None:
+    """The trainer's HF export in ``out`` reads back bit-equal to the
+    model ``final``'s parameters."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.hf_io import hf_to_params
+
+    back = hf_to_params(out, final.cfg, Transformer(final.cfg, None, device=dev))
+    bad = [n for (n, x), (_, y) in zip(back.named_parameters(), final.named_parameters())
+           if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{tag}: the HF export differs from the final parameters "
+                             f"in {len(bad)} tensors, e.g. {bad[:3]}")
+    nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+    log(f"{tag}: the HF export ({nbytes / 1e9:.3f} GB) reads back bit-equal to the final "
+        f"parameters")
 
 
 def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
@@ -1529,7 +1577,6 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
     from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
     from veomni_tpu_torch.models import Transformer
     from veomni_tpu_torch.models.auto import build_foundation_model
-    from veomni_tpu_torch.models.hf_io import hf_to_params
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
     from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
@@ -1622,18 +1669,8 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
             f"({len(windows) - n_full} windowed layers x {steps} steps, the reference's "
             f"dispatch to the plain attention) [{card}]")
         if export:
-            out = os.path.join(tmp, "out", "hf_ckpt")
-            final = trainer.train_state.model
-            back = hf_to_params(out, final.cfg, Transformer(final.cfg, None, device=dev))
-            bad = [n for (n, x), (_, y) in zip(back.named_parameters(), final.named_parameters())
-                   if not torch.equal(x, y)]
-            if bad:
-                raise AssertionError(f"{tag}: the HF export differs from the final parameters "
-                                     f"in {len(bad)} tensors, e.g. {bad[:3]}")
-            nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
-            log(f"{tag}: the HF export ({nbytes / 1e9:.3f} GB) reads back bit-equal to the "
-                f"final parameters")
-            del final, back
+            check_hf_export(dev, tag, os.path.join(tmp, "out", "hf_ckpt"),
+                            trainer.train_state.model)
         first = rec.first_batch
         del trainer
         destroy_parallel_state()
@@ -1718,6 +1755,405 @@ def phase_dialects(dev, card):
         paths[f"dialects_{preset}"] = (launches, DIALECT_HEADS[preset][2], preset)
         rows += dialect_rows(dev, preset, seg)
     return paths, rows
+
+
+# --------------------------------------------------------------------------
+# The deepseek MoE dialect: Moonlight-16B-A3B and DeepSeek-V2-Lite from HF
+# directories through TextTrainer
+# --------------------------------------------------------------------------
+MOONLIGHT_PRESET = "moonlight_16b_a3b"
+MOONLIGHT_LAYERS = 4  # of 27: the leading dense layer and 3 MoE layers
+MOONLIGHT_STEPS = 4
+V2_LITE_PRESET = "deepseek_v2_lite"
+V2_LITE_LAYERS = 2  # the leading dense layer and 1 MoE layer
+V2_LITE_STEPS = 3
+DEEPSEEK_MICRO_BS = 2  # x seq 4096: M = 8192 x top-6 = 49152 routed rows per MoE layer
+DEEPSEEK_NAMES = {MOONLIGHT_PRESET: "Moonlight-16B-A3B", V2_LITE_PRESET: "DeepSeek-V2-Lite"}
+# the kernel rows of K4-K6 at the deepseek expert widths (K/N 2048/1408 and
+# 1408/2048) count the launches of both deepseek paths
+DEEPSEEK_LAYOUT = "deepseek 2048x1408"
+# the random HF directory's router correction biases: N(0, 0.05), against a
+# spread of ~0.01 between neighbouring sigmoid scores of 64 experts at the
+# init's router width, so noaux-tc picks other experts than the score order
+CORRECTION_BIAS_STD = 0.05
+# chip_smoke's own f32 version of one MLA + MoE layer against the port's
+# bf16 layer, token by token (a token's head vectors flattened):
+#   rms(got - ref) <= LAYER_RTOL * rms(ref token) + LAYER_ATOL * rms(ref),
+# The port runs the layer in bf16 (q/k/v, probabilities, expert outputs, the
+# weighted sum each rounded to 2^-9 relative), so a token lands ~1e-2 off;
+# 5% of the token's size, 2% of the tensor's for tokens near zero. A rope
+# that turns the wrong channels, a missing shared expert or an expert
+# choice without the correction bias moves most tokens by 20% or more.
+LAYER_RTOL = 5e-2
+LAYER_ATOL = 2e-2
+# DeepSeek-V3's router (its published config.json): 256 experts in 8 groups,
+# top-4 groups, top-8, sigmoid noaux-tc, routed scaling 2.5, hidden 7168
+V3_ROUTER = dict(hidden_size=7168, num_experts=256, num_experts_per_tok=8, n_group=8,
+                 topk_group=4, scoring_func="sigmoid", norm_topk_prob=True,
+                 routed_scaling_factor=2.5)
+V3_ROUTER_TOKENS = 4096
+
+
+def deepseek_param_count(cfg) -> int:
+    """The model's parameter count from its config, counted here: MLA
+    attention and two norms per layer, a dense gated MLP on the leading
+    ``first_k_dense_replace`` layers, router, correction bias, routed and
+    shared experts on the others, embedding, final norm and head."""
+    h, nh = cfg.hidden_size, cfg.num_attention_heads
+    dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q = (h * cfg.q_lora_rank + cfg.q_lora_rank + cfg.q_lora_rank * nh * (dn + dr)
+         if cfg.q_lora_rank else h * nh * (dn + dr))
+    attn = q + h * (r + dr) + r + r * nh * (dn + dv) + nh * dv * h + 2 * h
+    dense = 3 * h * cfg.intermediate_size
+    e, im = cfg.num_experts, cfg.moe_intermediate_size
+    moe = h * e + (e if cfg.scoring_func == "sigmoid" else 0) + 3 * e * h * im
+    moe += 3 * h * im * cfg.n_shared_experts
+    k = cfg.first_k_dense_replace
+    body = k * (attn + dense) + (cfg.num_hidden_layers - k) * (attn + moe)
+    return body + cfg.vocab_size * h * (1 if cfg.tie_word_embeddings else 2) + h
+
+
+def reference_route(logits, bias, cfg):
+    """chip_smoke's own routing (f32 logits [T,E] in): scores (sigmoid, or
+    softmax), the expert choice (scores + correction bias for sigmoid)
+    limited to each token's best ``topk_group`` groups (a group scored by
+    its two best choices, or its best softmax score), the top k of the
+    choice (the lower index first among equals), the weights from the
+    scores (renormed, scaled)."""
+    t, e = logits.shape
+    scores = logits.sigmoid() if cfg.scoring_func == "sigmoid" else logits.softmax(-1)
+    choice = scores + bias if cfg.scoring_func == "sigmoid" else scores.clone()
+    if cfg.n_group and cfg.topk_group and cfg.n_group > 1:
+        g = choice.view(t, cfg.n_group, e // cfg.n_group)
+        if cfg.scoring_func == "sigmoid":
+            group_score = g.sort(dim=-1, descending=True, stable=True).values[..., :2].sum(-1)
+        else:
+            group_score = g.max(-1).values
+        best = group_score.argsort(dim=-1, descending=True, stable=True)[:, :cfg.topk_group]
+        keep = torch.zeros(t, cfg.n_group, dtype=torch.bool, device=logits.device)
+        keep[torch.arange(t, device=logits.device)[:, None], best] = True
+        keep = keep[:, :, None].expand(t, cfg.n_group, e // cfg.n_group).reshape(t, e)
+        choice = choice.masked_fill(~keep, -math.inf if cfg.scoring_func == "sigmoid" else 0.0)
+    idx = choice.argsort(dim=-1, descending=True, stable=True)[:, :cfg.num_experts_per_tok]
+    w = scores.gather(1, idx)
+    if cfg.norm_topk_prob:
+        w = w / (w.sum(-1, keepdim=True) + 1e-20)
+    return idx, w * cfg.routed_scaling_factor
+
+
+def phase_v3_router(dev, card):
+    """``route_tokens`` at DeepSeek-V3's router width on the card, against
+    the same call on the CPU (the port's plain path) and chip_smoke's own
+    routing: 4096 tokens, hidden 7168, 256 experts in 8 groups (top-4
+    groups), top-8, sigmoid with a nonzero correction bias. The inputs sit
+    on coarse grids (x in 2^-3 steps, router in 2^-5, the bias in 2^-6), so
+    each f32 logit is exact in any summation order and many tie: the three
+    must pick the same experts, the lower index first among equals, and
+    their weights agree to rtol 1e-6."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models.transformer import route_tokens
+
+    cfg = TransformerConfig(model_type="deepseek_v3", **V3_ROUTER)
+    gen = torch.Generator().manual_seed(3)
+    x = (torch.randint(-2, 3, (V3_ROUTER_TOKENS, 7168), generator=gen) / 8).bfloat16()
+    router = (torch.randint(-2, 3, (7168, 256), generator=gen) / 32).bfloat16()
+    bias = (torch.randint(-4, 5, (256,), generator=gen) / 64).bfloat16()
+    idx_c, w_c, _ = route_tokens(x, router, cfg, bias)
+    idx_g, w_g, _ = route_tokens(x.to(dev), router.to(dev), cfg, bias.to(dev))
+    torch.cuda.synchronize()
+    idx_r, w_r = reference_route(x.double() @ router.double(), bias.double(), cfg)
+    same_card = torch.equal(idx_g.cpu(), idx_c)
+    same_ref = torch.equal(idx_c, idx_r)
+    w_err = max(((w_g.cpu() - w_c).abs() / w_c.abs()).max().item(),
+                ((w_c.double() - w_r).abs() / w_r.abs()).max().item())
+    score_order = (x.float() @ router.float()).argsort(dim=-1, descending=True, stable=True)[:, :8]
+    moved = (idx_c.sort(-1).values != score_order.sort(-1).values).any(-1).float().mean().item()
+    log(f"router check (DeepSeek-V3 width): {V3_ROUTER_TOKENS} tokens, hidden 7168, 256 experts "
+        f"in 8 groups (top-4), top-8, sigmoid + correction bias: indices card == CPU "
+        f"{same_card}, CPU == chip_smoke's routing {same_ref}; weights worst rel err "
+        f"{w_err:.2e} (tol 1e-6); the bias and the groups move {moved:.1%} of the tokens' "
+        f"expert sets off the plain score order [{card}]"
+        + ("" if same_card and same_ref and w_err <= 1e-6 else " FAILED"))
+    if not (same_card and same_ref and w_err <= 1e-6):
+        raise AssertionError("router check (DeepSeek-V3 width): routing disagrees")
+
+
+def token_check(tag, got, ref):
+    """Hold ``got`` to ``ref`` [T, ...] token by token (LAYER_RTOL,
+    LAYER_ATOL); log the worst ratio and raise if any token is over."""
+    got, ref = got.float().flatten(1), ref.float().flatten(1)
+    err = (got - ref).pow(2).mean(1).sqrt()
+    allowed = LAYER_RTOL * ref.pow(2).mean(1).sqrt() + LAYER_ATOL * ref.pow(2).mean().sqrt()
+    ratio = err / allowed
+    over = int((ratio > 1).sum())
+    log(f"{tag}: worst token error/allowed {ratio.max().item():.3f}, {over} of {ratio.numel()} "
+        f"tokens over" + (" FAILED" if over else ""))
+    if over:
+        raise AssertionError(f"{tag}: the port's layer disagrees with chip_smoke's")
+
+
+def phase_deepseek_layer(dev, card, model, batch):
+    """The first MoE layer (layer 1) of the model as loaded, on the first
+    row of ``batch`` [B, S], held to chip_smoke's own f32 version of it:
+    the MLA block's q and k (q, the kv latent and its norm, the rope as a
+    complex turn of each adjacent channel pair by position x
+    theta^(-2i/d)) and its output (causal and same-document attention,
+    o_proj) from the same input, and the MoE
+    block (router, correction bias, top-k, the 64 experts one at a time,
+    the shared experts) from the port's MoE input. Returns the group sizes
+    of the layer's routing over the whole batch (the kernel rows' M)."""
+    from veomni_tpu_torch.models.transformer import expert_counts, route_tokens
+
+    cfg, dt = model.cfg, model.cfg.dtype
+    layer = model.layers[1]
+    p = {n: w.detach().to(dt).float() for n, w in layer.named_parameters()}
+    nh, dn, dr, dv = (cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    r, h = cfg.kv_lora_rank, cfg.hidden_size
+    ids, pos, seg = (batch[k].to(dev) for k in ("input_ids", "position_ids", "segment_ids"))
+    with torch.no_grad():
+        hidden, cos, sin = model.embed_and_rotary(ids, pos)
+        q, k, v = layer._qkv(hidden, cos, sin)
+        attn = layer._attend(q, k, v, seg)
+        h1, x = layer.mlp_input(hidden, attn)
+        got_attn = (h1 - hidden)[0]
+        flat = x.reshape(-1, h)
+        got_moe, _ = layer.moe(flat[:ids.shape[1]])
+        idx_all, _, _ = route_tokens(flat, layer.router.to(dt), cfg,
+                                     layer.e_score_correction_bias.to(dt))
+        sizes = expert_counts(idx_all.reshape(-1), cfg.num_experts)
+
+        def rms(t, w):
+            return t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps) * w
+
+        def turn(t, position):  # [S, n, dr]: adjacent pairs as complex numbers
+            inv = cfg.rope_theta ** (-torch.arange(0, dr, 2, device=dev).double() / dr)
+            ang = position.double()[:, None] * inv
+            z = torch.view_as_complex(t.double().reshape(*t.shape[:-1], dr // 2, 2).contiguous())
+            return torch.view_as_real(z * torch.polar(torch.ones_like(ang), ang)[:, None]) \
+                .flatten(-2).float()
+
+        s = ids.shape[1]
+        hf = hidden[0].float()
+        xa = rms(hf, p["input_layernorm"])
+        qf = (xa @ p["q_proj"]).view(s, nh, dn + dr)
+        kv_a = xa @ p["kv_a_proj_with_mqa"]
+        kv = (rms(kv_a[:, :r], p["kv_a_layernorm"]) @ p["kv_b_proj"]).view(s, nh, dn + dv)
+        qf = torch.cat([qf[..., :dn], turn(qf[..., dn:], pos[0])], -1)
+        kf = torch.cat([kv[..., :dn], turn(kv_a[:, None, r:], pos[0]).expand(s, nh, dr)], -1)
+        logits = torch.einsum("qhd,khd->hqk", qf, kf) * (dn + dr) ** -0.5
+        visible = (torch.arange(s, device=dev)[:, None] >= torch.arange(s, device=dev)[None]) \
+            & (seg[0][:, None] == seg[0][None])
+        probs = logits.masked_fill(~visible, -math.inf).softmax(-1)
+        ref_attn = torch.einsum("hqk,khd->qhd", probs, kv[..., dn:]).reshape(s, nh * dv) \
+            @ p["o_proj"]
+        del logits, probs
+        xm = flat[:s].float()
+        ridx, rw = reference_route(xm @ p["router"], p["e_score_correction_bias"], cfg)
+        ref_moe = torch.zeros_like(xm)
+        for e in range(cfg.num_experts):
+            tok, slot = (ridx == e).nonzero(as_tuple=True)
+            if tok.numel():
+                xe = xm[tok]
+                ye = (torch.nn.functional.silu(xe @ p["experts.gate_proj"][e])
+                      * (xe @ p["experts.up_proj"][e])) @ p["experts.down_proj"][e]
+                ref_moe.index_add_(0, tok, ye * rw[tok, slot, None])
+        ref_moe += (torch.nn.functional.silu(xm @ p["shared_experts.gate_proj"])
+                    * (xm @ p["shared_experts.up_proj"])) @ p["shared_experts.down_proj"]
+    name = DEEPSEEK_NAMES[MOONLIGHT_PRESET]
+    log(f"{name} layer check: layer 1 (MLA + MoE) on the first row ({s} tokens) against "
+        f"chip_smoke's f32 layer [{card}]")
+    token_check(f"{name} layer check: MLA q/k", torch.cat([q[0], k[0]], 1),
+                torch.cat([qf, kf], 1))
+    token_check(f"{name} layer check: MLA block", got_attn, ref_attn)
+    token_check(f"{name} layer check: MoE block", got_moe, ref_moe)
+    return sizes
+
+
+def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export: bool):
+    """One deepseek-dialect model at its published widths, ``layers`` deep,
+    through ``TextTrainer`` from an HF directory (random bf16 weights from
+    seed 0, correction biases drawn nonzero): ``steps`` steps at seq 4096 x
+    micro-batch 2, f32 master, bf16 compute, ctx remat, AdamW. Before the
+    trainer, the parameter count against the one counted from the config
+    and (Moonlight) the layer check. K4 launches 6 times per MoE layer and
+    step (gate, up, down, and their ctx recompute), K5 and K6 3 times; K1-K3
+    never (MLA's v head dim 128 against q/k's 192 takes the reference's
+    dispatch to the plain attention, one FALLBACK_CALLS per layer and step).
+    The step-1 loss, grad norm and router aux loss are held to the same step
+    with the plain ragged grouped GEMM pinned; with ``export`` the HF export
+    reads back bit-equal to the final parameters. Returns (launches, group
+    sizes of layer 1's routing on a packed batch or None)."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.train_text_step import packed_batches
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+    from veomni_tpu_torch.utils.count_flops import FlopsCounter
+    from veomni_tpu_torch.utils.device import get_device_peak_flops
+
+    name = DEEPSEEK_NAMES[preset]
+    tag = f"hf deepseek {name}"
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps, self.first_batch = {}, None
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                moe_aux_loss=float(m["moe_aux_loss"]), t=time.perf_counter())
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{preset}_")
+    try:
+        t0 = time.perf_counter()
+        yaml_path = write_dialect_run(dev, tmp, preset, steps, export, layers=layers,
+                                      micro_bs=DEEPSEEK_MICRO_BS)
+        write_s = time.perf_counter() - t0
+        hf_dir = os.path.join(tmp, "hf")
+        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev)
+        cfg, model = fm.config, fm.module
+        n_params = sum(w.numel() for w in model.parameters())
+        want_params = deepseek_param_count(cfg)
+        n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+        log(f"{tag}: {cfg.num_hidden_layers} of 27 layers ({cfg.first_k_dense_replace} dense, "
+            f"{n_moe} MoE), hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, MLA "
+            f"kv_lora_rank {cfg.kv_lora_rank}, q/k head {cfg.qk_head_dim}, v head "
+            f"{cfg.v_head_dim}, {cfg.num_experts} experts top-{cfg.num_experts_per_tok} of width "
+            f"{cfg.moe_intermediate_size} + {cfg.n_shared_experts} shared, {cfg.scoring_func} "
+            f"routing, vocab {cfg.vocab_size}; {n_params} parameters (counted from the config: "
+            f"{want_params}); HF directory and corpus written in {write_s:.1f} s [{card}]")
+        if n_params != want_params:
+            raise AssertionError(f"{tag}: {n_params} parameters, the config gives {want_params}")
+        sizes = None
+        if preset == MOONLIGHT_PRESET:
+            batch = {k: torch.from_numpy(v[0]) for k, v in
+                     next(packed_batches(cfg.vocab_size, DIALECT_SEQ, DEEPSEEK_MICRO_BS)).items()}
+            sizes = phase_deepseek_layer(dev, card, model, batch)
+        del fm, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={tmp}/out"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        trainer = TextTrainer(args)
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
+        rec = Record()
+        trainer.callbacks.append(rec)
+        trainer.train()
+        trainer.checkpointer.close()
+        launches, fallbacks = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        a = rec.steps
+        check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                     for r in a.values()], tag)
+        tokens = DEEPSEEK_MICRO_BS * DIALECT_SEQ
+        flops = FlopsCounter.from_config(cfg).batch_flops(tokens, DIALECT_SEQ)
+        peak_flops = get_device_peak_flops(dev)
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+        for i in range(1, steps + 1):
+            extra = (f" step_ms={ms[i - 2]:.1f} tokens_per_s={tokens / ms[i - 2] * 1e3:.1f} "
+                     f"mfu={flops / (ms[i - 2] / 1e3) / peak_flops:.4f}" if i >= 2
+                     else " (first step: warm-up, not timed)")
+            log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f} "
+                f"moe_aux_loss={a[i]['moe_aux_loss']:.6f}{extra} [{card}]")
+        want = {"gmm_fwd": 6 * n_moe * steps, "gmm_dlhs": 3 * n_moe * steps,
+                "gmm_t": 3 * n_moe * steps}
+        med = sorted(ms)[len(ms) // 2]
+        log(f"{tag}: launches {launches} (reckoned from the code: {want}: per MoE layer and "
+            f"step K4 x 6 (gate, up, down and their ctx recompute), K5 x 3, K6 x 3), "
+            f"FALLBACK_CALLS {fallbacks} (expected {cfg.num_hidden_layers * steps}: every MLA "
+            f"layer once a step); warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, "
+            f"median {med:.1f} ms, {tokens / med * 1e3:.1f} tokens/s, MFU "
+            f"{flops / (med / 1e3) / peak_flops:.4f} (the reference's FlopsCounter: MLA and "
+            f"shared-expert terms, every layer counted as MoE); peak device memory "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
+        if bad or fallbacks["flash"] != cfg.num_hidden_layers * steps:
+            raise AssertionError(f"{tag}: launches {launches} (expected {want}), "
+                                 f"FALLBACK_CALLS {fallbacks}")
+        if export:
+            check_hf_export(dev, tag, os.path.join(tmp, "out", "hf_ckpt"),
+                            trainer.train_state.model)
+        first = rec.first_batch
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: the same weights and batch with the plain ragged
+        # grouped GEMM pinned
+        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev,
+                                    ops_implementation={"group_gemm": "xla"}, remat_policy="ctx")
+        model = fm.module
+        state = build_train_state(model, build_optimizer(
+            model, lr=build_lr_scheduler(lr=1e-4, train_steps=steps)))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+        reset_all_counts()
+        try:
+            _, m = build_train_step(Transformer.loss_fn)(state, batch)
+        finally:
+            apply_ops_config(None)
+        plain = {k: float(m[k]) for k in ("loss", "grad_norm", "moe_aux_loss")}
+        plain_launches, _ = read_counts()
+        rel = {k: abs(a[1][k] - plain[k]) / abs(plain[k]) for k in plain}
+        tol = {"loss": TOL_LOSS_REL, "grad_norm": TOL_GRAD_NORM_REL, "moe_aux_loss": TOL_LOSS_REL}
+        log(f"{tag} step-1 parity: trainer (K4-K6) against the plain ragged grouped GEMM: "
+            + "; ".join(f"{k} {a[1][k]:.6f} vs {plain[k]:.6f} (rel {rel[k]:.2e}, tol {tol[k]})"
+                        for k in plain)
+            + f"; the plain leg launched {plain_launches}")
+        if any(rel[k] > tol[k] for k in rel) or any(plain_launches.values()):
+            raise AssertionError(f"{tag}: step 1 departs from the plain grouped GEMM's ({rel}) "
+                                 f"or the plain leg launched kernels")
+        del fm, model, state, batch, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches, sizes
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_hf_trainer_moonlight(dev, card):
+    """Moonlight-16B-A3B at its published widths, 4 of 27 layers (the
+    leading dense layer and 3 MoE layers), 4 steps from an HF directory with
+    its HF export, after the router check at DeepSeek-V3's width; then K4-K6
+    held and timed at its expert widths on layer 1's routing of a packed
+    batch. Returns ({path: (launches, head dim, layout)}, kernel rows)."""
+    phase_v3_router(dev, card)
+    launches, sizes = phase_hf_deepseek(dev, card, MOONLIGHT_PRESET, MOONLIGHT_LAYERS,
+                                        MOONLIGHT_STEPS, export=True)
+    s = sizes.cpu()
+    log(f"grouped GEMM kernels at Moonlight-16B-A3B's expert widths: layer 1's routing of a "
+        f"packed seq-{DIALECT_SEQ} x {DEEPSEEK_MICRO_BS} batch: M={int(s.sum())} rows over "
+        f"E={s.numel()} experts, rows/expert min {int(s.min())} median {int(s.median())} "
+        f"max {int(s.max())}")
+    rows = gmm_case(dev, sizes, 2048, 1408, "Moonlight gate/up: K=2048 N=1408", timed=True)
+    rows += gmm_case(dev, sizes, 1408, 2048, "Moonlight down: K=1408 N=2048", timed=True)
+    for row in rows:
+        row["path_layout"] = DEEPSEEK_LAYOUT
+    # MLA: q/k head dim 192, so no flash row counts these paths
+    return {"hf_trainer_moonlight": (launches, 192, DEEPSEEK_LAYOUT)}, rows
+
+
+def phase_deepseek_v2_lite(dev, card):
+    """DeepSeek-V2-Lite at its published widths, 2 of 27 layers, 3 steps:
+    softmax greedy routing without renorm, yarn rope with its mscale on the
+    MLA softmax scale."""
+    launches, _ = phase_hf_deepseek(dev, card, V2_LITE_PRESET, V2_LITE_LAYERS, V2_LITE_STEPS,
+                                    export=False)
+    return {"deepseek_v2_lite": (launches, 192, DEEPSEEK_LAYOUT)}, []
 
 
 # --------------------------------------------------------------------------
@@ -2269,7 +2705,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build, in order: serve_dense, "
-                         "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, and "
+                         "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
+                         "hf_trainer_moonlight, deepseek_v2_lite, and "
                          "before them main (the dense loop) or trainer; such a partial run "
                          "prints no result line")
     args = ap.parse_args(argv)
@@ -2290,7 +2727,9 @@ def main(argv=None) -> int:
         phases = {"main": phase_main, "trainer": phase_trainer,
                   "serve_dense": phase_serve_dense, "serve_moe": phase_serve_moe,
                   "hf_trainer_gemma3": phase_hf_trainer_gemma3,
-                  "serve_gemma3": phase_serve_gemma3, "dialects": phase_dialects}
+                  "serve_gemma3": phase_serve_gemma3, "dialects": phase_dialects,
+                  "hf_trainer_moonlight": phase_hf_trainer_moonlight,
+                  "deepseek_v2_lite": phase_deepseek_v2_lite}
         for name in args.phases.split(","):
             phases[name](dev, card)
             torch.cuda.empty_cache()
@@ -2356,8 +2795,10 @@ def run_phases(dev, card, hf_tmp) -> int:
     phase_moe_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    # the dense HF dialects, each path followed by its kernel rows
-    for phase in (phase_hf_trainer_gemma3, phase_dialects):
+    # the dense HF dialects and the deepseek MoE dialect, each path followed
+    # by its kernel rows
+    for phase in (phase_hf_trainer_gemma3, phase_dialects, phase_hf_trainer_moonlight,
+                  phase_deepseek_v2_lite):
         paths, rows = phase(dev, card)
         by_path.update(paths)
         table += rows

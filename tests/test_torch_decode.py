@@ -1,10 +1,12 @@
 """Port KV-cache decoding (``veomni_tpu_torch.models.decode``) vs the JAX reference.
 
 f32 on the CPU, on the reference's serving toys ``QWEN3`` and ``QWEN3_MOE``
-(``tests/test_serving.py``) and the dense dialect toys ``GEMMA3`` (sliding
+(``tests/test_serving.py``), the dense dialect toys ``GEMMA3`` (sliding
 windows shorter than the prompts) and ``QWEN2`` (biases, llama3 rope
-scaling), weights carried from JAX ``init_params`` (their biases and norm
-weights drawn at random) by ``load_jax_params``; inputs from numpy seeds.
+scaling) and ``DEEPSEEK_MOE`` (a dense first layer, sigmoid group-limited
+routing with a correction bias, a shared expert), weights carried from JAX
+``init_params`` (their biases and norm weights drawn at random) by
+``load_jax_params``; inputs from numpy seeds.
 
 * ``paged_prefill_step`` (a chunk after a cached prefix, null-padded table),
   ``paged_decode_step`` (an inactive slot included), ``paged_verify_step``,
@@ -72,7 +74,18 @@ QWEN2 = dict(
                                   "high_freq_factor": 4.0,
                                   "original_max_position_embeddings": 16},
 )
-CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3, "qwen2": QWEN2}
+# the deepseek MoE pieces without MLA (the reference has no cached decode
+# for MLA): a dense first layer, then sigmoid noaux-tc routing in 2 groups
+# with a correction bias (drawn at random by ``perturb``) and a shared expert
+DEEPSEEK_MOE = dict(
+    model_type="deepseek_v3", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32, n_shared_experts=1,
+    scoring_func="sigmoid", n_group=2, topk_group=1, routed_scaling_factor=1.5,
+    first_k_dense_replace=1,
+)
+CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3, "qwen2": QWEN2,
+           "deepseek_moe": DEEPSEEK_MOE}
 TOL = dict(atol=1e-5, rtol=1e-5)
 T = torch.from_numpy
 
@@ -96,7 +109,7 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
-    if name in ("gemma3", "qwen2"):
+    if name in ("gemma3", "qwen2", "deepseek_moe"):
         params = perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
@@ -203,11 +216,17 @@ def test_step_pools_written_in_place():
     assert pools[0][:, 2, 1].abs().sum() > 0  # position 5 = block 2, row 1
 
 
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-@pytest.mark.parametrize("sampling", [
-    dict(), dict(temperature=0.8, top_k=10, top_p=0.9, seed=3),
-    dict(temperature=1.1, top_p=0.7, seed=5), dict(temperature=0.7, top_k=10_000, seed=1),
-], ids=["greedy", "topk-topp", "topp", "topk-over-vocab"])
+SAMPLINGS = {"greedy": dict(), "topk-topp": dict(temperature=0.8, top_k=10, top_p=0.9, seed=3),
+             "topp": dict(temperature=1.1, top_p=0.7, seed=5),
+             "topk-over-vocab": dict(temperature=0.7, top_k=10_000, seed=1)}
+
+
+# the sampler does not depend on the model: the deepseek toy runs greedy and
+# one sampled mix (the time the suite can spare)
+@pytest.mark.parametrize("sampling,name", [
+    pytest.param(SAMPLINGS[sid], name, id=f"{sid}-{name}")
+    for sid in SAMPLINGS for name in sorted(CONFIGS)
+    if name != "deepseek_moe" or sid in ("greedy", "topk-topp")])
 def test_greedy_generate_matches_jax(name, sampling):
     params, jcfg, model, cfg = models(name)
     for prompt in _prompts((5, 13, 20), seed=7):
@@ -380,9 +399,12 @@ def test_unsupported_configs_raise():
             model_type="deepseek_v3", vocab_size=64, hidden_size=64, num_hidden_layers=1,
             num_attention_heads=4, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
             v_head_dim=8))
-    # sliding windows and biases are ported (tests/test_torch_dialects.py);
-    # sinks, the gpt_oss GLU and chunk_mbs are not
+    # sliding windows and biases are ported (tests/test_torch_dialects.py),
+    # and the deepseek MoE pieces without MLA: sigmoid and group-limited
+    # routing, shared experts, leading dense layers; sinks, the gpt_oss GLU
+    # and router bias, and chunk_mbs are not
+    tdec.check_decode_supported(TransformerConfig(**DEEPSEEK_MOE))
     for extra in (dict(attention_sinks=True), dict(hidden_act="gpt_oss_glu"),
-                  dict(chunk_mbs=64)):
+                  dict(chunk_mbs=64), dict(QWEN3_MOE, router_bias=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **extra}))

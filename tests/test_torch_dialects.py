@@ -191,15 +191,15 @@ def test_windowed_layers_take_the_plain_dispatch():
     (dict(attention_sinks=True), "slice B item 4"),
     (dict(hidden_act="gpt_oss_glu"), "slice B item 4"),
     (dict(model_type="gpt_oss", num_experts=4, num_experts_per_tok=2), "slice B item 4"),
-    (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8),
-     "slice A item 5"),
+    (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
+          index_topk=4), "slice F"),
     (dict(index_topk=4), "slice F"),
-    (dict(num_experts=4, num_experts_per_tok=2, scoring_func="sigmoid"), "slice B item 1"),
-    (dict(num_experts=4, num_experts_per_tok=2, n_shared_experts=1), "slice B item 2"),
+    (dict(num_experts=4, num_experts_per_tok=2, router_bias=True), "slice B item 4"),
+    (dict(num_experts=4, num_experts_per_tok=2, moe_capacity_factor=2.0), "slice B item 5"),
     (dict(chunk_mbs=64), "slice A item 5"),
     (dict(remat_policy="offload"), "slice A item 5"),
-], ids=["mrope", "sinks", "gpt-oss-glu", "gpt-oss-routing", "mla", "dsa", "sigmoid",
-        "shared-experts", "chunk-mbs", "remat-offload"])
+], ids=["mrope", "sinks", "gpt-oss-glu", "gpt-oss-routing", "mla-dsa", "dsa", "router-bias",
+        "capacity-factor", "chunk-mbs", "remat-offload"])
 def test_unported_features_name_their_queue_item(extra, item):
     from veomni_tpu_torch.models.transformer import check_supported
 

@@ -9,7 +9,9 @@ are shorter than its prompts, with the JAX weights carried into the port
   request stream (staggered arrivals, a small pool that forces preemption,
   LRU eviction, shared prefixes with chunked prefill, copy-on-write
   replays, chunked prefill interleaved with decode, the cache off, mixed
-  greedy and seeded sampling, the MoE toy): the token events in order, each
+  greedy and seeded sampling, the MoE toy, a deepseek toy without MLA with
+  a dense first layer, sigmoid group-limited routing with a correction
+  bias and a shared expert): the token events in order, each
   request's token ids, finish reason, ``cached_tokens`` and preemptions, the
   preemption/copy-on-write/eviction counts and the ``TRACE_COUNTS`` deltas
   must be equal, and every greedy request must equal the port's
@@ -21,7 +23,8 @@ are shorter than its prompts, with the JAX weights carried into the port
   the port's copies.
 * The engine's own surface: the pools keep their storage across
   ``step()``, cancellation and load-shedding release every block,
-  ``swap_weights`` flushes the cache, the unported quantized tiers raise.
+  ``swap_weights`` flushes the cache, the unported quantized tiers raise,
+  and an MLA config is refused as the reference's engine refuses it.
 * ``python -m veomni_tpu_torch.tasks.serve --device cpu`` prints the lines
   ``scripts/serve.py`` prints, with the same JSON keys, and each unported
   flag raises.
@@ -81,18 +84,30 @@ GEMMA3 = dict(
     layer_types=["sliding_attention", "sliding_attention", "full_attention"],
     hidden_act="gelu_pytorch_tanh", final_logit_softcap=30.0, tie_word_embeddings=True,
 )
+# the deepseek MoE pieces the engine serves (the reference's engine refuses
+# MLA): a dense first layer, sigmoid noaux-tc routing in 2 groups with a
+# correction bias (drawn at random by _perturb), a shared expert
+DEEPSEEK_MOE = dict(
+    model_type="deepseek_v3", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32, n_shared_experts=1,
+    scoring_func="sigmoid", n_group=2, topk_group=1, routed_scaling_factor=1.5,
+    first_k_dense_replace=1,
+)
 CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3,
            # a window of 8, below the engine's least prefill bucket (16)
-           "gemma3_w8": {**GEMMA3, "sliding_window": 8}}
+           "gemma3_w8": {**GEMMA3, "sliding_window": 8}, "deepseek_moe": DEEPSEEK_MOE}
 
 
 def _perturb(params, seed=0):
-    """gemma3's norm weights (1 at init) drawn at random, so that a norm
-    read at the wrong place shows."""
+    """gemma3's norm weights (1 at init) and deepseek's correction biases (0)
+    drawn at random, so that a norm read at the wrong place, or a bias left
+    out of the expert choice, shows."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
-        if jax.tree_util.keystr(path).endswith("norm']"):
+        name = jax.tree_util.keystr(path)
+        if name.endswith("norm']") or "e_score_correction_bias" in name:
             x = np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.1
         return jnp.asarray(x)
 
@@ -104,7 +119,7 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
-    if name.startswith("gemma3"):
+    if name.startswith(("gemma3", "deepseek")):
         params = _perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
@@ -268,6 +283,13 @@ SCENARIOS = {
                                             seed=4)))),
     "gemma3_cow_replay": ("gemma3", dict(num_slots=2, block_size=8, max_model_len=64),
                           lambda: _cow_script(seed=13)),
+    # the deepseek toy: staggered arrivals behind a shared 17-token prefix,
+    # 8-token prefill chunks, a sampled request
+    "deepseek_staggered_chunked": (
+        "deepseek_moe", dict(num_slots=2, block_size=8, max_model_len=96, prefill_chunk=8),
+        lambda: _staggered(_system_prompts(25, 17, (5, 9, 3)), 2, 2, lambda i: (
+            _greedy(8) if i != 1 else dict(max_new_tokens=8, temperature=0.9, top_k=20,
+                                           seed=5)))),
     "moe_preemption": ("qwen3_moe", dict(num_slots=3, block_size=8, max_model_len=40,
                                          num_blocks=8, prefix_cache=False),
                        lambda: [("submit", p, _greedy(10)) for p in _prompts((9, 11, 7), seed=1)]
@@ -380,6 +402,21 @@ def test_engine_quantized_tiers_not_ported(knob):
     _, _, model, cfg = models("qwen3")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         InferenceEngine(model, cfg, EngineConfig(num_slots=1, max_model_len=32, **knob),
+                        device="cpu")
+
+
+def test_engine_refuses_mla_as_the_reference_does():
+    """The reference has no cached decode for MLA; neither engine takes a
+    deepseek MLA config."""
+    cfg = dict(DEEPSEEK_MOE, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
+               v_head_dim=8)
+    jcfg = JaxConfig(dtype=jnp.float32, **cfg)
+    params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
+    with pytest.raises(ValueError, match="cached-decode"):
+        jserving.InferenceEngine(params, jcfg, jserving.EngineConfig())
+    tcfg = TransformerConfig(dtype=torch.float32, **cfg)
+    with pytest.raises(ValueError, match="cached-decode"):
+        InferenceEngine(Transformer(tcfg, torch.Generator(), device="cpu"), tcfg, EngineConfig(),
                         device="cpu")
 
 

@@ -95,7 +95,12 @@ MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_int
 
 
 def test_unported_features_raise():
-    for extra in (dict(MOE, scoring_func="sigmoid"), dict(MOE, n_shared_experts=1),
+    # the gpt_oss router bias and the DSA indexer on MLA still raise (the
+    # deepseek routing, shared experts and MLA are ported:
+    # tests/test_torch_deepseek.py)
+    for extra in (dict(MOE, router_bias=True),
+                  dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
+                       index_topk=4),
                   dict(attention_sinks=True), dict(rope_scaling={"type": "mrope",
                                                                  "mrope_section": [4, 2, 2]}),
                   dict(remat_policy="dots")):
@@ -106,11 +111,12 @@ def test_unported_features_raise():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(scoring_func="sigmoid"), dict(n_group=4, topk_group=2),
-    dict(n_shared_experts=1), dict(shared_expert_intermediate_size=64),
-    dict(first_k_dense_replace=1), dict(router_bias=True), dict(model_type="gpt_oss"),
+    dict(hidden_act="gpt_oss_glu"), dict(attention_sinks=True),
+    dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
+    dict(linear_num_value_heads=4), dict(attn_output_gate=True),
+    dict(router_bias=True), dict(model_type="gpt_oss"),
     dict(moe_capacity_factor=2.0), dict(mlp_bias=True),
-], ids=["sigmoid", "n_group", "shared", "shared-width", "first-k-dense", "router-bias",
+], ids=["gpt-oss-glu", "sinks", "mla-dsa", "linear-attention", "output-gate", "router-bias",
         "gpt-oss", "capacity-factor", "expert-biases"])
 def test_unported_moe_features_raise(extra):
     with pytest.raises(NotImplementedError):

@@ -3,12 +3,13 @@
 The same dataclass fields as the reference, so a configuration carries over
 field for field, with torch dtypes in place of jnp ones. The dense path of
 ``models/transformer.py`` implements the llama (with rope scaling), qwen2,
-qwen3 and gemma3 dialects; it raises ``NotImplementedError`` for every field
-whose feature is not ported yet instead of ignoring it. The HF config
-round-trip (``from_hf_config``, ``from_pretrained``, ``to_hf_config``;
-reference ``:185-360``) is the reference's mapping, key for key: a dialect
-whose features the port does not build (MLA, DSA, gpt_oss) maps as there,
-and ``models/transformer.py::check_supported`` raises for it.
+qwen3, gemma3, qwen3_moe and deepseek_v2/v3 dialects; it raises
+``NotImplementedError`` for every field whose feature is not ported yet
+instead of ignoring it. The HF config round-trip (``from_hf_config``,
+``from_pretrained``, ``to_hf_config``; reference ``:185-360``) is the
+reference's mapping, key for key: a dialect whose features the port does not
+build (DSA, gpt_oss) maps as there, and
+``models/transformer.py::check_supported`` raises for it.
 """
 
 from __future__ import annotations
@@ -122,6 +123,11 @@ class TransformerConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_key_value_heads * self.head_dim
+
+    @property
+    def qk_head_dim(self) -> int:
+        """MLA query/key head dim (nope + rope parts)."""
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
     def window_for_layer(self, i: int) -> int:
         """Per-layer sliding window (0 = full attention), read from

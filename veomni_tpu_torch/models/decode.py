@@ -34,8 +34,10 @@ Scope: the dialects ``models/transformer.py::check_supported`` admits (GQA
 with qk-norm, HF rope scaling and partial or dual rotary, sliding windows
 per layer, q/k/v/o and MLP biases, gemma3's zero-centered and sandwich
 norms, embedding scale, ``query_pre_attn_scalar``, GELU and final logit
-softcap, dense or softmax-routed MoE). Sinks, MLA/DSA and hybrid linear
-attention raise.
+softcap, dense or MoE with every routing dialect but gpt_oss's, shared
+experts and leading dense layers, ``decode.py:271-277``). Sinks, MLA/DSA
+and hybrid linear attention raise: the reference has no cached decode for
+MLA (``supports_cached_decode``), so neither has the port.
 """
 
 from __future__ import annotations
@@ -82,7 +84,8 @@ def _compute_cast(model, cfg: TransformerConfig) -> Dict:
     """The model's parameters in the compute dtype as plain tensors (one
     already in it is shared, not copied): ``embed_tokens``, ``norm``,
     ``lm_head`` (untied), and ``layers``, one dict per layer whose MoE
-    ``experts`` is a namespace of ``gate_proj``/``up_proj``/``down_proj``."""
+    ``experts`` and ``shared_experts`` are namespaces of
+    ``gate_proj``/``up_proj``/``down_proj``."""
     def cast(params):
         return {name: p.detach().to(cfg.dtype) for name, p in params}
 
@@ -90,8 +93,8 @@ def _compute_cast(model, cfg: TransformerConfig) -> Dict:
     compute["layers"] = []
     for layer in model.layers:
         lp = cast(layer.named_parameters(recurse=False))
-        if cfg.is_moe:
-            lp["experts"] = SimpleNamespace(**cast(layer.experts.named_parameters()))
+        for name, sub in layer.named_children():  # experts, shared_experts
+            lp[name] = SimpleNamespace(**cast(sub.named_parameters()))
         compute["layers"].append(lp)
     return compute
 
@@ -165,9 +168,13 @@ def _attn_params(cfg: TransformerConfig) -> Tuple[int, float]:
 
 
 def _mlp(x, lp, cfg: TransformerConfig):
-    if cfg.is_moe:
+    """The layer's MLP: routed experts (+ shared ones) on a MoE layer, the
+    dense gated MLP on the others (a MoE config's leading dense layers)."""
+    if "router" in lp:
         b, t, h = x.shape
-        out, _ = moe_mlp(x.reshape(b * t, h), lp["router"], lp["experts"], cfg)
+        out, _ = moe_mlp(x.reshape(b * t, h), lp["router"], lp["experts"], cfg,
+                         correction_bias=lp.get("e_score_correction_bias"),
+                         shared=lp.get("shared_experts"), shared_gate=lp.get("shared_expert_gate"))
         return out.view(b, t, h)
     act = ops.gated_act(_proj(x, lp, "gate_proj", "gate_bias"),
                         _proj(x, lp, "up_proj", "up_bias"), cfg.hidden_act)

@@ -6,8 +6,12 @@ Port of ``veomni_tpu/models/hf_io.py``: the key map (``_LAYER_MAP``,
 ``save_hf_checkpoint`` (``:539``, the same shard names and index JSON), for
 the families the port builds: llama (rope scaling included), qwen2 (q/k/v
 biases), qwen3, gemma3 (sandwich norms; its zero-centered norm weights are
-stored as HF stores them) and qwen3_moe (per-expert HF tensors stacked into
-``experts.*`` [E, in, out]).
+stored as HF stores them), qwen3_moe (per-expert HF tensors stacked into
+``experts.*`` [E, in, out]) and deepseek_v2/v3 (MLA's ``q_a``/``q_b``/
+``kv_a``/``kv_b`` projections and norms, ``mlp.gate.e_score_correction_bias``,
+``mlp.shared_experts.*``; HF numbers the leading dense layers and the MoE
+layers after them in one sequence, as the port's layer list does, where
+the reference maps them to its two stacked subtrees, ``:194``, ``:418``).
 
 The card's machine has neither ``safetensors`` nor ``transformers``, so this
 module reads and writes the safetensors format itself: an 8-byte
@@ -55,6 +59,13 @@ _LAYER_MAP: Dict[str, Tuple[str, bool]] = {
     "o_bias": ("self_attn.o_proj.bias", False),
     "q_norm": ("self_attn.q_norm.weight", False),
     "k_norm": ("self_attn.k_norm.weight", False),
+    # MLA (deepseek)
+    "q_a_proj": ("self_attn.q_a_proj.weight", True),
+    "q_a_layernorm": ("self_attn.q_a_layernorm.weight", False),
+    "q_b_proj": ("self_attn.q_b_proj.weight", True),
+    "kv_a_proj_with_mqa": ("self_attn.kv_a_proj_with_mqa.weight", True),
+    "kv_a_layernorm": ("self_attn.kv_a_layernorm.weight", False),
+    "kv_b_proj": ("self_attn.kv_b_proj.weight", True),
     "post_attention_layernorm": ("post_attention_layernorm.weight", False),
     "pre_feedforward_layernorm": ("pre_feedforward_layernorm.weight", False),
     "post_feedforward_layernorm": ("post_feedforward_layernorm.weight", False),
@@ -65,6 +76,11 @@ _LAYER_MAP: Dict[str, Tuple[str, bool]] = {
     "up_bias": ("mlp.up_proj.bias", False),
     "down_bias": ("mlp.down_proj.bias", False),
     "router": ("mlp.gate.weight", True),
+    "e_score_correction_bias": ("mlp.gate.e_score_correction_bias", False),
+    # shared experts (deepseek)
+    "shared_experts.gate_proj": ("mlp.shared_experts.gate_proj.weight", True),
+    "shared_experts.up_proj": ("mlp.shared_experts.up_proj.weight", True),
+    "shared_experts.down_proj": ("mlp.shared_experts.down_proj.weight", True),
 }
 # stacked experts [E, in, out] <- per-expert HF [out, in]
 _EXPERT_MAP: Dict[str, str] = {

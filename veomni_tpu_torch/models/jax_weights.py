@@ -5,8 +5,12 @@ The reference keeps a plain tree with per-layer leaves stacked on a leading
 ``embed_tokens`` [V,H], ``norm`` [H], optional ``lm_head`` [H,V], and
 ``layers`` {name: [L, ...]}, where a MoE layer's ``experts`` is a nested
 subtree {gate_proj, up_proj: [L,E,H,I], down_proj: [L,E,I,H]} beside
-``router`` [L,H,E]. The port holds one ``DecoderLayer`` per layer with the
-same leaf names (``experts.gate_proj`` for the nested ones) and the same
+``router`` [L,H,E] (and, in the deepseek dialect, ``shared_experts`` and
+``e_score_correction_bias`` [L,E]). With ``first_k_dense_replace`` the
+leading dense layers form a second stacked subtree, ``dense_layers``
+(``:200-204``), and ``layers`` holds the MoE layers after them. The port
+holds one ``DecoderLayer`` per layer, the dense ones first, with the same
+leaf names (``experts.gate_proj`` for the nested ones) and the same
 ``[in, out]`` matrix layout, so leaves move across unstacked and
 untransposed. The tree's leaves are numpy arrays (``np.asarray`` of the JAX
 arrays); this module imports no JAX.
@@ -49,25 +53,37 @@ def _nest(flat: Dict[str, Any]) -> Dict[str, Any]:
     return tree
 
 
+def _segments(model: Transformer):
+    """{subtree name: the layers it stacks}: ``dense_layers`` (the leading
+    dense layers of a MoE config, when it has any) and ``layers``."""
+    k = model.cfg.first_k_dense_replace if model.cfg.is_moe else 0
+    segments = {"dense_layers": model.layers[:k]} if k else {}
+    segments["layers"] = model.layers[k:]
+    return segments
+
+
 @torch.no_grad()
 def load_jax_params(model: Transformer, tree: Dict[str, Any]) -> None:
     """Copy a JAX param tree (numpy leaves) into ``model`` in place."""
     top = _top_level(model)
-    want = set(top) | {"layers"}
+    segments = _segments(model)
+    want = set(top) | set(segments)
     if set(tree) != want:
         raise KeyError(f"param tree keys {sorted(tree)} != model keys {sorted(want)}")
     for name, param in top.items():
         _copy(param, tree[name], name)
-    layers = _flatten(tree["layers"])
-    names = {n for n, _ in model.layers[0].named_parameters()}
-    if set(layers) != names:
-        raise KeyError(f"layer keys {sorted(layers)} != model layer keys {sorted(names)}")
-    for leaf, stacked in layers.items():
-        stacked = np.asarray(stacked)
-        if stacked.shape[0] != len(model.layers):
-            raise ValueError(f"layers.{leaf}: {stacked.shape[0]} layers, model has {len(model.layers)}")
-        for i, layer in enumerate(model.layers):
-            _copy(layer.get_parameter(leaf), stacked[i], f"layers.{leaf}[{i}]")
+    for seg, layers in segments.items():
+        leaves = _flatten(tree[seg])
+        names = {n for n, _ in layers[0].named_parameters()}
+        if set(leaves) != names:
+            raise KeyError(f"{seg} keys {sorted(leaves)} != model layer keys {sorted(names)}")
+        for leaf, stacked in leaves.items():
+            stacked = np.asarray(stacked)
+            if stacked.shape[0] != len(layers):
+                raise ValueError(f"{seg}.{leaf}: {stacked.shape[0]} layers, model has "
+                                 f"{len(layers)}")
+            for i, layer in enumerate(layers):
+                _copy(layer.get_parameter(leaf), stacked[i], f"{seg}.{leaf}[{i}]")
 
 
 def _copy(param: torch.Tensor, value, name: str) -> None:
@@ -88,8 +104,9 @@ def to_jax_tree(model: Transformer, *, grads: bool = False) -> Dict[str, Any]:
         return t.detach().float().cpu().numpy()
 
     tree: Dict[str, Any] = {name: val(p) for name, p in _top_level(model).items()}
-    names = [n for n, _ in model.layers[0].named_parameters()]
-    tree["layers"] = _nest({
-        n: np.stack([val(layer.get_parameter(n)) for layer in model.layers]) for n in names
-    })
+    for seg, layers in _segments(model).items():
+        names = [n for n, _ in layers[0].named_parameters()]
+        tree[seg] = _nest({
+            n: np.stack([val(layer.get_parameter(n)) for layer in layers]) for n in names
+        })
     return tree

@@ -1,25 +1,45 @@
-"""Decoder-only transformer: the dense llama/qwen2/qwen3/gemma3 paths and qwen3_moe.
+"""Decoder-only transformer: the dense llama/qwen2/qwen3/gemma3 paths, the
+qwen3_moe MoE and the deepseek_v2/v3 MoE dialect.
 
 Port of ``veomni_tpu/models/transformer.py``: ``init_params`` (``:183``)
 with ``_attn_params``/``_dense_mlp_params`` (``:80-147``) and
-``_moe_params`` (``:150``), ``_standard_attention`` (``:374``), the dense
-and MoE branches of ``_decoder_layer`` (``:518``), the softmax branch of
-``route_tokens`` (``:240``), ``experts_apply_sorted`` (``:307``),
-``_moe_mlp`` (``:333``), ``forward_hidden`` (``:605``), ``lm_head_kernel``
-(``:748``), ``forward_logits`` (``:754``), ``head_loss`` (``:783``) and
-``loss_fn`` (``:805``). The dense dialects: HF rope scaling (linear, llama3,
-yarn), partial rotary, q/k/v/o and MLP biases (qwen2), and gemma3's sliding
+``_moe_params`` (``:150``), ``_standard_attention`` (``:374``),
+``_mla_attention`` without its DSA branch (``:457``), the dense and MoE
+branches of ``_decoder_layer`` (``:518``), ``route_tokens`` (``:240``; every
+branch but gpt_oss's), ``experts_apply_sorted`` (``:307``),
+``_shared_experts_out`` (``:319``), ``_moe_mlp`` (``:333``),
+``forward_hidden`` (``:605``), ``lm_head_kernel`` (``:748``),
+``forward_logits`` (``:754``), ``head_loss`` (``:783``) and ``loss_fn``
+(``:805``). The dense dialects: HF rope scaling (linear, llama3, yarn),
+partial rotary, q/k/v/o and MLP biases (qwen2), and gemma3's sliding
 windows on a per-layer pattern, dual rope, zero-centered and sandwich
 norms, embedding scale, ``query_pre_attn_scalar``, GELU and logit softcap.
-A windowed layer reaches the plain attention through the reference's own
-feature dispatch (``ops/cuda/flash_attention.py``); a full-attention layer
-keeps the flash kernels. PyTorch
-idiom: one ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
-reference stacks layers on a leading axis and scans them). Parameters keep
-the reference's names and its ``[in, out]`` matrix layout, so ``x @ w`` here
-is ``jnp.dot(x, w)`` there; a MoE layer holds ``router`` [H,E] and an
-``experts`` submodule with ``gate_proj``/``up_proj`` [E,H,I] and
-``down_proj`` [E,I,H].
+The deepseek dialect: MLA (q from ``q_proj`` or a ``q_a``/``q_b`` low-rank
+pair, k and v from a ``kv_lora_rank`` latent, a rope part shared across
+heads in the interleaved layout, the yarn mscale on the softmax scale),
+sigmoid noaux-tc routing with ``e_score_correction_bias``, group-limited
+routing in both the sigmoid (top-2 sum per group) and the softmax (max per
+group) forms, shared experts (optionally sigmoid-gated) added after the
+routed combine, and ``first_k_dense_replace`` leading dense layers.
+A windowed layer, and an MLA layer (v head dim 128 against q/k's 192),
+reach the plain attention through the reference's own feature dispatch
+(``ops/cuda/flash_attention.py``); a full-attention layer keeps the flash
+kernels. PyTorch idiom: one ``DecoderLayer`` module per layer in an
+``nn.ModuleList`` (the reference stacks layers on a leading axis and scans
+them, with the leading dense layers in a second stacked subtree,
+``dense_layers``; here they are simply the first layers of the list).
+Parameters keep the reference's names and its ``[in, out]`` matrix layout,
+so ``x @ w`` here is ``jnp.dot(x, w)`` there; a MoE layer holds ``router``
+[H,E], an ``experts`` submodule with ``gate_proj``/``up_proj`` [E,H,I] and
+``down_proj`` [E,I,H] and, where the dialect has them, a
+``shared_experts`` submodule and ``e_score_correction_bias`` [E].
+
+The MLA rope rotates each adjacent channel pair by that pair's frequency
+(``rotary_tables(..., interleaved=True)``), as HF's deepseek does; the
+reference pairs the interleaved rotation with the concatenated-halves
+tables, which turns a pair's two channels by two different angles (no
+rotation, and q.k no longer depends on the position difference alone;
+ROADMAP.md queue 3, diverges on purpose).
 
 Mixed precision as in the reference: master parameters in
 ``cfg.param_dtype`` (f32), cast to ``cfg.dtype`` (bf16) on every forward
@@ -44,8 +64,10 @@ Its combine is deterministic: each sorted expert output goes back to its
 (token, slot) place by a permutation and the top-k slots are summed, where
 the reference scatter-adds (``.at[token_idx].add``, ``:351``); the token
 dispatch likewise gathers from a k-fold copy of the tokens, so neither
-direction needs atomics. Features outside these paths raise
-``NotImplementedError``.
+direction needs atomics. The correction bias reaches the loss only through
+the expert choice, so it has no gradient; the optimizer gives it a zero one
+(``optim/optimizer.py``), as ``jax.grad`` does, so weight decay still
+shrinks it. Features outside these paths raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,19 +89,11 @@ def check_supported(cfg: TransformerConfig) -> None:
     naming its item in ROADMAP.md queue 1."""
     moe = cfg.is_moe
     missing = [name for name, on in (
-        (f"MoE scoring_func {cfg.scoring_func!r} (slice B item 1)",
-         moe and cfg.scoring_func != "softmax"),
-        ("group-limited routing, n_group/topk_group (slice B item 1)",
-         moe and bool(cfg.n_group and cfg.topk_group and cfg.n_group > 1)),
-        ("shared experts (slice B item 2)", moe and bool(cfg.n_shared_experts
-                                                         or cfg.shared_expert_intermediate_size)),
-        ("first_k_dense_replace (slice B item 3)", moe and cfg.first_k_dense_replace > 0),
         ("router_bias (slice B item 4)", moe and cfg.router_bias),
         ("expert biases, mlp_bias on a MoE (slice B item 4)", moe and cfg.mlp_bias),
         ("gpt_oss routing (slice B item 4)", moe and cfg.model_type == "gpt_oss"),
         ("moe_capacity_factor, expert parallelism (slice B item 5)",
          moe and cfg.moe_capacity_factor > 0),
-        ("MLA, kv_lora_rank (slice A item 5)", cfg.use_mla),
         ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
         ("attention sinks (slice B item 4, with gpt_oss)", cfg.attention_sinks),
         ("mrope (slice F)", ops.is_mrope(cfg.rope_scaling)),
@@ -96,18 +110,58 @@ def check_supported(cfg: TransformerConfig) -> None:
         raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(missing))
 
 
-def route_tokens(x, router, cfg: TransformerConfig):
-    """Softmax router (the qwen-moe lineage, reference ``:240-298``) ->
-    (topk_idx [T,K], topk_weights [T,K] f32, aux_loss). ``x`` [T,H] and
-    ``router`` [H,E] in the compute dtype; the logits are f32 products of
-    them, as ``preferred_element_type=f32`` gives."""
+def _top_k(values, k: int):
+    """(values, indices) of the first k of a stable descending sort: among
+    equal values the lower index wins, as with the reference's
+    ``lax.top_k`` (``torch.topk`` makes no promise about ties)."""
+    sorted_v, sorted_i = torch.sort(values, dim=-1, descending=True, stable=True)
+    return sorted_v[..., :k], sorted_i[..., :k]
+
+
+def _group_mask(choice, cfg: TransformerConfig, group_score):
+    """[T,E] bool: the experts of each token's ``topk_group`` best groups,
+    a group scored by ``group_score`` over its [T, n_group, E/n_group]
+    slice (``:254-264``, ``:280-291``)."""
+    t, e = choice.shape
+    _, top_groups = _top_k(group_score(choice.view(t, cfg.n_group, e // cfg.n_group)),
+                           cfg.topk_group)
+    keep = torch.zeros((t, cfg.n_group), dtype=torch.bool, device=choice.device)
+    keep.scatter_(1, top_groups, True)
+    return keep.repeat_interleave(e // cfg.n_group, dim=1)
+
+
+def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None):
+    """Router dialects (``:240-298``) -> (topk_idx [T,K], topk_weights
+    [T,K] f32, aux_loss). ``x`` [T,H], ``router`` [H,E] and the sigmoid
+    dialect's ``correction_bias`` [E] in the compute dtype; the logits are
+    f32 products, as ``preferred_element_type=f32`` gives.
+
+    softmax (qwen-moe, deepseek_v2): softmax -> (max-per-group greedy
+    mask) -> top-k (-> renorm) (-> scaling). sigmoid (deepseek_v3
+    noaux-tc): sigmoid scores + correction bias pick the experts
+    (top-2-sum-per-group mask first), the weights are the raw scores
+    (-> renorm) x scaling."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    probs = torch.softmax(x.float() @ router.float(), dim=-1)
-    # the first k of a stable descending sort: among equal probabilities the
-    # lower expert index wins, as with the reference's lax.top_k (torch.topk
-    # makes no promise about ties)
-    sorted_w, sorted_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topk_w, topk_idx = sorted_w[..., :k], sorted_idx[..., :k]
+    logits = x.float() @ router.float()
+    grouped = bool(cfg.n_group and cfg.topk_group and cfg.n_group > 1)
+    if cfg.scoring_func == "sigmoid":
+        scores = torch.sigmoid(logits)
+        choice = scores + correction_bias.float()
+        if grouped:
+            keep = _group_mask(choice, cfg, lambda g: _top_k(g, 2)[0].sum(-1))
+            choice = choice.masked_fill(~keep, float("-inf"))
+        _, topk_idx = _top_k(choice, k)
+        topk_w = scores.gather(-1, topk_idx)
+        if cfg.norm_topk_prob:
+            topk_w = topk_w / (topk_w.sum(-1, keepdim=True) + 1e-20)
+        topk_w = topk_w * cfg.routed_scaling_factor
+        probs = scores / scores.sum(-1, keepdim=True).clamp(min=1e-20)
+        return topk_idx, topk_w, ops.load_balancing_loss(probs, topk_idx, e)
+    probs = torch.softmax(logits, dim=-1)
+    choice = probs
+    if grouped:
+        choice = choice.masked_fill(~_group_mask(choice, cfg, lambda g: g.amax(-1)), 0.0)
+    topk_w, topk_idx = _top_k(choice, k)
     if cfg.norm_topk_prob:
         topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp(min=1e-9)
     if cfg.routed_scaling_factor != 1.0:
@@ -131,12 +185,26 @@ def experts_apply_sorted(xs, experts: "Experts", group_sizes, cfg: TransformerCo
     return ops.group_gemm(act, experts.down_proj.to(dt), group_sizes)
 
 
-def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig):
+def shared_experts_out(x, shared, cfg: TransformerConfig, gate=None):
+    """The shared experts' dense gated MLP on every token (``:319-325``),
+    times sigmoid(x @ ``gate``) when the dialect gates it; plain products
+    in the compute dtype."""
+    dt = cfg.dtype
+    act = ops.gated_act(x @ shared.gate_proj.to(dt), x @ shared.up_proj.to(dt), cfg.hidden_act)
+    out = act @ shared.down_proj.to(dt)
+    if gate is not None:
+        out = out * torch.sigmoid(x @ gate.to(dt))
+    return out
+
+
+def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bias=None,
+            shared=None, shared_gate=None):
     """Single-device MoE (``_moe_mlp``, ``:333``): route -> stable sort by
-    expert -> grouped GEMM -> weighted combine. x [T,H] -> ([T,H], aux)."""
+    expert -> grouped GEMM -> weighted combine (-> + the shared experts).
+    x [T,H] -> ([T,H], aux)."""
     t, h = x.shape
     k = cfg.num_experts_per_tok
-    topk_idx, topk_w, aux = route_tokens(x, router, cfg)
+    topk_idx, topk_w, aux = route_tokens(x, router, cfg, correction_bias)
     flat_expert = topk_idx.reshape(-1)  # [T*K], slot j of token i at i*K + j
     sort_idx = torch.argsort(flat_expert, stable=True)
     # dispatch: sorted row r is token sort_idx[r] // K, gathered from a K-fold copy
@@ -146,7 +214,10 @@ def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig):
     # combine: back to (token, slot) order by the inverse permutation, sum the slots
     inverse = torch.empty_like(sort_idx)
     inverse[sort_idx] = torch.arange(t * k, device=x.device)
-    return weighted[inverse].view(t, k, h).sum(1), aux
+    combined = weighted[inverse].view(t, k, h).sum(1)
+    if shared is not None:
+        combined = combined + shared_experts_out(x, shared, cfg, shared_gate)
+    return combined, aux
 
 
 class Experts(nn.Module):
@@ -165,13 +236,33 @@ class Experts(nn.Module):
         self.down_proj = p(e, im, h)
 
 
+class SharedExperts(nn.Module):
+    """A MoE layer's shared experts: one dense gated MLP of width
+    ``shared_expert_intermediate_size`` or n_shared x the expert width."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        h = cfg.hidden_size
+        si = (cfg.shared_expert_intermediate_size
+              or (cfg.moe_intermediate_size or cfg.intermediate_size) * cfg.n_shared_experts)
+
+        def p(*shape):
+            return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
+
+        self.gate_proj = p(h, si)
+        self.up_proj = p(h, si)
+        self.down_proj = p(si, h)
+
+
 class DecoderLayer(nn.Module):
-    """One decoder layer: RMSNorm -> GQA attention with rotary, optional
-    qk-norm, q/k/v/o biases and this layer's sliding window -> (gemma: its
-    post-attention norm) -> residual -> RMSNorm -> gated MLP (dense, or
-    routed experts) -> (gemma: its post-feedforward norm) -> residual.
-    ``forward`` returns (hidden, router aux loss), the aux loss 0 for a dense
-    layer.
+    """One decoder layer: RMSNorm -> attention (GQA with rotary, optional
+    qk-norm, q/k/v/o biases and this layer's sliding window; or MLA) ->
+    (gemma: its post-attention norm) -> residual -> RMSNorm -> gated MLP
+    (dense, or routed experts with optional shared experts) -> (gemma: its
+    post-feedforward norm) -> residual. ``forward`` returns (hidden, router
+    aux loss), the aux loss 0 for a dense layer. A MoE config's first
+    ``first_k_dense_replace`` layers are dense (the reference's
+    ``dense_layers`` segment).
 
     With sandwich norms (gemma3, reference ``:548-556``)
     ``post_attention_layernorm`` normalises the attention output and
@@ -181,38 +272,61 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device, layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.is_moe = cfg.is_moe and layer_idx >= cfg.first_k_dense_replace
         # 0 = full attention; a windowed layer of a dual-rope model (gemma3)
         # rotates with the local tables
         self.window = cfg.window_for_layer(layer_idx)
         self.local_rope = bool(cfg.rope_local_base_freq) and self.window > 0
-        self.scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
-                      else cfg.head_dim ** -0.5)
         h, inter = cfg.hidden_size, cfg.intermediate_size
 
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
 
         self.input_layernorm = p(h)
-        self.q_proj = p(h, cfg.q_dim)
-        self.k_proj = p(h, cfg.kv_dim)
-        self.v_proj = p(h, cfg.kv_dim)
-        self.o_proj = p(cfg.q_dim, h)
-        if cfg.attention_bias:
-            self.q_bias = p(cfg.q_dim)
-            self.k_bias = p(cfg.kv_dim)
-            self.v_bias = p(cfg.kv_dim)
-        if cfg.o_bias:
-            self.o_bias = p(h)
-        if cfg.qk_norm:
-            self.q_norm = p(cfg.head_dim)
-            self.k_norm = p(cfg.head_dim)
+        if cfg.use_mla:
+            nh, dr = cfg.num_attention_heads, cfg.qk_rope_head_dim
+            self.attn_dim = nh * cfg.v_head_dim
+            self.scale = cfg.qk_head_dim ** -0.5 * ops.yarn_attention_factor(cfg.rope_scaling, dr)
+            if cfg.q_lora_rank:
+                self.q_a_proj = p(h, cfg.q_lora_rank)
+                self.q_a_layernorm = p(cfg.q_lora_rank)
+                self.q_b_proj = p(cfg.q_lora_rank, nh * cfg.qk_head_dim)
+            else:
+                self.q_proj = p(h, nh * cfg.qk_head_dim)
+            self.kv_a_proj_with_mqa = p(h, cfg.kv_lora_rank + dr)
+            self.kv_a_layernorm = p(cfg.kv_lora_rank)
+            self.kv_b_proj = p(cfg.kv_lora_rank, nh * (cfg.qk_nope_head_dim + cfg.v_head_dim))
+            self.o_proj = p(self.attn_dim, h)
+        else:
+            self.attn_dim = cfg.q_dim
+            self.scale = (cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar
+                          else cfg.head_dim ** -0.5)
+            self.q_proj = p(h, cfg.q_dim)
+            self.k_proj = p(h, cfg.kv_dim)
+            self.v_proj = p(h, cfg.kv_dim)
+            self.o_proj = p(cfg.q_dim, h)
+            if cfg.attention_bias:
+                self.q_bias = p(cfg.q_dim)
+                self.k_bias = p(cfg.kv_dim)
+                self.v_bias = p(cfg.kv_dim)
+            if cfg.o_bias:
+                self.o_bias = p(h)
+            if cfg.qk_norm:
+                self.q_norm = p(cfg.head_dim)
+                self.k_norm = p(cfg.head_dim)
         self.post_attention_layernorm = p(h)
         if cfg.sandwich_norms:
             self.pre_feedforward_layernorm = p(h)
             self.post_feedforward_layernorm = p(h)
-        if cfg.is_moe:
+        if self.is_moe:
             self.router = p(h, cfg.num_experts)
             self.experts = Experts(cfg, device)
+            if cfg.scoring_func == "sigmoid":
+                self.e_score_correction_bias = p(cfg.num_experts)
+            if cfg.n_shared_experts or cfg.shared_expert_intermediate_size:
+                self.shared_experts = SharedExperts(cfg, device)
+                if cfg.shared_expert_gated:
+                    self.shared_expert_gate = p(h, 1)
         else:
             self.gate_proj = p(h, inter)
             self.up_proj = p(h, inter)
@@ -227,7 +341,7 @@ class DecoderLayer(nn.Module):
         return ops.rms_norm(x, getattr(self, name).to(cfg.dtype), cfg.rms_norm_eps,
                             zero_centered=cfg.norm_zero_centered)
 
-    def _linear(self, x, weight: str, bias: str):
+    def _linear(self, x, weight: str, bias: str = ""):
         """x @ weight (+ bias when the layer has it), in the compute dtype."""
         dt = self.cfg.dtype
         out = x @ getattr(self, weight).to(dt)
@@ -236,6 +350,8 @@ class DecoderLayer(nn.Module):
 
     def _qkv(self, hidden, cos, sin):
         cfg = self.cfg
+        if cfg.use_mla:
+            return self._mla_qkv(hidden, cos, sin)
         b, s, _ = hidden.shape
         x = self._norm(hidden, "input_layernorm")
         q = self._linear(x, "q_proj", "q_bias").view(b, s, cfg.num_attention_heads, cfg.head_dim)
@@ -247,6 +363,30 @@ class DecoderLayer(nn.Module):
         q, k = ops.apply_rotary(q, k, cos, sin)
         return q, k, v
 
+    def _mla_qkv(self, hidden, cos, sin):
+        """MLA's per-head q, k [B,S,nh,dn+dr] and v [B,S,nh,dv] (training
+        form, ``:457-486``): q from ``q_proj`` or the ``q_a``/``q_b`` pair,
+        k's nope part and v from the normed kv latent, and one rope part of
+        k shared by every head."""
+        cfg = self.cfg
+        b, s, _ = hidden.shape
+        nh, dn, dr = cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        x = self._norm(hidden, "input_layernorm")
+        if cfg.q_lora_rank:
+            q = self._linear(self._norm(self._linear(x, "q_a_proj"), "q_a_layernorm"), "q_b_proj")
+        else:
+            q = self._linear(x, "q_proj")
+        q = q.view(b, s, nh, dn + dr)
+        kv_a = self._linear(x, "kv_a_proj_with_mqa")
+        kv = self._linear(self._norm(kv_a[..., :cfg.kv_lora_rank], "kv_a_layernorm"), "kv_b_proj")
+        kv = kv.view(b, s, nh, dn + cfg.v_head_dim)
+        k_rope = kv_a[..., cfg.kv_lora_rank:].view(b, s, 1, dr)
+        q_rope, k_rope = ops.apply_rotary(q[..., dn:], k_rope, cos, sin,
+                                          interleaved=cfg.rope_interleave)
+        q = torch.cat([q[..., :dn], q_rope], dim=-1)
+        k = torch.cat([kv[..., :dn], k_rope.expand(b, s, nh, dr)], dim=-1)
+        return q, k, kv[..., dn:]
+
     def _attend(self, q, k, v, segment_ids):
         return ops.attention(q, k, v, segment_ids=segment_ids, causal=True,
                              softmax_scale=self.scale, sliding_window=self.window or None)
@@ -255,19 +395,29 @@ class DecoderLayer(nn.Module):
         """(residual stream after attention, the MLP's input norm of it)."""
         cfg = self.cfg
         b, s, _ = hidden.shape
-        out = self._linear(attn.reshape(b, s, cfg.q_dim), "o_proj", "o_bias")
+        out = self._linear(attn.reshape(b, s, self.attn_dim), "o_proj", "o_bias")
         if cfg.sandwich_norms:
             out = self._norm(out, "post_attention_layernorm")
         hidden = hidden + out
         pre = "pre_feedforward_layernorm" if cfg.sandwich_norms else "post_attention_layernorm"
         return hidden, self._norm(hidden, pre)
 
+    def moe(self, x):
+        """The MoE MLP of x [T,H] -> ([T,H], aux) with this layer's router,
+        correction bias, experts and shared experts."""
+        dt = self.cfg.dtype
+        bias = getattr(self, "e_score_correction_bias", None)
+        gate = getattr(self, "shared_expert_gate", None)
+        return moe_mlp(x, self.router.to(dt), self.experts, self.cfg,
+                       correction_bias=None if bias is None else bias.to(dt),
+                       shared=getattr(self, "shared_experts", None), shared_gate=gate)
+
     def _tail(self, hidden, attn):
-        cfg, dt = self.cfg, self.cfg.dtype
+        cfg = self.cfg
         hidden, x = self.mlp_input(hidden, attn)
-        if cfg.is_moe:
+        if self.is_moe:
             b, s, h = x.shape
-            out, aux = moe_mlp(x.reshape(b * s, h), self.router.to(dt), self.experts, cfg)
+            out, aux = self.moe(x.reshape(b * s, h))
             out = out.view(b, s, h)
         else:
             act = ops.gated_act(self._linear(x, "gate_proj", "gate_bias"),
@@ -333,9 +483,12 @@ class Transformer(nn.Module):
         [B,S,rope_dim]; the local tables (gemma3's windowed layers,
         ``rope_local_base_freq``) are the global ones without a dual rope."""
         cfg, dt = self.cfg, self.cfg.dtype
-        rope_dim = int(cfg.head_dim * cfg.partial_rotary_factor)
+        # MLA's shared rope part, else the head's (partial) rotary width (:633-636)
+        rope_dim = (cfg.qk_rope_head_dim if cfg.use_mla
+                    else int(cfg.head_dim * cfg.partial_rotary_factor))
         cos, sin = ops.rotary_tables(position_ids, rope_dim, cfg.rope_theta,
-                                     rope_scaling=cfg.rope_scaling)
+                                     rope_scaling=cfg.rope_scaling,
+                                     interleaved=cfg.use_mla and cfg.rope_interleave)
         tables = {False: (cos.to(dt), sin.to(dt))}
         tables[True] = tables[False]
         if cfg.rope_local_base_freq:

@@ -22,6 +22,7 @@ from veomni_tpu_torch.ops.cuda import grouped_gemm as _gmm  # noqa: F401  (regis
 rms_norm = _rms_norm.rms_norm
 apply_rotary = _rotary.apply_rotary
 rotary_tables = _rotary.rotary_tables
+yarn_attention_factor = _rotary.yarn_attention_factor
 is_mrope = _rotary.is_mrope
 swiglu = _swiglu.swiglu
 gated_act = _swiglu.gated_act
@@ -46,6 +47,7 @@ __all__ = [
     "rms_norm",
     "apply_rotary",
     "rotary_tables",
+    "yarn_attention_factor",
     "is_mrope",
     "swiglu",
     "gated_act",

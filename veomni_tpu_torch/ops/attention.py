@@ -9,8 +9,8 @@ without the sequence-parallel branch (the parallel layer is a later slice).
 ``xla_twopass`` is registered for TPUs only in the reference and has no
 port. Every impl takes a causal sliding window and per-head sink logits.
 
-Layouts: q [B, S, Hq, D]; k/v [B, S, Hkv, D]; segment_ids [B, S] int32.
-Returns [B, S, Hq, D].
+Layouts: q/k [B, S, Hq/Hkv, D]; v [B, S, Hkv, Dv] (Dv = D but for MLA);
+segment_ids [B, S] int32. Returns [B, S, Hq, Dv].
 """
 
 from __future__ import annotations
@@ -91,9 +91,13 @@ def _attention_xla_chunked(
     O(S * chunk) live memory instead of the dense impl's [B, H, S, S] f32
     scores. Blocks wholly above the causal diagonal are skipped, and each
     block step runs under ``torch.utils.checkpoint`` when autograd records,
-    so the backward recomputes block scores as a flash backward does."""
+    so the backward recomputes block scores as a flash backward does.
+
+    V keeps its own head dim ``dv`` (MLA: 128 against q/k's 192), where the
+    reference reshapes V and sizes the accumulator with q's (``:105``) and
+    raises on any ``dv != d`` (ROADMAP.md queue 3, diverges on purpose)."""
     b, sq, hq, d = q.shape
-    sk = k.shape[1]
+    sk, dv = k.shape[1], v.shape[-1]
     cq = _best_chunk(sq, q_chunk)
     ck = _best_chunk(sk, k_chunk)
     if cq < 128 or ck < 128:
@@ -108,7 +112,7 @@ def _attention_xla_chunked(
     # [B,H,n,C,D] block layout
     qt = q.transpose(1, 2).reshape(b, hq, nq, cq, d)
     kt = k.transpose(1, 2).reshape(b, hq, nk, ck, d)
-    vt = v.transpose(1, 2).reshape(b, hq, nk, ck, d)
+    vt = v.transpose(1, 2).reshape(b, hq, nk, ck, dv)
     seg_q = seg_k = None
     if segment_ids is not None:
         seg_q = segment_ids.reshape(b, nq, cq)
@@ -117,7 +121,7 @@ def _attention_xla_chunked(
     out_blocks = []
     for i in range(nq):
         qi = qt[:, :, i]
-        acc = torch.zeros((b, hq, cq, d), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hq, cq, dv), dtype=torch.float32, device=q.device)
         m = torch.full((b, hq, cq), _NEG, dtype=torch.float32, device=q.device)
         l = torch.zeros((b, hq, cq), dtype=torch.float32, device=q.device)
         qpos = i * cq + torch.arange(cq, device=q.device)[:, None]

@@ -1,9 +1,11 @@
 """Rotary position embeddings (port of ``veomni_tpu/ops/rotary.py``):
-llama-style half rotation driven by position ids, with HF ``rope_scaling``
-(``linear``, ``llama3``, ``yarn``; ``default``/``dynamic`` keep the base
-frequencies). ``mrope`` (the qwen-vl position streams) raises: it comes with
-the VLM models of slice F (ROADMAP.md queue 1). Partial rotary is the
-caller's: it asks for tables of ``rope_dim < head_dim``.
+llama-style half rotation driven by position ids, or the pairwise
+``interleaved`` layout of the deepseek MLA rope (``_rotate_interleave``,
+``:157``), with HF ``rope_scaling`` (``linear``, ``llama3``, ``yarn``;
+``default``/``dynamic`` keep the base frequencies). ``mrope`` (the qwen-vl
+position streams) raises: it comes with the VLM models of slice F
+(ROADMAP.md queue 1). Partial rotary is the caller's: it asks for tables of
+``rope_dim < head_dim``.
 
 The inverse frequencies are f32 and computed in the reference's order of
 operations: at position 4096 and theta 5e5 another order already shows at
@@ -85,9 +87,12 @@ def yarn_attention_factor(rope_scaling, head_dim: int) -> float:
     return yarn_get_mscale(factor, mscale_all_dim) ** 2
 
 
-def rotary_tables(positions, head_dim: int, theta: float = 10000.0, rope_scaling=None):
+def rotary_tables(positions, head_dim: int, theta: float = 10000.0, rope_scaling=None,
+                  interleaved: bool = False):
     """positions [B,S] int -> (cos, sin) each [B,S,head_dim] f32; yarn
-    scales both by its mscale ratio (``rotary.py:141-148``)."""
+    scales both by its mscale ratio (``rotary.py:141-148``). ``interleaved``
+    repeats each frequency on adjacent channels (the pairs the interleaved
+    rotation turns) where the default concatenates two halves."""
     if is_mrope(rope_scaling):
         raise NotImplementedError(
             "mrope is not ported yet (ROADMAP.md queue 1, slice F: the VLM models)")
@@ -95,7 +100,7 @@ def rotary_tables(positions, head_dim: int, theta: float = 10000.0, rope_scaling
     inv_freq = 1.0 / (theta ** exponent)
     inv_freq, _ = _scale_inv_freq(inv_freq, rope_scaling, head_dim, theta)
     ang = positions.float()[..., None] * inv_freq  # [B,S,D/2]
-    ang = torch.cat([ang, ang], dim=-1)
+    ang = torch.repeat_interleave(ang, 2, dim=-1) if interleaved else torch.cat([ang, ang], -1)
     scale = 1.0
     if rope_scaling and _rope_type(rope_scaling) == "yarn":
         factor = float(rope_scaling.get("factor", 1.0))
@@ -113,24 +118,33 @@ def _rotate_half(x):
     return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
 
 
+def _rotate_interleave(x):
+    """(x0, x1, x2, x3, ...) -> (-x1, x0, -x3, x2, ...): each adjacent pair
+    turned by a quarter (``:157-160``)."""
+    pairs = x.unflatten(-1, (-1, 2))
+    return torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
+
+
 @KERNEL_REGISTRY.register("rotary", "xla")
-def _apply_rotary_plain(q, k, cos, sin):
+def _apply_rotary_plain(q, k, cos, sin, interleaved: bool = False):
     """q [B,S,Hq,D], k [B,S,Hk,D], cos/sin [B,S,D]; f32 math, cast back."""
     dtype = q.dtype
+    rot = _rotate_interleave if interleaved else _rotate_half
     cos = cos[..., None, :].float()
     sin = sin[..., None, :].float()
     qf, kf = q.float(), k.float()
-    q_out = qf * cos + _rotate_half(qf) * sin
-    k_out = kf * cos + _rotate_half(kf) * sin
+    q_out = qf * cos + rot(qf) * sin
+    k_out = kf * cos + rot(kf) * sin
     return q_out.to(dtype), k_out.to(dtype)
 
 
-def apply_rotary(q, k, cos, sin):
+def apply_rotary(q, k, cos, sin, interleaved: bool = False):
     """Rotate q and k by the tables; tables narrower than the head (partial
     rotary) rotate its leading dims and pass the rest through
     (``transformer.py:390-395``)."""
     rot = cos.shape[-1]
     if rot < q.shape[-1]:
-        q_r, k_r = resolve_op("rotary", q.device)(q[..., :rot], k[..., :rot], cos, sin)
+        q_r, k_r = resolve_op("rotary", q.device)(q[..., :rot], k[..., :rot], cos, sin,
+                                                  interleaved)
         return (torch.cat([q_r, q[..., rot:]], dim=-1), torch.cat([k_r, k[..., rot:]], dim=-1))
-    return resolve_op("rotary", q.device)(q, k, cos, sin)
+    return resolve_op("rotary", q.device)(q, k, cos, sin, interleaved)

@@ -12,7 +12,14 @@ order. What differs is bookkeeping, handled here:
   leaves on a leading axis, so every per-layer parameter, norm weights
   included, has ``ndim > 1`` there and is decayed; only the unstacked
   top-level 1-D parameter (the final ``norm``) is not. The port keeps that
-  behaviour, not the 1-D rule it reads like.
+  behaviour, not the 1-D rule it reads like;
+* a parameter without a gradient is still decayed, as optax decays every
+  leaf of ``jax.grad``'s full tree: ``torch.optim.AdamW`` skips a parameter
+  whose ``.grad`` is None, so ``train/train_step.py`` gives each one a
+  zero gradient first. The deepseek router's ``e_score_correction_bias``
+  reaches the loss only through the expert choice and is such a parameter:
+  with a zero gradient its moments stay 0 and the step shrinks it by
+  ``lr * weight_decay * p``, as the reference does.
 """
 
 from __future__ import annotations

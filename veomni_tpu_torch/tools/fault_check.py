@@ -8,8 +8,11 @@ in ``csrc/flash_attention.cu``, the trainer's resume in
 ``checkpoint/checkpointer.py`` and ``trainer/base.py``, the HF weight load in
 ``models/hf_io.py``, the serving engine's paged gather, decode rotary, the
 rotary tables its steps share with the contiguous prefill, and prefix-cache
-match) and run the copy's ``chip_smoke.py`` (for a serving
-fault, its dense serving phase alone: ``--phases serve_dense``). A fault is caught when that run exits non-zero, prints no
+match, and the deepseek dialect's correction bias, shared experts, MLA rope
+and leading dense layer in ``models/transformer.py``) and run the copy's
+``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
+``--phases serve_dense``; for a deepseek one, its Moonlight phase:
+``--phases hf_trainer_moonlight``). A fault is caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
 
@@ -44,6 +47,11 @@ HF_IO_SOURCE = os.path.join("veomni_tpu_torch", "models", "hf_io.py")
 PAGED_SOURCE = os.path.join("veomni_tpu_torch", "ops", "paged_attention.py")
 DECODE_SOURCE = os.path.join("veomni_tpu_torch", "models", "decode.py")
 PREFIX_SOURCE = os.path.join("veomni_tpu_torch", "serving", "prefix_cache.py")
+MODEL_SOURCE = os.path.join("veomni_tpu_torch", "models", "transformer.py")
+# the deepseek faults run chip_smoke.py's Moonlight phase alone; its router
+# check, parameter count and layer check come before its trainer
+MOONLIGHT = ("--phases", "hf_trainer_moonlight")
+MOONLIGHT_LAYER = "Moonlight-16B-A3B layer check"
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
@@ -204,6 +212,29 @@ FAULTS = (
           "                break\n",
           "serve dense leg (a): re-score gate:", "serve dense leg (a): re-score gate",
           ("--phases", "serve_dense")),
+    # the deepseek dialect: the sigmoid router picks its experts by score
+    # alone, without the correction bias (the weights as they are)
+    Fault("deepseek-bias", "route_tokens leaves the correction bias out of the expert choice",
+          MODEL_SOURCE, "        choice = scores + correction_bias.float()\n",
+          "        choice = scores + 0 * correction_bias.float()\n",
+          "router check (DeepSeek-V3 width):", "router check (DeepSeek-V3 width): routing "
+                                                "disagrees", MOONLIGHT),
+    Fault("deepseek-shared", "moe_mlp drops the shared experts",
+          MODEL_SOURCE, "    if shared is not None:\n        combined = combined +",
+          "    if False:\n        combined = combined +",
+          f"{MOONLIGHT_LAYER}: MoE block", f"{MOONLIGHT_LAYER}: MoE block: the port's layer "
+                                           "disagrees", MOONLIGHT),
+    # MLA's rope with the llama half rotation on the interleaved tables
+    Fault("deepseek-rope-half", "MLA's rope turns the two halves (llama) for adjacent pairs",
+          MODEL_SOURCE, "interleaved=cfg.rope_interleave)", "interleaved=False)",
+          f"{MOONLIGHT_LAYER}: MLA q/k", f"{MOONLIGHT_LAYER}: MLA q/k: the port's layer "
+                                         "disagrees", MOONLIGHT),
+    # the leading dense layer built and routed as a MoE layer
+    Fault("deepseek-dense-as-moe", "first_k_dense_replace ignored: every layer is a MoE layer",
+          MODEL_SOURCE,
+          "self.is_moe = cfg.is_moe and layer_idx >= cfg.first_k_dense_replace",
+          "self.is_moe = cfg.is_moe",
+          "hf deepseek Moonlight-16B-A3B:", "parameters, the config gives", MOONLIGHT),
 )
 
 

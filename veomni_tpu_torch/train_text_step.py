@@ -14,6 +14,10 @@ depth cut to 4 layers to fit one H100)::
 
     python -m veomni_tpu_torch.train_text_step --steps 3 --seq-len 4096 --micro-bs 4
     python -m veomni_tpu_torch.train_text_step --preset qwen3_30b_a3b --num-layers 4
+
+A preset may also name a published HF config of ``HF_CONFIGS`` (e.g.
+``--preset moonlight_16b_a3b --num-layers 4 --micro-bs 2``: its leading
+dense layer and three MoE layers).
 """
 
 from __future__ import annotations
@@ -184,13 +188,115 @@ HF_CONFIGS = {
         "use_sliding_window": False,
         "vocab_size": 151936,
     },
+    # huggingface.co/moonshotai/Moonlight-16B-A3B/blob/main/config.json: the
+    # deepseek_v3 dialect, 27 layers (the first dense, width 11264; then 64
+    # routed experts of width 1408, top-6, sigmoid noaux-tc with one group,
+    # 2 shared experts, routed scaling 2.446), MLA with no q low-rank pair
+    # (kv_lora_rank 512, q/k head 128 + 64 rope, v head 128, 16 heads)
+    "moonlight_16b_a3b": {
+        "architectures": ["DeepseekV3ForCausalLM"],
+        "attention_bias": False,
+        "attention_dropout": 0.0,
+        "aux_loss_alpha": 0.001,
+        "bos_token_id": 163584,
+        "eos_token_id": 163585,
+        "first_k_dense_replace": 1,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "initializer_range": 0.02,
+        "intermediate_size": 11264,
+        "kv_lora_rank": 512,
+        "max_position_embeddings": 8192,
+        "model_type": "deepseek_v3",
+        "moe_intermediate_size": 1408,
+        "moe_layer_freq": 1,
+        "n_group": 1,
+        "n_routed_experts": 64,
+        "n_shared_experts": 2,
+        "norm_topk_prob": True,
+        "num_attention_heads": 16,
+        "num_experts_per_tok": 6,
+        "num_hidden_layers": 27,
+        "num_key_value_heads": 16,
+        "num_nextn_predict_layers": 0,
+        "q_lora_rank": None,
+        "qk_nope_head_dim": 128,
+        "qk_rope_head_dim": 64,
+        "rms_norm_eps": 1e-05,
+        "rope_scaling": None,
+        "rope_theta": 50000.0,
+        "routed_scaling_factor": 2.446,
+        "scoring_func": "sigmoid",
+        "seq_aux": True,
+        "tie_word_embeddings": False,
+        "topk_group": 1,
+        "topk_method": "noaux_tc",
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "v_head_dim": 128,
+        "vocab_size": 163840,
+    },
+    # huggingface.co/deepseek-ai/DeepSeek-V2-Lite/blob/main/config.json: the
+    # deepseek_v2 dialect at Moonlight's attention and expert widths, with
+    # softmax greedy routing (no renorm, scaling 1), dense width 10944 and
+    # yarn rope (factor 40, mscale and mscale_all_dim 0.707, theta 10000)
+    "deepseek_v2_lite": {
+        "architectures": ["DeepseekV2ForCausalLM"],
+        "attention_bias": False,
+        "attention_dropout": 0.0,
+        "aux_loss_alpha": 0.001,
+        "bos_token_id": 100000,
+        "eos_token_id": 100001,
+        "first_k_dense_replace": 1,
+        "hidden_act": "silu",
+        "hidden_size": 2048,
+        "initializer_range": 0.02,
+        "intermediate_size": 10944,
+        "kv_lora_rank": 512,
+        "max_position_embeddings": 163840,
+        "model_type": "deepseek_v2",
+        "moe_intermediate_size": 1408,
+        "moe_layer_freq": 1,
+        "n_group": 1,
+        "n_routed_experts": 64,
+        "n_shared_experts": 2,
+        "norm_topk_prob": False,
+        "num_attention_heads": 16,
+        "num_experts_per_tok": 6,
+        "num_hidden_layers": 27,
+        "num_key_value_heads": 16,
+        "q_lora_rank": None,
+        "qk_nope_head_dim": 128,
+        "qk_rope_head_dim": 64,
+        "rms_norm_eps": 1e-06,
+        "rope_scaling": {"beta_fast": 32, "beta_slow": 1, "factor": 40, "mscale": 0.707,
+                         "mscale_all_dim": 0.707, "original_max_position_embeddings": 4096,
+                         "type": "yarn"},
+        "rope_theta": 10000,
+        "routed_scaling_factor": 1.0,
+        "scoring_func": "softmax",
+        "seq_aux": True,
+        "tie_word_embeddings": False,
+        "topk_group": 1,
+        "topk_method": "greedy",
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "v_head_dim": 128,
+        "vocab_size": 102400,
+    },
 }
 
 
 def bench_config(preset: str = "qwen3_0p6b", **overrides) -> TransformerConfig:
     """Qwen3 config of ``bench.py::bench_config`` (``:175-197``) with the
     bench's default ``ctx`` remat (``bench.py:1691``); a preset's fields
-    override the dense Qwen3 defaults."""
+    override the dense Qwen3 defaults. A preset of ``HF_CONFIGS`` is its
+    published config.json (``from_hf_config``) with f32 master weights,
+    bf16 compute and ``ctx`` remat."""
+    if preset in HF_CONFIGS:
+        return TransformerConfig.from_hf_config(
+            HF_CONFIGS[preset], **{"dtype": torch.bfloat16, "param_dtype": torch.float32,
+                                   "remat_policy": "ctx", **overrides})
     fields = dict(
         model_type="qwen3",
         vocab_size=151936,
@@ -315,7 +421,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seq-len", type=int, default=4096)
     ap.add_argument("--micro-bs", type=int, default=4)
-    ap.add_argument("--preset", default="qwen3_0p6b", choices=sorted(BENCH_PRESETS))
+    ap.add_argument("--preset", default="qwen3_0p6b", choices=sorted({**BENCH_PRESETS,
+                                                                      **HF_CONFIGS}))
     ap.add_argument("--num-layers", type=int, default=None, help="cut the preset's depth")
     ap.add_argument("--device", default=None)
     ap.add_argument("--profile", default=None, metavar="TRACE.json",

@@ -1,8 +1,11 @@
-"""Promised FLOPs per token for MFU (the dense and MoE parts of
-``veomni_tpu/utils/count_flops.py::FlopsCounter``, same formula): q/k/v/o
-projections, causal attention scores and context (half the window), the
-SwiGLU MLP (for MoE: the top-k routed experts and the router; the port
-has no shared experts yet) and the LM head, forward; backward counts twice the forward."""
+"""Promised FLOPs per token for MFU (the dense, MoE and MLA parts of
+``veomni_tpu/utils/count_flops.py::FlopsCounter``, same formula): the q/k/v/o
+projections (MLA: the q and kv low-rank projections, ``:62-80``), causal
+attention scores and context (half the window), the SwiGLU MLP (for MoE:
+the top-k routed experts, the shared experts and the router, ``:89-101``)
+and the LM head, forward; backward counts twice the forward. As there,
+every layer of a MoE config counts as a MoE layer, ``first_k_dense_replace``
+leading dense layers included."""
 
 from __future__ import annotations
 
@@ -22,22 +25,52 @@ class FlopsCounter:
     num_experts: int = 0
     num_experts_per_tok: int = 0
     moe_intermediate_size: int = 0
+    num_shared_experts: int = 0
+    shared_expert_intermediate_size: int = 0
+    # MLA (deepseek); kv_lora_rank > 0 switches the attention terms
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+
+    def _attn_proj_flops(self) -> float:
+        """q/k/v/o projections per token (``:62-80``)."""
+        h = self.hidden_size
+        if self.kv_lora_rank:
+            qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+            nh, vd = self.num_heads, self.v_head_dim
+            q = (2 * h * self.q_lora_rank + 2 * self.q_lora_rank * nh * qk if self.q_lora_rank
+                 else 2 * h * nh * qk)
+            kv_a = 2 * h * (self.kv_lora_rank + self.qk_rope_head_dim)
+            kv_b = 2 * self.kv_lora_rank * nh * (self.qk_nope_head_dim + vd)
+            return q + kv_a + kv_b + 2 * nh * vd * h
+        q_dim = self.num_heads * self.head_dim
+        kv_dim = self.num_kv_heads * self.head_dim
+        return 2 * h * (q_dim + 2 * kv_dim + q_dim)
+
+    def _attn_score_flops(self, seq_len: int) -> float:
+        """Scores + context per token (``:82-87``); causal halves the window."""
+        if self.kv_lora_rank:
+            qk = self.qk_nope_head_dim + self.qk_rope_head_dim
+            return self.num_heads * 2 * (qk + self.v_head_dim) * (seq_len / 2)
+        return 2 * 2 * self.num_heads * self.head_dim * (seq_len / 2)
 
     def _mlp_flops(self) -> float:
-        """Reference ``:89-101``, without its shared-expert term."""
+        """Reference ``:89-101``."""
         h = self.hidden_size
         if self.num_experts and self.num_experts_per_tok:
             inter = self.moe_intermediate_size or self.intermediate_size
-            return 2 * 3 * h * inter * self.num_experts_per_tok + 2 * h * self.num_experts
+            mlp = 2 * 3 * h * inter * self.num_experts_per_tok
+            shared = self.shared_expert_intermediate_size or inter * self.num_shared_experts
+            if shared:
+                mlp += 2 * 3 * h * shared + (2 * h if self.shared_expert_intermediate_size else 0)
+            return mlp + 2 * h * self.num_experts  # + the router
         return 2 * 3 * h * self.intermediate_size
 
     def flops_per_token_fwd(self, seq_len: int) -> float:
-        h = self.hidden_size
-        q_dim = self.num_heads * self.head_dim
-        kv_dim = self.num_kv_heads * self.head_dim
-        proj = 2 * h * (q_dim + 2 * kv_dim + q_dim)
-        scores = 2 * 2 * self.num_heads * self.head_dim * (seq_len / 2)
-        return self.num_layers * (proj + scores + self._mlp_flops()) + 2 * h * self.vocab_size
+        layer = self._attn_proj_flops() + self._attn_score_flops(seq_len) + self._mlp_flops()
+        return self.num_layers * layer + 2 * self.hidden_size * self.vocab_size
 
     def batch_flops(self, total_tokens: int, seq_len: int) -> float:
         return 3.0 * total_tokens * self.flops_per_token_fwd(seq_len)
@@ -55,4 +88,11 @@ class FlopsCounter:
             num_experts=cfg.num_experts,
             num_experts_per_tok=cfg.num_experts_per_tok,
             moe_intermediate_size=cfg.moe_intermediate_size,
+            num_shared_experts=cfg.n_shared_experts,
+            shared_expert_intermediate_size=cfg.shared_expert_intermediate_size,
+            q_lora_rank=cfg.q_lora_rank,
+            kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim,
+            v_head_dim=cfg.v_head_dim,
         )
