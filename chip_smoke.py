@@ -134,14 +134,36 @@ Phases (any failure exits non-zero and prints no result line):
    timed at its expert widths (K/N 2048/1408 and 1408/2048) on its layer
    1's routing of a packed batch (M = 49152); then DeepSeek-V2-Lite
    (softmax greedy routing without renorm, yarn rope with its mscale on the
-   softmax scale) the same way at 2 layers for 3 steps.
+   softmax scale) the same way at 2 layers for 3 steps;
+16. the SFT path at ``configs/text/lora_sft.yaml``'s knobs (LoRA rank 16,
+   alpha 32, conversation data at seq 4096 x micro-batch 2, lr 1e-4, the
+   default ``nothing`` remat), run after the serving phases: chat rows
+   built from the repo's docs; TinyLlama-1.1B from an HF directory (random
+   bf16 weights, the byte-fallback fixture tokenizer of
+   ``tests/fixtures/tokenizers``) with the llama2 template, after the label
+   mask is checked with it and with the tokenizer's jinja template, 4
+   steps: K1 twice and K2, K3 once per layer and step, every adapter
+   trained, the base bit-unchanged, the adapter-only checkpoint, the
+   adapter save/load round trip bit-equal, the merged HF export against
+   ``W + scale * A @ B`` worked out here in f64, step 1 against the plain
+   attention; then a full fine-tune with ``freeze_modules`` and
+   ``module_lr_scales`` against a plain step (frozen tensor bit-unchanged,
+   grad norm, update ratios); then Qwen3-30B-A3B at its preset widths, 16 of
+   48 layers, ``moe_capacity_factor`` 2.0 at expert-parallel size 1,
+   adapters on the experts and attention, the byte-level fixture tokenizer
+   and chatml, 4 steps: K4 6, K5 and K6 3 times per layer and step on the
+   merged experts, the base bit-unchanged, the adapter round trip, the
+   last layer's merged weights against ``W + scale * A @ B`` worked out
+   here in f64 (its merged export, ~42 GB of f32, is off), step 1's loss
+   and grad norm against the plain ragged grouped GEMM.
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
 first) and prints no result line; ``--phases
 hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
 (11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
-deepseek ones (15).
+deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
+(16).
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -1507,6 +1529,28 @@ def random_model(dev, cfg, seed: int = 0):
     return model
 
 
+def write_random_hf_dir(dev, hf_dir: str, preset: str, layers=None):
+    """An HF directory of ``preset``'s published config.json (with
+    ``num_hidden_layers`` set to ``layers`` where the depth is cut) holding
+    random bf16 weights from seed 0 (``random_model``), written by the
+    port's save_hf_checkpoint; returns the config."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models.hf_io import save_hf_checkpoint
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS
+
+    published = dict(HF_CONFIGS[preset])
+    if layers is not None:
+        published["num_hidden_layers"] = layers
+    cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
+    written = random_model(dev, cfg)
+    save_hf_checkpoint(written, cfg, hf_dir)
+    del written
+    torch.cuda.empty_cache()
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(published, f, indent=2)
+    return cfg
+
+
 def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool,
                       layers=None, micro_bs: int = DIALECT_MICRO_BS) -> str:
     """A run's inputs under ``tmp``: the HF directory (random bf16 weights
@@ -1516,21 +1560,8 @@ def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool,
     pretokenized corpus (documents of S/16-S/2 tokens, 256-2048 at S 4096,
     uniform over the model's vocabulary, seed 0) and the YAML; returns the
     YAML's path."""
-    from veomni_tpu_torch.models import TransformerConfig
-    from veomni_tpu_torch.models.hf_io import save_hf_checkpoint
-    from veomni_tpu_torch.train_text_step import HF_CONFIGS
-
-    published = dict(HF_CONFIGS[preset])
-    if layers is not None:
-        published["num_hidden_layers"] = layers
-    cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
     hf_dir = os.path.join(tmp, "hf")
-    written = random_model(dev, cfg)
-    save_hf_checkpoint(written, cfg, hf_dir)
-    del written
-    torch.cuda.empty_cache()
-    with open(os.path.join(hf_dir, "config.json"), "w") as f:
-        json.dump(published, f, indent=2)
+    cfg = write_random_hf_dir(dev, hf_dir, preset, layers)
     rng = np.random.default_rng(0)
     data = os.path.join(tmp, "corpus.jsonl")
     # the loader offers 8 documents a row to the packing collator, a
@@ -2157,6 +2188,623 @@ def phase_deepseek_v2_lite(dev, card):
 
 
 # --------------------------------------------------------------------------
+# The SFT path: conversation data through the port's tokenizer, LoRA and the
+# optimizer's parameter groups, at configs/text/lora_sft.yaml's knobs
+# --------------------------------------------------------------------------
+SFT_YAML = os.path.join("configs", "text", "lora_sft.yaml")
+TOKENIZER_FIXTURES = os.path.join("tests", "fixtures", "tokenizers")
+SFT_DOCS = ("README.md", "SURVEY.md", "docs/serving.md", "docs/performance.md",
+            "docs/testing.md", "docs/observability.md", "docs/resilience.md")
+SFT_ROWS = 192
+SFT_SEQ = 4096  # lora_sft.yaml's max_seq_len
+SFT_MICRO_BS = 2  # and micro_batch_size
+SFT_DENSE_STEPS = 4
+SFT_GROUPS_STEPS = 2
+SFT_FREEZE = ["^embed_tokens$"]
+SFT_SCALES = {r"layers\.(q|k|v|o)_proj$": 0.1}
+# weight decay, so that a frozen tensor with a zero gradient would still move
+# if its update were not scaled by 0
+SFT_GROUPS_DECAY = 0.1
+# Qwen3-30B-A3B under LoRA: the frozen f32 base is ~2.49 GB a layer and the
+# rank-16 adapters with their gradient and AdamW moments ~0.28 GB; with the
+# embedding and head (2.49 GB), one layer's merged experts and their
+# gradients in flight and the head's logits, 16 layers are reckoned at a
+# ~59 GB peak (PERF.md §4)
+SFT_MOE_LAYERS = 16
+SFT_MOE_STEPS = 4
+SFT_MOE_CAPACITY = 2.0  # configs/text/qwen3_moe_ep.yaml's knob, read only under EP
+
+
+def sft_conversations(path: str, rows: int, seed: int = 0) -> None:
+    """Chat rows built from the paragraphs of the repo's docs: every other
+    row opens with a system turn, then two or three user/assistant pairs,
+    each turn one paragraph; no paragraph is used twice in a row, so each
+    turn's text tells whose it is."""
+    paras = []
+    for name in SFT_DOCS:
+        with open(name, encoding="utf-8") as f:
+            paras += [p.strip() for p in f.read().split("\n\n") if len(p.strip()) > 80]
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for r in range(rows):
+            picks = rng.choice(len(paras), size=7, replace=False)
+            msgs = ([{"role": "system", "content": paras[picks[6]]}] if r % 2 else [])
+            for i in range(2 * int(rng.integers(2, 4))):
+                msgs.append({"role": ("user", "assistant")[i % 2], "content": paras[picks[i]]})
+            f.write(json.dumps({"messages": msgs}) + "\n")
+
+
+def check_label_mask(tokenizer, transform, rows, tag: str) -> int:
+    """Every row through ``transform``: the decoded supervised runs hold
+    each assistant turn's text and no user or system text, the decoded
+    masked runs hold every user and system text, and a supervised label is
+    its input id. Returns the number of supervised tokens."""
+    supervised = 0
+    for row in rows:
+        enc = transform(row)
+        ids, labels = enc["input_ids"], enc["labels"]
+        if len(ids) != len(labels) or any(lab not in (-100, i) for lab, i in zip(labels, ids)):
+            raise AssertionError(f"{tag}: labels are not the ids or -100")
+        runs = {True: [], False: []}
+        start = 0
+        for j in range(1, len(ids) + 1):
+            if j == len(ids) or (labels[j] == -100) != (labels[start] == -100):
+                runs[labels[start] != -100].append(tokenizer.decode(ids[start:j]))
+                start = j
+        sup, masked = "\n".join(runs[True]), "\n".join(runs[False])
+        for msg in row["messages"]:
+            own = msg["role"] == "assistant"
+            if msg["content"] not in (sup if own else masked) or (
+                    not own and msg["content"] in sup):
+                raise AssertionError(f"{tag}: a {msg['role']} turn's text is "
+                                     f"{'not ' if own else ''}supervised")
+        supervised += sum(lab != -100 for lab in labels)
+    return supervised
+
+
+def tensors_digest(tensors):
+    """Per tensor, on the card: (sum of its 32-bit words, their sum weighted
+    by a position hash) in int64; any changed word changes the second."""
+    out = []
+    with torch.no_grad():
+        for t in tensors:
+            words = t.detach().contiguous().view(-1).view(torch.int32)
+            s1 = torch.zeros((), dtype=torch.int64, device=t.device)
+            s2 = torch.zeros((), dtype=torch.int64, device=t.device)
+            for lo in range(0, words.numel(), 1 << 24):
+                w = words[lo:lo + (1 << 24)].long()
+                pos = torch.arange(lo, lo + w.numel(), device=t.device, dtype=torch.int64)
+                s1 += w.sum()
+                s2 += (w * ((pos * 2654435761) % 2147483647 + 1)).sum()
+            out.append((int(s1), int(s2)))
+    return out
+
+
+def sft_args(model_dir: str, weights: str, data: str, out: str, steps: int, *extra):
+    """``configs/text/lora_sft.yaml`` with its paths pointed at ``model_dir``
+    (config.json and the tokenizer files), ``weights`` and ``data``, run for
+    ``steps`` steps with a log line each."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+
+    return parse_args(VeOmniArguments, [
+        SFT_YAML, f"--model.config_path={model_dir}", f"--model.model_path={weights}",
+        f"--data.train_path={data}", f"--train.output_dir={out}",
+        f"--train.train_steps={steps}", "--train.log_steps=1", *extra])
+
+
+def sft_record():
+    """A trainer callback recording per step the loss, grad norm and host
+    time, and the first batch as the loop shipped it."""
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps, self.first_batch = {}, None
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(loss=float(m["loss"]),
+                                                 grad_norm=float(m["grad_norm"]),
+                                                 t=time.perf_counter())
+
+    return Record()
+
+
+def sft_run(dev, card, tag: str, args, steps: int, *, keep_checkpoints: bool = True):
+    """``TextTrainer`` on ``args`` with an ``sft_record``: returns (trainer,
+    the record, launches, fallbacks, peak bytes, the initial adapters, the
+    base digest before) after logging each step; under LoRA every adapter's
+    B must have moved off 0."""
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import CheckpointCallback
+    from veomni_tpu_torch.utils.count_flops import FlopsCounter
+    from veomni_tpu_torch.utils.device import get_device_peak_flops
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = TextTrainer(args)
+    build_s = time.perf_counter() - t0
+    if not keep_checkpoints:
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
+    rec = sft_record()
+    trainer.callbacks.append(rec)
+    base = trainer.base_model if trainer.base_model is not None else trainer.train_state.model
+    init = {k: v.detach().clone() for k, v in trainer.train_state.model.state_dict().items()}
+    before = tensors_digest(base.parameters()) if trainer.base_model is not None else None
+    reset_all_counts()
+    trainer.train()
+    launches, fallbacks = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if trainer.base_model is not None:
+        # B starts at 0: an adapter the forward never reads keeps it there
+        adapters = trainer.train_state.model
+        idle = [p for p in adapters.paths if not adapters.leaf(p).lora_b.any()]
+        if idle:
+            raise AssertionError(f"{tag}: adapters that never trained: {idle}")
+        log(f"{tag}: all {len(adapters.paths)} adapted leaves trained (B moved off 0)")
+    cfg = base.cfg
+    a = rec.steps
+    check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                 for r in a.values()], tag)
+    tokens = SFT_MICRO_BS * SFT_SEQ
+    flops = FlopsCounter.from_config(cfg).batch_flops(tokens, SFT_SEQ)
+    peak_flops = get_device_peak_flops(dev)
+    ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+    for i in range(1, steps + 1):
+        extra = (f" step_ms={ms[i - 2]:.1f} tokens_per_s={tokens / ms[i - 2] * 1e3:.1f}"
+                 if i >= 2 else " (first step: warm-up, not timed)")
+        log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f}"
+            f"{extra} [{card}]")
+    if ms:
+        med = sorted(ms)[len(ms) // 2]
+        n_train = sum(p.numel() for p in trainer.train_state.model.parameters())
+        log(f"{tag}: built in {build_s:.1f} s; warm steps 2-{steps} "
+            f"{', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} ms, "
+            f"{tokens / med * 1e3:.1f} tokens/s (packed rows), MFU "
+            f"{flops / (med / 1e3) / peak_flops:.4f} (the model's FlopsCounter, which counts "
+            f"no adapter work); {n_train} trained parameters; peak device memory "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+    return trainer, rec, launches, fallbacks, peak, init, before
+
+
+def sft_parity(dev, tag: str, args, init, before, first, trainer_step, pins):
+    """The trainer's step 1 against the same weights, adapters and batch
+    with the ops pinned as ``pins`` says: the base read from the HF
+    directory, or drawn from the trainer's seed (its digest must equal the
+    trainer's base's); returns (rel loss, rel grad norm) after logging
+    them; the pinned op's kernels must stay idle in that leg."""
+    from veomni_tpu_torch.lora import (
+        LoraAdapters,
+        LoraConfig,
+        apply_lora_to_loss_fn,
+        init_lora_params,
+    )
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+    from veomni_tpu_torch.optim import build_optimizer
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.utils.helper import set_seed
+
+    m, t = args.model, args.train
+    fm = build_foundation_model(m.config_path, ops_implementation=pins,
+                                dtype=t.compute_dtype, param_dtype=t.param_dtype,
+                                remat=t.enable_gradient_checkpointing,
+                                remat_policy=t.gradient_checkpointing_policy,
+                                **m.config_overrides)
+    if m.model_path:
+        base = fm.load_hf(m.model_path, device=dev)
+    else:
+        base = fm.init(set_seed(t.seed, dev), device=dev)
+    if tensors_digest(base.parameters()) != before:
+        raise AssertionError(f"{tag}: the pinned leg's base is not the trainer's")
+    adapters = init_lora_params(None, base, LoraConfig.from_dict(m.lora))
+    adapters.load_state_dict(init)
+    state = build_train_state(adapters, build_optimizer(adapters, lr=1e-4))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+    reset_all_counts()
+    try:
+        _, m = build_train_step(apply_lora_to_loss_fn(Transformer.loss_fn, base),
+                                scope=LoraAdapters.merged)(state, batch)
+    finally:
+        apply_ops_config(None)
+    plain = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    launched, _ = read_counts()
+    rel = {k: abs(trainer_step[k] - plain[k]) / abs(plain[k]) for k in plain}
+    log(f"{tag} step-1 parity against {pins}: " + "; ".join(
+        f"{k} {trainer_step[k]:.6f} vs {plain[k]:.6f} (rel {rel[k]:.2e})" for k in plain)
+        + f"; the pinned leg launched {launched}")
+    # the pinned op's kernels must stay idle (the other op keeps its own)
+    family = {"attention": "flash_", "group_gemm": "gmm_"}
+    if any(n for k, n in launched.items() if any(k.startswith(family[op]) for op in pins)):
+        raise AssertionError(f"{tag}: the pinned leg launched kernels: {launched}")
+    del fm, base, adapters, state, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rel
+
+
+def check_adapter_round_trip(dev, tag: str, trainer, out_dir: str):
+    """save_adapter, then load_adapter into fresh adapters: bit-equal.
+    Returns (bytes, save s, load s)."""
+    from veomni_tpu_torch.lora import init_lora_params, load_adapter, save_adapter
+    from veomni_tpu_torch.lora.lora import ADAPTER_WEIGHTS
+
+    live = trainer.train_state.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_adapter(live, trainer.lora_config, out_dir)
+    save_s = time.perf_counter() - t0
+    fresh = init_lora_params(None, trainer.base_model, trainer.lora_config)
+    t0 = time.perf_counter()
+    load_adapter(out_dir, fresh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    bad = [n for (n, x), (_, y) in zip(fresh.named_jax_parameters(), live.named_jax_parameters())
+           if not (x.dtype == y.dtype and torch.equal(x, y))]
+    nbytes = os.path.getsize(os.path.join(out_dir, ADAPTER_WEIGHTS))
+    log(f"{tag}: adapter ({len(live.paths)} adapted leaves, {nbytes / 1e6:.1f} MB) saved in "
+        f"{save_s:.2f} s and loaded in {load_s:.2f} s: "
+        f"{'bit-equal' if not bad else f'{len(bad)} tensors differ, e.g. {bad[:3]}'}")
+    if bad:
+        raise AssertionError(f"{tag}: adapter round trip differs")
+    del fresh
+    return nbytes, save_s, load_s
+
+
+def check_merged_export(dev, tag: str, trainer, export_dir: str):
+    """The merged HF export against W + scale * A @ B worked out here in f64
+    from the live base and adapters: each adapted tensor within 2^-23 of
+    |ref| plus 1e-5 of its largest |scale * A @ B| (f32 rounding of the add
+    and of the rank-r product), every other tensor bit-equal to the base."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.hf_io import hf_to_params
+
+    base, adapters = trainer.base_model, trainer.train_state.model
+    t0 = time.perf_counter()
+    back = hf_to_params(export_dir, base.cfg, Transformer(base.cfg, None, device=dev))
+    read_s = time.perf_counter() - t0
+    adapted = {}
+    for path in adapters.paths:
+        seg, name = path.split(".", 1)
+        leaf = adapters.leaf(path)
+        for i, layer in enumerate(base.layers):
+            adapted[f"layers.{i}.{name}"] = (leaf.lora_a[i], leaf.lora_b[i], leaf.scale)
+    worst, exact = 0.0, 0
+    with torch.no_grad():
+        for (n, got), (_, w) in zip(back.named_parameters(), base.named_parameters()):
+            if n not in adapted:
+                if not torch.equal(got, w):
+                    raise AssertionError(f"{tag}: {n} is not adapted, yet the export differs")
+                exact += 1
+                continue
+            a, b, s = adapted[n]
+            delta = (a.double() @ b.double()) * s.double()
+            ref = w.double() + delta
+            err = (got.double() - ref).abs()
+            allow = 2.0 ** -23 * ref.abs() + 1e-5 * delta.abs().max()
+            worst = max(worst, float((err / allow).max()))
+    nbytes = sum(os.path.getsize(os.path.join(export_dir, f)) for f in os.listdir(export_dir))
+    log(f"{tag}: merged HF export ({nbytes / 1e9:.3f} GB, read in {read_s:.1f} s): "
+        f"{len(adapted)} adapted tensors within {worst:.3f} of the allowance against "
+        f"W + scale * A @ B worked out here in f64, {exact} others bit-equal to the base")
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: merged export departs from W + scale * A @ B ({worst})")
+    del back
+    return nbytes
+
+
+def check_merged_layer(tag: str, trainer, index: int):
+    """Layer ``index``'s merged weights, as the forward and the merged HF
+    export read them (``DecoderLayer.w`` inside ``LoraAdapters.merged``),
+    against W + scale * A @ B worked out here in f64 from the live base and
+    adapters, with ``check_merged_export``'s allowance; expert tensors
+    ([E, in, out] against A [E, in, r], B [E, r, out]) a slice of experts
+    at a time. Returns the worst error over its allowance."""
+    base, adapters = trainer.base_model, trainer.train_state.model
+    layer = base.layers[index]
+    worst, names = 0.0, []
+    with torch.no_grad(), adapters.merged():
+        for path in adapters.paths:
+            seg, name = path.split(".", 1)
+            if seg != "layers":
+                continue
+            leaf, w = adapters.leaf(path), layer.get_parameter(name)
+            got = layer.w(name)
+            # a per-layer vector's adapter has an unstacked B (_merge_layer)
+            a, b = leaf.lora_a[index], leaf.lora_b[index] if w.ndim > 1 else leaf.lora_b
+            s = leaf.scale.double()
+            step = 16 if w.ndim == 3 else w.shape[0]
+            for lo in range(0, w.shape[0], step):
+                sl = slice(lo, lo + step) if w.ndim == 3 else slice(None)
+                delta = (a[sl].double() @ b[sl].double()) * s
+                ref = w[sl].double() + delta
+                allow = 2.0 ** -23 * ref.abs() + 1e-5 * delta.abs().max()
+                worst = max(worst, float(((got[sl].double() - ref).abs() / allow).max()))
+                del delta, ref, allow
+            if not bool(b.any()):
+                raise AssertionError(f"{tag}: {path}'s B is still 0 at layer {index}")
+            names.append(f"{name} {tuple(w.shape)}")
+            del got
+    log(f"{tag}: layer {index}'s merged weights ({', '.join(names)}) within {worst:.3f} of "
+        f"the allowance against W + scale * A @ B worked out here in f64")
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: layer {index}'s merged weights depart from "
+                             f"W + scale * A @ B ({worst})")
+    return worst
+
+
+def phase_sft_lora_dense(dev, card):
+    """TinyLlama-1.1B (the published config.json, random bf16 weights from
+    seed 0 in an HF directory with the byte-fallback fixture tokenizer) at
+    ``lora_sft.yaml``'s knobs: LoRA rank 16, alpha 32, conversation data at
+    seq 4096 x micro-batch 2, lr 1e-4, the default ``nothing`` remat, 4
+    steps with the llama2 template; then the parameter-group leg. Returns
+    the LoRA run's launches."""
+    from veomni_tpu_torch.data.data_transform import build_data_transform
+    from veomni_tpu_torch.models.auto import build_tokenizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+
+    tag = "sft lora dense TinyLlama-1.1B"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_dense_")
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        cfg = write_random_hf_dir(dev, hf_dir, HF_PRESET)
+        for name in ("tokenizer.json", "tokenizer_config.json"):
+            shutil.copy(os.path.join(TOKENIZER_FIXTURES, "bytefallback", name), hf_dir)
+        data = os.path.join(tmp, "chat.jsonl")
+        sft_conversations(data, SFT_ROWS)
+        log(f"{tag}: HF directory (random bf16 weights, the byte-fallback fixture tokenizer) "
+            f"and {SFT_ROWS} conversations from the repo's docs written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # the label mask, with the llama2 template and the tokenizer's own
+        # jinja template (TinyLlama-Chat's, turns ending in </s>)
+        tok = build_tokenizer(hf_dir)
+        with open(data) as f:
+            rows = [json.loads(line) for line in f][:48]
+        for template in ("llama2", "default"):
+            transform = build_data_transform("conversation", tokenizer=tok, chat_template=template)
+            t0 = time.perf_counter()
+            n = check_label_mask(tok, transform, rows, f"{tag} {template} template")
+            log(f"{tag}: the {template} template's labels mask every non-assistant token of "
+                f"{len(rows)} rows ({n} supervised tokens, rendered and checked in "
+                f"{time.perf_counter() - t0:.2f} s)")
+
+        out = os.path.join(tmp, "out")
+        args = sft_args(hf_dir, hf_dir, data, out, SFT_DENSE_STEPS,
+                        "--data.chat_template=llama2")
+        if (args.model.lora, args.data.max_seq_len, args.train.micro_batch_size) != (
+                {"rank": 16, "alpha": 32}, SFT_SEQ, SFT_MICRO_BS):
+            raise AssertionError(f"{tag}: {SFT_YAML} no longer sets the knobs this phase runs")
+        trainer, rec, launches, fallbacks, _, init, before = sft_run(
+            dev, card, tag, args, SFT_DENSE_STEPS)
+        # remat "nothing" (the YAML's default): backward reruns each layer,
+        # K1 included
+        n = cfg.num_hidden_layers * SFT_DENSE_STEPS
+        want = {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+        log(f"{tag}: launches {launches} (reckoned: {want}: per layer and step K1 twice, "
+            f"forward and its recompute, K2 and K3 once), FALLBACK_CALLS {fallbacks}")
+        check_counts(launches, fallbacks, want, tag)
+        after = tensors_digest(trainer.base_model.parameters())
+        if after != before:
+            raise AssertionError(f"{tag}: the frozen base changed in training")
+        log(f"{tag}: all {len(before)} base tensors bit-unchanged after {SFT_DENSE_STEPS} "
+            f"steps (word-sum digests)")
+        ckpt = os.path.join(out, "checkpoints", f"global_step_{SFT_DENSE_STEPS}", "train_state")
+        ck_bytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        log(f"{tag}: the checkpoint holds the adapters and their AdamW state alone: "
+            f"{ck_bytes / 1e6:.1f} MB")
+        check_adapter_round_trip(dev, tag, trainer, os.path.join(tmp, "adapter"))
+        check_merged_export(dev, tag, trainer, os.path.join(out, "hf_ckpt"))
+        first = rec.first_batch
+        step1 = rec.steps[1]
+        trainer.checkpointer.close()
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = sft_parity(dev, tag, args, init, before, first, step1, {"attention": "xla"})
+        # the adapters' grad norm is held like every grad norm of a kernel
+        # leg against its plain one (TOL_GRAD_NORM_REL): over 22 bf16 layers
+        # it read 7.38e-4 apart on an H100, where the loss read 2.08e-5
+        if not (rel["loss"] <= TOL_LOSS_REL and rel["grad_norm"] <= TOL_GRAD_NORM_REL):
+            raise AssertionError(f"{tag}: step 1 departs from the plain attention's ({rel})")
+        phase_sft_param_groups(dev, card, hf_dir, data, tmp)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_sft_param_groups(dev, card, hf_dir: str, data: str, tmp: str):
+    """The dense model fully fine-tuned with ``freeze_modules`` (the
+    embedding) and ``module_lr_scales`` (0.1 on q/k/v/o), weight decay 0.1,
+    no clip, 2 steps, against one plain step (no groups) on the same weights
+    and batch: the frozen embedding bit-unchanged, the grad norm equal to
+    the plain run's with the embedding's gradient zeroed (rel 1e-5), and the
+    first update of the scaled tensors 0.1 x the plain run's (norm ratio rel
+    1e-5, cosine within 1e-6 of 1), of the others 1 x."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.optim import build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+
+    tag = "sft param groups TinyLlama-1.1B"
+    scaled = re.compile(next(iter(SFT_SCALES)))
+
+    class FirstUpdate(Callback):
+        """After step 1: each compared tensor's update."""
+
+        def __init__(self, model):
+            self.model = model
+            self.start = {n: p.detach().clone() for n, p in self.compared()}
+            self.update = None
+
+        def compared(self):
+            for n, p in self.model.named_parameters():
+                parts = n.split(".")
+                if (len(parts) == 3 and parts[2] in ("q_proj", "k_proj", "v_proj", "o_proj",
+                                                     "down_proj")) or n == "lm_head":
+                    yield n, p
+
+        def on_step_end(self, trainer, state):
+            if state.global_step == 1:
+                self.update = {n: p.detach() - self.start[n] for n, p in self.compared()}
+                self.start = None
+
+    args = sft_args(hf_dir, hf_dir, data, os.path.join(tmp, "groups"), SFT_GROUPS_STEPS,
+                    "--data.chat_template=llama2", "--train.max_grad_norm=0",
+                    f"--train.weight_decay={SFT_GROUPS_DECAY}", "--train.save_hf_weights=false",
+                    f"--model.freeze_modules={json.dumps(SFT_FREEZE)}",
+                    f"--train.module_lr_scales={json.dumps(SFT_SCALES)}")
+    args.model.lora = {}
+    torch.cuda.empty_cache()
+    trainer = TextTrainer(args)
+    trainer.callbacks = [cb for cb in trainer.callbacks if not isinstance(cb, CheckpointCallback)]
+    model = trainer.train_state.model
+    embed_before = tensors_digest([model.embed_tokens])
+    first = FirstUpdate(model)
+    rec = sft_record()
+    trainer.callbacks += [first, rec]
+    groups = sorted(g["lr_scale"] for g in trainer.train_state.optimizer.param_groups)
+    trainer.train()
+    frozen_ok = tensors_digest([model.embed_tokens]) == embed_before
+    upd_a = first.update
+    trainer.checkpointer.close()
+    del trainer, model, first
+    destroy_parallel_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the plain step: no groups, no clip, the same weights and batch
+    t = args.train
+    fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev, dtype=t.compute_dtype,
+                                param_dtype=t.param_dtype, remat=t.enable_gradient_checkpointing,
+                                remat_policy=t.gradient_checkpointing_policy)
+    model = fm.module
+    start = {n: p.detach().clone() for n, p in model.named_parameters() if n in upd_a}
+    state = build_train_state(model, build_optimizer(model, lr=t.lr, weight_decay=t.weight_decay))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in rec.first_batch.items()}
+    _, m = build_train_step(Transformer.loss_fn, max_grad_norm=0)(state, batch)
+    with torch.no_grad():
+        # the train step's own norm over the plain run's gradients, the
+        # embedding's zeroed
+        zeroed = [torch.zeros_like(p.grad) if n == "embed_tokens" else p.grad
+                  for n, p in model.named_parameters()]
+        want_norm = float(torch.linalg.vector_norm(torch.stack(torch._foreach_norm(zeroed))))
+        got_norm = rec.steps[1]["grad_norm"]
+        ratios = {}
+        for n, p in model.named_parameters():
+            if n not in upd_a:
+                continue
+            ub, ua = (p.detach() - start[n]).double(), upd_a[n].double()
+            key = "scaled" if scaled.search(re.sub(r"^layers\.\d+\.", "layers.", n)) else "unscaled"
+            r = ratios.setdefault(key, [0.0, 0.0, 0.0])
+            r[0] += float((ua * ub).sum())
+            r[1] += float((ua * ua).sum())
+            r[2] += float((ub * ub).sum())
+    rel_norm = abs(got_norm - want_norm) / want_norm
+    summary = {k: (math.sqrt(r[1] / r[2]), r[0] / math.sqrt(r[1] * r[2])) for k, r in
+               ratios.items()}
+    log(f"{tag}: groups by lr scale {groups}; embedding bit-unchanged after "
+        f"{SFT_GROUPS_STEPS} steps: {frozen_ok}; step-1 grad norm {got_norm:.6f} against the "
+        f"plain run's without the embedding's gradient {want_norm:.6f} (rel {rel_norm:.2e}, "
+        f"the plain run's whole norm {float(m['grad_norm']):.6f}); first update against the "
+        f"plain run's: " + "; ".join(
+            f"{k}: norm ratio {v[0]:.7f}, cosine {v[1]:.9f}" for k, v in summary.items())
+        + f" [{card}]")
+    want = {"scaled": 0.1, "unscaled": 1.0}
+    if not (frozen_ok and rel_norm <= 1e-5 and set(summary) == set(want) and all(
+            abs(summary[k][0] / want[k] - 1) <= 1e-5 and summary[k][1] >= 1 - 1e-6
+            for k in want)):
+        raise AssertionError(f"{tag}: parameter groups depart from the plain run")
+    del fm, model, state, batch, m, start, upd_a
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_sft_lora_moe(dev, card):
+    """Qwen3-30B-A3B at its published widths, depth cut to SFT_MOE_LAYERS,
+    random f32 weights from seed 0 (a model directory with the config.json
+    and the byte-level fixture tokenizer, no weights), at ``lora_sft.yaml``'s
+    knobs with ``moe_capacity_factor`` 2.0 at expert-parallel size 1, the
+    chatml template, LoRA on the experts and attention, 4 steps. Returns its
+    launches."""
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train_text_step import bench_config
+
+    tag = "sft lora moe Qwen3-30B-A3B"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_moe_")
+    try:
+        cfg = bench_config(MOE_PRESET, num_hidden_layers=SFT_MOE_LAYERS)
+        model_dir = os.path.join(tmp, "model")
+        os.makedirs(model_dir)
+        with open(os.path.join(model_dir, "config.json"), "w") as f:
+            json.dump(cfg.to_hf_config(), f, indent=2)
+        for name in ("tokenizer.json", "tokenizer_config.json"):
+            shutil.copy(os.path.join(TOKENIZER_FIXTURES, "bytelevel", name), model_dir)
+        data = os.path.join(tmp, "chat.jsonl")
+        sft_conversations(data, SFT_ROWS, seed=1)
+        overrides = {"moe_capacity_factor": SFT_MOE_CAPACITY}
+        args = sft_args(model_dir, "", data, os.path.join(tmp, "out"), SFT_MOE_STEPS,
+                        "--data.chat_template=chatml", "--train.save_hf_weights=false",
+                        f"--model.config_overrides={json.dumps(overrides)}")
+        trainer, rec, launches, fallbacks, peak, init, before = sft_run(
+            dev, card, tag, args, SFT_MOE_STEPS, keep_checkpoints=False)
+        model_cfg = trainer.base_model.cfg
+        widths = ("num_experts", "num_experts_per_tok", "hidden_size", "moe_intermediate_size",
+                  "num_attention_heads", "num_key_value_heads", "head_dim", "vocab_size")
+        if model_cfg.moe_capacity_factor != SFT_MOE_CAPACITY or any(
+                getattr(model_cfg, k) != getattr(cfg, k) for k in widths):
+            raise AssertionError(f"{tag}: the model is not the preset's widths at capacity "
+                                 f"factor {SFT_MOE_CAPACITY}")
+        adapted = sorted(trainer.train_state.model.paths)
+        log(f"{tag}: {SFT_MOE_LAYERS} of 48 layers, capacity factor "
+            f"{model_cfg.moe_capacity_factor} at expert-parallel size 1 (dropless), adapters "
+            f"on {adapted}; peak {peak / 2**30:.2f} GiB")
+        n = SFT_MOE_LAYERS * SFT_MOE_STEPS
+        want = {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
+                "gmm_fwd": 6 * n, "gmm_dlhs": 3 * n, "gmm_t": 3 * n}
+        log(f"{tag}: launches {launches} (reckoned: {want}: per layer and step K1 twice, K2, "
+            f"K3 once; K4 x 6 (gate, up, down on the merged experts, and their recompute), K5 "
+            f"x 3, K6 x 3 (the merged experts' gradient, which flows into their adapters)), "
+            f"FALLBACK_CALLS {fallbacks}")
+        check_counts(launches, fallbacks, want, tag)
+        after = tensors_digest(trainer.base_model.parameters())
+        if after != before:
+            raise AssertionError(f"{tag}: the frozen base changed in training")
+        log(f"{tag}: all {len(before)} base tensors bit-unchanged after {SFT_MOE_STEPS} steps")
+        check_adapter_round_trip(dev, tag, trainer, os.path.join(tmp, "adapter"))
+        # the merged HF export is off in this leg: at 16 layers it would
+        # write ~42 GB of f32; one MoE layer's merged experts are checked
+        # through the read the export streams instead
+        check_merged_layer(tag, trainer, SFT_MOE_LAYERS - 1)
+        first, step1 = rec.first_batch, rec.steps[1]
+        trainer.checkpointer.close()
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel = sft_parity(dev, tag, args, init, before, first, step1, {"group_gemm": "xla"})
+        # the grad norm carries K6's merged-expert gradient into the adapters
+        # (at step 1 every B is 0: the loss does not depend on them)
+        if not (rel["loss"] <= TOL_LOSS_REL and rel["grad_norm"] <= TOL_GRAD_NORM_REL):
+            raise AssertionError(f"{tag}: step 1 departs from the plain grouped GEMM's ({rel})")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # Serving: the paged-KV engine at Qwen3-0.6B and Qwen3-30B-A3B
 # --------------------------------------------------------------------------
 SERVE_DENSE_PRESET = "qwen3_0p6b"
@@ -2706,7 +3354,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build, in order: serve_dense, "
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
-                         "hf_trainer_moonlight, deepseek_v2_lite, and "
+                         "hf_trainer_moonlight, deepseek_v2_lite, sft_lora_dense, "
+                         "sft_lora_moe, and "
                          "before them main (the dense loop) or trainer; such a partial run "
                          "prints no result line")
     args = ap.parse_args(argv)
@@ -2729,7 +3378,8 @@ def main(argv=None) -> int:
                   "hf_trainer_gemma3": phase_hf_trainer_gemma3,
                   "serve_gemma3": phase_serve_gemma3, "dialects": phase_dialects,
                   "hf_trainer_moonlight": phase_hf_trainer_moonlight,
-                  "deepseek_v2_lite": phase_deepseek_v2_lite}
+                  "deepseek_v2_lite": phase_deepseek_v2_lite,
+                  "sft_lora_dense": phase_sft_lora_dense, "sft_lora_moe": phase_sft_lora_moe}
         for name in args.phases.split(","):
             phases[name](dev, card)
             torch.cuda.empty_cache()
@@ -2745,6 +3395,7 @@ def main(argv=None) -> int:
 def run_phases(dev, card, hf_tmp) -> int:
     from veomni_tpu_torch.train_text_step import packed_batches
 
+    t0 = time.perf_counter()
     table = [phase_probe(dev)]
     # the dense main path's first packed micro-batch: the kernels' real segment layout
     seg = torch.from_numpy(next(packed_batches(151936, 4096, 4))["segment_ids"][0]).to(dev)
@@ -2795,6 +3446,7 @@ def run_phases(dev, card, hf_tmp) -> int:
     phase_moe_parity(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase clock: {time.perf_counter() - t0:.1f} s to the dialect phases")
     # the dense HF dialects and the deepseek MoE dialect, each path followed
     # by its kernel rows
     for phase in (phase_hf_trainer_gemma3, phase_dialects, phase_hf_trainer_moonlight,
@@ -2804,12 +3456,26 @@ def run_phases(dev, card, hf_tmp) -> int:
         table += rows
         gc.collect()
         torch.cuda.empty_cache()
+    log(f"phase clock: {time.perf_counter() - t0:.1f} s to the serving phases")
     by_path["serve_dense"] = (phase_serve_dense(dev, card), 128, None)
     by_path["serve_gemma3"] = (phase_serve_gemma3(dev, card), DIALECT_HEADS[GEMMA_PRESET][2],
                                GEMMA_PRESET)
     moe_launches, serve_rows = phase_serve_moe(dev, card)
     by_path["serve_moe"] = (moe_launches, 128, None)
     table += serve_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the SFT path, after the serving phases (their host-bound ticks slow
+    # down behind every trainer phase that runs before them): TinyLlama-1.1B
+    # with LoRA (K1-K3 at D=64, the TinyLlama layout rows) and the
+    # parameter-group leg, Qwen3-30B-A3B with LoRA on its experts (K1-K3 at
+    # D=128 at the MoE layout, K4-K6 at 2048/768)
+    log(f"phase clock: {time.perf_counter() - t0:.1f} s to the SFT phases")
+    by_path["sft_lora_dense"] = (phase_sft_lora_dense(dev, card), 64, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["sft_lora_moe"] = (phase_sft_lora_moe(dev, card), 128, None)
+    log(f"phase clock: {time.perf_counter() - t0:.1f} s to the end")
 
     for row in table:
         # a flash row counts the paths at its head dim and layout; a

@@ -195,16 +195,42 @@ def test_windowed_layers_take_the_plain_dispatch():
           index_topk=4), "slice F"),
     (dict(index_topk=4), "slice F"),
     (dict(num_experts=4, num_experts_per_tok=2, router_bias=True), "slice B item 4"),
-    (dict(num_experts=4, num_experts_per_tok=2, moe_capacity_factor=2.0), "slice B item 5"),
     (dict(chunk_mbs=64), "slice A item 5"),
     (dict(remat_policy="offload"), "slice A item 5"),
 ], ids=["mrope", "sinks", "gpt-oss-glu", "gpt-oss-routing", "mla-dsa", "dsa", "router-bias",
-        "capacity-factor", "chunk-mbs", "remat-offload"])
+        "chunk-mbs", "remat-offload"])
 def test_unported_features_name_their_queue_item(extra, item):
     from veomni_tpu_torch.models.transformer import check_supported
 
     with pytest.raises(NotImplementedError, match=item):
         check_supported(TransformerConfig(**{**DIMS, **extra}))
+
+
+# ROADMAP.md queue 3's MoE toy
+MOE_TOY = dict(model_type="qwen3_moe", vocab_size=64, hidden_size=32, intermediate_size=64,
+               num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=2, head_dim=16,
+               num_experts=4, num_experts_per_tok=2, moe_intermediate_size=16)
+
+
+def test_capacity_factor_at_ep_size_1_is_dropless():
+    """``moe_capacity_factor`` 2.0 at expert-parallel size 1: the reference
+    reads the factor only under expert parallelism and runs the dropless
+    MoE otherwise, so the port's loss equals its own at factor 0 and the
+    reference's (f32, rtol 1e-5)."""
+    params = jtf.init_params(jax.random.PRNGKey(0), JaxConfig(dtype=jnp.float32, **MOE_TOY))
+    ids = _rng(0).integers(0, MOE_TOY["vocab_size"], (1, 32))
+    data = {"input_ids": ids, "labels": ids, "position_ids": np.arange(32)[None],
+            "segment_ids": np.ones((1, 32), np.int64)}
+    losses = {}
+    for factor in (0.0, 2.0):
+        model = Transformer(TransformerConfig(dtype=torch.float32, moe_capacity_factor=factor,
+                                              **MOE_TOY), None, device="cpu")
+        load_jax_params(model, jax.tree.map(np.asarray, params))
+        losses[factor] = model.loss_fn({k: T(np.asarray(v)) for k, v in data.items()})[0].item()
+    jcfg = JaxConfig(dtype=jnp.float32, moe_capacity_factor=2.0, **MOE_TOY)
+    loss_j, _ = jtf.loss_fn(params, jcfg, {k: jnp.asarray(v) for k, v in data.items()})
+    np.testing.assert_allclose(losses[2.0], losses[0.0], rtol=RTOL)
+    np.testing.assert_allclose(losses[2.0], float(loss_j), rtol=RTOL)
 
 
 @pytest.mark.parametrize("dialect,extra", [

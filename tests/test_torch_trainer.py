@@ -327,10 +327,8 @@ train:
 
 
 GATED = [
-    ("model", "lora", {"rank": 8}, "model.lora"),
-    ("model", "freeze_modules", ["^embed"], "model.freeze_modules"),
     ("train", "optimizer", "muon", "train.optimizer 'muon'"),
-    ("data", "data_type", "conversation", "data.data_type 'conversation'"),
+    ("data", "data_type", "qwen2_5_vl", "data.data_type 'qwen2_5_vl'"),
     ("data", "eval_path", "/nonexistent", "data.eval_path"),
     ("data", "channel_list", ["code"], "data.channel_list"),
     ("train", "use_wandb", True, "train.use_wandb"),
@@ -348,6 +346,22 @@ def test_gate_raises_for_unported_knob(tmp_path, section, knob, value, name):
     setattr(getattr(args, section), knob, value)
     with pytest.raises(NotImplementedError, match=re.escape(name)):
         TextTrainer(args)
+
+
+PORTED = [
+    ("model", "lora", {"rank": 8}, "model.lora"),
+    ("model", "freeze_modules", ["^embed"], "model.freeze_modules"),
+    ("train", "module_lr_scales", {"q_proj": 0.1}, "train.module_lr_scales"),
+    ("data", "data_type", "conversation", "data.data_type 'conversation'"),
+    ("model", "tokenizer_path", "/a/tokenizer/dir", "model.tokenizer_path"),
+]
+
+
+@pytest.mark.parametrize("section,knob,value,name", PORTED, ids=[g[3] for g in PORTED])
+def test_gate_admits_ported_knob(tmp_path, section, knob, value, name):
+    args = port_args(tmp_path)
+    setattr(getattr(args, section), knob, value)
+    check_supported(args)
 
 
 @pytest.mark.parametrize("knob", ["ulysses_parallel_size", "expert_parallel_size",

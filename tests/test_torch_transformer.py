@@ -115,9 +115,24 @@ def test_unported_features_raise():
     dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
     dict(linear_num_value_heads=4), dict(attn_output_gate=True),
     dict(router_bias=True), dict(model_type="gpt_oss"),
-    dict(moe_capacity_factor=2.0), dict(mlp_bias=True),
+    dict(mlp_bias=True),
 ], ids=["gpt-oss-glu", "sinks", "mla-dsa", "linear-attention", "output-gate", "router-bias",
-        "gpt-oss", "capacity-factor", "expert-biases"])
+        "gpt-oss", "expert-biases"])
 def test_unported_moe_features_raise(extra):
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**{**TOY, **MOE, **extra}), torch.Generator(), device="cpu")
+
+
+def test_capacity_factor_leaves_the_moe_dropless():
+    """At expert-parallel size 1 a capacity factor changes nothing (the
+    reference reads it only under expert parallelism): a factor of 0.5,
+    which would drop assignments under EP, gives the factor-0 loss bit for
+    bit on the same weights."""
+    data = {k: torch.from_numpy(v) for k, v in toy_batch(True).items()}
+    gen = torch.Generator().manual_seed(0)
+    dropless = Transformer(TransformerConfig(**{**TOY, **MOE}), gen, device="cpu")
+    capped = Transformer(TransformerConfig(**{**TOY, **MOE, "moe_capacity_factor": 0.5}), None,
+                         device="cpu")
+    capped.load_state_dict(dropless.state_dict())
+    with torch.no_grad():
+        assert torch.equal(capped.loss_fn(data)[0], dropless.loss_fn(data)[0])

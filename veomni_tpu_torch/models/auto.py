@@ -2,10 +2,10 @@
 
 Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``),
 ``FoundationModel`` (``:411``), ``build_foundation_model`` (``:446``) and
-``build_tokenizer``, for the text families the port implements. A family
-here is the port's ``Transformer`` module (``models/transformer.py``), which
-raises ``NotImplementedError`` for any configured feature it does not have
-(``check_supported``). The reference's other families (VLM, omni, janus,
+``build_tokenizer`` (through ``data/tokenizer.py``), for the text families
+the port implements. A family here is the port's ``Transformer`` module
+(``models/transformer.py``), which raises ``NotImplementedError`` for any
+configured feature it does not have (``check_supported``). The reference's other families (VLM, omni, janus,
 deepseek_v4, diffusion) belong to slice F of the port and raise here
 instead of building something else. A config and weights from an HF
 directory (``config_path``, ``weights_path``) go through
@@ -130,10 +130,21 @@ def build_foundation_model(
 
 
 def build_tokenizer(path: str):
-    """The reference's HF tokenizer (``auto.py:535``) needs ``transformers``,
-    which the card's machine does not have, and the port reads no tokenizer
-    files itself yet: it raises (queue 1, with ``data/chat_template.py``).
-    Pretokenized data needs no tokenizer."""
-    raise NotImplementedError(
-        f"tokenizer {path!r}: an HF tokenizer needs transformers, which the port does not "
-        "use (queue 1, with data/chat_template.py); use data_type: pretokenized")
+    """The tokenizer of a local HF directory (reference ``auto.py:535``,
+    ``transformers.AutoTokenizer``): ``data/tokenizer.py`` wraps the
+    ``tokenizers`` library's reader of its ``tokenizer.json`` with the
+    special tokens and chat template of its ``tokenizer_config.json``. The
+    read retries like the reference's local loads (``resilience/retry.py``).
+    A hub id would need a download, which the port does not do: it raises."""
+    from veomni_tpu_torch.data.tokenizer import Tokenizer
+
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"tokenizer {path!r}: the port reads a local HF tokenizer directory (tokenizer.json "
+            "and tokenizer_config.json); it downloads nothing")
+    if not os.path.exists(os.path.join(path, "tokenizer.json")):
+        raise FileNotFoundError(f"tokenizer {path!r}: no tokenizer.json (a sentencepiece "
+                                "tokenizer.model alone is not read)")
+    from veomni_tpu_torch.resilience.retry import retry_call
+
+    return retry_call(Tokenizer.from_pretrained, path, description=f"tokenizer load {path}")

@@ -149,6 +149,8 @@ class SafetensorsFile:
 
 # (name, dtype, shape, producer of the CPU tensor) for a streamed write
 TensorSource = Tuple[str, torch.dtype, Tuple[int, ...], Callable[[], torch.Tensor]]
+# (owning module, parameter name) -> the tensor an export writes for it
+ReadFn = Callable[[torch.nn.Module, str], torch.Tensor]
 
 
 def _nbytes(dtype: torch.dtype, shape) -> int:
@@ -319,34 +321,40 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
     return model
 
 
-def _hf_sources(model: torch.nn.Module, cfg: TransformerConfig) -> List[TensorSource]:
+def _hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
+                read: Optional[ReadFn] = None) -> List[TensorSource]:
     """Every HF tensor of ``model``, sorted by name, as (name, dtype, shape,
-    producer of the CPU tensor in the parameter's dtype)."""
+    producer of the CPU tensor in the parameter's dtype). ``read(owner,
+    name)`` gives the tensor a producer copies from (default: the
+    parameter itself)."""
     out: List[TensorSource] = []
 
-    def add(name: str, param: torch.Tensor, transpose: bool, index=None):
+    def add(name: str, owner: torch.nn.Module, pname: str, transpose: bool, index=None):
+        param = owner.get_parameter(pname)
         shape = tuple(param.shape[1:] if index is not None else param.shape)
         if transpose:
             shape = tuple(reversed(shape))
 
         def produce():
-            x = param.detach() if index is None else param.detach()[index]
+            x = (read(owner, pname) if read else param).detach()
+            x = x if index is None else x[index]
             return (x.t() if transpose else x).to("cpu")
 
         out.append((name, param.dtype, shape, produce))
 
-    add("model.embed_tokens.weight", model.embed_tokens, False)
-    add("model.norm.weight", model.norm, False)
+    add("model.embed_tokens.weight", model, "embed_tokens", False)
+    add("model.norm.weight", model, "norm", False)
     if not cfg.tie_word_embeddings:
-        add("lm_head.weight", model.lm_head, True)
+        add("lm_head.weight", model, "lm_head", True)
     for i, layer in enumerate(model.layers):
-        for pname, param in layer.named_parameters():
+        for pname, _ in layer.named_parameters():
             if pname in _EXPERT_MAP:
                 for e in range(cfg.num_experts):
-                    add(f"model.layers.{i}.{_EXPERT_MAP[pname].format(e=e)}", param, True, e)
+                    add(f"model.layers.{i}.{_EXPERT_MAP[pname].format(e=e)}", layer, pname, True,
+                        e)
             else:
                 suffix, transpose = _LAYER_MAP[pname]
-                add(f"model.layers.{i}.{suffix}", param, transpose)
+                add(f"model.layers.{i}.{suffix}", layer, pname, transpose)
     return sorted(out, key=lambda s: s[0])
 
 
@@ -379,12 +387,14 @@ def shard_names(n: int) -> Iterator[str]:
 
 
 def save_hf_checkpoint(model: torch.nn.Module, cfg: TransformerConfig, out_dir: str,
-                       max_shard_bytes: int = 4 * 1024**3) -> None:
+                       max_shard_bytes: int = 4 * 1024**3, read: Optional[ReadFn] = None) -> None:
     """HF-format sharded safetensors export with ``config.json`` (and, for
     more than one shard, ``model.safetensors.index.json``), in the
-    parameters' dtype, streamed off the device one tensor at a time."""
+    parameters' dtype, streamed off the device one tensor at a time, in name
+    order. ``read(owner, name)``, where given, gives each tensor in place of
+    the parameter ``name`` of module ``owner`` (LoRA's merged export)."""
     os.makedirs(out_dir, exist_ok=True)
-    shards = _shards(_hf_sources(model, cfg), max_shard_bytes)
+    shards = _shards(_hf_sources(model, cfg, read), max_shard_bytes)
     index = {"metadata": {"total_size": sum(_nbytes(s[1], s[2]) for sh in shards for s in sh)},
              "weight_map": {}}
     for fname, shard in zip(shard_names(len(shards)), shards):

@@ -12,16 +12,20 @@ leading dense layers form a second stacked subtree, ``dense_layers``
 holds one ``DecoderLayer`` per layer, the dense ones first, with the same
 leaf names (``experts.gate_proj`` for the nested ones) and the same
 ``[in, out]`` matrix layout, so leaves move across unstacked and
-untransposed. The tree's leaves are numpy arrays (``np.asarray`` of the JAX
-arrays); this module imports no JAX.
+untransposed. The reference's LoRA adapter tree (``lora_a``/``lora_b``/
+``scale`` under each adapted leaf path) moves across the same way into the
+port's ``lora.LoraAdapters``, which keep it stacked. The tree's leaves are
+numpy arrays (``np.asarray`` of the JAX arrays); this module imports no
+JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from veomni_tpu_torch.models.transformer import Transformer
 
@@ -60,6 +64,32 @@ def _segments(model: Transformer):
     segments = {"dense_layers": model.layers[:k]} if k else {}
     segments["layers"] = model.layers[k:]
     return segments
+
+
+def stacked_leaves(model: Transformer) -> Dict[str, List[Tuple[nn.Module, str]]]:
+    """{the reference's leaf path: [(module, parameter name)]}: a top-level
+    leaf (``embed_tokens``) has one owner, a stacked one (``layers.q_proj``,
+    ``layers.experts.gate_proj``, ``dense_layers.q_proj``) one per layer of
+    its segment, in layer order. The paths are the reference's
+    ``param_path_str`` of its tree, which its regexes (LoRA targets,
+    ``freeze_modules``, ``module_lr_scales``) are matched against."""
+    out: Dict[str, List[Tuple[nn.Module, str]]] = {
+        name: [(model, name)] for name in _top_level(model)}
+    for seg, layers in _segments(model).items():
+        for name, _ in layers[0].named_parameters():
+            out[f"{seg}.{name}"] = [(layer, name) for layer in layers]
+    return out
+
+
+def named_jax_parameters(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
+    """(reference leaf path, parameter) for every parameter of a
+    ``Transformer`` (a stacked path once per layer) or of a module with its
+    own ``named_jax_parameters`` (``lora.LoraAdapters``)."""
+    own = getattr(module, "named_jax_parameters", None)
+    if own is not None:
+        return list(own())
+    return [(path, owner.get_parameter(name))
+            for path, owners in stacked_leaves(module).items() for owner, name in owners]
 
 
 @torch.no_grad()
@@ -110,3 +140,29 @@ def to_jax_tree(model: Transformer, *, grads: bool = False) -> Dict[str, Any]:
             n: np.stack([val(layer.get_parameter(n)) for layer in layers]) for n in names
         })
     return tree
+
+
+@torch.no_grad()
+def load_jax_adapters(adapters: nn.Module, tree: Dict[str, Any]) -> None:
+    """Copy the reference's adapter tree (``init_lora_params``'s
+    ``{"layers": {"q_proj": {"lora_a", "lora_b", "scale"}}}``, numpy
+    leaves) into the port's ``lora.LoraAdapters`` in place: both hold each
+    leaf stacked over the layers, so the leaves move across as they are."""
+    flat = _flatten(tree)
+    live = dict(adapters.named_jax_parameters())
+    if set(flat) != set(live):
+        raise KeyError(f"adapter tree keys differ: {sorted(set(flat) ^ set(live))}")
+    for name, p in live.items():
+        _copy(p, flat[name], name)
+
+
+def adapters_to_jax_tree(adapters: nn.Module, *, grads: bool = False) -> Dict[str, Any]:
+    """The adapters (or their ``.grad``) as the reference's nested numpy tree."""
+
+    def val(p):
+        t = p.grad if grads else p
+        if t is None:
+            t = torch.zeros_like(p)
+        return t.detach().float().cpu().numpy()
+
+    return _nest({name: val(p) for name, p in adapters.named_jax_parameters()})

@@ -72,7 +72,8 @@ shrinks it. Features outside these paths raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from types import SimpleNamespace
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -86,14 +87,15 @@ from veomni_tpu_torch.utils.device import DeviceLike, resolve_device
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every configured feature the port does not implement, each
-    naming its item in ROADMAP.md queue 1."""
+    naming its item in ROADMAP.md queue 1. ``moe_capacity_factor`` is not
+    one: the reference reads it only under expert parallelism (``:563-568``,
+    ``parallel/moe.py``), which ``parallel/parallel_state.py`` refuses, and
+    runs the dropless ``_moe_mlp`` at expert-parallel size 1, as here."""
     moe = cfg.is_moe
     missing = [name for name, on in (
         ("router_bias (slice B item 4)", moe and cfg.router_bias),
         ("expert biases, mlp_bias on a MoE (slice B item 4)", moe and cfg.mlp_bias),
         ("gpt_oss routing (slice B item 4)", moe and cfg.model_type == "gpt_oss"),
-        ("moe_capacity_factor, expert parallelism (slice B item 5)",
-         moe and cfg.moe_capacity_factor > 0),
         ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
         ("attention sinks (slice B item 4, with gpt_oss)", cfg.attention_sinks),
         ("mrope (slice F)", ops.is_mrope(cfg.rope_scaling)),
@@ -282,6 +284,9 @@ class DecoderLayer(nn.Module):
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=device))
 
+        # {parameter name: fn(parameter) -> merged weight}, filled by
+        # lora/lora.py::LoraAdapters.merged while it is held; empty otherwise
+        self.merges: Dict[str, Callable] = {}
         self.input_layernorm = p(h)
         if cfg.use_mla:
             nh, dr = cfg.num_attention_heads, cfg.qk_rope_head_dim
@@ -336,17 +341,25 @@ class DecoderLayer(nn.Module):
                 self.up_bias = p(inter)
                 self.down_bias = p(h)
 
+    def w(self, name: str) -> torch.Tensor:
+        """Parameter ``name`` (``experts.gate_proj`` for a nested one), merged
+        with its LoRA adapter where ``lora/lora.py`` attached one. Every
+        forward read goes through here, inside the remat regions, so the
+        merged copy lives one layer at a time and backward re-merges it."""
+        merge = self.merges.get(name)
+        p = self.get_parameter(name)
+        return p if merge is None else merge(p)
+
     def _norm(self, x, name: str):
         cfg = self.cfg
-        return ops.rms_norm(x, getattr(self, name).to(cfg.dtype), cfg.rms_norm_eps,
+        return ops.rms_norm(x, self.w(name).to(cfg.dtype), cfg.rms_norm_eps,
                             zero_centered=cfg.norm_zero_centered)
 
     def _linear(self, x, weight: str, bias: str = ""):
         """x @ weight (+ bias when the layer has it), in the compute dtype."""
         dt = self.cfg.dtype
-        out = x @ getattr(self, weight).to(dt)
-        b = getattr(self, bias, None)
-        return out if b is None else out + b.to(dt)
+        out = x @ self.w(weight).to(dt)
+        return out if getattr(self, bias, None) is None else out + self.w(bias).to(dt)
 
     def _qkv(self, hidden, cos, sin):
         cfg = self.cfg
@@ -406,11 +419,21 @@ class DecoderLayer(nn.Module):
         """The MoE MLP of x [T,H] -> ([T,H], aux) with this layer's router,
         correction bias, experts and shared experts."""
         dt = self.cfg.dtype
-        bias = getattr(self, "e_score_correction_bias", None)
-        gate = getattr(self, "shared_expert_gate", None)
-        return moe_mlp(x, self.router.to(dt), self.experts, self.cfg,
+
+        def optional(name):
+            return self.w(name) if hasattr(self, name) else None
+
+        def weights(sub):  # the experts' (merged) weights, as moe_mlp reads them
+            if not hasattr(self, sub):
+                return None
+            return SimpleNamespace(**{n: self.w(f"{sub}.{n}")
+                                      for n in ("gate_proj", "up_proj", "down_proj")})
+
+        bias = optional("e_score_correction_bias")
+        return moe_mlp(x, self.w("router").to(dt), weights("experts"), self.cfg,
                        correction_bias=None if bias is None else bias.to(dt),
-                       shared=getattr(self, "shared_experts", None), shared_gate=gate)
+                       shared=weights("shared_experts"),
+                       shared_gate=optional("shared_expert_gate"))
 
     def _tail(self, hidden, attn):
         cfg = self.cfg
@@ -459,6 +482,7 @@ class Transformer(nn.Module):
         def p(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=dev))
 
+        self.merges: Dict[str, Callable] = {}  # see DecoderLayer.w
         self.embed_tokens = p(cfg.vocab_size, h)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dev, i)
                                     for i in range(cfg.num_hidden_layers))
@@ -468,12 +492,14 @@ class Transformer(nn.Module):
         if generator is not None:
             init_params(self, generator)
 
+    w = DecoderLayer.w
+
     def embed(self, input_ids):
         """Token embeddings [B,S,H] in cfg.dtype; gemma's ``embed_scale`` is
         multiplied in the compute dtype, as the reference does (``:630-631``:
         sqrt(1152) is 34.0 in bf16)."""
         cfg, dt = self.cfg, self.cfg.dtype
-        hidden = F.embedding(input_ids, self.embed_tokens.to(dt))
+        hidden = F.embedding(input_ids, self.w("embed_tokens").to(dt))
         if cfg.embed_scale:
             hidden = hidden * torch.tensor(cfg.embed_scale, dtype=dt, device=hidden.device)
         return hidden
@@ -512,14 +538,14 @@ class Transformer(nn.Module):
         for layer in self.layers:
             hidden, aux = layer(hidden, *tables[layer.local_rope], segment_ids)
             aux_total = aux_total + aux
-        return ops.rms_norm(hidden, self.norm.to(dt), cfg.rms_norm_eps,
+        return ops.rms_norm(hidden, self.w("norm").to(dt), cfg.rms_norm_eps,
                             zero_centered=cfg.norm_zero_centered), aux_total
 
     def lm_head_kernel(self) -> torch.Tensor:
         """[H, V] head matrix (tied: the embedding transposed)."""
         if self.cfg.tie_word_embeddings:
-            return self.embed_tokens.t()
-        return self.lm_head
+            return self.w("embed_tokens").t()
+        return self.w("lm_head")
 
     def forward_logits(self, input_ids, position_ids, segment_ids=None):
         """f32 logits [B,S,V] from compute-dtype operands, with the final

@@ -24,7 +24,8 @@ order. What differs is bookkeeping, handled here:
 
 from __future__ import annotations
 
-from typing import Callable, Union
+import re
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -38,7 +39,8 @@ def _decayed(name: str, param: torch.Tensor) -> bool:
 
 class AdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` whose learning rate is ``lr_schedule(n)`` for
-    its ``n``-th update (counted from 0)."""
+    its ``n``-th update (counted from 0), times a group's ``lr_scale``
+    (:func:`with_param_groups`)."""
 
     def __init__(self, params, lr_schedule: Schedule, **kwargs):
         super().__init__(params, lr=lr_schedule(0), **kwargs)
@@ -49,7 +51,7 @@ class AdamW(torch.optim.AdamW):
     def step(self, closure=None):
         lr = self.lr_schedule(self.num_updates)
         for group in self.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_scale", 1.0)
         loss = super().step(closure)
         self.num_updates += 1
         return loss
@@ -72,3 +74,49 @@ def build_optimizer(
               {"params": rest, "weight_decay": 0.0}]
     schedule = lr if callable(lr) else (lambda n: lr)
     return AdamW(groups, schedule, betas=betas, eps=eps)
+
+
+def with_param_groups(
+    optimizer: AdamW,
+    named_params: Sequence[Tuple[str, torch.Tensor]],
+    *,
+    freeze_patterns: Sequence[str] = (),
+    lr_scales: Optional[Dict[str, float]] = None,
+) -> AdamW:
+    """Per-module freeze and learning-rate scaling over the reference's leaf
+    paths (``veomni_tpu/optim/optimizer.py:84-123``): a parameter whose path
+    matches a ``freeze_patterns`` regex has its update scaled by 0 (the
+    first match wins over ``lr_scales``); else the first matching
+    ``lr_scales`` regex scales it; else 1. ``named_params`` are (path,
+    parameter) pairs (``models/jax_weights.py::named_jax_parameters``).
+
+    The reference multiplies optax's whole AdamW update, decay included, by
+    the scale. Here each scale is a parameter group whose learning rate is
+    the schedule's times the scale: ``torch.optim.AdamW`` applies the decay
+    and the Adam step both at that rate, which is the same update; at scale
+    0 the parameter stays bit-unchanged while its moments still move, as in
+    the reference. Returns a new optimizer over the same parameters (built
+    before any step: it carries no state over)."""
+
+    def scale_of(path: str) -> float:
+        for pat in freeze_patterns:
+            if re.search(pat, path):
+                return 0.0
+        for pat, scale in (lr_scales or {}).items():
+            if re.search(pat, path):
+                return float(scale)
+        return 1.0
+
+    if optimizer.state:
+        raise ValueError("with_param_groups regroups a fresh optimizer, before its first step")
+    scales = {id(p): scale_of(path) for path, p in named_params}
+    groups = []
+    for group in optimizer.param_groups:
+        by_scale: Dict[float, list] = {}
+        for p in group["params"]:
+            by_scale.setdefault(scales[id(p)], []).append(p)
+        for scale, params in by_scale.items():
+            groups.append({"params": params, "weight_decay": group["weight_decay"],
+                           "lr_scale": scale})
+    defaults = optimizer.defaults
+    return AdamW(groups, optimizer.lr_schedule, betas=defaults["betas"], eps=defaults["eps"])

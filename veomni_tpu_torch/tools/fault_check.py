@@ -8,11 +8,15 @@ in ``csrc/flash_attention.cu``, the trainer's resume in
 ``checkpoint/checkpointer.py`` and ``trainer/base.py``, the HF weight load in
 ``models/hf_io.py``, the serving engine's paged gather, decode rotary, the
 rotary tables its steps share with the contiguous prefill, and prefix-cache
-match, and the deepseek dialect's correction bias, shared experts, MLA rope
-and leading dense layer in ``models/transformer.py``) and run the copy's
+match, the deepseek dialect's correction bias, shared experts, MLA rope
+and leading dense layer in ``models/transformer.py``, and the SFT path's
+LoRA merge in ``lora/lora.py``, expert adapters, frozen update in
+``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``)
+and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
-``--phases hf_trainer_moonlight``). A fault is caught when that run exits non-zero, prints no
+``--phases hf_trainer_moonlight``; for an SFT one, its SFT phase). A fault is
+caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
 
@@ -48,6 +52,15 @@ PAGED_SOURCE = os.path.join("veomni_tpu_torch", "ops", "paged_attention.py")
 DECODE_SOURCE = os.path.join("veomni_tpu_torch", "models", "decode.py")
 PREFIX_SOURCE = os.path.join("veomni_tpu_torch", "serving", "prefix_cache.py")
 MODEL_SOURCE = os.path.join("veomni_tpu_torch", "models", "transformer.py")
+LORA_SOURCE = os.path.join("veomni_tpu_torch", "lora", "lora.py")
+OPTIM_SOURCE = os.path.join("veomni_tpu_torch", "optim", "optimizer.py")
+TEMPLATE_SOURCE = os.path.join("veomni_tpu_torch", "data", "chat_template.py")
+# the SFT faults run chip_smoke.py's SFT phases alone; those read the YAML,
+# the fixture tokenizers and the docs their chat rows are built from
+SFT_DENSE = ("--phases", "sft_lora_dense")
+SFT_TAG = "sft lora dense TinyLlama-1.1B"
+SFT_INPUTS = (os.path.join("configs", "text", "lora_sft.yaml"),
+              os.path.join("tests", "fixtures", "tokenizers"), "README.md", "SURVEY.md", "docs")
 # the deepseek faults run chip_smoke.py's Moonlight phase alone; its router
 # check, parameter count and layer check come before its trainer
 MOONLIGHT = ("--phases", "hf_trainer_moonlight")
@@ -235,6 +248,31 @@ FAULTS = (
           "self.is_moe = cfg.is_moe and layer_idx >= cfg.first_k_dense_replace",
           "self.is_moe = cfg.is_moe",
           "hf deepseek Moonlight-16B-A3B:", "parameters, the config gives", MOONLIGHT),
+    # LoRA: the merge without its scale, every layer merged with layer 0's
+    # A, the expert adapters never read, a frozen tensor updated, the user
+    # turns of the llama2 template supervised
+    Fault("lora-scale", "merge_weight adds A @ B without the scale",
+          LORA_SOURCE, "    delta = torch.matmul(a.float(), b.float()) * scale\n",
+          "    delta = torch.matmul(a.float(), b.float())\n",
+          f"{SFT_TAG}: merged HF export", "merged export departs from W + scale * A @ B",
+          SFT_DENSE),
+    Fault("lora-layer", "each layer's merge reads layer 0's A",
+          LORA_SOURCE, "        a = a[layer]\n", "        a = a[0]\n",
+          f"{SFT_TAG}: merged HF export", "merged export departs from W + scale * A @ B",
+          SFT_DENSE),
+    Fault("lora-experts", "the MoE layer reads its experts without their adapters",
+          MODEL_SOURCE, 'return SimpleNamespace(**{n: self.w(f"{sub}.{n}")',
+          'return SimpleNamespace(**{n: self.get_parameter(f"{sub}.{n}")',
+          "sft lora moe Qwen3-30B-A3B:", "adapters that never trained",
+          ("--phases", "sft_lora_moe")),
+    Fault("freeze-update", "with_param_groups gives a frozen tensor scale 1",
+          OPTIM_SOURCE, "                return 0.0\n", "                return 1.0\n",
+          "sft param groups TinyLlama-1.1B:", "parameter groups depart from the plain run",
+          SFT_DENSE),
+    Fault("label-mask", "the llama2 template supervises the user turns",
+          TEMPLATE_SOURCE, "                labels += [IGNORE_INDEX] * len(t)\n",
+          "                labels += t\n",
+          SFT_TAG, "llama2 template: a user turn's text is supervised", SFT_DENSE),
 )
 
 
@@ -254,6 +292,13 @@ def make_copy(dst: str) -> None:
     shutil.copytree(os.path.join(REPO, "veomni_tpu_torch"), os.path.join(dst, "veomni_tpu_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(REPO, "chip_smoke.py"), dst)
+    for name in SFT_INPUTS:
+        src = os.path.join(REPO, name)
+        if os.path.isdir(src):
+            shutil.copytree(src, os.path.join(dst, name))
+        else:
+            os.makedirs(os.path.dirname(os.path.join(dst, name)), exist_ok=True)
+            shutil.copy(src, os.path.join(dst, name))
     built = glob.glob(os.path.join(REPO, "build", "kernels", "*.so"))
     if built:
         os.makedirs(os.path.join(dst, "build", "kernels"))

@@ -22,15 +22,22 @@ onto the run's device), and leaves as an HF export at train end
 (``train.save_hf_weights``). The data path takes ``data.dyn_bsz``
 (``data/dynamic_batching.py``), ``train.prefetch_depth``
 (``data/prefetch.py``, closed on SIGTERM and before a rollback) and
-``dataset_type: streaming`` (``data/streaming.py``). Features whose modules
-are not ported yet raise ``NotImplementedError`` from one gate,
-:func:`check_supported`, naming the knob and the queue item of
-``ROADMAP.md`` that ports it.
+``dataset_type: streaming`` (``data/streaming.py``), and ``conversation``
+data through an HF tokenizer directory (``models/auto.py::build_tokenizer``,
+``data/tokenizer.py``) and chat templates. ``model.lora`` trains adapters
+over the frozen base (``lora/lora.py``: the train state's model is the
+adapters, the base is ``base_model``), and ``model.freeze_modules`` /
+``train.module_lr_scales`` group the optimizer
+(``optim/optimizer.py::with_param_groups``) and mask frozen gradients
+before the clip. Features whose modules are not ported yet raise
+``NotImplementedError`` from one gate, :func:`check_supported`, naming the
+knob and the queue item of ``ROADMAP.md`` that ports it.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -42,7 +49,15 @@ from veomni_tpu_torch.data.data_collator import TextPackingCollator
 from veomni_tpu_torch.data.data_loader import build_dataloader
 from veomni_tpu_torch.data.data_transform import build_data_transform
 from veomni_tpu_torch.data.dataset import build_dataset
-from veomni_tpu_torch.models.auto import build_config, build_foundation_model
+from veomni_tpu_torch.lora import (
+    LoraAdapters,
+    LoraConfig,
+    apply_lora_to_loss_fn,
+    init_lora_params,
+    load_adapter,
+)
+from veomni_tpu_torch.models.auto import build_config, build_foundation_model, build_tokenizer
+from veomni_tpu_torch.models.jax_weights import named_jax_parameters
 from veomni_tpu_torch.observability.flight_recorder import (
     configure_flight_recorder,
     dump_postmortem,
@@ -50,6 +65,7 @@ from veomni_tpu_torch.observability.flight_recorder import (
 )
 from veomni_tpu_torch.observability.spans import span
 from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+from veomni_tpu_torch.optim.optimizer import with_param_groups
 from veomni_tpu_torch.parallel import init_parallel_state, use_parallel_state
 from veomni_tpu_torch.train import build_train_state, build_train_step
 from veomni_tpu_torch.trainer.callbacks import (
@@ -68,9 +84,8 @@ from veomni_tpu_torch.utils.logging import _process_index, get_logger
 logger = get_logger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "position_ids", "segment_ids")
-# the data transforms the port has: ``conversation`` needs
-# data/chat_template.py and an HF tokenizer, the multimodal ones slice F
-SUPPORTED_DATA_TYPES = ("pretokenized", "plaintext")
+# the data transforms the port has (the multimodal ones are slice F)
+SUPPORTED_DATA_TYPES = ("pretokenized", "plaintext", "conversation")
 
 
 def check_supported(args: VeOmniArguments) -> None:
@@ -80,18 +95,10 @@ def check_supported(args: VeOmniArguments) -> None:
     m, d, t = args.model, args.data, args.train
     metrics_port = os.environ.get("VEOMNI_METRICS_PORT", "")
     missing = [f"{knob} ({why})" for knob, why, on in (
-        ("model.lora", "lora/*: slice F", bool(m.lora) or bool(m.lora_adapter_path)),
-        ("model.freeze_modules / train.module_lr_scales",
-         "optimizer param groups, optim/optimizer.py::with_param_groups: slice F",
-         bool(m.freeze_modules) or bool(t.module_lr_scales)),
         (f"train.optimizer {t.optimizer!r}", "only adamw is ported; optim/muon.py: slice F",
          t.optimizer != "adamw"),
-        (f"data.data_type {d.data_type!r}", "data/chat_template.py needs an HF tokenizer "
-         "and the card's machine has no transformers: queue 1; the multimodal transforms: "
-         "slice F", d.data_type not in SUPPORTED_DATA_TYPES),
-        (f"model.tokenizer_path for data_type {d.data_type!r}", "an HF tokenizer needs "
-         "transformers, which the port does not use: queue 1; pretokenized data needs none",
-         bool(m.tokenizer_path) and d.data_type != "pretokenized"),
+        (f"data.data_type {d.data_type!r}", "the multimodal transforms: slice F",
+         d.data_type not in SUPPORTED_DATA_TYPES),
         ("data.eval_path", "EvaluateCallback and the eval loop: queue 1", bool(d.eval_path)),
         ("data.channel_list", "train/channel_loss.py: queue 1", bool(d.channel_list)),
         ("train.use_wandb", "WandbCallback: queue 1", t.use_wandb),
@@ -220,10 +227,10 @@ class BaseTrainer:
                     k: v for k, v in overrides.items() if k != "model_type"}),
                 ops_implementation=ops_pins,
             )
-        # no tokenizer: check_supported lets one through for no data_type
-        # (models/auto.py::build_tokenizer is gated), and pretokenized data
-        # needs none
+        # pretokenized data needs no tokenizer; don't fail on weights-only dirs
         self.tokenizer = None
+        if m.tokenizer_path and self.args.data.data_type != "pretokenized":
+            self.tokenizer = build_tokenizer(m.tokenizer_path)
 
     def _build_data_transform(self):
         d = self.args.data
@@ -293,19 +300,40 @@ class BaseTrainer:
             t.lr_decay_style, lr=t.lr, train_steps=steps,
             lr_warmup_ratio=t.lr_warmup_ratio, lr_min=t.lr_min,
         )
-        if self.args.model.model_path:
+        m = self.args.model
+        if m.model_path:
             # train.broadcast_weights_from_rank0 is a no-op at world size 1:
             # the one process reads every tensor itself
-            module = self.model.load_hf(self.args.model.model_path, device=self.device)
+            module = self.model.load_hf(m.model_path, device=self.device)
         else:
             module = self.model.init(self.generator, device=self.device)
+        self.lora_config = LoraConfig.from_dict(m.lora)
+        if self.lora_config is not None:
+            # frozen base + trainable adapters (reference :312-373)
+            self.base_model = module
+            trainable = init_lora_params(self.generator, module, self.lora_config)
+            if m.lora_adapter_path:
+                load_adapter(m.lora_adapter_path, trainable)
+            loss_fn = apply_lora_to_loss_fn(self.model.loss_fn, module)
+        else:
+            self.base_model = None
+            trainable = module
+            loss_fn = self.model.loss_fn
         self.optimizer = build_optimizer(
-            module, lr=self.lr_schedule, betas=tuple(t.betas), weight_decay=t.weight_decay,
+            trainable, lr=self.lr_schedule, betas=tuple(t.betas), weight_decay=t.weight_decay,
         )
-        self.train_state = build_train_state(module, self.optimizer)
-        loss_fn = self.model.loss_fn
+        named = named_jax_parameters(trainable)
+        if m.freeze_modules or t.module_lr_scales:
+            self.optimizer = with_param_groups(
+                self.optimizer, named, freeze_patterns=tuple(m.freeze_modules),
+                lr_scales=dict(t.module_lr_scales))
+        # frozen modules' grads are zeroed before the clip (reference :398-410)
+        self.grad_mask = [p for path, p in named
+                          if any(re.search(pat, path) for pat in m.freeze_modules)]
+        self.train_state = build_train_state(trainable, self.optimizer)
         self.train_step = build_train_step(
-            loss_fn, max_grad_norm=t.max_grad_norm,
+            loss_fn, max_grad_norm=t.max_grad_norm, grad_mask=self.grad_mask or None,
+            scope=LoraAdapters.merged if self.base_model is not None else None,
             skip_nonfinite=t.resilience_skip_nonfinite,
         )
         self._loss_fn = loss_fn

@@ -174,12 +174,20 @@ class CheckpointCallback(Callback):
 class HFCheckpointCallback(Callback):
     """HF-format safetensors export of the trained model to
     ``<output_dir>/hf_ckpt`` at the end of training (reference
-    ``trainer/callbacks.py:254``; LoRA's merged and adapter exports are
-    slice F)."""
+    ``trainer/callbacks.py:254-272``). A LoRA run writes the adapter to
+    ``<output_dir>/lora_adapter`` and the merged full model (``W + scale *
+    A @ B``, merged one layer at a time as it is written) to ``hf_ckpt``."""
 
     def on_train_end(self, trainer, state):
-        out = os.path.join(trainer.args.train.output_dir, "hf_ckpt")
-        trainer.model.save_hf(out, module=trainer.train_state.model)
+        out_dir = trainer.args.train.output_dir
+        module = trainer.train_state.model
+        if getattr(trainer, "base_model", None) is None:
+            trainer.model.save_hf(os.path.join(out_dir, "hf_ckpt"), module=module)
+            return
+        from veomni_tpu_torch.lora import save_adapter, save_merged_hf
+
+        save_adapter(module, trainer.lora_config, os.path.join(out_dir, "lora_adapter"))
+        save_merged_hf(trainer.base_model, module, os.path.join(out_dir, "hf_ckpt"))
 
 
 class ProfileCallback(Callback):
