@@ -155,7 +155,28 @@ Phases (any failure exits non-zero and prints no result line):
    merged experts, the base bit-unchanged, the adapter round trip, the
    last layer's merged weights against ``W + scale * A @ B`` worked out
    here in f64 (its merged export, ~42 GB of f32, is off), step 1's loss
-   and grad norm against the plain ragged grouped GEMM.
+   and grad norm against the plain ragged grouped GEMM;
+17. the gpt_oss dialect (after the deepseek phases of 15): gpt-oss-20b at
+   its published widths (the config.json of ``train_text_step.HF_CONFIGS``),
+   depth cut to 3 of 24 layers (a 128-token window, full attention, a
+   window; ~3.63 B parameters), as random bf16 weights from seed 0 (sinks
+   from N(0, 1), biases drawn nonzero, the experts' gate/up weights and
+   biases drawn large enough that the clamp and the biases show) written
+   here in transformers' fused interleaved expert layout and loaded back
+   bit-equal; its parameter count against the one counted here, layers 0
+   and 1 held token by token to chip_smoke's own f32 layers (q/k under
+   yarn with the correction range unrounded, attention with sinks and the
+   window, top-4 of the biased router logits then a softmax over the 4,
+   the clamped GLU with expert biases), then ``TextTrainer`` at seq 4096 x
+   micro-batch 2 for 4 steps: K4 launches 6 times, K5 and K6 3 times, per
+   layer and step, K1-K3 never (sinks take the reference's dispatch to the
+   plain attention: one ``FALLBACK_CALLS`` per layer and step), step 1
+   against the plain ragged grouped GEMM, the HF export read back
+   bit-equal and its fused layout read from its files; then K4-K6 held and
+   timed at K = N = 2880 on layer 0's routing (M = 32768); and, after the
+   serving phase of 14, the engine at gpt-oss-20b, all 24 layers in bf16,
+   leg (a) over 16 requests of 64-1536 tokens, then K4 alone at its decode
+   shape (M = 32).
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -163,7 +184,8 @@ first) and prints no result line; ``--phases
 hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
 (11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
 deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
-(16).
+(16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17).
+Each partial run logs each phase's seconds (``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -1509,7 +1531,9 @@ DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
 def random_model(dev, cfg, seed: int = 0):
     """The port's random init from ``seed``, with router correction biases
     drawn from N(0, CORRECTION_BIAS_STD) (the init's 0 would let noaux-tc
-    pick by score order alone), and zero-centered norm weights
+    pick by score order alone); for gpt_oss, sinks from N(0, 1) and every
+    bias from N(0, GPT_OSS_BIAS_STD) (the init's 0 would hide a dropped
+    sink or bias); and zero-centered norm weights
     at 0, as HF initialises Gemma3's norms (a gain of 1). The reference's
     init puts every norm weight at 1 (``init_params``), a gain of 2 under a
     zero-centered norm at each of Gemma's four norms a layer: the random
@@ -1526,6 +1550,9 @@ def random_model(dev, cfg, seed: int = 0):
                 p.zero_()
             elif name.endswith("e_score_correction_bias"):  # noaux-tc: off the score order
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev) * CORRECTION_BIAS_STD)
+            elif cfg.model_type == "gpt_oss" and name.endswith(("sinks", "_bias")):
+                std = 1.0 if name.endswith("sinks") else GPT_OSS_BIAS_STD
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
     return model
 
 
@@ -1560,8 +1587,15 @@ def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool,
     pretokenized corpus (documents of S/16-S/2 tokens, 256-2048 at S 4096,
     uniform over the model's vocabulary, seed 0) and the YAML; returns the
     YAML's path."""
+    cfg = write_random_hf_dir(dev, os.path.join(tmp, "hf"), preset, layers)
+    return write_corpus_and_yaml(tmp, preset, cfg.vocab_size, steps, save_hf, micro_bs)
+
+
+def write_corpus_and_yaml(tmp: str, preset: str, vocab: int, steps: int, save_hf: bool,
+                          micro_bs: int) -> str:
+    """The corpus and YAML of ``write_dialect_run`` beside the HF directory
+    ``tmp``/hf; returns the YAML's path."""
     hf_dir = os.path.join(tmp, "hf")
-    cfg = write_random_hf_dir(dev, hf_dir, preset, layers)
     rng = np.random.default_rng(0)
     data = os.path.join(tmp, "corpus.jsonl")
     # the loader offers 8 documents a row to the packing collator, a
@@ -1569,7 +1603,7 @@ def write_dialect_run(dev, tmp: str, preset: str, steps: int, save_hf: bool,
     with open(data, "w") as f:
         for _ in range(8 * micro_bs * (steps + 2)):
             n = int(rng.integers(DIALECT_SEQ // 16, DIALECT_SEQ // 2 + 1))
-            f.write(json.dumps({"input_ids": rng.integers(0, cfg.vocab_size, n).tolist()}) + "\n")
+            f.write(json.dumps({"input_ids": rng.integers(0, vocab, n).tolist()}) + "\n")
     path = os.path.join(tmp, f"{preset}.yaml")
     with open(path, "w") as f:
         f.write(DIALECT_YAML.format(hf=hf_dir, data=data, seq=DIALECT_SEQ,
@@ -2001,20 +2035,52 @@ def phase_deepseek_layer(dev, card, model, batch):
     return sizes
 
 
-def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export: bool):
-    """One deepseek-dialect model at its published widths, ``layers`` deep,
-    through ``TextTrainer`` from an HF directory (random bf16 weights from
-    seed 0, correction biases drawn nonzero): ``steps`` steps at seq 4096 x
-    micro-batch 2, f32 master, bf16 compute, ctx remat, AdamW. Before the
-    trainer, the parameter count against the one counted from the config
-    and (Moonlight) the layer check. K4 launches 6 times per MoE layer and
-    step (gate, up, down, and their ctx recompute), K5 and K6 3 times; K1-K3
-    never (MLA's v head dim 128 against q/k's 192 takes the reference's
-    dispatch to the plain attention, one FALLBACK_CALLS per layer and step).
-    The step-1 loss, grad norm and router aux loss are held to the same step
-    with the plain ragged grouped GEMM pinned; with ``export`` the HF export
-    reads back bit-equal to the final parameters. Returns (launches, group
-    sizes of layer 1's routing on a packed batch or None)."""
+def describe_deepseek(cfg) -> str:
+    n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
+    return (f"{cfg.num_hidden_layers} of 27 layers ({cfg.first_k_dense_replace} dense, "
+            f"{n_moe} MoE), hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, MLA "
+            f"kv_lora_rank {cfg.kv_lora_rank}, q/k head {cfg.qk_head_dim}, v head "
+            f"{cfg.v_head_dim}, {cfg.num_experts} experts top-{cfg.num_experts_per_tok} of width "
+            f"{cfg.moe_intermediate_size} + {cfg.n_shared_experts} shared, {cfg.scoring_func} "
+            f"routing, vocab {cfg.vocab_size}")
+
+
+def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export: bool,
+                      layer_check=None):
+    """One deepseek-dialect model at its published widths through
+    ``phase_hf_moe``: random bf16 weights from seed 0 with correction
+    biases drawn nonzero, written by the port's save_hf_checkpoint; MLA's v
+    head dim 128 against q/k's 192 takes the reference's dispatch to the
+    plain attention on every layer."""
+
+    def write(tmp):
+        return write_dialect_run(dev, tmp, preset, steps, export, layers=layers,
+                                 micro_bs=DEEPSEEK_MICRO_BS), None
+
+    return phase_hf_moe(dev, card, preset, steps, export=export, dialect="deepseek",
+                        name=DEEPSEEK_NAMES[preset], write=write, describe=describe_deepseek,
+                        count=deepseek_param_count, layer_check=layer_check,
+                        plain_why="every MLA layer")
+
+
+def phase_hf_moe(dev, card, preset: str, steps: int, *, export: bool, dialect: str, name: str,
+                 write, describe, count, layer_check=None, plain_why: str,
+                 export_check=None):
+    """One MoE-dialect model at its published widths (depth cut) through
+    ``TextTrainer`` from an HF directory that ``write(tmp)`` writes (it
+    returns the YAML's path and the written model, or None): ``steps``
+    steps at seq 4096 x micro-batch 2, f32 master, bf16 compute, ctx remat,
+    AdamW. Before the trainer, the loaded parameters against the written
+    ones bit for bit (where ``write`` keeps them), the parameter count
+    against ``count(cfg)`` and ``layer_check(dev, card, model, batch)``
+    on a packed batch, if given. K4 launches 6 times per MoE layer and step
+    (gate, up, down, and their ctx recompute), K5 and K6 3 times; K1-K3
+    never (``plain_why`` takes the reference's dispatch to the plain
+    attention, one FALLBACK_CALLS per layer and step). The step-1 loss,
+    grad norm and router aux loss are held to the same step with the plain
+    ragged grouped GEMM pinned; with ``export`` the HF export reads back
+    bit-equal to the final parameters (and passes ``export_check``).
+    Returns (launches, the layer check's group sizes or None)."""
     from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
     from veomni_tpu_torch.models import Transformer
     from veomni_tpu_torch.models.auto import build_foundation_model
@@ -2028,8 +2094,7 @@ def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export
     from veomni_tpu_torch.utils.count_flops import FlopsCounter
     from veomni_tpu_torch.utils.device import get_device_peak_flops
 
-    name = DEEPSEEK_NAMES[preset]
-    tag = f"hf deepseek {name}"
+    tag = f"hf {dialect} {name}"
 
     class Record(Callback):
         def __init__(self):
@@ -2048,29 +2113,36 @@ def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{preset}_")
     try:
         t0 = time.perf_counter()
-        yaml_path = write_dialect_run(dev, tmp, preset, steps, export, layers=layers,
-                                      micro_bs=DEEPSEEK_MICRO_BS)
+        yaml_path, written = write(tmp)
         write_s = time.perf_counter() - t0
         hf_dir = os.path.join(tmp, "hf")
+        t0 = time.perf_counter()
         fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev)
         cfg, model = fm.config, fm.module
+        load_s = time.perf_counter() - t0
         n_params = sum(w.numel() for w in model.parameters())
-        want_params = deepseek_param_count(cfg)
+        want_params = count(cfg)
         n_moe = cfg.num_hidden_layers - cfg.first_k_dense_replace
-        log(f"{tag}: {cfg.num_hidden_layers} of 27 layers ({cfg.first_k_dense_replace} dense, "
-            f"{n_moe} MoE), hidden {cfg.hidden_size}, {cfg.num_attention_heads} heads, MLA "
-            f"kv_lora_rank {cfg.kv_lora_rank}, q/k head {cfg.qk_head_dim}, v head "
-            f"{cfg.v_head_dim}, {cfg.num_experts} experts top-{cfg.num_experts_per_tok} of width "
-            f"{cfg.moe_intermediate_size} + {cfg.n_shared_experts} shared, {cfg.scoring_func} "
-            f"routing, vocab {cfg.vocab_size}; {n_params} parameters (counted from the config: "
-            f"{want_params}); HF directory and corpus written in {write_s:.1f} s [{card}]")
+        log(f"{tag}: {describe(cfg)}; {n_params} parameters (counted from the config: "
+            f"{want_params}); HF directory and corpus written in {write_s:.1f} s, loaded in "
+            f"{load_s:.1f} s [{card}]")
+        if written is not None:
+            bad = [n for (n, x), (_, y) in zip(model.named_parameters(), written.named_parameters())
+                   if not torch.equal(x, y.to(x.dtype))]
+            log(f"{tag}: the loaded parameters against the written ones: "
+                + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
+            if bad:
+                raise AssertionError(f"{tag}: loaded parameters differ from the written ones "
+                                     f"({bad[:3]})")
+            del written
+            torch.cuda.empty_cache()
         if n_params != want_params:
             raise AssertionError(f"{tag}: {n_params} parameters, the config gives {want_params}")
         sizes = None
-        if preset == MOONLIGHT_PRESET:
+        if layer_check is not None:
             batch = {k: torch.from_numpy(v[0]) for k, v in
                      next(packed_batches(cfg.vocab_size, DIALECT_SEQ, DEEPSEEK_MICRO_BS)).items()}
-            sizes = phase_deepseek_layer(dev, card, model, batch)
+            sizes = layer_check(dev, card, model, batch)
         del fm, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -2105,19 +2177,21 @@ def phase_hf_deepseek(dev, card, preset: str, layers: int, steps: int, *, export
         med = sorted(ms)[len(ms) // 2]
         log(f"{tag}: launches {launches} (reckoned from the code: {want}: per MoE layer and "
             f"step K4 x 6 (gate, up, down and their ctx recompute), K5 x 3, K6 x 3), "
-            f"FALLBACK_CALLS {fallbacks} (expected {cfg.num_hidden_layers * steps}: every MLA "
-            f"layer once a step); warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, "
+            f"FALLBACK_CALLS {fallbacks} (expected {cfg.num_hidden_layers * steps}: {plain_why} "
+            f"once a step); warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, "
             f"median {med:.1f} ms, {tokens / med * 1e3:.1f} tokens/s, MFU "
-            f"{flops / (med / 1e3) / peak_flops:.4f} (the reference's FlopsCounter: MLA and "
-            f"shared-expert terms, every layer counted as MoE); peak device memory "
+            f"{flops / (med / 1e3) / peak_flops:.4f} (the reference's FlopsCounter, every "
+            f"layer counted as MoE, full causal attention on every layer); peak device memory "
             f"{peak / 2**30:.2f} GiB [{card}]")
         bad = {k: v for k, v in launches.items() if v != want.get(k, 0)}
         if bad or fallbacks["flash"] != cfg.num_hidden_layers * steps:
             raise AssertionError(f"{tag}: launches {launches} (expected {want}), "
                                  f"FALLBACK_CALLS {fallbacks}")
         if export:
-            check_hf_export(dev, tag, os.path.join(tmp, "out", "hf_ckpt"),
-                            trainer.train_state.model)
+            out_dir = os.path.join(tmp, "out", "hf_ckpt")
+            check_hf_export(dev, tag, out_dir, trainer.train_state.model)
+            if export_check is not None:
+                export_check(tag, out_dir, trainer.train_state.model)
         first = rec.first_batch
         del trainer
         destroy_parallel_state()
@@ -2164,7 +2238,8 @@ def phase_hf_trainer_moonlight(dev, card):
     batch. Returns ({path: (launches, head dim, layout)}, kernel rows)."""
     phase_v3_router(dev, card)
     launches, sizes = phase_hf_deepseek(dev, card, MOONLIGHT_PRESET, MOONLIGHT_LAYERS,
-                                        MOONLIGHT_STEPS, export=True)
+                                        MOONLIGHT_STEPS, export=True,
+                                        layer_check=phase_deepseek_layer)
     s = sizes.cpu()
     log(f"grouped GEMM kernels at Moonlight-16B-A3B's expert widths: layer 1's routing of a "
         f"packed seq-{DIALECT_SEQ} x {DEEPSEEK_MICRO_BS} batch: M={int(s.sum())} rows over "
@@ -2185,6 +2260,315 @@ def phase_deepseek_v2_lite(dev, card):
     launches, _ = phase_hf_deepseek(dev, card, V2_LITE_PRESET, V2_LITE_LAYERS, V2_LITE_STEPS,
                                     export=False)
     return {"deepseek_v2_lite": (launches, 192, DEEPSEEK_LAYOUT)}, []
+
+
+# --------------------------------------------------------------------------
+# The gpt_oss dialect: gpt-oss-20b at its published widths
+# --------------------------------------------------------------------------
+GPT_OSS_PRESET = "gpt_oss_20b"
+GPT_OSS_NAME = "gpt-oss-20b"
+GPT_OSS_LAYERS = 3  # of 24: sliding, full, sliding (~58 GB of f32 weight, grad, moments)
+GPT_OSS_STEPS = 4
+# the kernel rows of K4-K6 at gpt-oss's expert widths (K = N = 2880) count
+# the launches of both gpt-oss paths
+GPT_OSS_LAYOUT = "gpt_oss 2880x2880"
+# The random gpt-oss weights: random_model draws sinks from N(0, 1) and
+# every bias from N(0, GPT_OSS_BIAS_STD), matrices at the reference's init
+# (std 0.02). There a gate or up pre-activation has a spread of ~1.1, so
+# the clamp at 7 never bites, and an expert bias moves the MoE block by
+# ~2% of a token, under the layer check's 5%. So the trainer phase's HF
+# directory (write_gpt_oss_hf_dir) redraws the experts' gate and up weights
+# from N(0, 0.1), which puts ~10% of the gate and ~20% of the up
+# pre-activations beyond 7, the expert biases from N(0, 1) and the router
+# bias from N(0, 0.1) (a scratch probe at these widths on 8 experts: the
+# clamp left out 11x the allowance, the expert biases left out 4.5x,
+# softmax before the top-k without its renorm 4.2x, bf16 against f32
+# 0.08x). The serving phase keeps random_model's draws but at matrices of
+# std GPT_OSS_SERVE_STD: at the reference's 0.02 a q or k channel has a
+# spread of ~1.1, the attention logits (times yarn's attention factor
+# squared, 1.81) ~2.1, and the random model is chaotic in bf16: its 24
+# layers' first-token logits sat 2.29 (median) to 3.65 from the f32
+# re-score on the H100, more than the logits' own spread of ~1.07, where
+# no re-score gate could see a fault. The reference's own bf16 forward is
+# as far from its f32 one at that init, so this is no fault of the port.
+GPT_OSS_BIAS_STD = 0.02
+GPT_OSS_SERVE_STD = 0.01
+GPT_OSS_CHECK_STD = {"experts.gate_proj": 0.1, "experts.up_proj": 0.1,
+                     "experts.gate_bias": 1.0, "experts.up_bias": 1.0,
+                     "experts.down_bias": 1.0, "router_bias": 0.1}
+
+
+def describe_gpt_oss(cfg) -> str:
+    windows = [cfg.window_for_layer(i) for i in range(cfg.num_hidden_layers)]
+    return (f"{cfg.num_hidden_layers} of 24 layers (windows {windows}), hidden "
+            f"{cfg.hidden_size}, {cfg.num_attention_heads}/{cfg.num_key_value_heads} heads at "
+            f"head dim {cfg.head_dim} with sinks and q/k/v/o biases, {cfg.num_experts} experts "
+            f"top-{cfg.num_experts_per_tok} of width {cfg.intermediate_size} with biases, router "
+            f"bias, {cfg.hidden_act}, yarn rope (factor {cfg.rope_scaling['factor']}, theta "
+            f"{cfg.rope_theta}, truncate {cfg.rope_scaling.get('truncate', True)}), vocab "
+            f"{cfg.vocab_size}")
+
+
+def gpt_oss_param_count(cfg) -> int:
+    """The model's parameter count from its config, counted here: q/k/v/o
+    with their biases, the sinks and two norms per layer; the router and
+    its bias, the experts' gate/up/down and their biases; embedding, final
+    norm and head."""
+    h, e, im = cfg.hidden_size, cfg.num_experts, cfg.intermediate_size
+    q, kv = cfg.num_attention_heads * cfg.head_dim, cfg.num_key_value_heads * cfg.head_dim
+    attn = 2 * h * q + 2 * h * kv + q + 2 * kv + h + cfg.num_attention_heads + 2 * h
+    moe = h * e + e + 3 * e * h * im + 2 * e * im + e * h
+    return cfg.num_hidden_layers * (attn + moe) + cfg.vocab_size * h * 2 + h
+
+
+def write_gpt_oss_hf_dir(dev, hf_dir: str, layers: int):
+    """An HF directory of gpt-oss-20b's published config.json (``layers``
+    deep) holding random bf16 weights from seed 0 (``random_model``, with
+    the MoE weights of ``GPT_OSS_CHECK_STD`` redrawn), its
+    tensors named and laid out here as transformers' GptOss stores them:
+    [out, in] linears, ``self_attn.sinks``, ``mlp.router.weight`` [E, H]
+    and its bias, the experts fused as ``mlp.experts.gate_up_proj`` [E, H,
+    2I] with gate in the even columns and up in the odd ones (its bias
+    [E, 2I] likewise), ``down_proj`` [E, I, H] and its bias [E, H]; one
+    shard per layer and one for the embeddings, with an index. Returns
+    (config, the written model)."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models.hf_io import INDEX_NAME, write_file
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS
+
+    published = dict(HF_CONFIGS[GPT_OSS_PRESET], num_hidden_layers=layers)
+    cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
+    model = random_model(dev, cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            std = GPT_OSS_CHECK_STD.get(name.split(".", 2)[-1])
+            if std is not None:
+                p.copy_(torch.randn(p.shape, generator=gen, device=dev) * std)
+    os.makedirs(hf_dir)
+
+    def src(name, fn):  # the tensor is made again when its bytes are written
+        t = fn()
+        return (name, t.dtype, tuple(t.shape), lambda: fn().cpu())
+
+    def interleave(a, b):
+        out = torch.empty(*a.shape[:-1], 2 * a.shape[-1], dtype=a.dtype, device=a.device)
+        out[..., 0::2], out[..., 1::2] = a, b
+        return out
+
+    def layer_tensors(layer):  # {HF suffix: producer} of one layer
+        ex = layer.experts
+        out = {"input_layernorm.weight": lambda: layer.input_layernorm,
+               "post_attention_layernorm.weight": lambda: layer.post_attention_layernorm,
+               "self_attn.sinks": lambda: layer.sinks,
+               "mlp.router.weight": lambda: layer.router.t(),
+               "mlp.router.bias": lambda: layer.router_bias,
+               "mlp.experts.gate_up_proj": lambda: interleave(ex.gate_proj, ex.up_proj),
+               "mlp.experts.gate_up_proj_bias": lambda: interleave(ex.gate_bias, ex.up_bias),
+               "mlp.experts.down_proj": lambda: ex.down_proj,
+               "mlp.experts.down_proj_bias": lambda: ex.down_bias}
+        for p in "qkvo":
+            out[f"self_attn.{p}_proj.weight"] = lambda p=p: layer.get_parameter(f"{p}_proj").t()
+            out[f"self_attn.{p}_proj.bias"] = lambda p=p: layer.get_parameter(f"{p}_bias")
+        return out
+
+    index = {"metadata": {}, "weight_map": {}}
+    with torch.no_grad():
+        shards = [[src("model.embed_tokens.weight", lambda: model.embed_tokens),
+                   src("model.norm.weight", lambda: model.norm),
+                   src("lm_head.weight", lambda: model.lm_head.t())]]
+        shards += [[src(f"model.layers.{i}.{n}", fn)
+                    for n, fn in sorted(layer_tensors(layer).items())]
+                   for i, layer in enumerate(model.layers)]
+        for j, shard in enumerate(shards):
+            fname = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+            write_file(os.path.join(hf_dir, fname), shard, {"format": "pt"})
+            index["weight_map"].update({name: fname for name, *_ in shard})
+    with open(os.path.join(hf_dir, INDEX_NAME), "w") as f:
+        json.dump(index, f)
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(published, f, indent=2)
+    return cfg, model
+
+
+def check_fused_export(tag: str, out: str, final) -> None:
+    """The trainer's HF export holds gpt_oss's fused layout: each layer's
+    ``gate_up_proj`` and its bias read straight from the files (no port
+    code between) carry the final gate in the even columns and up in the
+    odd ones, and ``mlp.router.weight`` is the router transposed."""
+    from veomni_tpu_torch.models.hf_io import LazyHFTensors
+
+    files = LazyHFTensors(out)
+    bad = []
+    for i, layer in enumerate(final.layers):
+        pre, ex = f"model.layers.{i}.mlp", layer.experts
+        for name, pair in (("experts.gate_up_proj", (ex.gate_proj, ex.up_proj)),
+                           ("experts.gate_up_proj_bias", (ex.gate_bias, ex.up_bias))):
+            fused = files.read(f"{pre}.{name}")
+            if not (torch.equal(fused[..., 0::2], pair[0].detach().cpu())
+                    and torch.equal(fused[..., 1::2], pair[1].detach().cpu())):
+                bad.append(f"{pre}.{name}")
+        if not torch.equal(files.read(f"{pre}.router.weight"), layer.router.detach().cpu().t()):
+            bad.append(f"{pre}.router.weight")
+    log(f"{tag}: the export's fused experts, read from its files: gate in the even columns, up "
+        f"in the odd ones, router transposed: " + ("ok" if not bad else f"FAILED ({bad[:3]})"))
+    if bad:
+        raise AssertionError(f"{tag}: the export's fused layout is wrong in {bad[:3]}")
+
+
+def gpt_oss_rope(cfg, dev):
+    """chip_smoke's own rope for gpt-oss: yarn inverse frequencies [D/2]
+    (f64) from the published values with the correction range left
+    unrounded (``truncate`` false, as transformers reads it), and the
+    attention factor 0.1 ln(factor) + 1 on cos and sin."""
+    d, theta, rs = cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
+    factor, orig = float(rs["factor"]), float(rs["original_max_position_embeddings"])
+
+    def dim(rotations):
+        return d * math.log(orig / (rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    low, high = max(dim(rs["beta_fast"]), 0.0), min(dim(rs["beta_slow"]), d - 1.0)
+    base = theta ** (torch.arange(0, d, 2, dtype=torch.float64, device=dev) / d)
+    ramp = ((torch.arange(d // 2, dtype=torch.float64, device=dev) - low) / (high - low))
+    keep = 1 - ramp.clamp(0, 1)
+    return 1 / (factor * base) * (1 - keep) + 1 / base * keep, 0.1 * math.log(factor) + 1.0
+
+
+def gpt_oss_layer_check(dev, card, model, batch):
+    """Layers 0 (a 128-token window) and 1 (full attention) of the model as
+    loaded, on the first row of ``batch`` [B, S], each held token by token
+    to chip_smoke's own f32 version of it from the port's input to that
+    layer: q and k after the rope (``gpt_oss_rope``, each half-pair turned
+    by position x frequency, times the attention factor), the attention
+    block (biased q/k/v, causal same-document attention inside the window,
+    each head's sink logit in the softmax denominator, biased o_proj) and
+    the MoE block (top-4 of the biased router logits, the lower index first
+    among equals, a softmax over those 4; each expert's biased gate and up,
+    gate clamped to 7 and up to [-7, 7], (up + 1) * gate * sigmoid(1.702
+    gate), biased down). Returns the group sizes of layer 0's routing over
+    the whole batch (the kernel rows' M)."""
+    from veomni_tpu_torch.models.transformer import expert_counts, route_tokens
+
+    cfg, dt = model.cfg, model.cfg.dtype
+    nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    ids, pos, seg = (batch[k].to(dev) for k in ("input_ids", "position_ids", "segment_ids"))
+    s = ids.shape[1]
+    inv_freq, att_factor = gpt_oss_rope(cfg, dev)
+
+    def rms(t, w):
+        return t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps) * w
+
+    def turn(t, position):  # [S, n, d]: channel i paired with i + d/2
+        ang = position.double()[:, None] * inv_freq
+        cos = (ang.cos() * att_factor).float()[:, None]
+        sin = (ang.sin() * att_factor).float()[:, None]
+        a, b = t[..., :d // 2], t[..., d // 2:]
+        return torch.cat([a * cos - b * sin, b * cos + a * sin], -1)
+
+    name = GPT_OSS_NAME
+    sizes = None
+    with torch.no_grad():
+        hidden, cos, sin = model.embed_and_rotary(ids, pos)
+        for i in (0, 1):
+            layer = model.layers[i]
+            window = cfg.window_for_layer(i)
+            p = {n: w.detach().to(dt).float() for n, w in layer.named_parameters()}
+            q, k, v = layer._qkv(hidden, cos, sin)
+            attn = layer._attend(q, k, v, seg)
+            # the block's output before the residual add: after layer 0's
+            # MoE the residual stream is ~10x the attention output, and the
+            # bf16 sum would round away ~2^-9 of the stream from it
+            got_attn = layer._linear(attn.reshape(*attn.shape[:2], -1), "o_proj", "o_bias")[0]
+            _, x = layer.mlp_input(hidden, attn)
+            flat = x.reshape(-1, cfg.hidden_size)
+            got_moe, _ = layer.moe(flat[:s])
+            if i == 0:
+                idx_all, _, _ = route_tokens(flat, layer.router.to(dt), cfg,
+                                             router_bias=layer.router_bias.to(dt))
+                sizes = expert_counts(idx_all.reshape(-1), cfg.num_experts)
+            xa = rms(hidden[0].float(), p["input_layernorm"])
+            qf = turn((xa @ p["q_proj"] + p["q_bias"]).view(s, nh, d), pos[0])
+            kf = turn((xa @ p["k_proj"] + p["k_bias"]).view(s, nkv, d), pos[0])
+            vf = (xa @ p["v_proj"] + p["v_bias"]).view(s, nkv, d)
+            qi = torch.arange(s, device=dev)[:, None]
+            ki = torch.arange(s, device=dev)[None]
+            visible = (qi >= ki) & (seg[0][:, None] == seg[0][None])
+            if window:
+                visible &= qi - ki < window
+            ctx = torch.empty(s, nh, d, device=dev)
+            g = nh // nkv
+            for j in range(nkv):  # one kv head's group of q heads at a time
+                heads = slice(j * g, (j + 1) * g)
+                logits = torch.einsum("qhd,kd->hqk", qf[:, heads], kf[:, j]) * d ** -0.5
+                logits = logits.masked_fill(~visible, -math.inf)
+                sink = p["sinks"][heads][:, None, None].expand(g, s, 1)
+                probs = torch.cat([logits, sink], -1).softmax(-1)[..., :s]
+                ctx[:, heads] = torch.einsum("hqk,kd->qhd", probs, vf[:, j])
+                del logits, probs
+            ref_attn = ctx.reshape(s, nh * d) @ p["o_proj"] + p["o_bias"]
+            xm = flat[:s].float()
+            logits = xm @ p["router"] + p["router_bias"]
+            ridx = logits.argsort(dim=-1, descending=True, stable=True)[:, :cfg.num_experts_per_tok]
+            rw = logits.gather(1, ridx).softmax(-1)
+            ref_moe = torch.zeros_like(xm)
+            clamped = [0, 0, 0]
+            for e in range(cfg.num_experts):
+                tok, slot = (ridx == e).nonzero(as_tuple=True)
+                if tok.numel():
+                    xe = xm[tok]
+                    gate = xe @ p["experts.gate_proj"][e] + p["experts.gate_bias"][e]
+                    up = xe @ p["experts.up_proj"][e] + p["experts.up_bias"][e]
+                    clamped[0] += int((gate > 7).sum())
+                    clamped[1] += int((up.abs() > 7).sum())
+                    clamped[2] += gate.numel()
+                    gate, up = gate.clamp(max=7), up.clamp(-7, 7)
+                    ye = ((up + 1) * gate * torch.sigmoid(1.702 * gate)) @ p["experts.down_proj"][e]
+                    ye = ye + p["experts.down_bias"][e]
+                    ref_moe.index_add_(0, tok, ye * rw[tok, slot, None])
+            log(f"{name} layer check: layer {i} ({f'window {window}' if window else 'full'} "
+                f"attention + MoE) on the first row ({s} tokens) against chip_smoke's f32 layer; "
+                f"the clamp bites on {clamped[0] / clamped[2]:.1%} of the routed gate and "
+                f"{clamped[1] / clamped[2]:.1%} of the up pre-activations [{card}]")
+            token_check(f"{name} layer check: layer {i} q/k", torch.cat([q[0], k[0]], 1),
+                        torch.cat([qf, kf], 1))
+            token_check(f"{name} layer check: layer {i} attention block", got_attn, ref_attn)
+            token_check(f"{name} layer check: layer {i} MoE block", got_moe, ref_moe)
+            del ctx, visible, ref_attn, ref_moe, xa, qf, kf, vf
+            hidden = layer(hidden, cos, sin, seg)[0]
+            torch.cuda.empty_cache()
+    return sizes
+
+
+def phase_hf_trainer_gpt_oss(dev, card):
+    """gpt-oss-20b at its published widths, 3 of 24 layers, through
+    ``phase_hf_moe``: an HF directory in the fused interleaved layout
+    written by ``write_gpt_oss_hf_dir``, loaded bit-equal, the layer check,
+    4 steps (sinks on every layer take the reference's dispatch to the
+    plain attention), its HF export read back bit-equal and its fused
+    layout read from the files; then K4-K6 held and timed at its expert
+    widths (K = N = 2880) on layer 0's routing of a packed batch. Returns
+    ({path: (launches, head dim, layout)}, kernel rows)."""
+
+    def write(tmp):
+        cfg, written = write_gpt_oss_hf_dir(dev, os.path.join(tmp, "hf"), GPT_OSS_LAYERS)
+        return write_corpus_and_yaml(tmp, GPT_OSS_PRESET, cfg.vocab_size, GPT_OSS_STEPS, True,
+                                     DEEPSEEK_MICRO_BS), written
+
+    launches, sizes = phase_hf_moe(
+        dev, card, GPT_OSS_PRESET, GPT_OSS_STEPS, export=True, dialect="gpt_oss",
+        name=GPT_OSS_NAME, write=write, describe=describe_gpt_oss, count=gpt_oss_param_count,
+        layer_check=gpt_oss_layer_check, plain_why="every layer (sinks)",
+        export_check=check_fused_export)
+    s = sizes.cpu()
+    log(f"grouped GEMM kernels at {GPT_OSS_NAME}'s expert widths: layer 0's routing of a packed "
+        f"seq-{DIALECT_SEQ} x {DEEPSEEK_MICRO_BS} batch: M={int(s.sum())} rows over "
+        f"E={s.numel()} experts, rows/expert min {int(s.min())} median {int(s.median())} "
+        f"max {int(s.max())}")
+    rows = gmm_case(dev, sizes, 2880, 2880, f"{GPT_OSS_NAME} gate/up and down: K=2880 N=2880",
+                    timed=True)
+    for row in rows:
+        row["path_layout"] = GPT_OSS_LAYOUT
+    return {"hf_trainer_gpt_oss": (launches, 64, GPT_OSS_LAYOUT)}, rows
 
 
 # --------------------------------------------------------------------------
@@ -2808,12 +3192,16 @@ def phase_sft_lora_moe(dev, card):
 # Serving: the paged-KV engine at Qwen3-0.6B and Qwen3-30B-A3B
 # --------------------------------------------------------------------------
 SERVE_DENSE_PRESET = "qwen3_0p6b"
+# the dense phase's five legs decode 64 new tokens a request and hold 3
+# prompts against greedy_generate (its contiguous loop); 128 and 8 until
+# the gpt-oss phases joined the script: cut to keep the whole run near
+# 1000 s of its 1200
 SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=32, wave=16, wave_ticks=4,
-                   prompt=(64, 1536), shared_prefix=512, max_new=128)
+                   prompt=(64, 1536), shared_prefix=512, max_new=64)
 SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
                  prompt=(64, 1024), shared_prefix=0, max_new=64)
 SERVE_CHUNK = 512
-SERVE_GREEDY_PROMPTS = 8  # held against greedy_generate (its contiguous loop: ~4 s a prompt)
+SERVE_GREEDY_PROMPTS = 3
 SERVE_SPEC_K = 4
 SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 # The re-score gate: an engine token's logit may sit below its row's maximum
@@ -2831,8 +3219,11 @@ SERVE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.9)
 # DELTA_CEILING x the recorded value: the contiguous prefill shares its layer
 # functions with the paged steps, so a fault there shows in delta, while eps
 # stays where the sound code put it.
-# Gemma-3-1B's (0.0652) with its norm weights at 0 (``random_model``).
-SERVE_DELTA = {"serve dense": 0.0481, "serve moe": 0.0917, "serve gemma3": 0.0652}
+# Gemma-3-1B's (0.0652) with its norm weights at 0 (``random_model``);
+# gpt-oss-20b's (0.2445, a spread of its logits ~0.54) with its matrices at
+# std 0.01 (``GPT_OSS_SERVE_STD``).
+SERVE_DELTA = {"serve dense": 0.0481, "serve moe": 0.0917, "serve gemma3": 0.0652,
+               "serve gpt_oss": 0.2445}
 EPS_FACTOR = 4.0
 DELTA_CEILING = 2.0
 
@@ -3265,11 +3656,14 @@ def capture_group_sizes(model, cfg, dev, prompts, spec):
     return seen[top_k * SERVE_CHUNK], seen[top_k * spec["slots"]]
 
 
-def gmm_fwd_rows(dev, sizes, tag):
-    """K4 alone at a serving shape, (K, N) = (2048, 768) and (768, 2048):
-    held against its plain version, then its time, the plain version's,
-    torch._grouped_mm's and the bound (bytes: lhs, the weights of the
-    experts this routing uses, out)."""
+QWEN3_MOE_WIDTHS = ((2048, 768, "gate/up"), (768, 2048, "down"))
+
+
+def gmm_fwd_rows(dev, sizes, tag, widths=QWEN3_MOE_WIDTHS):
+    """K4 alone at a serving shape, at each (K, N) of ``widths`` (Qwen3-MoE:
+    (2048, 768) and (768, 2048)): held against its plain version, then its
+    time, the plain version's, torch._grouped_mm's and the bound (bytes:
+    lhs, the weights of the experts this routing uses, out)."""
     from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
 
     sizes = sizes.to(dev)
@@ -3278,7 +3672,7 @@ def gmm_fwd_rows(dev, sizes, tag):
     m = int(starts[-1])
     used = int((sizes > 0).sum())
     rows = []
-    for k, n, what in ((2048, 768, "gate/up"), (768, 2048, "down")):
+    for k, n, what in widths:
         gen = torch.Generator(device=dev).manual_seed(3)
         lhs = torch.randn(m, k, device=dev, generator=gen).bfloat16()
         rhs = torch.randn(e, k, n, device=dev, generator=gen).bfloat16()
@@ -3349,13 +3743,75 @@ def phase_serve_moe(dev, card):
     return launches, rows
 
 
+SERVE_GPT_OSS = dict(slots=8, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
+                     prompt=(64, 1536), shared_prefix=0, max_new=64)
+
+
+def phase_serve_gpt_oss(dev, card):
+    """The serving main path at gpt-oss-20b, full width and all 24 layers
+    (bf16 weights from seed 0 with ``random_model``'s gpt-oss draws, the
+    matrices at std GPT_OSS_SERVE_STD; no master copy): leg (a) of the MoE
+    phase over 16 requests of 64-1536
+    tokens, with sinks and the 128-token window in every paged attention,
+    the router and expert biases and the clamped GLU in every MoE layer and
+    K4 three times a layer in every pass; then K4 alone at the engine's
+    decode shape. Returns (launches, K4 table rows)."""
+    from veomni_tpu_torch.models import TransformerConfig
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS, SEED
+
+    held = torch.cuda.memory_allocated(dev)
+    log(f"serve gpt_oss: device memory allocated before the phase {held / 2**20:.1f} MiB")
+    if held > 256 * 2**20:
+        raise AssertionError(f"serve gpt_oss: {held / 2**30:.2f} GiB still allocated by earlier "
+                             f"phases")
+    host_state("serve gpt_oss")
+    spec = SERVE_GPT_OSS
+    cfg = TransformerConfig.from_hf_config(HF_CONFIGS[GPT_OSS_PRESET], param_dtype=torch.bfloat16,
+                                           initializer_range=GPT_OSS_SERVE_STD)
+    t0 = time.perf_counter()
+    model = random_model(dev, cfg, SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    kv = 2 * cfg.num_hidden_layers * cfg.num_key_value_heads * cfg.head_dim * 2
+    log(f"serve gpt_oss: {GPT_OSS_NAME}, {cfg.num_hidden_layers} layers, {n_params / 1e9:.2f} B "
+        f"parameters in bf16 ({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, "
+        f"{kv // 1024} KiB of KV a token) made on the card from seed {SEED} in "
+        f"{time.perf_counter() - t0:.1f} s; {spec['slots']} slots, block {spec['block']}, "
+        f"max_model_len {spec['max_model_len']}; {spec['requests']} requests of "
+        f"{spec['prompt'][0]}-{spec['prompt'][1]} prompt tokens, {spec['max_new']} new tokens "
+        f"each [{card}]")
+    prompts = serve_traffic(cfg.vocab_size, spec)
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts,
+                                "serve gpt_oss")
+    tag = "serve gpt_oss leg (a)"
+    outs, stats = serve_leg(model, cfg, dev, card, prompts, spec, tag)
+    passes = stats["prefill_chunks"] + stats["decode_steps"]
+    want = {"gmm_fwd": 3 * cfg.num_hidden_layers * passes}
+    log(f"  {tag}: K4 launches {stats['launches']['gmm_fwd']} = 3 x {cfg.num_hidden_layers} x "
+        f"({stats['prefill_chunks']} prefill chunks + {stats['decode_steps']} decode steps) "
+        f"expected {want['gmm_fwd']}")
+    check_serve_leg(tag, model, prompts, outs, stats, spread, spec["max_new"],
+                    allowed_cached=shared_blocks(prompts, spec["block"]), want_launches=want)
+    launches = stats["launches"]
+    _, decode_sizes = capture_group_sizes(model, cfg, dev, prompts, spec)
+    del model, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = gmm_fwd_rows(dev, decode_sizes, f"{GPT_OSS_NAME} serve decode step",
+                        widths=((2880, 2880, "gate/up and down"),))
+    for row in rows:
+        row["path_layout"] = GPT_OSS_LAYOUT
+    return launches, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build, in order: serve_dense, "
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
-                         "hf_trainer_moonlight, deepseek_v2_lite, sft_lora_dense, "
-                         "sft_lora_moe, and "
+                         "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
+                         "serve_gpt_oss, sft_lora_dense, sft_lora_moe, and "
                          "before them main (the dense loop) or trainer; such a partial run "
                          "prints no result line")
     args = ap.parse_args(argv)
@@ -3379,10 +3835,14 @@ def main(argv=None) -> int:
                   "serve_gemma3": phase_serve_gemma3, "dialects": phase_dialects,
                   "hf_trainer_moonlight": phase_hf_trainer_moonlight,
                   "deepseek_v2_lite": phase_deepseek_v2_lite,
-                  "sft_lora_dense": phase_sft_lora_dense, "sft_lora_moe": phase_sft_lora_moe}
+                  "sft_lora_dense": phase_sft_lora_dense, "sft_lora_moe": phase_sft_lora_moe,
+                  "hf_trainer_gpt_oss": phase_hf_trainer_gpt_oss,
+                  "serve_gpt_oss": phase_serve_gpt_oss}
         for name in args.phases.split(","):
+            t0 = time.perf_counter()
             phases[name](dev, card)
             torch.cuda.empty_cache()
+            log(f"phase clock: {name} took {time.perf_counter() - t0:.1f} s")
         log(f"phases {args.phases} passed (a partial run: no result line)")
         return 0
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
@@ -3450,7 +3910,7 @@ def run_phases(dev, card, hf_tmp) -> int:
     # the dense HF dialects and the deepseek MoE dialect, each path followed
     # by its kernel rows
     for phase in (phase_hf_trainer_gemma3, phase_dialects, phase_hf_trainer_moonlight,
-                  phase_deepseek_v2_lite):
+                  phase_deepseek_v2_lite, phase_hf_trainer_gpt_oss):
         paths, rows = phase(dev, card)
         by_path.update(paths)
         table += rows
@@ -3462,6 +3922,12 @@ def run_phases(dev, card, hf_tmp) -> int:
                                GEMMA_PRESET)
     moe_launches, serve_rows = phase_serve_moe(dev, card)
     by_path["serve_moe"] = (moe_launches, 128, None)
+    table += serve_rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase clock: {time.perf_counter() - t0:.1f} s to the gpt-oss serving phase")
+    gpt_oss_launches, serve_rows = phase_serve_gpt_oss(dev, card)
+    by_path["serve_gpt_oss"] = (gpt_oss_launches, 64, GPT_OSS_LAYOUT)
     table += serve_rows
     gc.collect()
     torch.cuda.empty_cache()

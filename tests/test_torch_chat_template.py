@@ -31,6 +31,7 @@ from veomni_tpu_torch.models.auto import build_tokenizer
 
 from test_chat_templates import MESSAGES as REF_MESSAGES
 from test_chat_templates import FakeTok
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "tokenizers")

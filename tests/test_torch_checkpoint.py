@@ -44,6 +44,7 @@ from veomni_tpu_torch.resilience.faults import (
 from veomni_tpu_torch.train import build_train_state
 
 from test_resilience import DENSE_TOY, _corrupt_payload, _make_ckpt_tree, _write_data
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(autouse=True)

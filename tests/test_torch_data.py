@@ -26,6 +26,7 @@ from veomni_tpu.data import dataset as j_dataset
 from veomni_tpu_torch.data import data_collator, data_loader, data_transform, dataset
 
 from test_e2e_training import _write_dummy_data
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 PORT = (dataset, data_transform, data_collator, data_loader)
 REF = (j_dataset, j_transform, j_collator, j_loader)

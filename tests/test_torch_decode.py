@@ -3,10 +3,13 @@
 f32 on the CPU, on the reference's serving toys ``QWEN3`` and ``QWEN3_MOE``
 (``tests/test_serving.py``), the dense dialect toys ``GEMMA3`` (sliding
 windows shorter than the prompts) and ``QWEN2`` (biases, llama3 rope
-scaling) and ``DEEPSEEK_MOE`` (a dense first layer, sigmoid group-limited
-routing with a correction bias, a shared expert), weights carried from JAX
-``init_params`` (their biases and norm weights drawn at random) by
-``load_jax_params``; inputs from numpy seeds.
+scaling), ``DEEPSEEK_MOE`` (a dense first layer, sigmoid group-limited
+routing with a correction bias, a shared expert) and ``GPT_OSS``
+(``tests/test_serving.py``'s ``GPT_OSS_ISH``: sinks, alternating 8-token
+windows, q/k/v/o biases, the clamped GLU; with 4 experts at top-2, router
+and expert biases), weights carried from JAX ``init_params`` (their
+biases, sinks and norm weights drawn at random) by ``load_jax_params``;
+inputs from numpy seeds.
 
 * ``paged_prefill_step`` (a chunk after a cached prefix, null-padded table),
   ``paged_decode_step`` (an inactive slot included), ``paged_verify_step``,
@@ -44,6 +47,7 @@ from veomni_tpu_torch.models import Transformer, TransformerConfig
 from veomni_tpu_torch.models import decode as tdec
 from veomni_tpu_torch.models.jax_weights import load_jax_params
 from veomni_tpu_torch.ops import threefry
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 QWEN3 = dict(
     model_type="qwen3", vocab_size=128, hidden_size=64,
@@ -84,20 +88,29 @@ DEEPSEEK_MOE = dict(
     scoring_func="sigmoid", n_group=2, topk_group=1, routed_scaling_factor=1.5,
     first_k_dense_replace=1,
 )
+# tests/test_serving.py's GPT_OSS_ISH with 4 experts at top-2 and router and
+# expert biases: the gpt_oss dialect's sinks, windows, routing and clamped GLU
+GPT_OSS = dict(
+    model_type="gpt_oss", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    attention_sinks=True, attention_bias=True, o_bias=True, sliding_window=8,
+    layer_types=["sliding_attention", "full_attention"] * 2, hidden_act="gpt_oss_glu",
+    num_experts=4, num_experts_per_tok=2, router_bias=True, mlp_bias=True,
+)
 CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3, "qwen2": QWEN2,
-           "deepseek_moe": DEEPSEEK_MOE}
+           "deepseek_moe": DEEPSEEK_MOE, "gpt_oss": GPT_OSS}
 TOL = dict(atol=1e-5, rtol=1e-5)
 T = torch.from_numpy
 
 
 def perturb(params, seed=0):
-    """The init's biases (0) and norm weights (1) drawn at random, so that a
-    misplaced one shows."""
+    """The init's biases and sinks (0) and norm weights (1) drawn at random,
+    so that a misplaced one shows."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
         name = jax.tree_util.keystr(path)
-        if "bias" in name or name.endswith("norm']"):
+        if "bias" in name or name.endswith(("norm']", "sinks']")):
             x = np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.1
         return jnp.asarray(x)
 
@@ -109,7 +122,7 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
-    if name in ("gemma3", "qwen2", "deepseek_moe"):
+    if name in ("gemma3", "qwen2", "deepseek_moe", "gpt_oss"):
         params = perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
@@ -222,11 +235,12 @@ SAMPLINGS = {"greedy": dict(), "topk-topp": dict(temperature=0.8, top_k=10, top_
 
 
 # the sampler does not depend on the model: the deepseek toy runs greedy and
-# one sampled mix (the time the suite can spare)
+# one sampled mix, the gpt_oss toy greedy (the time the suite can spare)
 @pytest.mark.parametrize("sampling,name", [
     pytest.param(SAMPLINGS[sid], name, id=f"{sid}-{name}")
     for sid in SAMPLINGS for name in sorted(CONFIGS)
-    if name != "deepseek_moe" or sid in ("greedy", "topk-topp")])
+    if (name != "deepseek_moe" or sid in ("greedy", "topk-topp"))
+    and (name != "gpt_oss" or sid == "greedy")])
 def test_greedy_generate_matches_jax(name, sampling):
     params, jcfg, model, cfg = models(name)
     for prompt in _prompts((5, 13, 20), seed=7):
@@ -400,11 +414,12 @@ def test_unsupported_configs_raise():
             num_attention_heads=4, kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8,
             v_head_dim=8))
     # sliding windows and biases are ported (tests/test_torch_dialects.py),
-    # and the deepseek MoE pieces without MLA: sigmoid and group-limited
-    # routing, shared experts, leading dense layers; sinks, the gpt_oss GLU
-    # and router bias, and chunk_mbs are not
+    # the deepseek MoE pieces without MLA (sigmoid and group-limited
+    # routing, shared experts, leading dense layers) and gpt_oss; the
+    # offloading remat, ulysses_async_chunks, chunk_mbs and the output gate
+    # are not
     tdec.check_decode_supported(TransformerConfig(**DEEPSEEK_MOE))
-    for extra in (dict(attention_sinks=True), dict(hidden_act="gpt_oss_glu"),
-                  dict(chunk_mbs=64), dict(QWEN3_MOE, router_bias=True)):
+    for extra in (dict(remat_policy="offload"), dict(ulysses_async_chunks=2),
+                  dict(chunk_mbs=64), dict(QWEN3_MOE, attn_output_gate=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **extra}))

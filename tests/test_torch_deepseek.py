@@ -67,6 +67,7 @@ from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
 from veomni_tpu_torch.train import build_train_state, build_train_step
 from veomni_tpu_torch.train_text_step import HF_CONFIGS
 from veomni_tpu_torch.utils.count_flops import FlopsCounter
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T = torch.from_numpy
 RTOL = 1e-5

@@ -39,6 +39,7 @@ from veomni_tpu_torch.models.auto import build_foundation_model
 from veomni_tpu_torch.models.jax_weights import to_jax_tree
 from veomni_tpu_torch.models.transformer import check_supported
 from veomni_tpu_torch.train_text_step import HF_CONFIGS, bench_config
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 DIMS = dict(vocab_size=257, hidden_size=64, intermediate_size=112, num_hidden_layers=3,
             num_attention_heads=4, num_key_value_heads=4, max_position_embeddings=256,

@@ -26,6 +26,7 @@ from veomni_tpu_torch.models import hf_io
 from veomni_tpu_torch.models.jax_weights import to_jax_tree
 
 from test_torch_dialects import DIALECTS, DIMS
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _hf_dir(tmp_path, dialect):

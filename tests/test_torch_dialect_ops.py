@@ -5,10 +5,11 @@ Tolerance rtol 1e-5 (atol 1e-5 where values cross zero): the rotary tables
 for linear/llama3/yarn scaling, at Llama-3's theta 5e5 and positions up to
 8191, full and partial width, and their application at a partial width
 (mrope raises, naming slice F); the zero-centered RMSNorm (f32, and bf16
-bit-equal); the exact and tanh GELU gated activations (the gpt_oss GLU
-raises); ``_attention_dense`` and ``_attention_xla_chunked`` with a sliding
-window, packed segments and sinks (the chunked form with the gradients of
-q, k, v), and ``_attention_xla`` on both sides of
+bit-equal); the exact and tanh GELU gated activations (the gpt_oss GLU is
+``tests/test_torch_gpt_oss.py``'s; an unknown name raises);
+``_attention_dense`` and ``_attention_xla_chunked`` with a sliding window,
+packed segments and sinks (the chunked form with the gradients of q, k,
+v), and ``_attention_xla`` on both sides of
 ``VEOMNI_ATTN_CHUNK_THRESHOLD``, set through the env knob; the chunked CE
 with a logit softcap, with its gradients.
 """
@@ -31,6 +32,7 @@ from veomni_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy
 from veomni_tpu_torch.ops.rms_norm import rms_norm
 from veomni_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 from veomni_tpu_torch.ops.swiglu import gated_act
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # the modules (the packages' ``ops`` export functions of the same names)
 j_attn = importlib.import_module("veomni_tpu.ops.attention")
@@ -113,8 +115,11 @@ def test_gated_act(act):
 
 
 def test_gated_act_gpt_oss_raises():
-    with pytest.raises(NotImplementedError, match="slice B item 4"):
-        gated_act(torch.zeros(2), torch.zeros(2), "gpt_oss_glu")
+    # the gpt_oss GLU is ported (tests/test_torch_gpt_oss.py); a name that
+    # is no gated activation of the reference raises
+    gated_act(torch.zeros(2), torch.zeros(2), "gpt_oss_glu")
+    with pytest.raises(ValueError, match="gpt_oss_glu"):
+        gated_act(torch.zeros(2), torch.zeros(2), "relu2")
 
 
 def _qkv(seed, b, s, hq, hkv, d):

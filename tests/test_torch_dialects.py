@@ -35,6 +35,7 @@ from veomni_tpu.models import transformer as jtf
 from veomni_tpu_torch.models import Transformer, TransformerConfig
 from veomni_tpu_torch.models.jax_weights import load_jax_params, to_jax_tree
 from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T = torch.from_numpy
 RTOL = 1e-5
@@ -188,17 +189,17 @@ def test_windowed_layers_take_the_plain_dispatch():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("extra,item", [
     (dict(rope_scaling={"rope_type": "mrope", "mrope_section": [4, 2, 2]}), "slice F"),
-    (dict(attention_sinks=True), "slice B item 4"),
-    (dict(hidden_act="gpt_oss_glu"), "slice B item 4"),
-    (dict(model_type="gpt_oss", num_experts=4, num_experts_per_tok=2), "slice B item 4"),
+    (dict(remat_policy="dots"), "slice A item 5"),
+    (dict(ulysses_async_chunks=2), "slice C"),
+    (dict(linear_num_value_heads=4), "slice F"),
     (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
           index_topk=4), "slice F"),
     (dict(index_topk=4), "slice F"),
-    (dict(num_experts=4, num_experts_per_tok=2, router_bias=True), "slice B item 4"),
+    (dict(attn_output_gate=True), "slice F"),
     (dict(chunk_mbs=64), "slice A item 5"),
     (dict(remat_policy="offload"), "slice A item 5"),
-], ids=["mrope", "sinks", "gpt-oss-glu", "gpt-oss-routing", "mla-dsa", "dsa", "router-bias",
-        "chunk-mbs", "remat-offload"])
+], ids=["mrope", "remat-dots", "ulysses-async-chunks", "linear-attention", "mla-dsa", "dsa",
+        "output-gate", "chunk-mbs", "remat-offload"])
 def test_unported_features_name_their_queue_item(extra, item):
     from veomni_tpu_torch.models.transformer import check_supported
 

@@ -19,6 +19,7 @@ from veomni_tpu.ops.attention import _attention_xla as jax_attention_xla
 from veomni_tpu.ops.pallas.flash_attention import _fwd as jax_fwd
 from veomni_tpu.ops.pallas.flash_attention import flash_attention as jax_flash
 from veomni_tpu_torch.ops.cuda import flash_attention as fa
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _inputs(b=2, s=256, hq=4, hkv=2, d=32, seed=0, packed=True):

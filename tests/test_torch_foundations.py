@@ -23,6 +23,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(autouse=True)

@@ -29,6 +29,7 @@ from veomni_tpu_torch.ops import group_gemm
 from veomni_tpu_torch.ops.cuda import grouped_gemm as gg
 from veomni_tpu_torch.ops.group_gemm import _group_gemm_ragged
 from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T = torch.from_numpy
 CASES = {

@@ -33,6 +33,7 @@ from veomni_tpu_torch.models.auto import build_foundation_model
 from veomni_tpu_torch.models.config import TransformerConfig
 from veomni_tpu_torch.models.jax_weights import to_jax_tree
 from veomni_tpu_torch.models.transformer import Transformer
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TOYS = {
     "llama": dict(model_type="llama", vocab_size=96, hidden_size=64, intermediate_size=96,

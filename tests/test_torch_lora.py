@@ -1,6 +1,9 @@
 """The port's LoRA (``veomni_tpu_torch/lora``) against ``veomni_tpu/lora``, on
 the CPU, f32, at the reference's LoRA test toys (``tests/test_lora.py``:
-qwen3 and qwen3_moe, 2 layers, hidden 32, 4 experts top-2 of width 32).
+qwen3 and qwen3_moe, 2 layers, hidden 32, 4 experts top-2 of width 32), and
+a gpt_oss toy at the same widths (sinks and every bias drawn nonzero, an
+8-token window on layer 0): the dialect's new weights are read through the
+same merges, so its adapters train as the reference's do.
 
 * The adapter tree: the port's ``init_lora_params`` adapts the same leaves
   as the reference's with the same shapes (expert-batched ``A [L, E, in,
@@ -53,6 +56,7 @@ from veomni_tpu_torch.models.jax_weights import (
     load_jax_params,
     to_jax_tree,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 RTOL = 1e-5
 DENSE = dict(model_type="qwen3", vocab_size=128, hidden_size=32, intermediate_size=64,
@@ -60,6 +64,11 @@ DENSE = dict(model_type="qwen3", vocab_size=128, hidden_size=32, intermediate_si
              qk_norm=True)
 MOE = dict(DENSE, model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2,
            moe_intermediate_size=32)
+GPT_OSS = dict(DENSE, model_type="gpt_oss", qk_norm=False, attention_sinks=True,
+               attention_bias=True, o_bias=True, sliding_window=8,
+               layer_types=["sliding_attention", "full_attention"], hidden_act="gpt_oss_glu",
+               num_experts=4, num_experts_per_tok=2, router_bias=True, mlp_bias=True)
+TOYS = {"dense": DENSE, "moe": MOE, "gpt_oss": GPT_OSS}
 RANK, ALPHA = 4, 8.0
 
 
@@ -86,11 +95,18 @@ def batch(seed=0, b=2, s=32):
 def _jax_side(name, seed=0):
     """(JAX config, base params, JAX adapters with B drawn nonzero, the LoRA
     loss and its adapter gradients on ``batch()``), once per toy."""
-    fields = {"dense": DENSE, "moe": MOE}[name]
+    fields = TOYS[name]
     jcfg = JaxConfig(dtype=jnp.float32, **fields)
     base = jax.jit(lambda k: jtf.init_params(k, jcfg))(jax.random.PRNGKey(seed))
     lora = j_init(jax.random.PRNGKey(seed + 1), base, JaxLoraConfig(rank=RANK, alpha=ALPHA))
     rng = np.random.default_rng(seed)
+
+    def draw_bias(path, leaf):  # gpt_oss's sinks and biases off the init's 0
+        if jax.tree_util.keystr(path).endswith(("bias']", "sinks']")):
+            return jnp.asarray(rng.standard_normal(leaf.shape).astype(np.float32) * 0.5)
+        return leaf
+
+    base = jax.tree_util.tree_map_with_path(draw_bias, base)
 
     def draw_b(path, leaf):
         if jax.tree_util.keystr(path).endswith("['lora_b']"):
@@ -114,7 +130,7 @@ def toys(name, remat_policy="ctx"):
     """The JAX side and the port model with its base and adapters carried
     across."""
     jcfg, base, lora, loss, grads = _jax_side(name)
-    fields = {"dense": DENSE, "moe": MOE}[name]
+    fields = TOYS[name]
     model = Transformer(TransformerConfig(dtype=torch.float32, remat=remat_policy != "",
                                           remat_policy=remat_policy or "ctx", **fields),
                         None, device="cpu")
@@ -151,8 +167,9 @@ def test_init_adapts_the_reference_leaves(fields):
 
 
 @pytest.mark.parametrize("name,remat", [("dense", "ctx"), ("dense", ""), ("moe", "ctx"),
-                                        ("moe", "nothing")],
-                         ids=["dense-ctx", "dense-no-remat", "moe-ctx", "moe-nothing"])
+                                        ("moe", "nothing"), ("gpt_oss", "ctx")],
+                         ids=["dense-ctx", "dense-no-remat", "moe-ctx", "moe-nothing",
+                              "gpt_oss-ctx"])
 def test_loss_and_adapter_grads_match_jax(name, remat):
     _, _, loss_j, ref, model, adapters = toys(name, remat)
     data = {k: torch.from_numpy(v) for k, v in batch().items()}

@@ -47,6 +47,7 @@ from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
 from veomni_tpu_torch.utils.count_flops import FlopsCounter
 
 from test_torch_transformer import TOY, assert_tree_close, toy_batch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 MOE_TOY = dict(TOY, model_type="qwen3_moe", num_hidden_layers=2, num_experts=4,
                num_experts_per_tok=2, moe_intermediate_size=128)

@@ -22,6 +22,7 @@ from veomni_tpu_torch.ops.cross_entropy import fused_linear_cross_entropy
 from veomni_tpu_torch.ops.rms_norm import rms_norm
 from veomni_tpu_torch.ops.rotary import apply_rotary, rotary_tables
 from veomni_tpu_torch.ops.swiglu import swiglu
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T = torch.from_numpy
 

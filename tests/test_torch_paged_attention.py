@@ -25,6 +25,7 @@ from veomni_tpu_torch import ops
 from veomni_tpu_torch.ops import paged_attention as tpa
 from veomni_tpu_torch.ops import quantization as tq
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 T = torch.from_numpy

@@ -34,6 +34,7 @@ from veomni_tpu_torch.train import build_train_state, build_train_step
 
 from test_torch_train_step import LR, WEIGHT_DECAY, _set_grads
 from test_torch_transformer import jax_and_torch_models, toy_batch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 FREEZE = (r"^embed_tokens$",)
 # q_proj at 0.1, every other projection at 0.5 (first match wins)

@@ -31,6 +31,7 @@ from veomni_tpu_torch.models.transformer import route_tokens
 
 from test_torch_moe import MOE_TOY, moe_models
 from test_torch_transformer import assert_tree_close, toy_batch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T = torch.from_numpy
 

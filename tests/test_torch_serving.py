@@ -11,7 +11,9 @@ are shorter than its prompts, with the JAX weights carried into the port
   replays, chunked prefill interleaved with decode, the cache off, mixed
   greedy and seeded sampling, the MoE toy, a deepseek toy without MLA with
   a dense first layer, sigmoid group-limited routing with a correction
-  bias and a shared expert): the token events in order, each
+  bias and a shared expert, a gpt_oss toy with sinks, alternating 8-token
+  windows, router and expert biases and the clamped GLU): the token events
+  in order, each
   request's token ids, finish reason, ``cached_tokens`` and preemptions, the
   preemption/copy-on-write/eviction counts and the ``TRACE_COUNTS`` deltas
   must be equal, and every greedy request must equal the port's
@@ -62,6 +64,7 @@ from veomni_tpu_torch.serving import (
     SequenceState,
     parse_classes,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QWEN3 = dict(
@@ -94,20 +97,31 @@ DEEPSEEK_MOE = dict(
     scoring_func="sigmoid", n_group=2, topk_group=1, routed_scaling_factor=1.5,
     first_k_dense_replace=1,
 )
+# tests/test_serving.py's GPT_OSS_ISH (sinks, alternating windows of 8,
+# q/k/v/o biases, the clamped GLU) with 4 experts at top-2 and router and
+# expert biases (sinks and biases drawn at random by _perturb)
+GPT_OSS = dict(
+    model_type="gpt_oss", vocab_size=128, hidden_size=64, intermediate_size=128,
+    num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2, head_dim=16,
+    attention_sinks=True, attention_bias=True, o_bias=True, sliding_window=8,
+    layer_types=["sliding_attention", "full_attention"] * 2, hidden_act="gpt_oss_glu",
+    num_experts=4, num_experts_per_tok=2, router_bias=True, mlp_bias=True,
+)
 CONFIGS = {"qwen3": QWEN3, "qwen3_moe": QWEN3_MOE, "gemma3": GEMMA3,
            # a window of 8, below the engine's least prefill bucket (16)
-           "gemma3_w8": {**GEMMA3, "sliding_window": 8}, "deepseek_moe": DEEPSEEK_MOE}
+           "gemma3_w8": {**GEMMA3, "sliding_window": 8}, "deepseek_moe": DEEPSEEK_MOE,
+           "gpt_oss": GPT_OSS}
 
 
 def _perturb(params, seed=0):
-    """gemma3's norm weights (1 at init) and deepseek's correction biases (0)
-    drawn at random, so that a norm read at the wrong place, or a bias left
-    out of the expert choice, shows."""
+    """gemma3's norm weights (1 at init), deepseek's correction biases and
+    gpt_oss's sinks and biases (0) drawn at random, so that a norm read at
+    the wrong place, or a bias or sink left out, shows."""
     rng = np.random.default_rng(seed)
 
     def leaf(path, x):
         name = jax.tree_util.keystr(path)
-        if name.endswith("norm']") or "e_score_correction_bias" in name:
+        if name.endswith(("norm']", "sinks']")) or "bias" in name:
             x = np.asarray(x) + rng.standard_normal(x.shape).astype(np.float32) * 0.1
         return jnp.asarray(x)
 
@@ -119,7 +133,7 @@ def models(name):
     """(jax params, jax cfg, port model, port cfg) with the same weights."""
     jcfg = JaxConfig(dtype=jnp.float32, **CONFIGS[name])
     params = build_foundation_model(config=jcfg).family.init_params(jax.random.PRNGKey(0), jcfg)
-    if name.startswith(("gemma3", "deepseek")):
+    if name.startswith(("gemma3", "deepseek", "gpt_oss")):
         params = _perturb(params)
     cfg = TransformerConfig(dtype=torch.float32, **CONFIGS[name])
     model = Transformer(cfg, None, device="cpu")
@@ -290,6 +304,14 @@ SCENARIOS = {
         lambda: _staggered(_system_prompts(25, 17, (5, 9, 3)), 2, 2, lambda i: (
             _greedy(8) if i != 1 else dict(max_new_tokens=8, temperature=0.9, top_k=20,
                                            seed=5)))),
+    # the gpt_oss toy: staggered arrivals behind a shared 17-token prefix
+    # (its windows of 8 shorter than every prompt), 8-token prefill chunks,
+    # a sampled request
+    "gpt_oss_staggered_chunked": (
+        "gpt_oss", dict(num_slots=2, block_size=8, max_model_len=96, prefill_chunk=8),
+        lambda: _staggered(_system_prompts(27, 17, (5, 9, 3)), 2, 2, lambda i: (
+            _greedy(8) if i != 1 else dict(max_new_tokens=8, temperature=0.9, top_k=20,
+                                           seed=6)))),
     "moe_preemption": ("qwen3_moe", dict(num_slots=3, block_size=8, max_model_len=40,
                                          num_blocks=8, prefix_cache=False),
                        lambda: [("submit", p, _greedy(10)) for p in _prompts((9, 11, 7), seed=1)]

@@ -36,6 +36,7 @@ from veomni_tpu_torch.trainer import TextTrainer
 
 from test_e2e_training import TOY, _make_args, _write_dummy_data
 from test_torch_trainer import StopAt, assert_bit_identical, port_args, record_steps
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "tokenizers")

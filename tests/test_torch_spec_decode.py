@@ -44,6 +44,7 @@ from test_torch_serving import (  # noqa: F401 (_release_models: an autouse fixt
     assert_parity,
     models,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @contextlib.contextmanager

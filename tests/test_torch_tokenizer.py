@@ -32,6 +32,7 @@ import pytest
 
 from veomni_tpu_torch.data.tokenizer import Tokenizer
 from veomni_tpu_torch.models.auto import build_tokenizer
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures", "tokenizers")

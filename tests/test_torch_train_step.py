@@ -33,6 +33,7 @@ from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
 from veomni_tpu_torch.train import build_train_state, build_train_step
 
 from test_torch_transformer import jax_and_torch_models, toy_batch
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 LR = dict(lr_decay_style="cosine", lr=1e-3, train_steps=4, lr_warmup_steps=1, lr_min=1e-4)
 MAX_GRAD_NORM = 1.0

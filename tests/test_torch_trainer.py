@@ -47,6 +47,7 @@ from veomni_tpu_torch.trainer.base import check_supported
 from veomni_tpu_torch.trainer.callbacks import Callback
 
 from test_e2e_training import TOY, _make_args, _write_dummy_data
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_OVERRIDES = dict(platform="cpu", micro_batch_size=4, prefetch_depth=0)

@@ -24,6 +24,7 @@ from veomni_tpu.models import transformer as jtf
 from veomni_tpu_torch.models import Transformer, TransformerConfig
 from veomni_tpu_torch.models.jax_weights import load_jax_params, to_jax_tree
 from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # configs/text/qwen3_toy_cpu.yaml model dims
 TOY = dict(model_type="qwen3", vocab_size=512, hidden_size=128, intermediate_size=256,
@@ -95,14 +96,14 @@ MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_int
 
 
 def test_unported_features_raise():
-    # the gpt_oss router bias and the DSA indexer on MLA still raise (the
-    # deepseek routing, shared experts and MLA are ported:
-    # tests/test_torch_deepseek.py)
-    for extra in (dict(MOE, router_bias=True),
+    # chunk_mbs on a MoE, the DSA indexer on MLA and the offloading remat
+    # policies still raise (the deepseek and gpt_oss dialects are ported:
+    # tests/test_torch_deepseek.py, tests/test_torch_gpt_oss.py)
+    for extra in (dict(MOE, chunk_mbs=64),
                   dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
                        index_topk=4),
-                  dict(attention_sinks=True), dict(rope_scaling={"type": "mrope",
-                                                                 "mrope_section": [4, 2, 2]}),
+                  dict(remat_policy="ctx_offload"), dict(rope_scaling={"type": "mrope",
+                                                                       "mrope_section": [4, 2, 2]}),
                   dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
@@ -111,13 +112,13 @@ def test_unported_features_raise():
 
 
 @pytest.mark.parametrize("extra", [
-    dict(hidden_act="gpt_oss_glu"), dict(attention_sinks=True),
+    dict(remat_policy="dots"), dict(remat_policy="offload"),
     dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
     dict(linear_num_value_heads=4), dict(attn_output_gate=True),
-    dict(router_bias=True), dict(model_type="gpt_oss"),
-    dict(mlp_bias=True),
-], ids=["gpt-oss-glu", "sinks", "mla-dsa", "linear-attention", "output-gate", "router-bias",
-        "gpt-oss", "expert-biases"])
+    dict(chunk_mbs=64), dict(rope_scaling={"type": "mrope", "mrope_section": [4, 2, 2]}),
+    dict(ulysses_async_chunks=2),
+], ids=["remat-dots", "remat-offload", "mla-dsa", "linear-attention", "output-gate",
+        "chunk-mbs", "mrope", "ulysses-async-chunks"])
 def test_unported_moe_features_raise(extra):
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**{**TOY, **MOE, **extra}), torch.Generator(), device="cpu")
@@ -136,3 +137,23 @@ def test_capacity_factor_leaves_the_moe_dropless():
     capped.load_state_dict(dropless.state_dict())
     with torch.no_grad():
         assert torch.equal(capped.loss_fn(data)[0], dropless.loss_fn(data)[0])
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_pytorch_tanh"])
+def test_moe_experts_take_the_dialect_activation(act):
+    """The routed experts apply the config's gated activation, as the
+    reference's ``experts_apply_sorted`` does (``gated_act``), not SwiGLU
+    whatever the dialect (ROADMAP.md queue 3): a GELU MoE toy's loss
+    against the reference's, f32, rtol 1e-5 (SwiGLU experts land 2.1e-5
+    off it)."""
+    fields = {**TOY, **MOE, "hidden_act": act}
+    jcfg = JaxConfig(dtype=jnp.float32, **fields)
+    params = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    model = Transformer(TransformerConfig(dtype=torch.float32, **fields), None, device="cpu")
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    batch = toy_batch(False)
+    loss_j, _ = jax.jit(functools.partial(jtf.loss_fn, cfg=jcfg))(
+        params, batch={k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        loss_t, _ = model.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)

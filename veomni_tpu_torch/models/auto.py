@@ -31,9 +31,9 @@ from veomni_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 # the reference's text families (auto.py:57-63), all built by the port's
-# Transformer: it runs the llama, qwen2, qwen3, gemma3, qwen3_moe and
-# deepseek_v2/v3 dialects, and raises for the features of the others
-# (gpt_oss, glm_moe_dsa's DSA)
+# Transformer: it runs the llama, qwen2, qwen3, gemma3, qwen3_moe,
+# deepseek_v2/v3 and gpt_oss dialects, and raises for the features of the
+# others (glm_moe_dsa's DSA)
 TEXT_MODEL_TYPES = (
     "llama", "qwen2", "qwen3", "qwen3_moe",
     "gemma3", "gemma3_text",

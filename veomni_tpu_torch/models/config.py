@@ -3,13 +3,14 @@
 The same dataclass fields as the reference, so a configuration carries over
 field for field, with torch dtypes in place of jnp ones. The dense path of
 ``models/transformer.py`` implements the llama (with rope scaling), qwen2,
-qwen3, gemma3, qwen3_moe and deepseek_v2/v3 dialects; it raises
+qwen3, gemma3, qwen3_moe, deepseek_v2/v3 and gpt_oss dialects; it raises
 ``NotImplementedError`` for every field whose feature is not ported yet
 instead of ignoring it. The HF config round-trip (``from_hf_config``,
 ``from_pretrained``, ``to_hf_config``; reference ``:185-360``) is the
 reference's mapping, key for key: a dialect whose features the port does not
-build (DSA, gpt_oss) maps as there, and
-``models/transformer.py::check_supported`` raises for it.
+build (DSA) maps as there, and ``models/transformer.py::check_supported``
+raises for it. gpt_oss's ``swiglu_limit`` is not read: the clamp is 7, as
+in the reference (``ops/swiglu.py``).
 """
 
 from __future__ import annotations

@@ -34,10 +34,11 @@ Scope: the dialects ``models/transformer.py::check_supported`` admits (GQA
 with qk-norm, HF rope scaling and partial or dual rotary, sliding windows
 per layer, q/k/v/o and MLP biases, gemma3's zero-centered and sandwich
 norms, embedding scale, ``query_pre_attn_scalar``, GELU and final logit
-softcap, dense or MoE with every routing dialect but gpt_oss's, shared
-experts and leading dense layers, ``decode.py:271-277``). Sinks, MLA/DSA
-and hybrid linear attention raise: the reference has no cached decode for
-MLA (``supports_cached_decode``), so neither has the port.
+softcap, dense or MoE with every routing dialect, shared experts and
+leading dense layers, ``decode.py:271-277``; gpt_oss's sinks, router and
+expert biases and clamped GLU, ``:121-239``). MLA/DSA and hybrid linear
+attention raise: the reference has no cached decode for MLA
+(``supports_cached_decode``), so neither has the port.
 """
 
 from __future__ import annotations
@@ -174,7 +175,8 @@ def _mlp(x, lp, cfg: TransformerConfig):
         b, t, h = x.shape
         out, _ = moe_mlp(x.reshape(b * t, h), lp["router"], lp["experts"], cfg,
                          correction_bias=lp.get("e_score_correction_bias"),
-                         shared=lp.get("shared_experts"), shared_gate=lp.get("shared_expert_gate"))
+                         shared=lp.get("shared_experts"), shared_gate=lp.get("shared_expert_gate"),
+                         router_bias=lp.get("router_bias"))
         return out.view(b, t, h)
     act = ops.gated_act(_proj(x, lp, "gate_proj", "gate_bias"),
                         _proj(x, lp, "up_proj", "up_bias"), cfg.hidden_act)
@@ -207,7 +209,8 @@ def _layer(hidden, lp, cfg: TransformerConfig, cos, sin, k_cache, v_cache, valid
     k_cache[:, write_idx:write_idx + t] = k_new
     v_cache[:, write_idx:write_idx + t] = v_new
     nrep, scale = _attn_params(cfg)
-    attn = ops.cache_attend(q, k_cache, v_cache, valid_mask, num_rep=nrep, scale=scale)
+    attn = ops.cache_attend(q, k_cache, v_cache, valid_mask, num_rep=nrep, scale=scale,
+                            sinks=lp.get("sinks"))
     return _layer_tail(hidden, attn, lp, cfg)
 
 
@@ -223,7 +226,8 @@ def _paged_layer(hidden, lp, cfg: TransformerConfig, cos, sin, k_pool, v_pool, b
     k_pool[write_blocks, write_offs] = k_new.reshape(write_blocks.shape + (hkv, d))
     v_pool[write_blocks, write_offs] = v_new.reshape(write_blocks.shape + (hkv, d))
     nrep, scale = _attn_params(cfg)
-    attn = attend(q, k_pool, v_pool, block_tables, valid_mask, num_rep=nrep, scale=scale)
+    attn = attend(q, k_pool, v_pool, block_tables, valid_mask, num_rep=nrep, scale=scale,
+                  sinks=lp.get("sinks"))
     return _layer_tail(hidden, attn, lp, cfg)
 
 

@@ -11,7 +11,14 @@ stored as HF stores them), qwen3_moe (per-expert HF tensors stacked into
 ``kv_a``/``kv_b`` projections and norms, ``mlp.gate.e_score_correction_bias``,
 ``mlp.shared_experts.*``; HF numbers the leading dense layers and the MoE
 layers after them in one sequence, as the port's layer list does, where
-the reference maps them to its two stacked subtrees, ``:194``, ``:418``).
+the reference maps them to its two stacked subtrees, ``:194``, ``:418``)
+and gpt_oss (``self_attn.sinks``; ``mlp.router.weight``/``bias``; the
+fused interleaved experts, ``:324-334``, ``:366-403``, ``:474-522``:
+``mlp.experts.gate_up_proj`` [E, H, 2I] with gate in the even columns and
+up in the odd ones, its bias ``gate_up_proj_bias`` [E, 2I] likewise, and
+``down_proj`` [E, I, H] with ``down_proj_bias`` [E, H], none transposed).
+The stride-2 split reads a layer's whole fused tensor once for both
+halves, and the export interleaves a layer's gate and up as it writes it.
 
 The card's machine has neither ``safetensors`` nor ``transformers``, so this
 module reads and writes the safetensors format itself: an 8-byte
@@ -59,6 +66,7 @@ _LAYER_MAP: Dict[str, Tuple[str, bool]] = {
     "o_bias": ("self_attn.o_proj.bias", False),
     "q_norm": ("self_attn.q_norm.weight", False),
     "k_norm": ("self_attn.k_norm.weight", False),
+    "sinks": ("self_attn.sinks", False),
     # MLA (deepseek)
     "q_a_proj": ("self_attn.q_a_proj.weight", True),
     "q_a_layernorm": ("self_attn.q_a_layernorm.weight", False),
@@ -88,6 +96,22 @@ _EXPERT_MAP: Dict[str, str] = {
     "experts.up_proj": "mlp.experts.{e}.up_proj.weight",
     "experts.down_proj": "mlp.experts.{e}.down_proj.weight",
 }
+# gpt_oss's MoE layer: our name -> (hf suffix, transpose?, the column
+# parity of an interleaved gate/up tensor or None). Stacked [E, in, out]
+# as ours, so nothing is transposed but the router ([E, H] in HF).
+_FUSED_MAP: Dict[str, Tuple[str, bool, Optional[int]]] = {
+    "router": ("mlp.router.weight", True, None),
+    "router_bias": ("mlp.router.bias", False, None),
+    "experts.gate_proj": ("mlp.experts.gate_up_proj", False, 0),
+    "experts.up_proj": ("mlp.experts.gate_up_proj", False, 1),
+    "experts.down_proj": ("mlp.experts.down_proj", False, None),
+    "experts.gate_bias": ("mlp.experts.gate_up_proj_bias", False, 0),
+    "experts.up_bias": ("mlp.experts.gate_up_proj_bias", False, 1),
+    "experts.down_bias": ("mlp.experts.down_proj_bias", False, None),
+}
+# each fused HF tensor -> (our gate name, our up name)
+_INTERLEAVED = {"mlp.experts.gate_up_proj": ("experts.gate_proj", "experts.up_proj"),
+                "mlp.experts.gate_up_proj_bias": ("experts.gate_bias", "experts.up_bias")}
 
 INDEX_NAME = "model.safetensors.index.json"
 
@@ -299,8 +323,21 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
     put(model.embed_tokens, fetch("embed_tokens.weight", False), "embed_tokens")
     put(model.norm, fetch("norm.weight", False), "norm")
     for i, layer in enumerate(model.layers):
+        # gpt_oss's fused experts (the reference's test, ``:366-370``)
+        fused = f"layers.{i}.mlp.router.weight" in alias
+        halves: Dict[str, torch.Tensor] = {}  # a fused tensor, read once for both halves
         for pname, param in layer.named_parameters():
-            if pname in _EXPERT_MAP:
+            if fused and pname in _FUSED_MAP:
+                suffix, transpose, parity = _FUSED_MAP[pname]
+                name = f"layers.{i}.{suffix}"
+                if parity is None:
+                    x = fetch(name, transpose)
+                else:
+                    if name not in halves:
+                        halves[name] = fetch(name, False)
+                    x = halves[name][..., parity::2]
+                put(param, x, f"layers.{i}.{pname}")
+            elif pname in _EXPERT_MAP:
                 tmpl = _EXPERT_MAP[pname]
                 for e in range(cfg.num_experts):
                     put(param[e], fetch(f"layers.{i}.{tmpl.format(e=e)}", True),
@@ -342,13 +379,37 @@ def _hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
 
         out.append((name, param.dtype, shape, produce))
 
+    def add_interleaved(name: str, owner: torch.nn.Module, pair: Tuple[str, str]):
+        gate = owner.get_parameter(pair[0])
+        shape = tuple(gate.shape[:-1]) + (2 * gate.shape[-1],)
+
+        def produce():
+            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach().to("cpu")
+                    for n in pair)
+            both = torch.empty(shape, dtype=g.dtype)
+            both[..., 0::2] = g
+            both[..., 1::2] = u
+            return both
+
+        out.append((name, gate.dtype, shape, produce))
+
     add("model.embed_tokens.weight", model, "embed_tokens", False)
     add("model.norm.weight", model, "norm", False)
     if not cfg.tie_word_embeddings:
         add("lm_head.weight", model, "lm_head", True)
+    fused = cfg.model_type == "gpt_oss"  # the reference's choice, ``:489-492``
     for i, layer in enumerate(model.layers):
-        for pname, _ in layer.named_parameters():
-            if pname in _EXPERT_MAP:
+        names = dict(layer.named_parameters())
+        if fused and "router" in names:
+            for suffix, pair in _INTERLEAVED.items():
+                if pair[0] in names:
+                    add_interleaved(f"model.layers.{i}.{suffix}", layer, pair)
+        for pname in names:
+            if fused and pname in _FUSED_MAP:
+                suffix, transpose, parity = _FUSED_MAP[pname]
+                if parity is None:
+                    add(f"model.layers.{i}.{suffix}", layer, pname, transpose)
+            elif pname in _EXPERT_MAP:
                 for e in range(cfg.num_experts):
                     add(f"model.layers.{i}.{_EXPERT_MAP[pname].format(e=e)}", layer, pname, True,
                         e)

@@ -1,12 +1,12 @@
 """Decoder-only transformer: the dense llama/qwen2/qwen3/gemma3 paths, the
-qwen3_moe MoE and the deepseek_v2/v3 MoE dialect.
+qwen3_moe MoE, the deepseek_v2/v3 MoE dialect and the gpt_oss dialect.
 
 Port of ``veomni_tpu/models/transformer.py``: ``init_params`` (``:183``)
 with ``_attn_params``/``_dense_mlp_params`` (``:80-147``) and
 ``_moe_params`` (``:150``), ``_standard_attention`` (``:374``),
 ``_mla_attention`` without its DSA branch (``:457``), the dense and MoE
-branches of ``_decoder_layer`` (``:518``), ``route_tokens`` (``:240``; every
-branch but gpt_oss's), ``experts_apply_sorted`` (``:307``),
+branches of ``_decoder_layer`` (``:518``), ``route_tokens`` (``:240``),
+``experts_apply_sorted`` (``:307``) with ``_expert_bias`` (``:301``),
 ``_shared_experts_out`` (``:319``), ``_moe_mlp`` (``:333``),
 ``forward_hidden`` (``:605``), ``lm_head_kernel`` (``:748``),
 ``forward_logits`` (``:754``), ``head_loss`` (``:783``) and ``loss_fn``
@@ -21,18 +21,25 @@ sigmoid noaux-tc routing with ``e_score_correction_bias``, group-limited
 routing in both the sigmoid (top-2 sum per group) and the softmax (max per
 group) forms, shared experts (optionally sigmoid-gated) added after the
 routed combine, and ``first_k_dense_replace`` leading dense layers.
-A windowed layer, and an MLA layer (v head dim 128 against q/k's 192),
-reach the plain attention through the reference's own feature dispatch
-(``ops/cuda/flash_attention.py``); a full-attention layer keeps the flash
-kernels. PyTorch idiom: one ``DecoderLayer`` module per layer in an
-``nn.ModuleList`` (the reference stacks layers on a leading axis and scans
+The gpt_oss dialect: per-head attention sinks (``:126-127``), a router
+bias (``:249-250``), top-k on the router logits then a softmax over the k
+(``:274-276``), per-expert gate/up/down biases added by gather outside the
+grouped GEMMs (``:301-316``), the clamped GLU (``:226-234``) and o_proj
+and q/k/v biases. A windowed layer, an MLA layer (v head dim 128 against
+q/k's 192) and a layer with sinks reach the plain attention through the
+reference's own feature dispatch (``ops/cuda/flash_attention.py``); a
+full-attention layer without sinks keeps the flash kernels. PyTorch idiom:
+one ``DecoderLayer`` module per layer in an ``nn.ModuleList`` (the
+reference stacks layers on a leading axis and scans
 them, with the leading dense layers in a second stacked subtree,
 ``dense_layers``; here they are simply the first layers of the list).
 Parameters keep the reference's names and its ``[in, out]`` matrix layout,
 so ``x @ w`` here is ``jnp.dot(x, w)`` there; a MoE layer holds ``router``
 [H,E], an ``experts`` submodule with ``gate_proj``/``up_proj`` [E,H,I] and
-``down_proj`` [E,I,H] and, where the dialect has them, a
-``shared_experts`` submodule and ``e_score_correction_bias`` [E].
+``down_proj`` [E,I,H] (gpt_oss: and ``gate_bias``/``up_bias`` [E,I],
+``down_bias`` [E,H]) and, where the dialect has them, a
+``shared_experts`` submodule, ``e_score_correction_bias`` [E] and
+``router_bias`` [E].
 
 The MLA rope rotates each adjacent channel pair by that pair's frequency
 (``rotary_tables(..., interleaved=True)``), as HF's deepseek does; the
@@ -91,16 +98,11 @@ def check_supported(cfg: TransformerConfig) -> None:
     one: the reference reads it only under expert parallelism (``:563-568``,
     ``parallel/moe.py``), which ``parallel/parallel_state.py`` refuses, and
     runs the dropless ``_moe_mlp`` at expert-parallel size 1, as here."""
-    moe = cfg.is_moe
     missing = [name for name, on in (
-        ("router_bias (slice B item 4)", moe and cfg.router_bias),
-        ("expert biases, mlp_bias on a MoE (slice B item 4)", moe and cfg.mlp_bias),
-        ("gpt_oss routing (slice B item 4)", moe and cfg.model_type == "gpt_oss"),
         ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
-        ("attention sinks (slice B item 4, with gpt_oss)", cfg.attention_sinks),
         ("mrope (slice F)", ops.is_mrope(cfg.rope_scaling)),
-        (f"hidden_act {cfg.hidden_act!r} (slice B item 4)",
-         cfg.hidden_act not in ops.GATED_ACTS),
+        (f"hidden_act {cfg.hidden_act!r} (no gated activation of the reference; it takes "
+         f"{', '.join(ops.GATED_ACTS)})", cfg.hidden_act not in ops.GATED_ACTS),
         ("linear attention / output gate, qwen3_next (slice F)",
          bool(cfg.linear_num_value_heads) or cfg.attn_output_gate),
         ("chunk_mbs (slice A item 5)", bool(cfg.chunk_mbs)),
@@ -132,19 +134,24 @@ def _group_mask(choice, cfg: TransformerConfig, group_score):
     return keep.repeat_interleave(e // cfg.n_group, dim=1)
 
 
-def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None):
+def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None, router_bias=None):
     """Router dialects (``:240-298``) -> (topk_idx [T,K], topk_weights
-    [T,K] f32, aux_loss). ``x`` [T,H], ``router`` [H,E] and the sigmoid
-    dialect's ``correction_bias`` [E] in the compute dtype; the logits are
-    f32 products, as ``preferred_element_type=f32`` gives.
+    [T,K] f32, aux_loss). ``x`` [T,H], ``router`` [H,E], the sigmoid
+    dialect's ``correction_bias`` [E] and gpt_oss's ``router_bias`` [E] in
+    the compute dtype; the logits are f32 products (plus the router bias in
+    f32), as ``preferred_element_type=f32`` gives.
 
     softmax (qwen-moe, deepseek_v2): softmax -> (max-per-group greedy
     mask) -> top-k (-> renorm) (-> scaling). sigmoid (deepseek_v3
     noaux-tc): sigmoid scores + correction bias pick the experts
     (top-2-sum-per-group mask first), the weights are the raw scores
-    (-> renorm) x scaling."""
+    (-> renorm) x scaling. gpt_oss: top-k of the logits, the weights a
+    softmax over those k; the aux loss still takes the softmax over all E
+    (``:297``)."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = x.float() @ router.float()
+    if router_bias is not None:
+        logits = logits + router_bias.float()
     grouped = bool(cfg.n_group and cfg.topk_group and cfg.n_group > 1)
     if cfg.scoring_func == "sigmoid":
         scores = torch.sigmoid(logits)
@@ -160,6 +167,10 @@ def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None):
         probs = scores / scores.sum(-1, keepdim=True).clamp(min=1e-20)
         return topk_idx, topk_w, ops.load_balancing_loss(probs, topk_idx, e)
     probs = torch.softmax(logits, dim=-1)
+    if cfg.model_type == "gpt_oss":
+        topk_logits, topk_idx = _top_k(logits, k)
+        return (topk_idx, torch.softmax(topk_logits, dim=-1),
+                ops.load_balancing_loss(probs, topk_idx, e))
     choice = probs
     if grouped:
         choice = choice.masked_fill(~_group_mask(choice, cfg, lambda g: g.amax(-1)), 0.0)
@@ -178,13 +189,27 @@ def expert_counts(flat_expert, num_experts: int):
     return counts.scatter_add_(0, flat_expert, torch.ones_like(flat_expert))
 
 
-def experts_apply_sorted(xs, experts: "Experts", group_sizes, cfg: TransformerConfig):
-    """Grouped-GEMM expert SwiGLU MLP on expert-sorted tokens (``:307``)."""
+def _add_expert_bias(t, experts, name: str, expert_of_row, dt):
+    """``t`` [M, N] plus the bias of the expert each sorted row went to,
+    where the experts have such a bias (``_expert_bias``, ``:301-304``)."""
+    bias = getattr(experts, name, None)
+    return t if bias is None else t + bias.to(dt)[expert_of_row]
+
+
+def experts_apply_sorted(xs, experts: "Experts", group_sizes, cfg: TransformerConfig,
+                         expert_of_row=None):
+    """Grouped-GEMM expert gated MLP on expert-sorted tokens (``:307-316``):
+    the dialect's gated activation, and gpt_oss's per-expert biases added
+    by gather (``expert_of_row`` [M], the expert of each sorted row) around
+    the grouped GEMMs, in the compute dtype."""
     dt = cfg.dtype
     gate = ops.group_gemm(xs, experts.gate_proj.to(dt), group_sizes)
     up = ops.group_gemm(xs, experts.up_proj.to(dt), group_sizes)
-    act = ops.swiglu(gate, up).to(xs.dtype)
-    return ops.group_gemm(act, experts.down_proj.to(dt), group_sizes)
+    gate = _add_expert_bias(gate, experts, "gate_bias", expert_of_row, dt)
+    up = _add_expert_bias(up, experts, "up_bias", expert_of_row, dt)
+    act = ops.gated_act(gate, up, cfg.hidden_act).to(xs.dtype)
+    out = ops.group_gemm(act, experts.down_proj.to(dt), group_sizes)
+    return _add_expert_bias(out, experts, "down_bias", expert_of_row, dt)
 
 
 def shared_experts_out(x, shared, cfg: TransformerConfig, gate=None):
@@ -200,18 +225,19 @@ def shared_experts_out(x, shared, cfg: TransformerConfig, gate=None):
 
 
 def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bias=None,
-            shared=None, shared_gate=None):
+            shared=None, shared_gate=None, router_bias=None):
     """Single-device MoE (``_moe_mlp``, ``:333``): route -> stable sort by
     expert -> grouped GEMM -> weighted combine (-> + the shared experts).
     x [T,H] -> ([T,H], aux)."""
     t, h = x.shape
     k = cfg.num_experts_per_tok
-    topk_idx, topk_w, aux = route_tokens(x, router, cfg, correction_bias)
+    topk_idx, topk_w, aux = route_tokens(x, router, cfg, correction_bias, router_bias)
     flat_expert = topk_idx.reshape(-1)  # [T*K], slot j of token i at i*K + j
     sort_idx = torch.argsort(flat_expert, stable=True)
     # dispatch: sorted row r is token sort_idx[r] // K, gathered from a K-fold copy
     xs = x[:, None, :].expand(t, k, h).reshape(t * k, h)[sort_idx]
-    out = experts_apply_sorted(xs, experts, expert_counts(flat_expert, cfg.num_experts), cfg)
+    out = experts_apply_sorted(xs, experts, expert_counts(flat_expert, cfg.num_experts), cfg,
+                               flat_expert[sort_idx])
     weighted = out * topk_w.to(x.dtype).reshape(-1)[sort_idx][:, None]
     # combine: back to (token, slot) order by the inverse permutation, sum the slots
     inverse = torch.empty_like(sort_idx)
@@ -223,7 +249,8 @@ def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bi
 
 
 class Experts(nn.Module):
-    """A MoE layer's expert weights, stacked on a leading expert axis."""
+    """A MoE layer's expert weights, stacked on a leading expert axis, and
+    with ``mlp_bias`` (gpt_oss) their gate/up [E,I] and down [E,H] biases."""
 
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
@@ -236,6 +263,10 @@ class Experts(nn.Module):
         self.gate_proj = p(e, h, im)
         self.up_proj = p(e, h, im)
         self.down_proj = p(e, im, h)
+        if cfg.mlp_bias:
+            self.gate_bias = p(e, im)
+            self.up_bias = p(e, im)
+            self.down_bias = p(e, h)
 
 
 class SharedExperts(nn.Module):
@@ -319,12 +350,16 @@ class DecoderLayer(nn.Module):
             if cfg.qk_norm:
                 self.q_norm = p(cfg.head_dim)
                 self.k_norm = p(cfg.head_dim)
+            if cfg.attention_sinks:
+                self.sinks = p(cfg.num_attention_heads)
         self.post_attention_layernorm = p(h)
         if cfg.sandwich_norms:
             self.pre_feedforward_layernorm = p(h)
             self.post_feedforward_layernorm = p(h)
         if self.is_moe:
             self.router = p(h, cfg.num_experts)
+            if cfg.router_bias:
+                self.router_bias = p(cfg.num_experts)
             self.experts = Experts(cfg, device)
             if cfg.scoring_func == "sigmoid":
                 self.e_score_correction_bias = p(cfg.num_experts)
@@ -401,8 +436,10 @@ class DecoderLayer(nn.Module):
         return q, k, kv[..., dn:]
 
     def _attend(self, q, k, v, segment_ids):
+        sinks = self.w("sinks").to(self.cfg.dtype) if hasattr(self, "sinks") else None
         return ops.attention(q, k, v, segment_ids=segment_ids, causal=True,
-                             softmax_scale=self.scale, sliding_window=self.window or None)
+                             softmax_scale=self.scale, sliding_window=self.window or None,
+                             sinks=sinks)
 
     def mlp_input(self, hidden, attn):
         """(residual stream after attention, the MLP's input norm of it)."""
@@ -416,24 +453,25 @@ class DecoderLayer(nn.Module):
         return hidden, self._norm(hidden, pre)
 
     def moe(self, x):
-        """The MoE MLP of x [T,H] -> ([T,H], aux) with this layer's router,
-        correction bias, experts and shared experts."""
+        """The MoE MLP of x [T,H] -> ([T,H], aux) with this layer's router
+        (and its bias), correction bias, experts (and their biases) and
+        shared experts."""
         dt = self.cfg.dtype
 
         def optional(name):
-            return self.w(name) if hasattr(self, name) else None
+            return self.w(name).to(dt) if hasattr(self, name) else None
 
         def weights(sub):  # the experts' (merged) weights, as moe_mlp reads them
             if not hasattr(self, sub):
                 return None
             return SimpleNamespace(**{n: self.w(f"{sub}.{n}")
-                                      for n in ("gate_proj", "up_proj", "down_proj")})
+                                      for n, _ in self.get_submodule(sub).named_parameters()})
 
-        bias = optional("e_score_correction_bias")
         return moe_mlp(x, self.w("router").to(dt), weights("experts"), self.cfg,
-                       correction_bias=None if bias is None else bias.to(dt),
+                       correction_bias=optional("e_score_correction_bias"),
                        shared=weights("shared_experts"),
-                       shared_gate=optional("shared_expert_gate"))
+                       shared_gate=optional("shared_expert_gate"),
+                       router_bias=optional("router_bias"))
 
     def _tail(self, hidden, attn):
         cfg = self.cfg

@@ -37,7 +37,9 @@ def yarn_get_mscale(factor: float, mscale: float = 1.0) -> float:
 
 def _scale_inv_freq(inv_freq, rope_scaling, head_dim: int, theta: float):
     """HF rope_scaling applied to the base frequencies (``rotary.py:24-70``).
-    Returns (inv_freq, attention-scale multiplier)."""
+    Returns (inv_freq, attention-scale multiplier). Yarn's correction range
+    is rounded out to whole dims unless ``truncate`` is false, as in
+    transformers' ``_compute_yarn_parameters``."""
     if not rope_scaling:
         return inv_freq, 1.0
     rtype = _rope_type(rope_scaling)
@@ -61,8 +63,13 @@ def _scale_inv_freq(inv_freq, rope_scaling, head_dim: int, theta: float):
         def correction_dim(num_rot):
             return (head_dim / 2) * math.log(orig / (num_rot * 2 * math.pi)) / math.log(theta)
 
-        low = max(math.floor(correction_dim(beta_fast)), 0)
-        high = min(math.ceil(correction_dim(beta_slow)), head_dim // 2 - 1)
+        low, high = correction_dim(beta_fast), correction_dim(beta_slow)
+        if rope_scaling.get("truncate", True):
+            # the reference always rounds; transformers skips the rounding
+            # where the config sets truncate false (gpt-oss; ROADMAP.md
+            # queue 3, diverges on purpose)
+            low, high = math.floor(low), math.ceil(high)
+        low, high = max(low, 0), min(high, head_dim // 2 - 1)
         idx = torch.arange(head_dim // 2, dtype=torch.float32, device=inv_freq.device)
         ramp = torch.clamp((idx - low) / max(high - low, 1e-3), 0.0, 1.0)
         extrap_mask = 1.0 - ramp  # 1 where high-frequency (keep the base)

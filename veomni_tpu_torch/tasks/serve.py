@@ -12,8 +12,11 @@ engine metrics, the terminal-status census and one line per request.
 
 By default a tiny random-weight qwen3-style model; ``--preset`` takes a
 ``train_text_step.bench_config`` preset (``qwen3_0p6b``,
-``qwen3_30b_a3b``, ...) with random weights from ``--seed``. Runs on the
-card unless ``--device cpu``::
+``qwen3_30b_a3b``, or a published config of ``HF_CONFIGS`` such as
+``gpt_oss_20b``) with random weights from ``--seed``, and
+``--model-path`` an HF directory (config.json and safetensors, e.g. a
+trainer's ``hf_ckpt`` export) whose weights it loads in the compute dtype.
+Runs on the card unless ``--device cpu``::
 
     python -m veomni_tpu_torch.tasks.serve --synthetic 8 --max-new 32
     python -m veomni_tpu_torch.tasks.serve --device cpu --synthetic 4 --max-new 8
@@ -65,7 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--eos-id", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="",
-                    help="train_text_step.bench_config preset instead of the tiny demo")
+                    help="train_text_step.bench_config preset (or HF_CONFIGS name, e.g. "
+                         "gpt_oss_20b) instead of the tiny demo")
+    ap.add_argument("--model-path", default="",
+                    help="HF directory (config.json + safetensors) to serve instead")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--slots", type=int, default=int(env("VEOMNI_SERVE_SLOTS", 4)))
     ap.add_argument("--block-size", type=int, default=int(env("VEOMNI_SERVE_BLOCK", 16)))
@@ -125,7 +131,14 @@ def check_supported(args) -> None:
 
 
 def build_model(args, device: torch.device):
-    """The ``--preset`` model (or the tiny demo), random weights from ``--seed``."""
+    """The ``--model-path`` HF directory's model, else the ``--preset``
+    model (or the tiny demo) with random weights from ``--seed``."""
+    if args.model_path:
+        from veomni_tpu_torch.models.auto import build_foundation_model
+
+        fm = build_foundation_model(args.model_path, weights_path=args.model_path,
+                                    device=device, param_dtype="bfloat16")
+        return fm.module, fm.config
     if args.preset:
         from veomni_tpu_torch.train_text_step import bench_config
 

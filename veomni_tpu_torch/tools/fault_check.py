@@ -9,13 +9,17 @@ in ``csrc/flash_attention.cu``, the trainer's resume in
 ``models/hf_io.py``, the serving engine's paged gather, decode rotary, the
 rotary tables its steps share with the contiguous prefill, and prefix-cache
 match, the deepseek dialect's correction bias, shared experts, MLA rope
-and leading dense layer in ``models/transformer.py``, and the SFT path's
+and leading dense layer in ``models/transformer.py``, the gpt_oss
+dialect's sinks, routing and expert biases there, its clamped GLU in
+``ops/swiglu.py`` and its fused expert layout in ``models/hf_io.py``, and
+the SFT path's
 LoRA merge in ``lora/lora.py``, expert adapters, frozen update in
 ``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``)
 and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
-``--phases hf_trainer_moonlight``; for an SFT one, its SFT phase). A fault is
+``--phases hf_trainer_moonlight``; for a gpt_oss one, its gpt-oss-20b phase:
+``--phases hf_trainer_gpt_oss``; for an SFT one, its SFT phase). A fault is
 caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -55,6 +59,7 @@ MODEL_SOURCE = os.path.join("veomni_tpu_torch", "models", "transformer.py")
 LORA_SOURCE = os.path.join("veomni_tpu_torch", "lora", "lora.py")
 OPTIM_SOURCE = os.path.join("veomni_tpu_torch", "optim", "optimizer.py")
 TEMPLATE_SOURCE = os.path.join("veomni_tpu_torch", "data", "chat_template.py")
+SWIGLU_SOURCE = os.path.join("veomni_tpu_torch", "ops", "swiglu.py")
 # the SFT faults run chip_smoke.py's SFT phases alone; those read the YAML,
 # the fixture tokenizers and the docs their chat rows are built from
 SFT_DENSE = ("--phases", "sft_lora_dense")
@@ -65,6 +70,12 @@ SFT_INPUTS = (os.path.join("configs", "text", "lora_sft.yaml"),
 # check, parameter count and layer check come before its trainer
 MOONLIGHT = ("--phases", "hf_trainer_moonlight")
 MOONLIGHT_LAYER = "Moonlight-16B-A3B layer check"
+# the gpt_oss faults run chip_smoke.py's gpt-oss-20b phase alone; its load
+# check and its layer check (layer 0, a 128-token window) come before its
+# trainer
+GPT_OSS = ("--phases", "hf_trainer_gpt_oss")
+GPT_OSS_LAYER = "gpt-oss-20b layer check: layer 0"
+DISAGREES = "the port's layer disagrees"
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
@@ -248,6 +259,39 @@ FAULTS = (
           "self.is_moe = cfg.is_moe and layer_idx >= cfg.first_k_dense_replace",
           "self.is_moe = cfg.is_moe",
           "hf deepseek Moonlight-16B-A3B:", "parameters, the config gives", MOONLIGHT),
+    # the gpt_oss dialect: the sinks left out of the attention
+    Fault("gpt-oss-sinks", "the decoder layer attends without its sinks",
+          MODEL_SOURCE,
+          'sinks = self.w("sinks").to(self.cfg.dtype) if hasattr(self, "sinks") else None',
+          "sinks = None",
+          f"{GPT_OSS_LAYER} attention block", f"{GPT_OSS_LAYER} attention block: {DISAGREES}",
+          GPT_OSS),
+    # the fused gate_up tensor read as two contiguous halves, as qwen3_vl_moe
+    # stores it (the shapes still fit)
+    Fault("gpt-oss-halves", "hf_to_params splits the fused gate_up into contiguous halves",
+          HF_IO_SOURCE, "x = halves[name][..., parity::2]",
+          "x = halves[name].chunk(2, -1)[parity]",
+          "hf gpt_oss gpt-oss-20b:", "loaded parameters differ from the written ones", GPT_OSS),
+    Fault("gpt-oss-clamp", "the clamped GLU leaves out both clamps",
+          SWIGLU_SOURCE,
+          "        gate = torch.clamp(gate, max=GPT_OSS_LIMIT)\n"
+          "        up = torch.clamp(up, min=-GPT_OSS_LIMIT, max=GPT_OSS_LIMIT)\n", "",
+          f"{GPT_OSS_LAYER} MoE block", f"{GPT_OSS_LAYER} MoE block: {DISAGREES}", GPT_OSS),
+    # the weights of the generic softmax branch: the top k of a softmax over
+    # all experts, not renormalised (renormalised, they equal the gpt_oss
+    # weights)
+    Fault("gpt-oss-softmax-first", "gpt_oss routing takes the softmax over all experts before "
+                                   "the top-k",
+          MODEL_SOURCE,
+          "        topk_logits, topk_idx = _top_k(logits, k)\n"
+          "        return (topk_idx, torch.softmax(topk_logits, dim=-1),",
+          "        topk_w, topk_idx = _top_k(probs, k)\n        return (topk_idx, topk_w,",
+          f"{GPT_OSS_LAYER} MoE block", f"{GPT_OSS_LAYER} MoE block: {DISAGREES}", GPT_OSS),
+    Fault("gpt-oss-expert-bias", "the experts' gate/up/down biases are not added",
+          MODEL_SOURCE,
+          "    return t if bias is None else t + bias.to(dt)[expert_of_row]",
+          "    return t",
+          f"{GPT_OSS_LAYER} MoE block", f"{GPT_OSS_LAYER} MoE block: {DISAGREES}", GPT_OSS),
     # LoRA: the merge without its scale, every layer merged with layer 0's
     # A, the expert adapters never read, a frozen tensor updated, the user
     # turns of the llama2 template supervised

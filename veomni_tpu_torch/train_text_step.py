@@ -17,7 +17,8 @@ depth cut to 4 layers to fit one H100)::
 
 A preset may also name a published HF config of ``HF_CONFIGS`` (e.g.
 ``--preset moonlight_16b_a3b --num-layers 4 --micro-bs 2``: its leading
-dense layer and three MoE layers).
+dense layer and three MoE layers; ``--preset gpt_oss_20b --num-layers 3
+--micro-bs 2``: a sliding, a full and a sliding layer of gpt-oss-20b).
 """
 
 from __future__ import annotations
@@ -283,6 +284,52 @@ HF_CONFIGS = {
         "use_cache": True,
         "v_head_dim": 128,
         "vocab_size": 102400,
+    },
+    # huggingface.co/openai/gpt-oss-20b/blob/main/config.json: the gpt_oss
+    # dialect, 24 layers alternating a 128-token window and full attention
+    # from layer 0, hidden 2880, 64/8 heads at head dim 64 with sinks and
+    # q/k/v/o biases, 32 experts of width 2880, top-4 (top-k of the biased
+    # router logits, then a softmax over the 4), expert biases, the clamped
+    # GLU (swiglu_limit 7), yarn rope (factor 32, theta 150000, truncate
+    # false), vocab 201088, untied. Its "quantization_config" (the experts
+    # stored in MXFP4) is left out: that is a storage format, not the
+    # architecture, and the port, like the reference, reads the bf16 fused
+    # layout only.
+    "gpt_oss_20b": {
+        "architectures": ["GptOssForCausalLM"],
+        "attention_bias": True,
+        "attention_dropout": 0.0,
+        "eos_token_id": 200002,
+        "experts_per_token": 4,
+        "head_dim": 64,
+        "hidden_act": "silu",
+        "hidden_size": 2880,
+        "initial_context_length": 4096,
+        "initializer_range": 0.02,
+        "intermediate_size": 2880,
+        "layer_types": ["sliding_attention" if i % 2 == 0 else "full_attention"
+                        for i in range(24)],
+        "max_position_embeddings": 131072,
+        "model_type": "gpt_oss",
+        "num_attention_heads": 64,
+        "num_experts_per_tok": 4,
+        "num_hidden_layers": 24,
+        "num_key_value_heads": 8,
+        "num_local_experts": 32,
+        "output_router_logits": False,
+        "pad_token_id": 199999,
+        "rms_norm_eps": 1e-05,
+        "rope_scaling": {"beta_fast": 32.0, "beta_slow": 1.0, "factor": 32.0,
+                         "original_max_position_embeddings": 4096, "rope_type": "yarn",
+                         "truncate": False},
+        "rope_theta": 150000,
+        "router_aux_loss_coef": 0.9,
+        "sliding_window": 128,
+        "swiglu_limit": 7.0,
+        "tie_word_embeddings": False,
+        "torch_dtype": "bfloat16",
+        "use_cache": True,
+        "vocab_size": 201088,
     },
 }
 
