@@ -91,7 +91,7 @@ Phases (any failure exits non-zero and prints no result line):
    of ``train_text_step.HF_CONFIGS``) through
    ``TextTrainer`` at full width and depth, seq 4096 x micro-batch 4, f32
    master, bf16 compute, ctx remat, AdamW: Gemma-3-1B (26 layers, 4 full
-   attention and 22 with a 512-token window, head dim 256, 4/1 heads) for 6
+   attention and 22 with a 512-token window, head dim 256, 4/1 heads) for 4
    steps with its HF export read back bit-equal, then Llama-3.2-1B (llama3
    rope scaling, 32/8 heads, head dim 64) and Qwen2.5-1.5B (q/k/v biases,
    12/2, head dim 128) for 3 steps each. K1-K3 launch once a step per
@@ -176,7 +176,31 @@ Phases (any failure exits non-zero and prints no result line):
    timed at K = N = 2880 on layer 0's routing (M = 32768); and, after the
    serving phase of 14, the engine at gpt-oss-20b, all 24 layers in bf16,
    leg (a) over 16 requests of 64-1536 tokens, then K4 alone at its decode
-   shape (M = 32).
+   shape (M = 32);
+18. the vision-language trainer (``veomni_tpu_torch.tasks.train_vlm``'s
+   ``VLMTrainer``) at Qwen2-VL-2B-Instruct's published config.json, nothing
+   cut (LM 28 layers, hidden 1536, 12/2 heads of 128, mrope [16, 24, 24];
+   tower 32 blocks of 1280, 16 heads of 80): an HF directory of random bf16
+   weights from seed 0 (the checked q/k drawn wider) and a corpus of
+   pretokenized rows with HWC uint8 images of 448 x 448, 336 x 672 and 224 x
+   224 pixels, passed as arrays; K1-K3 at head dim 80, full attention, on
+   the first micro-batch's per-frame segments (3072 patches, 640 of them
+   padding), against their plain versions, K2/K3 bit-identical over two
+   launches, timed beside the plain versions, SDPA with the same-segment
+   mask and their bound; the loaded parameters against the written ones and
+   the count from the config; the patch embed (HF's Conv3d weight read from
+   the directory), vision block 0, the merger and its output order, and
+   text layer 0 under mrope, each against chip_smoke's own f32 version,
+   token by token; then 3 steps at seq 4096 x micro-batch 2 with
+   ``data.max_patches`` 3072: K1-K3 launch once a micro-batch per tower
+   block at D 80 and per text layer at D 128, ``FALLBACK_CALLS`` 0; step
+   time, tokens/s, MFU with the tower's FLOPs, peak memory; the HF export
+   read back bit-equal; step 1's loss and grad norm against the plain
+   attention's;
+19. the same at Qwen2.5-VL-3B-Instruct's published widths (tower 32 blocks
+   of 1280 with windows of 112 pixels and full attention at blocks 7, 15,
+   23 and 31; LM hidden 2048, 16/2 heads), the LM cut to 18 of 36 layers,
+   K1-K3 on the per-window segments, 2 steps, no export.
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -184,7 +208,8 @@ first) and prints no result line; ``--phases
 hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
 (11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
 deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
-(16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17).
+(16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17),
+``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19).
 Each partial run logs each phase's seconds (``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
@@ -260,7 +285,7 @@ LAYERS = 28
 MOE_PRESET = "qwen3_30b_a3b"
 MOE_LAYERS = 4
 MAIN_STEPS = 3
-MB1_STEPS = 6  # per leg of the micro-batch-1 MoE step; the first two warm up
+MB1_STEPS = 4  # per leg of the micro-batch-1 MoE step; the first two warm up
 TRAINER_SAVE_AT = 3  # the trainer phase's resumed leg saves here, then runs to 6
 # the HF-directory trainer phase: TinyLlama-1.1B (train_text_step.HF_CONFIGS)
 HF_PRESET = "tinyllama_1p1b"
@@ -322,29 +347,37 @@ def phase_build(sources):
                     log(f"  ptxas {kernel}: {line.strip()[:160]}")
 
 
-def visible_pairs(seg: torch.Tensor) -> int:
-    """Causal same-segment (query, key) pairs: the work this data needs."""
+def visible_pairs(seg: torch.Tensor, causal: bool = True) -> int:
+    """Same-segment (query, key) pairs, causal or all of them: the work this
+    data needs (the padding, segment 0, attends to itself as the kernels
+    and the reference do)."""
     total = 0
     for row in seg.cpu().tolist():
         counts = {}
         for s_id in row:
             counts[s_id] = counts.get(s_id, 0) + 1
             total += counts[s_id]
+        if not causal:
+            total = total - sum(c * (c + 1) // 2 for c in counts.values()) \
+                + sum(c * c for c in counts.values())
     return total
 
 
-def kept_tiles(seg: torch.Tensor, bq: int, bk: int) -> float:
-    """Share of the causal (q tile, k tile) pairs whose segment-id ranges
-    overlap, i.e. that the kernels' segment skip still computes."""
+def kept_tiles(seg: torch.Tensor, bq: int, bk: int, causal: bool = True) -> float:
+    """Share of the (q tile, k tile) pairs a walk visits (causal: up to the
+    diagonal) whose segment-id ranges overlap, i.e. that the kernels'
+    segment skip still computes."""
     kept = total = 0
     for row in seg.cpu():
         q_lo, q_hi = row.view(-1, bq).amin(1)[:, None], row.view(-1, bq).amax(1)[:, None]
         k_lo, k_hi = row.view(-1, bk).amin(1)[None, :], row.view(-1, bk).amax(1)[None, :]
-        causal = (torch.arange(k_lo.shape[1])[None, :] * bk
+        walked = (torch.arange(k_lo.shape[1])[None, :] * bk
                   <= torch.arange(q_lo.shape[0])[:, None] * bq + bq - 1)
+        if not causal:
+            walked = torch.ones_like(walked)
         overlap = ~((q_hi < k_lo) | (k_hi < q_lo))
-        kept += int((causal & overlap).sum())
-        total += int(causal.sum())
+        kept += int((walked & overlap).sum())
+        total += int(walked.sum())
     return kept / total
 
 
@@ -417,10 +450,12 @@ def phase_probe(dev):
                 library_ms=timed_ms(lambda: torch.mul(x, 2.0), reps=100))
 
 
-def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
+def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128, causal: bool = True):
     """K1-K3 at head dim ``d`` against their plain versions on packed
-    segments ``seg``, timed beside their plain versions and the library
-    yardstick."""
+    segments ``seg``, causal or full (a vision tower's), timed beside their
+    plain versions and the library yardstick: SDPA on a single-segment batch
+    of the same shape for causal rows, SDPA with the same-segment mask (one
+    call computing the same function) for full ones."""
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
 
     b, s = seg.shape
@@ -430,73 +465,86 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
     k = torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
     v = torch.randn(b, s, hkv, d, device=dev, generator=g).bfloat16()
     do = torch.randn(b, s, hq, d, device=dev, generator=g).bfloat16()
-    pairs = visible_pairs(seg)
+    pairs = visible_pairs(seg, causal)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     split = fa.dkv_group_split(b, s, hq, hkv, n_sm, d)
     fwd_keys = 64 if d == 256 else 128  # K1's key tile
-    log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, "
-        f"{int(seg.max())} segments max/row, visible causal pairs {pairs} "
-        f"({pairs / (b * s * (s + 1) / 2):.3f} of causal); causal tile pairs kept by the "
-        f"segment skip: {kept_tiles(seg, 128, fwd_keys):.3f} (K1: 128 q x {fwd_keys} keys), "
-        f"{kept_tiles(seg, 64, 128):.3f} (K2: 64 q x 128 keys), "
-        f"{kept_tiles(seg, 128, 64):.3f} (K3: 128 q x 64 keys); "
-        f"K2's q-head group split {split}{', dK/dV in two 128-column halves' if d == 256 else ''}")
+    kind = "causal" if causal else "full"
+    n_pairs = b * s * (s + 1) / 2 if causal else b * s * s
+    log(f"flash kernels ({tag}): B={b} S={s} Hq={hq} Hkv={hkv} D={d}, {kind}, "
+        f"{int(seg.max())} segments max/row, {int((seg == 0).sum())} padding tokens "
+        f"(segment 0), visible {kind} pairs {pairs} ({pairs / n_pairs:.3f} of {kind}); "
+        f"{kind} tile pairs kept by the segment skip: "
+        f"{kept_tiles(seg, 128, fwd_keys, causal):.3f} (K1: 128 q x {fwd_keys} keys), "
+        f"{kept_tiles(seg, 64, 128, causal):.3f} (K2: 64 q x 128 keys), "
+        f"{kept_tiles(seg, 128, 64, causal):.3f} (K3: 128 q x 64 keys); "
+        f"K2's q-head group split {split}{', dK/dV in two 128-column halves' if d == 256 else ''}"
+        f"{'; D 80 computed at D 128 tiles over 3-D maps (1.6x the products)' if d == 80 else ''}")
 
     # K1 through the autograd Function, then K2 + K3 from its backward
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=True, softmax_scale=scale)
+    out = fa.flash_attention(qg, kg, vg, segment_ids=seg, causal=causal, softmax_scale=scale)
     out.backward(do)
     rng = fa.seg_ranges(seg)  # once per attention call on the main path: outside the timings
-    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, True, rng)
+    o_k, lse_k = fa.flash_fwd_cuda(q, k, v, seg, scale, causal, rng)
     torch.cuda.synchronize()
-    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, True)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, seg, scale, causal)
     err_o = check_close(f"K1 O (autograd path, {tag})", out, o_p)
     check_close(f"K1 O (wrapper, {tag})", o_k, o_p)
     err_lse = check_close(f"K1 LSE ({tag})", lse_k, lse_p, atol=TOL_LSE, rtol=0.0)
     delta = (do.float() * o_k.float()).sum(-1).transpose(1, 2).contiguous()
-    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, True)
+    dq_p, dk_p, dv_p = fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, causal)
     err_dq = check_close(f"K3 dQ ({tag})", qg.grad, dq_p)
     err_dk = check_close(f"K2 dK ({tag})", kg.grad, dk_p)
     err_dv = check_close(f"K2 dV ({tag})", vg.grad, dv_p)
     del o_p, lse_p, dq_p, dk_p, dv_p, qg, kg, vg, out
     torch.cuda.empty_cache()
-    check_deterministic(f"{tag}, K2 split {split}", q, k, v, seg, do, lse_k, delta, scale, True, rng)
+    check_deterministic(f"{tag}, K2 split {split}", q, k, v, seg, do, lse_k, delta, scale, causal,
+                        rng)
 
     ms = {
-        "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg, scale, True, rng)),
+        "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg, scale, causal, rng)),
         "dkv": timed_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, seg, do, lse_k, delta, scale,
-                                                      True, rng)),
+                                                      causal, rng)),
         "dq": timed_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, seg, do, lse_k, delta, scale,
-                                                    True, rng)),
+                                                    causal, rng)),
     }
     # K1-K3 on a single-segment batch of the same shape: the function SDPA
-    # computes below, so their like-for-like yardstick
+    # computes without a mask, so their like-for-like yardstick
     seg1 = torch.zeros_like(seg)
     rng1 = fa.seg_ranges(seg1)
-    _, lse1 = fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1)
+    _, lse1 = fa.flash_fwd_cuda(q, k, v, seg1, scale, causal, rng1)
     single = {
-        "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg1, scale, True, rng1)),
+        "fwd": timed_ms(lambda: fa.flash_fwd_cuda(q, k, v, seg1, scale, causal, rng1)),
         "dkv": timed_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, seg1, do, lse1, delta, scale,
-                                                      True, rng1)),
+                                                      causal, rng1)),
         "dq": timed_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, seg1, do, lse1, delta, scale,
-                                                    True, rng1)),
+                                                    causal, rng1)),
     }
     del lse1
-    plain_fwd = timed_ms(lambda: fa.flash_fwd_plain(q, k, v, seg, scale, True), reps=3, warmup=1)
-    plain_bwd = timed_ms(lambda: fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale, True),
-                         reps=3, warmup=1)
+    plain_fwd = timed_ms(lambda: fa.flash_fwd_plain(q, k, v, seg, scale, causal), reps=3,
+                         warmup=1)
+    plain_bwd = timed_ms(lambda: fa.flash_bwd_plain(q, k, v, seg, do, lse_k, delta, scale,
+                                                    causal), reps=3, warmup=1)
     torch.cuda.empty_cache()
 
-    # library yardstick (timed only, never called by the port): SDPA on a
-    # single-segment batch of the same shape, forward and backward
+    # library yardstick (timed only, never called by the port), forward and
+    # backward: causal, SDPA on a single-segment batch of the same shape;
+    # full, SDPA with the same-segment mask on the same batch
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    lib_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                              enable_gqa=True, scale=scale))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+    lib_kw = dict(is_causal=True) if causal else dict(attn_mask=(seg[:, None, :, None]
+                                                                  == seg[:, None, None, :]))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=scale, **lib_kw)
+
+    lib_fwd = timed_ms(sdpa)
+    lib_out = sdpa()
     dot = do.transpose(1, 2)
     lib_bwd = timed_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True))
+    del lib_out, lib_kw
 
     bf, f32, i32 = 2, 4, 4
     nq, nkv = b * s * hq * d * bf, b * s * hkv * d * bf
@@ -508,7 +556,8 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
     dq_bound = bound_ms(dev, 6 * d * hq * pairs, 2 * nq + 2 * nkv + segb + 2 * rows + nq)
     src = "veomni_tpu_torch/csrc/flash_attention.cu"
     ref = "veomni_tpu/ops/pallas/flash_attention.py"
-    held = dict(head_dim=d, layout=f"{tag}: B={b} S={s} Hq={hq} Hkv={hkv} D={d}")
+    held = dict(head_dim=d, layout=f"{tag}: B={b} S={s} Hq={hq} Hkv={hkv} D={d}"
+                + ("" if causal else ", full"))
     table = [
         dict(name="flash_fwd", route="cuda", source=src, replaces=f"{ref}:49", **held,
              max_abs_err=max(err_o, err_lse), ms=ms["fwd"], plain_ms=plain_fwd,
@@ -526,12 +575,12 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
     for row in table:
         log(f"  {row['name']} ({tag}): {row['ms']:.3f} ms (bound {row['bound_ms']:.3f} ms by "
             f"{row['bound_by']}, plain {row['plain_ms']:.3f} ms, library {row['library_ms']:.3f} ms)")
-    full_pairs = b * s * (s + 1) // 2
+    full_pairs = b * s * (s + 1) // 2 if causal else b * s * s
     log(f"  flash_fwd ({tag}): {4 * d * hq * pairs / ms['fwd'] / 1e9:.1f} TFLOP/s on the "
-        f"visible pairs; on a single-segment batch of the same shape (the function SDPA "
-        f"computes) {single['fwd']:.3f} ms against SDPA's {lib_fwd:.3f} ms "
-        f"({single['fwd'] / lib_fwd:.2f}x), {4 * d * hq * full_pairs / single['fwd'] / 1e9:.1f} "
-        f"TFLOP/s")
+        f"visible pairs; on a single-segment batch of the same shape "
+        f"{single['fwd']:.3f} ms against SDPA's {lib_fwd:.3f} ms "
+        f"({'the same function' if causal else 'masked, on the packed batch'}), "
+        f"{4 * d * hq * full_pairs / single['fwd'] / 1e9:.1f} TFLOP/s")
     bwd = ms["dkv"] + ms["dq"]
     bwd1 = single["dkv"] + single["dq"]
     # useful work of a backward: 5 products of 2*D FLOPs per visible pair (S, dP,
@@ -539,7 +588,8 @@ def phase_flash(dev, seg, hq: int, hkv: int, tag: str, d: int = 128):
     log(f"  flash backward ({tag}): K2 + K3 {bwd:.3f} ms ({ms['dkv']:.3f} + {ms['dq']:.3f}), "
         f"{10 * d * hq * pairs / bwd / 1e9:.1f} TFLOP/s of useful work on the visible pairs; "
         f"on the single-segment batch {bwd1:.3f} ms ({single['dkv']:.3f} + {single['dq']:.3f}) "
-        f"against SDPA's backward {lib_bwd:.3f} ms ({bwd1 / lib_bwd:.2f}x), "
+        f"against SDPA's backward {lib_bwd:.3f} ms ({bwd1 / lib_bwd:.2f}x"
+        f"{'' if causal else '; SDPA masked, on the packed batch'}), "
         f"{10 * d * hq * full_pairs / bwd1 / 1e9:.1f} TFLOP/s of useful work")
     log("  (plain_ms of K2 and K3 is the plain backward computing dQ, dK, dV together; "
         "library_ms of K2 and K3 is SDPA's backward, also all three)")
@@ -1521,7 +1571,7 @@ train:
 DIALECT_SEQ = 4096
 DIALECT_MICRO_BS = 4
 GEMMA_PRESET = "gemma3_1b"
-GEMMA_STEPS = 6
+GEMMA_STEPS = 4  # was 6: cut to make room for the VLM phases
 DIALECT_STEPS = 3
 DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
 DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
@@ -1803,7 +1853,7 @@ def dialect_rows(dev, preset: str, seg):
 
 
 def phase_hf_trainer_gemma3(dev, card):
-    """Gemma-3-1B at full width and all 26 layers, 6 steps, HF export; then
+    """Gemma-3-1B at full width and all 26 layers, 4 steps, HF export; then
     K1-K3 on its first packed batch. Returns ({path: (launches, head dim,
     preset)}, kernel rows)."""
     launches, seg = phase_hf_dialect(dev, card, GEMMA_PRESET, GEMMA_STEPS, export=True)
@@ -3805,13 +3855,612 @@ def phase_serve_gpt_oss(dev, card):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# The vision-language trainer: Qwen2-VL-2B and Qwen2.5-VL-3B from HF
+# directories through VLMTrainer (tasks/train_vlm.py)
+# --------------------------------------------------------------------------
+# Qwen/Qwen2-VL-2B-Instruct's config.json as published
+QWEN2_VL_2B = {
+    "architectures": ["Qwen2VLForConditionalGeneration"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653, "vision_token_id": 151654, "image_token_id": 151655,
+    "video_token_id": 151656, "hidden_act": "silu", "hidden_size": 1536,
+    "initializer_range": 0.02, "intermediate_size": 8960, "max_position_embeddings": 32768,
+    "max_window_layers": 28, "model_type": "qwen2_vl", "num_attention_heads": 12,
+    "num_hidden_layers": 28, "num_key_value_heads": 2, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 32768, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16", "transformers_version": "4.41.2", "use_cache": True,
+    "use_sliding_window": False,
+    "vision_config": {"depth": 32, "embed_dim": 1280, "mlp_ratio": 4, "num_heads": 16,
+                      "in_chans": 3, "hidden_size": 1536, "patch_size": 14,
+                      "spatial_merge_size": 2, "spatial_patch_size": 14,
+                      "temporal_patch_size": 2},
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vocab_size": 151936,
+}
+# Qwen/Qwen2.5-VL-3B-Instruct's config.json as published
+QWEN2_5_VL_3B = {
+    "architectures": ["Qwen2_5_VLForConditionalGeneration"], "attention_dropout": 0.0,
+    "bos_token_id": 151643, "eos_token_id": 151645, "vision_start_token_id": 151652,
+    "vision_end_token_id": 151653, "vision_token_id": 151654, "image_token_id": 151655,
+    "video_token_id": 151656, "hidden_act": "silu", "hidden_size": 2048,
+    "initializer_range": 0.02, "intermediate_size": 11008, "max_position_embeddings": 128000,
+    "max_window_layers": 70, "model_type": "qwen2_5_vl", "num_attention_heads": 16,
+    "num_hidden_layers": 36, "num_key_value_heads": 2, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 32768, "tie_word_embeddings": True,
+    "torch_dtype": "bfloat16", "transformers_version": "4.41.2", "use_cache": True,
+    "use_sliding_window": False,
+    "vision_config": {"depth": 32, "hidden_act": "silu", "hidden_size": 1280,
+                      "intermediate_size": 3420, "num_heads": 16, "in_chans": 3,
+                      "out_hidden_size": 2048, "patch_size": 14, "spatial_merge_size": 2,
+                      "spatial_patch_size": 14, "window_size": 112,
+                      "fullatt_block_indexes": [7, 15, 23, 31], "tokens_per_second": 2,
+                      "temporal_patch_size": 2},
+    "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
+    "vocab_size": 151936,
+}
+VLM_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+data:
+  train_path: {data}
+  data_type: pretokenized
+  max_seq_len: {seq}
+  max_patches: {patches}
+train:
+  micro_batch_size: {micro_bs}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  lr_decay_style: cosine
+  seed: 0
+  save_hf_weights: {save_hf}
+  log_steps: 1
+"""
+VLM_SEQ = 4096
+VLM_MICRO_BS = 2
+# the micro-batch's patch budget, a multiple of K1-K3's 128-row tiles; each
+# row's images (at most 1408 patches) fit its share, max_patches / 2
+VLM_MAX_PATCHES = 3072
+# (height, width) in pixels of each corpus row's images, in turn: 448 x 448 is
+# 32 x 32 patches (256 merged tokens), 336 x 672 24 x 48 (288), 224 x 224 256
+# patches (64)
+VLM_ROW_IMAGES = [[(448, 448), (224, 224)], [(336, 672)], [(224, 224), (336, 672)],
+                  [(448, 448)]]
+# block 0's q/k and text layer 0's q_proj/k_proj are redrawn at std
+# VLM_QK_SPREAD / sqrt(width), so that their attention scores spread ~3: at the
+# init's std 0.02 they spread ~0.3-0.6, the softmax is near uniform, and the
+# checks could not see the rope's positions (as the gpt-oss phase redraws
+# the weights its checks read)
+VLM_QK_SPREAD = 1.7
+QWEN2_VL_STEPS = 3
+QWEN2_5_VL_STEPS = 2
+QWEN2_5_VL_LAYERS = 18  # of 36: ~2.37 B parameters, ~38 GB of f32 state (36: ~3.75 B, ~60 GB)
+VLM_SPECS = {
+    "qwen2_vl": dict(name="Qwen2-VL-2B", published=QWEN2_VL_2B, layers=None,
+                     steps=QWEN2_VL_STEPS, export=True),
+    "qwen2_5_vl": dict(name="Qwen2.5-VL-3B", published=QWEN2_5_VL_3B, layers=QWEN2_5_VL_LAYERS,
+                       steps=QWEN2_5_VL_STEPS, export=False),
+}
+
+
+def vlm_param_count(cfg) -> int:
+    """The composite's parameter count from its config, counted here: the
+    tower (patch embed, blocks, merger) and the qwen2 text model (q/k/v
+    biases, tied or untied head)."""
+    v, t = cfg.vision, cfg.text
+    d, md = v.width, v.width * v.merge_unit
+    if cfg.model_type == "qwen2_vl":
+        block = 4 * d + 3 * d * d + 3 * d + d * d + d + 2 * d * v.intermediate_size \
+            + v.intermediate_size + d
+        merger = 2 * d + md * md + md + md * v.hidden_size + v.hidden_size
+    else:
+        block = 2 * d + 3 * d * d + 3 * d + d * d + d + 3 * d * v.intermediate_size \
+            + 2 * v.intermediate_size + d
+        merger = d + md * md + md + md * v.out_hidden_size + v.out_hidden_size
+    h, kv = t.hidden_size, t.num_key_value_heads * t.head_dim
+    layer = 2 * h + h * h + h + 2 * (h * kv + kv) + h * h + 3 * h * t.intermediate_size
+    text = t.vocab_size * h * (1 if t.tie_word_embeddings else 2) + h + t.num_hidden_layers * layer
+    return v.patch_dim * d + v.depth * block + merger + text
+
+
+def vlm_rows(cfg, n_rows: int, seed: int = 0):
+    """Pretokenized rows (token ids uniform over the vocabulary, filling the
+    row to 3000-3600 tokens with its image placeholders) with HWC uint8
+    images drawn from ``seed`` (VLM_ROW_IMAGES, in turn), passed as arrays."""
+    rng = np.random.default_rng(seed)
+    m2 = cfg.vision.patch_size ** 2 * cfg.vision.merge_unit
+    rows = []
+    for i in range(n_rows):
+        sizes = VLM_ROW_IMAGES[i % len(VLM_ROW_IMAGES)]
+        images = [rng.integers(0, 256, (hh, ww, 3), dtype=np.uint8) for hh, ww in sizes]
+        header = sum(1 + hh * ww // m2 for hh, ww in sizes)
+        n_text = int(rng.integers(3000, 3601)) - header
+        rows.append({"input_ids": rng.integers(0, cfg.vocab_size, n_text).tolist(),
+                     "images": images})
+    return rows
+
+
+def write_vlm_run(dev, tmp: str, spec, family):
+    """The run's inputs under ``tmp``: the HF directory (random bf16
+    weights from seed 0, the checked q/k redrawn (VLM_QK_SPREAD), written
+    by the family's HF export, then the published config.json,
+    ``num_hidden_layers`` set where the depth is cut), the corpus (VLM rows as JSON lines, images as nested lists) and
+    the YAML. Returns (the YAML's path, the written model, the first
+    micro-batch's rows)."""
+    from veomni_tpu_torch.models.auto import FoundationModel
+
+    published = dict(spec["published"])
+    if spec["layers"] is not None:
+        published["num_hidden_layers"] = spec["layers"]
+    cfg = family.config_from_hf(published, param_dtype=torch.bfloat16)
+    hf_dir = os.path.join(tmp, "hf")
+    written = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        qkv = written.vision_tower.blocks[0].qkv_w  # [D, 3D]: q, k, v columns
+        width = qkv.shape[0]
+        qkv[:, :2 * width].copy_(torch.randn(width, 2 * width, generator=gen, device=dev)
+                                 * (VLM_QK_SPREAD / width ** 0.5))
+        layer = written.language_model.layers[0]
+        for w in (layer.q_proj, layer.k_proj):
+            w.copy_(torch.randn(w.shape, generator=gen, device=dev)
+                    * (VLM_QK_SPREAD / w.shape[0] ** 0.5))
+    family.save_hf_checkpoint(written, hf_dir)
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(published, f, indent=2)
+    # every step's micro-batch and the prefetcher's two ahead, in one epoch
+    rows = vlm_rows(cfg, VLM_MICRO_BS * (spec["steps"] + 3))
+    data = os.path.join(tmp, "corpus.jsonl")
+    with open(data, "w") as f:
+        for row in rows:
+            f.write(json.dumps({"input_ids": row["input_ids"],
+                                "images": [im.tolist() for im in row["images"]]}) + "\n")
+    path = os.path.join(tmp, "vlm.yaml")
+    with open(path, "w") as f:
+        f.write(VLM_YAML.format(hf=hf_dir, data=data, seq=VLM_SEQ, patches=VLM_MAX_PATCHES,
+                                micro_bs=VLM_MICRO_BS, steps=spec["steps"],
+                                save_hf=str(spec["export"]).lower()))
+    return path, written, rows[:VLM_MICRO_BS]
+
+
+def vlm_first_batch(cfg, rows):
+    """The micro-batch the port's transform and collator make of ``rows``
+    (the trainer's data path at this run's settings)."""
+    from veomni_tpu_torch.data.data_transform import build_data_transform
+    from veomni_tpu_torch.data.multimodal import Qwen2VLCollator, Qwen25VLCollator
+
+    transform = build_data_transform(cfg.model_type, vlm_config=cfg, max_seq_len=VLM_SEQ,
+                                     max_patches_per_sample=VLM_MAX_PATCHES // VLM_MICRO_BS)
+    collator = (Qwen2VLCollator if cfg.model_type == "qwen2_vl" else Qwen25VLCollator)(
+        VLM_SEQ, VLM_MICRO_BS, cfg, VLM_MAX_PATCHES)
+    samples = [transform(row) for row in rows]
+    return collator(samples), [g for s in samples for g in s["vis_grids"]]
+
+
+def own_patch_positions(grids, m: int) -> np.ndarray:
+    """[N, 2] (row, column) of each patch in HF's merge-block order, counted
+    here: frame by frame, m x m blocks row by row, each block's patches row
+    by row."""
+    out = []
+    for t, h, w in grids:
+        for _ in range(t):
+            for bh in range(h // m):
+                for bw in range(w // m):
+                    out += [(bh * m + i, bw * m + j) for i in range(m) for j in range(m)]
+    return np.asarray(out, np.int64)
+
+
+def own_window_order(grids, vcfg):
+    """Qwen2.5-VL's window order, counted here: (the merged tokens in window
+    order as indices into image order, one segment id per window and per
+    frame for each merged token in that order). Windows of window_size
+    pixels tile each frame's merged-token grid row by row, the last ones
+    clipped."""
+    m, ws = vcfg.spatial_merge_size, vcfg.window_size // vcfg.spatial_merge_size // vcfg.patch_size
+    order, win_ids, base, win = [], [], 0, 0
+    for t, h, w in grids:
+        lh, lw = h // m, w // m
+        for ti in range(t):
+            for r0 in range(0, lh, ws):
+                for c0 in range(0, lw, ws):
+                    win += 1
+                    for r in range(r0, min(r0 + ws, lh)):
+                        for c in range(c0, min(c0 + ws, lw)):
+                            order.append(base + (ti * lh + r) * lw + c)
+                            win_ids.append(win)
+        base += t * lh * lw
+    return np.asarray(order, np.int64), np.asarray(win_ids, np.int64)
+
+
+def own_vision_block(model_type, p, x, pos, seg, heads):
+    """chip_smoke's f32 vision block: the norm (LayerNorm with bias, or
+    RMSNorm), q/k/v with bias, the 2-D rope (the first half of each head's
+    frequencies turned by the patch's row, the second by its column, each
+    as a complex turn of the channel pair (i, i + D/2)), attention within
+    a segment, proj, the norm, the MLP (quick-GELU fc1/fc2, or biased
+    SwiGLU), residuals. p: the block's parameters in f32."""
+    n, d = x.shape
+    hd = d // heads
+    F = torch.nn.functional
+
+    def norm(t, which):
+        if model_type == "qwen2_vl":
+            return F.layer_norm(t, (d,), p[f"norm{which}_w"], p[f"norm{which}_b"], 1e-6)
+        return t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True) + 1e-6) * p[f"norm{which}"]
+
+    qkv = (norm(x, 1) @ p["qkv_w"] + p["qkv_b"]).view(n, 3, heads, hd)
+    inv = 10000.0 ** (-torch.arange(0, hd // 2, 2, device=x.device).double() / (hd // 2))
+    ang = torch.cat([pos[:, :1].double() * inv, pos[:, 1:].double() * inv], -1)  # [N, hd/2]
+
+    def turn(t):
+        z = torch.complex(t[..., :hd // 2].double(), t[..., hd // 2:].double())
+        z = z * torch.polar(torch.ones_like(ang), ang)[:, None]
+        return torch.cat([z.real, z.imag], -1).float()
+
+    q, k, v = turn(qkv[:, 0]), turn(qkv[:, 1]), qkv[:, 2]
+    logits = torch.einsum("qhd,khd->hqk", q, k) * hd ** -0.5
+    probs = logits.masked_fill(seg[None, :, None] != seg[None, None, :], -math.inf).softmax(-1)
+    x = x + torch.einsum("hqk,khd->qhd", probs, v).reshape(n, d) @ p["proj_w"] + p["proj_b"]
+    y = norm(x, 2)
+    if model_type == "qwen2_vl":
+        hmid = y @ p["fc1_w"] + p["fc1_b"]
+        return x + (hmid * torch.sigmoid(1.702 * hmid)) @ p["fc2_w"] + p["fc2_b"]
+    act = F.silu(y @ p["gate_w"] + p["gate_b"]) * (y @ p["up_w"] + p["up_b"])
+    return x + act @ p["down_w"] + p["down_b"]
+
+
+def own_merger(model_type, p, x, unit: int):
+    """chip_smoke's f32 merger: the norm, each run of ``unit`` patches
+    concatenated, fc1 -> GELU (erf, as HF) -> fc2."""
+    F = torch.nn.functional
+    d = x.shape[1]
+    if model_type == "qwen2_vl":
+        y = F.layer_norm(x, (d,), p["ln_q_w"], p["ln_q_b"], 1e-6)
+    else:
+        y = x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + 1e-6) * p["ln_q"]
+    y = F.gelu(y.reshape(-1, unit * d) @ p["fc1_w"] + p["fc1_b"])
+    return y @ p["fc2_w"] + p["fc2_b"]
+
+
+def own_text_layer(cfg, p, hidden, pos3, seg):
+    """chip_smoke's f32 qwen2 decoder layer on one row: RMSNorm, q/k/v with
+    bias, mrope (frequency j of head dim D turned by the position stream its
+    ``mrope_section`` names: the first 16 of 64 by the temporal positions,
+    the next 24 by the rows, the last 24 by the columns, pairs (j, j + D/2)),
+    causal attention within a segment (GQA), o_proj, RMSNorm, SwiGLU,
+    residuals. pos3 [3, S]."""
+    s, h = hidden.shape
+    nh, nkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def rms(t, w):
+        return t * torch.rsqrt(t.pow(2).mean(-1, keepdim=True) + cfg.rms_norm_eps) * w
+
+    x = rms(hidden, p["input_layernorm"])
+    q = (x @ p["q_proj"] + p["q_bias"]).view(s, nh, hd)
+    k = (x @ p["k_proj"] + p["k_bias"]).view(s, nkv, hd)
+    v = (x @ p["v_proj"] + p["v_bias"]).view(s, nkv, hd)
+    inv = cfg.rope_theta ** (-torch.arange(0, hd, 2, device=x.device).double() / hd)
+    stream = torch.cat([torch.full((n,), i % 3, device=x.device)
+                        for i, n in enumerate(cfg.rope_scaling["mrope_section"])])
+    ang = pos3.double()[stream, :].t() * inv  # [S, D/2]
+
+    def turn(t):
+        z = torch.complex(t[..., :hd // 2].double(), t[..., hd // 2:].double())
+        z = z * torch.polar(torch.ones_like(ang), ang)[:, None]
+        return torch.cat([z.real, z.imag], -1).float()
+
+    q, k = turn(q), turn(k).repeat_interleave(nh // nkv, 1)
+    v = v.repeat_interleave(nh // nkv, 1)
+    logits = torch.einsum("qhd,khd->hqk", q, k) * hd ** -0.5
+    idx = torch.arange(s, device=x.device)
+    visible = (idx[:, None] >= idx[None]) & (seg[:, None] == seg[None])
+    probs = logits.masked_fill(~visible, -math.inf).softmax(-1)
+    hidden = hidden + torch.einsum("hqk,khd->qhd", probs, v).reshape(s, nh * hd) @ p["o_proj"]
+    y = rms(hidden, p["post_attention_layernorm"])
+    act = torch.nn.functional.silu(y @ p["gate_proj"]) * (y @ p["up_proj"])
+    return hidden + act @ p["down_proj"]
+
+
+def phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids):
+    """The model as loaded against chip_smoke's own f32 pieces, token by
+    token, on the first micro-batch: the patch embed (HF's Conv3d weight
+    read from the directory, contracted with each processor-flattened
+    (C, T, Ph, Pw) patch), vision block 0 (its positions and segments
+    counted here), the merger and the order it leaves in (Qwen2.5-VL's
+    window order undone as counted here), and text layer 0 under mrope."""
+    from veomni_tpu_torch.models import hf_io
+    from veomni_tpu_torch.models.qwen2_5_vl import merge_vision_features
+
+    cfg, vcfg = model.cfg, model.cfg.vision
+    dt = cfg.text.dtype
+    mt, unit = cfg.model_type, vcfg.merge_unit
+    tower = model.vision_tower
+    t = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    n_real = sum(a * b * c for a, b, c in grids)
+    m_real = n_real // unit
+    pos_own = own_patch_positions(grids, vcfg.spatial_merge_size)
+    if mt == "qwen2_5_vl":
+        order, win = own_window_order(grids, vcfg)
+        patch_order = (order[:, None] * unit + np.arange(unit)).reshape(-1)
+        pos_own = pos_own[patch_order]
+        seg_own = np.repeat(win, unit)
+        seg_key = "vis_seg_window"
+    else:
+        order = np.arange(m_real)
+        frame_lens = [h * w for tt, h, w in grids for _ in range(tt)]
+        seg_own = np.repeat(np.arange(1, len(frame_lens) + 1), frame_lens)
+        seg_key = "vis_seg"
+    n_pad = batch["pixel_values"].shape[0]
+    seg_full_own = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+    seg_full_own[:n_real] = torch.from_numpy(seg_own).to(dev)
+    pos_t = torch.zeros(n_pad, 2, dtype=torch.int64, device=dev)
+    pos_t[:n_real] = torch.from_numpy(pos_own).to(dev)
+    log(f"{tag} checks: the first micro-batch's {len(grids)} images, {n_real} patches of "
+        f"{n_pad} ({m_real} merged tokens), against chip_smoke's own f32 pieces [{card}]")
+    with torch.no_grad():
+        # the patch embed against HF's Conv3d weight, read from the directory
+        w3d = hf_io.LazyHFTensors(hf_dir).read("model.visual.patch_embed.proj.weight")
+        w3d = w3d.to(dev, dt).float()
+        patches = t["pixel_values"][:n_real].to(dt).float()
+        ref = torch.einsum("nctij,dctij->nd",
+                           patches.view(n_real, vcfg.in_channels, vcfg.temporal_patch_size,
+                                        vcfg.patch_size, vcfg.patch_size), w3d)
+        x0 = t["pixel_values"].to(dt) @ tower.patch_embed.to(dt)
+        token_check(f"{tag} check: patch embed", x0[:n_real], ref)
+        # vision block 0 (Qwen2.5-VL: a windowed block)
+        from veomni_tpu_torch.models.qwen2_5_vl import vision_rope
+
+        cos, sin = vision_rope(t["vis_pos_hw"], vcfg.head_dim)
+        block = tower.blocks[0]
+        got = block(x0, cos, sin, t[seg_key][None])
+        p = {n: w.detach().to(dt).float() for n, w in block.named_parameters()}
+        ref = own_vision_block(mt, p, x0.float(), pos_t, seg_full_own, vcfg.num_heads)
+        token_check(f"{tag} check: vision block 0", got[:n_real], ref[:n_real])
+        del ref, got
+        # the whole tower, the merger's input captured, and its output order
+        cap = {}
+        hook = tower.merger.register_forward_hook(lambda mod, inp, out: cap.update(x=inp[0]))
+        segs, reverse = model.tower_inputs(t)
+        feats = tower(t["pixel_values"], t["vis_pos_hw"], segs, reverse)
+        hook.remove()
+        p = {n: w.detach().to(dt).float() for n, w in tower.merger.named_parameters()}
+        merged = own_merger(mt, p, cap["x"].float(), unit)[:m_real]
+        ref = torch.empty_like(merged)
+        ref[torch.from_numpy(order).to(dev)] = merged  # window order -> image order
+        token_check(f"{tag} check: merger, image order", feats[:m_real], ref)
+        # text layer 0 under mrope, row 0, on the merged embeddings
+        lm = model.language_model
+        embeds = merge_vision_features(lm.embed(t["input_ids"]), t["input_ids"], feats,
+                                       t["vis_merged_mask"].bool(), cfg.image_token_id,
+                                       cfg.video_token_id)
+        cos_t, sin_t = lm.rotary(t["position_ids"])[False]
+        layer = lm.layers[0]
+        out, _ = layer(embeds, cos_t, sin_t, t["segment_ids"])
+        p = {n: w.detach().to(dt).float() for n, w in layer.named_parameters()}
+        ref = own_text_layer(cfg.text, p, embeds[0].float(), t["position_ids"][0],
+                             t["segment_ids"][0])
+        token_check(f"{tag} check: text layer 0 (mrope), row 0", out[0], ref)
+        del ref, out, embeds, feats, cap, merged
+
+
+def phase_hf_vlm(dev, card, model_type: str):
+    """One vision-language model at its published widths through
+    ``VLMTrainer`` from an HF directory: K1-K3 at D 80 on the first
+    micro-batch's tower segments, the loaded parameters against the
+    written ones and the config's count, ``phase_vlm_checks``, then
+    ``steps`` steps at seq 4096 x micro-batch 2 (f32 master, bf16 compute,
+    ctx remat, AdamW), launches by head dim as reckoned (the tower's blocks
+    at D 80, the text layers at D 128, once per micro-batch each, no plain
+    dispatch), the HF export (where on) read back bit-equal, and step 1's
+    loss and grad norm against the plain attention's. Returns ({path:
+    (launches, head dim, layout)}, the D-80 kernel rows)."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.models.auto import VLM_FAMILIES, build_foundation_model
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+    from veomni_tpu_torch.trainer import VLMTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+    from veomni_tpu_torch.utils.count_flops import FlopsCounter, vit_flops_fwd
+    from veomni_tpu_torch.utils.device import get_device_peak_flops
+
+    spec, family = VLM_SPECS[model_type], VLM_FAMILIES[model_type]
+    name, steps = spec["name"], spec["steps"]
+    tag = f"hf vlm {name}"
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps, self.first_batch = {}, None
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(loss=float(m["loss"]),
+                                                 grad_norm=float(m["grad_norm"]),
+                                                 t=time.perf_counter())
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{model_type}_")
+    try:
+        t0 = time.perf_counter()
+        yaml_path, written, first_rows = write_vlm_run(dev, tmp, spec, family)
+        write_s = time.perf_counter() - t0
+        hf_dir = os.path.join(tmp, "hf")
+        cfg = written.cfg
+        batch, grids = vlm_first_batch(cfg, first_rows)
+        # K1-K3 at D 80 on the tower's segments of this micro-batch
+        vseg = batch["vis_seg"] if model_type == "qwen2_vl" else batch["vis_seg_window"]
+        seg = torch.from_numpy(vseg)[None].to(dev)
+        heads = cfg.vision.num_heads
+        what = "per-frame" if model_type == "qwen2_vl" else "per-window"
+        rows = phase_flash(dev, seg, heads, heads, f"{name} tower, {what} segments",
+                           d=cfg.vision.head_dim, causal=False)
+        for row in rows:
+            row["path_layout"] = model_type
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev)
+        load_s = time.perf_counter() - t0
+        model = fm.module
+        n_params = sum(w.numel() for w in model.parameters())
+        want_params = vlm_param_count(fm.config)
+        v, tc = fm.config.vision, fm.config.text
+        cut = f" (of {spec['published']['num_hidden_layers']})" if spec["layers"] else ""
+        log(f"{tag}: tower depth {v.depth}, width {v.width}, {v.num_heads} heads of "
+            f"{v.head_dim}; text {tc.num_hidden_layers} layers{cut}, hidden {tc.hidden_size}, heads {tc.num_attention_heads}/"
+            f"{tc.num_key_value_heads} of {tc.head_dim}, vocab {tc.vocab_size}, mrope "
+            f"{tc.rope_scaling['mrope_section']}; {n_params} parameters (counted from the "
+            f"config: {want_params}); HF directory, corpus and YAML written in {write_s:.1f} s, "
+            f"loaded in {load_s:.1f} s [{card}]")
+        bad = [n for (n, x), (_, y) in zip(model.named_parameters(), written.named_parameters())
+               if not torch.equal(x, y.to(x.dtype))]
+        log(f"{tag}: the loaded parameters against the written ones: "
+            + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
+        if bad or n_params != want_params:
+            raise AssertionError(f"{tag}: loaded parameters differ from the written ones "
+                                 f"({bad[:3]}) or the count {n_params} != {want_params}")
+        del written
+        torch.cuda.empty_cache()
+        phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids)
+        del fm, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={tmp}/out"])
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        trainer = VLMTrainer(args)
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
+        rec = Record()
+        trainer.callbacks.append(rec)
+        trainer.train()
+        trainer.checkpointer.close()
+        launches, fallbacks = read_counts()
+        by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        first = rec.first_batch
+        a = rec.steps
+        check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                     for r in a.values()], tag)
+        micro = first["input_ids"].shape[0]  # micro-batches a step
+        lm_layers, depth = cfg.text.num_hidden_layers, cfg.vision.depth
+        want = {80: micro * depth * steps, 128: micro * lm_layers * steps}
+        per_kernel = {k: want[80] + want[128] for k in fa.LAUNCHES}
+        bad = {k: n for k, n in launches.items() if n != per_kernel.get(k, 0)}
+        bad_dim = {d: c for d, c in by_dim.items()
+                   if any(n != want.get(d, 0) for n in c.values())}
+        log(f"{tag}: launches {launches}, by head dim {by_dim} (expected at D 80 {want[80]} = "
+            f"{micro} micro-batch x {depth} tower blocks x {steps} steps, at D 128 {want[128]} = "
+            f"{micro} x {lm_layers} text layers x {steps}); FALLBACK_CALLS {fallbacks}")
+        if bad or bad_dim or fallbacks["flash"]:
+            raise AssertionError(f"{tag}: launches {launches} / by head dim {by_dim} differ from "
+                                 f"the reckoned counts, or FALLBACK_CALLS {fallbacks} is not 0")
+        tokens = int((first["labels"] != -100).sum())
+        patches = int(first["vis_merged_mask"].sum()) * cfg.vision.merge_unit
+        window = getattr(cfg.vision, "window_size", 0)
+        tower_flops = vit_flops_fwd(cfg.vision, patches, (window // cfg.vision.patch_size) ** 2
+                                    if window else None)
+        flops = (FlopsCounter.from_config(cfg).batch_flops(micro * VLM_MICRO_BS * VLM_SEQ,
+                                                            VLM_SEQ) + 3 * micro * tower_flops)
+        peak_flops = get_device_peak_flops(dev)
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+        for i in range(1, steps + 1):
+            extra = (f" step_ms={ms[i - 2]:.1f} mfu={flops / (ms[i - 2] / 1e3) / peak_flops:.4f}"
+                     if i >= 2 else " (first step: warm-up, not timed)")
+            log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f}"
+                f"{extra} [{card}]")
+        med = sorted(ms)[len(ms) // 2]
+        tok_all = micro * VLM_MICRO_BS * VLM_SEQ
+        log(f"{tag}: warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, median "
+            f"{med:.1f} ms, {tok_all / med * 1e3:.1f} tokens/s (padded rows; {tokens} supervised "
+            f"tokens in the first micro-batch), {patches} patches a micro-batch of "
+            f"{VLM_MAX_PATCHES}; MFU {flops / (med / 1e3) / peak_flops:.4f} (text as the "
+            f"reference's FlopsCounter counts it, plus the tower's vit_flops_fwd); peak device "
+            f"memory {peak / 2**30:.2f} GiB [{card}]")
+        if spec["export"]:
+            out = os.path.join(tmp, "out", "hf_ckpt")
+            back = build_foundation_model(out, weights_path=out, device=dev)
+            final = trainer.train_state.model
+            bad = [n for (n, x), (_, y) in zip(back.module.named_parameters(),
+                                               final.named_parameters()) if not torch.equal(x, y)]
+            nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out))
+            log(f"{tag}: the HF export ({nbytes / 1e9:.3f} GB) against the final parameters: "
+                + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
+            if bad:
+                raise AssertionError(f"{tag}: the HF export differs from the final parameters")
+            del back, final
+        else:
+            log(f"{tag}: HF export off (its f32 write and read-back would add ~30 s; the "
+                f"Qwen2-VL-2B leg reads its export back)")
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: the same weights and batch with the plain attention
+        # pinned (the text layers through its blockwise form at S 4096, the
+        # tower's at S 3072)
+        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev,
+                                    ops_implementation={"attention": "xla"}, remat_policy="ctx")
+        model = fm.module
+        state = build_train_state(model, build_optimizer(
+            model, lr=build_lr_scheduler(lr=1e-4, train_steps=steps)))
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+        reset_all_counts()
+        try:
+            _, m = build_train_step(fm.loss_fn)(state, tb)
+        finally:
+            apply_ops_config(None)
+        plain_launches, _ = read_counts()
+        loss_rel = abs(a[1]["loss"] - float(m["loss"])) / abs(float(m["loss"]))
+        gn_rel = abs(a[1]["grad_norm"] - float(m["grad_norm"])) / abs(float(m["grad_norm"]))
+        log(f"{tag} step-1 parity: trainer (kernels) loss {a[1]['loss']:.6f} grad norm "
+            f"{a[1]['grad_norm']:.6f}, plain attention {float(m['loss']):.6f} / "
+            f"{float(m['grad_norm']):.6f} (rel {loss_rel:.2e} / {gn_rel:.2e}, tol "
+            f"{TOL_LOSS_REL} / {TOL_GRAD_NORM_REL}; the plain leg launched {plain_launches})")
+        if (not loss_rel <= TOL_LOSS_REL or not gn_rel <= TOL_GRAD_NORM_REL
+                or any(plain_launches.values())):
+            raise AssertionError(f"{tag}: step 1 departs from the plain attention's or the "
+                                 f"plain leg launched kernels")
+        del fm, model, state, tb, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths = {f"hf_trainer_{model_type}": (by_dim[80], 80, model_type)}
+        return paths, rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_hf_trainer_qwen2_vl(dev, card):
+    """Qwen2-VL-2B at its published config.json, full depth, 3 steps, HF
+    export (phase 18 of the module docstring)."""
+    return phase_hf_vlm(dev, card, "qwen2_vl")
+
+
+def phase_hf_trainer_qwen2_5_vl(dev, card):
+    """Qwen2.5-VL-3B at its published widths, the text model cut to 18 of 36
+    layers, 2 steps, no export (phase 19)."""
+    return phase_hf_vlm(dev, card, "qwen2_5_vl")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
                     help="run only these phases after the build, in order: serve_dense, "
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
-                         "serve_gpt_oss, sft_lora_dense, sft_lora_moe, and "
+                         "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
+                         "hf_trainer_qwen2_5_vl, and "
                          "before them main (the dense loop) or trainer; such a partial run "
                          "prints no result line")
     args = ap.parse_args(argv)
@@ -3837,7 +4486,9 @@ def main(argv=None) -> int:
                   "deepseek_v2_lite": phase_deepseek_v2_lite,
                   "sft_lora_dense": phase_sft_lora_dense, "sft_lora_moe": phase_sft_lora_moe,
                   "hf_trainer_gpt_oss": phase_hf_trainer_gpt_oss,
-                  "serve_gpt_oss": phase_serve_gpt_oss}
+                  "serve_gpt_oss": phase_serve_gpt_oss,
+                  "hf_trainer_qwen2_vl": phase_hf_trainer_qwen2_vl,
+                  "hf_trainer_qwen2_5_vl": phase_hf_trainer_qwen2_5_vl}
         for name in args.phases.split(","):
             t0 = time.perf_counter()
             phases[name](dev, card)
@@ -3850,6 +4501,13 @@ def main(argv=None) -> int:
         return run_phases(dev, card, hf_tmp)
     finally:
         shutil.rmtree(hf_tmp, ignore_errors=True)
+
+
+def lap_clock(name: str, since: float) -> float:
+    """Log the seconds since ``since`` as phase ``name``'s; return now."""
+    now = time.perf_counter()
+    log(f"phase clock: {name} took {now - since:.1f} s")
+    return now
 
 
 def run_phases(dev, card, hf_tmp) -> int:
@@ -3889,21 +4547,29 @@ def run_phases(dev, card, hf_tmp) -> int:
     # head dim 256 at Gemma-7B's heads (16 q, 16 kv) on the dense batch's first row
     table += phase_flash(dev, seg[:1].contiguous(), 16, 16, "Gemma-7B heads, S=4096", d=256)
     torch.cuda.empty_cache()
+    lap = lap_clock("flash and edge-case kernel checks", t0)
     table += phase_gmm(dev)
     torch.cuda.empty_cache()
+    lap = lap_clock("grouped-GEMM kernel checks", lap)
     # each main path with the head dim its attention runs at, and the
     # preset whose layout rows count it (None: the rows above)
     by_path = {"dense": (phase_main(dev, card), 128, None)}
     torch.cuda.empty_cache()
+    lap = lap_clock("main", lap)
     by_path["trainer"] = (phase_trainer(dev, card), 128, None)
     torch.cuda.empty_cache()
+    lap = lap_clock("trainer", lap)
     by_path["hf_trainer"] = (phase_hf_trainer(dev, card, hf_yaml, hf_batch), 64, None)
     torch.cuda.empty_cache()
+    lap = lap_clock("hf_trainer", lap)
     by_path["moe"] = (phase_moe_main(dev, card), 128, None)
     torch.cuda.empty_cache()
+    lap = lap_clock("moe", lap)
     phase_moe_micro_batch_1(dev, card)
+    lap = lap_clock("moe micro-batch 1", lap)
     phase_parity(dev)
     phase_moe_parity(dev)
+    lap = lap_clock("parity", lap)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the dialect phases")
@@ -3911,16 +4577,22 @@ def run_phases(dev, card, hf_tmp) -> int:
     # by its kernel rows
     for phase in (phase_hf_trainer_gemma3, phase_dialects, phase_hf_trainer_moonlight,
                   phase_deepseek_v2_lite, phase_hf_trainer_gpt_oss):
+        t_phase = time.perf_counter()
         paths, rows = phase(dev, card)
+        log(f"phase clock: {phase.__name__} took {time.perf_counter() - t_phase:.1f} s")
         by_path.update(paths)
         table += rows
         gc.collect()
         torch.cuda.empty_cache()
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the serving phases")
+    lap = time.perf_counter()
     by_path["serve_dense"] = (phase_serve_dense(dev, card), 128, None)
+    lap = lap_clock("serve_dense", lap)
     by_path["serve_gemma3"] = (phase_serve_gemma3(dev, card), DIALECT_HEADS[GEMMA_PRESET][2],
                                GEMMA_PRESET)
+    lap = lap_clock("serve_gemma3", lap)
     moe_launches, serve_rows = phase_serve_moe(dev, card)
+    lap = lap_clock("serve_moe", lap)
     by_path["serve_moe"] = (moe_launches, 128, None)
     table += serve_rows
     gc.collect()
@@ -3937,10 +4609,23 @@ def run_phases(dev, card, hf_tmp) -> int:
     # parameter-group leg, Qwen3-30B-A3B with LoRA on its experts (K1-K3 at
     # D=128 at the MoE layout, K4-K6 at 2048/768)
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the SFT phases")
+    lap = time.perf_counter()
     by_path["sft_lora_dense"] = (phase_sft_lora_dense(dev, card), 64, None)
+    lap = lap_clock("sft_lora_dense", lap)
     gc.collect()
     torch.cuda.empty_cache()
     by_path["sft_lora_moe"] = (phase_sft_lora_moe(dev, card), 128, None)
+    lap = lap_clock("sft_lora_moe", lap)
+    # the vision-language trainer, after the serving phases for the same
+    # reason: Qwen2-VL-2B and Qwen2.5-VL-3B (their K1-K3 rows at D 80 are
+    # held and timed inside the phase, before its trainer)
+    for phase in (phase_hf_trainer_qwen2_vl, phase_hf_trainer_qwen2_5_vl):
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths, rows = phase(dev, card)
+        by_path.update(paths)
+        table += rows
+        lap = lap_clock(phase.__name__, lap)
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the end")
 
     for row in table:

@@ -4,7 +4,7 @@ JAX package's, on the CPU, f32, inputs from numpy seeds.
 Tolerance rtol 1e-5 (atol 1e-5 where values cross zero): the rotary tables
 for linear/llama3/yarn scaling, at Llama-3's theta 5e5 and positions up to
 8191, full and partial width, and their application at a partial width
-(mrope raises, naming slice F); the zero-centered RMSNorm (f32, and bf16
+(an mrope section that does not cover the frequencies raises); the zero-centered RMSNorm (f32, and bf16
 bit-equal); the exact and tanh GELU gated activations (the gpt_oss GLU is
 ``tests/test_torch_gpt_oss.py``'s; an unknown name raises);
 ``_attention_dense`` and ``_attention_xla_chunked`` with a sliding window,
@@ -87,9 +87,11 @@ def test_partial_rotary_apply_and_mrope_raises():
     qr, kr = j_apply_rotary(q[..., :8], k[..., :8], cos_j, sin_j)
     _close(qt, np.concatenate([np.asarray(qr), q[..., 8:]], -1))
     _close(kt, np.concatenate([np.asarray(kr), k[..., 8:]], -1))
-    with pytest.raises(NotImplementedError, match="slice F"):
-        rotary_tables(T(pos), 8, 1e4, rope_scaling={"rope_type": "mrope",
-                                                    "mrope_section": [2, 1, 1]})
+    # mrope is ported (the VLM models); a section that does not cover the
+    # rotary frequencies raises, as in the reference
+    with pytest.raises(ValueError, match="must sum to head_dim/2"):
+        rotary_tables(T(np.stack([pos] * 3, 1)), 8, 1e4,
+                      rope_scaling={"rope_type": "mrope", "mrope_section": [2, 1, 2]})
 
 
 def test_rms_norm_zero_centered():

@@ -188,7 +188,6 @@ def test_windowed_layers_take_the_plain_dispatch():
 # the feature gate
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("extra,item", [
-    (dict(rope_scaling={"rope_type": "mrope", "mrope_section": [4, 2, 2]}), "slice F"),
     (dict(remat_policy="dots"), "slice A item 5"),
     (dict(ulysses_async_chunks=2), "slice C"),
     (dict(linear_num_value_heads=4), "slice F"),
@@ -198,7 +197,7 @@ def test_windowed_layers_take_the_plain_dispatch():
     (dict(attn_output_gate=True), "slice F"),
     (dict(chunk_mbs=64), "slice A item 5"),
     (dict(remat_policy="offload"), "slice A item 5"),
-], ids=["mrope", "remat-dots", "ulysses-async-chunks", "linear-attention", "mla-dsa", "dsa",
+], ids=["remat-dots", "ulysses-async-chunks", "linear-attention", "mla-dsa", "dsa",
         "output-gate", "chunk-mbs", "remat-offload"])
 def test_unported_features_name_their_queue_item(extra, item):
     from veomni_tpu_torch.models.transformer import check_supported

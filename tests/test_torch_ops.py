@@ -53,9 +53,14 @@ def test_rotary_tables_and_apply():
     qt, kt = apply_rotary(T(q), T(k), cos_t, sin_t)
     np.testing.assert_allclose(qt.numpy(), np.asarray(qj), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(kt.numpy(), np.asarray(kj), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        rotary_tables(T(pos), 16, 1e6, rope_scaling={"rope_type": "mrope",
-                                                     "mrope_section": [4, 2, 2]})
+    # mrope (ported with the VLM models): [B,3,S] positions, each frequency
+    # from its section's stream, equal to the reference's tables
+    pos3 = np.stack([pos, pos // 2, pos % 5], axis=1)
+    rs = {"rope_type": "mrope", "mrope_section": [4, 2, 2]}
+    cos_j, sin_j = j_rotary_tables(jnp.asarray(pos3), 16, 1e6, rope_scaling=rs)
+    cos_t, sin_t = rotary_tables(T(pos3), 16, 1e6, rope_scaling=rs)
+    np.testing.assert_allclose(cos_t.numpy(), np.asarray(cos_j), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(sin_t.numpy(), np.asarray(sin_j), rtol=1e-6, atol=1e-6)
 
 
 def test_swiglu():

@@ -98,13 +98,12 @@ MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_int
 def test_unported_features_raise():
     # chunk_mbs on a MoE, the DSA indexer on MLA and the offloading remat
     # policies still raise (the deepseek and gpt_oss dialects are ported:
-    # tests/test_torch_deepseek.py, tests/test_torch_gpt_oss.py)
+    # tests/test_torch_deepseek.py, tests/test_torch_gpt_oss.py; mrope with
+    # the VLM models: tests/test_torch_qwen2_vl.py)
     for extra in (dict(MOE, chunk_mbs=64),
                   dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
                        index_topk=4),
-                  dict(remat_policy="ctx_offload"), dict(rope_scaling={"type": "mrope",
-                                                                       "mrope_section": [4, 2, 2]}),
-                  dict(remat_policy="dots")):
+                  dict(remat_policy="ctx_offload"), dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
     # the softmax top-k MoE itself is ported
@@ -115,10 +114,9 @@ def test_unported_features_raise():
     dict(remat_policy="dots"), dict(remat_policy="offload"),
     dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
     dict(linear_num_value_heads=4), dict(attn_output_gate=True),
-    dict(chunk_mbs=64), dict(rope_scaling={"type": "mrope", "mrope_section": [4, 2, 2]}),
-    dict(ulysses_async_chunks=2),
+    dict(chunk_mbs=64), dict(ulysses_async_chunks=2),
 ], ids=["remat-dots", "remat-offload", "mla-dsa", "linear-attention", "output-gate",
-        "chunk-mbs", "mrope", "ulysses-async-chunks"])
+        "chunk-mbs", "ulysses-async-chunks"])
 def test_unported_moe_features_raise(extra):
     with pytest.raises(NotImplementedError):
         Transformer(TransformerConfig(**{**TOY, **MOE, **extra}), torch.Generator(), device="cpu")

@@ -18,7 +18,21 @@
 // facade layout, so the reference wrapper's [B,S,H,D] <-> [B,H,S,D] swaps are
 // not copies here), seg [B,S] int32, lse/delta [B,Hq,S] f32, seg_rng
 // [B,S/32,2] int32 (per 32-token block: min and max segment id). D is 64,
-// 128 or 256: each kernel is a template on D, instantiated at those three.
+// 80, 128 or 256: each kernel is a template on the head dim it computes at
+// (D) and the one it reads and writes (DA), instantiated at (64, 64),
+// (128, 80), (128, 128) and (256, 256).
+//
+// Head dim 80 (the Qwen2-VL / Qwen2.5-VL vision towers: 16 heads of 80) is
+// not a whole number of 64-column boxes, so a 2-D map over [B*S, H*80] would
+// put head h + 1's first 48 columns into head h's second box: wrong numbers,
+// not a crash. At DA != D the loads and stores go through 3-D maps over
+// [B*S, H, DA] instead (head_map_3d): a box at column 64 holds head
+// columns 64..79 and zeros past them (TMA fills a box's out-of-bounds
+// elements with zeros on load and leaves them out on store), and the
+// kernels compute at D = 128's tiles. The zero columns add nothing to
+// Q K^T, dP = dO V^T, P V, dS K, P^T dO or dS^T Q, and the output columns
+// past 80 are computed as zeros and never stored. The price is D = 128's
+// MMA work: 1.6x the operations of the exact width.
 //
 // Head dims. TMA and wgmma see a row of D bf16 values as D / 64 boxes of 64
 // columns (one 128-byte swizzled row each), so D changes how many boxes a
@@ -118,6 +132,36 @@ __device__ __forceinline__ int2 seg_range(const int* rng, int b, int S, int t0, 
 
 __device__ __forceinline__ bool disjoint(int2 a, int2 b) { return a.y < b.x || b.y < a.x; }
 
+// Whether a kernel computing at head dim D reads and writes head dim DA
+// through 3-D maps [B*S, H, DA] (the header's head dim 80), or through 2-D
+// maps [B*S, H*DA] in boxes of 64 whole head dims.
+__host__ __device__ constexpr bool head_map_3d(int D, int DA) { return DA != D; }
+
+// The 64-column box j of head h over rows [row, row + box rows) into
+// shared memory at dst, counted on barrier bar.
+template <int D, int DA>
+__device__ __forceinline__ void load_head_box(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                              int h, int j, int row) {
+  if constexpr (head_map_3d(D, DA)) tma_load_3d(dst, map, bar, 64 * j, h, row);
+  else tma_load_2d(dst, map, bar, h * DA + 64 * j, row);
+}
+
+// The same box from shared memory at src to the tensor (columns past DA are
+// not written)
+template <int D, int DA>
+__device__ __forceinline__ void store_head_box(const CUtensorMap* map, uint32_t src, int h, int j,
+                                               int row) {
+  if constexpr (head_map_3d(D, DA)) tma_store_3d(map, src, 64 * j, h, row);
+  else tma_store_2d(map, src, h * DA + 64 * j, row);
+}
+
+// The tensor map of a [B*S, heads, DA] operand for box_rows x 64 boxes
+template <int D, int DA>
+int encode_heads(CUtensorMap* map, const void* ptr, uint64_t rows, int heads, uint32_t box_rows) {
+  if (head_map_3d(D, DA)) return encode_bf16_heads(map, ptr, rows, heads, DA, box_rows);
+  return encode_bf16_2d(map, ptr, rows, (uint64_t)heads * DA, box_rows, 64);
+}
+
 // ---------------------------------------------------------------- K1 forward
 // K1, K2 and K3 are built alike: TMA, an mbarrier ring, wgmma, warp roles.
 constexpr int KV_TILE = 128;         // keys per K/V tile (64 at D = 256)
@@ -166,7 +210,7 @@ __device__ __forceinline__ void walk_k_tiles(const int* rng, int b, int S, int q
 // FwdTile::THREADS: warpgroup 0 the producer, 1..CW the consumers.
 // tm_q, tm_o: [B*S, Hq*D] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*D] in
 // KT x 64 boxes.
-template <int D, int CW>
+template <int D, int CW, int DA>
 __global__ void __launch_bounds__(FwdTile<D, CW>::THREADS, 1)
 flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_k,
                      __grid_constant__ const CUtensorMap tm_v, __grid_constant__ const CUtensorMap tm_o,
@@ -205,17 +249,17 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
       mbar_arrive_expect_tx(q_full, T::Q_BYTES);
       for (int w = 0; w < CW; ++w)
         for (int j = 0; j < NB; ++j)
-          tma_load_2d(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+          load_head_box<D, DA>(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h, j, b * S + q0 + 64 * w);
       int stage = 0;
       uint32_t phase = 0;
       walk_k_tiles<KT>(seg_rng, b, S, q0, T::BQ, causal, [&](int k0, bool) {
         mbar_wait(empty + 8 * stage, phase ^ 1);
         const uint32_t st = ring + stage * T::STAGE;
         mbar_arrive_expect_tx(k_full + 8 * stage, NB * KBOX);
-        for (int j = 0; j < NB; ++j) tma_load_2d(st + j * KBOX, map_k, k_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+        for (int j = 0; j < NB; ++j) load_head_box<D, DA>(st + j * KBOX, map_k, k_full + 8 * stage, hk, j, b * S + k0);
         mbar_arrive_expect_tx(v_full + 8 * stage, NB * KBOX);
         for (int j = 0; j < NB; ++j)
-          tma_load_2d(st + (NB + j) * KBOX, map_v, v_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+          load_head_box<D, DA>(st + (NB + j) * KBOX, map_v, v_full + 8 * stage, hk, j, b * S + k0);
         if (++stage == KV_STAGES) {
           stage = 0;
           phase ^= 1;
@@ -369,7 +413,7 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
     fence_proxy_async();
     if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
     if ((threadIdx.x & 127) == 0) {
-      for (int j = 0; j < NB; ++j) tma_store_2d(&tm_o, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
+      for (int j = 0; j < NB; ++j) store_head_box<D, DA>(&tm_o, qa + j * Q_BOX, h, j, b * S + q0 + 64 * cw);
       bulk_commit();
       bulk_wait<0>();  // the block's shared memory outlives the stores
     }
@@ -381,14 +425,14 @@ flash_fwd_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__
   }
 }
 
-template <int D, int CW>
+template <int D, int CW, int DA = D>
 int launch_flash_fwd(const void* q, const void* k, const void* v, const void* seg, const void* seg_rng,
                      void* o, void* lse, int B, int S, int Hq, int Hkv, float scale, int causal,
                      cudaStream_t stream) {
   typedef FwdTile<D, CW> T;
   // a runtime call first: it makes the device's context current on this
   // thread, which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tma_kernel<D, CW>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tma_kernel<D, CW, DA>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -396,13 +440,13 @@ int launch_flash_fwd(const void* q, const void* k, const void* v, const void* se
   }
   CUtensorMap tm_q, tm_k, tm_v, tm_o;
   const uint64_t rows = (uint64_t)B * S;
-  int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_o, o, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, T::KT, 64);
-  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, T::KT, 64);
+  int err = encode_heads<D, DA>(&tm_q, q, rows, Hq, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_o, o, rows, Hq, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_k, k, rows, Hkv, T::KT);
+  if (!err) err = encode_heads<D, DA>(&tm_v, v, rows, Hkv, T::KT);
   if (err) return err;
   dim3 grid(Hq, B, S / T::BQ);
-  flash_fwd_tma_kernel<D, CW><<<grid, T::THREADS, T::SMEM, stream>>>(
+  flash_fwd_tma_kernel<D, CW, DA><<<grid, T::THREADS, T::SMEM, stream>>>(
       tm_q, tm_k, tm_v, tm_o, (const int*)seg, (const int*)seg_rng, (float*)lse, S, Hq, Hkv, scale,
       causal);
   return (int)cudaGetLastError();
@@ -463,7 +507,7 @@ __device__ __forceinline__ void walk_q_tiles(const int* rng, int b, int S, int k
 // tm_dv: the same in 64 x 64 boxes. With split > 1 the item's f32 partial
 // sums go to ws [split, B, S, Hkv, D] (dK), then [split, B, S, Hkv, D] (dV),
 // else dK and dV leave in bf16 by TMA stores.
-template <int D>
+template <int D, int DA>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
                          __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
@@ -506,8 +550,8 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       const CUtensorMap* map_do = &tm_do;
       mbar_arrive_expect_tx(kv_full, 2 * NB * KV_BOX);
       for (int j = 0; j < NB; ++j) {
-        tma_load_2d(kv_smem + j * KV_BOX, &tm_k, kv_full, hk * D + 64 * j, b * S + k0);
-        tma_load_2d(kv_smem + (NB + j) * KV_BOX, &tm_v, kv_full, hk * D + 64 * j, b * S + k0);
+        load_head_box<D, DA>(kv_smem + j * KV_BOX, &tm_k, kv_full, hk, j, b * S + k0);
+        load_head_box<D, DA>(kv_smem + (NB + j) * KV_BOX, &tm_v, kv_full, hk, j, b * S + k0);
       }
       int stage = 0;
       uint32_t phase = 0;
@@ -517,8 +561,8 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
         const uint32_t bar = full + 8 * stage;
         mbar_arrive_expect_tx(bar, 2 * NB * Q_BOX + 3 * DKV_ROW_BYTES);
         for (int j = 0; j < NB; ++j) {
-          tma_load_2d(st + j * Q_BOX, map_q, bar, h * D + 64 * j, b * S + q0);
-          tma_load_2d(st + (NB + j) * Q_BOX, map_do, bar, h * D + 64 * j, b * S + q0);
+          load_head_box<D, DA>(st + j * Q_BOX, map_q, bar, h, j, b * S + q0);
+          load_head_box<D, DA>(st + (NB + j) * Q_BOX, map_do, bar, h, j, b * S + q0);
         }
         const int64_t row = ((int64_t)b * Hq + h) * S + q0;
         bulk_load_1d(st + 2 * NB * Q_BOX, lse + row, DKV_ROW_BYTES, bar);
@@ -653,21 +697,23 @@ flash_bwd_dkv_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_consta
       if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
       if ((threadIdx.x & 127) == 0) {
         for (int j = half * OB; j < half * OB + OB; ++j) {
-          tma_store_2d(&tm_dk, ka + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
-          tma_store_2d(&tm_dv, va + j * KV_BOX, hk * D + 64 * j, b * S + k0 + 64 * cw);
+          store_head_box<D, DA>(&tm_dk, ka + j * KV_BOX, hk, j, b * S + k0 + 64 * cw);
+          store_head_box<D, DA>(&tm_dv, va + j * KV_BOX, hk, j, b * S + k0 + 64 * cw);
         }
         bulk_commit();
         bulk_wait<0>();  // the block's shared memory outlives the stores
       }
     } else {
       // f32 partial sums of this item's q heads, summed by dkv_split_sum_kernel
-      const int64_t plane = (int64_t)B * S * Hkv * D;
-      float* wk = ws + sp * plane + ((int64_t)b * S + kj0) * Hkv * D + (int64_t)hk * D + half * DH;
+      // (the DA head dims: the computed columns past DA are zeros, not kept)
+      const int64_t plane = (int64_t)B * S * Hkv * DA;
+      float* wk = ws + sp * plane + ((int64_t)b * S + kj0) * Hkv * DA + (int64_t)hk * DA + half * DH;
       float* wv = wk + split * plane;
-      const int64_t row8 = 8 * (int64_t)Hkv * D;  // key row r0 + 8
+      const int64_t row8 = 8 * (int64_t)Hkv * DA;  // key row r0 + 8
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
         const int c = 8 * j + 2 * t;
+        if (DA != D && c >= DA) continue;
         *reinterpret_cast<float2*>(wk + c) = make_float2(dk[4 * j], dk[4 * j + 1]);
         *reinterpret_cast<float2*>(wk + row8 + c) = make_float2(dk[4 * j + 2], dk[4 * j + 3]);
         *reinterpret_cast<float2*>(wv + c) = make_float2(dv[4 * j], dv[4 * j + 1]);
@@ -700,7 +746,7 @@ __global__ void dkv_split_sum_kernel(const float* __restrict__ ws, __nv_bfloat16
   }
 }
 
-template <int D>
+template <int D, int DA = D>
 int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* seg,
                          const void* seg_rng, const void* dout, const void* lse, const void* delta,
                          void* dk, void* dv, void* ws, int split, int B, int S, int Hq, int Hkv,
@@ -709,7 +755,7 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
   if (split < 1 || (Hq / Hkv) % split || (split > 1 && !ws)) return (int)cudaErrorInvalidValue;
   // a runtime call first: it makes the device's context current on this
   // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tma_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_tma_kernel<D, DA>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -717,19 +763,19 @@ int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void
   }
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv;
   const uint64_t rows = (uint64_t)B * S;
-  int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, DKV_QT, 64);
-  if (!err) err = encode_bf16_2d(&tm_do, dout, rows, (uint64_t)Hq * D, DKV_QT, 64);
-  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, DKV_KT, 64);
-  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, DKV_KT, 64);
-  if (!err) err = encode_bf16_2d(&tm_dk, dk, rows, (uint64_t)Hkv * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_dv, dv, rows, (uint64_t)Hkv * D, 64, 64);
+  int err = encode_heads<D, DA>(&tm_q, q, rows, Hq, DKV_QT);
+  if (!err) err = encode_heads<D, DA>(&tm_do, dout, rows, Hq, DKV_QT);
+  if (!err) err = encode_heads<D, DA>(&tm_k, k, rows, Hkv, DKV_KT);
+  if (!err) err = encode_heads<D, DA>(&tm_v, v, rows, Hkv, DKV_KT);
+  if (!err) err = encode_heads<D, DA>(&tm_dk, dk, rows, Hkv, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_dv, dv, rows, Hkv, 64);
   if (err) return err;
   const int items = B * Hkv * (S / DKV_KT) * split * T::HALVES;
-  flash_bwd_dkv_tma_kernel<D><<<items, 384, T::SMEM, stream>>>(
+  flash_bwd_dkv_tma_kernel<D, DA><<<items, 384, T::SMEM, stream>>>(
       tm_q, tm_do, tm_k, tm_v, tm_dk, tm_dv, (const int*)seg, (const int*)seg_rng,
       (const float*)lse, (const float*)delta, (float*)ws, B, S, Hq, Hkv, split, scale, causal);
   if (split > 1) {
-    const int64_t n = (int64_t)B * S * Hkv * D;
+    const int64_t n = (int64_t)B * S * Hkv * DA;
     dkv_split_sum_kernel<<<(unsigned)((n / 4 + 255) / 256), 256, 0, stream>>>(
         (const float*)ws, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, split);
   }
@@ -762,7 +808,7 @@ struct DqTile {
 // 384 threads: warpgroup 0 the producer, 1 and 2 the consumers. tm_q, tm_do,
 // tm_dq: [B*S, Hq*D] in 64 x 64 boxes; tm_k, tm_v: [B*S, Hkv*D] in
 // DQ_KT x 64 boxes.
-template <int D>
+template <int D, int DA>
 __global__ void __launch_bounds__(384, 1)
 flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constant__ const CUtensorMap tm_do,
                         __grid_constant__ const CUtensorMap tm_k, __grid_constant__ const CUtensorMap tm_v,
@@ -804,8 +850,8 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
       mbar_arrive_expect_tx(q_full, 4 * NB * Q_BOX);
       for (int w = 0; w < 2; ++w)
         for (int j = 0; j < NB; ++j) {
-          tma_load_2d(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
-          tma_load_2d(do_smem + (NB * w + j) * Q_BOX, &tm_do, q_full, h * D + 64 * j, b * S + q0 + 64 * w);
+          load_head_box<D, DA>(q_smem + (NB * w + j) * Q_BOX, &tm_q, q_full, h, j, b * S + q0 + 64 * w);
+          load_head_box<D, DA>(do_smem + (NB * w + j) * Q_BOX, &tm_do, q_full, h, j, b * S + q0 + 64 * w);
         }
       int stage = 0;
       uint32_t phase = 0;
@@ -814,10 +860,10 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
         const uint32_t st = ring + stage * DQ_STAGE;
         mbar_arrive_expect_tx(k_full + 8 * stage, NB * DQ_KBOX);
         for (int j = 0; j < NB; ++j)
-          tma_load_2d(st + j * DQ_KBOX, map_k, k_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+          load_head_box<D, DA>(st + j * DQ_KBOX, map_k, k_full + 8 * stage, hk, j, b * S + k0);
         mbar_arrive_expect_tx(v_full + 8 * stage, NB * DQ_KBOX);
         for (int j = 0; j < NB; ++j)
-          tma_load_2d(st + (NB + j) * DQ_KBOX, map_v, v_full + 8 * stage, hk * D + 64 * j, b * S + k0);
+          load_head_box<D, DA>(st + (NB + j) * DQ_KBOX, map_v, v_full + 8 * stage, hk, j, b * S + k0);
         if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
@@ -938,14 +984,14 @@ flash_bwd_dq_tma_kernel(__grid_constant__ const CUtensorMap tm_q, __grid_constan
     fence_proxy_async();
     if (cw == 0) named_barrier<1, 128>(); else named_barrier<2, 128>();
     if ((threadIdx.x & 127) == 0) {
-      for (int j = 0; j < NB; ++j) tma_store_2d(&tm_dq, qa + j * Q_BOX, h * D + 64 * j, b * S + q0 + 64 * cw);
+      for (int j = 0; j < NB; ++j) store_head_box<D, DA>(&tm_dq, qa + j * Q_BOX, h, j, b * S + q0 + 64 * cw);
       bulk_commit();
       bulk_wait<0>();  // the block's shared memory outlives the stores
     }
   }
 }
 
-template <int D>
+template <int D, int DA = D>
 int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg,
                         const void* seg_rng, const void* dout, const void* lse, const void* delta,
                         void* dq, int B, int S, int Hq, int Hkv, float scale, int causal,
@@ -953,7 +999,7 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
   typedef DqTile<D> T;
   // a runtime call first: it makes the device's context current on this
   // thread (autograd's backward thread too), which cuTensorMapEncodeTiled needs
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tma_kernel<D, DA>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -961,14 +1007,14 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
   }
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_dq;
   const uint64_t rows = (uint64_t)B * S;
-  int err = encode_bf16_2d(&tm_q, q, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_do, dout, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_dq, dq, rows, (uint64_t)Hq * D, 64, 64);
-  if (!err) err = encode_bf16_2d(&tm_k, k, rows, (uint64_t)Hkv * D, DQ_KT, 64);
-  if (!err) err = encode_bf16_2d(&tm_v, v, rows, (uint64_t)Hkv * D, DQ_KT, 64);
+  int err = encode_heads<D, DA>(&tm_q, q, rows, Hq, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_do, dout, rows, Hq, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_dq, dq, rows, Hq, 64);
+  if (!err) err = encode_heads<D, DA>(&tm_k, k, rows, Hkv, DQ_KT);
+  if (!err) err = encode_heads<D, DA>(&tm_v, v, rows, Hkv, DQ_KT);
   if (err) return err;
   dim3 grid(Hq, B, S / DQ_BQ);
-  flash_bwd_dq_tma_kernel<D><<<grid, 384, T::SMEM, stream>>>(
+  flash_bwd_dq_tma_kernel<D, DA><<<grid, 384, T::SMEM, stream>>>(
       tm_q, tm_do, tm_k, tm_v, tm_dq, (const int*)seg, (const int*)seg_rng, (const float*)lse,
       (const float*)delta, S, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
@@ -979,7 +1025,7 @@ int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void*
 // Plain C interface (loaded with ctypes). Each returns cudaGetLastError()
 // after its launch on the given stream (cudaErrorInvalidValue for a head dim
 // it was not built for); the caller checks shapes, types and contiguity
-// (S % 128 == 0, Hq % Hkv == 0, D in 64 / 128 / 256, 16-byte aligned).
+// (S % 128 == 0, Hq % Hkv == 0, D in 64 / 80 / 128 / 256, 16-byte aligned).
 extern "C" {
 
 // tokens per block of the seg_rng argument, so the caller can check its layout
@@ -991,6 +1037,7 @@ int vt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64: return launch_flash_fwd<64, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
+    case 80: return launch_flash_fwd<128, FWD_CW, 80>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
     case 128: return launch_flash_fwd<128, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
     case 256: return launch_flash_fwd<256, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
   }
@@ -1006,6 +1053,8 @@ int vt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* se
   switch (D) {
     case 64: return launch_flash_bwd_dkv<64>(q, k, v, seg, seg_rng, dout, lse, delta,
                                              dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
+    case 80: return launch_flash_bwd_dkv<128, 80>(q, k, v, seg, seg_rng, dout, lse, delta,
+                                                  dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
     case 128: return launch_flash_bwd_dkv<128>(q, k, v, seg, seg_rng, dout, lse, delta,
                                                dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
     case 256: return launch_flash_bwd_dkv<256>(q, k, v, seg, seg_rng, dout, lse, delta,
@@ -1022,6 +1071,8 @@ int vt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg
   switch (D) {
     case 64: return launch_flash_bwd_dq<64>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
                                             scale, causal, st);
+    case 80: return launch_flash_bwd_dq<128, 80>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq,
+                                                 Hkv, scale, causal, st);
     case 128: return launch_flash_bwd_dq<128>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
                                               scale, causal, st);
     case 256: return launch_flash_bwd_dq<256>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,

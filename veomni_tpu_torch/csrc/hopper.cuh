@@ -131,6 +131,15 @@ __device__ __forceinline__ void tma_load_3d_hint(uint32_t dst, const CUtensorMap
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
                                              int c2) {
   asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
@@ -484,6 +493,28 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* ptr, uint64_t mats, uint
   const cuuint64_t dims[3] = {cols, rows, mats};
   const cuuint64_t strides[2] = {cols * 2, rows * cols * 2};
   const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+
+// A 3-D tensor map over a row-major bf16 tensor [rows, heads, head_dim]
+// (16-byte aligned, head_dim * 2 a multiple of 16) in boxes of box_rows rows
+// x one head x 64 head dims, with the 128-byte swizzle: in shared memory such
+// a box is laid out as a box_rows x 64 box of a 2-D map. A box never crosses
+// from one head into the next: its columns past head_dim read as zeros and
+// are not written. Returns a cudaError_t value.
+inline int encode_bf16_heads(CUtensorMap* map, const void* ptr, uint64_t rows, uint64_t heads,
+                             uint64_t head_dim, uint32_t box_rows) {
+  EncodeTiledFn encode = encode_tiled_fn();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {head_dim, heads, rows};
+  const cuuint64_t strides[2] = {head_dim * 2, heads * head_dim * 2};
+  const cuuint32_t box[3] = {64, 1, box_rows};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                             strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,

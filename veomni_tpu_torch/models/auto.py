@@ -1,16 +1,21 @@
-"""Model registry and build entry points, text branch.
+"""Model registry and build entry points: the text families and the
+Qwen2-VL / Qwen2.5-VL vision-language composites.
 
-Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``),
-``FoundationModel`` (``:411``), ``build_foundation_model`` (``:446``) and
-``build_tokenizer`` (through ``data/tokenizer.py``), for the text families
-the port implements. A family here is the port's ``Transformer`` module
-(``models/transformer.py``), which raises ``NotImplementedError`` for any
-configured feature it does not have (``check_supported``). The reference's other families (VLM, omni, janus,
-deepseek_v4, diffusion) belong to slice F of the port and raise here
-instead of building something else. A config and weights from an HF
-directory (``config_path``, ``weights_path``) go through
-``TransformerConfig.from_hf_config`` and ``models/hf_io.py``, the family's
-``load_hf`` and ``save_hf`` (reference ``:40-41``, ``:445-453``).
+Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``, the VLM
+branch ``:329-357``), ``FoundationModel`` (``:411``),
+``build_foundation_model`` (``:446``, its VLM ``config.json`` readers
+``:471-``) and ``build_tokenizer`` (through ``data/tokenizer.py``). A text
+family is the port's ``Transformer`` module (``models/transformer.py``),
+which raises ``NotImplementedError`` for any configured feature it does not
+have (``check_supported``); ``qwen2_vl`` and ``qwen2_5_vl``
+(``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``) wrap it with their
+vision towers. The reference's other families (qwen3_vl and qwen3_vl_moe,
+the slot VLM, omni, janus, deepseek_v4, diffusion) belong to slice F of the
+port and raise here instead of building something else. A config and
+weights from an HF directory (``config_path``, ``weights_path``) go
+through ``TransformerConfig.from_hf_config`` (a VLM's ``config_from_hf``)
+and ``models/hf_io.py``, the family's ``load_hf`` and ``save_hf``
+(reference ``:40-41``, ``:445-453``).
 """
 
 from __future__ import annotations
@@ -18,11 +23,11 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
-from veomni_tpu_torch.models import hf_io
+from veomni_tpu_torch.models import hf_io, qwen2_5_vl, qwen2_vl
 from veomni_tpu_torch.models.config import TransformerConfig
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.utils.device import DeviceLike
@@ -41,53 +46,100 @@ TEXT_MODEL_TYPES = (
     "gpt_oss", "seed_oss", "glm_moe", "glm4_moe", "glm_moe_dsa",
 )
 
-# the reference's other families (auto.py:66-297), slice F of the port
-NOT_PORTED_MODEL_TYPES = (
-    "qwen3_next", "deepseek_v4", "slot_vlm", "qwen2_vl", "qwen2_5_vl", "qwen3_vl",
-    "qwen3_vl_moe", "janus", "qwen2_5_omni", "qwen3_omni_moe", "wan_t2v", "qwen_image",
-    "flux", "ltx2",
-)
+# the vision-language families (auto.py:152-200): model_type -> the module
+# with its config classes, model, HF reader and writer
+VLM_FAMILIES = {"qwen2_vl": qwen2_vl, "qwen2_5_vl": qwen2_5_vl}
+_VLM_CONFIGS = {"qwen2_vl": qwen2_vl.Qwen2VLConfig, "qwen2_5_vl": qwen2_5_vl.Qwen25VLConfig}
+_VLM_MODELS = {"qwen2_vl": qwen2_vl.Qwen2VLModel, "qwen2_5_vl": qwen2_5_vl.Qwen25VLModel}
+VLMConfig = Union[qwen2_vl.Qwen2VLConfig, qwen2_5_vl.Qwen25VLConfig]
+
+# the reference's other families (auto.py:66-297), slice F of the port: each
+# names the ROADMAP.md item that ports it
+NOT_PORTED_MODEL_TYPES = {
+    "qwen3_vl": "slice F: Qwen3-VL (deepstack, interleaved mrope)",
+    "qwen3_vl_moe": "slice F: Qwen3-VL-MoE",
+    "slot_vlm": "slice F: the slot VLM, models/{vision,vlm}.py",
+    **{mt: "slice F" for mt in ("qwen3_next", "deepseek_v4", "janus", "qwen2_5_omni",
+                                "qwen3_omni_moe", "wan_t2v", "qwen_image", "flux", "ltx2")},
+}
 
 
-def build_config(model_type: str = "", **overrides) -> TransformerConfig:
-    """The config of a text model_type from keyword fields (the reference's
-    last branch, ``auto.py:408``)."""
+def _not_ported(model_type: str, where: str = "") -> NotImplementedError:
+    item = NOT_PORTED_MODEL_TYPES.get(model_type, "slice F")
+    return NotImplementedError(
+        f"{where}model_type {model_type!r} is not ported yet ({item} of ROADMAP.md queue 1); "
+        f"the port builds the text families "
+        f"({', '.join(TEXT_MODEL_TYPES)}) and {', '.join(VLM_FAMILIES)}")
+
+
+def build_config(model_type: str = "", **overrides) -> Union[TransformerConfig, VLMConfig]:
+    """The config of a model_type from keyword fields: a VLM's top-level
+    text keys flow into ``text`` (its dialect defaults to qwen2), its
+    ``vision`` dict and token ids stay at the top (``auto.py:329-357``);
+    a text model_type is the reference's last branch (``:408``)."""
     overrides.pop("model_type", None)
     if model_type in NOT_PORTED_MODEL_TYPES:
-        raise NotImplementedError(
-            f"model_type {model_type!r}: only the text families are ported "
-            f"({', '.join(TEXT_MODEL_TYPES)}); the others are slice F of the port")
+        raise _not_ported(model_type)
+    if model_type in VLM_FAMILIES:
+        kw = {k: overrides.pop(k) for k in ("vision", "image_token_id", "video_token_id",
+                                            "vision_start_token_id", "freeze_vision")
+              if k in overrides}
+        text = dict(overrides.pop("text", {}) or {})
+        text.update(overrides)
+        text.setdefault("model_type", "qwen2")
+        return _VLM_CONFIGS[model_type](text=text, **kw)
     return TransformerConfig(model_type=model_type or "llama", **overrides)
 
 
 @dataclass
 class FoundationModel:
     """What build_foundation_model returns: the config and, once
-    :meth:`init` ran, the model (the reference's ``params``)."""
+    :meth:`init` ran, the model (the reference's ``params``): a
+    ``Transformer``, or a VLM composite (``language_model`` + ``vision_tower``)."""
 
-    config: TransformerConfig
-    module: Optional[Transformer] = None
+    config: Union[TransformerConfig, VLMConfig]
+    module: Optional[torch.nn.Module] = None
 
-    def init(self, generator: torch.Generator, *, device: DeviceLike = None) -> Transformer:
+    @property
+    def vlm_family(self):
+        """The VLM family's module, or None for a text model."""
+        return VLM_FAMILIES.get(self.config.model_type) if self.is_vlm else None
+
+    @property
+    def is_vlm(self) -> bool:
+        return not isinstance(self.config, TransformerConfig)
+
+    def _build(self, generator: Optional[torch.Generator], device: DeviceLike):
+        if self.is_vlm:
+            return _VLM_MODELS[self.config.model_type](self.config, generator, device=device)
+        return Transformer(self.config, generator, device=device)
+
+    def init(self, generator: torch.Generator, *, device: DeviceLike = None) -> torch.nn.Module:
         """Build the model with random weights drawn from ``generator``."""
-        self.module = Transformer(self.config, generator, device=device)
+        self.module = self._build(generator, device)
         return self.module
 
-    def loss_fn(self, module: Transformer, batch):
+    def loss_fn(self, module: torch.nn.Module, batch):
         return module.loss_fn(batch)
 
-    def load_hf(self, model_dir: str, *, device: DeviceLike = None) -> Transformer:
+    def load_hf(self, model_dir: str, *, device: DeviceLike = None) -> torch.nn.Module:
         """Build the model on ``device`` with the weights of the HF
         checkpoint in ``model_dir`` (no random init first)."""
-        self.module = hf_io.hf_to_params(
-            model_dir, self.config, Transformer(self.config, None, device=device))
+        module = self._build(None, device)
+        if self.is_vlm:
+            self.module = self.vlm_family.load_hf_checkpoint(model_dir, module)
+        else:
+            self.module = hf_io.hf_to_params(model_dir, self.config, module)
         return self.module
 
-    def save_hf(self, out_dir: str, module: Optional[Transformer] = None) -> None:
+    def save_hf(self, out_dir: str, module: Optional[torch.nn.Module] = None) -> None:
         """HF-format export of ``module`` (default: this model's) with its
         config.json."""
-        hf_io.save_hf_checkpoint(module if module is not None else self.module,
-                                 self.config, out_dir)
+        module = module if module is not None else self.module
+        if self.is_vlm:
+            self.vlm_family.save_hf_checkpoint(module, out_dir)
+        else:
+            hf_io.save_hf_checkpoint(module, self.config, out_dir)
 
 
 def build_foundation_model(
@@ -111,14 +163,15 @@ def build_foundation_model(
         with open(os.path.join(config_path, "config.json")) as f:
             hf_dict = json.load(f)
         model_type = hf_dict.get("model_type", "")
-        if (model_type in NOT_PORTED_MODEL_TYPES + ("qwen2_5_omni_thinker", "qwen3_omni_moe_thinker")
+        if (model_type in tuple(NOT_PORTED_MODEL_TYPES) + ("qwen2_5_omni_thinker",
+                                                           "qwen3_omni_moe_thinker")
                 or hf_dict.get("_class_name")):
-            raise NotImplementedError(
-                f"{config_path}: model_type {model_type or hf_dict.get('_class_name')!r}: "
-                f"only the text families are ported ({', '.join(TEXT_MODEL_TYPES)}); the "
-                "others are slice F of the port")
-        config = TransformerConfig.from_hf_config(hf_dict, **config_overrides)
-    if config.model_type not in TEXT_MODEL_TYPES:
+            raise _not_ported(model_type or hf_dict.get("_class_name"), f"{config_path}: ")
+        if model_type in VLM_FAMILIES:
+            config = VLM_FAMILIES[model_type].config_from_hf(hf_dict, **config_overrides)
+        else:
+            config = TransformerConfig.from_hf_config(hf_dict, **config_overrides)
+    if config.model_type not in TEXT_MODEL_TYPES + tuple(VLM_FAMILIES):
         logger.warning_rank0(
             "model_type %r not registered; using llama-family core", config.model_type
         )

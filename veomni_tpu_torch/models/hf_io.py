@@ -297,15 +297,19 @@ class LazyHFTensors:
 # --------------------------------------------------------------------------
 @torch.no_grad()
 def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.nn.Module,
-                 tensors: Optional[Dict[str, torch.Tensor]] = None) -> torch.nn.Module:
+                 tensors: Optional[Dict[str, torch.Tensor]] = None,
+                 key_map: Optional[Callable[[str], Optional[str]]] = None) -> torch.nn.Module:
     """Fill ``model``'s parameters (``models/transformer.py::Transformer``)
     from an HF checkpoint directory, or from ``tensors`` ({hf name: tensor}),
     one tensor at a time, converted to each parameter's dtype on its device.
     A missing tensor raises ``KeyError``; an untied ``lm_head`` missing from
     the checkpoint is the embedding transposed (the reference's fallback);
-    tensors left over are logged, as the reference does."""
+    tensors left over are logged, as the reference does. ``key_map`` (the
+    reference's, ``:162``) renames each checkpoint key to its text-model
+    name, or to None for a key this model does not read (a VLM's tower)."""
     lazy = LazyHFTensors(None if tensors is not None else model_dir, tensors)
-    alias = {re.sub(r"^model\.", "", k): k for k in lazy.keys()}
+    mapped = {k: key_map(k) if key_map else k for k in lazy.keys()}
+    alias = {re.sub(r"^model\.", "", m): k for k, m in mapped.items() if m is not None}
 
     def fetch(name: str, transpose: bool) -> torch.Tensor:
         if name not in alias or alias[name] not in lazy:
@@ -352,14 +356,14 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
             put(model.lm_head, fetch("lm_head.weight", True), "lm_head")
         else:  # untied head missing in the checkpoint: the embedding transposed
             put(model.lm_head, model.embed_tokens.t(), "lm_head")
-    remaining = sorted(lazy.keys())
+    remaining = sorted(k for k in lazy.keys() if mapped[k] is not None)
     if remaining:
         logger.warning_rank0("unconsumed HF tensors: %s", remaining[:8])
     return model
 
 
-def _hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
-                read: Optional[ReadFn] = None) -> List[TensorSource]:
+def hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
+               read: Optional[ReadFn] = None) -> List[TensorSource]:
     """Every HF tensor of ``model``, sorted by name, as (name, dtype, shape,
     producer of the CPU tensor in the parameter's dtype). ``read(owner,
     name)`` gives the tensor a producer copies from (default: the
@@ -423,7 +427,7 @@ def params_to_hf(model: torch.nn.Module, cfg: TransformerConfig) -> Dict[str, to
     """The inverse mapping: {hf name: CPU tensor in the parameter's dtype}
     (the whole model on the host; :func:`save_hf_checkpoint` streams
     instead)."""
-    return {name: produce() for name, _, _, produce in _hf_sources(model, cfg)}
+    return {name: produce() for name, _, _, produce in hf_sources(model, cfg)}
 
 
 def _shards(sources: List[TensorSource], max_shard_bytes: int) -> List[List[TensorSource]]:
@@ -454,8 +458,17 @@ def save_hf_checkpoint(model: torch.nn.Module, cfg: TransformerConfig, out_dir: 
     parameters' dtype, streamed off the device one tensor at a time, in name
     order. ``read(owner, name)``, where given, gives each tensor in place of
     the parameter ``name`` of module ``owner`` (LoRA's merged export)."""
+    write_hf_checkpoint(hf_sources(model, cfg, read), cfg.to_hf_config(), out_dir,
+                        max_shard_bytes)
+
+
+def write_hf_checkpoint(sources: List[TensorSource], hf_config: Dict, out_dir: str,
+                        max_shard_bytes: int = 4 * 1024**3) -> None:
+    """Write ``sources`` (sorted by name) as the reference's shards, with
+    ``config.json`` = ``hf_config`` (and the index JSON for more than one
+    shard)."""
     os.makedirs(out_dir, exist_ok=True)
-    shards = _shards(_hf_sources(model, cfg, read), max_shard_bytes)
+    shards = _shards(sources, max_shard_bytes)
     index = {"metadata": {"total_size": sum(_nbytes(s[1], s[2]) for sh in shards for s in sh)},
              "weight_map": {}}
     for fname, shard in zip(shard_names(len(shards)), shards):
@@ -466,5 +479,5 @@ def save_hf_checkpoint(model: torch.nn.Module, cfg: TransformerConfig, out_dir: 
         with open(os.path.join(out_dir, INDEX_NAME), "w") as f:
             json.dump(index, f, indent=2)
     with open(os.path.join(out_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_hf_config(), f, indent=2)
+        json.dump(hf_config, f, indent=2)
     logger.info_rank0("saved HF checkpoint to %s (%d shards)", out_dir, len(shards))

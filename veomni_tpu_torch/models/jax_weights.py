@@ -17,6 +17,11 @@ untransposed. The reference's LoRA adapter tree (``lora_a``/``lora_b``/
 port's ``lora.LoraAdapters``, which keep it stacked. The tree's leaves are
 numpy arrays (``np.asarray`` of the JAX arrays); this module imports no
 JAX.
+
+A VLM composite (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``) is the
+tree ``{language_model: <the text tree>, vision_tower: {patch_embed,
+blocks: {name: [L, ...]}, merger: {...}}}``: the text tree moves across as
+above, the tower's ``blocks`` unstacked into its block modules.
 """
 
 from __future__ import annotations
@@ -66,13 +71,32 @@ def _segments(model: Transformer):
     return segments
 
 
-def stacked_leaves(model: Transformer) -> Dict[str, List[Tuple[nn.Module, str]]]:
+def _tower_leaves(tower: nn.Module) -> Dict[str, List[Tuple[nn.Module, str]]]:
+    """A vision tower's leaves: its own (``patch_embed``), ``blocks.<name>``
+    stacked over its blocks, and each other submodule's (``merger.fc1_w``)."""
+    out = {name: [(tower, name)] for name, _ in tower.named_parameters(recurse=False)}
+    for sub_name, sub in tower.named_children():
+        if sub_name == "blocks":
+            for name, _ in sub[0].named_parameters():
+                out[f"blocks.{name}"] = [(block, name) for block in sub]
+        else:
+            for name, _ in sub.named_parameters():
+                out[f"{sub_name}.{name}"] = [(sub, name)]
+    return out
+
+
+def stacked_leaves(model: nn.Module) -> Dict[str, List[Tuple[nn.Module, str]]]:
     """{the reference's leaf path: [(module, parameter name)]}: a top-level
     leaf (``embed_tokens``) has one owner, a stacked one (``layers.q_proj``,
     ``layers.experts.gate_proj``, ``dense_layers.q_proj``) one per layer of
     its segment, in layer order. The paths are the reference's
     ``param_path_str`` of its tree, which its regexes (LoRA targets,
-    ``freeze_modules``, ``module_lr_scales``) are matched against."""
+    ``freeze_modules``, ``module_lr_scales``) are matched against. A VLM
+    composite's paths start with ``language_model.`` or ``vision_tower.``."""
+    if hasattr(model, "vision_tower"):
+        out = {f"language_model.{k}": v for k, v in stacked_leaves(model.language_model).items()}
+        out.update({f"vision_tower.{k}": v for k, v in _tower_leaves(model.vision_tower).items()})
+        return out
     out: Dict[str, List[Tuple[nn.Module, str]]] = {
         name: [(model, name)] for name in _top_level(model)}
     for seg, layers in _segments(model).items():
@@ -93,8 +117,25 @@ def named_jax_parameters(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
 
 
 @torch.no_grad()
-def load_jax_params(model: Transformer, tree: Dict[str, Any]) -> None:
+def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> None:
     """Copy a JAX param tree (numpy leaves) into ``model`` in place."""
+    if hasattr(model, "vision_tower"):
+        if set(tree) != {"language_model", "vision_tower"}:
+            raise KeyError(f"VLM param tree keys {sorted(tree)} != language_model, vision_tower")
+        load_jax_params(model.language_model, tree["language_model"])
+        leaves = _tower_leaves(model.vision_tower)
+        flat = _flatten(tree["vision_tower"])
+        if set(flat) != set(leaves):
+            raise KeyError(f"vision_tower keys differ: {sorted(set(flat) ^ set(leaves))}")
+        for path, owners in leaves.items():
+            value = np.asarray(flat[path])
+            if len(owners) > 1 and value.shape[0] != len(owners):
+                raise ValueError(f"vision_tower.{path}: {value.shape[0]} blocks, model has "
+                                 f"{len(owners)}")
+            for i, (owner, name) in enumerate(owners):
+                _copy(owner.get_parameter(name), value[i] if len(owners) > 1 else value,
+                      f"vision_tower.{path}")
+        return
     top = _top_level(model)
     segments = _segments(model)
     want = set(top) | set(segments)
@@ -123,7 +164,7 @@ def _copy(param: torch.Tensor, value, name: str) -> None:
     param.copy_(src.to(param.dtype))
 
 
-def to_jax_tree(model: Transformer, *, grads: bool = False) -> Dict[str, Any]:
+def to_jax_tree(model: nn.Module, *, grads: bool = False) -> Dict[str, Any]:
     """The model's params (or their ``.grad``) as a JAX-layout numpy tree,
     layers stacked on a leading axis, for comparison with the reference."""
 
@@ -132,6 +173,14 @@ def to_jax_tree(model: Transformer, *, grads: bool = False) -> Dict[str, Any]:
         if t is None:
             t = torch.zeros_like(p)
         return t.detach().float().cpu().numpy()
+
+    if hasattr(model, "vision_tower"):
+        tower = {}
+        for path, owners in _tower_leaves(model.vision_tower).items():
+            vals = [val(owner.get_parameter(name)) for owner, name in owners]
+            tower[path] = np.stack(vals) if path.startswith("blocks.") else vals[0]
+        return {"language_model": to_jax_tree(model.language_model, grads=grads),
+                "vision_tower": _nest(tower)}
 
     tree: Dict[str, Any] = {name: val(p) for name, p in _top_level(model).items()}
     for seg, layers in _segments(model).items():

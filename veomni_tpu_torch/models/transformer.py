@@ -100,7 +100,6 @@ def check_supported(cfg: TransformerConfig) -> None:
     runs the dropless ``_moe_mlp`` at expert-parallel size 1, as here."""
     missing = [name for name, on in (
         ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
-        ("mrope (slice F)", ops.is_mrope(cfg.rope_scaling)),
         (f"hidden_act {cfg.hidden_act!r} (no gated activation of the reference; it takes "
          f"{', '.join(ops.GATED_ACTS)})", cfg.hidden_act not in ops.GATED_ACTS),
         ("linear attention / output gate, qwen3_next (slice F)",
@@ -564,13 +563,17 @@ class Transformer(nn.Module):
         """(token embeddings [B,S,H], the global rotary cos, sin) in cfg.dtype."""
         return (self.embed(input_ids), *self.rotary(position_ids)[False])
 
-    def forward_hidden(self, input_ids, position_ids, segment_ids=None):
-        """[B,S] ids/positions/segments -> (final hidden [B,S,H] in cfg.dtype,
-        router aux loss summed over the layers). Each layer attends with its
-        own window and rope (``:641-668``): a full-attention layer keeps the
-        ``cuda_flash`` kernels, a windowed one takes the plain attention."""
+    def forward_hidden(self, input_ids, position_ids, segment_ids=None, inputs_embeds=None):
+        """[B,S] ids/segments and [B,S] positions (mrope: [B,3,S]) -> (final
+        hidden [B,S,H] in cfg.dtype, router aux loss summed over the layers).
+        ``inputs_embeds`` [B,S,H], where given, replace the token embeddings
+        (the VLM composites' merged vision features, ``:605-627``; no
+        embedding scale is applied to them, as there). Each layer attends
+        with its own window and rope (``:641-668``): a full-attention layer
+        keeps the ``cuda_flash`` kernels, a windowed one takes the plain
+        attention."""
         cfg, dt = self.cfg, self.cfg.dtype
-        hidden = self.embed(input_ids)
+        hidden = self.embed(input_ids) if inputs_embeds is None else inputs_embeds.to(dt)
         tables = self.rotary(position_ids)
         aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for layer in self.layers:

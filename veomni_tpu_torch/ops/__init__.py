@@ -23,7 +23,6 @@ rms_norm = _rms_norm.rms_norm
 apply_rotary = _rotary.apply_rotary
 rotary_tables = _rotary.rotary_tables
 yarn_attention_factor = _rotary.yarn_attention_factor
-is_mrope = _rotary.is_mrope
 swiglu = _swiglu.swiglu
 gated_act = _swiglu.gated_act
 GATED_ACTS = _swiglu.GATED_ACTS
@@ -48,7 +47,6 @@ __all__ = [
     "apply_rotary",
     "rotary_tables",
     "yarn_attention_factor",
-    "is_mrope",
     "swiglu",
     "gated_act",
     "GATED_ACTS",

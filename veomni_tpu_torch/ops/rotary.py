@@ -2,9 +2,12 @@
 llama-style half rotation driven by position ids, or the pairwise
 ``interleaved`` layout of the deepseek MLA rope (``_rotate_interleave``,
 ``:157``), with HF ``rope_scaling`` (``linear``, ``llama3``, ``yarn``;
-``default``/``dynamic`` keep the base frequencies). ``mrope`` (the qwen-vl
-position streams) raises: it comes with the VLM models of slice F
-(ROADMAP.md queue 1). Partial rotary is the caller's: it asks for tables of
+``default``/``dynamic``/``mrope`` keep the base frequencies), and the
+qwen-vl ``mrope`` tables (``rotary_tables``, ``:84-132``): positions
+[B, 3, S] (the temporal, height and width streams), the frequency dim split
+by ``mrope_section`` (Qwen2-VL's [16, 24, 24] sums to 64 = 128 / 2), section
+*i* reading stream ``i % 3``, or the ``mrope_interleaved`` layout of
+qwen3-vl. Partial rotary is the caller's: it asks for tables of
 ``rope_dim < head_dim``.
 
 The inverse frequencies are f32 and computed in the reference's order of
@@ -22,11 +25,6 @@ from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, resolve_op
 
 def _rope_type(rope_scaling) -> str:
     return rope_scaling.get("rope_type", rope_scaling.get("type", "default"))
-
-
-def is_mrope(rope_scaling) -> bool:
-    rs = rope_scaling or {}
-    return "mrope" in str(_rope_type(rs)) or bool(rs.get("mrope_section"))
 
 
 def yarn_get_mscale(factor: float, mscale: float = 1.0) -> float:
@@ -75,11 +73,9 @@ def _scale_inv_freq(inv_freq, rope_scaling, head_dim: int, theta: float):
         extrap_mask = 1.0 - ramp  # 1 where high-frequency (keep the base)
         inv = inv_freq / factor * (1 - extrap_mask) + inv_freq * extrap_mask
         return inv, yarn_attention_factor(rope_scaling, head_dim)
-    if rtype in ("default", "dynamic"):
+    if rtype in ("default", "dynamic", "mrope"):
+        # mrope keeps the base frequencies; rotary_tables mixes the sections
         return inv_freq, 1.0
-    if is_mrope(rope_scaling):
-        raise NotImplementedError(
-            "mrope is not ported yet (ROADMAP.md queue 1, slice F: the VLM models)")
     raise ValueError(f"unsupported rope_scaling type {rtype!r}")
 
 
@@ -94,18 +90,47 @@ def yarn_attention_factor(rope_scaling, head_dim: int) -> float:
     return yarn_get_mscale(factor, mscale_all_dim) ** 2
 
 
+def mrope_stream_of_frequency(mrope_section, half: int, interleaved: bool) -> torch.Tensor:
+    """[half] int64: the position stream (0 temporal, 1 height, 2 width)
+    each rotary frequency reads. Sectioned (qwen2-vl, qwen2.5-vl): section
+    *i* of ``mrope_section`` reads stream ``i % 3``. Interleaved (qwen3-vl,
+    HF ``apply_interleaved_mrope``): frequency j reads stream 1 when j % 3 ==
+    1 and j < 3 sec[1], stream 2 when j % 3 == 2 and j < 3 sec[2], else the
+    temporal stream."""
+    if sum(mrope_section) != half:
+        raise ValueError(f"mrope_section {list(mrope_section)} must sum to head_dim/2 = {half}")
+    if interleaved:
+        js = torch.arange(half)
+        sec = torch.zeros(half, dtype=torch.int64)
+        sec[(js % 3 == 1) & (js < 3 * mrope_section[1])] = 1
+        sec[(js % 3 == 2) & (js < 3 * mrope_section[2])] = 2
+        return sec
+    return torch.cat([torch.full((n,), i % 3, dtype=torch.int64)
+                      for i, n in enumerate(mrope_section)])
+
+
 def rotary_tables(positions, head_dim: int, theta: float = 10000.0, rope_scaling=None,
                   interleaved: bool = False):
     """positions [B,S] int -> (cos, sin) each [B,S,head_dim] f32; yarn
     scales both by its mscale ratio (``rotary.py:141-148``). ``interleaved``
     repeats each frequency on adjacent channels (the pairs the interleaved
-    rotation turns) where the default concatenates two halves."""
-    if is_mrope(rope_scaling):
-        raise NotImplementedError(
-            "mrope is not ported yet (ROADMAP.md queue 1, slice F: the VLM models)")
+    rotation turns) where the default concatenates two halves. With an
+    ``mrope_section`` and positions [B,3,S] each frequency takes its angle
+    from its own stream (``:101-132``); [B,S] positions of an mrope config
+    (text-only rows, all three streams equal) give the plain tables."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=positions.device) / head_dim
     inv_freq = 1.0 / (theta ** exponent)
     inv_freq, _ = _scale_inv_freq(inv_freq, rope_scaling, head_dim, theta)
+    msec = (rope_scaling or {}).get("mrope_section")
+    if msec and positions.ndim == 3:
+        # [B,3,S] -> per-stream angles [B,3,S,D/2], each frequency from its stream
+        ang3 = positions.float()[..., None] * inv_freq
+        stream = mrope_stream_of_frequency(
+            msec, head_dim // 2, bool(rope_scaling.get("mrope_interleaved"))).to(positions.device)
+        ang = ang3.gather(1, stream.view(1, 1, 1, -1).expand(
+            ang3.shape[0], 1, ang3.shape[2], -1)).squeeze(1)
+        ang = torch.cat([ang, ang], -1)
+        return torch.cos(ang), torch.sin(ang)
     ang = positions.float()[..., None] * inv_freq  # [B,S,D/2]
     ang = torch.repeat_interleave(ang, 2, dim=-1) if interleaved else torch.cat([ang, ang], -1)
     scale = 1.0

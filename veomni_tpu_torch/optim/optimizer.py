@@ -12,7 +12,9 @@ order. What differs is bookkeeping, handled here:
   leaves on a leading axis, so every per-layer parameter, norm weights
   included, has ``ndim > 1`` there and is decayed; only the unstacked
   top-level 1-D parameter (the final ``norm``) is not. The port keeps that
-  behaviour, not the 1-D rule it reads like;
+  behaviour, not the 1-D rule it reads like; a VLM's tree stacks its
+  tower's blocks too, so of the tower only the merger's 1-D leaves are not
+  decayed;
 * a parameter without a gradient is still decayed, as optax decays every
   leaf of ``jax.grad``'s full tree: ``torch.optim.AdamW`` skips a parameter
   whose ``.grad`` is None, so ``train/train_step.py`` gives each one a
@@ -34,7 +36,11 @@ from veomni_tpu_torch.optim.lr_scheduler import Schedule
 
 
 def _decayed(name: str, param: torch.Tensor) -> bool:
-    return param.ndim > 1 or name.startswith("layers.")
+    """``ndim > 1`` on the reference's tree: every stacked per-layer leaf
+    (the text layers; a VLM's ``language_model.layers`` and tower
+    ``blocks``) and every matrix."""
+    name = name.removeprefix("language_model.")
+    return param.ndim > 1 or name.startswith(("layers.", "vision_tower.blocks."))
 
 
 class AdamW(torch.optim.AdamW):

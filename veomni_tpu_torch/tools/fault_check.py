@@ -11,15 +11,17 @@ rotary tables its steps share with the contiguous prefill, and prefix-cache
 match, the deepseek dialect's correction bias, shared experts, MLA rope
 and leading dense layer in ``models/transformer.py``, the gpt_oss
 dialect's sinks, routing and expert biases there, its clamped GLU in
-``ops/swiglu.py`` and its fused expert layout in ``models/hf_io.py``, and
-the SFT path's
+``ops/swiglu.py`` and its fused expert layout in ``models/hf_io.py``, the
+VLM path's head dim 80 in K1-K3, vision rope, mrope sections, window
+reverse gather and patch-embed layout, and the SFT path's
 LoRA merge in ``lora/lora.py``, expert adapters, frozen update in
 ``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``)
 and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
 ``--phases hf_trainer_moonlight``; for a gpt_oss one, its gpt-oss-20b phase:
-``--phases hf_trainer_gpt_oss``; for an SFT one, its SFT phase). A fault is
+``--phases hf_trainer_gpt_oss``; for a VLM one, its Qwen2-VL-2B or
+Qwen2.5-VL-3B phase; for an SFT one, its SFT phase). A fault is
 caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -60,6 +62,8 @@ LORA_SOURCE = os.path.join("veomni_tpu_torch", "lora", "lora.py")
 OPTIM_SOURCE = os.path.join("veomni_tpu_torch", "optim", "optimizer.py")
 TEMPLATE_SOURCE = os.path.join("veomni_tpu_torch", "data", "chat_template.py")
 SWIGLU_SOURCE = os.path.join("veomni_tpu_torch", "ops", "swiglu.py")
+ROTARY_SOURCE = os.path.join("veomni_tpu_torch", "ops", "rotary.py")
+VL_SOURCE = os.path.join("veomni_tpu_torch", "models", "qwen2_5_vl.py")
 # the SFT faults run chip_smoke.py's SFT phases alone; those read the YAML,
 # the fixture tokenizers and the docs their chat rows are built from
 SFT_DENSE = ("--phases", "sft_lora_dense")
@@ -76,6 +80,13 @@ MOONLIGHT_LAYER = "Moonlight-16B-A3B layer check"
 GPT_OSS = ("--phases", "hf_trainer_gpt_oss")
 GPT_OSS_LAYER = "gpt-oss-20b layer check: layer 0"
 DISAGREES = "the port's layer disagrees"
+# the VLM faults run chip_smoke.py's Qwen2-VL-2B or Qwen2.5-VL-3B phase
+# alone; its K1-K3 rows at D 80 and its checks against chip_smoke's own f32
+# pieces come before its trainer
+QWEN2_VL = ("--phases", "hf_trainer_qwen2_vl")
+QWEN2_5_VL = ("--phases", "hf_trainer_qwen2_5_vl")
+QWEN2_VL_CHECK = "hf vlm Qwen2-VL-2B check"
+QWEN2_5_VL_CHECK = "hf vlm Qwen2.5-VL-3B check"
 # the first small case of chip_smoke.py's grouped-GEMM phase: group sizes
 # [100, 156, 0, 256], so m tile 3 (rows 384-511) belongs to expert 3 alone
 # and expert 0's 100 rows are two 64-row chunks for K6
@@ -292,6 +303,40 @@ FAULTS = (
           "    return t if bias is None else t + bias.to(dt)[expert_of_row]",
           "    return t",
           f"{GPT_OSS_LAYER} MoE block", f"{GPT_OSS_LAYER} MoE block: {DISAGREES}", GPT_OSS),
+    # the VLM path: the tower's head dim 80 loaded and stored through the 2-D
+    # map [B*S, H*80], whose second 64-column box of head h holds head h + 1's
+    # first 48 columns
+    Fault("K1-d80-2d-map", "K1-K3 at D 80 read and write through the 2-D map [B*S, H*80]",
+          FLASH_SOURCE, "{ return DA != D; }", "{ return false; }",
+          "K1 O (autograd path, Qwen2-VL-2B tower, per-frame segments)", args=QWEN2_VL),
+    Fault("vision-rope-hw", "the vision rope turns the first half of the frequencies by the "
+                            "column and the second by the row",
+          VL_SOURCE, "    freqs = torch.cat([fh, fw], -1)\n",
+          "    freqs = torch.cat([fw, fh], -1)\n",
+          f"{QWEN2_VL_CHECK}: vision block 0", DISAGREES, QWEN2_VL),
+    Fault("mrope-sections", "the mrope sections read the streams in reverse order (w, h, t)",
+          ROTARY_SOURCE,
+          "    return torch.cat([torch.full((n,), i % 3, dtype=torch.int64)",
+          "    return torch.cat([torch.full((n,), 2 - i % 3, dtype=torch.int64)",
+          f"{QWEN2_VL_CHECK}: text layer 0 (mrope)", DISAGREES, QWEN2_VL),
+    Fault("vlm-reverse", "the Qwen2.5-VL tower returns its merged tokens in window order",
+          VL_SOURCE, "        return y if reverse is None else y[reverse.long()]\n",
+          "        return y\n", f"{QWEN2_5_VL_CHECK}: merger, image order", DISAGREES,
+          QWEN2_5_VL),
+    # HF's Conv3d weight [D, C, T, P, P] flattened as (C, Ph, Pw, T) both ways:
+    # the HF directory round trip still holds, HF's patch layout does not
+    Fault("patch-embed-ctp", "the patch-embed weight is flattened as (C, Ph, Pw, T)",
+          VL_SOURCE,
+          "    return w.reshape(width, -1).t()\n\n\n"
+          "def patch_embed_to_hf(w: torch.Tensor, vcfg) -> torch.Tensor:\n"
+          "    return w.t().reshape(vcfg.width, vcfg.in_channels, vcfg.temporal_patch_size,\n"
+          "                         vcfg.patch_size, vcfg.patch_size)\n",
+          "    return w.permute(0, 1, 3, 4, 2).reshape(width, -1).t()\n\n\n"
+          "def patch_embed_to_hf(w: torch.Tensor, vcfg) -> torch.Tensor:\n"
+          "    return w.t().reshape(vcfg.width, vcfg.in_channels, vcfg.patch_size,\n"
+          "                         vcfg.patch_size, vcfg.temporal_patch_size)"
+          ".permute(0, 1, 4, 2, 3)\n",
+          f"{QWEN2_VL_CHECK}: patch embed", DISAGREES, QWEN2_VL),
     # LoRA: the merge without its scale, every layer merged with layer 0's
     # A, the expert adapters never read, a frozen tensor updated, the user
     # turns of the llama2 template supervised

@@ -84,21 +84,23 @@ from veomni_tpu_torch.utils.logging import _process_index, get_logger
 logger = get_logger(__name__)
 
 BATCH_KEYS = ("input_ids", "labels", "position_ids", "segment_ids")
-# the data transforms the port has (the multimodal ones are slice F)
+# the data transforms of the text trainer; VLMTrainer adds the qwen-vl ones
 SUPPORTED_DATA_TYPES = ("pretokenized", "plaintext", "conversation")
 
 
-def check_supported(args: VeOmniArguments) -> None:
+def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> None:
     """Raise ``NotImplementedError`` naming every configured knob whose
     module is not ported yet (the trainer's counterpart of
-    ``models/transformer.py::check_supported``)."""
+    ``models/transformer.py::check_supported``); ``data_types`` are the
+    data transforms the calling trainer runs."""
     m, d, t = args.model, args.data, args.train
     metrics_port = os.environ.get("VEOMNI_METRICS_PORT", "")
     missing = [f"{knob} ({why})" for knob, why, on in (
         (f"train.optimizer {t.optimizer!r}", "only adamw is ported; optim/muon.py: slice F",
          t.optimizer != "adamw"),
-        (f"data.data_type {d.data_type!r}", "the multimodal transforms: slice F",
-         d.data_type not in SUPPORTED_DATA_TYPES),
+        (f"data.data_type {d.data_type!r}", "the qwen2-vl and qwen2.5-vl transforms run "
+         "through VLMTrainer, tasks/train_vlm.py; the other multimodal ones are slice F",
+         d.data_type not in data_types),
         ("data.eval_path", "EvaluateCallback and the eval loop: queue 1", bool(d.eval_path)),
         ("data.channel_list", "train/channel_loss.py: queue 1", bool(d.channel_list)),
         ("train.use_wandb", "WandbCallback: queue 1", t.use_wandb),
@@ -155,11 +157,14 @@ class _HostValue:
 
 
 class BaseTrainer:
+    BATCH_KEYS = BATCH_KEYS
+    SUPPORTED_DATA_TYPES = SUPPORTED_DATA_TYPES
+
     def __init__(self, args: VeOmniArguments):
         self.args = args
         self.current_batch: Optional[Dict[str, np.ndarray]] = None
         self.meter: Optional[EnvironMeter] = None
-        check_supported(args)
+        check_supported(args, self.SUPPORTED_DATA_TYPES)
         self._setup()
         with use_parallel_state(self.parallel_state):
             self._build_model()
@@ -411,7 +416,9 @@ class BaseTrainer:
         """Host batch -> device tensors: numpy -> pinned host tensor ->
         asynchronous copy to the card (plain tensors on the CPU)."""
         out = {}
-        for k in BATCH_KEYS:
+        for k in self.BATCH_KEYS:
+            if k not in batch_np:
+                continue
             t = torch.from_numpy(batch_np[k])
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)

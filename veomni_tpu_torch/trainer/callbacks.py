@@ -15,6 +15,8 @@ import os
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
+import numpy as np
+
 from veomni_tpu_torch.utils.logging import _process_index, get_logger
 
 logger = get_logger(__name__)
@@ -90,9 +92,10 @@ class LoggingCallback(Callback):
 
 
 class EnvironMeterCallback(Callback):
-    """Feeds the MFU meter (reference EnvironMeterCallback), text batches
-    only: the reference's ViT and DiT tower terms belong to the model
-    families of slice F.
+    """Feeds the MFU meter (reference EnvironMeterCallback): the text
+    tokens, plus the qwen-vl vision tower's forward FLOPs on a VLM batch
+    (``_tower_flops``, reference ``:119-166``); the DiT term belongs to the
+    model families of slice F.
 
     With the async loop, per-step wall time measures dispatch, not compute —
     only the fetch at a sync step absorbs the real device time. The meter is
@@ -107,7 +110,27 @@ class EnvironMeterCallback(Callback):
         if batch is None:
             return
         labels = batch["labels"]
-        self.meter.add(int((labels != -100).sum()), seq_len=labels.shape[-1])
+        self.meter.add(int((labels != -100).sum()), seq_len=labels.shape[-1],
+                       extra_flops=self._tower_flops(trainer, batch))
+
+    @staticmethod
+    def _tower_flops(trainer, batch) -> float:
+        """Promised forward FLOPs of the vision tower on a packed patch
+        batch: the real patches (merge_unit a valid merged token), each
+        attending over its window (Qwen2.5-VL's ``window_size`` in pixels,
+        squared in patches) or, without one, over every patch of the batch,
+        as the reference counts (``:119-166``)."""
+        vision = getattr(getattr(trainer.model, "config", None), "vision", None)
+        if vision is None or "vis_merged_mask" not in batch:
+            return 0.0
+        from veomni_tpu_torch.utils.count_flops import vit_flops_fwd
+
+        patches = int(np.asarray(batch["vis_merged_mask"]).sum()) * vision.merge_unit
+        if not patches:
+            return 0.0
+        window = getattr(vision, "window_size", 0)
+        return vit_flops_fwd(vision, patches,
+                             window_seq=(window // vision.patch_size) ** 2 if window else None)
 
     def on_step_end(self, trainer, state):
         if state.synced:

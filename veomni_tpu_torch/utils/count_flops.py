@@ -3,13 +3,15 @@
 projections (MLA: the q and kv low-rank projections, ``:62-80``), causal
 attention scores and context (half the window), the SwiGLU MLP (for MoE:
 the top-k routed experts, the shared experts and the router, ``:89-101``)
-and the LM head, forward; backward counts twice the forward. As there,
+and the LM head, forward; backward counts twice the forward. ``vit_flops_fwd``
+(``:179``) is the qwen-vl towers' term. As there,
 every layer of a MoE config counts as a MoE layer, ``first_k_dense_replace``
 leading dense layers included."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass
@@ -96,3 +98,27 @@ class FlopsCounter:
             qk_rope_head_dim=cfg.qk_rope_head_dim,
             v_head_dim=cfg.v_head_dim,
         )
+
+
+def vit_flops_fwd(vision_cfg, n_patches: int, window_seq: Optional[int] = None) -> float:
+    """Forward FLOPs of a ViT tower on ``n_patches`` patches (the
+    reference's qwen-vl term, ``:179-201``, as it counts): per patch and
+    layer the q/k/v/o projections, scores and context over ``window_seq``
+    patches (default: all ``n_patches``, an upper bound when several images
+    are packed) and a gated MLP of ``intermediate_size``, at width
+    ``hidden_size`` (which in Qwen2-VL's vision config is the LM width), plus
+    the patch embed and the merger."""
+    g = lambda n, d=0: getattr(vision_cfg, n, d)  # noqa: E731
+    h = g("hidden_size")
+    inter = g("intermediate_size") or 4 * h
+    layers = g("depth", 0) or g("num_hidden_layers", 0)
+    span = window_seq if window_seq else n_patches
+    per_patch = 2 * h * 4 * h                 # qkv + o projections
+    per_patch += 2 * 2 * h * span             # scores + context
+    per_patch += 2 * 3 * h * inter if g("gated_mlp", True) else 2 * 2 * h * inter
+    body = layers * per_patch * n_patches
+    in_dim = g("in_channels", 3) * g("temporal_patch_size", 1) * g("patch_size", 14) ** 2
+    embed = 2 * in_dim * h * n_patches
+    merge = g("merge_unit", 4)
+    merger = 2 * (h * merge) * g("out_hidden_size", h) * (n_patches // max(merge, 1))
+    return body + embed + merger
