@@ -49,7 +49,11 @@ Phases (any failure exits non-zero and prints no result line):
 6. drive the MoE main path the same way: Qwen3-30B-A3B at full width, depth
    cut to 4 of 48 layers (a layer holds ~623 M parameters, ~10 GB with its
    f32 weight, grad and two AdamW moments), 3 steps, printing the router
-   aux loss and the peak device memory;
+   aux loss and the peak device memory; then the MoE router monitor
+   (``utils/moe_monitor.py``) on its trained model: ``capture_router_stats``
+   on the first micro-batch (a ``no_grad`` replay: K1 once and K4 three times
+   a layer), each layer's expert load [4, 128] held to a count of the same
+   routing by this script's own f32 router, and the gauges published;
 7. the MoE step at micro-batch 1, the micro-batch of the repo's
    Qwen3-30B-A3B config (``configs/text/qwen3_moe_ep.yaml``), where K2 splits
    each q-head group over 4 work items: legs with the split and without it
@@ -57,7 +61,8 @@ Phases (any failure exits non-zero and prints no result line):
 8. drive the trainer (``veomni_tpu_torch.tasks.train_text``, the user's
    entry point) at Qwen3-0.6B's full width and depth on a seeded
    pretokenized corpus written to a temporary directory: leg A, six straight
-   steps of ``TextTrainer`` from the parsed YAML; leg B1, three steps and an
+   steps of ``TextTrainer`` from the parsed YAML (no final checkpoint: no
+   check reads it); leg B1, three steps and an
    (async) checkpoint; leg B2, a fresh ``main()`` that auto-resumes from it
    and runs to six. B2's losses at steps 4-6 and its final parameters, AdamW
    moments and ``num_updates`` must equal leg A's bit for bit, K1-K3 must
@@ -76,8 +81,9 @@ Phases (any failure exits non-zero and prints no result line):
    each, all at head dim 64, flash ``FALLBACK_CALLS`` stays 0, the exported
    HF directory reads back bit-equal to the final parameters, the step-1
    loss equals ``build_train_step``'s on the same weights and batch, and a
-   leg with prefetch 0 gives the same losses bit for bit; it prints step ms,
-   tokens/s, peak memory and the HF write, load and export seconds;
+   leg with prefetch 0 gives the same losses bit for bit (neither leg writes
+   a final checkpoint: no check reads one); it prints step ms, tokens/s,
+   peak memory and the HF write, load and export seconds;
 10. parity: at depth 2, full width, S=1024, one dense train step with the
    kernels against the same step with the plain attention pinned (loss,
    grad norm), and the q/k/v/o projection gradients of one backward, leaf
@@ -200,7 +206,32 @@ Phases (any failure exits non-zero and prints no result line):
 19. the same at Qwen2.5-VL-3B-Instruct's published widths (tower 32 blocks
    of 1280 with windows of 112 pixels and full attention at blocks 7, 15,
    23 and 31; LM hidden 2048, 16/2 heads), the LM cut to 18 of 36 layers,
-   K1-K3 on the per-window segments, 2 steps, no export.
+   K1-K3 on the per-window segments, 2 steps, no export;
+20. the post-training trainers (run after the SFT phases of 16), each the
+   class its entry point (``veomni_tpu_torch.tasks.train_text_{dpo,
+   distill,rl}``) builds from the trainer phase's YAML (Qwen3-0.6B, full
+   width, 28 layers, random weights from seed 0, seq 4096, ctx remat,
+   deterministic algorithms; no final checkpoint): DPO with 2 pairs a
+   micro-batch of random ids and ``data.eval_path`` at ``eval_steps`` 2 for
+   3 steps (step 1's loss ln 2 a pair with ``dpo_acc`` 0, K1 twice a layer
+   and step, the reference's forward under ``no_grad``, K2 and K3 once, K1
+   twice a layer per eval; the reference policy bit-equal to the initial
+   model after the steps, the policy not; two more ``evaluate()`` calls give
+   the train-end ``eval_loss`` again and launch K1 alone); DPO with LoRA
+   (rank 16, alpha 32) on TinyLlama-1.1B from an HF directory with the
+   byte-fallback fixture tokenizer, text pairs from the repo's docs, seq
+   2048, 2 steps (step 1 ln 2 against the bare base, the base bit-unchanged,
+   every adapter trained, K1-K3 at D 64); distillation with
+   ``distill_topk`` 8 on rows of 2048-4096 tokens whose teacher top-8 ids
+   and log-probs come from a ``no_grad`` forward of the same initial model
+   (step 1's ``distill_kl`` within 1e-3 of 0, the two top-k masses within
+   1e-3); RL on prompts of 128-512 and responses of 512-2048 tokens with
+   advantages from N(0, 1), half the rows carrying the initial policy's
+   ``old_logprobs`` and half the on-policy sentinel (step 1's
+   ``ratio_mean`` within 1e-2 of 1); and ``TextTrainer`` with a two-channel
+   ``data.channel_list`` for 2 steps (each step's per-channel sums add up to
+   its loss sum, rel 1e-5, and the counts to ``ntokens``). K1-K3 launch
+   as reckoned on every leg, ``FALLBACK_CALLS`` 0.
 
 ``--phases serve_dense,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -209,8 +240,10 @@ hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
 (11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
 deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
 (16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17),
-``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19).
-Each partial run logs each phase's seconds (``phase clock``).
+``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19),
+``--phases moe,post_training`` the MoE path with its monitor (6) and the
+post-training trainers (20). Each partial run logs each phase's seconds
+(``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -908,13 +941,16 @@ def phase_main(dev, card):
 
 
 def phase_moe_main(dev, card):
-    """The MoE main path: Qwen3-30B-A3B at full width, MOE_LAYERS deep."""
+    """The MoE main path: Qwen3-30B-A3B at full width, MOE_LAYERS deep,
+    then the MoE router monitor on its trained model. Returns (the steps'
+    launches, the monitor's)."""
     from veomni_tpu_torch.train_text_step import run_train_steps
 
     torch.cuda.reset_peak_memory_stats(dev)
     reset_all_counts()
+    keep = {}
     records = run_train_steps(4096, 4, MAIN_STEPS, preset=MOE_PRESET, num_layers=MOE_LAYERS,
-                              device=dev)
+                              device=dev, keep=keep)
     launches, fallbacks = read_counts()
     peak = torch.cuda.max_memory_allocated(dev)
     for i, r in enumerate(records):
@@ -933,6 +969,76 @@ def phase_moe_main(dev, card):
     check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n,
                                        "gmm_fwd": 6 * n, "gmm_dlhs": 3 * n, "gmm_t": 3 * n},
                  "MoE")
+    micro = {k: v[0] for k, v in keep.pop("first_batch").items()}
+    monitor = moe_monitor_leg(card, keep.pop("model"), micro)
+    return launches, monitor
+
+
+def moe_monitor_leg(card, model, micro):
+    """``utils/moe_monitor.py`` on the MoE phase's model after its steps:
+    ``capture_router_stats`` on the first micro-batch (a ``no_grad`` replay:
+    K1 once and K4 three times per layer, nothing else), each layer's load
+    held to a count of the same micro-batch's routing by this script's own
+    f32 router (softmax, then the first top-k of a stable sort, on the
+    router inputs the replay saw), and the gauges published. Returns the
+    replay's launches."""
+    from veomni_tpu_torch.models import transformer
+    from veomni_tpu_torch.observability.metrics import get_registry
+    from veomni_tpu_torch.utils.moe_monitor import capture_router_stats, publish_router_stats
+
+    cfg = model.cfg
+    seen = []
+    route = transformer.route_tokens
+
+    def recording_route(x, router, *args, **kwargs):  # the replay's router inputs
+        seen.append((x.detach(), router.detach()))
+        return route(x, router, *args, **kwargs)
+
+    transformer.route_tokens = recording_route
+    try:
+        reset_all_counts()
+        t0 = time.perf_counter()
+        load = capture_router_stats(model, micro)["expert_load"]
+        replay_s = time.perf_counter() - t0
+        launches, fallbacks = read_counts()
+    finally:
+        transformer.route_tokens = route
+    if load.shape != (MOE_LAYERS, cfg.num_experts) or len(seen) != MOE_LAYERS:
+        raise AssertionError(f"moe monitor: expert load {load.shape}, {len(seen)} router calls")
+    if not np.allclose(load.sum(1), 1.0, rtol=0, atol=1e-12):
+        raise AssertionError(f"moe monitor: load rows sum to {load.sum(1)}")
+    own = []
+    with torch.no_grad():
+        for x, router in seen:
+            probs = torch.softmax(x.float() @ router.float(), dim=-1)
+            top = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+            own.append(torch.bincount(top[:, :cfg.num_experts_per_tok].reshape(-1),
+                                      minlength=cfg.num_experts).double().cpu().numpy())
+    own = np.stack(own)
+    if not np.array_equal(load, own / own.sum(1, keepdims=True)):
+        bad = int((load != own / own.sum(1, keepdims=True)).sum())
+        raise AssertionError(f"moe monitor: the expert load departs from this script's own "
+                             f"routing count in {bad} of {load.size} entries")
+    publish_router_stats(load)
+    reg = get_registry()
+    for li, row in enumerate(load):
+        nz = row[row > 0]
+        want = {"entropy": float(-(nz * np.log(nz)).sum()), "max_load": float(row.max()),
+                "drop_frac": float(np.clip(row - 1.0 / len(row), 0.0, None).sum())}
+        got = {k: reg.gauge(f"moe.layer{li}.{k}").value for k in want}
+        if got != want:
+            raise AssertionError(f"moe monitor: layer {li} gauges {got}, expected {want}")
+    check_counts(launches, fallbacks, {"flash_fwd": MOE_LAYERS, "gmm_fwd": 3 * MOE_LAYERS},
+                 "MoE monitor replay")
+    entropy = [reg.gauge(f"moe.layer{i}.entropy").value for i in range(MOE_LAYERS)]
+    log(f"moe monitor (Qwen3-30B-A3B width, {MOE_LAYERS} layers, its model after "
+        f"{MAIN_STEPS} steps, the first micro-batch of 4 x 4096): expert load "
+        f"{list(load.shape)}, rows sum to 1, equal to this script's own f32 routing count "
+        f"({int(own.sum())} assignments); max load per layer "
+        f"{', '.join(f'{x:.4f}' for x in load.max(1))} (ideal {1 / cfg.num_experts:.4f}), "
+        f"entropy {', '.join(f'{x:.4f}' for x in entropy)} nats (ln {cfg.num_experts} = {math.log(cfg.num_experts):.4f}); gauges published; "
+        f"replay {replay_s * 1e3:.1f} ms; launches {launches}, FALLBACK_CALLS={fallbacks} "
+        f"[{card}]")
     return launches
 
 
@@ -1036,7 +1142,7 @@ def phase_trainer(dev, card):
     from veomni_tpu_torch.train import build_train_state, build_train_step
     from veomni_tpu_torch.train_text_step import bench_config
     from veomni_tpu_torch.trainer import TextTrainer
-    from veomni_tpu_torch.trainer.callbacks import Callback
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
 
     class Record(Callback):
         """Per synced step: loss, grad norm, valid tokens, host time; the
@@ -1075,6 +1181,9 @@ def phase_trainer(dev, card):
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()
         trainer = TextTrainer(args)
+        # its final checkpoint (7 GB, ~17 s) is never read: leg B's are
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
         rec_a = Record()
         trainer.callbacks.append(rec_a)
         trainer.train()
@@ -1287,7 +1396,7 @@ def phase_hf_trainer(dev, card, yaml_path: str, first_batch):
     from veomni_tpu_torch.train import build_train_state, build_train_step
     from veomni_tpu_torch.train_text_step import HF_CONFIGS
     from veomni_tpu_torch.trainer import TextTrainer
-    from veomni_tpu_torch.trainer.callbacks import Callback
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
 
     class Record(Callback):
         """Per step: loss, grad norm, valid tokens, host time; the first
@@ -1312,6 +1421,9 @@ def phase_hf_trainer(dev, card, yaml_path: str, first_batch):
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()
         trainer = TextTrainer(args)
+        # no final checkpoint (13 GB of f32 state, ~30 s): no check reads it
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
         rec = Record()
         trainer.callbacks.append(rec)
         export = {}
@@ -1329,7 +1441,6 @@ def phase_hf_trainer(dev, card, yaml_path: str, first_batch):
         launches, fallbacks = read_counts()
         by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
         peak = torch.cuda.max_memory_allocated(dev)
-        shutil.rmtree(os.path.join(out_dir, "checkpoints"), ignore_errors=True)
         return trainer, rec, launches, fallbacks, by_dim, peak, export.get("s")
 
     def params_equal(got, want, what):
@@ -3241,6 +3352,438 @@ def phase_sft_lora_moe(dev, card):
 # --------------------------------------------------------------------------
 # Serving: the paged-KV engine at Qwen3-0.6B and Qwen3-30B-A3B
 # --------------------------------------------------------------------------
+# the post-training phase: the DPO, distillation and RL trainers through the
+# classes their entry points (veomni_tpu_torch.tasks.train_text_{dpo,distill,
+# rl}) build from the parsed YAML, and the channel loss through TextTrainer,
+# at Qwen3-0.6B's full widths and 28 layers (the trainer phase's YAML:
+# tools/trainer_profile.py); the LoRA DPO leg on TinyLlama-1.1B
+POST_STEPS = 3
+POST_LORA_STEPS = 2
+POST_SEQ = 4096
+DPO_PAIRS = 2  # pairs a micro-batch: 4 rows
+POST_ROWS = 4  # distill and RL rows a micro-batch
+DISTILL_TOPK = 8
+CHANNELS = ("web", "code")
+CHANNEL_STEPS = 2
+# step 1's identities: DPO's loss is ln 2 a pair when policy and reference
+# score alike (they run the same ops on the same weights: bit-equal, so the
+# tolerance only allows for the f32 ln 2); the student is the teacher, so the
+# KL is 0 and the two top-k masses agree up to the teacher's data passing
+# through JSON (exact for f32) and the bf16 product shapes (a batch of 4
+# rows against one); the RL ratio is 1 up to the same.
+TOL_DPO_LN2 = 1e-5
+TOL_KL = 1e-3
+TOL_RATIO = 1e-2
+TOL_CHANNEL_REL = 1e-5
+
+
+def post_record(first=False):
+    """A trainer callback recording each step's metrics (every step is a
+    log step: host floats and arrays) and host time; ``first`` puts it ahead
+    of the others (the channel loss callback pops its vectors)."""
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps = {}
+
+        def on_step_end(self, trainer, state):
+            self.steps[state.global_step] = dict(state.metrics, t=time.perf_counter())
+
+        def on_train_end(self, trainer, state):  # the train-end eval
+            if "eval_loss" in state.metrics:
+                self.steps[state.global_step]["eval_loss"] = state.metrics["eval_loss"]
+
+    return Record()
+
+
+def post_run(dev, card, tag: str, cls, argv, steps: int, *, record_first=False, built=None):
+    """``cls`` (the entry point's trainer) on the parsed ``argv``, its final
+    checkpoint dropped (a 7 GB write nothing here reads), ``built(trainer)``
+    called before it trains: returns (trainer, each step's metrics,
+    launches, fallbacks) after logging the steps."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.trainer.callbacks import CheckpointCallback
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = cls(parse_args(VeOmniArguments, argv))
+    build_s = time.perf_counter() - t0
+    trainer.callbacks = [cb for cb in trainer.callbacks if not isinstance(cb, CheckpointCallback)]
+    rec = post_record()
+    if record_first:
+        trainer.callbacks.insert(0, rec)
+    else:
+        trainer.callbacks.append(rec)
+    if built is not None:
+        built(trainer)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    train_s = time.perf_counter() - t0
+    launches, fallbacks = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    a = rec.steps
+    check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=r["step_ok"])
+                 for r in a.values()], tag)
+    ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+    extras = [k for k in ("dpo_acc", "distill_kl", "student_mass", "teacher_mass",
+                          "ratio_mean", "eval_loss") if k in a[1] or k in a[steps]]
+    for i in range(1, steps + 1):
+        shown = " ".join(f"{k}={a[i][k]:.6f}" for k in extras if k in a[i])
+        timing = (f" step_ms={ms[i - 2]:.1f}" if i >= 2
+                  else " (first step: warm-up, not timed)")
+        log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f} "
+            f"ntokens={int(a[i]['ntokens'])} {shown}{timing} [{card}]")
+    med = sorted(ms)[len(ms) // 2] if ms else float("nan")
+    rows = trainer.args.train.micro_batch_size * (2 if cls.__name__ == "TextDPOTrainer" else 1)
+    seq = trainer.args.data.max_seq_len
+    log(f"{tag}: built in {build_s:.1f} s, {steps} steps in {train_s:.1f} s; warm steps "
+        f"{', '.join(f'{x:.1f}' for x in ms)} ms, median {med:.1f} ms, "
+        f"{rows * seq / med * 1e3:.1f} tokens/s ({rows} rows of {seq}, padding included), "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}, "
+        f"FALLBACK_CALLS={fallbacks} [{card}]")
+    return trainer, a, launches, fallbacks
+
+
+def initial_policy(cfg_path: str, out: str):
+    """The post-training trainers' initial model: the one a trainer builds
+    from the YAML at ``cfg_path`` (its config and its seed), on the card."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.trainer import TextTrainer
+
+    trainer = TextTrainer(parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={out}"]))
+    model = trainer.train_state.model
+    trainer.checkpointer.close()
+    del trainer
+    destroy_parallel_state()
+    gc.collect()
+    return model
+
+
+def params_digest(module):
+    return tensors_digest(p for _, p in module.named_parameters())
+
+
+def write_jsonl(path, rows):
+    with open(path, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def row_logprobs(model, ids):
+    """One row through ``model`` under ``no_grad`` (bf16 forward, f32
+    logits 1024 positions at a time, as the trainers' fused CE takes them):
+    per position t, log p(ids[t+1]) (t < n - 1) and the top-k ids and
+    log-probs of the distribution at t."""
+    dev = next(model.parameters()).device
+    n = len(ids)
+    with torch.no_grad():
+        x = torch.tensor(ids, device=dev)[None]
+        pos = torch.arange(n, device=dev)[None]
+        seg = torch.ones_like(x, dtype=torch.int32)
+        pad = (-n) % 128  # the flash kernels take S a multiple of 128
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+            pos = torch.nn.functional.pad(pos, (0, pad))
+            seg = torch.nn.functional.pad(seg, (0, pad))
+        hidden, _ = model.forward_hidden(x, pos, seg)
+        kernel = model.lm_head_kernel().to(model.cfg.dtype).float()
+        gold, top_ids, top_lp = [], [], []
+        for lo in range(0, n, 1024):
+            hi = min(lo + 1024, n)
+            logits = hidden[0, lo:hi].float() @ kernel
+            lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+            nxt = x[0, lo + 1:min(hi, n - 1) + 1]
+            g = logits[: len(nxt)].gather(-1, nxt[:, None].long())[:, 0] - lse[: len(nxt), 0]
+            v, i = torch.topk(logits, DISTILL_TOPK, dim=-1)
+            gold.append(g)
+            top_ids.append(i)
+            top_lp.append(v - lse)
+        return (torch.cat(gold).cpu().tolist(), torch.cat(top_ids).cpu().tolist(),
+                torch.cat(top_lp).cpu().tolist())
+
+
+def post_yaml_args(cfg_path: str, out: str, *extra):
+    return [cfg_path, f"--train.output_dir={out}", f"--train.train_steps={POST_STEPS}", *extra]
+
+
+def phase_post_training(dev, card):
+    """The post-training trainers (see phase 20 of the module docstring).
+    Returns {path: (launches, head dim, layout)} for the kernels line."""
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.tools.trainer_profile import write_config
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_post_")
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    paths = {}
+    try:
+        cfg_path = write_config(tmp, steps=POST_STEPS)
+        rng = np.random.default_rng(0)
+        init = initial_policy(cfg_path, os.path.join(tmp, "init"))
+        before = params_digest(init)
+        layers, vocab = init.cfg.num_hidden_layers, init.cfg.vocab_size
+        s = POST_SEQ
+
+        # ---- data: DPO pairs, distillation rows with the initial model as
+        # teacher, RL rows with half their old log-probs from it
+        def ids(lo, hi):
+            return rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+
+        t0 = time.perf_counter()
+        pairs = [{"prompt": ids(s // 16, s // 4), "chosen": ids(s // 16, 3 * s // 8),
+                  "rejected": ids(s // 16, 3 * s // 8)}
+                 for _ in range(DPO_PAIRS * POST_STEPS + 2 * DPO_PAIRS)]
+        write_jsonl(os.path.join(tmp, "dpo.jsonl"), pairs[:DPO_PAIRS * POST_STEPS])
+        write_jsonl(os.path.join(tmp, "dpo_eval.jsonl"), pairs[DPO_PAIRS * POST_STEPS:])
+        distill = []
+        for _ in range(POST_ROWS * POST_STEPS):
+            row = ids(s // 2, s)
+            _, top_ids, top_lp = row_logprobs(init, row)
+            distill.append({"input_ids": row, "teacher_topk_ids": top_ids[:len(row) - 1],
+                            "teacher_topk_log_probs": top_lp[:len(row) - 1]})
+        write_jsonl(os.path.join(tmp, "distill.jsonl"), distill)
+        rl = []
+        for i in range(POST_ROWS * POST_STEPS):
+            prompt, resp = ids(s // 32, s // 8), ids(s // 8, s // 2)
+            row = {"prompt": prompt, "response": resp, "advantage": float(rng.standard_normal())}
+            if i % 2:  # the rollout policy's log-probs: the initial one's
+                gold, _, _ = row_logprobs(init, prompt + resp)
+                row["old_logprobs"] = gold[len(prompt) - 1:]
+            rl.append(row)
+        write_jsonl(os.path.join(tmp, "rl.jsonl"), rl)
+        del init, distill, rl
+        torch.cuda.empty_cache()
+        log(f"post-training data: {len(pairs)} DPO pairs (prompts {s // 16}-{s // 4} tokens, "
+            f"chosen and rejected {s // 16}-{3 * s // 8}); {POST_ROWS * POST_STEPS} "
+            f"distillation rows of {s // 2}-{s} tokens with the initial Qwen3-0.6B's "
+            f"top-{DISTILL_TOPK} ids and log-probs (a no_grad forward); {POST_ROWS * POST_STEPS} "
+            f"RL rows (prompts {s // 32}-{s // 8}, responses {s // 8}-{s // 2} tokens, "
+            f"advantages from N(0, 1)), every other one with the initial policy's old "
+            f"log-probs, the rest on the sentinel; written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # ---- 1. DPO, full parameters, with the eval loop
+        from veomni_tpu_torch.trainer import DistillTrainer, RLTrainer, TextDPOTrainer, TextTrainer
+
+        tag = "post dpo Qwen3-0.6B"
+        trainer, a, launches, fallbacks = post_run(dev, card, tag, TextDPOTrainer, post_yaml_args(
+            cfg_path, os.path.join(tmp, "dpo"), f"--data.train_path={tmp}/dpo.jsonl",
+            f"--data.eval_path={tmp}/dpo_eval.jsonl", "--train.eval_steps=2",
+            "--train.eval_batches=1", f"--train.micro_batch_size={DPO_PAIRS}"), POST_STEPS)
+        rel = abs(a[1]["loss"] - math.log(2)) / math.log(2)
+        log(f"{tag}: step 1 loss {a[1]['loss']!r} against ln 2 = {math.log(2)!r} (rel {rel:.2e}, "
+            f"tol {TOL_DPO_LN2}), dpo_acc {a[1]['dpo_acc']}")
+        if not (rel <= TOL_DPO_LN2 and a[1]["dpo_acc"] == 0.0):
+            raise AssertionError(f"{tag}: step 1 is not ln 2 a pair with no pair right")
+        if params_digest(trainer.reference) != before:
+            raise AssertionError(f"{tag}: the reference policy is not the initial one")
+        if params_digest(trainer.train_state.model) == before:
+            raise AssertionError(f"{tag}: the policy did not move")
+        evals = {i: r["eval_loss"] for i, r in a.items() if "eval_loss" in r}
+        per_step = {"flash_fwd": 2 * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+        eval_k1 = 2 * layers  # one eval micro-batch: policy and reference forwards
+        want = {k: v * POST_STEPS for k, v in per_step.items()}
+        want["flash_fwd"] += eval_k1 * len(evals)
+        log(f"{tag}: evals inside train() at steps {sorted(evals)}: {evals}; launches {launches} "
+            f"(reckoned {want}: per step K1 twice a layer, the policy's forward and the "
+            f"reference's under no_grad, ctx remat reruns none, K2 and K3 once a layer; each "
+            f"eval K1 twice a layer)")
+        check_counts(launches, fallbacks, want, tag)
+        if sorted(evals) != [2, POST_STEPS]:
+            raise AssertionError(f"{tag}: evals at {sorted(evals)}")
+        paths["dpo"] = (launches, 128, None)
+        reset_all_counts()
+        t0 = time.perf_counter()
+        e1, e2 = trainer.evaluate(), trainer.evaluate()
+        eval_s = (time.perf_counter() - t0) / 2
+        e_launches, e_fallbacks = read_counts()
+        log(f"{tag}: two evaluate() calls on the final weights: {e1!r}, {e2!r} (the last "
+            f"train-time eval {evals[POST_STEPS]!r}); {eval_s:.2f} s each; launches {e_launches}")
+        if not e1 == e2 == evals[POST_STEPS]:
+            raise AssertionError(f"{tag}: evaluate() is not repeatable")
+        check_counts(e_launches, e_fallbacks, {"flash_fwd": 2 * eval_k1}, f"{tag} eval")
+        paths["dpo_eval"] = (e_launches, 128, None)
+        log(f"{tag}: the reference policy's {len(before)} tensors bit-equal to the initial "
+            f"ones after {POST_STEPS} steps; the policy's moved")
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 2. DPO with LoRA on TinyLlama-1.1B, text through its tokenizer
+        paths["dpo_lora"] = post_dpo_lora(dev, card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 3. distillation: the student is the teacher at step 1
+        tag = "post distill Qwen3-0.6B"
+        trainer, a, launches, fallbacks = post_run(dev, card, tag, DistillTrainer, post_yaml_args(
+            cfg_path, os.path.join(tmp, "distill"), f"--data.train_path={tmp}/distill.jsonl",
+            f"--train.distill_topk={DISTILL_TOPK}"), POST_STEPS)
+        if params_digest(trainer.train_state.model) == before:
+            raise AssertionError(f"{tag}: the student did not move")
+        gap = abs(a[1]["student_mass"] - a[1]["teacher_mass"])
+        log(f"{tag}: step 1 distill_kl {a[1]['distill_kl']!r} nats a token (tol {TOL_KL}), "
+            f"student_mass {a[1]['student_mass']!r} teacher_mass {a[1]['teacher_mass']!r} "
+            f"(|gap| {gap:.2e}, tol {TOL_KL})")
+        if not (abs(a[1]["distill_kl"]) <= TOL_KL and gap <= TOL_KL):
+            raise AssertionError(f"{tag}: step 1 departs from the teacher")
+        want = {k: layers * POST_STEPS for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        check_counts(launches, fallbacks, want, tag)
+        paths["distill"] = (launches, 128, None)
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 4. RL: on-policy rows and the initial policy's old log-probs
+        tag = "post rl Qwen3-0.6B"
+        trainer, a, launches, fallbacks = post_run(dev, card, tag, RLTrainer, post_yaml_args(
+            cfg_path, os.path.join(tmp, "rl"), f"--data.train_path={tmp}/rl.jsonl"), POST_STEPS)
+        log(f"{tag}: step 1 ratio_mean {a[1]['ratio_mean']!r} (|ratio_mean - 1| tol "
+            f"{TOL_RATIO}); later steps {[a[i]['ratio_mean'] for i in range(2, POST_STEPS + 1)]}")
+        if not abs(a[1]["ratio_mean"] - 1) <= TOL_RATIO:
+            raise AssertionError(f"{tag}: step 1's ratio departs from 1")
+        check_counts(launches, fallbacks, want, tag)
+        paths["rl"] = (launches, 128, None)
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- 5. the channel loss on the trainer phase's model and YAML
+        tag = "post channel loss Qwen3-0.6B"
+        corpus = [{"input_ids": ids(s // 16, s // 2), "channel": CHANNELS[i % 2]}
+                  for i in range(128)]
+        write_jsonl(os.path.join(tmp, "channels.jsonl"), corpus)
+        trainer, a, launches, fallbacks = post_run(dev, card, tag, TextTrainer, [
+            cfg_path, f"--train.output_dir={tmp}/channels", f"--train.train_steps={CHANNEL_STEPS}",
+            f"--data.train_path={tmp}/channels.jsonl",
+            f"--data.channel_list={json.dumps(list(CHANNELS))}"], CHANNEL_STEPS,
+            record_first=True)
+        for i, r in a.items():
+            sums, counts = np.asarray(r["channel_loss_sums"]), np.asarray(r["channel_token_counts"])
+            loss_sum = r["loss"] * r["ntokens"]
+            rel = abs(sums.sum() - loss_sum) / loss_sum
+            log(f"{tag} step {i}: per-channel sums {sums.tolist()} (sum {sums.sum():.4f}) "
+                f"against the step's loss_sum {loss_sum:.4f} (rel {rel:.2e}, tol "
+                f"{TOL_CHANNEL_REL}); counts {counts.tolist()} against ntokens "
+                f"{int(r['ntokens'])}")
+            if not (rel <= TOL_CHANNEL_REL and counts.sum() == r["ntokens"] and counts.min() > 0):
+                raise AssertionError(f"{tag}: step {i}'s channel sums or counts do not add up")
+        totals = next(cb for cb in trainer.callbacks if type(cb).__name__ == "ChannelLossCallback"
+                      ).state_dict()
+        log(f"{tag}: the callback's totals {totals}")
+        want = {k: layers * CHANNEL_STEPS for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+        check_counts(launches, fallbacks, want, tag)
+        paths["channel_loss"] = (launches, 128, None)
+        del trainer
+        destroy_parallel_state()
+        return paths
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+DPO_LORA_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+  tokenizer_path: {hf}
+  lora: {{rank: 16, alpha: 32}}
+data:
+  train_path: {data}
+  data_type: plaintext
+  max_seq_len: {seq}
+train:
+  micro_batch_size: {pairs}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  seed: 0
+  save_hf_weights: false
+  prefetch_depth: 0
+  log_steps: 1
+"""
+
+
+def post_dpo_lora(dev, card, tmp: str):
+    """DPO with LoRA (rank 16, alpha 32: lora_sft.yaml's) on TinyLlama-1.1B
+    from an HF directory of random bf16 weights (seed 0, the SFT phase's
+    model) with the byte-fallback fixture tokenizer; prompt, chosen and
+    rejected texts are paragraphs of the repo's docs, tokenized by the
+    trainer. The reference policy is the bare base. Returns its launches."""
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.trainer import TextDPOTrainer
+
+    tag = "post dpo lora TinyLlama-1.1B"
+    hf_dir = os.path.join(tmp, "tinyllama")
+    t0 = time.perf_counter()
+    cfg = write_random_hf_dir(dev, hf_dir, HF_PRESET)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(TOKENIZER_FIXTURES, "bytefallback", name), hf_dir)
+    paras = []
+    for name in SFT_DOCS:
+        with open(name, encoding="utf-8") as f:
+            paras += [p.strip() for p in f.read().split("\n\n") if len(p.strip()) > 80]
+    rng = np.random.default_rng(1)
+    rows = []
+    for _ in range(DPO_PAIRS * POST_LORA_STEPS):  # ~150-400 tokens each
+        pick = rng.choice(len(paras), size=3, replace=False)
+        rows.append({"prompt": paras[pick[0]][:600], "chosen": paras[pick[1]][:1200],
+                     "rejected": paras[pick[2]][:1200]})
+    data = os.path.join(tmp, "dpo_text.jsonl")
+    write_jsonl(data, rows)
+    yaml_path = os.path.join(tmp, "dpo_lora.yaml")
+    with open(yaml_path, "w") as f:
+        f.write(DPO_LORA_YAML.format(hf=hf_dir, data=data, seq=HF_SEQ, pairs=DPO_PAIRS,
+                                     steps=POST_LORA_STEPS))
+    log(f"{tag}: HF directory, tokenizer and {len(rows)} text pairs written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    before = []
+
+    def built(trainer):
+        sample = trainer.data_transform(rows[0])
+        n_prompt = sum(lab == -100 for lab in sample["chosen_labels"])
+        n_chosen = len(sample["chosen_input_ids"]) - n_prompt
+        n_rejected = len(sample["rejected_input_ids"]) - n_prompt
+        log(f"{tag}: the first pair tokenizes to a {n_prompt}-token prompt (masked in both "
+            f"branches), {n_chosen} chosen and {n_rejected} rejected tokens")
+        if not (n_prompt and n_chosen and n_rejected):
+            raise AssertionError(f"{tag}: a text pair lost its prompt or a response")
+        before.extend(tensors_digest(trainer.base_model.parameters()))
+
+    trainer, a, launches, fallbacks = post_run(dev, card, tag, TextDPOTrainer, [
+        yaml_path, f"--train.output_dir={tmp}/dpo_lora"], POST_LORA_STEPS, built=built)
+    rel = abs(a[1]["loss"] - math.log(2)) / math.log(2)
+    log(f"{tag}: step 1 loss {a[1]['loss']!r} against ln 2 (rel {rel:.2e}, tol {TOL_DPO_LN2}); "
+        f"the reference policy is the bare base: {trainer.reference is trainer.base_model}")
+    if not (rel <= TOL_DPO_LN2 and trainer.reference is trainer.base_model):
+        raise AssertionError(f"{tag}: step 1 is not ln 2 a pair against the bare base")
+    if tensors_digest(trainer.base_model.parameters()) != before:
+        raise AssertionError(f"{tag}: the frozen base changed in training")
+    adapters = trainer.train_state.model
+    idle = [p for p in adapters.paths if not adapters.leaf(p).lora_b.any()]
+    if idle:
+        raise AssertionError(f"{tag}: adapters that never trained: {idle}")
+    n = cfg.num_hidden_layers * POST_LORA_STEPS
+    want = {"flash_fwd": 2 * n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+    check_counts(launches, fallbacks, want, tag)
+    log(f"{tag}: base bit-unchanged ({len(before)} tensors), every adapter trained; launches "
+        f"as reckoned {want} (all at D 64)")
+    del trainer, adapters
+    destroy_parallel_state()
+    return launches, 64, None
+
+
 SERVE_DENSE_PRESET = "qwen3_0p6b"
 # the dense phase's five legs decode 64 new tokens a request and hold 3
 # prompts against greedy_generate (its contiguous loop); 128 and 8 until
@@ -4460,8 +5003,8 @@ def main(argv=None) -> int:
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
                          "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
-                         "hf_trainer_qwen2_5_vl, and "
-                         "before them main (the dense loop) or trainer; such a partial run "
+                         "hf_trainer_qwen2_5_vl, moe (with the MoE monitor), post_training, "
+                         "and before them main (the dense loop) or trainer; such a partial run "
                          "prints no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -4488,7 +5031,8 @@ def main(argv=None) -> int:
                   "hf_trainer_gpt_oss": phase_hf_trainer_gpt_oss,
                   "serve_gpt_oss": phase_serve_gpt_oss,
                   "hf_trainer_qwen2_vl": phase_hf_trainer_qwen2_vl,
-                  "hf_trainer_qwen2_5_vl": phase_hf_trainer_qwen2_5_vl}
+                  "hf_trainer_qwen2_5_vl": phase_hf_trainer_qwen2_5_vl,
+                  "moe": phase_moe_main, "post_training": phase_post_training}
         for name in args.phases.split(","):
             t0 = time.perf_counter()
             phases[name](dev, card)
@@ -4562,7 +5106,9 @@ def run_phases(dev, card, hf_tmp) -> int:
     by_path["hf_trainer"] = (phase_hf_trainer(dev, card, hf_yaml, hf_batch), 64, None)
     torch.cuda.empty_cache()
     lap = lap_clock("hf_trainer", lap)
-    by_path["moe"] = (phase_moe_main(dev, card), 128, None)
+    moe_launches, monitor_launches = phase_moe_main(dev, card)
+    by_path["moe"] = (moe_launches, 128, None)
+    by_path["moe_monitor"] = (monitor_launches, 128, None)
     torch.cuda.empty_cache()
     lap = lap_clock("moe", lap)
     phase_moe_micro_batch_1(dev, card)
@@ -4616,6 +5162,12 @@ def run_phases(dev, card, hf_tmp) -> int:
     torch.cuda.empty_cache()
     by_path["sft_lora_moe"] = (phase_sft_lora_moe(dev, card), 128, None)
     lap = lap_clock("sft_lora_moe", lap)
+    # the post-training trainers (DPO full and LoRA, distillation, RL) and
+    # the channel loss: K1-K3 at D 128 (TinyLlama's LoRA leg at D 64)
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_post_training(dev, card))
+    lap = lap_clock("post_training", lap)
     # the vision-language trainer, after the serving phases for the same
     # reason: Qwen2-VL-2B and Qwen2.5-VL-3B (their K1-K3 rows at D 80 are
     # held and timed inside the phase, before its trainer)

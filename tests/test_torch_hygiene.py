@@ -5,7 +5,9 @@
   ``transformers``: checked statically over every source file, and
   dynamically by importing every module in a fresh subprocess.
 * Entry points called without ``device=`` (the trainer and
-  ``tasks/train_text.py`` without ``train.platform: cpu``, the serving
+  ``tasks/train_text.py``, and the post-training entry points
+  ``tasks/train_text_{dpo,distill,rl}.py``, without ``train.platform:
+  cpu``, the serving
   engine and ``tasks/serve.py`` without ``--device cpu``) on a machine
   without CUDA raise instead of running on the CPU; ``chip_smoke.py``
   exits non-zero and prints no result there, and also when it stands alone
@@ -97,6 +99,11 @@ PORTED_HOST_MODULES = (
     "observability.request_trace", "serving.api", "serving.kv_block_manager",
     "serving.prefix_cache", "serving.scheduler", "serving.spec_decode", "serving.engine",
     "tasks.serve",
+    # the post-training slice: the trainers, their entry points and the
+    # trainer's remaining callbacks' modules
+    "trainer.dpo_trainer", "trainer.distill_trainer", "trainer.rl_trainer",
+    "tasks.train_text_dpo", "tasks.train_text_distill", "tasks.train_text_rl",
+    "train.channel_loss", "utils.moe_monitor",
 )
 
 
@@ -107,6 +114,7 @@ from veomni_tpu_torch.models import Transformer
 from veomni_tpu_torch.serving import InferenceEngine
 from veomni_tpu_torch.tasks import serve
 from veomni_tpu_torch.tasks.train_text import main
+from veomni_tpu_torch.tasks import train_text_distill, train_text_dpo, train_text_rl
 from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
 from veomni_tpu_torch.trainer import TextTrainer
 from veomni_tpu_torch.utils.device import resolve_device
@@ -123,6 +131,9 @@ for call in (lambda: resolve_device(),
              lambda: run_train_steps(128, 1, 1, preset="qwen3_smoke"),
              lambda: TextTrainer(args),
              lambda: main(flags),
+             lambda: train_text_dpo.main(flags),
+             lambda: train_text_distill.main(flags),
+             lambda: train_text_rl.main(flags),
              lambda: InferenceEngine(Transformer(cfg, torch.Generator(), device="cpu"), cfg),
              lambda: serve.main(["--synthetic", "1"])):
     try:

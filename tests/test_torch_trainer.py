@@ -24,8 +24,10 @@
   for 8 steps (loss and grad_norm within rtol 1e-5), and the JAX
   ``hf_to_params`` reads the port's export equal to its final parameters.
 * The feature gate raises ``NotImplementedError`` naming each knob whose
-  module is not ported yet; ``train.platform`` other than cpu/cuda and a
-  launcher asking for several processes raise too.
+  module is not ported yet and admits the ported ones (the eval loop, the
+  channel loss and W&B among them since the post-training slice);
+  ``train.platform`` other than cpu/cuda and a launcher asking for several
+  processes raise too.
 """
 
 import dataclasses
@@ -330,9 +332,6 @@ train:
 GATED = [
     ("train", "optimizer", "muon", "train.optimizer 'muon'"),
     ("data", "data_type", "qwen2_5_vl", "data.data_type 'qwen2_5_vl'"),
-    ("data", "eval_path", "/nonexistent", "data.eval_path"),
-    ("data", "channel_list", ["code"], "data.channel_list"),
-    ("train", "use_wandb", True, "train.use_wandb"),
     ("train", "observability_numerics_interval", 5, "train.observability_numerics_interval"),
     ("train", "observability_port", 9100, "train.observability_port"),
     ("train", "num_virtual_devices", 4, "train.num_virtual_devices"),
@@ -355,6 +354,9 @@ PORTED = [
     ("train", "module_lr_scales", {"q_proj": 0.1}, "train.module_lr_scales"),
     ("data", "data_type", "conversation", "data.data_type 'conversation'"),
     ("model", "tokenizer_path", "/a/tokenizer/dir", "model.tokenizer_path"),
+    ("data", "eval_path", "/nonexistent", "data.eval_path"),
+    ("data", "channel_list", ["code"], "data.channel_list"),
+    ("train", "use_wandb", True, "train.use_wandb"),
 ]
 
 

@@ -147,6 +147,19 @@ class LoraAdapters(nn.Module):
                     for owner, name in self._owners[path]:
                         owner.merges.pop(name, None)
 
+    @contextlib.contextmanager
+    def unmerged(self):
+        """Inside this context the base reads its own weights, even within
+        :meth:`merged` (the DPO trainer's frozen reference policy of a fresh
+        adapter is the bare base); on leaving it the merges held return."""
+        held = [(owner, name, owner.merges.pop(name)) for path in self.paths
+                for owner, name in self._owners[path] if name in owner.merges]
+        try:
+            yield self
+        finally:
+            for owner, name, merge in held:
+                owner.merges[name] = merge
+
 
 def init_lora_params(generator: Optional[torch.Generator], base: Transformer,
                      cfg: LoraConfig) -> LoraAdapters:

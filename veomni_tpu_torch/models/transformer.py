@@ -9,8 +9,10 @@ branches of ``_decoder_layer`` (``:518``), ``route_tokens`` (``:240``),
 ``experts_apply_sorted`` (``:307``) with ``_expert_bias`` (``:301``),
 ``_shared_experts_out`` (``:319``), ``_moe_mlp`` (``:333``),
 ``forward_hidden`` (``:605``), ``lm_head_kernel`` (``:748``),
-``forward_logits`` (``:754``), ``head_loss`` (``:783``) and ``loss_fn``
-(``:805``). The dense dialects: HF rope scaling (linear, llama3, yarn),
+``forward_logits`` (``:754``), ``sequence_logprob_sums`` (``:763``),
+``head_loss`` (``:783``) and ``loss_fn`` (``:805``), and the
+``ROUTER_CAPTURE`` hook of ``_moe_mlp`` (``:328-340``) that
+``utils/moe_monitor.py`` sets. The dense dialects: HF rope scaling (linear, llama3, yarn),
 partial rotary, q/k/v/o and MLP biases (qwen2), and gemma3's sliding
 windows on a per-layer pattern, dual rope, zero-centered and sandwich
 norms, embedding scale, ``query_pre_attn_scalar``, GELU and logit softcap.
@@ -223,6 +225,11 @@ def shared_experts_out(x, shared, cfg: TransformerConfig, gate=None):
     return out
 
 
+# set by utils/moe_monitor.py::capture_routing to a list that moe_mlp
+# appends each MoE layer's expert choices [T, K] to (``:328-340``)
+ROUTER_CAPTURE: Optional[list] = None
+
+
 def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bias=None,
             shared=None, shared_gate=None, router_bias=None):
     """Single-device MoE (``_moe_mlp``, ``:333``): route -> stable sort by
@@ -231,6 +238,8 @@ def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bi
     t, h = x.shape
     k = cfg.num_experts_per_tok
     topk_idx, topk_w, aux = route_tokens(x, router, cfg, correction_bias, router_bias)
+    if ROUTER_CAPTURE is not None:
+        ROUTER_CAPTURE.append(topk_idx.detach())
     flat_expert = topk_idx.reshape(-1)  # [T*K], slot j of token i at i*K + j
     sort_idx = torch.argsort(flat_expert, stable=True)
     # dispatch: sorted row r is token sort_idx[r] // K, gathered from a K-fold copy
@@ -617,6 +626,22 @@ class Transformer(nn.Module):
         if cfg.is_moe and cfg.router_aux_loss_coef:
             total = total + cfg.router_aux_loss_coef * moe_aux * ntokens
         return total, metrics
+
+    def sequence_logprob_sums(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Per-row sums of the label log-probs [B] f32 (``:763-778``, the
+        DPO trainer's policy and reference scores). The reference runs the
+        fused CE over each row (a vmap); here one chunked per-token pass
+        over the flattened rows is summed by row, the same sums. The logits
+        take the final softcap as ``head_loss``'s do, where the reference
+        leaves it out (ROADMAP.md queue 3, diverges on purpose 7)."""
+        cfg = self.cfg
+        hidden, _ = self.forward_hidden(batch["input_ids"], batch["position_ids"],
+                                        batch.get("segment_ids"))
+        b, s, h = hidden.shape
+        nll = ops.fused_linear_cross_entropy_per_token(
+            hidden.reshape(b * s, h), self.lm_head_kernel().to(cfg.dtype),
+            batch["labels"].reshape(b * s), logit_softcap=cfg.final_logit_softcap or None)
+        return -nll.view(b, s).sum(-1)
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Sum-NLL (+ the scaled router aux loss) and metrics with the

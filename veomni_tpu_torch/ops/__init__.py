@@ -28,6 +28,8 @@ gated_act = _swiglu.gated_act
 GATED_ACTS = _swiglu.GATED_ACTS
 attention = _attention.attention
 fused_linear_cross_entropy = _cross_entropy.fused_linear_cross_entropy
+fused_linear_cross_entropy_per_token = _cross_entropy.fused_linear_cross_entropy_per_token
+fused_linear_topk_distill = _cross_entropy.fused_linear_topk_distill
 load_balancing_loss = _load_balancing.load_balancing_loss
 group_gemm = _group_gemm.group_gemm
 cache_attend = _paged_attention.cache_attend
@@ -52,6 +54,8 @@ __all__ = [
     "GATED_ACTS",
     "attention",
     "fused_linear_cross_entropy",
+    "fused_linear_cross_entropy_per_token",
+    "fused_linear_topk_distill",
     "load_balancing_loss",
     "group_gemm",
     "cache_attend",

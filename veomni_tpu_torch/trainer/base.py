@@ -2,8 +2,9 @@
 
 Port of ``veomni_tpu/trainer/base.py`` at world size 1: the build sequence
 of ``__init__`` (``:92-103``: setup -> model -> data transform -> dataset
--> dataloader -> train state -> callbacks), ``try_resume`` and
-``apply_restored_extra`` (``:503-549``), the supervisor's rollback
+-> dataloader -> train state -> callbacks), ``_inner_loss_fn``
+(``:441-456``), ``try_resume`` and ``apply_restored_extra``
+(``:503-549``), ``evaluate`` (``:549-620``), the supervisor's rollback
 (``:741``) and the loop of ``train()`` (``:793``) with its spans,
 flight-recorder events, anomaly supervisor, watchdog and graceful
 shutdown. The model is the port's ``Transformer`` and the step the port's
@@ -29,7 +30,11 @@ over the frozen base (``lora/lora.py``: the train state's model is the
 adapters, the base is ``base_model``), and ``model.freeze_modules`` /
 ``train.module_lr_scales`` group the optimizer
 (``optim/optimizer.py::with_param_groups``) and mask frozen gradients
-before the clip. Features whose modules are not ported yet raise
+before the clip. ``data.eval_path`` adds the eval loop
+(``EvaluateCallback``), ``data.channel_list`` the per-channel loss
+(``train/channel_loss.py``) and ``train.use_wandb`` the W&B log; the
+post-training trainers (``trainer/{dpo,distill,rl}_trainer.py``) override
+the loss fn and the data path. Features whose modules are not ported yet raise
 ``NotImplementedError`` from one gate, :func:`check_supported`, naming the
 knob and the queue item of ``ROADMAP.md`` that ports it.
 """
@@ -71,10 +76,12 @@ from veomni_tpu_torch.train import build_train_state, build_train_step
 from veomni_tpu_torch.trainer.callbacks import (
     CheckpointCallback,
     EnvironMeterCallback,
+    EvaluateCallback,
     HFCheckpointCallback,
     LoggingCallback,
     ProfileCallback,
     TrainerControlState,
+    WandbCallback,
 )
 from veomni_tpu_torch.utils.count_flops import FlopsCounter
 from veomni_tpu_torch.utils.device import resolve_device
@@ -101,9 +108,6 @@ def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> N
         (f"data.data_type {d.data_type!r}", "the qwen2-vl and qwen2.5-vl transforms run "
          "through VLMTrainer, tasks/train_vlm.py; the other multimodal ones are slice F",
          d.data_type not in data_types),
-        ("data.eval_path", "EvaluateCallback and the eval loop: queue 1", bool(d.eval_path)),
-        ("data.channel_list", "train/channel_loss.py: queue 1", bool(d.channel_list)),
-        ("train.use_wandb", "WandbCallback: queue 1", t.use_wandb),
         ("train.observability_numerics_interval", "observability/numerics.py: slice E",
          t.observability_numerics_interval > 0),
         ("train.observability_port / VEOMNI_METRICS_PORT",
@@ -265,6 +269,7 @@ class BaseTrainer:
             seq_len=d.max_seq_len,
             micro_batch_size=local_mb,
             sp_size=ps.sp_size,
+            with_channels=bool(d.channel_list),
         )
         if d.dyn_bsz:
             from veomni_tpu_torch.data.dynamic_batching import DynamicBatchDataloader
@@ -319,11 +324,11 @@ class BaseTrainer:
             trainable = init_lora_params(self.generator, module, self.lora_config)
             if m.lora_adapter_path:
                 load_adapter(m.lora_adapter_path, trainable)
-            loss_fn = apply_lora_to_loss_fn(self.model.loss_fn, module)
+            loss_fn = apply_lora_to_loss_fn(self._inner_loss_fn(), module)
         else:
             self.base_model = None
             trainable = module
-            loss_fn = self.model.loss_fn
+            loss_fn = self._inner_loss_fn()
         self.optimizer = build_optimizer(
             trainable, lr=self.lr_schedule, betas=tuple(t.betas), weight_decay=t.weight_decay,
         )
@@ -341,7 +346,7 @@ class BaseTrainer:
             scope=LoraAdapters.merged if self.base_model is not None else None,
             skip_nonfinite=t.resilience_skip_nonfinite,
         )
-        self._loss_fn = loss_fn
+        self._loss_fn = loss_fn  # what evaluate() scores
         self.meter = EnvironMeter(
             flops_counter=FlopsCounter.from_config(self.model.config),
             world_size=self.parallel_state.world_size,
@@ -358,24 +363,48 @@ class BaseTrainer:
             elastic=t.ckpt_elastic,
         )
 
+    def _inner_loss_fn(self):
+        """``loss_fn(module, batch)`` over the full model (a LoRA merge
+        wraps it outside): the per-channel loss when ``data.channel_list``
+        is set, else the model's own; the post-training trainers override
+        it with their objectives."""
+        if self.args.data.channel_list:
+            from veomni_tpu_torch.train.channel_loss import make_channel_loss_fn
+
+            return make_channel_loss_fn(len(self.args.data.channel_list))
+        return self.model.loss_fn
+
     def _init_callbacks(self):
         from veomni_tpu_torch.observability.callback import ObservabilityCallback
 
-        t = self.args.train
+        t, d = self.args.train, self.args.data
         self.callbacks = [
             EnvironMeterCallback(self.meter),
             # after the meter (its rollup must be in the published payload),
-            # before Logging (it consumes the registry export)
+            # before Logging/Wandb (they consume the registry export)
             ObservabilityCallback(),
             LoggingCallback(),
-            CheckpointCallback(self.checkpointer, t.save_steps),
         ]
+        if d.channel_list:
+            from veomni_tpu_torch.train.channel_loss import ChannelLossCallback
+
+            # before the checkpoint, so that a save at step N holds step N's
+            # sums (after it, as in the reference, a resume from N loses them)
+            self.callbacks.append(ChannelLossCallback(d.channel_list, t.log_steps * 10))
+        self.callbacks.append(CheckpointCallback(self.checkpointer, t.save_steps))
+        if d.eval_path:
+            self.callbacks.append(EvaluateCallback(t.eval_steps))
         if t.enable_profiling:
             self.callbacks.append(
                 ProfileCallback(t.output_dir, t.profile_start_step, t.profile_end_step)
             )
         if t.save_hf_weights:
             self.callbacks.append(HFCheckpointCallback())
+        if t.use_wandb:
+            import dataclasses
+
+            self.callbacks.append(WandbCallback(t.wandb_project, t.wandb_name,
+                                                config=dataclasses.asdict(self.args)))
 
     # ----------------------------------------------------------------- resume
     def try_resume(self, step: Optional[int] = None,
@@ -412,11 +441,54 @@ class BaseTrainer:
             if cb_state and hasattr(cb, "load_state_dict"):
                 cb.load_state_dict(cb_state)
 
+    # ------------------------------------------------------------- evaluation
+    def _build_eval_dataloader(self):
+        """The eval pipeline on ``data.eval_path`` through the subclass's own
+        ``_build_dataset`` and ``_build_dataloader`` (the training transform
+        and collator)."""
+        saved = (self.dataset, self.dataloader, self.args.data.train_path)
+        self.args.data.train_path = self.args.data.eval_path
+        try:
+            self._build_dataset()
+            self._build_dataloader()
+            return self.dataloader
+        finally:
+            self.dataset, self.dataloader, self.args.data.train_path = saved
+
+    @torch.no_grad()
+    def evaluate(self) -> Optional[float]:
+        """Forward-only mean loss of the trainer's own objective
+        (``self._loss_fn``: a post-training trainer scores its DPO, distill
+        or RL loss) over ``train.eval_batches`` batches of
+        ``data.eval_path``, micro-batch by micro-batch: the loss sums over
+        the ``ntokens`` sums. The eval dataloader is rebuilt on every call,
+        so with the fixed seed each call reads the same slice and the
+        values of different steps compare. The reference also books the
+        eval step in its XLA cost census (``observability/cost.py``), which
+        belongs to slice E and has no twin here."""
+        if not self.args.data.eval_path:
+            return None
+        it = iter(self._build_eval_dataloader())
+        total, ntok = 0.0, 0.0
+        for _ in range(self.args.train.eval_batches):
+            try:
+                batch_np = next(it)
+            except StopIteration:
+                break
+            batch = self._ship_batch(batch_np)
+            for a in range(next(iter(batch.values())).shape[0]):
+                loss_sum, metrics = self._loss_fn(self.train_state.model,
+                                                  {k: v[a] for k, v in batch.items()})
+                total += float(loss_sum)
+                ntok += float(metrics["ntokens"])
+        return total / max(ntok, 1.0)
+
     def _ship_batch(self, batch_np):
         """Host batch -> device tensors: numpy -> pinned host tensor ->
-        asynchronous copy to the card (plain tensors on the CPU)."""
+        asynchronous copy to the card (plain tensors on the CPU). The
+        class's keys, and ``channel_ids`` under ``data.channel_list``."""
         out = {}
-        for k in self.BATCH_KEYS:
+        for k in self.BATCH_KEYS + (("channel_ids",) if self.args.data.channel_list else ()):
             if k not in batch_np:
                 continue
             t = torch.from_numpy(batch_np[k])

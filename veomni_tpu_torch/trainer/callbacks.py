@@ -2,21 +2,21 @@
 
 Port of ``veomni_tpu/trainer/callbacks.py``: ``TrainerControlState``, the
 hook protocol, ``LoggingCallback``, ``EnvironMeterCallback``,
-``CheckpointCallback`` (``:196``), ``HFCheckpointCallback`` (``:254``) and
-``ProfileCallback``, which drives ``torch.profiler`` where the reference
-drives ``jax.profiler``. The reference's ``EvaluateCallback`` and
-``WandbCallback`` are not ported yet; the trainer's feature gate
-(``trainer/base.py::check_supported``) raises for the knobs that add them.
+``EvaluateCallback`` (``:173``), ``CheckpointCallback`` (``:196``),
+``HFCheckpointCallback`` (``:254``), ``ProfileCallback``, which drives
+``torch.profiler`` where the reference drives ``jax.profiler``, and
+``WandbCallback`` (``:330``).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
+from veomni_tpu_torch.utils.helper import host_floats
 from veomni_tpu_torch.utils.logging import _process_index, get_logger
 
 logger = get_logger(__name__)
@@ -135,6 +135,30 @@ class EnvironMeterCallback(Callback):
     def on_step_end(self, trainer, state):
         if state.synced:
             state.metrics.update(self.meter.step())
+
+
+class EvaluateCallback(Callback):
+    """Every ``eval_steps`` steps, and at train end when the last step was
+    not one of them, ``trainer.evaluate()``'s forward-only loss over
+    ``data.eval_path`` lands in ``state.metrics["eval_loss"]`` (the
+    reference's EvaluateCallback is an empty TODO; this one runs)."""
+
+    def __init__(self, eval_steps: int):
+        self.eval_steps = eval_steps
+
+    def _run(self, trainer, state):
+        loss = trainer.evaluate()
+        if loss is not None:
+            state.metrics["eval_loss"] = loss
+            logger.info_rank0("step %d | eval_loss=%.4g", state.global_step, loss)
+
+    def on_step_end(self, trainer, state):
+        if self.eval_steps and state.global_step % self.eval_steps == 0:
+            self._run(trainer, state)
+
+    def on_train_end(self, trainer, state):
+        if not self.eval_steps or state.global_step % self.eval_steps:
+            self._run(trainer, state)
 
 
 class CheckpointCallback(Callback):
@@ -272,3 +296,38 @@ class ProfileCallback(Callback):
 
     def close(self):
         self._stop()
+
+
+class WandbCallback(Callback):
+    """Logs to Weights & Biases on the sync cadence, and on any step that
+    put ``eval_loss`` into the metrics: the registry's export overlaid with
+    ``state.metrics`` (callbacks after the export, the eval and channel
+    losses, must not be dropped), host scalars only. ``wandb`` is imported
+    here; where it is missing or ``wandb.init`` fails, the reason is logged
+    once and the callback does nothing."""
+
+    def __init__(self, project: str, name: str = "", config: Optional[dict] = None):
+        self._run = None
+        try:
+            import wandb
+
+            self._run = wandb.init(project=project, name=name or None, config=config)
+        except Exception as e:  # not installed, or no network
+            logger.warning_rank0("wandb disabled: %s", e)
+
+    def on_step_end(self, trainer, state):
+        if self._run is None:
+            return
+        if state.synced or "eval_loss" in state.metrics:
+            payload = host_floats({**_export_payload(state), **state.metrics})
+            if payload:
+                self._run.log(payload, step=state.global_step)
+
+    def on_train_end(self, trainer, state):
+        if self._run is not None:
+            # metrics of earlier on_train_end hooks (the final eval) land
+            # after the last step's log
+            payload = host_floats(state.metrics)
+            if payload:
+                self._run.log(payload, step=state.global_step)
+            self._run.finish()
