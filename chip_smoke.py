@@ -108,26 +108,29 @@ Phases (any failure exits non-zero and prints no result line):
    held and timed at its head layout on its own first packed batch
    (Gemma-3-1B also on its first row alone);
 12. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
-   28 layers, over 32 requests in two waves, legs (a) prefix cache and
+   28 layers, over 16 requests in two waves, legs (a) prefix cache and
    512-token chunks, (b) neither, (c) (a) with ngram speculation, (d) (a)
    and (c) sampled; every token held to an f32 teacher-forced re-score
    through the training forward (eps a recorded constant per phase, and
    the engine's first-token spread held under a ceiling), no leaked block,
    pools that keep their storage, cached tokens within the shared prefix;
 13. serve: after the dense phase of 12, Gemma-3-1B, all 26
-   layers, leg (a) over 32 requests of 208-1921 tokens (16 behind a shared
+   layers, leg (a) over 16 requests of 208-1921 tokens (8 behind a shared
    512-token prefix), so its 512-token windows bite, under the same gate;
 14. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
-   every MoE layer of every pass, then K4 alone at the engine's decode and
-   prefill-chunk shapes;
+   every MoE layer of every pass; the int8 tiers' quality gate on the same
+   model (held at full width where phase 22's noise floor allows) and one
+   engine leg with int8 KV blocks and int8 weights over 8 requests (K4 on
+   every MoE layer of every pass, each token within eps of its own int8
+   re-score); then K4 alone at the engine's decode and prefill-chunk
+   shapes;
 15. the deepseek MoE dialect (run after the dense dialects of 11): first
    ``route_tokens`` at DeepSeek-V3's router width (4096 tokens, hidden
    7168, 256 experts in 8 groups, top-4 groups, top-8, sigmoid with a
    nonzero correction bias) on the card against the same call on the CPU
    and against chip_smoke's own routing; then Moonlight-16B-A3B at its
    published widths (the config.json of ``train_text_step.HF_CONFIGS``),
-   depth cut to 4 of 27 layers (the leading dense layer and 3 MoE layers,
-   ~2.5 B parameters), as random bf16 weights from seed 0 with router
+   depth cut to 2 of 27 layers (the leading dense layer and 1 MoE layer), as random bf16 weights from seed 0 with router
    correction biases drawn nonzero, written to an HF directory: its
    parameter count against the one counted here from the config, its first
    MoE layer (MLA q/k, the MLA block, the MoE block) held token by token to
@@ -164,8 +167,7 @@ Phases (any failure exits non-zero and prints no result line):
    and grad norm against the plain ragged grouped GEMM;
 17. the gpt_oss dialect (after the deepseek phases of 15): gpt-oss-20b at
    its published widths (the config.json of ``train_text_step.HF_CONFIGS``),
-   depth cut to 3 of 24 layers (a 128-token window, full attention, a
-   window; ~3.63 B parameters), as random bf16 weights from seed 0 (sinks
+   depth cut to 2 of 24 layers (a 128-token window, full attention), as random bf16 weights from seed 0 (sinks
    from N(0, 1), biases drawn nonzero, the experts' gate/up weights and
    biases drawn large enough that the clamp and the biases show) written
    here in transformers' fused interleaved expert layout and loaded back
@@ -181,12 +183,12 @@ Phases (any failure exits non-zero and prints no result line):
    bit-equal and its fused layout read from its files; then K4-K6 held and
    timed at K = N = 2880 on layer 0's routing (M = 32768); and, after the
    serving phase of 14, the engine at gpt-oss-20b, all 24 layers in bf16,
-   leg (a) over 16 requests of 64-1536 tokens, then K4 alone at its decode
+   leg (a) over 8 requests of 64-1536 tokens, then K4 alone at its decode
    shape (M = 32);
 18. the vision-language trainer (``veomni_tpu_torch.tasks.train_vlm``'s
-   ``VLMTrainer``) at Qwen2-VL-2B-Instruct's published config.json, nothing
-   cut (LM 28 layers, hidden 1536, 12/2 heads of 128, mrope [16, 24, 24];
-   tower 32 blocks of 1280, 16 heads of 80): an HF directory of random bf16
+   ``VLMTrainer``) at Qwen2-VL-2B-Instruct's published config.json, the LM
+   cut to 14 of 28 layers (hidden 1536, 12/2 heads of 128, mrope [16, 24,
+   24]; tower 32 blocks of 1280, 16 heads of 80, nothing cut): an HF directory of random bf16
    weights from seed 0 (the checked q/k drawn wider) and a corpus of
    pretokenized rows with HWC uint8 images of 448 x 448, 336 x 672 and 224 x
    224 pixels, passed as arrays; K1-K3 at head dim 80, full attention, on
@@ -233,7 +235,44 @@ Phases (any failure exits non-zero and prints no result line):
    its loss sum, rel 1e-5, and the counts to ``ntokens``). K1-K3 launch
    as reckoned on every leg, ``FALLBACK_CALLS`` 0.
 
-``--phases serve_dense,serve_moe`` runs the build and those phases alone
+21. the remat policies (after the dense main path of 5): the bare loop at
+   Qwen3-0.6B (28 layers, seq 4096 x micro-batch 4) for 2 steps under each
+   of ``nothing``, ``ctx``, ``dots``, ``offload`` and ``ctx_offload``, and
+   under ``ctx`` with ``chunk_mbs`` 1024: K1-K3 as reckoned (K1 twice a layer
+   and step under ``nothing``, once under the others), step 1's loss
+   bit-equal across the five, the grad norm against ``ctx``'s (limit 1e-3;
+   ``chunk_mbs``: loss 1e-4 too), the offload policies' device peaks below
+   ``dots``'s and ``ctx``'s; step ms and peak memory a policy;
+22. the int8 serving tiers (after the dense serving phase of 12) at
+   Qwen3-0.6B, 28 layers in bf16: the quality gate's noise floor (the dense
+   bf16 path against itself at f32) and the gate of int8 KV, int8 weights
+   and both against the dense path on the fixed corpus (the repo's pinned
+   bounds: ppl rel delta 0.02, top-8 overlap 0.90; held at full width where
+   the floor is inside them, else on the qwen3, gpt_oss-like and qwen3_moe
+   toys they were pinned on), a planted 4x ``o_proj`` scale that must break
+   them; then the engine in each int8 mode over serve dense's 16 requests
+   (every token within eps of its own int8 teacher-forced re-score, no
+   leaked block, pools unmoved) and the pool bytes a block and
+   ``max_concurrent_seqs`` at equal pool bytes against the dense pool;
+23. the replica router: 2 replicas of Qwen3-0.6B (8 slots each) behind
+   ``Router`` on serve dense's traffic, beside one engine on the same
+   traffic: affinity keys and rendezvous targets against this script's
+   own; a clean run (aggregate tok/s, spills, hit rate); a ``raise`` at one
+   replica's first decode tick (its unstreamed requests redispatched, every
+   id finished exactly once, the respawn through probation); a ``hang``
+   there under ``replica_stall_s`` 3 (a wedge declared before the 10 s hang
+   ends, the respawn through probation); ``publish_from_checkpoint`` of a
+   truncated generation refused with no replica moved, then of a second
+   weight set (seed 1, written by ``Checkpointer``) rolled in mid-traffic:
+   each prefix cache flushed, requests before the roll held to the old
+   weights, after it to the new; every token through the re-score gate;
+24. ``python -m veomni_tpu_torch.tasks.infer_text`` as a subprocess on
+   Qwen3-0.6B (28 layers, the embedding cut to the byte-fallback fixture
+   tokenizer's 4096 ids) with two prompts on stdin, started beside the
+   kernel build of 1 and waited for right after it, before the first timed
+   phase: its output lines equal the decode of ``greedy_generate``'s ids.
+
+``--phases serve_dense,serve_quant,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
 first) and prints no result line; ``--phases
 hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
@@ -242,7 +281,12 @@ deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
 (16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17),
 ``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19),
 ``--phases moe,post_training`` the MoE path with its monitor (6) and the
-post-training trainers (20). Each partial run logs each phase's seconds
+post-training trainers (20), ``--phases remat,serve_quant,serve_router,
+infer_text`` the phases 21-24 (``serve_moe`` needs ``serve_quant`` named before
+it: the MoE gate reads its noise floor), and ``--phases vlm_witness``, which
+no whole run includes, the VLM step-1 parity's witness: the step at other
+text depths and weight seeds, with the attention of the tower and of the
+text layers each pinned to the plain version in turn. Each partial run logs each phase's seconds
 (``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
@@ -264,7 +308,9 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -322,7 +368,7 @@ MB1_STEPS = 4  # per leg of the micro-batch-1 MoE step; the first two warm up
 TRAINER_SAVE_AT = 3  # the trainer phase's resumed leg saves here, then runs to 6
 # the HF-directory trainer phase: TinyLlama-1.1B (train_text_step.HF_CONFIGS)
 HF_PRESET = "tinyllama_1p1b"
-HF_STEPS = 6
+HF_STEPS = 4  # cut with the remat and int8 serving phases (was 6)
 HF_SEQ = 2048  # the model's own context (max_position_embeddings)
 HF_MICRO_BS = 4
 HF_DOCS = 512
@@ -1682,8 +1728,8 @@ train:
 DIALECT_SEQ = 4096
 DIALECT_MICRO_BS = 4
 GEMMA_PRESET = "gemma3_1b"
-GEMMA_STEPS = 4  # was 6: cut to make room for the VLM phases
-DIALECT_STEPS = 3
+GEMMA_STEPS = 3  # was 6, then 4: cut to make room for the VLM, then the serving phases
+DIALECT_STEPS = 2  # cut with the remat and int8 serving phases (was 3)
 DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
 DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
                  "qwen2p5_1p5b": "Qwen2.5-1.5B"}
@@ -1988,8 +2034,10 @@ def phase_dialects(dev, card):
 # directories through TextTrainer
 # --------------------------------------------------------------------------
 MOONLIGHT_PRESET = "moonlight_16b_a3b"
-MOONLIGHT_LAYERS = 4  # of 27: the leading dense layer and 3 MoE layers
-MOONLIGHT_STEPS = 4
+# of 27: the leading dense layer and 1 MoE layer (4 until the remat and int8
+# serving phases joined the script: cut to keep the whole run near 1000 s)
+MOONLIGHT_LAYERS = 2
+MOONLIGHT_STEPS = 3  # cut with the remat and int8 serving phases (was 4)
 V2_LITE_PRESET = "deepseek_v2_lite"
 V2_LITE_LAYERS = 2  # the leading dense layer and 1 MoE layer
 V2_LITE_STEPS = 3
@@ -2428,8 +2476,10 @@ def phase_deepseek_v2_lite(dev, card):
 # --------------------------------------------------------------------------
 GPT_OSS_PRESET = "gpt_oss_20b"
 GPT_OSS_NAME = "gpt-oss-20b"
-GPT_OSS_LAYERS = 3  # of 24: sliding, full, sliding (~58 GB of f32 weight, grad, moments)
-GPT_OSS_STEPS = 4
+# of 24: sliding, full (3 until the remat and int8 serving phases joined the
+# script; 3 layers hold ~58 GB of f32 weight, grad and moments)
+GPT_OSS_LAYERS = 2
+GPT_OSS_STEPS = 3  # cut with the remat and int8 serving phases (was 4)
 # the kernel rows of K4-K6 at gpt-oss's expert widths (K = N = 2880) count
 # the launches of both gpt-oss paths
 GPT_OSS_LAYOUT = "gpt_oss 2880x2880"
@@ -2743,7 +2793,7 @@ SFT_DOCS = ("README.md", "SURVEY.md", "docs/serving.md", "docs/performance.md",
 SFT_ROWS = 192
 SFT_SEQ = 4096  # lora_sft.yaml's max_seq_len
 SFT_MICRO_BS = 2  # and micro_batch_size
-SFT_DENSE_STEPS = 4
+SFT_DENSE_STEPS = 3  # cut with the remat and int8 serving phases (was 4)
 SFT_GROUPS_STEPS = 2
 SFT_FREEZE = ["^embed_tokens$"]
 SFT_SCALES = {r"layers\.(q|k|v|o)_proj$": 0.1}
@@ -2755,7 +2805,7 @@ SFT_GROUPS_DECAY = 0.1
 # embedding and head (2.49 GB), one layer's merged experts and their
 # gradients in flight and the head's logits, 16 layers are reckoned at a
 # ~59 GB peak (PERF.md §4)
-SFT_MOE_LAYERS = 16
+SFT_MOE_LAYERS = 8  # cut with the remat and int8 serving phases (was 16)
 SFT_MOE_STEPS = 4
 SFT_MOE_CAPACITY = 2.0  # configs/text/qwen3_moe_ep.yaml's knob, read only under EP
 
@@ -3785,13 +3835,14 @@ def post_dpo_lora(dev, card, tmp: str):
 
 
 SERVE_DENSE_PRESET = "qwen3_0p6b"
-# the dense phase's five legs decode 64 new tokens a request and hold 3
-# prompts against greedy_generate (its contiguous loop); 128 and 8 until
+# the dense phase's five legs run 16 requests (32 until the remat and int8
+# serving phases joined the script), decode 64 new tokens a request and hold
+# 3 prompts against greedy_generate (its contiguous loop); 128 and 8 until
 # the gpt-oss phases joined the script: cut to keep the whole run near
 # 1000 s of its 1200
-SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=32, wave=16, wave_ticks=4,
+SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
                    prompt=(64, 1536), shared_prefix=512, max_new=64)
-SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
+SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                  prompt=(64, 1024), shared_prefix=0, max_new=64)
 SERVE_CHUNK = 512
 SERVE_GREEDY_PROMPTS = 3
@@ -3953,8 +4004,6 @@ def host_state(tag):
     """Log what earlier phases leave in this process that a host-bound
     serving tick can feel: threads, span tracing, deterministic algorithms,
     the objects the garbage collector tracks."""
-    import threading
-
     from veomni_tpu_torch.observability import spans
 
     threads = sorted(t.name for t in threading.enumerate() if t is not threading.main_thread())
@@ -3962,10 +4011,22 @@ def host_state(tag):
         f"{'on' if spans.spans_enabled() else 'off'}; deterministic algorithms "
         f"{torch.are_deterministic_algorithms_enabled()}; torch threads "
         f"{torch.get_num_threads()}; {len(gc.get_objects())} objects tracked by gc")
+    if spans.spans_enabled():
+        # left on by the trainer phases before (their observability default);
+        # a serving process has no trainer: its ticks run without span tracing
+        spans.disable_spans()
+        log(f"{tag}: span tracing turned off for the serving phase")
+
+
+def pool_ptrs(eng):
+    """Where an engine's pools lie: the dense tensors', or an int8 pool's
+    payload and scale."""
+    return tuple(t.data_ptr() for pool in (eng.k_pool, eng.v_pool)
+                 for t in ((pool,) if isinstance(pool, torch.Tensor) else (pool.data, pool.scale)))
 
 
 def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
-              chunk=SERVE_CHUNK, spec_k=0, sampling=None):
+              chunk=SERVE_CHUNK, spec_k=0, sampling=None, kv_quant="none", weight_quant="none"):
     """One engine run over the phase's traffic: two waves, the second
     ``wave_ticks`` ticks after the first. Returns (outputs in submit order,
     stats) with every kernel launch counter set to 0 just before the engine
@@ -3975,8 +4036,9 @@ def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
     sampling = sampling or {}
     eng = InferenceEngine(model, cfg, EngineConfig(
         num_slots=spec["slots"], block_size=spec["block"], max_model_len=spec["max_model_len"],
-        prefix_cache=prefix_cache, prefill_chunk=chunk, spec_k=spec_k), device=dev)
-    ptrs = (eng.k_pool.data_ptr(), eng.v_pool.data_ptr())
+        prefix_cache=prefix_cache, prefill_chunk=chunk, spec_k=spec_k, kv_quant=kv_quant,
+        weight_quant=weight_quant), device=dev)
+    ptrs = pool_ptrs(eng)
     reqs = [Request(prompt_ids=p, sampling=SamplingParams(
         max_new_tokens=spec["max_new"], seed=i, **sampling)) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -4036,7 +4098,8 @@ def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
         launches=launches, fallbacks=fallbacks, preemptions=eng.scheduler.preemption_count,
         leak_free=(bm.num_used == 0
                    and bm.num_free_uncached + bm.num_cached == bm.num_blocks - 1),
-        pools_fixed=(eng.k_pool.data_ptr(), eng.v_pool.data_ptr()) == ptrs,
+        pools_fixed=pool_ptrs(eng) == ptrs,
+        block_bytes=eng.kv_capacity()["block_bytes"],
         cached_tokens=[o.cached_tokens for o in outs],
         gc_s=gc_spent["s"], gc_collections=gc_spent["n"], gc_full=gc_spent["full"],
         device_mallocs=mallocs,
@@ -4060,12 +4123,18 @@ def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
 
 
 def check_serve_leg(tag, model, prompts, outs, stats, spread, max_new, sampling=None,
-                    allowed_cached=None, want_launches=None):
+                    allowed_cached=None, want_launches=None, gate=None):
     """Every check of one leg, all logged before the first failure raises.
-    spread: the phase's (delta, eps, ceiling) from first_token_spread."""
+    spread: the phase's (delta, eps, ceiling) from first_token_spread.
+    ``gate``, where given, replaces the f32 re-score gate: a callable of
+    (prompts, outs, eps) -> (worst ratio, tokens held), e.g. an int8 leg's
+    own int8 re-score (``q8_rescore_gate``)."""
     delta, eps, ceiling = spread
     t0 = time.perf_counter()
-    ratio, n = rescore_gate(model, prompts, outs, sampling or {}, eps)
+    if gate is None:
+        ratio, n = rescore_gate(model, prompts, outs, sampling or {}, eps)
+    else:
+        ratio, n = gate(prompts, outs, eps)
     checks = [("re-score gate", ratio <= 1.0,
                f"worst (gap / eps) = {ratio:.4f} over {n} tokens (eps = {eps:.4f}; "
                f"{time.perf_counter() - t0:.1f} s)"),
@@ -4169,7 +4238,7 @@ def phase_serve_dense(dev, card):
     return launches
 
 
-SERVE_GEMMA = dict(slots=16, block=16, max_model_len=4096, requests=32, wave=16, wave_ticks=4,
+SERVE_GEMMA = dict(slots=16, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
                    prompt=(64, 1536), shared_prefix=512, max_new=128)
 
 
@@ -4293,7 +4362,9 @@ def phase_serve_moe(dev, card):
     """The serving main path at Qwen3-30B-A3B, full width and all 48 layers
     (bf16 weights, no master copy): leg (a) with K4 on every MoE layer of
     every prefill chunk and decode step; then K4 alone at the serving
-    shapes. Returns (launches, K4 table rows)."""
+    shapes. Between them, the int8 tiers' quality gate and one int8 engine
+    leg (kv and weights, SERVE_MOE_QUANT_REQUESTS requests). Returns
+    (launches, K4 table rows, the int8 leg's launches)."""
     from veomni_tpu_torch.models import Transformer
     from veomni_tpu_torch.models import decode as tdec
     from veomni_tpu_torch.train_text_step import SEED, bench_config
@@ -4327,16 +4398,26 @@ def phase_serve_moe(dev, card):
     check_serve_leg(tag, model, prompts, outs, stats, spread, spec["max_new"],
                     allowed_cached=shared_blocks(prompts, spec["block"]), want_launches=want)
     launches = stats["launches"]
+    # the int8 tiers on the same model: the quality gate, then one engine leg
+    # with both tiers over the first requests, K4 on every MoE layer of every
+    # prefill chunk and decode step (the experts stay bf16)
+    quality_gate(model, cfg, "serve moe", card, floor=False)
+    n_q = SERVE_MOE_QUANT_REQUESTS
+    q8 = int8_legs(model, cfg, dev, card, prompts[:n_q], dict(spec, requests=n_q, wave=n_q),
+                   "serve moe", [("int8", "int8")], spread=spread, want=lambda st: {
+                       "gmm_fwd": 3 * cfg.num_hidden_layers * (st["prefill_chunks"]
+                                                               + st["decode_steps"])})
+    q8_launches = q8[("int8", "int8")]["launches"]
     prefill_sizes, decode_sizes = capture_group_sizes(model, cfg, dev, prompts, spec)
     del model, outs
     gc.collect()
     torch.cuda.empty_cache()
     rows = (gmm_fwd_rows(dev, decode_sizes, "serve decode step")
             + gmm_fwd_rows(dev, prefill_sizes, f"serve prefill chunk of {SERVE_CHUNK}"))
-    return launches, rows
+    return launches, rows, q8_launches
 
 
-SERVE_GPT_OSS = dict(slots=8, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
+SERVE_GPT_OSS = dict(slots=8, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                      prompt=(64, 1536), shared_prefix=0, max_new=64)
 
 
@@ -4480,11 +4561,14 @@ VLM_ROW_IMAGES = [[(448, 448), (224, 224)], [(336, 672)], [(224, 224), (336, 672
 # checks could not see the rope's positions (as the gpt-oss phase redraws
 # the weights its checks read)
 VLM_QK_SPREAD = 1.7
-QWEN2_VL_STEPS = 3
+QWEN2_VL_STEPS = 2  # cut with the remat and int8 serving phases (was 3)
 QWEN2_5_VL_STEPS = 2
-QWEN2_5_VL_LAYERS = 18  # of 36: ~2.37 B parameters, ~38 GB of f32 state (36: ~3.75 B, ~60 GB)
+# of 36 (36 would be ~3.75 B parameters, ~60 GB of f32 state; at 9 the
+# step-1 loss left the plain attention's by rel 1.59e-4, over its 1e-4)
+QWEN2_5_VL_LAYERS = 18
+QWEN2_VL_LAYERS = 14  # of 28 (all 28 until the same PR)
 VLM_SPECS = {
-    "qwen2_vl": dict(name="Qwen2-VL-2B", published=QWEN2_VL_2B, layers=None,
+    "qwen2_vl": dict(name="Qwen2-VL-2B", published=QWEN2_VL_2B, layers=QWEN2_VL_LAYERS,
                      steps=QWEN2_VL_STEPS, export=True),
     "qwen2_5_vl": dict(name="Qwen2.5-VL-3B", published=QWEN2_5_VL_3B, layers=QWEN2_5_VL_LAYERS,
                        steps=QWEN2_5_VL_STEPS, export=False),
@@ -4528,9 +4612,10 @@ def vlm_rows(cfg, n_rows: int, seed: int = 0):
     return rows
 
 
-def write_vlm_run(dev, tmp: str, spec, family):
+def write_vlm_run(dev, tmp: str, spec, family, seed: int = 0):
     """The run's inputs under ``tmp``: the HF directory (random bf16
-    weights from seed 0, the checked q/k redrawn (VLM_QK_SPREAD), written
+    weights from ``seed``, the checked q/k redrawn (VLM_QK_SPREAD) from
+    ``seed + 1``, written
     by the family's HF export, then the published config.json,
     ``num_hidden_layers`` set where the depth is cut), the corpus (VLM rows as JSON lines, images as nested lists) and
     the YAML. Returns (the YAML's path, the written model, the first
@@ -4542,8 +4627,8 @@ def write_vlm_run(dev, tmp: str, spec, family):
         published["num_hidden_layers"] = spec["layers"]
     cfg = family.config_from_hf(published, param_dtype=torch.bfloat16)
     hf_dir = os.path.join(tmp, "hf")
-    written = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(0), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
+    written = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
     with torch.no_grad():
         qkv = written.vision_tower.blocks[0].qkv_w  # [D, 3D]: q, k, v columns
         width = qkv.shape[0]
@@ -4996,6 +5081,791 @@ def phase_hf_trainer_qwen2_5_vl(dev, card):
     return phase_hf_vlm(dev, card, "qwen2_5_vl")
 
 
+# the VLM step-1 parity's second witness (``--phases vlm_witness``, not in
+# the whole run): (model, text depth) and weight seeds
+VLM_WITNESS_RUNS = (("qwen2_5_vl", 9), ("qwen2_5_vl", 18), ("qwen2_vl", 14))
+VLM_WITNESS_SEEDS = (0, 1)
+
+
+def phase_vlm_witness(dev, card):
+    """Where the VLM step-1 parity's departure comes from. For each model
+    and text depth of VLM_WITNESS_RUNS and each weight seed, the phase's
+    inputs are written as ``phase_hf_vlm`` writes them and one train step
+    on the first micro-batch runs four ways: K1-K3 everywhere, the plain
+    attention everywhere, the tower on the plain attention with the text
+    layers on K1-K3 (``tower plain``), and the reverse (``text plain``).
+    Each loss and grad norm is printed against the plain one's, beside the
+    parity's limits, with each way's launches. It checks nothing: it is the
+    measurement, not a gate."""
+    from veomni_tpu_torch.data.data_collator import stack_micro_batches
+    from veomni_tpu_torch.models.auto import VLM_FAMILIES, build_foundation_model
+    from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, apply_ops_config
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+
+    impls = KERNEL_REGISTRY.impls("attention")
+
+    def by_head_dim(plain_d):
+        def attend(q, k, v, **kw):
+            return impls["xla" if q.shape[-1] == plain_d else "cuda_flash"].fn(q, k, v, **kw)
+        return attend
+
+    for name, plain_d in (("witness_tower_plain", 80), ("witness_text_plain", 128)):
+        KERNEL_REGISTRY.register("attention", name, device_types=("cuda",))(by_head_dim(plain_d))
+    ways = (("kernels", None), ("plain", "xla"), ("tower plain", "witness_tower_plain"),
+            ("text plain", "witness_text_plain"))
+    for model_type, depth in VLM_WITNESS_RUNS:
+        spec = dict(VLM_SPECS[model_type], layers=depth)
+        for seed in VLM_WITNESS_SEEDS:
+            tmp = tempfile.mkdtemp(prefix=f"chip_smoke_witness_{model_type}_")
+            try:
+                _, written, first_rows = write_vlm_run(dev, tmp, spec, VLM_FAMILIES[model_type],
+                                                       seed=seed)
+                cfg = written.cfg
+                del written
+                torch.cuda.empty_cache()
+                batch, _ = vlm_first_batch(cfg, first_rows)
+                tb = {k: torch.from_numpy(v).to(dev)
+                      for k, v in stack_micro_batches([batch]).items()}
+                hf_dir = os.path.join(tmp, "hf")
+                got = {}
+                for way, pin in ways:
+                    fm = build_foundation_model(
+                        hf_dir, weights_path=hf_dir, device=dev, remat_policy="ctx",
+                        ops_implementation={"attention": pin} if pin else None)
+                    state = build_train_state(fm.module, build_optimizer(
+                        fm.module, lr=build_lr_scheduler(lr=1e-4, train_steps=2)))
+                    reset_all_counts()
+                    try:
+                        _, m = build_train_step(fm.loss_fn)(state, tb)
+                    finally:
+                        apply_ops_config(None)
+                    launches, _ = read_counts()
+                    got[way] = (float(m["loss"]), float(m["grad_norm"]), launches["flash_fwd"])
+                    del fm, state, m
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                ref_loss, ref_gn, _ = got["plain"]
+                log(f"vlm witness {spec['name']} text depth {depth}, weight seed {seed}: "
+                    + "; ".join(f"{way} loss {l:.6f} grad norm {g:.6f} (rel {abs(l - ref_loss) / abs(ref_loss):.2e} / "
+                                f"{abs(g - ref_gn) / abs(ref_gn):.2e}; K1 launches {n})"
+                                for way, (l, g, n) in got.items())
+                    + f" (limits {TOL_LOSS_REL} / {TOL_GRAD_NORM_REL}) [{card}]")
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+
+
+REMAT_POLICIES = ("nothing", "ctx", "dots", "offload", "ctx_offload")
+REMAT_STEPS = 2
+REMAT_CHUNK = 1024
+
+
+def remat_launches(policy: str, layers: int, steps: int):
+    """K1-K3 of ``steps`` dense steps (one micro-batch each) under a remat
+    policy: K2 and K3 once a layer and step; K1 once, twice under
+    ``nothing``, whose backward reruns the whole layer, the attention
+    forward included. The hand kernels launch through ctypes, below the
+    dispatcher, so no selective-checkpoint policy caches their outputs: a
+    policy saves or recomputes what surrounds them, never K1 itself. K4-K6:
+    0 (the model is dense)."""
+    fwd = layers * steps * (2 if policy == "nothing" else 1)
+    return {"flash_fwd": fwd, "flash_bwd_dkv": layers * steps, "flash_bwd_dq": layers * steps}
+
+
+def log_checks(tag, checks):
+    """Log each (name, ok, what) check, then raise naming every failed one."""
+    for name, ok, what in checks:
+        log(f"  {tag}: {name}: {'ok' if ok else 'FAILED'}: {what}")
+    failed = [f"{name} ({what})" for name, ok, what in checks if not ok]
+    if failed:
+        raise AssertionError(f"{tag}: " + "; ".join(failed))
+
+
+def phase_remat(dev, card):
+    """The bare loop at Qwen3-0.6B (full width and depth, seq 4096 x
+    micro-batch 4, f32 master, bf16 compute) for REMAT_STEPS steps under
+    each remat policy and under ``ctx`` with ``chunk_mbs`` REMAT_CHUNK: the
+    launch counts as reckoned, step 1's loss bit-equal across the policies,
+    the grad norm against ``ctx``'s, the offload policies' device peaks
+    below their twins'. Returns the launches summed over the legs."""
+    from veomni_tpu_torch.train_text_step import run_train_steps
+
+    legs, total = {}, {}
+    for policy, chunk in [(p, 0) for p in REMAT_POLICIES] + [("ctx", REMAT_CHUNK)]:
+        tag = f"remat {policy}" + (f" + chunk_mbs {chunk}" if chunk else "")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        records = run_train_steps(4096, 4, REMAT_STEPS, device=dev,
+                                  cfg_overrides={"remat_policy": policy, "chunk_mbs": chunk})
+        launches, fallbacks = read_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        check_steps(records, tag)
+        log(f"{tag}: step 1 loss {records[0]['loss']!r} grad_norm {records[0]['grad_norm']!r}; "
+            f"step ms {', '.join(f'{r['step_ms']:.1f}' for r in records)}; peak {peak:.2f} GiB; "
+            f"launches {launches} (Qwen3-0.6B, {LAYERS} layers, seq 4096, micro-batch 4) "
+            f"[{card}]")
+        check_counts(launches, fallbacks, remat_launches(policy, LAYERS, REMAT_STEPS), tag)
+        legs[(policy, chunk)] = (records, peak)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    ctx, ctx_peak = legs[("ctx", 0)]
+    checks = []
+    for (policy, chunk), (records, peak) in legs.items():
+        loss, norm = records[0]["loss"], records[0]["grad_norm"]
+        loss_rel = abs(loss - ctx[0]["loss"]) / abs(ctx[0]["loss"])
+        norm_rel = abs(norm - ctx[0]["grad_norm"]) / ctx[0]["grad_norm"]
+        what = (f"loss {loss!r} vs ctx's {ctx[0]['loss']!r} (rel {loss_rel:.2e}); grad norm "
+                f"{norm!r} vs {ctx[0]['grad_norm']!r} (rel {norm_rel:.2e}, "
+                f"{'bit-equal' if norm_rel == 0 else f'limit {TOL_GRAD_NORM_REL:g}'})")
+        if chunk:
+            checks.append((f"chunk_mbs {chunk} step 1", loss_rel <= TOL_LOSS_REL
+                           and norm_rel <= TOL_GRAD_NORM_REL, what))
+        elif policy != "ctx":
+            checks.append((f"{policy} step 1", loss == ctx[0]["loss"]
+                           and norm_rel <= TOL_GRAD_NORM_REL, what))
+    for off, twin in (("offload", "dots"), ("ctx_offload", "ctx")):
+        a, b = legs[(off, 0)][1], legs[(twin, 0)][1]
+        checks.append((f"{off} peak", a < b, f"{a:.2f} GiB against {twin}'s {b:.2f} GiB"))
+    log_checks("remat", checks)
+    return total
+
+
+SERVE_QUANT_MODES = (("int8", "none"), ("none", "int8"), ("int8", "int8"))
+SERVE_QUANT = SERVE_DENSE
+SERVE_MOE_QUANT_REQUESTS = 8
+# the qwen3, gpt_oss-like and qwen3_moe toys the gate's bounds were pinned on
+# (tests/tools/quality_gate.py:10-18), random weights from seed 0
+GATE_TOYS = {
+    "qwen3": dict(model_type="qwen3", vocab_size=128, hidden_size=64, intermediate_size=128,
+                  num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                  head_dim=16, qk_norm=True),
+    "gpt_oss_ish": dict(model_type="gpt_oss", vocab_size=128, hidden_size=64,
+                        intermediate_size=128, num_hidden_layers=4, num_attention_heads=4,
+                        num_key_value_heads=2, head_dim=16, attention_sinks=True,
+                        attention_bias=True, o_bias=True, sliding_window=8,
+                        layer_types=["sliding_attention", "full_attention"] * 2,
+                        hidden_act="gpt_oss_glu"),
+    "qwen3_moe": dict(model_type="qwen3_moe", vocab_size=128, hidden_size=64,
+                      intermediate_size=128, num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, head_dim=16, qk_norm=True, num_experts=4,
+                      num_experts_per_tok=2, moe_intermediate_size=32),
+}
+# the dense noise floor of the gate, set by phase_serve_quant: whether the
+# bounds can judge a random model at full width (None: not measured)
+GATE_FLOOR_OK = {}
+
+
+def pair_stats(ref_rows, got_rows, corpus):
+    """The gate's statistics between two teacher-forced scorings of the
+    same corpus (lists of [T, V] logits), as ``quality_stats`` aggregates
+    them."""
+    from veomni_tpu_torch.serving import quality
+
+    nll_ref = [np.log(quality._ppl(r, t)) for r, t in zip(ref_rows, corpus)]
+    nll_got = [np.log(quality._ppl(g, t)) for g, t in zip(got_rows, corpus)]
+    ppl_ref, ppl_got = float(np.exp(np.mean(nll_ref))), float(np.exp(np.mean(nll_got)))
+    return {"ppl_ref": ppl_ref, "ppl_quant": ppl_got,
+            "ppl_rel_delta": abs(ppl_got - ppl_ref) / ppl_ref,
+            "topk_overlap": float(np.mean([quality._topk_overlap(r, g, quality.TOP_K)
+                                           for r, g in zip(ref_rows, got_rows)]))}
+
+
+def fmt_stats(stats):
+    from veomni_tpu_torch.serving import quality
+
+    return (f"ppl {stats['ppl_ref']:.6g} -> {stats['ppl_quant']:.6g}, ppl_rel_delta "
+            f"{stats['ppl_rel_delta']:.3e} (bound {quality.PPL_REL_DELTA_BOUND}), top-8 "
+            f"overlap {stats['topk_overlap']:.4f} (bound {quality.TOPK_OVERLAP_BOUND})")
+
+
+def scale_fault_stats(model, cfg, corpus):
+    """The gate on a planted fault at full width: int8 weights whose layer-0
+    ``o_proj`` scales are 4x what they should be (the CPU test plants it on
+    ``down_proj``, which a MoE layer has not). Returns its stats."""
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.ops.quantization import QuantizedWeight
+    from veomni_tpu_torch.serving import quality
+
+    dense = tdec._compute_cast(model, cfg)
+    broken = tdec._compute_cast(model, cfg, weight_quant="int8")
+    w = broken["layers"][0]["o_proj"]
+    broken["layers"][0]["o_proj"] = QuantizedWeight(w.data, w.scale * 4.0)
+    return pair_stats([quality.teacher_forced_logits(dense, cfg, t) for t in corpus],
+                      [quality.teacher_forced_logits(broken, cfg, t) for t in corpus], corpus)
+
+
+def quality_gate(model, cfg, tag, card, *, floor: bool):
+    """The int8 tiers' quality gate on ``model`` at full width: the stats of
+    each mode against the dense path on the fixed corpus, and (``floor``)
+    the noise floor first: the dense bf16 path against itself at f32, no
+    quantization. Where the floor is inside the bounds they judge this model
+    and hold; where it breaks them, the stats are printed and the bounds are
+    held on the toys they were pinned on (``gate_on_toys``). Returns
+    (floor stats or None, {mode: stats})."""
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.serving import quality
+
+    t0 = time.perf_counter()
+    corpus = quality.fixed_corpus(cfg.vocab_size)
+    floor_stats = None
+    if floor:
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        ref = tdec._compute_cast(model, f32)
+        ref_rows = [quality.teacher_forced_logits(ref, f32, t) for t in corpus]
+        del ref
+        dense = tdec._compute_cast(model, cfg)
+        floor_stats = pair_stats(ref_rows, [quality.teacher_forced_logits(dense, cfg, t)
+                                            for t in corpus], corpus)
+        GATE_FLOOR_OK[tag] = not quality.gate_failures(floor_stats)
+        log(f"{tag}: quality gate noise floor (dense bf16 against itself at f32, no "
+            f"quantization): {fmt_stats(floor_stats)} [{card}]")
+    stats = {}
+    for kv, w in SERVE_QUANT_MODES:
+        stats[(kv, w)] = quality.quality_stats(model, cfg, corpus, kv_quant=kv, weight_quant=w)
+        log(f"{tag}: quality gate kv_quant={kv} weight_quant={w}: {fmt_stats(stats[(kv, w)])}")
+    # a model too large for the f32 pass (Qwen3-30B-A3B: 122 GB of f32
+    # compute weights; K4 runs bf16 only) borrows serve_quant's dense floor,
+    # and there is no gate without a floor
+    if not floor and "serve quant" not in GATE_FLOOR_OK:
+        raise AssertionError(f"{tag}: the quality gate has no noise floor: run serve_quant first")
+    floor_ok = GATE_FLOOR_OK["serve quant" if not floor else tag]
+    checks = []
+    if floor_ok:
+        for mode, st in stats.items():
+            bad = quality.gate_failures(st)
+            checks.append((f"gate kv_quant={mode[0]} weight_quant={mode[1]} at full width",
+                           not bad, "; ".join(bad) or "inside the bounds"))
+    else:
+        log(f"{tag}: the noise floor breaks the bounds: they cannot judge this random model at "
+            f"full width; the stats above are printed, the bounds are held on the toys they "
+            f"were pinned on")
+    fault = scale_fault_stats(model, cfg, corpus)
+    checks.append(("planted 4x o_proj scale fails the gate at full width",
+                   bool(quality.gate_failures(fault)), fmt_stats(fault)))
+    log_checks(tag, checks)
+    log(f"{tag}: quality gate in {time.perf_counter() - t0:.1f} s")
+    return floor_stats, stats
+
+
+def gate_on_toys(dev, card):
+    """The pinned bounds on the tier-1 toys, on the card: every int8 mode
+    of each toy through ``assert_quality_gate`` (block 16, the fixed
+    corpus), in bf16 compute (the MoE toy's experts take K4, which runs in
+    bf16). Returns {toy: {mode: stats}}."""
+    from veomni_tpu_torch.models import Transformer, TransformerConfig
+    from veomni_tpu_torch.serving import assert_quality_gate
+
+    out = {}
+    for name, fields in GATE_TOYS.items():
+        cfg = TransformerConfig(dtype=torch.bfloat16, **fields)
+        model = Transformer(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        out[name] = {}
+        for kv, w in SERVE_QUANT_MODES:
+            st = assert_quality_gate(model, cfg, kv_quant=kv, weight_quant=w)
+            out[name][(kv, w)] = st
+            log(f"  quality gate on the {name} toy, kv_quant={kv} weight_quant={w}: "
+                f"{fmt_stats(st)}: ok [{card}]")
+    return out
+
+
+def q8_rescore_gate(model, cfg, kv_quant: str, weight_quant: str):
+    """A ``check_serve_leg`` gate for an int8 leg: each greedy token within
+    eps of the row maximum of its own int8 re-score: ``teacher_forced_logits``
+    on the engine's quantized parameter set, kept on the card and cut to the
+    rows after the prompt."""
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.serving import quality
+
+    def gate(prompts, outs, eps):
+        params = tdec._compute_cast(model, cfg, weight_quant=weight_quant)
+        worst, n = 0.0, 0
+        for p, out in zip(prompts, outs):
+            rows = quality.teacher_forced_logits(params, cfg, p + out.token_ids,
+                                                 kv_quant=kv_quant, on_device=True)
+            rows = rows[len(p) - 1:len(p) + len(out.token_ids) - 1]
+            tok = torch.tensor(out.token_ids, device=rows.device)
+            mine = rows.gather(1, tok[:, None])[:, 0]
+            worst = max(worst, ((rows.max(-1).values - mine) / eps).max().item())
+            n += len(out.token_ids)
+        return worst, n
+
+    return gate
+
+
+def quant_capacity(cfg, spec, stats_q, tag):
+    """Pool bytes a block and max_concurrent_seqs at equal pool bytes, the
+    int8 pool against the dense one in the compute dtype."""
+    from veomni_tpu_torch.ops.quantization import kv_block_nbytes
+
+    dense_block = kv_block_nbytes(cfg.num_hidden_layers, spec["block"], cfg.num_key_value_heads,
+                                  cfg.head_dim, dtype_bytes=cfg.dtype.itemsize)
+    per_seq = -(-spec["max_model_len"] // spec["block"])
+    blocks = 1 + spec["slots"] * per_seq
+    dense_seqs = (blocks - 1) // per_seq
+    q_seqs = (int(blocks * dense_block // stats_q["block_bytes"]) - 1) // per_seq
+    ratio = q_seqs / dense_seqs
+    log(f"{tag}: pool bytes a block: dense {dense_block:.0f}, int8 {stats_q['block_bytes']:.0f} "
+        f"(ratio {dense_block / stats_q['block_bytes']:.4f}, expected "
+        f"{cfg.head_dim * cfg.dtype.itemsize}/{cfg.head_dim + 4} = "
+        f"{cfg.head_dim * cfg.dtype.itemsize / (cfg.head_dim + 4):.4f}); max_concurrent_seqs at "
+        f"the dense pool's {blocks * dense_block / 2**30:.3f} GiB: dense {dense_seqs}, int8 "
+        f"{q_seqs} ({ratio:.3f}x)")
+    return ratio
+
+
+def int8_legs(model, cfg, dev, card, prompts, spec, tag, modes, *, spread, want=None):
+    """One engine leg a mode: every token against its own int8 re-score, no
+    leaked block, pools unmoved, cached tokens within the shared prefix,
+    launches as ``want(stats)`` reckons them. Returns {mode: stats}."""
+    out = {}
+    for kv, w in modes:
+        leg = f"{tag} int8 leg kv_quant={kv} weight_quant={w}"
+        outs, stats = serve_leg(model, cfg, dev, card, prompts, spec, leg, kv_quant=kv,
+                                weight_quant=w)
+        check_serve_leg(leg, model, prompts, outs, stats, spread, spec["max_new"],
+                        allowed_cached=shared_blocks(prompts, spec["block"]),
+                        want_launches=want(stats) if want else None,
+                        gate=q8_rescore_gate(model, cfg, kv, w))
+        out[(kv, w)] = stats
+    return out
+
+
+def phase_serve_quant(dev, card):
+    """The int8 tiers at Qwen3-0.6B, all 28 layers in bf16: the quality
+    gate (noise floor first), the bounds on the toys where the floor breaks
+    them, then the engine over 16 of SERVE_DENSE's requests in each int8
+    mode, and the capacity the int8 pool buys. Returns the legs' launches
+    (none: the dense decode path runs no hand kernel)."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.train_text_step import SEED, bench_config
+
+    host_state("serve quant")
+    spec = SERVE_QUANT
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    quality_gate(model, cfg, "serve quant", card, floor=True)
+    if not GATE_FLOOR_OK["serve quant"]:
+        gate_on_toys(dev, card)
+    prompts = serve_traffic(cfg.vocab_size, SERVE_DENSE)[:spec["requests"]]
+    log(f"serve quant: Qwen3-0.6B ({cfg.num_hidden_layers} layers, bf16 weights from seed "
+        f"{SEED}); {len(prompts)} of serve dense's requests, {spec['max_new']} new tokens "
+        f"each, waves of {spec['wave']} [{card}]")
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts,
+                                "serve dense")
+    legs = int8_legs(model, cfg, dev, card, prompts, spec, "serve quant", SERVE_QUANT_MODES,
+                     spread=spread)
+    ratio = quant_capacity(cfg, spec, legs[("int8", "none")], "serve quant")
+    log_checks("serve quant", [("capacity", ratio >= 1.8,
+                                f"{ratio:.3f}x the dense pool's max_concurrent_seqs")])
+    summary = {f"{kv}/{w}": {k: v for k, v in st.items() if k not in (
+        "cached_tokens", "launches", "fallbacks")} for (kv, w), st in legs.items()}
+    log("serve quant summary: " + json.dumps(summary))
+    launches = {}
+    for st in legs.values():
+        for k, v in st["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+ROUTER_SPEC = dict(SERVE_DENSE, slots=8, requests=16, wave=8, max_new=24)
+ROUTER_BURST_LEN = 640  # probation bursts: the shared prefix and 128 tokens
+# the hang drill's wedge deadline: at 1 s healthy replicas were declared
+# wedged too (a tick on one shared card with a respawn's weight copy on the
+# router thread ran past it), at 3 s only the hung one is
+ROUTER_STALL_S = 3.0
+ROUTER_HANG_S = 10.0
+
+
+def router_requests(prompts, max_new):
+    from veomni_tpu_torch.serving import Request, SamplingParams
+
+    return [Request(prompt_ids=list(p), sampling=SamplingParams(max_new_tokens=max_new))
+            for p in prompts]
+
+
+def drive_router(router, prompts, spec, *, on_tick=None):
+    """Submit ``prompts`` in two waves ``wave_ticks`` ticks apart and drain;
+    returns (request ids in submit order, outputs by id, ticks, seconds)."""
+    reqs = router_requests(prompts, spec["max_new"])
+    t0 = time.perf_counter()
+    ids = [router.submit(r) for r in reqs[:spec["wave"]]]
+    ticks = 0
+    for _ in range(spec["wave_ticks"]):
+        router.step()
+        ticks += 1
+        if on_tick:
+            on_tick(ticks)
+    ids += [router.submit(r) for r in reqs[spec["wave"]:]]
+    while router.has_work:
+        router.step()
+        ticks += 1
+        if on_tick:
+            on_tick(ticks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    outs = router.run()
+    return ids, outs, ticks, wall
+
+
+def probation_burst(router, prompt, max_new: int, timeout_s: float = 60.0):
+    """Drive pending respawns to landing and probation replicas to parole
+    with bursts of one prompt (they saturate its affinity target, so the
+    spill reaches the probationer); returns the burst's outputs."""
+    from veomni_tpu_torch.serving.replica import STATE_PROBATION
+
+    done = {}
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        probation = [h for h in router.replicas.values() if h.state == STATE_PROBATION]
+        if (len(router.live_replicas()) >= router.config.replicas
+                and not router._pending_respawns and not probation and not router.has_work):
+            return done
+        if router.has_work or router._pending_respawns:
+            router.step()
+            continue
+        burst = (router.engine_config.num_slots + router.config.spill_queue_depth
+                 + router.config.probation_requests * max(1, len(probation)))
+        for r in router_requests([prompt[:ROUTER_BURST_LEN]] * burst, max_new):
+            router.submit(r)
+        done.update(router.run())
+    raise AssertionError("the fleet did not restore within the timeout")
+
+
+def gate_outputs(model, prompts, outs, eps):
+    """The re-score gate over whatever tokens each output holds (a
+    cancelled request keeps the tokens it streamed)."""
+    kept = [(p, o) for p, o in zip(prompts, outs) if o.token_ids]
+    return rescore_gate(model, [p for p, _ in kept], [o for _, o in kept], {}, eps)
+
+
+def write_generation(dev, cfg, root: str, step: int, seed: int):
+    """A port checkpoint generation (``Checkpointer``, before the
+    optimizer's first step: no moments) of a second random weight set;
+    returns (its directory, the model)."""
+    from veomni_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.optim.optimizer import build_optimizer
+    from veomni_tpu_torch.train.train_step import build_train_state
+
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    ckpt = Checkpointer(root, async_save=False)
+    ckpt.save(step, build_train_state(model, build_optimizer(model, lr=1e-4)))
+    ckpt.close()
+    return os.path.join(root, f"global_step_{step}"), model
+
+
+def phase_serve_router(dev, card):
+    """Two replicas of Qwen3-0.6B (bf16, 28 layers) behind the router on
+    serve dense's shared-prefix traffic: a one-engine run of the same
+    traffic first; then the fleet with a ``raise`` at ``serve.decode_tick``
+    on one replica (its unstreamed requests redispatched, its streamed ones
+    cancelled, a respawn into probation and out of it); a ``hang`` there
+    under a short ``replica_stall_s`` (the replica wedges, respawns and
+    serves probation); a rolling ``publish_from_checkpoint`` of a second
+    weight set mid-traffic after a truncated copy of it is refused. Every
+    token passes the re-score gate of the weights it ran on; every request
+    id finishes exactly once."""
+    from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.models import decode as tdec
+    from veomni_tpu_torch.resilience.faults import configure_faults, disarm_faults
+    from veomni_tpu_torch.resilience.integrity import CheckpointCorruptError
+    from veomni_tpu_torch.serving import EngineConfig, Router, RouterConfig
+    from veomni_tpu_torch.train_text_step import SEED, bench_config
+
+    host_state("serve router")
+    spec = ROUTER_SPEC
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompts = serve_traffic(cfg.vocab_size, SERVE_DENSE)[:spec["requests"]]
+    spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts,
+                                "serve dense")
+    eps = spread[1]
+    ec = EngineConfig(num_slots=spec["slots"], block_size=spec["block"],
+                      max_model_len=spec["max_model_len"], prefill_chunk=SERVE_CHUNK)
+    # the one-engine run of the same traffic
+    outs1, stats1 = serve_leg(model, cfg, dev, card, prompts, spec, "serve router one engine")
+    check_serve_leg("serve router one engine", model, prompts, outs1, stats1, spread,
+                    spec["max_new"], allowed_cached=shared_blocks(prompts, spec["block"]))
+    t_build = time.perf_counter()
+    router = Router(model, cfg, ec, RouterConfig(
+        replicas=2, spill_queue_depth=2, max_respawns=3, respawn_backoff_s=0.05,
+        respawn_backoff_max_s=0.2, probation_requests=2), device=dev)
+    log(f"serve router: 2 replicas of Qwen3-0.6B ({spec['slots']} slots, block {spec['block']}, "
+        f"chunks of {SERVE_CHUNK}) built in {time.perf_counter() - t_build:.1f} s; "
+        f"{len(prompts)} requests, {spec['max_new']} new tokens each, waves of {spec['wave']}; "
+        f"each replica ticks on a pump thread of its own, on the card's default stream [{card}]")
+    # the affinity key: crc32 of the prompt's leading RouterConfig.affinity_blocks
+    # full blocks (the whole prompt when shorter than one), and its rendezvous
+    # target: the replica whose crc32 of "key:rid" is largest (the
+    # reference's rule, written out here independently of the router)
+    def own_target(p):
+        bs, n = spec["block"], min(router.config.affinity_blocks, len(p) // spec["block"])
+        chunks = (tuple(int(t) for t in p) if n <= 0 else
+                  tuple(tuple(int(t) for t in p[i * bs:(i + 1) * bs]) for i in range(n)))
+        key = zlib.crc32(repr(chunks).encode())
+        return key, max(router.live_replicas(),
+                        key=lambda h: (zlib.crc32(f"{key}:{h.rid}".encode()), h.rid)).rid
+
+    mismatched = [i for i, p in enumerate(prompts) if own_target(p) != (
+        router._affinity_key(p), router._affinity_target(router._affinity_key(p),
+                                                         router.live_replicas()).rid)]
+    targets = [own_target(p)[1] for p in prompts]
+    checks = [("affinity", not mismatched,
+               f"keys and rendezvous targets of {len(prompts)} prompts against the script's own "
+               f"(targets {dict((r, targets.count(r)) for r in sorted(set(targets)))}; "
+               f"{len(mismatched)} mismatched, the first {mismatched[:4]})")]
+    reset_all_counts()
+    # (0) the fleet with no fault: aggregate throughput against one engine
+    ids, outs, ticks, wall = drive_router(router, prompts, spec)
+    by_id = [outs[i] for i in ids]
+    m = router.metrics()
+    ratio, n = gate_outputs(model, prompts, by_id, eps)
+    tok_s = sum(len(o.token_ids) for o in by_id) / wall
+    log(f"serve router fleet, no fault: {len(by_id)} requests in {ticks} router ticks, "
+        f"{wall:.2f} s, {tok_s:.1f} tok/s aggregate against one engine's "
+        f"{stats1['generated'] / stats1['wall_s']:.1f} ({stats1['wall_s']:.2f} s); spills "
+        f"{m['spills']:.0f}, hit rate {m['prefix_hit_rate']:.4f} against one engine's "
+        f"{stats1['prefix_hit_rate']:.4f}; dispatched "
+        f"{ {h.rid: h.dispatched for h in router.replicas.values()} } [{card}]")
+    checks += [
+        ("no fault: exactly once", sorted(outs) == sorted(ids) and all(
+            o.finish_reason == "length" and len(o.token_ids) == spec["max_new"] for o in by_id),
+         f"{len(outs)} outputs for {len(ids)} ids"),
+        ("no fault: re-score gate", ratio <= 1.0,
+         f"worst (gap / eps) = {ratio:.4f} over {n} tokens"),
+    ]
+    # (1) a raise at a replica's first decode tick: it dies mid-storm. The
+    # traffic is 12 prompts of another seed behind one shared prefix (a cold
+    # cache; one affinity key) with spill off, so all of it lands on one
+    # replica: 8 in its slots, the rest waiting unstreamed when it dies
+    prompts = serve_traffic(cfg.vocab_size, dict(SERVE_DENSE, requests=24), seed=1)[::2]
+    router.config.spill_queue_depth = 0
+    configure_faults([{"point": "serve.decode_tick", "mode": "exception", "hit": 1}])
+    try:
+        ids, outs, ticks, wall = drive_router(router, prompts, dict(
+            spec, wave=len(prompts), wave_ticks=0))
+    finally:
+        disarm_faults()
+        router.config.spill_queue_depth = 2
+    launches, fallbacks = read_counts()
+    m = router.metrics()
+    by_id = [outs[i] for i in ids]
+    done = [o for o in by_id if o.finish_reason == "length"]
+    cancelled = [o for o in by_id if o.finish_reason == "cancelled"]
+    ratio, n = gate_outputs(model, prompts, by_id, eps)
+    tok_s = sum(len(o.token_ids) for o in by_id) / wall
+    log(f"serve router fleet, a raise at a decode tick: {len(by_id)} requests in {ticks} router "
+        f"ticks, {wall:.2f} s, {tok_s:.1f} tok/s aggregate; spills {m['spills']:.0f} (the run's "
+        f"total), redispatched {m['redispatched']:.0f}, cancelled "
+        f"{len(cancelled)}, respawns {m['respawns']:.0f}; retired "
+        f"{[(h.rid, h.state, h.fail_reason[:60]) for h in router.retired]}; launches {launches}")
+    checks += [
+        ("exactly once", sorted(outs) == sorted(ids) and len(set(ids)) == len(ids)
+         and all(o.finished for o in by_id), f"{len(outs)} outputs for {len(ids)} ids"),
+        ("raise", len(router.retired) == 1 and router.retired[0].state == "dead"
+         and m["redispatched"] >= 1, f"one replica dead, {m['redispatched']:.0f} redispatched"),
+        ("outcomes", len(done) + len(cancelled) == len(by_id)
+         and all(len(o.token_ids) == spec["max_new"] for o in done),
+         f"{len(done)} finished at max_new, {len(cancelled)} cancelled after streaming"),
+        ("re-score gate", ratio <= 1.0, f"worst (gap / eps) = {ratio:.4f} over {n} tokens"),
+        ("launches", not any(launches.values()) and not any(fallbacks.values()),
+         f"{launches}, FALLBACK_CALLS {fallbacks}"),
+    ]
+    # (2) the respawn serves its probation on spill traffic
+    burst = probation_burst(router, prompts[0], spec["max_new"])
+    checks.append(("probation after the raise", router._probation_total >= 1
+                   and len(router.live_replicas()) == 2,
+                   f"{router._respawn_total} respawn(s), {router._probation_total} probation(s) "
+                   f"passed over a burst of {len(burst)} requests"))
+    # (3) a hang: one replica's decode tick sleeps past replica_stall_s
+    router.config.replica_stall_s = ROUTER_STALL_S
+    configure_faults([{"point": "serve.decode_tick", "mode": "hang", "hit": 1,
+                       "seconds": ROUTER_HANG_S}])
+    t_hang = time.perf_counter()
+    t_wedge = None
+
+    def watch(_):
+        nonlocal t_wedge
+        if t_wedge is None and router._wedged_total:
+            t_wedge = time.perf_counter()
+
+    try:
+        ids, outs, _, _ = drive_router(router, prompts[:spec["wave"]], dict(spec, wave_ticks=0),
+                                       on_tick=watch)
+    finally:
+        disarm_faults()
+    by_id = [outs[i] for i in ids]
+    ratio, n = gate_outputs(model, prompts, by_id, eps)
+    burst = probation_burst(router, prompts[0], spec["max_new"])
+    detect = (t_wedge - t_hang) if t_wedge else float("inf")
+    log(f"serve router hang: wedged {router._wedged_total} in {detect:.2f} s (replica_stall_s "
+        f"{ROUTER_STALL_S}, {router.config.replica_stall_ticks} strikes, hang {ROUTER_HANG_S} s); "
+        f"respawns {router._respawn_total}, probations passed {router._probation_total}")
+    checks += [
+        ("hang", router._wedged_total == 1 and detect < ROUTER_HANG_S,
+         f"one wedge, declared after {detect:.2f} s"),
+        ("hang exactly once", sorted(outs) == sorted(ids) and all(o.finished for o in by_id),
+         f"{len(outs)} outputs for {len(ids)} ids"),
+        ("hang re-score gate", ratio <= 1.0, f"worst (gap / eps) = {ratio:.4f} over {n} tokens"),
+        ("probation after the hang", router._probation_total >= 2
+         and len(router.live_replicas()) == 2, f"{router._probation_total} passed"),
+    ]
+    router.config.replica_stall_s = 60.0
+    # (4) publication: a truncated generation is refused, the good one rolls
+    hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_publish_")
+    try:
+        step_dir, model2 = write_generation(dev, cfg, hf_tmp, 1, SEED + 1)
+        bad = os.path.join(hf_tmp, "global_step_2")
+        shutil.copytree(step_dir, bad)
+        os.truncate(os.path.join(bad, "train_state", "model.pt"), 4096)
+        versions = {h.rid: h.weights_version for h in router.replicas.values()}
+        try:
+            router.publish_from_checkpoint(bad)
+            refused = False
+        except CheckpointCorruptError:
+            refused = True
+        checks.append(("truncated generation refused", refused and versions == {
+            h.rid: h.weights_version for h in router.replicas.values()}
+            and router.weights_version == "v0", f"versions {versions}"))
+        before = router_requests(prompts[:spec["wave"]], spec["max_new"])
+        ids_before = [router.submit(r) for r in before]
+        while router._queue:  # every one of them dispatched on v0 before the publish
+            router.step()
+        cached = {h.rid: h.engine.blocks.num_cached for h in router.replicas.values()}
+        t_pub = time.perf_counter()
+        version = router.publish_from_checkpoint(step_dir)
+        while router.publish_in_progress:
+            router.step()
+        roll_s = time.perf_counter() - t_pub
+        # the swap flushes each prefix cache (the v0 KV must not serve v1);
+        # the v0 requests that ran on after their replica swapped did not
+        # exist: each replica drained before its swap
+        checks.append(("publish flushed the prefix caches", all(
+            h.engine.blocks.num_cached == 0 for h in router.replicas.values()),
+            f"cached blocks before the roll {cached}, after "
+            f"{ {h.rid: h.engine.blocks.num_cached for h in router.replicas.values()} }"))
+        after = router_requests(prompts[spec["wave"]:], spec["max_new"])
+        ids_after = [router.submit(r) for r in after]
+        outs = router.run()
+        ratio_b, n_b = gate_outputs(model, prompts[:spec["wave"]],
+                                    [outs[i] for i in ids_before], eps)
+        ratio_a, n_a = gate_outputs(model2, prompts[spec["wave"]:],
+                                    [outs[i] for i in ids_after], eps)
+        log(f"serve router publish: {version} rolled into the fleet in {roll_s:.2f} s while "
+            f"{len(ids_before)} requests ran on v0; replicas "
+            f"{[(h.rid, h.weights_version, h.engine.cache_epoch) for h in router.replicas.values()]}")
+        checks += [
+            ("publish", all(h.weights_version == version for h in router.replicas.values()),
+             f"every replica on {version}"),
+            ("before the roll: gate on the old weights", ratio_b <= 1.0,
+             f"worst {ratio_b:.4f} over {n_b} tokens"),
+            ("after the roll: gate on the published weights", ratio_a <= 1.0,
+             f"worst {ratio_a:.4f} over {n_a} tokens"),
+            ("publish exactly once", sorted(outs) == sorted(ids_before + ids_after),
+             f"{len(outs)} outputs"),
+        ]
+        health = router.health()
+        log(f"serve router health: {json.dumps(health)}")
+        for h in router.replicas.values():
+            bm = h.engine.blocks
+            checks.append((f"{h.rid} block leak", bm.num_used == 0
+                           and bm.num_free_uncached + bm.num_cached == bm.num_blocks - 1,
+                           "free_uncached + cached == pool - null"))
+        del model2
+    finally:
+        shutil.rmtree(hf_tmp, ignore_errors=True)
+    log_checks("serve router", checks)
+    del router, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+INFER_PROMPTS = ("the engine serves every request", "hello there")
+INFER_MAX_NEW = 64
+
+
+def infer_config_fields(vocab: int):
+    """Qwen3-0.6B's fields (``train_text_step.bench_config``) for a
+    ``model.config_overrides``, with the fixture tokenizer's vocab."""
+    from veomni_tpu_torch.train_text_step import BENCH_PRESETS
+
+    return dict(model_type="qwen3", vocab_size=vocab, num_attention_heads=16,
+                num_key_value_heads=8, head_dim=128, qk_norm=True, tie_word_embeddings=True,
+                max_position_embeddings=131072, rope_theta=1e6,
+                **{k: v for k, v in BENCH_PRESETS[SERVE_DENSE_PRESET].items()})
+
+
+def start_infer_text():
+    """Start ``python -m veomni_tpu_torch.tasks.infer_text`` as a
+    subprocess on Qwen3-0.6B (28 layers, random weights from seed 0, the
+    embedding cut to the byte-fallback fixture tokenizer's 4096 ids) with
+    two prompts on its stdin; returns what ``finish_infer_text`` needs.
+    The whole run starts it before the kernel build (which runs on the
+    host; the subprocess needs no hand kernel) and finishes it before the
+    first timed phase, so it never shares the card with a timing. A
+    watcher thread notes the moment the subprocess exits."""
+    from veomni_tpu_torch.models.auto import build_tokenizer
+
+    tok_dir = os.path.join(TOKENIZER_FIXTURES, "bytefallback")
+    tok = build_tokenizer(tok_dir)
+    fields = infer_config_fields(len(tok))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "veomni_tpu_torch.tasks.infer_text",
+         "--model.config_overrides=" + json.dumps(fields), f"--model.tokenizer_path={tok_dir}"],
+        stdin=subprocess.PIPE, stdout=out, stderr=err, text=True)
+    t0 = time.perf_counter()
+    proc.stdin.write("".join(p + "\n" for p in INFER_PROMPTS))
+    proc.stdin.close()
+    ended = []
+    watcher = threading.Thread(target=lambda: (proc.wait(), ended.append(time.perf_counter())),
+                               daemon=True)
+    watcher.start()
+    return proc, t0, watcher, ended, tok, fields, out, err
+
+
+def finish_infer_text(dev, card, started):
+    """Collect the subprocess's output: each printed line must be the decode
+    of ``greedy_generate``'s ids for the same prompt on the same weights."""
+    from veomni_tpu_torch.models import Transformer, TransformerConfig
+    from veomni_tpu_torch.models.decode import greedy_generate
+
+    proc, t0, watcher, ended, tok, fields, out, err = started
+    proc.wait(timeout=600)
+    watcher.join()
+    wall = ended[0] - t0
+    out.seek(0)
+    err.seek(0)
+    got = out.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"infer_text exited {proc.returncode}: {err.read()[-2000:]}")
+    model = Transformer(TransformerConfig(**fields), torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    want = ["enter prompt (ctrl-d to exit):"] + [
+        tok.decode(greedy_generate(model, model.cfg, tok(p)["input_ids"],
+                                   max_new_tokens=INFER_MAX_NEW, eos_id=tok.eos_token_id))
+        for p in INFER_PROMPTS]
+    log(f"infer_text: subprocess on Qwen3-0.6B ({fields['num_hidden_layers']} layers, vocab "
+        f"{fields['vocab_size']}), {len(INFER_PROMPTS)} prompts, ran {wall:.1f} s from its start "
+        f"to its exit [{card}]")
+    log_checks("infer_text", [("ids", got == "".join(w + "\n" for w in want),
+                               f"its lines against greedy_generate's decode: {got[-300:]!r}")])
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_infer_text(dev, card):
+    """``start_infer_text`` then ``finish_infer_text`` (a ``--phases`` run)."""
+    finish_infer_text(dev, card, start_infer_text())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="",
@@ -5004,9 +5874,15 @@ def main(argv=None) -> int:
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
                          "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
                          "hf_trainer_qwen2_5_vl, moe (with the MoE monitor), post_training, "
-                         "and before them main (the dense loop) or trainer; such a partial run "
-                         "prints no result line")
+                         "remat, serve_quant, serve_router, infer_text, vlm_witness (a "
+                         "measurement outside the whole run), and before them main "
+                         "(the dense loop) or trainer; such a partial run prints no result "
+                         "line")
     args = ap.parse_args(argv)
+    names = args.phases.split(",") if args.phases else []
+    if "serve_moe" in names and "serve_quant" not in names[:names.index("serve_moe")]:
+        ap.error("serve_moe's quality gate reads serve_quant's noise floor: "
+                 "name serve_quant before it")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -5019,7 +5895,14 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
-    phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
+    # the whole run's infer_text subprocess runs while the kernels build
+    infer = None if args.phases else start_infer_text()
+    try:
+        phase_build([probe.SOURCE, fa.SOURCE, gg.SOURCE])
+    except BaseException:
+        if infer is not None:
+            infer[0].kill()
+        raise
     if args.phases:
         phases = {"main": phase_main, "trainer": phase_trainer,
                   "serve_dense": phase_serve_dense, "serve_moe": phase_serve_moe,
@@ -5032,8 +5915,11 @@ def main(argv=None) -> int:
                   "serve_gpt_oss": phase_serve_gpt_oss,
                   "hf_trainer_qwen2_vl": phase_hf_trainer_qwen2_vl,
                   "hf_trainer_qwen2_5_vl": phase_hf_trainer_qwen2_5_vl,
-                  "moe": phase_moe_main, "post_training": phase_post_training}
-        for name in args.phases.split(","):
+                  "moe": phase_moe_main, "post_training": phase_post_training,
+                  "remat": phase_remat, "serve_quant": phase_serve_quant,
+                  "serve_router": phase_serve_router, "infer_text": phase_infer_text,
+                  "vlm_witness": phase_vlm_witness}
+        for name in names:
             t0 = time.perf_counter()
             phases[name](dev, card)
             torch.cuda.empty_cache()
@@ -5042,8 +5928,10 @@ def main(argv=None) -> int:
         return 0
     hf_tmp = tempfile.mkdtemp(prefix="chip_smoke_hf_")
     try:
-        return run_phases(dev, card, hf_tmp)
+        return run_phases(dev, card, hf_tmp, infer)
     finally:
+        if infer[0].poll() is None:
+            infer[0].kill()
         shutil.rmtree(hf_tmp, ignore_errors=True)
 
 
@@ -5054,9 +5942,13 @@ def lap_clock(name: str, since: float) -> float:
     return now
 
 
-def run_phases(dev, card, hf_tmp) -> int:
+def run_phases(dev, card, hf_tmp, infer) -> int:
     from veomni_tpu_torch.train_text_step import packed_batches
 
+    # the subprocess ran beside the kernel build; it ends before any timing
+    lap = time.perf_counter()
+    finish_infer_text(dev, card, infer)
+    lap_clock("infer_text (its wait and check after the kernel build)", lap)
     t0 = time.perf_counter()
     table = [phase_probe(dev)]
     # the dense main path's first packed micro-batch: the kernels' real segment layout
@@ -5100,6 +5992,10 @@ def run_phases(dev, card, hf_tmp) -> int:
     by_path = {"dense": (phase_main(dev, card), 128, None)}
     torch.cuda.empty_cache()
     lap = lap_clock("main", lap)
+    # the bare loop under every remat policy and chunk_mbs (K1-K3 at D 128)
+    by_path["remat"] = (phase_remat(dev, card), 128, None)
+    torch.cuda.empty_cache()
+    lap = lap_clock("remat", lap)
     by_path["trainer"] = (phase_trainer(dev, card), 128, None)
     torch.cuda.empty_cache()
     lap = lap_clock("trainer", lap)
@@ -5134,12 +6030,19 @@ def run_phases(dev, card, hf_tmp) -> int:
     lap = time.perf_counter()
     by_path["serve_dense"] = (phase_serve_dense(dev, card), 128, None)
     lap = lap_clock("serve_dense", lap)
+    # the int8 tiers and their gate (before serve_moe, which reads the gate's
+    # noise floor) and the router: Qwen3-0.6B, no hand kernel
+    by_path["serve_quant"] = (phase_serve_quant(dev, card), 128, None)
+    lap = lap_clock("serve_quant", lap)
+    by_path["serve_router"] = (phase_serve_router(dev, card), 128, None)
+    lap = lap_clock("serve_router", lap)
     by_path["serve_gemma3"] = (phase_serve_gemma3(dev, card), DIALECT_HEADS[GEMMA_PRESET][2],
                                GEMMA_PRESET)
     lap = lap_clock("serve_gemma3", lap)
-    moe_launches, serve_rows = phase_serve_moe(dev, card)
+    moe_launches, serve_rows, q8_launches = phase_serve_moe(dev, card)
     lap = lap_clock("serve_moe", lap)
     by_path["serve_moe"] = (moe_launches, 128, None)
+    by_path["serve_moe_int8"] = (q8_launches, 128, None)
     table += serve_rows
     gc.collect()
     torch.cuda.empty_cache()

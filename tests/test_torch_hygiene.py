@@ -6,9 +6,10 @@
   dynamically by importing every module in a fresh subprocess.
 * Entry points called without ``device=`` (the trainer and
   ``tasks/train_text.py``, and the post-training entry points
-  ``tasks/train_text_{dpo,distill,rl}.py``, without ``train.platform:
-  cpu``, the serving
-  engine and ``tasks/serve.py`` without ``--device cpu``) on a machine
+  ``tasks/train_text_{dpo,distill,rl}.py`` and ``tasks/infer_text.py``,
+  without ``train.platform: cpu``, the serving engine, the router and
+  ``tasks/serve.py`` (bare and with ``--replicas 2``) without ``--device
+  cpu``) on a machine
   without CUDA raise instead of running on the CPU; ``chip_smoke.py``
   exits non-zero and prints no result there, and also when it stands alone
   without the package.
@@ -104,6 +105,10 @@ PORTED_HOST_MODULES = (
     "trainer.dpo_trainer", "trainer.distill_trainer", "trainer.rl_trainer",
     "tasks.train_text_dpo", "tasks.train_text_distill", "tasks.train_text_rl",
     "train.channel_loss", "utils.moe_monitor",
+    # the rest of the serving slice: the quality gate, weight publication,
+    # the replica router, heartbeats and infer_text
+    "serving.quality", "serving.weights", "serving.replica", "serving.router",
+    "observability.fleet", "tasks.infer_text",
 )
 
 
@@ -111,8 +116,8 @@ _NO_DEVICE = r"""
 import torch
 from veomni_tpu_torch.arguments import VeOmniArguments
 from veomni_tpu_torch.models import Transformer
-from veomni_tpu_torch.serving import InferenceEngine
-from veomni_tpu_torch.tasks import serve
+from veomni_tpu_torch.serving import InferenceEngine, Router
+from veomni_tpu_torch.tasks import infer_text, serve
 from veomni_tpu_torch.tasks.train_text import main
 from veomni_tpu_torch.tasks import train_text_distill, train_text_dpo, train_text_rl
 from veomni_tpu_torch.train_text_step import bench_config, run_train_steps
@@ -135,7 +140,10 @@ for call in (lambda: resolve_device(),
              lambda: train_text_distill.main(flags),
              lambda: train_text_rl.main(flags),
              lambda: InferenceEngine(Transformer(cfg, torch.Generator(), device="cpu"), cfg),
-             lambda: serve.main(["--synthetic", "1"])):
+             lambda: serve.main(["--synthetic", "1"]),
+             lambda: Router(Transformer(cfg, torch.Generator(), device="cpu"), cfg),
+             lambda: serve.main(["--synthetic", "1", "--replicas", "2"]),
+             lambda: infer_text.main(["--model.config_overrides={\"model_type\": \"qwen3\"}"])):
     try:
         call()
     except RuntimeError as e:

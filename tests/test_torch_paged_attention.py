@@ -10,8 +10,8 @@ f32 on the CPU, inputs from numpy seeds:
   ``paged_prefill_attend`` (one sequence, a T-row chunk) against the
   reference's ops on the same pool and null-padded tables (atol/rtol 1e-5);
 * the dense storage tier: ``make_kv_pool``/``kv_block_nbytes``/``decode_dot``
-  against the reference, and the int8/fp8 tiers raising
-  ``NotImplementedError``.
+  against the reference; the int8 pool, block bytes and weights equal to the
+  reference's, and ``fp8`` raising the reference's message.
 """
 
 import jax.numpy as jnp
@@ -134,14 +134,43 @@ def test_dense_storage_tier_matches_jax():
                                np.asarray(jq.decode_dot(jnp.asarray(x), jnp.asarray(w))), **TOL)
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tq.make_kv_pool((1, 2, 4, 1, 8), "int8", torch.float32),
-    lambda: tq.make_kv_pool((1, 2, 4, 1, 8), "fp8", torch.float32),
-    lambda: tq.kv_block_nbytes(2, 16, 2, 64, kv_quant="int8"),
-    lambda: tq.quantize_decode_params({}),
-], ids=["kv-int8", "kv-fp8", "block-bytes-int8", "weight-int8"])
+def _int8_pool():
+    pool_t = tq.make_kv_pool((1, 2, 4, 1, 8), "int8", torch.float32)
+    pool_j = jq.make_kv_pool((1, 2, 4, 1, 8), "int8", jnp.float32)
+    for a, b in ((pool_t.data, pool_j.data), (pool_t.scale, pool_j.scale)):
+        assert str(a.dtype).split(".")[-1] == str(b.dtype) and tuple(a.shape) == b.shape
+        assert not a.any()
+    assert tq.kv_pool_nbytes(pool_t) == jq.kv_pool_nbytes(pool_j)
+
+
+def _fp8_pool():
+    with pytest.raises(NotImplementedError) as ref:
+        jq.make_kv_pool((1, 2, 4, 1, 8), "fp8", jnp.float32)
+    with pytest.raises(NotImplementedError) as got:
+        tq.make_kv_pool((1, 2, 4, 1, 8), "fp8", torch.float32)
+    assert str(got.value) == str(ref.value)
+
+
+def _int8_block_bytes():
+    assert (tq.kv_block_nbytes(2, 16, 2, 64, kv_quant="int8")
+            == jq.kv_block_nbytes(2, 16, 2, 64, kv_quant="int8"))
+
+
+def _int8_weights():
+    w = np.random.default_rng(2).standard_normal((2, 16, 24)).astype(np.float32)
+    ref = jq.quantize_decode_params({"layers": {"q_proj": jnp.asarray(w)}})["layers"]["q_proj"]
+    got = tq.quantize_decode_params({"layers": [{"q_proj": T(w[i])} for i in range(2)]})
+    for i in range(2):
+        assert np.array_equal(got["layers"][i]["q_proj"].data.numpy(), np.asarray(ref.data[i]))
+        assert np.array_equal(got["layers"][i]["q_proj"].scale.numpy(), np.asarray(ref.scale[i]))
+
+
+@pytest.mark.parametrize("call", [_int8_pool, _fp8_pool, _int8_block_bytes, _int8_weights],
+                         ids=["kv-int8", "kv-fp8", "block-bytes-int8", "weight-int8"])
 def test_quantized_tiers_not_ported(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        call()
+    """The int8 tiers are ported: each equals the reference's (the rest of
+    their parity is ``tests/test_torch_kv_quant.py``); ``fp8`` is the tier
+    the reference itself does not ship, and both raise its message."""
+    call()
     with pytest.raises(ValueError, match="unknown kv_quant"):
         tq.make_kv_pool((1, 2, 4, 1, 8), "int4", torch.float32)

@@ -25,11 +25,12 @@ are shorter than its prompts, with the JAX weights carried into the port
   the port's copies.
 * The engine's own surface: the pools keep their storage across
   ``step()``, cancellation and load-shedding release every block,
-  ``swap_weights`` flushes the cache, the unported quantized tiers raise,
-  and an MLA config is refused as the reference's engine refuses it.
+  ``swap_weights`` flushes the cache, the int8 tiers serve and ``fp8``
+  raises the reference's message, and an MLA config is refused as the
+  reference's engine refuses it.
 * ``python -m veomni_tpu_torch.tasks.serve --device cpu`` prints the lines
-  ``scripts/serve.py`` prints, with the same JSON keys, and each unported
-  flag raises.
+  ``scripts/serve.py`` prints, with the same JSON keys; the router, int8 and
+  publish flags serve, and the exporter's knob raises.
 """
 
 import dataclasses
@@ -421,10 +422,22 @@ def test_engine_swap_weights_flushes_cache():
                                   dict(weight_quant="int8")],
                          ids=["kv-int8", "kv-fp8", "weight-int8"])
 def test_engine_quantized_tiers_not_ported(knob):
-    _, _, model, cfg = models("qwen3")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        InferenceEngine(model, cfg, EngineConfig(num_slots=1, max_model_len=32, **knob),
-                        device="cpu")
+    """The int8 tiers are ported (tests/test_torch_kv_quant.py holds them to
+    the JAX engine): they build and serve. ``fp8`` is the one tier the
+    reference itself does not ship: both engines raise its message."""
+    params, jcfg, model, cfg = models("qwen3")
+    ec = dict(num_slots=1, max_model_len=32, **knob)
+    if knob.get("kv_quant") == "fp8":
+        with pytest.raises(NotImplementedError) as ref:
+            jserving.InferenceEngine(params, jcfg, jserving.EngineConfig(**ec))
+        with pytest.raises(NotImplementedError) as got:
+            InferenceEngine(model, cfg, EngineConfig(**ec), device="cpu")
+        assert str(got.value) == str(ref.value)
+        return
+    eng = InferenceEngine(model, cfg, EngineConfig(**ec), device="cpu")
+    (out,) = eng.run([Request(prompt_ids=[3, 5, 7], sampling=SamplingParams(
+        max_new_tokens=4))]).values()
+    assert out.finish_reason == "length" and len(out.token_ids) == 4
 
 
 def test_engine_refuses_mla_as_the_reference_does():
@@ -484,13 +497,56 @@ def test_serve_cli_prints_the_reference_lines(capsys):
     (["--kv-quant", "int8"], {}), (["--weight-quant", "int8"], {}),
     ([], {"VEOMNI_METRICS_PORT": "9100"}),
 ], ids=["replicas", "publish-from", "kv-quant", "weight-quant", "metrics-port"])
-def test_serve_cli_unported_flags_raise(flags, env, monkeypatch):
+def test_serve_cli_unported_flags_raise(flags, env, monkeypatch, capsys):
+    """The metrics exporter's knob is the one gate left (slice E); the
+    router, the int8 tiers and --publish-from are ported: they serve, and a
+    --publish-from that names no committed generation is refused by the
+    integrity gate before a token is served."""
     from veomni_tpu_torch.tasks import serve
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--device", "cpu", "--synthetic", "1", *flags])
+    argv = ["--device", "cpu", "--synthetic", "2", "--max-new", "3", *flags]
+    if env:
+        with pytest.raises(NotImplementedError, match="VEOMNI_METRICS_PORT"):
+            serve.main(argv)
+        return
+    if "--publish-from" in flags:
+        with pytest.raises(SystemExit, match="refused by integrity gate"):
+            serve.main(argv)
+        return
+    outs = serve.main(argv)
+    assert len(outs) == 2 and all(len(o.token_ids) == 3 for o in outs.values())
+    first = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert (first["replicas"], first["kv_quant"], first["weight_quant"]) == (
+        int(flags[1]) if flags[0] == "--replicas" else 1,
+        flags[1] if flags[0] == "--kv-quant" else "none",
+        flags[1] if flags[0] == "--weight-quant" else "none")
+
+
+def test_serve_cli_publishes_a_checkpoint_into_the_router(tmp_path, capsys):
+    """--publish-from a generation the port's Checkpointer wrote, under
+    --replicas 2: the rolling publish fires after the first token and every
+    request completes; on the bare engine it is swapped in before serving."""
+    from veomni_tpu_torch.checkpoint.checkpointer import Checkpointer
+    from veomni_tpu_torch.optim.optimizer import build_optimizer
+    from veomni_tpu_torch.tasks import serve
+    from veomni_tpu_torch.train.train_step import build_train_state
+
+    args = serve.build_parser().parse_args(["--device", "cpu", "--seed", "3"])
+    model, _ = serve.build_model(args, torch.device("cpu"))
+    ckpt = Checkpointer(str(tmp_path), async_save=False)
+    ckpt.save(5, build_train_state(model, build_optimizer(model, lr=1e-4)))
+    ckpt.close()
+    step_dir = str(tmp_path / "global_step_5")
+    for replicas, mode in (("2", "rolling"), ("1", "pre-serve")):
+        outs = serve.main(["--device", "cpu", "--synthetic", "3", "--max-new", "4",
+                           "--replicas", replicas, "--publish-from", step_dir,
+                           "--publish-version", "v5"])
+        assert all(o.finish_reason == "length" for o in outs.values())
+        lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+        assert {"publish": "v5", "mode": mode} in [
+            {k: d[k] for k in ("publish", "mode")} for d in lines if "publish" in d]
 
 
 # ---------------------------------------------------------------------------

@@ -96,30 +96,39 @@ MOE = dict(model_type="qwen3_moe", num_experts=4, num_experts_per_tok=2, moe_int
 
 
 def test_unported_features_raise():
-    # chunk_mbs on a MoE, the DSA indexer on MLA and the offloading remat
-    # policies still raise (the deepseek and gpt_oss dialects are ported:
-    # tests/test_torch_deepseek.py, tests/test_torch_gpt_oss.py; mrope with
-    # the VLM models: tests/test_torch_qwen2_vl.py)
-    for extra in (dict(MOE, chunk_mbs=64),
-                  dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
-                       index_topk=4),
-                  dict(remat_policy="ctx_offload"), dict(remat_policy="dots")):
-        with pytest.raises(NotImplementedError):
-            Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
+    # the DSA indexer on MLA still raises; the remat policies and chunk_mbs
+    # are ported (tests/test_torch_remat.py), chunk_mbs on a MoE leaves its
+    # MoE layers unchunked as the reference does (the deepseek and gpt_oss
+    # dialects: tests/test_torch_deepseek.py, tests/test_torch_gpt_oss.py;
+    # mrope with the VLM models: tests/test_torch_qwen2_vl.py)
+    with pytest.raises(NotImplementedError):
+        Transformer(TransformerConfig(**{**TOY, **dict(
+            kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
+            index_topk=4)}), torch.Generator(), device="cpu")
+    for extra in (dict(MOE, chunk_mbs=64), dict(remat_policy="ctx_offload"),
+                  dict(remat_policy="dots")):
+        Transformer(TransformerConfig(**{**TOY, **extra}), torch.Generator(), device="cpu")
     # the softmax top-k MoE itself is ported
     Transformer(TransformerConfig(**{**TOY, **MOE}), torch.Generator(), device="cpu")
 
 
-@pytest.mark.parametrize("extra", [
-    dict(remat_policy="dots"), dict(remat_policy="offload"),
-    dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
-    dict(linear_num_value_heads=4), dict(attn_output_gate=True),
-    dict(chunk_mbs=64), dict(ulysses_async_chunks=2),
+@pytest.mark.parametrize("extra,raises", [
+    (dict(remat_policy="dots"), False), (dict(remat_policy="offload"), False),
+    (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
+     True),
+    (dict(linear_num_value_heads=4), True), (dict(attn_output_gate=True), True),
+    (dict(chunk_mbs=64), False), (dict(ulysses_async_chunks=2), True),
 ], ids=["remat-dots", "remat-offload", "mla-dsa", "linear-attention", "output-gate",
         "chunk-mbs", "ulysses-async-chunks"])
-def test_unported_moe_features_raise(extra):
+def test_unported_moe_features_raise(extra, raises):
+    """The unported features raise on a MoE config; the remat policies and
+    chunk_mbs (raises False) build."""
+    cfg = TransformerConfig(**{**TOY, **MOE, **extra})
+    if not raises:
+        Transformer(cfg, torch.Generator(), device="cpu")
+        return
     with pytest.raises(NotImplementedError):
-        Transformer(TransformerConfig(**{**TOY, **MOE, **extra}), torch.Generator(), device="cpu")
+        Transformer(cfg, torch.Generator(), device="cpu")
 
 
 def test_capacity_factor_leaves_the_moe_dropless():

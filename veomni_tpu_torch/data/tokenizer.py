@@ -127,6 +127,11 @@ class Tokenizer:
         text = self.backend.decode([int(i) for i in ids], skip_special_tokens=skip_special_tokens)
         return _clean_up_tokenization(text) if self.clean_up_tokenization_spaces else text
 
+    @property
+    def eos_token_id(self) -> Optional[int]:
+        """The id of ``eos_token`` (None without one), as transformers'."""
+        return None if self.eos_token is None else self.backend.token_to_id(self.eos_token)
+
     def __len__(self) -> int:
         return self.backend.get_vocab_size(with_added_tokens=True)
 

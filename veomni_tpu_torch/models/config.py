@@ -90,8 +90,8 @@ class TransformerConfig:
     dtype: Any = torch.bfloat16       # activation/compute dtype
     param_dtype: Any = torch.float32  # master param dtype
     remat: bool = True                # torch.utils.checkpoint each decoder layer
-    # "nothing" (full recompute) | "ctx" (keep the attention context, see
-    # models/transformer.py); the reference's "dots"/"offload" variants raise
+    # "nothing" (full recompute) | "ctx" (keep the attention context) |
+    # "dots" | "ctx_offload" | "offload" (see models/transformer.py)
     remat_policy: str = "nothing"
     chunk_mbs: int = 0
     ulysses_async_chunks: int = 0

@@ -15,9 +15,11 @@ PyTorch idiom in place of the reference's jitted programs:
   builds from a ``Transformer`` once (the reference casts inside every jit;
   here that would re-cast every weight every tick).
 * KV pools and caches are written in place (``index_put_`` into the one
-  pool tensor): the reference returns new pools from donated buffers, and a
-  functional update here would copy the whole pool every tick. The steps
-  return only their logits or tokens.
+  pool tensor, or into an int8 pool's payload and scale through
+  ``QuantizedKV.__setitem__``, which quantizes a float value on write): the
+  reference returns new pools from donated buffers, and a functional update
+  here would copy the whole pool every tick. The steps return only their
+  logits or tokens.
 * The layer scan is a Python loop over the layers (``_layer_meta`` gives
   each its window and rope, as the reference's scanned per-layer arrays
   do), with one mask built per distinct window.
@@ -43,6 +45,8 @@ attention raise: the reference has no cached decode for MLA
 
 from __future__ import annotations
 
+import threading
+from collections.abc import Mapping
 from types import SimpleNamespace
 from typing import Dict, Tuple
 
@@ -81,22 +85,43 @@ def check_decode_supported(cfg) -> None:
     check_supported(cfg)
 
 
-def _compute_cast(model, cfg: TransformerConfig) -> Dict:
-    """The model's parameters in the compute dtype as plain tensors (one
-    already in it is shared, not copied): ``embed_tokens``, ``norm``,
-    ``lm_head`` (untied), and ``layers``, one dict per layer whose MoE
-    ``experts`` and ``shared_experts`` are namespaces of
-    ``gate_proj``/``up_proj``/``down_proj``."""
-    def cast(params):
-        return {name: p.detach().to(cfg.dtype) for name, p in params}
+def _compute_cast(model, cfg: TransformerConfig, *, weight_quant: str = "none",
+                  device=None) -> Dict:
+    """The parameters in the compute dtype as plain tensors on ``device``
+    (default: where they lie; one already there in that dtype is shared, not
+    copied): ``embed_tokens``, ``norm``, ``lm_head`` (untied), and
+    ``layers``, one dict per layer whose MoE ``experts`` and
+    ``shared_experts`` are namespaces of ``gate_proj``/``up_proj``/
+    ``down_proj``. ``model`` is a ``Transformer`` or a flat ``{name:
+    tensor}`` mapping with its parameter names (``layers.3.q_proj``), on any
+    device (the router's host payloads). ``weight_quant="int8"`` stores each
+    layer's dense projections as ``QuantizedWeight``, quantized from the
+    parameters' own dtype as the reference quantizes its params
+    (``ops/quantization.py::quantize_decode_params``)."""
+    state = model if isinstance(model, Mapping) else dict(model.named_parameters())
+    dev = torch.device(device) if device is not None else next(iter(state.values())).device
+    raw: Dict = {"layers": [{} for _ in range(cfg.num_hidden_layers)]}
+    for name, p in state.items():
+        parts = name.split(".")
+        if parts[0] != "layers":
+            raw[name] = p.detach()
+        elif len(parts) == 3:
+            raw["layers"][int(parts[1])][parts[2]] = p.detach()
+        else:  # layers.<i>.experts.gate_proj
+            raw["layers"][int(parts[1])].setdefault(parts[2], {})[parts[3]] = p.detach()
+    if weight_quant == "int8":
+        raw = ops.quantize_decode_params(
+            {**raw, "layers": [{k: v.to(dev) if k in ops.DECODE_QUANT_KEYS else v
+                                for k, v in lp.items()} for lp in raw["layers"]]})
 
-    compute = cast(model.named_parameters(recurse=False))
-    compute["layers"] = []
-    for layer in model.layers:
-        lp = cast(layer.named_parameters(recurse=False))
-        for name, sub in layer.named_children():  # experts, shared_experts
-            lp[name] = SimpleNamespace(**cast(sub.named_parameters()))
-        compute["layers"].append(lp)
+    def cast(p):
+        return p if isinstance(p, ops.QuantizedWeight) else p.to(device=dev, dtype=cfg.dtype)
+
+    compute = {k: cast(v) for k, v in raw.items() if k != "layers"}
+    compute["layers"] = [
+        {k: SimpleNamespace(**{n: cast(t) for n, t in v.items()}) if isinstance(v, dict)
+         else cast(v) for k, v in lp.items()}
+        for lp in raw["layers"]]
     return compute
 
 
@@ -484,6 +509,10 @@ TRACE_COUNTS = {"prefill": 0, "decode": 0, "paged_decode": 0, "paged_prefill": 0
                 "paged_verify": 0}
 
 
+# the router's replicas tick on threads of their own and share TRACE_COUNTS
+_TRACE_LOCK = threading.Lock()
+
+
 class Program:
     """The bucket shapes one program has run at; a new one counts a trace."""
 
@@ -494,7 +523,8 @@ class Program:
     def see(self, bucket) -> None:
         if bucket not in self._seen:
             self._seen.add(bucket)
-            TRACE_COUNTS[self.name] += 1
+            with _TRACE_LOCK:
+                TRACE_COUNTS[self.name] += 1
 
 
 # the contiguous prefill/decode programs per model config CONTENT (a config

@@ -66,7 +66,28 @@ Remat (``_remat_policy``, ``:39-70``) maps to ``torch.utils.checkpoint``:
   The reference's ``ctx`` saves only the context and, with its flash
   kernel, recomputes the forward to rebuild the LSE. A MoE layer's routing
   and grouped GEMMs sit in the post-attention block, so backward reruns
-  them once (three forward grouped-GEMM launches per layer).
+  them once (three forward grouped-GEMM launches per layer);
+* ``dots`` (``dots_with_no_batch_dims_saveable``): ``ctx``'s split, each
+  checkpointed block under a selective-checkpoint policy that must-save the
+  output of every ``aten.mm``/``aten.addmm`` (the no-batch-dim products) and
+  recomputes the rest. The hand kernels launch through ctypes, below the
+  dispatcher, so no policy can cache them: a K4 inside a MoE tail is rerun,
+  as the reference's Pallas call is rerun under ``dots``;
+* ``ctx_offload`` and ``offload``: the saves of ``ctx`` and of ``dots``
+  parked in pinned host memory. The attention op's saves go through
+  ``save_on_cpu``; a selective-checkpoint cache keeps its tensors in its own
+  storage, out of reach of saved-tensor hooks, so ``offload`` caches the
+  products with a dispatch-mode pair of its own (``_host_matmul_contexts``)
+  that copies each to the host in the forward and back in the recompute;
+* an unknown name falls to ``nothing``, as in the reference (``:70``).
+
+``chunk_mbs`` (``:583-596``) splits a dense MLP over sequence chunks of
+``c`` (rounded down to the largest divisor of the length, at least 2; no
+chunking when there is none), each chunk checkpointed so the backward
+recompute stays chunked; MoE layers are not chunked. No policy changes a
+value (each runs the forward's kernels in the same order, and a saved
+product is the product a recompute gives); ``chunk_mbs`` changes the MLP's
+GEMM shapes, so its sums round in another order.
 
 The MoE path is the single-device, dropless one (no expert parallelism).
 Its combine is deterministic: each sorted expert output goes back to its
@@ -87,7 +108,12 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from veomni_tpu_torch import ops
 from veomni_tpu_torch.models.config import TransformerConfig
@@ -106,13 +132,67 @@ def check_supported(cfg: TransformerConfig) -> None:
          f"{', '.join(ops.GATED_ACTS)})", cfg.hidden_act not in ops.GATED_ACTS),
         ("linear attention / output gate, qwen3_next (slice F)",
          bool(cfg.linear_num_value_heads) or cfg.attn_output_gate),
-        ("chunk_mbs (slice A item 5)", bool(cfg.chunk_mbs)),
         ("ulysses_async_chunks (slice C)", bool(cfg.ulysses_async_chunks)),
-        (f"remat_policy {cfg.remat_policy!r} (slice A item 5)",
-         cfg.remat and cfg.remat_policy not in ("nothing", "ctx")),
     ) if on]
     if missing:
         raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(missing))
+
+
+#: the no-batch-dim products the ``dots`` policies keep (``x @ w`` of a
+#: [B,S,H] activation reaches the dispatcher as ``aten.mm``)
+_MATMUL_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+#: the policies that split the layer around the attention op
+_SPLIT_POLICIES = ("ctx", "dots", "ctx_offload", "offload")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMUL_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+class _HostMatmuls(TorchDispatchMode):
+    """In the forward (``saved`` empty, ``replay`` False): copy every
+    product's output to pinned host memory, in order. In the recompute
+    (``replay`` True): hand the saved products back, copied to the device,
+    in the same order, instead of running them."""
+
+    def __init__(self, saved, replay: bool):
+        super().__init__()
+        self.saved, self.replay, self.next = saved, replay, 0
+
+    def __enter__(self):
+        self.next = 0  # a second backward over a retained graph replays again
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func not in _MATMUL_OPS:
+            return func(*args, **(kwargs or {}))
+        if self.replay:
+            host = self.saved[self.next]
+            self.next += 1
+            return host.to(args[-1].device, non_blocking=True)
+        out = func(*args, **(kwargs or {}))
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=out.is_cuda)
+        self.saved.append(host.copy_(out, non_blocking=True))
+        return out
+
+
+def _host_matmul_contexts():
+    saved = []
+    return _HostMatmuls(saved, replay=False), _HostMatmuls(saved, replay=True)
+
+
+def chunk_len(chunk: int, s: int) -> int:
+    """The sequence chunk ``chunk_mbs`` runs a dense MLP at for length
+    ``s`` (``:583-590``): ``chunk`` itself where it divides ``s``, else the
+    largest divisor of ``s`` below it (at least 2); 0 for no chunking."""
+    if chunk and s > chunk and s % chunk:
+        chunk = next((d for d in range(chunk, 1, -1) if s % d == 0), 0)
+    return chunk if chunk and 1 < chunk < s else 0
 
 
 def _top_k(values, k: int):
@@ -481,6 +561,11 @@ class DecoderLayer(nn.Module):
                        shared_gate=optional("shared_expert_gate"),
                        router_bias=optional("router_bias"))
 
+    def _dense_mlp(self, x):
+        act = ops.gated_act(self._linear(x, "gate_proj", "gate_bias"),
+                            self._linear(x, "up_proj", "up_bias"), self.cfg.hidden_act)
+        return self._linear(act, "down_proj", "down_bias")
+
     def _tail(self, hidden, attn):
         cfg = self.cfg
         hidden, x = self.mlp_input(hidden, attn)
@@ -489,9 +574,14 @@ class DecoderLayer(nn.Module):
             out, aux = self.moe(x.reshape(b * s, h))
             out = out.view(b, s, h)
         else:
-            act = ops.gated_act(self._linear(x, "gate_proj", "gate_bias"),
-                                self._linear(x, "up_proj", "up_bias"), cfg.hidden_act)
-            out = self._linear(act, "down_proj", "down_bias")
+            c = chunk_len(cfg.chunk_mbs, x.shape[1])
+            if not c:
+                out = self._dense_mlp(x)
+            elif torch.is_grad_enabled():
+                out = torch.cat([checkpoint(self._dense_mlp, xc, use_reentrant=False)
+                                 for xc in x.split(c, dim=1)], dim=1)
+            else:
+                out = torch.cat([self._dense_mlp(xc) for xc in x.split(c, dim=1)], dim=1)
             aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         if cfg.sandwich_norms:
             out = self._norm(out, "post_feedforward_layernorm")
@@ -505,11 +595,21 @@ class DecoderLayer(nn.Module):
         cfg = self.cfg
         if not (cfg.remat and torch.is_grad_enabled()):
             return self._full(hidden, cos, sin, segment_ids)
-        if cfg.remat_policy == "ctx":
-            q, k, v = checkpoint(self._qkv, hidden, cos, sin, use_reentrant=False)
+        policy = cfg.remat_policy
+        if policy not in _SPLIT_POLICIES:
+            return checkpoint(self._full, hidden, cos, sin, segment_ids, use_reentrant=False)
+        kw = {"use_reentrant": False}
+        if policy == "dots":
+            kw["context_fn"] = _dots_contexts
+        elif policy == "offload":
+            kw["context_fn"] = _host_matmul_contexts
+        q, k, v = checkpoint(self._qkv, hidden, cos, sin, **kw)
+        if policy.endswith("offload"):
+            with torch.autograd.graph.save_on_cpu(pin_memory=True):
+                attn = self._attend(q, k, v, segment_ids)
+        else:
             attn = self._attend(q, k, v, segment_ids)
-            return checkpoint(self._tail, hidden, attn, use_reentrant=False)
-        return checkpoint(self._full, hidden, cos, sin, segment_ids, use_reentrant=False)
+        return checkpoint(self._tail, hidden, attn, **kw)
 
 
 class Transformer(nn.Module):

@@ -34,12 +34,19 @@ load_balancing_loss = _load_balancing.load_balancing_loss
 group_gemm = _group_gemm.group_gemm
 cache_attend = _paged_attention.cache_attend
 gather_block_kv = _paged_attention.gather_block_kv
+gather_block_kv_q8 = _paged_attention.gather_block_kv_q8
 paged_attend = _paged_attention.paged_attend
 paged_prefill_attend = _paged_attention.paged_prefill_attend
 quantize_decode_params = _quantization.quantize_decode_params
 make_kv_pool = _quantization.make_kv_pool
 kv_block_nbytes = _quantization.kv_block_nbytes
 decode_dot = _quantization.decode_dot
+QuantizedKV = _quantization.QuantizedKV
+QuantizedWeight = _quantization.QuantizedWeight
+quantize_rows = _quantization.quantize_rows
+dequantize_rows = _quantization.dequantize_rows
+quantize_weight = _quantization.quantize_weight
+DECODE_QUANT_KEYS = _quantization.DECODE_QUANT_KEYS
 
 __all__ = [
     "KERNEL_REGISTRY",
@@ -60,10 +67,17 @@ __all__ = [
     "group_gemm",
     "cache_attend",
     "gather_block_kv",
+    "gather_block_kv_q8",
     "paged_attend",
     "paged_prefill_attend",
     "quantize_decode_params",
     "make_kv_pool",
     "kv_block_nbytes",
     "decode_dot",
+    "QuantizedKV",
+    "QuantizedWeight",
+    "quantize_rows",
+    "dequantize_rows",
+    "quantize_weight",
+    "DECODE_QUANT_KEYS",
 ]

@@ -38,6 +38,7 @@ f32: agreement with the plain version is bf16-level, not f32-level.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -56,6 +57,7 @@ LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 # the same launches split by the head dim they ran at
 LAUNCHES_BY_HEAD_DIM = {d: dict.fromkeys(LAUNCHES, 0) for d in HEAD_DIMS}
 FALLBACK_CALLS = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -244,8 +246,9 @@ def _launch(name: str, tensors, q, k, scale: float, causal: bool, ints=()) -> No
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_HEAD_DIM[d][name] += 1
+    with _COUNT_LOCK:  # serving replicas launch from threads of their own
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_HEAD_DIM[d][name] += 1
 
 
 # ``seg_rng`` is ``seg_ranges(seg)``, computed once for the kernels of one
@@ -354,7 +357,8 @@ def flash_attention(
         or s % BLOCK  # the reference's lane-aligned block tiling (also S < 128)
         or hq % k.shape[2]
     ):
-        FALLBACK_CALLS += 1
+        with _COUNT_LOCK:
+            FALLBACK_CALLS += 1
         return _attention_xla(
             q, k, v, segment_ids=segment_ids, causal=causal,
             softmax_scale=softmax_scale, sliding_window=sliding_window, sinks=sinks,

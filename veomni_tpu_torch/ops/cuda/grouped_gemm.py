@@ -48,6 +48,7 @@ land on the neighbouring bf16 value.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -57,6 +58,8 @@ SOURCE = "grouped_gemm.cu"
 ALIGN = 8  # K and N must be multiples of it (16 bytes of bf16: TMA's row rule)
 
 LAUNCHES = {"gmm_fwd": 0, "gmm_dlhs": 0, "gmm_t": 0}
+
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_counts() -> None:
@@ -157,7 +160,8 @@ def _launch(name: str, tensors, m: int, k: int, n: int, num_experts: int) -> Non
     )
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:  # serving replicas launch from threads of their own
+        LAUNCHES[name] += 1
 
 
 def gmm_cuda(lhs, rhs, starts):

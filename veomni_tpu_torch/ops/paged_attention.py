@@ -1,10 +1,12 @@
 """Paged KV-cache attention: attend decode queries against gathered blocks.
 
 Port of ``veomni_tpu/ops/paged_attention.py``: ``cache_attend`` (``:32``),
-``gather_block_kv`` (``:71``) and the ops ``paged_attention`` and
-``paged_prefill_attention``, each with impl ``xla_gather`` (``:104``,
-``:170``; dispatched by ``paged_attend`` ``:155`` and
-``paged_prefill_attend`` ``:210``). The serving engine carves the KV cache
+``gather_block_kv`` (``:71``), ``gather_block_kv_q8`` (``:86``) and the ops
+``paged_attention`` and ``paged_prefill_attention``, each with impls
+``xla_gather`` (``:104``, ``:170``) and ``xla_gather_q8`` (``:122``,
+``:189``), dispatched by ``paged_attend`` (``:155``) and
+``paged_prefill_attend`` (``:210``) through ``_resolve_paged``'s rule
+(``:143-152``): a pin wins, otherwise the pool's type picks the impl. The serving engine carves the KV cache
 into a pool of fixed-size blocks ``[num_blocks, block_size, hkv, d]`` with
 per-sequence block tables; ``gather_block_kv`` gathers each slot's blocks
 into a contiguous context (block-table order is sequence order, so gathered
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY, resolve_op
+from veomni_tpu_torch.ops.quantization import QuantizedKV
 
 
 def cache_attend(q, k_cache, v_cache, valid_mask, *, num_rep: int = 1, scale: float,
@@ -75,6 +78,20 @@ def gather_block_kv(k_pool, v_pool, block_tables):
     return k, v
 
 
+def gather_block_kv_q8(k_pool: QuantizedKV, v_pool: QuantizedKV, block_tables, dtype):
+    """:func:`gather_block_kv` for int8 pools: gather payload and scale
+    through the table first (a quarter of the bytes of a dense gather),
+    then dequantize the gathered context to ``dtype``."""
+    _, bs, hkv, d = k_pool.shape
+    s, nb = block_tables.shape
+
+    def one(pool):
+        ctx = pool.data[block_tables].float() * pool.scale[block_tables][..., None]
+        return ctx.to(dtype).reshape(s, nb * bs, hkv, d)
+
+    return one(k_pool), one(v_pool)
+
+
 @KERNEL_REGISTRY.register("paged_attention", "xla_gather")
 def _paged_attend_xla(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep: int = 1,
                       scale: float, sinks: Optional[torch.Tensor] = None):
@@ -82,18 +99,37 @@ def _paged_attend_xla(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep: i
     return cache_attend(q, k_ctx, v_ctx, valid_mask, num_rep=num_rep, scale=scale, sinks=sinks)
 
 
+@KERNEL_REGISTRY.register("paged_attention", "xla_gather_q8")
+def _paged_attend_xla_q8(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep: int = 1,
+                         scale: float, sinks: Optional[torch.Tensor] = None):
+    """int8-KV attention: gathered-dequantize, then the same
+    ``cache_attend`` as ``xla_gather`` (prefill chunks attend over their own
+    rows as the scatter before this attend quantized them)."""
+    k_ctx, v_ctx = gather_block_kv_q8(k_pool, v_pool, block_tables, q.dtype)
+    return cache_attend(q, k_ctx, v_ctx, valid_mask, num_rep=num_rep, scale=scale, sinks=sinks)
+
+
+# the same math under their own op name, so a fused prefill kernel can later
+# replace the gather without touching the decode op's pin
+KERNEL_REGISTRY.register("paged_prefill_attention", "xla_gather")(_paged_attend_xla)
+KERNEL_REGISTRY.register("paged_prefill_attention", "xla_gather_q8")(_paged_attend_xla_q8)
+
+
+def _resolve_paged(op: str, k_pool, device):
+    """A pin wins; otherwise a ``QuantizedKV`` pool takes ``xla_gather_q8``
+    and a dense one the op's priority-resolved impl."""
+    if KERNEL_REGISTRY.pinned(op) is None and isinstance(k_pool, QuantizedKV):
+        return KERNEL_REGISTRY.impls(op)["xla_gather_q8"].fn
+    return resolve_op(op, device)
+
+
 def paged_attend(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep: int = 1,
                  scale: float, sinks: Optional[torch.Tensor] = None):
     """q [S,T,hq,d] + pool [NB,BS,hkv,d] + block_tables [S,nb] -> [S,T,hq,d].
     valid_mask [S,T,nb*BS] in gathered (== absolute) positions. T is 1 for
     the plain decode step and KB for the speculative verify step."""
-    return resolve_op("paged_attention", q.device)(
+    return _resolve_paged("paged_attention", k_pool, q.device)(
         q, k_pool, v_pool, block_tables, valid_mask, num_rep=num_rep, scale=scale, sinks=sinks)
-
-
-# the same math under its own op name, so a fused prefill kernel can later
-# replace the gather without touching the decode op's pin
-KERNEL_REGISTRY.register("paged_prefill_attention", "xla_gather")(_paged_attend_xla)
 
 
 def paged_prefill_attend(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep: int = 1,
@@ -102,5 +138,5 @@ def paged_prefill_attend(q, k_pool, v_pool, block_tables, valid_mask, *, num_rep
     over its whole context (cached prefix blocks + the chunk's own freshly
     written rows) through the block table. q [1,T,hq,d], block_tables
     [1,nb], valid_mask [1,T,nb*BS] -> [1,T,hq,d]."""
-    return resolve_op("paged_prefill_attention", q.device)(
+    return _resolve_paged("paged_prefill_attention", k_pool, q.device)(
         q, k_pool, v_pool, block_tables, valid_mask, num_rep=num_rep, scale=scale, sinks=sinks)

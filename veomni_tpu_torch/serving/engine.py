@@ -39,14 +39,24 @@ the pools in place (their storage never moves). ``decode.TRACE_COUNTS``
 counts the distinct bucket shapes each of this engine's programs runs at,
 which is what the reference's per-engine jits would trace; the
 ``recompile_warmup_ticks`` detector reads it as before. The reference's
-``SharedPrograms`` (one program bundle for the router's replicas) is left
-out with the router.
+``SharedPrograms`` (one compiled bundle for the router's replicas) has no
+counterpart: the port's engines compile nothing to share.
+
+Quantized tiers (reference ``:254-267``): ``kv_quant="int8"`` allocates
+``QuantizedKV`` pools (quantized on write, dequantized in the gathered
+attend), ``weight_quant="int8"`` stores each layer's dense projections as
+``QuantizedWeight`` (quantized from the model's own parameters at
+construction and again at every ``swap_weights``); ``kv_capacity`` reports
+the int8 bytes. ``model`` is a ``Transformer`` or a flat ``{name: tensor}``
+state with its parameter names (the router's host payloads), which the
+engine casts (and quantizes) into its own copy on its device.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections.abc import Mapping
 from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple, Union
 
@@ -59,7 +69,7 @@ from veomni_tpu_torch.observability.metrics import LabelledRegistry, get_registr
 from veomni_tpu_torch.observability.request_trace import RequestTracer
 from veomni_tpu_torch.observability.spans import span
 from veomni_tpu_torch.ops import threefry
-from veomni_tpu_torch.ops.quantization import kv_pool_nbytes, make_kv_pool, quantize_decode_params
+from veomni_tpu_torch.ops.quantization import kv_pool_nbytes, make_kv_pool, param_leaves
 from veomni_tpu_torch.resilience.faults import fault_point
 from veomni_tpu_torch.serving.api import Request, RequestOutput, SamplingParams, StreamEvent
 from veomni_tpu_torch.serving.kv_block_manager import KVBlockManager
@@ -100,10 +110,11 @@ class EngineConfig:
     queue_bound: int = 0
     # per-tenant cap on waiting+running requests. 0 = uncapped.
     tenant_max_inflight: int = 0
-    # KV block storage: only "none" (dense compute-dtype pool) is ported;
-    # "int8"/"fp8" raise NotImplementedError at engine construction
+    # KV block storage: "none" (dense compute-dtype pool) or "int8"
+    # (QuantizedKV); "fp8" raises NotImplementedError at construction, as the
+    # reference's does
     kv_quant: str = "none"
-    # decode weight storage: only "none" is ported; "int8" raises
+    # decode weight storage: "none" or "int8" (QuantizedWeight projections)
     weight_quant: str = "none"
     # after this many step() ticks the TRACE_COUNTS baselines are armed and
     # any later bucket growth emits the RECOMPILE warning + the
@@ -169,7 +180,8 @@ class InferenceEngine:
     registry and the RequestTracer, which lock internally.
 
     ``model`` is a ``Transformer`` whose parameters lie on ``device``
-    (``cuda`` unless the caller passes ``device="cpu"``; no card raises)."""
+    (``cuda`` unless the caller passes ``device="cpu"``; no card raises), or
+    a flat ``{name: tensor}`` state of one on any device."""
 
     def __init__(self, model, cfg: TransformerConfig, config: Optional[EngineConfig] = None,
                  *, device: DeviceLike = None):
@@ -178,8 +190,6 @@ class InferenceEngine:
         self.cfg = cfg
         self.config = config or EngineConfig()
         ec = self.config
-        if ec.weight_quant == "int8":
-            quantize_decode_params(model)  # raises: not ported yet
         self.params = self._cast(model)
 
         shape = (cfg.num_hidden_layers, ec.num_blocks, ec.block_size, cfg.num_key_value_heads,
@@ -290,13 +300,17 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ programs
     def _cast(self, model):
-        """The model's compute-dtype parameter set on the engine's device."""
-        dev = model.embed_tokens.device
-        if dev.type != self.device.type or self.device.index not in (None, dev.index):
-            raise ValueError(f"the model's parameters are on {dev}, the engine runs on "
-                             f"{self.device}")
+        """The compute-dtype parameter set (int8 projections under
+        ``weight_quant="int8"``) on the engine's device, from a
+        ``Transformer`` on that device or a state on any device."""
+        if not isinstance(model, Mapping):
+            dev = model.embed_tokens.device
+            if dev.type != self.device.type or self.device.index not in (None, dev.index):
+                raise ValueError(f"the model's parameters are on {dev}, the engine runs on "
+                                 f"{self.device}")
         with torch.no_grad():
-            return decode_mod._compute_cast(model, self.cfg)
+            return decode_mod._compute_cast(model, self.cfg, weight_quant=self.config.weight_quant,
+                                            device=self.device)
 
     def _tensor(self, array) -> torch.Tensor:
         """A host array as a tensor on the engine's device (integers int64)."""
@@ -385,37 +399,25 @@ class InferenceEngine:
     # ---------------------------------------------------------- weight swap
     def swap_weights(self, model) -> Dict[str, int]:
         """Swap the engine's weights in place from ``model`` (a Transformer
-        of the same architecture), invalidating all cached KV. The engine
-        must be drained; the new compute-dtype parameters must match the
-        current ones in shape and dtype; the prefix cache is flushed under a
-        bumped ``cache_epoch``. Returns ``{"flushed_blocks": n,
-        "cache_epoch": e}``."""
+        of the same architecture, or its state), invalidating all cached KV.
+        The engine must be drained; the new parameter set, cast (and under
+        ``weight_quant="int8"`` quantized again) as at construction, must
+        match the current one in shape and dtype; the prefix cache is
+        flushed under a bumped ``cache_epoch``. Returns
+        ``{"flushed_blocks": n, "cache_epoch": e}``."""
         if self.scheduler.has_work:
             raise RuntimeError("swap_weights on a busy engine: drain waiting/running "
                                "sequences first")
-        if self.config.weight_quant == "int8":
-            quantize_decode_params(model)  # raises: not ported yet
         new = self._cast(model)
-
-        def leaves(tree, prefix=""):
-            if isinstance(tree, dict):
-                items = tree.items()
-            elif isinstance(tree, list):
-                items = enumerate(tree)
-            elif not isinstance(tree, torch.Tensor):
-                items = vars(tree).items()
-            else:
-                return [(prefix, tree)]
-            return [leaf for k, v in items for leaf in leaves(v, f"{prefix}/{k}")]
-
-        old_leaves, new_leaves = leaves(self.params), leaves(new)
+        old_leaves, new_leaves = param_leaves(self.params), param_leaves(new)
         if [k for k, _ in old_leaves] != [k for k, _ in new_leaves]:
             raise ValueError("swap_weights payload structure differs from the serving "
                              "weights: a publish must carry the same model")
         for (name, o), (_, n) in zip(old_leaves, new_leaves):
             if (o.shape, o.dtype) != (n.shape, n.dtype):
                 raise ValueError(f"swap_weights payload leaf {name} is {(n.shape, n.dtype)}, "
-                                 f"serving weights have {(o.shape, o.dtype)}")
+                                 f"serving weights have {(o.shape, o.dtype)}: shape/dtype-"
+                                 f"incongruent payloads are refused")
         self.params = new
         flushed = self.prefix_cache.flush() if self.prefix_cache is not None else 0
         self.cache_epoch += 1

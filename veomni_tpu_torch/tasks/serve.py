@@ -1,6 +1,7 @@
 """Command-line front end of the continuous-batching inference engine.
 
-Port of ``scripts/serve.py`` for the bare engine. Operates on token ids:
+Port of ``scripts/serve.py``: the bare engine, or the self-healing
+prefix-affinity router over ``--replicas`` engines. Operates on token ids:
 synthetic random-prompt requests (``--synthetic N``), explicit prompts
 (``--prompt-ids 5,17,3``, repeatable) and/or ``--requests-json`` (a JSON
 list of request objects: ``{"prompt_ids": [...], "priority": ...,
@@ -22,18 +23,30 @@ Runs on the card unless ``--device cpu``::
     python -m veomni_tpu_torch.tasks.serve --device cpu --synthetic 4 --max-new 8
     python -m veomni_tpu_torch.tasks.serve --preset qwen3_0p6b --synthetic 16 \
         --synthetic-len 512 --max-model-len 4096 --slots 16 --prefill-chunk 512
+    python -m veomni_tpu_torch.tasks.serve --device cpu --synthetic 4 --replicas 2 \
+        --kv-quant int8 --weight-quant int8 --publish-from out/checkpoints/global_step_10
+
+``--kv-quant int8`` and ``--weight-quant int8`` serve the int8 tiers;
+``--publish-from`` loads a port checkpoint generation
+(``global_step_N/train_state/model.pt``) through the integrity gate
+(``--publish-verify``) before a token is served, then rolls it into the
+router's fleet after the first token (``--publish-version`` tags it,
+default the directory's name) or swaps it into the bare engine before
+serving.
 
 Env knobs (flags win): VEOMNI_SERVE_SLOTS, VEOMNI_SERVE_BLOCK,
 VEOMNI_SERVE_MAX_LEN, VEOMNI_SERVE_LOG_STEPS, VEOMNI_SERVE_PREFIX_CACHE,
 VEOMNI_SERVE_PREFILL_CHUNK, VEOMNI_SERVE_SPEC_K, VEOMNI_SERVE_SPEC_DRAFT,
 VEOMNI_SERVE_QUEUE_BOUND, VEOMNI_SERVE_CLASSES, VEOMNI_SERVE_TENANT_INFLIGHT,
 VEOMNI_SERVE_KV_QUANT, VEOMNI_SERVE_WEIGHT_QUANT, VEOMNI_SERVE_REPLICAS,
-VEOMNI_SERVE_PUBLISH_FROM, VEOMNI_SERVE_OUT (post-mortem dump dir).
+VEOMNI_SERVE_PUBLISH_FROM, VEOMNI_SERVE_PUBLISH_VERSION,
+VEOMNI_SERVE_PUBLISH_VERIFY, VEOMNI_SERVE_OUT (post-mortem dump dir, and
+the router's heartbeat dir when set); the router's self-healing knobs
+VEOMNI_SERVE_STALL_S (wedge deadline, default 60), VEOMNI_SERVE_MAX_RESPAWNS
+(2), VEOMNI_SERVE_PROBATION (2) and VEOMNI_SERVE_MIN_LIVE (1).
 VEOMNI_FAULT_PLAN arms the serving fault points (serve.admit /
-serve.prefill / serve.decode_tick). The scale-out router (``--replicas`` >
-1), weight publication (``--publish-from``), the quantized tiers
-(``--kv-quant``/``--weight-quant`` other than ``none``) and the metrics
-exporter (VEOMNI_METRICS_PORT) are not ported yet and raise.
+serve.prefill / serve.decode_tick / serve.spawn / serve.publish). The
+metrics exporter (VEOMNI_METRICS_PORT) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -49,10 +62,6 @@ import torch
 
 from veomni_tpu_torch.models import Transformer, TransformerConfig
 from veomni_tpu_torch.utils.device import resolve_device
-
-# the ROADMAP items of slice D the unported knobs wait on
-_NEXT_SLICE = "ROADMAP.md, slice D"
-
 
 def build_parser() -> argparse.ArgumentParser:
     env = os.environ.get
@@ -88,10 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="drafting strategy registry impl (`ngram`, `off`)")
     ap.add_argument("--kv-quant", choices=("none", "int8", "fp8"),
                     default=env("VEOMNI_SERVE_KV_QUANT", "none"),
-                    help="KV block storage (only `none` is ported)")
+                    help="KV block storage: dense or int8 blocks (fp8 raises)")
     ap.add_argument("--weight-quant", choices=("none", "int8"),
                     default=env("VEOMNI_SERVE_WEIGHT_QUANT", "none"),
-                    help="decode weight storage (only `none` is ported)")
+                    help="decode weight storage: dense or int8 projections")
     ap.add_argument("--queue-bound", type=int, default=int(env("VEOMNI_SERVE_QUEUE_BOUND", 0)),
                     help="max waiting requests before submissions are load-shed (0 = unbounded)")
     ap.add_argument("--classes", default=env("VEOMNI_SERVE_CLASSES", "interactive:4,batch:1"),
@@ -100,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
                     default=int(env("VEOMNI_SERVE_TENANT_INFLIGHT", 0)),
                     help="per-tenant waiting+running cap (0 = uncapped)")
     ap.add_argument("--replicas", type=int, default=int(env("VEOMNI_SERVE_REPLICAS", 1)),
-                    help="engine replicas behind the router (only 1, the bare engine, is ported)")
+                    help="N > 1 serves through the router over N engine replicas "
+                         "(prefix-affinity dispatch, QoS at the router); 1 = bare engine")
     ap.add_argument("--priority", default="interactive", help="QoS class for CLI-built requests")
     ap.add_argument("--tenant", default="", help="tenant id for CLI-built requests")
     ap.add_argument("--deadline-s", type=float, default=0.0,
@@ -108,26 +118,38 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests-json", default="",
                     help="JSON list of request objects; '-' reads stdin")
     ap.add_argument("--publish-from", default=env("VEOMNI_SERVE_PUBLISH_FROM", ""),
-                    help="checkpoint step dir to hot-publish (not ported yet)")
+                    help="checkpoint step dir (global_step_N) to hot-publish: integrity-gated "
+                         "load, then a rolling swap mid-serve (router) or a pre-serve swap "
+                         "(bare engine)")
+    ap.add_argument("--publish-version", default=env("VEOMNI_SERVE_PUBLISH_VERSION", ""),
+                    help="version tag of the published weights (default: the step dir's name)")
+    ap.add_argument("--publish-verify", choices=("off", "size", "full"),
+                    default=env("VEOMNI_SERVE_PUBLISH_VERIFY", "size"),
+                    help="manifest verification of --publish-from (a corrupt generation is "
+                         "refused before a byte is loaded)")
     return ap
 
 
 def check_supported(args) -> None:
     """Raise ``NotImplementedError`` naming every requested feature whose
     module is not ported yet."""
-    missing = [f"{knob} ({why})" for knob, why, on in (
-        ("--replicas > 1", f"serving/replica.py, serving/router.py: {_NEXT_SLICE}",
-         args.replicas > 1),
-        ("--publish-from", f"serving/weights.py: {_NEXT_SLICE}", bool(args.publish_from)),
-        (f"--kv-quant {args.kv_quant}", f"the int8/fp8 KV tier: {_NEXT_SLICE}",
-         args.kv_quant != "none"),
-        (f"--weight-quant {args.weight_quant}", f"the int8 decode weights: {_NEXT_SLICE}",
-         args.weight_quant != "none"),
-        ("VEOMNI_METRICS_PORT", "observability/exporter.py: slice E",
-         bool(os.environ.get("VEOMNI_METRICS_PORT", ""))),
-    ) if on]
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
+    if os.environ.get("VEOMNI_METRICS_PORT", ""):
+        raise NotImplementedError(
+            "not ported yet: VEOMNI_METRICS_PORT (observability/exporter.py: slice E)")
+
+
+def router_config(args):
+    """The router's knobs: ``--replicas`` and the self-healing env knobs
+    (wedge deadline, respawn budget, probation, live floor); heartbeats
+    only where the operator chose an output dir (``VEOMNI_SERVE_OUT``)."""
+    from veomni_tpu_torch.serving import RouterConfig
+
+    env = os.environ.get
+    return RouterConfig(
+        replicas=args.replicas, replica_stall_s=float(env("VEOMNI_SERVE_STALL_S", 60.0)),
+        max_respawns=int(env("VEOMNI_SERVE_MAX_RESPAWNS", 2)),
+        probation_requests=int(env("VEOMNI_SERVE_PROBATION", 2)),
+        min_live=int(env("VEOMNI_SERVE_MIN_LIVE", 1)), heartbeat_dir=env("VEOMNI_SERVE_OUT", ""))
 
 
 def build_model(args, device: torch.device):
@@ -214,18 +236,33 @@ def main(argv: Optional[List[str]] = None):
         dump_postmortem,
     )
     from veomni_tpu_torch.resilience.faults import arm_from_env
-    from veomni_tpu_torch.serving import EngineConfig, InferenceEngine
+    from veomni_tpu_torch.resilience.integrity import CheckpointCorruptError
+    from veomni_tpu_torch.serving import (
+        EngineConfig,
+        InferenceEngine,
+        Router,
+        load_published_params,
+    )
 
     arm_from_env()
     model, cfg = build_model(args, device)
-    engine = InferenceEngine(model, cfg, EngineConfig(
+    ecfg = EngineConfig(
         num_slots=args.slots, block_size=args.block_size, max_model_len=args.max_model_len,
         log_every_steps=args.log_steps, prefix_cache=bool(args.prefix_cache),
         prefill_chunk=args.prefill_chunk, spec_k=args.spec_k, spec_draft=args.spec_draft,
         classes=args.classes, queue_bound=args.queue_bound,
         tenant_max_inflight=args.tenant_inflight, kv_quant=args.kv_quant,
         weight_quant=args.weight_quant,
-    ), device=device)
+    )
+    router = None
+    if args.replicas > 1:
+        router = Router(model, cfg, ecfg, router_config(args), device=device)
+        del model  # the router keeps its payload on the host
+        # every replica's pool is alike: the first describes them
+        engine = next(iter(router.replicas.values())).engine
+        server = router
+    else:
+        engine = server = InferenceEngine(model, cfg, ecfg, device=device)
     cap = engine.kv_capacity()
     print(json.dumps({
         "kv_quant": args.kv_quant, "weight_quant": args.weight_quant,
@@ -233,34 +270,63 @@ def main(argv: Optional[List[str]] = None):
         "kv_block_bytes": cap["block_bytes"],
         "kv_max_concurrent_seqs": cap["max_concurrent_seqs"],
     }), flush=True)
+    # --publish-from: through the integrity gate before a token is served,
+    # so a corrupt or uncommitted generation fails here, not mid-serve. The
+    # router rolls it in after the first token; the bare engine (which
+    # refuses swaps while busy) swaps it now.
+    publish_params, publish_version = None, ""
+    if args.publish_from:
+        try:
+            publish_params = load_published_params(args.publish_from,
+                                                   verify_mode=args.publish_verify)
+        except CheckpointCorruptError as e:
+            raise SystemExit(f"--publish-from refused by integrity gate: {e}")
+        publish_version = args.publish_version or os.path.basename(
+            os.path.normpath(args.publish_from))
+        if router is None:
+            info = engine.swap_weights(publish_params)
+            print(json.dumps({"publish": publish_version, "mode": "pre-serve", **info}),
+                  flush=True)
+            publish_params = None
     # post-mortems land somewhere deliberate, not whatever CWD the operator
     # launched from
     configure_flight_recorder(dump_dir=os.environ.get("VEOMNI_SERVE_OUT", "."))
     reqs = build_requests(args, cfg, ap)
     try:
-        for ev in engine.generate(reqs):
+        for ev in server.generate(reqs):
             line = {"request_id": ev.request_id, "index": ev.index, "token": ev.token}
             if ev.finished:
                 line["finished"] = ev.finish_reason
             print(json.dumps(line), flush=True)
-        outs = engine.run()  # no-op drain; collects final outputs
+            if publish_params is not None:
+                # the first token landed: roll the published weights into the
+                # running fleet (in-flight requests finish on the old version)
+                router.publish_weights(publish_params, publish_version)
+                print(json.dumps({"publish": publish_version, "mode": "rolling"}), flush=True)
+                publish_params = None
+        outs = server.run()  # no-op drain; collects final outputs
     except BaseException as e:
         # a pump that dies mid-decode leaves its request/event history in a
         # post-mortem
         dump_postmortem(f"exception:{type(e).__name__}", extra={"error": str(e)[:2000]})
         raise
-    print(json.dumps({"metrics": engine.metrics()}), flush=True)
+    print(json.dumps({"metrics": server.metrics()}), flush=True)
     # terminal-status census: shed/expired requests are reported distinctly
     by_status = {"ok": 0, "rejected": 0, "deadline": 0, "cancelled": 0}
     for o in outs.values():
         by_status[o.finish_reason if o.finish_reason in by_status else "ok"] += 1
-    print(json.dumps({
+    census = {
         "completed": by_status["ok"],
         "rejected": by_status["rejected"],
         "deadline_cancelled": by_status["deadline"],
         "cancelled": by_status["cancelled"],
         "deadline_missed": sum(1 for o in outs.values() if o.deadline_missed),
-    }), flush=True)
+    }
+    if router is not None:
+        # where the traffic landed: each replica's dispatch counts and state
+        census["replicas"] = [h.status_doc() for h in router.replicas.values()]
+        census["replicas_retired"] = [h.status_doc() for h in router.retired]
+    print(json.dumps(census), flush=True)
     for rid in sorted(outs):
         o = outs[rid]
         line = {

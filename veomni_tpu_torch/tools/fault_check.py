@@ -13,15 +13,20 @@ and leading dense layer in ``models/transformer.py``, the gpt_oss
 dialect's sinks, routing and expert biases there, its clamped GLU in
 ``ops/swiglu.py`` and its fused expert layout in ``models/hf_io.py``, the
 VLM path's head dim 80 in K1-K3, vision rope, mrope sections, window
-reverse gather and patch-embed layout, and the SFT path's
+reverse gather and patch-embed layout, the SFT path's
 LoRA merge in ``lora/lora.py``, expert adapters, frozen update in
-``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``)
-and run the copy's
+``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``,
+and the int8 KV rows' scale axis in ``ops/quantization.py``, the router's
+affinity key in ``serving/router.py``, the prefix-cache flush of a weight
+swap in ``serving/engine.py`` and the offload remat policies' hooks in
+``models/transformer.py``) and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
 ``--phases hf_trainer_moonlight``; for a gpt_oss one, its gpt-oss-20b phase:
 ``--phases hf_trainer_gpt_oss``; for a VLM one, its Qwen2-VL-2B or
-Qwen2.5-VL-3B phase; for an SFT one, its SFT phase). A fault is
+Qwen2.5-VL-3B phase; for an SFT one, its SFT phase; for the int8 one,
+``--phases serve_quant``; for the router and publication ones, ``--phases
+serve_router``; for the offload one, ``--phases remat``). A fault is
 caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -64,6 +69,18 @@ TEMPLATE_SOURCE = os.path.join("veomni_tpu_torch", "data", "chat_template.py")
 SWIGLU_SOURCE = os.path.join("veomni_tpu_torch", "ops", "swiglu.py")
 ROTARY_SOURCE = os.path.join("veomni_tpu_torch", "ops", "rotary.py")
 VL_SOURCE = os.path.join("veomni_tpu_torch", "models", "qwen2_5_vl.py")
+QUANT_SOURCE = os.path.join("veomni_tpu_torch", "ops", "quantization.py")
+ROUTER_SOURCE = os.path.join("veomni_tpu_torch", "serving", "router.py")
+ENGINE_SOURCE = os.path.join("veomni_tpu_torch", "serving", "engine.py")
+# the int8 KV rows divided by the absmax reduced over the wrong axis (across
+# the kv heads as well as the head dim) while the sidecar keeps each row's own
+# scale: every head but the largest dequantizes shrunk
+QUANT_AXIS_WHAT = ("quantize_rows divides each row by the scale reduced across the kv heads "
+                   "too (a wrong axis); the sidecar keeps the row's own")
+QUANT_AXIS_ANCHOR = "    q = torch.round(xf / safe.unsqueeze(axis))\n"
+QUANT_AXIS_EDIT = "    q = torch.round(xf / safe.amax(dim=-1, keepdim=True).unsqueeze(axis))\n"
+QUANT_GATE_CHECK = "serve quant: gate kv_quant=int8 weight_quant=none at full width:"
+QUANT_GATE_FAILURE = "gate kv_quant=int8 weight_quant=none at full width"
 # the SFT faults run chip_smoke.py's SFT phases alone; those read the YAML,
 # the fixture tokenizers and the docs their chat rows are built from
 SFT_DENSE = ("--phases", "sft_lora_dense")
@@ -362,6 +379,37 @@ FAULTS = (
           TEMPLATE_SOURCE, "                labels += [IGNORE_INDEX] * len(t)\n",
           "                labels += t\n",
           SFT_TAG, "llama2 template: a user turn's text is supervised", SFT_DENSE),
+    # the serving stack of slice D2 and the remat policies: each runs its
+    # own chip_smoke.py phase alone. The int8 KV rows quantized with the
+    # wrong axis's scale
+    Fault("quant-scale-axis", QUANT_AXIS_WHAT, QUANT_SOURCE, QUANT_AXIS_ANCHOR,
+          QUANT_AXIS_EDIT, QUANT_GATE_CHECK, QUANT_GATE_FAILURE, ("--phases", "serve_quant")),
+    # the affinity key hashes the prompt's blocks 1-2 for blocks 0-1
+    Fault("router-affinity", "the router's affinity key is off by one block",
+          ROUTER_SOURCE,
+          "                tuple(int(t) for t in prompt_ids[i * bs:(i + 1) * bs])\n",
+          "                tuple(int(t) for t in prompt_ids[(i + 1) * bs:(i + 2) * bs])\n",
+          "serve router: affinity:", "serve router: affinity", ("--phases", "serve_router")),
+    # a weight swap keeps the prefix cache: v1 requests reuse v0's KV
+    Fault("publish-no-flush", "swap_weights leaves the prefix cache unflushed",
+          ENGINE_SOURCE,
+          "        flushed = self.prefix_cache.flush() if self.prefix_cache is not None else 0\n",
+          "        flushed = 0\n",
+          "serve router: publish flushed the prefix caches:",
+          "publish flushed the prefix caches", ("--phases", "serve_router")),
+    # offload parks nothing: it runs as dots, ctx_offload as ctx
+    Fault("offload-noop", "the offload policies' hooks removed (offload runs as dots, "
+                          "ctx_offload as ctx)",
+          MODEL_SOURCE,
+          "        elif policy == \"offload\":\n"
+          "            kw[\"context_fn\"] = _host_matmul_contexts\n"
+          "        q, k, v = checkpoint(self._qkv, hidden, cos, sin, **kw)\n"
+          "        if policy.endswith(\"offload\"):\n",
+          "        elif policy == \"offload\":\n"
+          "            kw[\"context_fn\"] = _dots_contexts\n"
+          "        q, k, v = checkpoint(self._qkv, hidden, cos, sin, **kw)\n"
+          "        if False:\n",
+          "remat: offload peak:", "offload peak", ("--phases", "remat")),
 )
 
 

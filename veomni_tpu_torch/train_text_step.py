@@ -385,17 +385,22 @@ def iter_train_steps(
     ops_config: Optional[Dict[str, str]] = None,
     device: DeviceLike = None,
     keep: Optional[Dict[str, object]] = None,
+    cfg_overrides: Optional[Dict[str, object]] = None,
 ) -> Iterator[Dict[str, float]]:
     """Build the model and train step as ``run_bench`` does, then yield one
     record per train step (loss, grad_norm, ntokens, step_ok, the loss fn's
     extras such as moe_aux_loss, step_ms, tokens_per_s and, on a card with a
     published peak, mfu) for as long as the caller asks. ``ops_config`` pins
     ops to impls (e.g. ``{"group_gemm": "xla"}`` for the plain version)
-    until the generator is closed; ``num_layers`` cuts depth. ``keep``, where
+    until the generator is closed; ``num_layers`` cuts depth;
+    ``cfg_overrides`` sets config fields (``remat_policy``, ``chunk_mbs``,
+    ...) on the preset's. ``keep``, where
     given, receives the model (``"model"``) and the first batch on the
     device (``"first_batch"``), for the caller to look at after the steps."""
     dev = resolve_device(device)
-    overrides = {} if num_layers is None else {"num_hidden_layers": num_layers}
+    overrides = dict(cfg_overrides or {})
+    if num_layers is not None:
+        overrides["num_hidden_layers"] = num_layers
     cfg = bench_config(preset, **overrides)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = Transformer(cfg, gen, device=dev)
