@@ -69,15 +69,26 @@ Phases (any failure exits non-zero and prints no result line):
    launch 28 times a step with no plain-path dispatch, and A's step-1 loss
    must equal the one ``train_text_step``'s ``build_train_step`` gives on
    the same initial weights and batch; it prints step ms, tokens/s, the
-   checkpoint's size, save and restore seconds and peak memory;
+   checkpoint's size, save and restore seconds and peak memory. Every leg
+   runs slice E's observatories (``observability_numerics_interval`` 2: the
+   numerics sibling on steps 2, 4 and 6; ``observability_port`` -1;
+   ``observability_fleet`` 1), and on leg A every exporter route is read
+   over HTTP at step 3, the heartbeat file's step follows the steps, the
+   numerics history holds steps 2, 4, 6 with per-layer vectors, the cost
+   census's K1-K3 FLOPs equal this script's reckoning from the first
+   batch's segments, the census ``train.mfu_pct`` over the meter's MFU lies
+   in MFU_BAND at the hot steps 3 and 5; then, on leg A's trainer, a
+   ``step.params`` nan drill whose provenance names ``layers.q_proj`` layer
+   0, and a 4 TiB ``torch.empty`` whose out-of-memory post-mortem holds the
+   buffer and cost censuses;
 9. the HF-directory trainer: TinyLlama-1.1B (the published config.json,
-   ``train_text_step.HF_CONFIGS``; 22 layers, hidden 2048, head dim 64,
-   nothing cut) as random bf16 weights from seed 0 written by the port's
+   ``train_text_step.HF_CONFIGS``, hidden 2048, head dim 64, its depth cut
+   to ``HF_LAYERS`` 11 of 22) as random bf16 weights from seed 0 written by the port's
    ``save_hf_checkpoint`` in three shards with an index, loaded back
    bit-equal; then ``TextTrainer`` on a YAML with ``config_path``,
    ``model_path``, ``dataset_type: streaming`` over 4 jsonl shards,
    ``dyn_bsz``, seq 2048 x micro-batch 4, prefetch 2, ``save_hf_weights``
-   and deterministic algorithms for 6 steps: K1-K3 launch 22 times a step
+   and deterministic algorithms for 4 steps: K1-K3 launch 11 times a step
    each, all at head dim 64, flash ``FALLBACK_CALLS`` stays 0, the exported
    HF directory reads back bit-equal to the final parameters, the step-1
    loss equals ``build_train_step``'s on the same weights and batch, and a
@@ -96,15 +107,16 @@ Phases (any failure exits non-zero and prints no result line):
    norm weights at 0 as HF initialises them, and the published config.json
    of ``train_text_step.HF_CONFIGS``) through
    ``TextTrainer`` at full width and depth, seq 4096 x micro-batch 4, f32
-   master, bf16 compute, ctx remat, AdamW: Gemma-3-1B (26 layers, 4 full
-   attention and 22 with a 512-token window, head dim 256, 4/1 heads) for 4
-   steps with its HF export read back bit-equal, then Llama-3.2-1B (llama3
-   rope scaling, 32/8 heads, head dim 64) and Qwen2.5-1.5B (q/k/v biases,
-   12/2, head dim 128) for 3 steps each. K1-K3 launch once a step per
+   master, bf16 compute, ctx remat, AdamW, each at half its published depth
+   (``DIALECT_LAYERS``): Gemma-3-1B (13 of 26 layers, 2 full attention and
+   11 with a 512-token window, head dim 256, 4/1 heads) for 3 steps with its
+   HF export read back bit-equal, then Llama-3.2-1B (8 of 16 layers; llama3
+   rope scaling, 32/8 heads, head dim 64) and Qwen2.5-1.5B (14 of 28; q/k/v
+   biases, 12/2, head dim 128) for 2 steps each. K1-K3 launch once a step per
    full-attention layer, all at the model's head dim; FALLBACK_CALLS counts
    one a step per windowed layer (the reference's feature dispatch to the
    plain attention); the step-1 loss is held to the same step with the
-   plain attention pinned (rel 1e-4, nothing cut). After each, K1-K3 are
+   plain attention pinned (rel 1e-4). After each, K1-K3 are
    held and timed at its head layout on its own first packed batch
    (Gemma-3-1B also on its first row alone);
 12. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
@@ -242,7 +254,13 @@ Phases (any failure exits non-zero and prints no result line):
    and step under ``nothing``, once under the others), step 1's loss
    bit-equal across the five, the grad norm against ``ctx``'s (limit 1e-3;
    ``chunk_mbs``: loss 1e-4 too), the offload policies' device peaks below
-   ``dots``'s and ``ctx``'s; step ms and peak memory a policy;
+   ``dots``'s and ``ctx``'s; step ms and peak memory a policy; then under
+   ``ctx`` 2 steps with ``optimizer: muon`` and one with each of
+   ``anyprecision_adamw``, ``adafactor`` and ``sgd``: step 1's loss equal to
+   the AdamW leg's, K1-K3 28 times a step, and step 2's Muon update of
+   ``q_proj`` (layer 5), ``down_proj`` (20), ``o_proj`` (27) and the stacked
+   ``[28, 1024]`` ``input_layernorm`` (orthogonalised jointly) against this
+   script's own float64 Newton-Schulz of the same momentum (MUON_TOL);
 22. the int8 serving tiers (after the dense serving phase of 12) at
    Qwen3-0.6B, 28 layers in bf16: the quality gate's noise floor (the dense
    bf16 path against itself at f32) and the gate of int8 KV, int8 weights
@@ -266,6 +284,12 @@ Phases (any failure exits non-zero and prints no result line):
    weight set (seed 1, written by ``Checkpointer``) rolled in mid-traffic:
    each prefix cache flushed, requests before the roll held to the old
    weights, after it to the new; every token through the re-score gate;
+   then ``/healthz`` and ``/debug/router`` read over HTTP from the exporter,
+   and a seeded ``run_chaos_soak`` (CHAOS_SEED: a replica kill, a weight
+   publish, two delays over an 8 s storm of 40 requests) over the same two
+   replicas: every id completes exactly once, no block leaks, the fleet is
+   restored and every replica serves the published version; its goodput is
+   logged, not gated;
 24. ``python -m veomni_tpu_torch.tasks.infer_text`` as a subprocess on
    Qwen3-0.6B (28 layers, the embedding cut to the byte-fallback fixture
    tokenizer's 4096 ids) with two prompts on stdin, started beside the
@@ -372,7 +396,10 @@ HF_STEPS = 4  # cut with the remat and int8 serving phases (was 6)
 HF_SEQ = 2048  # the model's own context (max_position_embeddings)
 HF_MICRO_BS = 4
 HF_DOCS = 512
-HF_SHARD_BYTES = 1 << 30  # its 2.2 GB of bf16 weights in three shards: the index path runs
+# half its 22 layers, cut when slice E's checks joined the script (to keep the
+# whole run under 1100 s); every check of the phase stays
+HF_LAYERS = 11
+HF_SHARD_BYTES = 1 << 29  # its 1.2 GB of bf16 weights in three shards: the index path runs
 # the numbers of a flash kernel's row that are kept for its other layouts
 LAYOUT_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                "single_segment_ms")
@@ -1173,11 +1200,196 @@ def state_digest(train_state):
     return out
 
 
+# the trainer phase's observatories (slice E): the numerics sibling every 2
+# steps, the exporter on an ephemeral port, fleet heartbeats
+OBSERVATORY_FLAGS = ("--train.observability_numerics_interval=2",
+                     "--train.observability_port=-1", "--train.observability_fleet=1")
+SCRAPE_AT = 3
+EXPORTER_ROUTES = ("/metrics", "/healthz", "/debug/flight?n=50", "/debug/requests",
+                   "/debug/memory?k=5", "/debug/cost", "/debug/numerics", "/debug/fleet",
+                   "/debug/router")
+# the cost census's train.mfu_pct over the meter's FlopsCounter MFU on a hot
+# step. The census counts what ran: with ctx remat the backward reruns every
+# layer's projections and MLP, and the chunked loss reruns the LM head (+1192
+# MFLOPs a token at Qwen3-0.6B over 3 x 1192 for forward and backward); it
+# counts attention as the kernels' visible pairs (18 x D x Hq a pair: K1 4,
+# K2 8, K3 6), ~550-700 a token on the corpus's 256-2048-token documents,
+# where the meter counts the full causal window, S / 2 = 2048 a token, at
+# 3 x 4 x D x Hq: 4768 + 568-723 against 4985 MFLOPs a token, 1.07-1.10.
+# The two windows are the same step's wall. Band reckoned before the run:
+MFU_BAND = (1.0, 1.2)
+OOM_BYTES = 1 << 42  # 4 TiB: the allocator refuses it at once
+
+
+def scrape_routes(port, routes):
+    """GET each route on localhost: {route: (status, body bytes)}."""
+    import urllib.error
+    import urllib.request
+
+    out = {}
+    for route in routes:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=30) as r:
+                out[route] = (r.status, r.read())
+        except urllib.error.HTTPError as e:
+            out[route] = (e.code, e.read())
+    return out
+
+
+def make_observer():
+    """A callback that watches the observatories while the trainer phase's
+    leg A trains: each step's heartbeat, the census and meter MFU of each
+    synced step, every exporter route scraped once over HTTP at step
+    SCRAPE_AT."""
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    class Observe(Callback):
+        def __init__(self):
+            self.heartbeats, self.mfu, self.scrapes = {}, {}, {}
+
+        def on_step_end(self, trainer, state):
+            path = os.path.join(trainer.args.train.output_dir, "heartbeat-0.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    self.heartbeats[state.global_step] = json.load(f)["global_step"]
+            if state.synced and "mfu_pct" in state.metrics:
+                self.mfu[state.global_step] = (state.metrics["mfu_pct"],
+                                               state.metrics.get("mfu", 0.0))
+            if state.global_step == SCRAPE_AT:
+                port = next(cb.exporter.port for cb in trainer.callbacks
+                            if getattr(cb, "exporter", None) is not None)
+                self.scrapes = scrape_routes(port, EXPORTER_ROUTES)
+
+    return Observe()
+
+
+def observatory_checks(dev, card, trainer, observe, first_batch):
+    """Slice E's checks on the trainer phase's leg A (its trainer, already
+    trained): the exporter's routes, the heartbeats, the numerics history,
+    the census against the meter and the hand kernels' reports; then, on
+    the same trainer, a ``step.params`` nan drill (the provenance names the
+    poisoned group and layer) and an out-of-memory drill (the post-mortem
+    holds the buffer census)."""
+    from veomni_tpu_torch.observability.cost import get_cost_census
+    from veomni_tpu_torch.resilience import AnomalyBudgetExceeded
+    from veomni_tpu_torch.resilience.faults import configure_faults, disarm_faults
+    from veomni_tpu_torch.trainer.callbacks import Callback
+
+    checks = []
+    docs = {}
+    for route, (status, body) in observe.scrapes.items():
+        log(f"trainer exporter: GET {route}: {status}, {len(body)} bytes")
+        if route != "/metrics" and status == 200:
+            docs[route.split("?")[0]] = json.loads(body)
+    checks.append(("exporter routes", len(observe.scrapes) == len(EXPORTER_ROUTES) and all(
+        status == 200 for status, _ in observe.scrapes.values()),
+        f"{ {r: st for r, (st, _) in observe.scrapes.items()} }"))
+    metrics = observe.scrapes.get("/metrics", (0, b""))[1]
+    census_doc = docs.get("/debug/memory", {}).get("buffer_census", {})
+    checks += [
+        ("/metrics", b"veomni_train_loss" in metrics and b"veomni_numerics_" in metrics,
+         "train.* and numerics.* families rendered"),
+        ("/healthz", docs.get("/healthz", {}).get("healthy") is True, str(docs.get("/healthz"))),
+        ("/debug/numerics", docs.get("/debug/numerics", {}).get("observed_steps") == 1,
+         "the step-2 summary in the history at step 3"),
+        ("/debug/fleet", docs.get("/debug/fleet", {}).get("heartbeats", [{}])[0].get(
+            "global_step") == SCRAPE_AT, str(docs.get("/debug/fleet", {}).get("heartbeats"))),
+        ("/debug/memory", census_doc.get("total_bytes", 0) > 4 * 596e6,
+         f"{census_doc.get('num_arrays')} storages, {census_doc.get('total_bytes', 0) / 2**30:.2f}"
+         f" GiB (at least the f32 parameters)"),
+        ("/debug/cost", any(p["site"] == "train_step" for p in docs.get(
+            "/debug/cost", {}).get("programs", [])), "the train step's bucket"),
+    ]
+    steps = sorted(observe.heartbeats)
+    checks.append(("heartbeat", steps and [observe.heartbeats[i] for i in steps] == steps,
+                   f"heartbeat-0.json's step after each step: {observe.heartbeats}"))
+    hist = trainer._numerics.snapshot()["history"]
+    first_doc = hist[0]["groups"] if hist else {}
+    bad = {g: st for g, st in first_doc.items()
+           if max(st["grad_nonfinite"] if isinstance(st["grad_nonfinite"], list)
+                  else [st["grad_nonfinite"]]) > 0}
+    log(f"trainer numerics: {len(first_doc)} groups; step 2 layers.q_proj grad_rms per layer "
+        f"{[f'{v:.3e}' for v in first_doc.get('layers.q_proj', {}).get('grad_rms', [])[:4]]}..., "
+        f"update_ratio max {max(first_doc.get('layers.q_proj', {}).get('update_ratio', [0])):.3e}")
+    checks.append(("numerics history", [h["step"] for h in hist] == [2, 4, 6] and not bad
+                   and len(first_doc.get("layers.q_proj", {}).get("grad_rms", [])) == LAYERS,
+                   f"steps {[h['step'] for h in hist]}, non-finite groups {sorted(bad)}"))
+    # the census: the train step's bucket, its hand-kernel share reckoned by
+    # this script's own pair count, not the port's
+    rec = get_cost_census().latest("train_step")
+    seg = torch.from_numpy(first_batch["segment_ids"][0])
+    pairs = visible_pairs(seg)
+    want_kernel = LAYERS * 18 * 128 * 16 * pairs
+    log(f"trainer cost census: train_step/{rec.bucket} {rec.flops / 1e12:.3f} TFLOPs "
+        f"({rec.kernel_flops / 1e12:.3f} from K1-K3), {rec.bytes_accessed / 1e9:.1f} GB accessed, "
+        f"temp {'unknown' if rec.temp_bytes is None else f'{rec.temp_bytes / 2**30:.2f} GiB'}, "
+        f"counting pass {rec.compile_time_s:.2f} s, calls "
+        f"{rec.calls}, {rec.bound()}-bound; {pairs} visible pairs "
+        f"({pairs / seg.numel():.1f} a token) [{card}]")
+    checks.append(("census kernel FLOPs", rec.kernel_flops == want_kernel,
+                   f"{rec.kernel_flops:.6g} against {LAYERS} x 18 x D x Hq x pairs = "
+                   f"{want_kernel:.6g}"))
+    ratios = {i: c / m for i, (c, m) in observe.mfu.items() if i % 2 == 1 and i > 1 and m}
+    log(f"trainer MFU: census train.mfu_pct / meter mfu at the hot steps {ratios} (per step "
+        f"(census, meter): { {i: (round(c, 3), round(m, 3)) for i, (c, m) in observe.mfu.items()} }"
+        f") [{card}]")
+    checks.append(("census MFU band", ratios and all(
+        MFU_BAND[0] <= r <= MFU_BAND[1] for r in ratios.values()),
+        f"ratios {ratios} within {MFU_BAND}"))
+    log_checks("trainer observatories", checks)
+
+    # the nan drill: layer 0 of layers.q_proj poisoned before the next step
+    out = trainer.args.train.output_dir
+    trainer.args.train.resilience_anomaly_budget = 1
+    trainer.train_steps = 2
+    reset_all_counts()
+    configure_faults([{"point": "step.params", "mode": "nan", "hit": 1,
+                       "group": "layers.q_proj"}])
+    try:
+        trainer.train()
+        aborted = False
+    except AnomalyBudgetExceeded:
+        aborted = True
+    finally:
+        disarm_faults()
+    launches, _ = read_counts()
+    prov = trainer._numerics.snapshot()["provenance"] or {}
+    first = prov.get("first_nonfinite")
+    want = {"group": "layers.q_proj", "kind": "param", "nonfinite_count": 1.0, "layer": 0}
+    log(f"trainer nan drill: aborted {aborted}; first_nonfinite {first}; launches {launches}")
+    checks = [("nan drill provenance", first == want, f"{first} against {want}")]
+    # the out-of-memory drill: a 4 TiB allocation at the next step's begin
+    class Oom(Callback):
+        def on_step_begin(self, trainer, state):
+            torch.empty(OOM_BYTES, dtype=torch.uint8, device=dev)
+
+    trainer.callbacks.append(Oom())
+    t0 = time.perf_counter()
+    try:
+        trainer.train()
+        raised = False
+    except torch.cuda.OutOfMemoryError:
+        raised = True
+    trainer.callbacks.pop()
+    with open(os.path.join(out, "postmortem-0.json")) as f:
+        pm = json.load(f)
+    census = pm.get("buffer_census", {})
+    log(f"trainer oom drill: raised {raised}; post-mortem {pm.get('reason')} in "
+        f"{time.perf_counter() - t0:.2f} s with a buffer census of {census.get('num_arrays')} "
+        f"storages, {census.get('total_bytes', 0) / 2**30:.2f} GiB, top "
+        f"{[(g['shape'], g['dtype']) for g in census.get('top', [])[:3]]}")
+    checks.append(("oom drill post-mortem", raised and pm.get("reason")
+                   == "exception:OutOfMemoryError" and census.get("total_bytes", 0) > 4 * 596e6
+                   and "cost_census" in pm, f"reason {pm.get('reason')}"))
+    log_checks("trainer drills", checks)
+
+
 def phase_trainer(dev, card):
     """The trainer path: see phase 8 of the module docstring. Returns the
     straight leg's launch counts."""
     from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
     from veomni_tpu_torch.models import Transformer
+    from veomni_tpu_torch.observability.cost import get_cost_census
     from veomni_tpu_torch.observability.metrics import get_registry
     from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
@@ -1221,17 +1433,21 @@ def phase_trainer(dev, card):
         log(f"trainer: a corpus of 512 documents (lengths uniform in [256, 2048], tokens "
             f"uniform over 151936) and the config {cfg_path} (tools/trainer_profile.py)")
 
-        # leg A: six straight steps of TextTrainer from the parsed YAML
-        args = parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={tmp}/a"])
+        # leg A: six straight steps of TextTrainer from the parsed YAML, with
+        # the numerics observatory every 2 steps, the exporter and the fleet
+        args = parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={tmp}/a",
+                                            *OBSERVATORY_FLAGS])
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()
+        get_cost_census().reset()
         trainer = TextTrainer(args)
         # its final checkpoint (7 GB, ~17 s) is never read: leg B's are
         trainer.callbacks = [cb for cb in trainer.callbacks
                              if not isinstance(cb, CheckpointCallback)]
         rec_a = Record()
-        trainer.callbacks.append(rec_a)
+        observe = make_observer()
+        trainer.callbacks += [rec_a, observe]
         trainer.train()
         trainer.checkpointer.close()
         launches, fallbacks = read_counts()
@@ -1247,7 +1463,11 @@ def phase_trainer(dev, card):
             r = a[i]
             extra = (f" step_ms={ms[i - 2]:.1f} "
                      f"valid_tokens_per_s={r['ntokens'] / ms[i - 2] * 1e3:.1f}"
-                     if i >= 2 else " (first step: warm-up, not timed)")
+                     if i >= 2 else " (first step: warm-up and the train step's census "
+                     "counting pass, not timed)")
+            if i % 2 == 0:
+                extra += (" (numerics sibling" + ("; its census counting pass)" if i == 2
+                                                  else ")"))
             log(f"trainer step {i} (leg A): loss={r['loss']:.6f} grad_norm={r['grad_norm']:.6f} "
                 f"ntokens={int(r['ntokens'])}{extra} [{card}]")
         med = sorted(ms)[len(ms) // 2]
@@ -1262,6 +1482,9 @@ def phase_trainer(dev, card):
         n = LAYERS * TRAINER_STEPS
         check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n,
                                            "flash_bwd_dq": n}, "trainer")
+        # the drills below train leg A's trainer on: its records stop here
+        trainer.callbacks = [cb for cb in trainer.callbacks if cb not in (rec_a, observe)]
+        observatory_checks(dev, card, trainer, observe, first_batch)
         shutil.rmtree(os.path.join(tmp, "a"), ignore_errors=True)
         del trainer
         destroy_parallel_state()
@@ -1286,7 +1509,8 @@ def phase_trainer(dev, card):
 
         # leg B1: three steps and a checkpoint (save_steps), stopped there
         args = parse_args(VeOmniArguments, [cfg_path, f"--train.output_dir={tmp}/b",
-                                            f"--train.save_steps={TRAINER_SAVE_AT}"])
+                                            f"--train.save_steps={TRAINER_SAVE_AT}",
+                                            *OBSERVATORY_FLAGS])
         reset_all_counts()
         save0, wait0 = span_sum("ckpt.save"), span_sum("ckpt.wait")
         trainer = TextTrainer(args)
@@ -1308,7 +1532,7 @@ def phase_trainer(dev, card):
         restore0 = span_sum("ckpt.restore")
         t0 = time.perf_counter()
         trainer = train_text_main([cfg_path, f"--train.output_dir={tmp}/b",
-                                   f"--train.save_steps={TRAINER_SAVE_AT}"])
+                                   f"--train.save_steps={TRAINER_SAVE_AT}", *OBSERVATORY_FLAGS])
         trainer.checkpointer.close()
         b2_s = time.perf_counter() - t0
         restore_s = span_sum("ckpt.restore") - restore0
@@ -1343,7 +1567,8 @@ def phase_trainer(dev, card):
                                  f"(num_updates {digest_b[-1]} vs {digest_a[-1]})")
         log(f"trainer resume: losses of steps {TRAINER_SAVE_AT + 1}-{TRAINER_STEPS} and the final "
             f"parameters, AdamW moments and num_updates ({digest_a[-1]}) equal the straight "
-            f"leg's bit for bit ({len(digest_a) - 1} tensors)")
+            f"leg's bit for bit ({len(digest_a) - 1} tensors), the numerics sibling on steps "
+            f"2, 4 and 6 of both legs")
         half = LAYERS * TRAINER_SAVE_AT
         for tag, got_l, got_f in (("trainer leg B1", b1_launches, b1_fallbacks),
                                   ("trainer leg B2", b2_launches, b2_fallbacks)):
@@ -1502,7 +1727,7 @@ def phase_hf_trainer(dev, card, yaml_path: str, first_batch):
     try:
         # random bf16 weights from seed 0, written by the port's own export in
         # HF_SHARD_BYTES shards; config.json is the published one
-        published = HF_CONFIGS[HF_PRESET]
+        published = dict(HF_CONFIGS[HF_PRESET], num_hidden_layers=HF_LAYERS)
         cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
         written = Transformer(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
         t0 = time.perf_counter()
@@ -1731,6 +1956,10 @@ GEMMA_PRESET = "gemma3_1b"
 GEMMA_STEPS = 3  # was 6, then 4: cut to make room for the VLM, then the serving phases
 DIALECT_STEPS = 2  # cut with the remat and int8 serving phases (was 3)
 DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
+# half the published depth (26, 16, 28 layers), cut when slice E's checks
+# joined the script, to keep the whole run under 1100 s: the layouts, the
+# window pattern (2 of Gemma's 13 layers full attention) and every check stay
+DIALECT_LAYERS = {"gemma3_1b": 13, "llama3p2_1b": 8, "qwen2p5_1p5b": 14}
 DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
                  "qwen2p5_1p5b": "Qwen2.5-1.5B"}
 
@@ -1775,6 +2004,8 @@ def write_random_hf_dir(dev, hf_dir: str, preset: str, layers=None):
     published = dict(HF_CONFIGS[preset])
     if layers is not None:
         published["num_hidden_layers"] = layers
+        if "layer_types" in published:  # Gemma-3's per-layer window pattern
+            published["layer_types"] = published["layer_types"][:layers]
     cfg = TransformerConfig.from_hf_config(published, param_dtype=torch.bfloat16)
     written = random_model(dev, cfg)
     save_hf_checkpoint(written, cfg, hf_dir)
@@ -1837,7 +2068,7 @@ def check_hf_export(dev, tag: str, out: str, final) -> None:
 
 
 def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
-    """One dense HF dialect at full width and depth through ``TextTrainer``
+    """One dense HF dialect at full width and ``DIALECT_LAYERS`` deep through ``TextTrainer``
     from an HF directory: ``steps`` steps at seq 4096, f32 master, bf16
     compute, ctx remat, AdamW. K1-K3 launch once a step for each
     full-attention layer, all at the model's head dim; each windowed layer
@@ -1854,12 +2085,14 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
     from veomni_tpu_torch.train import build_train_state, build_train_step
     from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.train_text_step import HF_CONFIGS
     from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
     from veomni_tpu_torch.utils.count_flops import FlopsCounter
     from veomni_tpu_torch.utils.device import get_device_peak_flops
 
     name = DIALECT_NAMES[preset]
     tag = f"hf dialect {name}"
+    depth = f"{DIALECT_LAYERS[preset]} of {HF_CONFIGS[preset]['num_hidden_layers']} layers"
 
     class Record(Callback):
         def __init__(self):
@@ -1878,7 +2111,8 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{preset}_")
     try:
         t0 = time.perf_counter()
-        yaml_path = write_dialect_run(dev, tmp, preset, steps, export)
+        yaml_path = write_dialect_run(dev, tmp, preset, steps, export,
+                                      layers=DIALECT_LAYERS[preset])
         write_s = time.perf_counter() - t0
         args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={tmp}/out"])
         torch.cuda.empty_cache()
@@ -1900,7 +2134,7 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
         windows = [cfg.window_for_layer(i) for i in range(cfg.num_hidden_layers)]
         n_full = windows.count(0)
         n_params = sum(p.numel() for p in trainer.train_state.model.parameters())
-        log(f"{tag}: {cfg.num_hidden_layers} layers ({n_full} full attention, "
+        log(f"{tag}: {depth} ({n_full} full attention, "
             f"{len(windows) - n_full} with window {max(windows)}), hidden {cfg.hidden_size}, "
             f"heads {cfg.num_attention_heads}/{cfg.num_key_value_heads}, head dim "
             f"{cfg.head_dim}, vocab {cfg.vocab_size}, {n_params} parameters; HF directory "
@@ -1971,8 +2205,8 @@ def phase_hf_dialect(dev, card, preset: str, steps: int, *, export: bool):
         plain_launches, _ = read_counts()
         rel = abs(a[1]["loss"] - plain) / abs(plain)
         log(f"{tag} step-1 parity: trainer (kernels) loss {a[1]['loss']:.6f}, plain attention "
-            f"{plain:.6f} (rel {rel:.2e}, tol {TOL_LOSS_REL}; {cfg.num_hidden_layers} layers, "
-            f"nothing cut; the plain leg launched {plain_launches})")
+            f"{plain:.6f} (rel {rel:.2e}, tol {TOL_LOSS_REL}; {depth}; the plain leg "
+            f"launched {plain_launches})")
         if not rel <= TOL_LOSS_REL or any(plain_launches.values()):
             raise AssertionError(f"{tag}: step-1 loss departs from the plain attention's "
                                  f"({rel}) or the plain leg launched kernels")
@@ -2010,7 +2244,7 @@ def dialect_rows(dev, preset: str, seg):
 
 
 def phase_hf_trainer_gemma3(dev, card):
-    """Gemma-3-1B at full width and all 26 layers, 4 steps, HF export; then
+    """Gemma-3-1B at full width and 13 of 26 layers, 3 steps, HF export; then
     K1-K3 on its first packed batch. Returns ({path: (launches, head dim,
     preset)}, kernel rows)."""
     launches, seg = phase_hf_dialect(dev, card, GEMMA_PRESET, GEMMA_STEPS, export=True)
@@ -2019,7 +2253,7 @@ def phase_hf_trainer_gemma3(dev, card):
 
 
 def phase_dialects(dev, card):
-    """Llama-3.2-1B and Qwen2.5-1.5B at full width and depth, 3 steps each,
+    """Llama-3.2-1B and Qwen2.5-1.5B at full width and half depth, 2 steps each,
     each followed by K1-K3 on its first packed batch."""
     paths, rows = {}, []
     for preset in DIALECT_PRESETS:
@@ -3438,7 +3672,8 @@ def post_record(first=False):
             self.steps = {}
 
         def on_step_end(self, trainer, state):
-            self.steps[state.global_step] = dict(state.metrics, t=time.perf_counter())
+            self.steps[state.global_step] = dict(state.metrics, t=time.perf_counter(),
+                                                 census=census_mark()[0])
 
         def on_train_end(self, trainer, state):  # the train-end eval
             if "eval_loss" in state.metrics:
@@ -3484,6 +3719,9 @@ def post_run(dev, card, tag: str, cls, argv, steps: int, *, record_first=False, 
         shown = " ".join(f"{k}={a[i][k]:.6f}" for k in extras if k in a[i])
         timing = (f" step_ms={ms[i - 2]:.1f}" if i >= 2
                   else " (first step: warm-up, not timed)")
+        passes = a[i]["census"] - (a[i - 1]["census"] if i >= 2 else a[i]["census"])
+        if passes:  # a new bucket's first call: an eval step's, say
+            timing += f" ({passes} census counting passes inside)"
         log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f} "
             f"ntokens={int(a[i]['ntokens'])} {shown}{timing} [{card}]")
     med = sorted(ms)[len(ms) // 2] if ms else float("nan")
@@ -4025,6 +4263,23 @@ def pool_ptrs(eng):
                  for t in ((pool,) if isinstance(pool, torch.Tensor) else (pool.data, pool.scale)))
 
 
+def census_mark():
+    """(counting passes, their seconds) of the cost census so far: a timed
+    span takes one before it and names what fell inside with
+    ``census_note``."""
+    from veomni_tpu_torch.observability.cost import get_cost_census
+
+    progs = get_cost_census().programs()
+    return sum(p.traces for p in progs), sum(p.compile_time_s for p in progs)
+
+
+def census_note(mark) -> str:
+    """The census's counting passes since ``mark``: each is a bucket's first
+    call, slower by its count (``observability/cost.py``)."""
+    n, secs = census_mark()
+    return f"{n - mark[0]} census counting passes inside ({secs - mark[1]:.2f} s)"
+
+
 def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
               chunk=SERVE_CHUNK, spec_k=0, sampling=None, kv_quant="none", weight_quant="none"):
     """One engine run over the phase's traffic: two waves, the second
@@ -4059,6 +4314,7 @@ def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
 
     mallocs = torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
     gc.callbacks.append(on_gc)
+    census = census_mark()
     t0 = time.perf_counter()
     try:
         ids = [eng.submit(r) for r in reqs[:spec["wave"]]]
@@ -4115,7 +4371,8 @@ def serve_leg(model, cfg, dev, card, prompts, spec, tag, *, prefix_cache=True,
         f"max_concurrent_seqs {stats['max_concurrent_seqs']}; peak "
         f"{stats['peak_gib']:.2f} GiB; host time in gc {stats['gc_s']:.3f} s over "
         f"{stats['gc_collections']} collections ({stats['gc_full']} full); cudaMalloc calls "
-        f"{mallocs}; launches {launches}, FALLBACK_CALLS {fallbacks} [{card}]")
+        f"{mallocs}; {census_note(census)}; launches {launches}, FALLBACK_CALLS {fallbacks} "
+        f"[{card}]")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -5229,6 +5486,128 @@ def phase_remat(dev, card):
         a, b = legs[(off, 0)][1], legs[(twin, 0)][1]
         checks.append((f"{off} peak", a < b, f"{a:.2f} GiB against {twin}'s {b:.2f} GiB"))
     log_checks("remat", checks)
+    return total, optimizer_legs(dev, card, ctx[0]["loss"])
+
+
+# Muon's update on the card against this script's own float64 Newton-Schulz
+# of the same momentum and gradient, element by element:
+#   |delta - ref| <= MUON_TOL * max|ref| + 2^-23 * |p|,
+# where delta is the parameter's change over the step and ref = -lr *
+# NS64(0.95 buf + g) * max(1, m/n)**0.5. f32 products of K up to 3072 carry
+# ~1e-6 relative error into each of the 5 iterations: 1% of the largest
+# entry holds them with room. The parameter rounds its new value to f32,
+# half an ulp of |p| (a norm weight at 1.0: 6e-8, the size of 1% of its
+# ~1e-5 update), so one ulp of |p| is allowed on top. A skipped
+# orthogonalisation moves the parameter by lr * (0.95 buf + g), a different
+# shape and scale (the gradient's, not ~1/sqrt(n)), many times the limit.
+MUON_TOL = 1e-2
+# (reference leaf path, layer or None for a leaf stacked over the layers and
+# orthogonalised jointly)
+MUON_CHECKED = (("layers.q_proj", 5), ("layers.down_proj", 20), ("layers.o_proj", 27),
+                ("layers.input_layernorm", None))
+OTHER_OPTIMIZERS = ("anyprecision_adamw", "adafactor", "sgd")
+
+
+def ns64(x):
+    """The quintic Newton-Schulz of ``optim/muon.py`` in float64, written
+    out here."""
+    a, b, c = 3.4445, -4.7750, 2.0315
+    x = x.double()
+    t = x.shape[-2] > x.shape[-1]
+    if t:
+        x = x.mT
+    x = x / (torch.linalg.matrix_norm(x) + 1e-7)
+    for _ in range(5):
+        xxt = x @ x.mT
+        x = a * x + (b * xxt + c * (xxt @ xxt)) @ x
+    return x.mT if t else x
+
+
+def optimizer_legs(dev, card, ctx_loss):
+    """The bare loop at Qwen3-0.6B (``ctx``) under Muon for 2 steps and one
+    step under each other optimizer of ``build_optimizer``: step 1's loss
+    equal to the AdamW ``ctx`` leg's (the same forward), K1-K3 28 times a
+    step, and step 2's Muon update on the MUON_CHECKED leaves against
+    ``ns64``. Returns the launches of the legs."""
+    from veomni_tpu_torch.models.jax_weights import reference_leaves
+    from veomni_tpu_torch.train_text_step import iter_train_steps, run_train_steps
+
+    overrides = {"remat_policy": "ctx", "chunk_mbs": 0}
+    total, checks = {}, []
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_all_counts()
+    keep = {}
+    it = iter_train_steps(4096, 4, device=dev, optimizer="muon", keep=keep,
+                          cfg_overrides=overrides)
+    try:
+        r1 = next(it)
+        model, opt = keep["model"], keep["optimizer"]
+        leaves = {path: (params, stacked) for path, params, stacked in reference_leaves(model)}
+        picked = {}
+        for path, layer in MUON_CHECKED:
+            params, stacked = leaves[path]
+            ps = params if layer is None else [params[layer]]
+            picked[(path, layer)] = (ps, [p.detach().clone() for p in ps],
+                                     [opt.state[p]["momentum_buffer"].clone() for p in ps])
+        lr = opt.lr_schedule(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2 = next(it)
+        torch.cuda.synchronize()
+        step2_s = time.perf_counter() - t0
+        for (path, layer), (ps, before, _) in picked.items():
+            bufs = [opt.state[p]["momentum_buffer"] for p in ps]
+            eff = torch.stack([0.95 * b.double() + p.grad.double() for b, p in zip(bufs, ps)])
+            if layer is not None:
+                eff = eff[0]
+            m, n = eff.shape[-2], eff.shape[-1]
+            ref = -lr * ns64(eff) * max(1.0, m / n) ** 0.5
+            delta = torch.stack([p.detach().double() - b.double() for p, b in zip(ps, before)])
+            p0 = torch.stack([b.double() for b in before])
+            if layer is not None:
+                delta, p0 = delta[0], p0[0]
+            scale = ref.abs().max().item()
+            allowed = MUON_TOL * scale + 2.0 ** -23 * p0.abs()
+            worst = ((delta - ref).abs() / allowed).max().item()
+            what = (f"{path}{'' if layer is None else f'[{layer}]'} {tuple(eff.shape)}: "
+                    f"max |delta - ref| {(delta - ref).abs().max().item():.3e}, max |ref| "
+                    f"{scale:.3e}; worst |delta - ref| / allowed {worst:.4f}")
+            checks.append((f"muon update {path}{'' if layer is None else f' layer {layer}'}",
+                           worst <= 1.0, what))
+    finally:
+        it.close()
+    launches, fallbacks = read_counts()
+    add(launches)
+    check_steps([r1, r2], "muon")
+    check_counts(launches, fallbacks, remat_launches("ctx", LAYERS, 2), "muon")
+    log(f"optimizer muon: step 1 loss {r1['loss']!r} grad_norm {r1['grad_norm']!r}; step ms "
+        f"{r1['step_ms']:.1f}, {r2['step_ms']:.1f} (step 2 {step2_s * 1e3:.1f} ms with the "
+        f"optimizer; Newton-Schulz on every matrix leaf, 5 f32 iterations); launches "
+        f"{launches} [{card}]")
+    checks.append(("muon step 1 loss", r1["loss"] == ctx_loss,
+                   f"{r1['loss']!r} against AdamW ctx's {ctx_loss!r} (the same forward)"))
+    del keep, model, opt
+    for name in OTHER_OPTIMIZERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_all_counts()
+        rec = run_train_steps(4096, 4, 1, device=dev, optimizer=name, cfg_overrides=overrides)
+        launches, fallbacks = read_counts()
+        add(launches)
+        check_steps(rec, name)
+        check_counts(launches, fallbacks, remat_launches("ctx", LAYERS, 1), name)
+        log(f"optimizer {name}: step 1 loss {rec[0]['loss']!r} grad_norm "
+            f"{rec[0]['grad_norm']!r} step ms {rec[0]['step_ms']:.1f}; launches {launches} "
+            f"[{card}]")
+        checks.append((f"{name} step 1 loss", rec[0]["loss"] == ctx_loss,
+                       f"{rec[0]['loss']!r} against AdamW ctx's {ctx_loss!r}"))
+    log_checks("optimizers", checks)
     return total
 
 
@@ -5560,6 +5939,85 @@ def write_generation(dev, cfg, root: str, step: int, seed: int):
     return os.path.join(root, f"global_step_{step}"), model
 
 
+# the chaos soak over the router phase's two replicas: a kill at 1.84 s and
+# a publish at 5.45 s of an 8 s storm, two 20 ms delays (seed 6 of
+# build_chaos_plan with these counts); 24 requests at once, then 16 spread
+# over 0.5-6 s, 24 new tokens each
+CHAOS_SEED = 6
+CHAOS_PLAN = dict(duration_s=8.0, kills=1, hangs=0, delays=2, exceptions=0, publishes=1,
+                  expected_ticks=200)
+CHAOS_BURST, CHAOS_SPREAD = 24, 16
+
+
+def router_exporter_and_soak(router, model, cfg, card):
+    """The exporter over the router (``/healthz``, ``/debug/router`` read
+    over HTTP), then a seeded ``run_chaos_soak`` over the same fleet with a
+    replica kill and a weight publish: every id completes exactly once, no
+    block leaks, the fleet restored, every replica on the published
+    version; its goodput is logged, not gated. Returns the checks."""
+    from veomni_tpu_torch.observability.exporter import MetricsExporter
+    from veomni_tpu_torch.resilience.chaos import build_chaos_plan, run_chaos_soak
+    from veomni_tpu_torch.serving import host_state
+
+    exp = MetricsExporter(port=0, host="127.0.0.1", health_fn=router.health,
+                          router_fn=router.debug_doc)
+    port = exp.start()
+    try:
+        got = scrape_routes(port, ("/healthz", "/debug/router"))
+    finally:
+        exp.stop()
+    health, doc = (json.loads(got[r][1]) if got[r][0] == 200 else {}
+                   for r in ("/healthz", "/debug/router"))
+    log(f"serve router exporter: /healthz {got['/healthz'][0]} {json.dumps(health)}; "
+        f"/debug/router {got['/debug/router'][0]}, replicas "
+        f"{[(r.get('rid'), r.get('state'), r.get('weights_version')) for r in doc.get('replicas', [])]}")
+    checks = [
+        ("exporter /healthz", got["/healthz"][0] == 200 and health.get("healthy") is True,
+         f"{got['/healthz'][0]} {health}"),
+        ("exporter /debug/router", got["/debug/router"][0] == 200
+         and len(doc.get("replicas", [])) == 2, f"{len(doc.get('replicas', []))} replicas"),
+    ]
+    plan = build_chaos_plan(CHAOS_SEED, **CHAOS_PLAN)
+    prompts = serve_traffic(cfg.vocab_size, dict(SERVE_DENSE, requests=CHAOS_BURST
+                                                 + CHAOS_SPREAD), seed=2)
+    reqs = router_requests(prompts, ROUTER_SPEC["max_new"])
+    arrivals = [0.0] * CHAOS_BURST + [0.5 + 5.5 * i / CHAOS_SPREAD for i in range(CHAOS_SPREAD)]
+    payload = host_state(model)
+    redispatched = router.metrics()["redispatched"]
+    census = census_mark()
+    report = run_chaos_soak(
+        router_factory=lambda: router, requests=reqs, arrivals=arrivals, plan=plan,
+        publish_fn=lambda r, idx: r.publish_weights(payload, f"chaos-v{idx + 1}"),
+        restore_timeout_s=120.0)
+    moved = router.metrics()["redispatched"] - redispatched
+    outs = [report["outputs"][i] for i in sorted(report["outputs"])]
+    finished = all(o.finished for o in outs)
+    log(f"serve router chaos soak (seed {CHAOS_SEED}: {json.dumps(plan.to_doc())}): "
+        f"{report['submitted']} submitted, {report['completed']} completed, lost "
+        f"{report['lost_ids']}, {moved:.0f} redispatched, wedged {report['wedged']}, respawns "
+        f"{report['respawns']}, probations passed {report['probation_passed']}, "
+        f"{report['probe_submitted']} probes; {report['duration_s']:.2f} s of storm, goodput "
+        f"{report['goodput_tok']} tokens, {report['goodput_tok_s']:.1f} tok/s (not gated; "
+        f"{census_note(census)}); "
+        f"published {report['published_versions']} in {report['publish_wall_s']:.2f} s, serving "
+        f"{report['serving_versions']} [{card}]")
+    checks += [
+        ("chaos soak exactly once", report["submitted"] == len(reqs) and not report["lost_ids"]
+         and not report["duplicated"] and report["completed"] == len(reqs) and finished,
+         f"{report['completed']} of {report['submitted']} ids, lost {report['lost_ids']}"),
+        ("chaos soak block leak", not report["leaked_blocks"], str(report["leaked_blocks"])),
+        ("chaos soak fleet restored", report["restored"] and not report["stalled"]
+         and report["respawns"] >= 1, f"live {report['live_count']}, respawns "
+         f"{report['respawns']}"),
+        ("chaos soak published version", report["version_converged"]
+         and report["serving_versions"] == ["chaos-v1"]
+         and all(h.weights_version == "chaos-v1" for h in router.replicas.values()),
+         f"{ {h.rid: h.weights_version for h in router.replicas.values()} }"),
+        ("chaos soak invariants", report["invariants_ok"], "run_chaos_soak's own verdict"),
+    ]
+    return checks
+
+
 def phase_serve_router(dev, card):
     """Two replicas of Qwen3-0.6B (bf16, 28 layers) behind the router on
     serve dense's shared-prefix traffic: a one-engine run of the same
@@ -5622,6 +6080,7 @@ def phase_serve_router(dev, card):
                f"{len(mismatched)} mismatched, the first {mismatched[:4]})")]
     reset_all_counts()
     # (0) the fleet with no fault: aggregate throughput against one engine
+    census = census_mark()
     ids, outs, ticks, wall = drive_router(router, prompts, spec)
     by_id = [outs[i] for i in ids]
     m = router.metrics()
@@ -5632,7 +6091,8 @@ def phase_serve_router(dev, card):
         f"{stats1['generated'] / stats1['wall_s']:.1f} ({stats1['wall_s']:.2f} s); spills "
         f"{m['spills']:.0f}, hit rate {m['prefix_hit_rate']:.4f} against one engine's "
         f"{stats1['prefix_hit_rate']:.4f}; dispatched "
-        f"{ {h.rid: h.dispatched for h in router.replicas.values()} } [{card}]")
+        f"{ {h.rid: h.dispatched for h in router.replicas.values()} }; {census_note(census)} "
+        f"[{card}]")
     checks += [
         ("no fault: exactly once", sorted(outs) == sorted(ids) and all(
             o.finish_reason == "length" and len(o.token_ids) == spec["max_new"] for o in by_id),
@@ -5647,6 +6107,7 @@ def phase_serve_router(dev, card):
     prompts = serve_traffic(cfg.vocab_size, dict(SERVE_DENSE, requests=24), seed=1)[::2]
     router.config.spill_queue_depth = 0
     configure_faults([{"point": "serve.decode_tick", "mode": "exception", "hit": 1}])
+    census = census_mark()
     try:
         ids, outs, ticks, wall = drive_router(router, prompts, dict(
             spec, wave=len(prompts), wave_ticks=0))
@@ -5664,7 +6125,8 @@ def phase_serve_router(dev, card):
         f"ticks, {wall:.2f} s, {tok_s:.1f} tok/s aggregate; spills {m['spills']:.0f} (the run's "
         f"total), redispatched {m['redispatched']:.0f}, cancelled "
         f"{len(cancelled)}, respawns {m['respawns']:.0f}; retired "
-        f"{[(h.rid, h.state, h.fail_reason[:60]) for h in router.retired]}; launches {launches}")
+        f"{[(h.rid, h.state, h.fail_reason[:60]) for h in router.retired]}; launches {launches}; "
+        f"{census_note(census)}")
     checks += [
         ("exactly once", sorted(outs) == sorted(ids) and len(set(ids)) == len(ids)
          and all(o.finished for o in by_id), f"{len(outs)} outputs for {len(ids)} ids"),
@@ -5780,6 +6242,7 @@ def phase_serve_router(dev, card):
         del model2
     finally:
         shutil.rmtree(hf_tmp, ignore_errors=True)
+    checks += router_exporter_and_soak(router, model, cfg, card)
     log_checks("serve router", checks)
     del router, model
     gc.collect()
@@ -5992,8 +6455,11 @@ def run_phases(dev, card, hf_tmp, infer) -> int:
     by_path = {"dense": (phase_main(dev, card), 128, None)}
     torch.cuda.empty_cache()
     lap = lap_clock("main", lap)
-    # the bare loop under every remat policy and chunk_mbs (K1-K3 at D 128)
-    by_path["remat"] = (phase_remat(dev, card), 128, None)
+    # the bare loop under every remat policy and chunk_mbs, then under every
+    # optimizer of build_optimizer (K1-K3 at D 128)
+    remat, optimizers = phase_remat(dev, card)
+    by_path["remat"] = (remat, 128, None)
+    by_path["optimizers"] = (optimizers, 128, None)
     torch.cuda.empty_cache()
     lap = lap_clock("remat", lap)
     by_path["trainer"] = (phase_trainer(dev, card), 128, None)

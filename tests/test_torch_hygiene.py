@@ -109,6 +109,10 @@ PORTED_HOST_MODULES = (
     # the replica router, heartbeats and infer_text
     "serving.quality", "serving.weights", "serving.replica", "serving.router",
     "observability.fleet", "tasks.infer_text",
+    # slice E: the optimizers, the numerics observatory, the cost census,
+    # device-memory accounting, the exporter and the chaos soak
+    "optim.muon", "optim.optimizer", "observability.numerics", "observability.cost",
+    "observability.devmem", "observability.exporter", "resilience.chaos",
 )
 
 

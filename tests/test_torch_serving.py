@@ -495,33 +495,33 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 @pytest.mark.parametrize("flags,env", [
     (["--replicas", "2"], {}), (["--publish-from", "ckpt/global_step_1"], {}),
     (["--kv-quant", "int8"], {}), (["--weight-quant", "int8"], {}),
-    ([], {"VEOMNI_METRICS_PORT": "9100"}),
+    ([], {"VEOMNI_METRICS_PORT": "-1"}),
 ], ids=["replicas", "publish-from", "kv-quant", "weight-quant", "metrics-port"])
 def test_serve_cli_unported_flags_raise(flags, env, monkeypatch, capsys):
-    """The metrics exporter's knob is the one gate left (slice E); the
-    router, the int8 tiers and --publish-from are ported: they serve, and a
+    """No serving flag is gated any more: the router, the int8 tiers,
+    --publish-from and the metrics exporter (slice E; ``VEOMNI_METRICS_PORT``
+    -1 binds an ephemeral port, stopped when serving ends) serve, and a
     --publish-from that names no committed generation is refused by the
     integrity gate before a token is served."""
+    import threading
+
     from veomni_tpu_torch.tasks import serve
 
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     argv = ["--device", "cpu", "--synthetic", "2", "--max-new", "3", *flags]
-    if env:
-        with pytest.raises(NotImplementedError, match="VEOMNI_METRICS_PORT"):
-            serve.main(argv)
-        return
     if "--publish-from" in flags:
         with pytest.raises(SystemExit, match="refused by integrity gate"):
             serve.main(argv)
         return
     outs = serve.main(argv)
     assert len(outs) == 2 and all(len(o.token_ids) == 3 for o in outs.values())
+    assert not any(t.name == "veomni-metrics-http" for t in threading.enumerate())
     first = json.loads(capsys.readouterr().out.splitlines()[0])
+    flag = dict(zip(flags[::2], flags[1::2]))
     assert (first["replicas"], first["kv_quant"], first["weight_quant"]) == (
-        int(flags[1]) if flags[0] == "--replicas" else 1,
-        flags[1] if flags[0] == "--kv-quant" else "none",
-        flags[1] if flags[0] == "--weight-quant" else "none")
+        int(flag.get("--replicas", 1)), flag.get("--kv-quant", "none"),
+        flag.get("--weight-quant", "none"))
 
 
 def test_serve_cli_publishes_a_checkpoint_into_the_router(tmp_path, capsys):

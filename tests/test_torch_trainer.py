@@ -25,7 +25,8 @@
   ``hf_to_params`` reads the port's export equal to its final parameters.
 * The feature gate raises ``NotImplementedError`` naming each knob whose
   module is not ported yet and admits the ported ones (the eval loop, the
-  channel loss and W&B among them since the post-training slice);
+  channel loss and W&B among them since the post-training slice; every
+  optimizer, the numerics observatory and the exporter since slice E);
   ``train.platform`` other than cpu/cuda and a launcher asking for several
   processes raise too.
 """
@@ -330,10 +331,7 @@ train:
 
 
 GATED = [
-    ("train", "optimizer", "muon", "train.optimizer 'muon'"),
     ("data", "data_type", "qwen2_5_vl", "data.data_type 'qwen2_5_vl'"),
-    ("train", "observability_numerics_interval", 5, "train.observability_numerics_interval"),
-    ("train", "observability_port", 9100, "train.observability_port"),
     ("train", "num_virtual_devices", 4, "train.num_virtual_devices"),
     ("train", "ulysses_async", True, "train.ulysses_async"),
 ]
@@ -357,6 +355,13 @@ PORTED = [
     ("data", "eval_path", "/nonexistent", "data.eval_path"),
     ("data", "channel_list", ["code"], "data.channel_list"),
     ("train", "use_wandb", True, "train.use_wandb"),
+    # slice E: the optimizers, the numerics observatory and the exporter
+    ("train", "optimizer", "muon", "train.optimizer 'muon'"),
+    ("train", "optimizer", "anyprecision_adamw", "train.optimizer 'anyprecision_adamw'"),
+    ("train", "optimizer", "adafactor", "train.optimizer 'adafactor'"),
+    ("train", "optimizer", "sgd", "train.optimizer 'sgd'"),
+    ("train", "observability_numerics_interval", 5, "train.observability_numerics_interval"),
+    ("train", "observability_port", 9100, "train.observability_port"),
 ]
 
 

@@ -357,10 +357,11 @@ def test_gate_admits_the_callbacks_and_refuses_other_slices(tmp_path):
     args.data.eval_path = "/some/eval.jsonl"
     args.data.channel_list = ["code"]
     args.train.use_wandb = True
+    # slice E's knobs are ported too
+    args.train.observability_numerics_interval = 5
+    args.train.observability_port = 9100
     check_supported(args)
     for section, knob, value, name in (
-            ("train", "observability_numerics_interval", 5, "slice E"),
-            ("train", "observability_port", 9100, "slice E"),
             ("train", "ulysses_async", True, "slice C"),
             ("train", "num_virtual_devices", 4, "slice C")):
         bad = port_args(tmp_path)

@@ -11,8 +11,8 @@ above ``min_live`` and starves nobody; a kill mid-publish respawns at the
 latest version; respawned and added replicas agree. The checkpoint gate
 runs on generations the port's ``Checkpointer`` writes (a manifest, a
 truncated payload, an uncommitted directory) and publishes the trained
-weights through the default loader. The two chaos-composition tests wait
-for ``resilience/chaos.py`` (slice E).
+weights through the default loader. The two chaos-composition tests of
+the reference's file are in ``tests/test_torch_chaos.py``.
 """
 
 import os

@@ -116,6 +116,26 @@ def named_jax_parameters(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
             for path, owners in stacked_leaves(module).items() for owner, name in owners]
 
 
+def is_stacked_path(path: str) -> bool:
+    """Whether the reference stacks this leaf over layers (a leading
+    ``[L, ...]`` axis): the text layers and dense layers of a
+    ``Transformer`` and a VLM tower's blocks."""
+    return (path.removeprefix("language_model.").startswith(("layers.", "dense_layers."))
+            or path.startswith("vision_tower.blocks."))
+
+
+def reference_leaves(module: nn.Module) -> List[Tuple[str, List[torch.Tensor], bool]]:
+    """(reference leaf path, parameters, stacked) for every leaf of the
+    reference's tree: the reference's leaf is ``torch.stack(parameters)``
+    when ``stacked``, else the one parameter. A module with its own
+    ``named_jax_parameters`` (``lora.LoraAdapters``) holds each leaf whole."""
+    own = getattr(module, "named_jax_parameters", None)
+    if own is not None:
+        return [(path, [p], False) for path, p in own()]
+    return [(path, [owner.get_parameter(name) for owner, name in owners], is_stacked_path(path))
+            for path, owners in stacked_leaves(module).items()]
+
+
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> None:
     """Copy a JAX param tree (numpy leaves) into ``model`` in place."""

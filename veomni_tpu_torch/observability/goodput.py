@@ -99,14 +99,13 @@ class GoodputTracker:
 
 
 def update_memory_gauges(registry: Optional[MetricsRegistry] = None) -> None:
-    """Publish the ``mem.*`` gauges: per-card allocated bytes and their
-    peak where a card is in use, plus host RSS (``utils/helper.py::
-    live_memory_stats``), so the family is live on CPU runs too. (The
-    reference's device cost & capacity observatory, ``devmem.py``, with its
-    live-buffer census and high watermark, is not ported yet.)"""
-    from veomni_tpu_torch.utils.helper import live_memory_stats
+    """Publish the ``mem.*`` gauges (``observability/devmem.py::
+    publish_memory_gauges``): per-card allocated bytes and their peak where
+    a card is in use, host RSS, and the high watermark, so the family is
+    live on CPU runs too."""
+    from veomni_tpu_torch.observability.devmem import publish_memory_gauges
 
-    (registry or get_registry()).set_gauges("mem", live_memory_stats())
+    publish_memory_gauges(registry or get_registry())
 
 
 class RecompileDetector:

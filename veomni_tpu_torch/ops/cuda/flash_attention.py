@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from veomni_tpu_torch.observability import cost
 from veomni_tpu_torch.ops.attention import _attention_xla
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
 
@@ -249,6 +250,34 @@ def _launch(name: str, tensors, q, k, scale: float, causal: bool, ints=()) -> No
     with _COUNT_LOCK:  # serving replicas launch from threads of their own
         LAUNCHES[name] += 1
         LAUNCHES_BY_HEAD_DIM[d][name] += 1
+    cost.note_kernel(lambda: flash_work(name, q, k, tensors[3], causal))
+
+
+def visible_pairs(seg: torch.Tensor, causal: bool = True) -> int:
+    """Same-segment (query, key) pairs of a [B, S] segment-id batch, causal
+    (each id's c tokens give c (c + 1) / 2) or all (c²): the work this data
+    needs."""
+    total = 0
+    for row in seg:
+        c = torch.unique(row, return_counts=True)[1].double()
+        total += int((c * (c + 1) / 2 if causal else c * c).sum())
+    return total
+
+
+def flash_work(name: str, q, k, seg, causal: bool):
+    """(FLOPs, bytes) of one K1/K2/K3 launch, the formulas of the Bound
+    column of PERF.md's kernel table: 2 D-wide products per visible pair
+    and q head forward, 4 for dK/dV (S recomputed, dP, dV, dK), 3 for dQ;
+    each input read once and each output written once."""
+    b, s, hq, d = q.shape
+    pairs = visible_pairs(seg, causal)
+    nq, nkv = b * s * hq * d * 2, b * s * k.shape[2] * d * 2  # bf16
+    rows, segb = b * hq * s * 4, b * s * 4  # f32 LSE / delta rows, i32 ids
+    if name == "flash_fwd":
+        return 4 * d * hq * pairs, nq + 2 * nkv + segb + nq + rows
+    if name == "flash_bwd_dkv":
+        return 8 * d * hq * pairs, 2 * nq + 2 * nkv + segb + 2 * rows + 2 * nkv
+    return 6 * d * hq * pairs, 2 * nq + 2 * nkv + segb + 2 * rows + nq
 
 
 # ``seg_rng`` is ``seg_ranges(seg)``, computed once for the kernels of one

@@ -52,6 +52,7 @@ import threading
 
 import torch
 
+from veomni_tpu_torch.observability import cost
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
 
 SOURCE = "grouped_gemm.cu"
@@ -162,6 +163,18 @@ def _launch(name: str, tensors, m: int, k: int, n: int, num_experts: int) -> Non
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     with _COUNT_LOCK:  # serving replicas launch from threads of their own
         LAUNCHES[name] += 1
+    cost.note_kernel(lambda: gmm_work(name, m, k, n, num_experts, tensors[2]))
+
+
+def gmm_work(name: str, m: int, k: int, n: int, num_experts: int, starts):
+    """(FLOPs, bytes) of one K4/K5/K6 launch, the formulas of the Bound
+    column of PERF.md's kernel table: 2 M K N FLOPs; bf16 operands read
+    once (K4/K5 read only the experts that own rows), the output written
+    once, the i32 group starts."""
+    used = int(((starts[1:] - starts[:-1]) > 0).sum())
+    weights = (num_experts if name == "gmm_t" else used) * k * n * 2
+    nbytes = (m * k + m * n) * 2 + weights + (num_experts + 1) * 4
+    return 2.0 * m * k * n, nbytes
 
 
 def gmm_cuda(lhs, rhs, starts):

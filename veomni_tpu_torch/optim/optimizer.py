@@ -1,12 +1,17 @@
-"""Optimizer builder: AdamW matching ``optax.adamw``.
+"""Optimizer builder: the reference's ``build_optimizer`` on torch.
 
-Port of ``veomni_tpu/optim/optimizer.py`` (AdamW only). ``torch.optim.AdamW``
-computes the same update as ``optax.adamw`` (eps outside the square root,
-decoupled weight decay scaled by the learning rate) up to f32 rounding
-order. What differs is bookkeeping, handled here:
+Port of ``veomni_tpu/optim/optimizer.py`` (``:25-61``): ``adamw``,
+``anyprecision_adamw``, ``adafactor``, ``sgd`` and ``muon``
+(``optim/muon.py``); any other name raises ``ValueError``. Every optimizer
+here takes its learning rate from a closed-form schedule of its update
+count ``num_updates``, read before each update (optax's
+``scale_by_learning_rate``), times a parameter group's ``lr_scale``
+(:func:`with_param_groups`).
 
-* the learning rate follows a closed-form schedule of the update count,
-  read before each update (optax's ``scale_by_learning_rate``);
+``adamw`` is ``torch.optim.AdamW``, which computes ``optax.adamw``'s update
+(eps outside the square root, decoupled weight decay scaled by the
+learning rate) up to f32 rounding order. Its bookkeeping:
+
 * weight decay follows the reference's mask, ``ndim > 1`` taken on the
   reference's tree (``optimizer.py:21-22``). That tree stacks per-layer
   leaves on a leading axis, so every per-layer parameter, norm weights
@@ -22,17 +27,30 @@ order. What differs is bookkeeping, handled here:
   reaches the loss only through the expert choice and is such a parameter:
   with a zero gradient its moments stay 0 and the step shrinks it by
   ``lr * weight_decay * p``, as the reference does.
+
+The others follow optax's math step by step. ``anyprecision_adamw``
+keeps its first moment in bf16 (its variance in f32), which
+``torch.optim.AdamW`` cannot store; it and ``sgd`` update each parameter
+on its own (:class:`ParamOptimizer`). Adafactor and Muon read a leaf of
+the reference's tree (``models/jax_weights.py::reference_leaves``) whole
+(:class:`LeafOptimizer`): Adafactor's block clip and parameter scale take
+one RMS over a stacked ``[L, ...]`` leaf, and Muon orthogonalises a
+stacked 1-D leaf as one matrix.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from veomni_tpu_torch.models.jax_weights import reference_leaves
+from veomni_tpu_torch.optim import muon as muon_math
 from veomni_tpu_torch.optim.lr_scheduler import Schedule
+
+Leaf = Tuple[str, List[torch.Tensor], bool]  # (reference path, parameters, stacked)
 
 
 def _decayed(name: str, param: torch.Tensor) -> bool:
@@ -53,6 +71,10 @@ class AdamW(torch.optim.AdamW):
         self.lr_schedule = lr_schedule
         self.num_updates = 0
 
+    def regrouped(self, groups) -> "AdamW":
+        d = self.defaults
+        return AdamW(groups, self.lr_schedule, betas=d["betas"], eps=d["eps"])
+
     @torch.no_grad()
     def step(self, closure=None):
         lr = self.lr_schedule(self.num_updates)
@@ -63,32 +85,263 @@ class AdamW(torch.optim.AdamW):
         return loss
 
 
+class ParamOptimizer(torch.optim.Optimizer):
+    """An optimizer that updates each parameter with a gradient on its own,
+    at ``lr_schedule(n) * lr_scale`` for its ``n``-th update. The optax
+    count is ``num_updates + 1`` during an update; a skipped step (``step``
+    not called) leaves it, and every moment, untouched. A subclass
+    implements :meth:`update_param`."""
+
+    def __init__(self, groups, lr_schedule: Schedule, **defaults):
+        super().__init__(groups, dict(lr=lr_schedule(0), **defaults))
+        self.lr_schedule = lr_schedule
+        self.num_updates = 0
+        self._options = dict(defaults)
+
+    def regrouped(self, groups) -> "ParamOptimizer":
+        return type(self)(groups, self.lr_schedule, **self._options)
+
+    def _set_lrs(self) -> None:
+        lr = self.lr_schedule(self.num_updates)
+        for group in self.param_groups:
+            group["lr"] = lr * group.get("lr_scale", 1.0)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self._set_lrs()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self.update_param(p, group, self.num_updates + 1)
+        self.num_updates += 1
+
+    def update_param(self, p: torch.Tensor, group: dict, count: int) -> None:
+        raise NotImplementedError
+
+
+class LeafOptimizer(ParamOptimizer):
+    """A :class:`ParamOptimizer` that updates the reference's leaves one at
+    a time, a stacked leaf's parameters together. A subclass implements
+    :meth:`update_leaves`."""
+
+    def __init__(self, groups, lr_schedule: Schedule, leaves: Sequence[Leaf], **defaults):
+        super().__init__(groups, lr_schedule, **defaults)
+        self.leaves = list(leaves)
+
+    def regrouped(self, groups) -> "LeafOptimizer":
+        return type(self)(groups, self.lr_schedule, self.leaves, **self._options)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self._set_lrs()
+        group_of = {p: group for group in self.param_groups for p in group["params"]}
+        live = [leaf for leaf in self.leaves if leaf[1][0].grad is not None]
+        self.update_leaves(live, group_of, self.num_updates + 1)
+        self.num_updates += 1
+
+    def update_leaves(self, leaves: List[Leaf], group_of, count: int) -> None:
+        raise NotImplementedError
+
+
+def _stack(tensors: List[torch.Tensor], stacked: bool) -> torch.Tensor:
+    return torch.stack(tensors) if stacked else tensors[0]
+
+
+def _scatter_update(params: List[torch.Tensor], stacked: bool, update: torch.Tensor) -> None:
+    """``p += update`` for each parameter of a leaf (its row when stacked)."""
+    for i, p in enumerate(params):
+        p.add_(update[i] if stacked else update)
+
+
+def _adam_direction(p, g, state, b1, b2, eps, count, mu_dtype=None):
+    """optax ``scale_by_adam`` for one parameter: the moments in f32 (the
+    first stored as ``mu_dtype``), the bias-corrected direction."""
+    if not state:
+        state["exp_avg"] = torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+        state["exp_avg_sq"] = torch.zeros_like(p)
+    # optax multiplies the stored moment by b1 taken in the moment's dtype
+    # (a weakly typed scalar): for a bf16 moment that is bf16(0.9) = 0.8984375
+    m = state["exp_avg"]
+    mu = (1 - b1) * g + torch.tensor(b1, dtype=m.dtype).item() * m.to(g.dtype)
+    nu = (1 - b2) * (g * g) + b2 * state["exp_avg_sq"]
+    direction = (mu / (1 - b1 ** count)) / (torch.sqrt(nu / (1 - b2 ** count)) + eps)
+    state["exp_avg"] = mu.to(mu_dtype) if mu_dtype is not None else mu
+    state["exp_avg_sq"] = nu
+    return direction
+
+
+class AnyPrecisionAdamW(ParamOptimizer):
+    """``optax.adamw(mu_dtype=bfloat16)``: the first moment is computed in
+    f32 from its stored bf16 value and stored back in bf16; the variance
+    stays f32 (``optimizer.py:37-41``). Weight decay follows the AdamW
+    mask (each group's ``weight_decay``)."""
+
+    def update_param(self, p, group, count):
+        b1, b2 = group["betas"]
+        u = _adam_direction(p, p.grad, self.state[p], b1, b2, group["eps"], count,
+                            mu_dtype=torch.bfloat16)
+        if group["weight_decay"]:
+            u = u + group["weight_decay"] * p
+        p.add_(u, alpha=-group["lr"])
+
+    def load_state_dict(self, state_dict):
+        # the base class casts every float state to its parameter's dtype
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(torch.bfloat16)
+
+
+class SGD(ParamOptimizer):
+    """``optax.sgd(lr)``: ``p - lr * g``, no momentum, no decay."""
+
+    def update_param(self, p, group, count):
+        p.add_(p.grad, alpha=-group["lr"])
+
+
+def _factored_dims(shape, min_dim: int = 128) -> Optional[Tuple[int, int]]:
+    """optax ``_factored_dims``: the two largest axes (second largest,
+    largest) when the second largest is at least ``min_dim``."""
+    if len(shape) < 2:
+        return None
+    order = sorted(range(len(shape)), key=lambda i: shape[i])  # np.argsort's order
+    if shape[order[-2]] < min_dim:
+        return None
+    return order[-2], order[-1]
+
+
+class Adafactor(LeafOptimizer):
+    """``optax.adafactor(learning_rate=lr)`` at optax's defaults: factored
+    second moments over the two largest axes of a leaf whose second
+    largest is at least 128 (else a full one), decay ``1 - t**-0.8``, eps
+    1e-30, the update clipped to block RMS 1, scaled by the learning rate
+    and by the leaf's RMS (at least 1e-3). Each leaf is the reference's
+    (stacked when the reference stacks it): the clip and the parameter
+    scale take one RMS over all its layers. The leaf's state lives with
+    its first parameter."""
+
+    EPS = 1e-30
+    DECAY = 0.8
+    CLIP = 1.0
+    MIN_SCALE = 1e-3
+
+    def update_leaves(self, leaves, group_of, count):
+        decay = 1.0 - float(count) ** -self.DECAY
+        for _, params, stacked in leaves:
+            g = _stack([p.grad for p in params], stacked)
+            p = _stack(params, stacked)
+            st = self.state[params[0]]
+            sq = g * g + self.EPS
+            dims = _factored_dims(tuple(g.shape))
+            if dims is not None:
+                d1, d0 = dims
+                if not st:
+                    st["v_row"] = torch.zeros_like(sq.mean(dim=d0))
+                    st["v_col"] = torch.zeros_like(sq.mean(dim=d1))
+                v_row = decay * st["v_row"] + (1.0 - decay) * sq.mean(dim=d0)
+                v_col = decay * st["v_col"] + (1.0 - decay) * sq.mean(dim=d1)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                u = g * row_factor.unsqueeze(d0) * (v_col ** -0.5).unsqueeze(d1)
+                st["v_row"], st["v_col"] = v_row, v_col
+            else:
+                if not st:
+                    st["v"] = torch.zeros_like(g)
+                v = decay * st["v"] + (1.0 - decay) * sq
+                u = g * v ** -0.5
+                st["v"] = v
+            u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIP, min=1.0)
+            u = u * group_of[params[0]]["lr"]
+            u = u * torch.clamp(torch.sqrt(torch.mean(p * p)), min=self.MIN_SCALE)
+            _scatter_update(params, stacked, -u)
+
+
+class Muon(LeafOptimizer):
+    """``build_muon`` (``veomni_tpu/optim/muon.py:68-96``): Nesterov
+    momentum 0.95 and Newton–Schulz on the ``muon`` leaves, then
+    ``+ weight_decay * p`` and the learning rate; optax's AdamW at its
+    default betas and eps, decaying every leaf, on the ``adamw`` leaves
+    (``optim/muon.py`` says which). Both at the same schedule."""
+
+    def __init__(self, groups, lr_schedule, leaves, **defaults):
+        super().__init__(groups, lr_schedule, leaves, **defaults)
+        self.labels = {path: muon_math.muon_label(
+            path, params[0].ndim + (1 if stacked else 0)) for path, params, stacked in self.leaves}
+
+    def update_leaves(self, leaves, group_of, count):
+        mom = muon_math.MOMENTUM
+        b1, b2 = muon_math.ADAMW_BETAS
+        matrices, owners = [], []
+        for path, params, stacked in leaves:
+            if self.labels[path] == "adamw":
+                for p in params:
+                    group = group_of[p]
+                    u = _adam_direction(p, p.grad, self.state[p], b1, b2, muon_math.ADAMW_EPS,
+                                        count)
+                    if group["weight_decay"]:
+                        u = u + group["weight_decay"] * p
+                    p.add_(u, alpha=-group["lr"])
+                continue
+            effs = []
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["momentum_buffer"] = torch.zeros_like(p)
+                buf = mom * st["momentum_buffer"] + p.grad
+                st["momentum_buffer"] = buf
+                effs.append(mom * buf + p.grad)  # Nesterov
+            matrices.append(_stack(effs, stacked))
+            owners.append((params, stacked))
+        orth = muon_math.orthogonalize_leaves(matrices)
+        for o, (params, stacked) in zip(orth, owners):
+            for i, p in enumerate(params):
+                u = o[i] if stacked else o
+                group = group_of[p]
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(u, alpha=-group["lr"])
+
+
 def build_optimizer(
     model: nn.Module,
     *,
+    optimizer: str = "adamw",
     lr: Union[float, Callable[[int], float]] = 1e-5,
     betas=(0.9, 0.999),
     eps: float = 1e-8,
     weight_decay: float = 0.0,
-) -> AdamW:
-    """AdamW over ``model``'s parameters (the reference's other optimizers
-    are not ported yet)."""
-    named = list(model.named_parameters())
-    decay = [p for n, p in named if _decayed(n, p)]
-    rest = [p for n, p in named if not _decayed(n, p)]
-    groups = [{"params": decay, "weight_decay": weight_decay},
-              {"params": rest, "weight_decay": 0.0}]
+) -> torch.optim.Optimizer:
+    """The reference's ``build_optimizer`` over ``model``'s parameters:
+    AdamW and ``anyprecision_adamw`` decay by the reference's mask, Muon
+    decays every leaf, Adafactor and SGD do not decay (the reference passes
+    them no weight decay)."""
     schedule = lr if callable(lr) else (lambda n: lr)
-    return AdamW(groups, schedule, betas=betas, eps=eps)
+    named = list(model.named_parameters())
+    if optimizer in ("adamw", "anyprecision_adamw"):
+        decay = [p for n, p in named if _decayed(n, p)]
+        rest = [p for n, p in named if not _decayed(n, p)]
+        groups = [{"params": decay, "weight_decay": weight_decay},
+                  {"params": rest, "weight_decay": 0.0}]
+        if optimizer == "adamw":
+            return AdamW(groups, schedule, betas=betas, eps=eps)
+        return AnyPrecisionAdamW(groups, schedule, betas=tuple(betas), eps=eps)
+    if optimizer == "muon":
+        return Muon([{"params": [p for _, p in named], "weight_decay": weight_decay}],
+                    schedule, reference_leaves(model))
+    if optimizer == "adafactor":
+        return Adafactor([{"params": [p for _, p in named]}], schedule, reference_leaves(model))
+    if optimizer == "sgd":
+        return SGD([{"params": [p for _, p in named]}], schedule)
+    raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
 def with_param_groups(
-    optimizer: AdamW,
+    optimizer: torch.optim.Optimizer,
     named_params: Sequence[Tuple[str, torch.Tensor]],
     *,
     freeze_patterns: Sequence[str] = (),
     lr_scales: Optional[Dict[str, float]] = None,
-) -> AdamW:
+) -> torch.optim.Optimizer:
     """Per-module freeze and learning-rate scaling over the reference's leaf
     paths (``veomni_tpu/optim/optimizer.py:84-123``): a parameter whose path
     matches a ``freeze_patterns`` regex has its update scaled by 0 (the
@@ -96,13 +349,14 @@ def with_param_groups(
     ``lr_scales`` regex scales it; else 1. ``named_params`` are (path,
     parameter) pairs (``models/jax_weights.py::named_jax_parameters``).
 
-    The reference multiplies optax's whole AdamW update, decay included, by
-    the scale. Here each scale is a parameter group whose learning rate is
-    the schedule's times the scale: ``torch.optim.AdamW`` applies the decay
-    and the Adam step both at that rate, which is the same update; at scale
-    0 the parameter stays bit-unchanged while its moments still move, as in
-    the reference. Returns a new optimizer over the same parameters (built
-    before any step: it carries no state over)."""
+    The reference multiplies the optimizer's whole update, decay included,
+    by the scale. Every optimizer here applies its update at the learning
+    rate, so each scale becomes a parameter group whose learning rate is
+    the schedule's times the scale, which is the same update; at scale 0
+    the parameter stays bit-unchanged while its moments still move, as in
+    the reference. A scale follows a leaf's path, so a stacked leaf never
+    spans two groups. Returns a new optimizer of the same kind over the
+    same parameters (built before any step: it carries no state over)."""
 
     def scale_of(path: str) -> float:
         for pat in freeze_patterns:
@@ -122,7 +376,6 @@ def with_param_groups(
         for p in group["params"]:
             by_scale.setdefault(scales[id(p)], []).append(p)
         for scale, params in by_scale.items():
-            groups.append({"params": params, "weight_decay": group["weight_decay"],
-                           "lr_scale": scale})
-    defaults = optimizer.defaults
-    return AdamW(groups, optimizer.lr_schedule, betas=defaults["betas"], eps=defaults["eps"])
+            extra = {k: group[k] for k in ("weight_decay",) if k in group}
+            groups.append({"params": params, "lr_scale": scale, **extra})
+    return optimizer.regrouped(groups)

@@ -65,6 +65,7 @@ import torch
 
 from veomni_tpu_torch.models import decode as decode_mod
 from veomni_tpu_torch.models.config import TransformerConfig
+from veomni_tpu_torch.observability.cost import instrument_site
 from veomni_tpu_torch.observability.metrics import LabelledRegistry, get_registry
 from veomni_tpu_torch.observability.request_trace import RequestTracer
 from veomni_tpu_torch.observability.spans import span
@@ -227,6 +228,23 @@ class InferenceEngine:
         # monolithic prefill shares the config's program with greedy_generate)
         self._programs = {name: decode_mod.Program(name)
                           for name in ("paged_decode", "paged_prefill", "paged_verify")}
+        # the cost census (observability/cost.py) counts each bucket's first
+        # call in the process for this model and tier, whichever engine makes
+        # it: the slot batch and table width of a decode or verify step, the
+        # chunk and table width of a prefill chunk (the reference's
+        # instrument_jit buckets, veomni_tpu/serving/engine.py:475-531); on
+        # demand, only while a reader (the exporter) runs, so the counting
+        # pass stays off the hot path of a server without one
+        program = (repr(cfg), ec.kv_quant, ec.weight_quant, ec.block_size, str(self.device))
+        self._decode_step = instrument_site(
+            "paged_decode", self._decode_step, on_demand=True, program=program,
+            bucket_fn=lambda a: f"s{a[0].shape[0]}_nbb{a[0].shape[1]}")
+        self._prefill_chunk_step = instrument_site(
+            "paged_prefill", self._prefill_chunk_step, on_demand=True, program=program,
+            bucket_fn=lambda a: f"cb{a[4]}_nbb{a[0].shape[0]}")
+        self._verify_step = instrument_site(
+            "paged_verify", self._verify_step, on_demand=True, program=program,
+            bucket_fn=lambda a: f"s{a[0].shape[0]}_nbb{a[0].shape[1]}_kb{a[2].shape[1]}")
 
         self._outputs: Dict[str, RequestOutput] = {}
         self._req_counter = 0

@@ -51,8 +51,9 @@ the device and tick on its default stream: their host work (scheduling,
 sampling, Python) overlaps, their kernels queue on the one stream.
 ``decode.TRACE_COUNTS`` and the hand kernels' launch counters are updated
 under locks, so concurrent ticks count exactly. ``health()`` and
-``debug_doc()`` are ported; the HTTP server that serves them
-(``/healthz``, ``/debug/router``) waits for the exporter (slice E).
+``debug_doc()`` are served over HTTP by the exporter
+(``observability/exporter.py``: ``/healthz``, ``/debug/router``;
+``tasks/serve.py --replicas`` under ``VEOMNI_METRICS_PORT``).
 
 Threading contract: the router holds no locks for its own state. ONE pump
 thread (the caller's) drives ``submit``/``step``/``generate``/``run``, and

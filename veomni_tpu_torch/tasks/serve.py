@@ -45,8 +45,16 @@ the router's heartbeat dir when set); the router's self-healing knobs
 VEOMNI_SERVE_STALL_S (wedge deadline, default 60), VEOMNI_SERVE_MAX_RESPAWNS
 (2), VEOMNI_SERVE_PROBATION (2) and VEOMNI_SERVE_MIN_LIVE (1).
 VEOMNI_FAULT_PLAN arms the serving fault points (serve.admit /
-serve.prefill / serve.decode_tick / serve.spawn / serve.publish). The
-metrics exporter (VEOMNI_METRICS_PORT) is not ported yet and raises.
+serve.prefill / serve.decode_tick / serve.spawn / serve.publish).
+VEOMNI_METRICS_PORT starts the Prometheus exporter
+(``observability/exporter.py``; a negative port binds an ephemeral one):
+``/metrics``, ``/healthz``, ``/debug/requests``, ``/debug/memory`` (with the
+KV pool's capacity), ``/debug/cost`` (while the exporter runs, the
+engine counts each new bucket's first call in the process into the cost
+census; without it, serving pays no counting pass) and, under ``--replicas``,
+``/debug/router``. Its HTTP thread reads thread-safe snapshots only (registry
+gauges, tracer snapshots, ``Router.health``/``debug_doc``), never the
+scheduler state the pump mutates.
 """
 
 from __future__ import annotations
@@ -130,12 +138,47 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_supported(args) -> None:
-    """Raise ``NotImplementedError`` naming every requested feature whose
-    module is not ported yet."""
-    if os.environ.get("VEOMNI_METRICS_PORT", ""):
-        raise NotImplementedError(
-            "not ported yet: VEOMNI_METRICS_PORT (observability/exporter.py: slice E)")
+def start_exporter(router, engine):
+    """``VEOMNI_METRICS_PORT``'s exporter for the pump (``scripts/serve.py:
+    332-381``), or None when the knob is unset. The health document reads
+    registry gauges and counters (or ``Router.health``), which the pump
+    publishes after each tick."""
+    from veomni_tpu_torch.observability.exporter import maybe_start_from_env
+    from veomni_tpu_torch.observability.metrics import get_registry
+
+    if router is not None:
+        tracers = [h.engine.tracer for h in router.replicas.values()]
+
+        def requests_fn():
+            doc = {"inflight": [], "finished": []}
+            for t in tracers:
+                snap = t.snapshot()
+                doc["inflight"].extend(snap.get("inflight", ()))
+                doc["finished"].extend(snap.get("finished", ()))
+            return doc
+
+        def health_fn():
+            # healthy flips False (a 503) while the live count sits under
+            # min_live, and back once respawned replicas clear probation
+            doc = router.health()
+            reg = get_registry()
+            doc["rejected"] = reg.counter("serve.router.rejected").value
+            doc["deadline_cancelled"] = reg.counter("serve.router.deadline_cancelled").value
+            return doc
+
+        return maybe_start_from_env(health_fn=health_fn, requests_fn=requests_fn,
+                                    memory_fn=engine.kv_capacity, router_fn=router.debug_doc)
+
+    def health_fn():
+        reg = get_registry()
+        return {"healthy": True,
+                "queue_depth": reg.gauge("serve.queue_depth").value,
+                "num_running": reg.gauge("serve.num_running").value,
+                "rejected": reg.counter("serve.rejected").value,
+                "deadline_misses": reg.counter("serve.deadline_misses").value}
+
+    return maybe_start_from_env(health_fn=health_fn, requests_fn=engine.tracer.snapshot,
+                                memory_fn=engine.kv_capacity)
 
 
 def router_config(args):
@@ -228,7 +271,6 @@ def main(argv: Optional[List[str]] = None):
     args = ap.parse_args(argv)
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
-    check_supported(args)
     device = resolve_device(args.device)
 
     from veomni_tpu_torch.observability.flight_recorder import (
@@ -292,6 +334,7 @@ def main(argv: Optional[List[str]] = None):
     # launched from
     configure_flight_recorder(dump_dir=os.environ.get("VEOMNI_SERVE_OUT", "."))
     reqs = build_requests(args, cfg, ap)
+    exporter = start_exporter(router, engine)
     try:
         for ev in server.generate(reqs):
             line = {"request_id": ev.request_id, "index": ev.index, "token": ev.token}
@@ -307,9 +350,15 @@ def main(argv: Optional[List[str]] = None):
         outs = server.run()  # no-op drain; collects final outputs
     except BaseException as e:
         # a pump that dies mid-decode leaves its request/event history in a
-        # post-mortem
-        dump_postmortem(f"exception:{type(e).__name__}", extra={"error": str(e)[:2000]})
+        # post-mortem; an allocator failure also the buffer and cost censuses
+        from veomni_tpu_torch.observability.devmem import attach_oom_extra
+
+        dump_postmortem(f"exception:{type(e).__name__}",
+                        extra=attach_oom_extra(e, {"error": str(e)[:2000]}))
         raise
+    finally:
+        if exporter is not None:
+            exporter.stop()
     print(json.dumps({"metrics": server.metrics()}), flush=True)
     # terminal-status census: shed/expired requests are reported distinctly
     by_status = {"ok": 0, "rejected": 0, "deadline": 0, "cancelled": 0}

@@ -18,15 +18,20 @@ LoRA merge in ``lora/lora.py``, expert adapters, frozen update in
 ``optim/optimizer.py`` and llama2 label mask in ``data/chat_template.py``,
 and the int8 KV rows' scale axis in ``ops/quantization.py``, the router's
 affinity key in ``serving/router.py``, the prefix-cache flush of a weight
-swap in ``serving/engine.py`` and the offload remat policies' hooks in
-``models/transformer.py``) and run the copy's
+swap in ``serving/engine.py``, the offload remat policies' hooks in
+``models/transformer.py``, Muon's orthogonalisation in ``optim/muon.py``,
+the numerics provenance's layer in ``observability/numerics.py``, the
+flash kernels' census report in ``ops/cuda/flash_attention.py`` and the
+redispatch after a chaos kill in ``serving/router.py``) and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
 ``--phases hf_trainer_moonlight``; for a gpt_oss one, its gpt-oss-20b phase:
 ``--phases hf_trainer_gpt_oss``; for a VLM one, its Qwen2-VL-2B or
 Qwen2.5-VL-3B phase; for an SFT one, its SFT phase; for the int8 one,
 ``--phases serve_quant``; for the router and publication ones, ``--phases
-serve_router``; for the offload one, ``--phases remat``). A fault is
+serve_router``; for the offload and Muon ones, ``--phases remat``; for the
+numerics and census ones, ``--phases trainer``; for the chaos one,
+``--phases serve_router``). A fault is
 caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -72,6 +77,9 @@ VL_SOURCE = os.path.join("veomni_tpu_torch", "models", "qwen2_5_vl.py")
 QUANT_SOURCE = os.path.join("veomni_tpu_torch", "ops", "quantization.py")
 ROUTER_SOURCE = os.path.join("veomni_tpu_torch", "serving", "router.py")
 ENGINE_SOURCE = os.path.join("veomni_tpu_torch", "serving", "engine.py")
+MUON_SOURCE = os.path.join("veomni_tpu_torch", "optim", "muon.py")
+NUMERICS_SOURCE = os.path.join("veomni_tpu_torch", "observability", "numerics.py")
+FLASH_WRAPPER_SOURCE = os.path.join("veomni_tpu_torch", "ops", "cuda", "flash_attention.py")
 # the int8 KV rows divided by the absmax reduced over the wrong axis (across
 # the kv heads as well as the head dim) while the sidecar keeps each row's own
 # scale: every head but the largest dequantizes shrunk
@@ -410,6 +418,31 @@ FAULTS = (
           "        q, k, v = checkpoint(self._qkv, hidden, cos, sin, **kw)\n"
           "        if False:\n",
           "remat: offload peak:", "offload peak", ("--phases", "remat")),
+    # Muon applies its momentum unorthogonalised
+    Fault("muon-no-ns", "Muon skips the Newton-Schulz orthogonalisation", MUON_SOURCE,
+          "        orth = newton_schulz(batch)\n", "        orth = batch\n",
+          "optimizers: muon update layers.q_proj layer 5:", "muon update layers.q_proj layer 5",
+          ("--phases", "remat")),
+    # the provenance names the layer after the first non-finite one
+    Fault("numerics-layer-off-by-one", "first_nonfinite names the neighbouring layer",
+          NUMERICS_SOURCE,
+          "                        out[\"layer\"] = next(i for i, v in enumerate(vals) if v > 0)\n",
+          "                        out[\"layer\"] = next(i for i, v in enumerate(vals) if v > 0) + 1\n",
+          "trainer drills: nan drill provenance:", "nan drill provenance", ("--phases", "trainer")),
+    # K1-K3 report no work to the cost census
+    Fault("cost-no-kernel-flops", "the flash kernels report no FLOPs to the census",
+          FLASH_WRAPPER_SOURCE,
+          "    cost.note_kernel(lambda: flash_work(name, q, k, tensors[3], causal))\n", "",
+          "trainer observatories: census kernel FLOPs:", "census kernel FLOPs",
+          ("--phases", "trainer")),
+    # the redispatch after the soak's replica kill drops the first stranded request
+    Fault("chaos-lost-id", "the redispatch after a chaos kill drops one stranded request",
+          ROUTER_SOURCE,
+          "        self._queue[:0] = sorted(requeue, key=lambda it: it.order)\n",
+          "        self._queue[:0] = sorted(requeue, key=lambda it: it.order)[\n"
+          "            int(\"chaos\" in h.fail_reason):]\n",
+          "serve router: chaos soak exactly once:", "chaos soak exactly once",
+          ("--phases", "serve_router")),
 )
 
 

@@ -386,6 +386,7 @@ def iter_train_steps(
     device: DeviceLike = None,
     keep: Optional[Dict[str, object]] = None,
     cfg_overrides: Optional[Dict[str, object]] = None,
+    optimizer: str = "adamw",
 ) -> Iterator[Dict[str, float]]:
     """Build the model and train step as ``run_bench`` does, then yield one
     record per train step (loss, grad_norm, ntokens, step_ok, the loss fn's
@@ -394,9 +395,11 @@ def iter_train_steps(
     ops to impls (e.g. ``{"group_gemm": "xla"}`` for the plain version)
     until the generator is closed; ``num_layers`` cuts depth;
     ``cfg_overrides`` sets config fields (``remat_policy``, ``chunk_mbs``,
-    ...) on the preset's. ``keep``, where
-    given, receives the model (``"model"``) and the first batch on the
-    device (``"first_batch"``), for the caller to look at after the steps."""
+    ...) on the preset's; ``optimizer`` names one of
+    ``optim/optimizer.py::build_optimizer``'s. ``keep``, where given, receives the
+    model (``"model"``), the optimizer (``"optimizer"``) and the first batch
+    on the device (``"first_batch"``), for the caller to look at after the
+    steps."""
     dev = resolve_device(device)
     overrides = dict(cfg_overrides or {})
     if num_layers is not None:
@@ -404,7 +407,8 @@ def iter_train_steps(
     cfg = bench_config(preset, **overrides)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = Transformer(cfg, gen, device=dev)
-    opt = build_optimizer(model, lr=build_lr_scheduler(lr=1e-4, train_steps=1000))  # run_bench's
+    opt = build_optimizer(model, optimizer=optimizer,
+                          lr=build_lr_scheduler(lr=1e-4, train_steps=1000))  # run_bench's
     state = build_train_state(model, opt)
     step = build_train_step(Transformer.loss_fn)
     tokens = micro_bs * seq_len
@@ -417,6 +421,7 @@ def iter_train_steps(
             batch = {k: torch.from_numpy(v).to(dev) for k, v in next(batches).items()}
             if keep is not None:
                 keep.setdefault("model", model)
+                keep.setdefault("optimizer", opt)
                 keep.setdefault("first_batch", batch)
             synchronize(dev)
             t0 = time.perf_counter()

@@ -34,7 +34,13 @@ before the clip. ``data.eval_path`` adds the eval loop
 (``EvaluateCallback``), ``data.channel_list`` the per-channel loss
 (``train/channel_loss.py``) and ``train.use_wandb`` the W&B log; the
 post-training trainers (``trainer/{dpo,distill,rl}_trainer.py``) override
-the loss fn and the data path. Features whose modules are not ported yet raise
+the loss fn and the data path. ``train.optimizer`` takes every optimizer of
+``optim/optimizer.py::build_optimizer``; ``train.observability_numerics_interval``
+runs the numerics observatory's instrumented step every N-th step and
+attributes an anomalous step (``_diagnose_numerics``); the train, numerics
+and eval steps are cost-census sites (``observability/cost.py``); an
+out-of-memory error's post-mortem holds the buffer census
+(``observability/devmem.py``). Features whose modules are not ported yet raise
 ``NotImplementedError`` from one gate, :func:`check_supported`, naming the
 knob and the queue item of ``ROADMAP.md`` that ports it.
 """
@@ -63,6 +69,7 @@ from veomni_tpu_torch.lora import (
 )
 from veomni_tpu_torch.models.auto import build_config, build_foundation_model, build_tokenizer
 from veomni_tpu_torch.models.jax_weights import named_jax_parameters
+from veomni_tpu_torch.observability.cost import batch_bucket, instrument_site
 from veomni_tpu_torch.observability.flight_recorder import (
     configure_flight_recorder,
     dump_postmortem,
@@ -85,7 +92,7 @@ from veomni_tpu_torch.trainer.callbacks import (
 )
 from veomni_tpu_torch.utils.count_flops import FlopsCounter
 from veomni_tpu_torch.utils.device import resolve_device
-from veomni_tpu_torch.utils.helper import EnvironMeter, live_memory_stats, set_seed
+from veomni_tpu_torch.utils.helper import EnvironMeter, set_seed
 from veomni_tpu_torch.utils.logging import _process_index, get_logger
 
 logger = get_logger(__name__)
@@ -100,18 +107,11 @@ def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> N
     module is not ported yet (the trainer's counterpart of
     ``models/transformer.py::check_supported``); ``data_types`` are the
     data transforms the calling trainer runs."""
-    m, d, t = args.model, args.data, args.train
-    metrics_port = os.environ.get("VEOMNI_METRICS_PORT", "")
+    d, t = args.data, args.train
     missing = [f"{knob} ({why})" for knob, why, on in (
-        (f"train.optimizer {t.optimizer!r}", "only adamw is ported; optim/muon.py: slice F",
-         t.optimizer != "adamw"),
         (f"data.data_type {d.data_type!r}", "the qwen2-vl and qwen2.5-vl transforms run "
          "through VLMTrainer, tasks/train_vlm.py; the other multimodal ones are slice F",
          d.data_type not in data_types),
-        ("train.observability_numerics_interval", "observability/numerics.py: slice E",
-         t.observability_numerics_interval > 0),
-        ("train.observability_port / VEOMNI_METRICS_PORT",
-         "observability/exporter.py: slice E", bool(t.observability_port) or bool(metrics_port)),
         ("train.num_virtual_devices", "virtual devices are a JAX CPU-mesh feature; the "
          "multi-process mesh is slice C", t.num_virtual_devices > 0),
         ("train.ulysses_async", "parallel/async_ulysses.py: slice C", t.ulysses_async),
@@ -330,7 +330,8 @@ class BaseTrainer:
             trainable = module
             loss_fn = self._inner_loss_fn()
         self.optimizer = build_optimizer(
-            trainable, lr=self.lr_schedule, betas=tuple(t.betas), weight_decay=t.weight_decay,
+            trainable, optimizer=t.optimizer, lr=self.lr_schedule, betas=tuple(t.betas),
+            weight_decay=t.weight_decay,
         )
         named = named_jax_parameters(trainable)
         if m.freeze_modules or t.module_lr_scales:
@@ -341,11 +342,17 @@ class BaseTrainer:
         self.grad_mask = [p for path, p in named
                           if any(re.search(pat, path) for pat in m.freeze_modules)]
         self.train_state = build_train_state(trainable, self.optimizer)
-        self.train_step = build_train_step(
-            loss_fn, max_grad_norm=t.max_grad_norm, grad_mask=self.grad_mask or None,
+        # the hot step and, built on first use, the numerics sibling
+        self._step_options = dict(
+            max_grad_norm=t.max_grad_norm, grad_mask=self.grad_mask or None,
             scope=LoraAdapters.merged if self.base_model is not None else None,
             skip_nonfinite=t.resilience_skip_nonfinite,
         )
+        # the cost census counts each batch shape's first step (observability/cost.py)
+        self.train_step = instrument_site("train_step", build_train_step(
+            loss_fn, **self._step_options), bucket_fn=lambda args: batch_bucket(args[1]))
+        self._numerics_step = None
+        self._numerics = None
         self._loss_fn = loss_fn  # what evaluate() scores
         self.meter = EnvironMeter(
             flops_counter=FlopsCounter.from_config(self.model.config),
@@ -463,11 +470,14 @@ class BaseTrainer:
         ``data.eval_path``, micro-batch by micro-batch: the loss sums over
         the ``ntokens`` sums. The eval dataloader is rebuilt on every call,
         so with the fixed seed each call reads the same slice and the
-        values of different steps compare. The reference also books the
-        eval step in its XLA cost census (``observability/cost.py``), which
-        belongs to slice E and has no twin here."""
+        values of different steps compare. Each micro-batch shape's first
+        eval step is counted into the cost census (``eval_step``)."""
         if not self.args.data.eval_path:
             return None
+        if getattr(self, "_eval_step", None) is None:
+            self._eval_step = instrument_site(
+                "eval_step", lambda model, batch: self._loss_fn(model, batch),
+                bucket_fn=lambda args: batch_bucket(args[1]))
         it = iter(self._build_eval_dataloader())
         total, ntok = 0.0, 0.0
         for _ in range(self.args.train.eval_batches):
@@ -477,8 +487,8 @@ class BaseTrainer:
                 break
             batch = self._ship_batch(batch_np)
             for a in range(next(iter(batch.values())).shape[0]):
-                loss_sum, metrics = self._loss_fn(self.train_state.model,
-                                                  {k: v[a] for k, v in batch.items()})
+                loss_sum, metrics = self._eval_step(self.train_state.model,
+                                                    {k: v[a] for k, v in batch.items()})
                 total += float(loss_sum)
                 ntok += float(metrics["ntokens"])
         return total / max(ntok, 1.0)
@@ -537,29 +547,59 @@ class BaseTrainer:
 
     @staticmethod
     def _postmortem_extra(e: BaseException, global_step: int) -> Dict[str, Any]:
-        """Post-mortem payload for an exception escaping train(); a card
-        out-of-memory error also carries the memory gauges. Never raises."""
+        """Post-mortem payload for an exception escaping train(): a card
+        out-of-memory error also carries the buffer census and the cost
+        census (``observability/devmem.py``), and a run with the numerics
+        observatory armed its provenance and health history. Never raises:
+        forensics must not mask the original failure."""
         extra: Dict[str, Any] = {"error": str(e)[:2000],
                                  "global_step": global_step}
-        if isinstance(e, torch.cuda.OutOfMemoryError):
-            try:
-                extra["memory"] = live_memory_stats()
-            except Exception as forensic_err:
-                extra["oom_report_error"] = str(forensic_err)
+        try:
+            from veomni_tpu_torch.observability.devmem import attach_oom_extra
+
+            attach_oom_extra(e, extra)
+        except Exception as forensic_err:
+            extra["oom_report_error"] = str(forensic_err)
+        try:
+            from veomni_tpu_torch.observability.numerics import attach_numerics_extra
+
+            attach_numerics_extra(extra)
+        except Exception as forensic_err:
+            extra["numerics_report_error"] = str(forensic_err)
         return extra
 
-    def _poison_param(self, pattern: str) -> str:
-        """The ``step.params`` fault drill (reference
-        ``observability/numerics.py::poison_param_group``): set ONE element
-        of the first float parameter whose name contains ``pattern`` (in
-        sorted-name order; empty = the first) to NaN. Returns its name, or
-        "" when none matches."""
-        for name, p in sorted(self.train_state.model.named_parameters()):
-            if (not pattern or pattern in name) and p.is_floating_point():
-                with torch.no_grad():
-                    p.view(-1)[0] = float("nan")
-                return name
-        return ""
+    # -------------------------------------------------------------- numerics
+    def _get_numerics_step(self):
+        """The instrumented sibling of the train step (numerics observatory),
+        built on first use with the hot step's loss fn and options."""
+        if self._numerics_step is None:
+            from veomni_tpu_torch.observability.numerics import NumericsSpec
+
+            self._numerics_step = instrument_site("numerics_step", build_train_step(
+                self._loss_fn, **self._step_options,
+                numerics_spec=NumericsSpec(
+                    max_groups=self.args.train.observability_numerics_max_groups),
+            ), bucket_fn=lambda args: batch_bucket(args[1]))
+        return self._numerics_step
+
+    def _diagnose_numerics(self, ctl, batch) -> None:
+        """Supervisor anomaly tie-in: re-run the same batch through the
+        instrumented step without applying its update (parameters, moments
+        and update count stay bit-unchanged), and turn the health tree into
+        the provenance document before the verdict escalates. Never raises."""
+        if self._numerics is None:
+            return
+        try:
+            with span("numerics.diagnose"):
+                _state, _metrics, health = self._get_numerics_step()(
+                    self.train_state, batch, apply=False)
+                doc = self._numerics.diagnose(
+                    ctl.global_step, health,
+                    injected=self._supervisor.last_anomaly_injected)
+            ctl.resilience = {**ctl.resilience,
+                              "numerics_first_nonfinite": doc.get("first_nonfinite")}
+        except Exception as e:
+            logger.warning_rank0("numerics diagnosis failed: %s", e)
 
     def _rollback(self, ctl, sup):
         """Supervisor escalation: restore the latest committed checkpoint
@@ -631,6 +671,17 @@ class BaseTrainer:
         ctl = TrainerControlState(train_steps=self.train_steps)
         sup = TrainSupervisor(SupervisorPolicy.from_train_args(t))
         self._supervisor = sup
+        # numerics observatory: the process's active monitor, so that
+        # /debug/numerics and the post-mortem see it; knob off, no tier
+        numerics_interval = max(0, t.observability_numerics_interval)
+        if numerics_interval:
+            from veomni_tpu_torch.observability.numerics import (
+                NumericsMonitor,
+                set_active_monitor,
+            )
+
+            self._numerics = NumericsMonitor(history=t.observability_numerics_history)
+            set_active_monitor(self._numerics)
         with use_parallel_state(self.parallel_state):
             try:
                 self._fire("on_train_begin", ctl)
@@ -646,6 +697,7 @@ class BaseTrainer:
                 )
                 self._close_prefetcher()
                 self._close_callbacks()
+                self._release_numerics()
                 raise
             # SIGTERM = cluster preemption notice: finish the current step,
             # take one final synchronous checkpoint, return (exit 0) so the
@@ -672,7 +724,11 @@ class BaseTrainer:
                             fault_point("step.delay")
                             act = fault_point("step.params")
                             if act is not None and act.mode == "nan":
-                                target = self._poison_param(act.target)
+                                from veomni_tpu_torch.observability.numerics import (
+                                    poison_param_group,
+                                )
+
+                                target = poison_param_group(self.train_state.model, act.target)
                                 logger.warning_rank0(
                                     "fault step.params poisoned %s", repr(target) if target
                                     else f"NOTHING: no float parameter matches {act.target!r}")
@@ -685,11 +741,25 @@ class BaseTrainer:
                             # shows the wedged step as dispatched-never-ended
                             flight_record("step.dispatch",
                                           cid=str(ctl.global_step + 1))
+                            # every interval-th step runs the instrumented
+                            # sibling in place of the hot step: the same update,
+                            # plus the health tree the monitor publishes
+                            numerics_due = bool(
+                                numerics_interval
+                                and (ctl.global_step + 1) % numerics_interval == 0)
+                            health = None
                             with span("step.dispatch"):
-                                self.train_state, metrics = self.train_step(
-                                    self.train_state, batch
-                                )
+                                if numerics_due:
+                                    self.train_state, metrics, health = (
+                                        self._get_numerics_step()(self.train_state, batch))
+                                else:
+                                    self.train_state, metrics = self.train_step(
+                                        self.train_state, batch
+                                    )
                             ctl.global_step += 1
+                            if health is not None:
+                                with span("numerics.observe"):
+                                    self._numerics.observe(ctl.global_step, health)
                             verdict = sup.observe(ctl.global_step, {
                                 "loss": _HostValue(metrics["loss"]),
                                 "step_ok": _HostValue(metrics["step_ok"]),
@@ -721,6 +791,10 @@ class BaseTrainer:
                                 self._fire("on_step_end", ctl)
                             flight_record("step.end", cid=str(ctl.global_step),
                                           synced=ctl.synced)
+                            if verdict != "ok":
+                                # attribute the anomaly (which group first went
+                                # non-finite) before the verdict escalates
+                                self._diagnose_numerics(ctl, batch)
                             if verdict == "rollback":
                                 data_iter = self._rollback(ctl, sup)
                             elif verdict == "abort":
@@ -773,4 +847,18 @@ class BaseTrainer:
             finally:
                 self._close_prefetcher()
                 self._close_callbacks()
+                # after the post-mortem above, which still reads the monitor
+                self._release_numerics()
         return ctl
+
+    def _release_numerics(self) -> None:
+        """Unregister this run's numerics monitor (only our own: a second
+        trainer in the process may have installed its own)."""
+        if self._numerics is not None:
+            from veomni_tpu_torch.observability.numerics import (
+                get_active_monitor,
+                set_active_monitor,
+            )
+
+            if get_active_monitor() is self._numerics:
+                set_active_monitor(None)
