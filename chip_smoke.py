@@ -120,7 +120,7 @@ Phases (any failure exits non-zero and prints no result line):
    held and timed at its head layout on its own first packed batch
    (Gemma-3-1B also on its first row alone);
 12. serve: the paged-KV engine (``veomni_tpu_torch.serving``) at Qwen3-0.6B,
-   28 layers, over 16 requests in two waves, legs (a) prefix cache and
+   28 layers, over 8 requests in two waves, legs (a) prefix cache and
    512-token chunks, (b) neither, (c) (a) with ngram speculation, (d) (a)
    and (c) sampled; every token held to an f32 teacher-forced re-score
    through the training forward (eps a recorded constant per phase, and
@@ -129,7 +129,7 @@ Phases (any failure exits non-zero and prints no result line):
 13. serve: after the dense phase of 12, Gemma-3-1B, all 26
    layers, leg (a) over 16 requests of 208-1921 tokens (8 behind a shared
    512-token prefix), so its 512-token windows bite, under the same gate;
-14. the same at Qwen3-30B-A3B, all 48 layers in bf16, leg (a), with K4 on
+14. the same at Qwen3-30B-A3B, 24 of its 48 layers in bf16, leg (a), with K4 on
    every MoE layer of every pass; the int8 tiers' quality gate on the same
    model (held at full width where phase 22's noise floor allows) and one
    engine leg with int8 KV blocks and int8 weights over 8 requests (K4 on
@@ -268,7 +268,7 @@ Phases (any failure exits non-zero and prints no result line):
    bounds: ppl rel delta 0.02, top-8 overlap 0.90; held at full width where
    the floor is inside them, else on the qwen3, gpt_oss-like and qwen3_moe
    toys they were pinned on), a planted 4x ``o_proj`` scale that must break
-   them; then the engine in each int8 mode over serve dense's 16 requests
+   them; then the engine in each int8 mode over serve dense's 8 requests
    (every token within eps of its own int8 teacher-forced re-score, no
    leaked block, pools unmoved) and the pool bytes a block and
    ``max_concurrent_seqs`` at equal pool bytes against the dense pool;
@@ -286,7 +286,7 @@ Phases (any failure exits non-zero and prints no result line):
    weights, after it to the new; every token through the re-score gate;
    then ``/healthz`` and ``/debug/router`` read over HTTP from the exporter,
    and a seeded ``run_chaos_soak`` (CHAOS_SEED: a replica kill, a weight
-   publish, two delays over an 8 s storm of 40 requests) over the same two
+   publish, two delays over a 4 s storm of 20 requests) over the same two
    replicas: every id completes exactly once, no block leaks, the fleet is
    restored and every replica serves the published version; its goodput is
    logged, not gated;
@@ -295,6 +295,27 @@ Phases (any failure exits non-zero and prints no result line):
    tokenizer's 4096 ids) with two prompts on stdin, started beside the
    kernel build of 1 and waited for right after it, before the first timed
    phase: its output lines equal the decode of ``greedy_generate``'s ids.
+
+25. the parallel layer (after the parities of 10): two ranks on the one card
+   (``parallel/launch.py::run_ranks`` with the launcher's environment),
+   each building ``TextTrainer`` from a YAML, which joins the world itself
+   and picks gloo (NCCL refuses two ranks on one device): Qwen3-0.6B at
+   full depth, seq 4096, 4 rows, ulysses 2 (K1-K3 at a rank's 8/4 heads
+   after the all-to-all), trained a step and checkpointed there, then a
+   fresh trainer restores that checkpoint and trains step 2; then
+   Qwen3-30B-A3B's widths at 2 layers, one row a rank, ep 2 (64 experts a
+   rank, dropless buckets, K4-K6 on the capacity-padded local groups);
+   FSDP2 shards the dense weights. Each leg's loss, grad norm (and the
+   balance loss) at steps 1-2 against the same trainer at world size 1 on
+   the same documents within PARALLEL_TOL (4x a measured floor), both ranks
+   equal, the restart's state equal to the saved one, K1-K6 launching in
+   each rank as reckoned with no plain attention dispatch, the collective
+   census of step 1 equal by kind to the bytes
+   ``observability/comm.py::plan_step_bytes`` reckons from the plan; then
+   K1-K3 at the rank's head layout on the dense batch and K4-K6 at rank 0's
+   local expert groups (routed at world 1 on the same weights and rows)
+   against their plain versions (timed at the gate/up shape). Each leg's
+   transport is printed from what the ranks report.
 
 ``--phases serve_dense,serve_quant,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -305,7 +326,10 @@ deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
 (16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17),
 ``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19),
 ``--phases moe,post_training`` the MoE path with its monitor (6) and the
-post-training trainers (20), ``--phases remat,serve_quant,serve_router,
+post-training trainers (20), ``--phases parallel`` the parallel layer (25),
+``--phases parallel_floor``, which no whole run includes, the floors its
+tolerances come from,
+``--phases remat,serve_quant,serve_router,
 infer_text`` the phases 21-24 (``serve_moe`` needs ``serve_quant`` named before
 it: the MoE gate reads its noise floor), and ``--phases vlm_witness``, which
 no whole run includes, the VLM step-1 parity's witness: the step at other
@@ -800,14 +824,21 @@ def moe_group_sizes(dev, seq_len: int, micro_bs: int):
     order, so it does not depend on depth) and the same batch, routed
     without gradients."""
     from veomni_tpu_torch.models import Transformer
-    from veomni_tpu_torch.models.transformer import expert_counts, route_tokens
     from veomni_tpu_torch.train_text_step import SEED, bench_config, packed_batches
 
     cfg = bench_config(MOE_PRESET, num_hidden_layers=1)
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     batch = {k: torch.from_numpy(v[0]).to(dev)
              for k, v in next(packed_batches(cfg.vocab_size, seq_len, micro_bs)).items()}
-    layer = model.layers[0]
+    return layer0_expert_counts(model, batch)
+
+
+def layer0_expert_counts(model, batch):
+    """Rows per expert of ``model``'s layer 0 on ``batch`` ([B, S] tensors
+    on its device), routed without gradients."""
+    from veomni_tpu_torch.models.transformer import expert_counts, route_tokens
+
+    cfg, layer = model.cfg, model.layers[0]
     with torch.no_grad():
         hidden, cos, sin = model.embed_and_rotary(batch["input_ids"], batch["position_ids"])
         q, k, v = layer._qkv(hidden, cos, sin)
@@ -1179,7 +1210,7 @@ def phase_moe_micro_batch_1(dev, card):
 
 def state_digest(train_state):
     """Per tensor (parameters, then each one's AdamW exp_avg and
-    exp_avg_sq), on the card: the sum of its 32-bit words and their sum
+    exp_avg_sq; a rank's own part of a sharded one), on the card: the sum of its 32-bit words and their sum
     weighted by a position hash, in int64; plus the update count. Any
     changed word changes the weighted sum."""
     model, opt = train_state.model, train_state.optimizer
@@ -1187,6 +1218,7 @@ def state_digest(train_state):
     with torch.no_grad():
         for _, p in model.named_parameters():
             for t in (p, opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]):
+                t = t.to_local() if hasattr(t, "to_local") else t  # a rank's shard
                 words = t.detach().contiguous().view(-1).view(torch.int32)
                 s1 = torch.zeros((), dtype=torch.int64, device=t.device)
                 s2 = torch.zeros((), dtype=torch.int64, device=t.device)
@@ -1962,6 +1994,444 @@ DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
 DIALECT_LAYERS = {"gemma3_1b": 13, "llama3p2_1b": 8, "qwen2p5_1p5b": 14}
 DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
                  "qwen2p5_1p5b": "Qwen2.5-1.5B"}
+
+
+# The parallel phase: two ranks on the one card over gloo (NCCL keeps one rank
+# a device; gloo takes these collectives on CUDA tensors,
+# tools/collective_probe.py), each leg through TextTrainer in a launcher's
+# world that the trainer joins itself, its first two steps against the same
+# trainer at world size 1. Both world sizes read the same documents at each
+# step: a corpus of one global batch of PARALLEL_DOC-token documents, four
+# filling each row exactly, so each step is an epoch of the same documents
+# however the rows are split over ranks or micro-batches. The floor of the
+# comparison (``--phases parallel_floor``) is the world-1 trainer against
+# itself with each step's rows split into two gradient-accumulation
+# micro-batches (the same update, other GEMM shapes and summation order; the
+# MoE without its balance term, which a micro-batch computes over its own
+# tokens), against itself on the corpus in reverse order (each step the same
+# documents, other rows) and with both, each on three corpora. A step-2 gap
+# is one draw of a heavy-tailed spread (Adam's first update, and in the MoE
+# the routing it flips), so the floor is the largest of the nine draws.
+# PARALLEL_TOL is 4x it, rounded up (PERF.md §6). The balance loss has only
+# the reverse order's draws and is held at step 1, where both world sizes
+# compute it on the same weights: at step 2 it reads weights that the step-1
+# update's rounding already moved (Adam's first update turns a near-zero
+# gradient's rounding into +-lr), which the loss and grad norm hold.
+PARALLEL_STEPS = 2
+PARALLEL_SEQ = 4096
+PARALLEL_DOC = 1024
+PARALLEL_MOE_LAYERS = 2
+PARALLEL_LEGS = {
+    # Qwen3-0.6B at full depth, 4 rows, ulysses 2 (dp 1: both ranks read the
+    # same rows; each keeps half of every row's sequence and, after the
+    # all-to-all, 8 of 16 q heads and 4 of 8 kv heads): step 1 and a
+    # checkpoint there, then a fresh trainer restores it and runs step 2
+    "dense": dict(rows=4, rank_rows=4, resume=True,
+                  flags=("--train.ulysses_parallel_size=2",)),
+    # Qwen3-30B-A3B widths, 2 rows, ep 2 = dp 2 (one row a rank, 64 of 128
+    # experts a rank, dropless buckets); cut to PARALLEL_MOE_LAYERS (the MoE
+    # phase runs 4): at 4 two ranks ran the card out of memory
+    "moe": dict(rows=2, rank_rows=1, resume=False,
+                flags=("--train.expert_parallel_size=2",)),
+}
+# floors (largest of nine draws): dense loss 9.09e-6, grad norm 2.87e-4; MoE
+# loss 4.01e-5, grad norm 9.95e-4, balance loss 5.56e-5
+PARALLEL_TOL = {"dense": {"loss": 3.7e-5, "grad_norm": 1.2e-3},
+                "moe": {"moe_aux_loss": 2.3e-4, "loss": 1.7e-4, "grad_norm": 4e-3}}
+PARALLEL_AUX_STEP = 1  # the step whose balance loss is held
+PARALLEL_FLOOR_SEEDS = (0, 1, 2)  # the floor's corpora (the legs read seed 0's)
+PARALLEL_YAML = """
+model:
+  config_overrides: {model}
+data:
+  train_path: {data}
+  data_type: pretokenized
+  max_seq_len: {seq}
+  samples_per_micro_batch: {docs}
+train:
+  micro_batch_size: {rows}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  lr_decay_style: cosine
+  enable_full_determinism: true
+  seed: 0
+  save_hf_weights: false
+  prefetch_depth: 0
+  log_steps: 1
+"""
+
+
+def parallel_models() -> dict:
+    """{leg: the model's config_overrides}: the trainer phase's Qwen3-0.6B
+    (tools/trainer_profile.py) and, on its fields, Qwen3-30B-A3B's published
+    widths at PARALLEL_MOE_LAYERS layers."""
+    import yaml
+
+    from veomni_tpu_torch.tools.trainer_profile import TRAINER_YAML
+    from veomni_tpu_torch.train_text_step import BENCH_PRESETS
+
+    dense = yaml.safe_load(TRAINER_YAML.format(data="corpus.jsonl", steps=1, seed=0))["model"][
+        "config_overrides"]
+    return {"dense": dense, "moe": {**dense, **BENCH_PRESETS[MOE_PRESET],
+                                    "num_hidden_layers": PARALLEL_MOE_LAYERS}}
+
+
+def write_parallel_run(tmp: str, leg: str, model: dict, rows: int, *, seq: int = PARALLEL_SEQ,
+                       doc: int = PARALLEL_DOC, steps: int = PARALLEL_STEPS,
+                       reverse: bool = False, seed: int = 0) -> str:
+    """A leg's corpus (one global batch: ``rows`` x seq/doc documents of
+    exactly ``doc`` tokens, uniform over the vocabulary, from ``seed``; in
+    reverse order with ``reverse``) and YAML under ``tmp``; returns the
+    YAML's path."""
+    import yaml
+
+    rng = np.random.default_rng(seed)
+    docs = [rng.integers(0, model["vocab_size"], doc).tolist()
+            for _ in range(rows * (seq // doc))]
+    name = f"{leg}{'_reversed' if reverse else ''}"
+    data = os.path.join(tmp, f"{name}.jsonl")
+    with open(data, "w") as f:
+        for ids in docs[::-1] if reverse else docs:
+            f.write(json.dumps({"input_ids": ids}) + "\n")
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        f.write(PARALLEL_YAML.format(model=yaml.safe_dump(model, default_flow_style=True,
+                                                         width=1 << 20).strip(),
+                                     data=data, seq=seq,
+                                     docs=seq // doc, rows=rows, steps=steps))
+    return path
+
+
+def parallel_train(cfg_path: str, flags, *, stop_at=None, checkpoints: bool = True,
+                   final_save: bool = True, digest: bool = False, first_step=None):
+    """TextTrainer from ``cfg_path`` and ``flags`` (the launcher's world,
+    where there is one, joined by the trainer itself), trained: (trainer,
+    {step: loss, grad_norm, moe_aux_loss, step_ok}, its first step, the
+    state digest after on_train_begin (a restore included) or None).
+    ``stop_at`` stops it after that step; without ``checkpoints`` it saves
+    and restores nothing, without ``final_save`` it skips the save at train
+    end; ``first_step(trainer)`` is called before step 1."""
+    from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
+    from veomni_tpu_torch.trainer import TextTrainer
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+
+    records, begin = {}, {}
+
+    class Record(Callback):
+        def on_train_begin(self, trainer, state):
+            begin["step"] = state.global_step
+            begin["digest"] = state_digest(trainer.train_state) if digest else None
+
+        def on_step_begin(self, trainer, state):
+            if first_step is not None and state.global_step == 0:
+                first_step(trainer)
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            records[state.global_step] = {k: float(m[k]) for k in (
+                "loss", "grad_norm", "moe_aux_loss", "step_ok") if k in m}
+            if state.global_step == stop_at:
+                state.should_stop = True
+
+    trainer = TextTrainer(parse_args(VeOmniArguments, [cfg_path, *flags]))
+    for cb in trainer.callbacks:
+        if isinstance(cb, CheckpointCallback) and not final_save:
+            cb.on_train_end = lambda trainer, state: None  # its state is not read
+    if not checkpoints:
+        trainer.callbacks = [cb for cb in trainer.callbacks
+                             if not isinstance(cb, CheckpointCallback)]
+    trainer.callbacks.append(Record())
+    trainer.train()
+    trainer.checkpointer.close()
+    return trainer, records, begin["step"], begin["digest"]
+
+
+def parallel_ranks(rank: int, world: int, payload: dict) -> dict:
+    """A rank of the parallel phase: each leg of ``payload["legs"]`` in turn
+    through ``parallel_train``, its memory freed between. A resumed leg
+    trains step 1 and saves it, then a fresh trainer restores the
+    checkpoint (its state digest held against the saved one) and trains
+    step 2; the census counts the first trainer's step only. Returns, a
+    leg: the records, the kernels' launches and plain dispatches, the
+    collective census of step 1 beside the plan's reckoning, the backend
+    and device the trainer chose, the send/recv calls staged through the
+    host, the mesh coordinates and peak device memory."""
+    from veomni_tpu_torch.observability.comm import get_comm_census, plan_step_bytes
+    from veomni_tpu_torch.observability.metrics import get_registry
+    from veomni_tpu_torch.parallel import functional
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+
+    reg = get_registry()
+    out = {}
+    for leg, run in payload["legs"].items():
+        t0 = time.perf_counter()
+        reset_all_counts()
+        staged0 = functional.HOST_STAGED_CALLS
+        spans0 = {n: reg.histogram_sum(f"span.ckpt.{n}") for n in ("save", "wait", "restore")}
+        flags = [*run["flags"], f"--train.output_dir={run['out']}"]
+        os.environ["VEOMNI_COST_CENSUS"] = "1"
+        trainer, records, _, _ = parallel_train(
+            run["yaml"], flags + ["--train.save_steps=1"] if run["resume"] else flags,
+            stop_at=1 if run["resume"] else None, checkpoints=run["resume"])
+        if run["resume"]:
+            saved = state_digest(trainer.train_state)  # step 1's state, as saved
+        ps = trainer.parallel_state
+        a, b, s = trainer.current_batch["input_ids"].shape
+        s //= ps.sp_size
+        rec = get_comm_census().get("train_step", f"{a}x{b}x{s}")
+        res = {"census": dict(rec.bytes_by_kind) if rec is not None else {},
+               "plan": plan_step_bytes(trainer.layout, a, b, s),
+               "backend": torch.distributed.get_backend(), "device": str(trainer.device),
+               "sp_rank": ps.sp_rank(), "dp_rank": trainer.dataloader.dp_rank,
+               "dp_size": trainer.dataloader.dp_size}
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+        if run["resume"]:
+            # the restart: the census is off (its step would count again)
+            os.environ["VEOMNI_COST_CENSUS"] = "0"
+            trainer, more, first, restored = parallel_train(
+                run["yaml"], flags + ["--train.save_steps=0"], final_save=False, digest=True)
+            records.update(more)
+            step_dir = os.path.join(run["out"], "checkpoints", "global_step_1")
+            res["resume"] = {
+                "first_step": first, "digest_equal": restored == saved,
+                "digest_entries": len(saved),
+                "ckpt_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                  for d, _, files in os.walk(step_dir) for f in files),
+                **{f"{n}_s": reg.histogram_sum(f"span.ckpt.{n}") - v for n, v in spans0.items()}}
+            del trainer
+            destroy_parallel_state()
+            gc.collect()
+            torch.cuda.empty_cache()
+            os.environ["VEOMNI_COST_CENSUS"] = "1"
+        launches, fallbacks = read_counts()
+        res.update(records={str(k): v for k, v in records.items()}, launches=launches,
+                   fallbacks=fallbacks, host_staged=functional.HOST_STAGED_CALLS - staged0,
+                   peak_bytes=int(torch.cuda.max_memory_allocated())
+                   if torch.cuda.is_available() else 0, wall_s=time.perf_counter() - t0)
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        out[leg] = res
+    return out
+
+
+def parallel_launch_want(leg: str) -> dict:
+    """Launches of K1-K6 in one rank's PARALLEL_STEPS steps of a leg (``ctx``:
+    the attention is not rerun; the MoE layer's K4s are, in the recompute of
+    the post-attention block)."""
+    if leg == "dense":
+        n = LAYERS * PARALLEL_STEPS
+        return {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
+    n = PARALLEL_MOE_LAYERS * PARALLEL_STEPS
+    return {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n, "gmm_fwd": 6 * n,
+            "gmm_dlhs": 3 * n, "gmm_t": 3 * n}
+
+
+def parallel_world1(dev, yaml_path: str, out: str, rows: int, micro_rows=None, first_step=None):
+    """A leg's PARALLEL_STEPS steps through TextTrainer at world size 1,
+    ``rows`` a step in micro-batches of ``micro_rows`` (all of them by
+    default): {step: record}."""
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+
+    flags = [f"--train.output_dir={out}", f"--train.micro_batch_size={micro_rows or rows}",
+             f"--train.global_batch_size={rows}"]
+    was_deterministic = torch.are_deterministic_algorithms_enabled()
+    try:
+        trainer, records, _, _ = parallel_train(yaml_path, flags, checkpoints=False,
+                                                first_step=first_step)
+    finally:
+        torch.use_deterministic_algorithms(was_deterministic)
+    del trainer
+    destroy_parallel_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records
+
+
+def parallel_rel(got: dict, ref: dict, key: str) -> float:
+    return abs(got[key] / ref[key] - 1)
+
+
+def phase_parallel_floor(dev, card):
+    """The floors of the parallel phase's comparison (not in a whole run):
+    each leg's world-1 trainer against itself (a) with each step's rows in
+    two gradient-accumulation micro-batches, (b) on the corpus in reverse
+    order and (c) both, on the corpora of PARALLEL_FLOOR_SEEDS; for each,
+    the largest relative gap over PARALLEL_STEPS steps of the loss, the grad
+    norm and the balance loss, then the largest over all. A micro-batch
+    computes the balance loss over its own tokens, another function, so (a)
+    and (c) run the MoE without the balance term (router_aux_loss_coef 0)
+    and read no balance loss."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_floor_")
+    try:
+        for leg, model in parallel_models().items():
+            rows, keys = PARALLEL_LEGS[leg]["rows"], list(PARALLEL_TOL[leg])
+            split_model = dict(model, router_aux_loss_coef=0.0) if "num_experts" in model \
+                else model
+            split_keys = [k for k in keys if k != "moe_aux_loss"]
+            worst = {}
+            for seed in PARALLEL_FLOOR_SEEDS:
+                def run(name, mdl, micro_rows=None, reverse=False):
+                    d = os.path.join(tmp, f"{leg}-{seed}-{name}")
+                    os.makedirs(d)
+                    path = write_parallel_run(d, leg, mdl, rows, reverse=reverse, seed=seed)
+                    return parallel_world1(dev, path, os.path.join(d, "out"), rows, micro_rows)
+
+                base = run("base", model)
+                split_base = run("no_aux", split_model) if split_model is not model else base
+                pairs = {"two micro-batches": (split_base, run("two", split_model, rows // 2),
+                                               split_keys),
+                         "reverse order": (base, run("reverse", model, reverse=True), keys),
+                         "both": (split_base, run("both", split_model, rows // 2,
+                                                  reverse=True), split_keys)}
+                for name, (ref, got, ks) in pairs.items():
+                    gaps = {k: [parallel_rel(got[i], ref[i], k)
+                                for i in range(1, PARALLEL_STEPS + 1)] for k in ks}
+                    log(f"parallel floor {leg}, corpus seed {seed}, {name}: rel gaps at steps "
+                        f"1-{PARALLEL_STEPS} "
+                        f"{ {k: [f'{x:.3e}' for x in v] for k, v in gaps.items()} }")
+                    for k, v in gaps.items():
+                        worst[k] = max(worst.get(k, 0.0), *v)
+            log(f"parallel floor {leg}: largest rel gap over every draw "
+                f"{ {k: f'{v:.3e}' for k, v in worst.items()} }, 4x "
+                f"{ {k: f'{4 * v:.3e}' for k, v in worst.items()} } [{card}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_parallel(dev, card):
+    """Two ranks on the card through the trainer (see PARALLEL_LEGS): loss
+    and grad norm at each step against world size 1 within PARALLEL_TOL,
+    both ranks agreeing, the dense leg's restart restoring the saved state
+    bit for bit, gloo chosen by the trainer for ranks that share the card,
+    K1-K6 launching in each rank as reckoned, no plain attention dispatch,
+    the collective census of a step equal by kind to the bytes the plan
+    reckons; then K1-K3 at a rank's Ulysses head layout on the dense batch
+    and K4-K6 at a rank's capacity-padded local expert groups, each against
+    its plain version. Returns ({path: launches summed over the ranks}, the
+    K1-K3 rows at the Ulysses layout)."""
+    from veomni_tpu_torch.parallel.launch import run_ranks
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        return parallel_legs(dev, card, tmp, run_ranks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def parallel_legs(dev, card, tmp, run_ranks):
+    models = parallel_models()
+    legs, ref, first = {}, {}, {}
+
+    def dense_batch(trainer):
+        first["seg"] = torch.from_numpy(trainer.current_batch["segment_ids"][0]).to(dev)
+
+    def moe_groups(trainer):  # rank 0's local groups at ep 2 on the init weights
+        model = trainer.train_state.model
+        batch = {k: torch.from_numpy(v[0]).to(dev) for k, v in trainer.current_batch.items()}
+        counts = layer0_expert_counts(model, batch).cpu()
+        ep, k = 2, model.cfg.num_experts_per_tok
+        sizes = counts[:model.cfg.num_experts // ep].clone()
+        # each source rank sends every destination cap = t_loc x k slots
+        # (dropless); the empty ones go to the last local expert, zeroed
+        sizes[-1] += ep * PARALLEL_LEGS["moe"]["rank_rows"] * PARALLEL_SEQ * k - sizes.sum()
+        first["sizes"] = sizes
+
+    for leg, opts in PARALLEL_LEGS.items():
+        yaml_path = write_parallel_run(tmp, leg, models[leg], opts["rows"])
+        ref[leg] = parallel_world1(dev, yaml_path, os.path.join(tmp, f"{leg}1"), opts["rows"],
+                                   first_step=dense_batch if leg == "dense" else moe_groups)
+        legs[leg] = {"yaml": yaml_path, "out": os.path.join(tmp, f"{leg}2"),
+                     "resume": opts["resume"],
+                     "flags": [*opts["flags"], f"--train.micro_batch_size={opts['rank_rows']}"]}
+    t0 = time.perf_counter()
+    ranks = run_ranks(2, "chip_smoke:parallel_ranks", {"legs": legs}, device="cuda",
+                      timeout=600, join=False,
+                      env={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    log(f"parallel: two ranks on the card in {time.perf_counter() - t0:.1f} s "
+        f"(startup and both legs) [{card}]")
+    by_path = {}
+    for leg in PARALLEL_LEGS:
+        r0 = ranks[0][leg]
+        kinds = sorted(r0["census"])
+        staged = sum(r[leg]["host_staged"] for r in ranks)
+        log(f"parallel {leg}: {r0['wall_s']:.1f} s on rank 0 with the trainers' builds; "
+            f"transport: {r0['backend']} on {r0['device']} tensors ({', '.join(kinds)}), "
+            f"{staged} send/recv calls staged through the host")
+        if any(r[leg]["backend"] != "gloo" for r in ranks):
+            raise AssertionError(f"parallel {leg}: two ranks on one card joined over "
+                                 f"{[r[leg]['backend'] for r in ranks]}, not gloo")
+        tol = PARALLEL_TOL[leg]
+        for i in range(1, PARALLEL_STEPS + 1):
+            got = [r[leg]["records"][str(i)] for r in ranks]
+            want = ref[leg][i]
+            if got[0] != got[1]:
+                raise AssertionError(f"parallel {leg} step {i}: the ranks disagree: {got}")
+            if not all(math.isfinite(g["loss"]) and g["step_ok"] for g in got):
+                raise AssertionError(f"parallel {leg} step {i}: not finite: {got}")
+            rel = {k: parallel_rel(got[0], want, k) for k in tol}
+            if i != PARALLEL_AUX_STEP:
+                rel.pop("moe_aux_loss", None)
+            log(f"parallel {leg} step {i}: "
+                + ", ".join(f"{k}={got[0][k]:.9f} (world 1 {want[k]:.9f}, "
+                            + (f"rel {rel[k]:.3e}, limit {tol[k]:.1e})" if k in rel else
+                               f"rel {parallel_rel(got[0], want, k):.3e}, not held)")
+                            for k in tol))
+            if rel.get("moe_aux_loss", 0.0) > tol.get("moe_aux_loss", 1.0):
+                raise AssertionError(f"parallel {leg} step {i}: moe_aux_loss world 2 against "
+                                     f"world 1 rel {rel['moe_aux_loss']:.3e} over "
+                                     f"{tol['moe_aux_loss']}")
+            bad = {k: v for k, v in rel.items() if v > tol[k]}
+            if bad:
+                raise AssertionError(f"parallel {leg} step {i}: world 2 against world 1 "
+                                     f"{bad} over {tol}")
+        want = parallel_launch_want(leg)
+        total = {}
+        for rank, r in enumerate(ranks):
+            r = r[leg]
+            check_counts(r["launches"], r["fallbacks"], want, f"parallel {leg} rank {rank}")
+            for name, n in r["launches"].items():
+                total[name] = total.get(name, 0) + n
+            log(f"parallel {leg} rank {rank}: sp_rank {r['sp_rank']}, dp_rank {r['dp_rank']} "
+                f"of {r['dp_size']}, launches {r['launches']}, FALLBACK_CALLS "
+                f"{r['fallbacks']}, peak {r['peak_bytes'] / 2**30:.2f} GiB; collective census "
+                f"of step 1 (bytes by kind) {r['census']}, the plan's reckoning {r['plan']}")
+            if r["census"] != r["plan"]:
+                raise AssertionError(f"parallel {leg} rank {rank}: census {r['census']} != "
+                                     f"the plan's {r['plan']}")
+            if "resume" in r:
+                z = r["resume"]
+                log(f"parallel {leg} rank {rank}: checkpoint of step 1 ({z['ckpt_bytes'] / 1e9:.3f}"
+                    f" GB on rank {rank}'s view of the disk; save {z['save_s'] + z['wait_s']:.2f}"
+                    f" s, restore {z['restore_s']:.2f} s); the restart began at step "
+                    f"{z['first_step']} with {'the saved' if z['digest_equal'] else 'ANOTHER'} "
+                    f"state ({z['digest_entries'] - 1} tensors and the update count)")
+                if z["first_step"] != 1 or not z["digest_equal"]:
+                    raise AssertionError(f"parallel {leg} rank {rank}: the restart did not "
+                                         f"restore step 1's state: {z}")
+        if {r[leg]["dp_rank"] for r in ranks} != ({0} if leg == "dense" else {0, 1}):
+            raise AssertionError(f"parallel {leg}: dp ranks {[r[leg]['dp_rank'] for r in ranks]}")
+        by_path[f"parallel_{leg}"] = total
+    # the kernels at the shapes a rank gives them: K1-K3 on the dense leg's
+    # first batch (each rank attends over every row's whole sequence)
+    ulysses = phase_flash(dev, first["seg"], 8, 4, "Qwen3-0.6B, a rank's heads under ulysses 2")
+    torch.cuda.empty_cache()
+    sizes = first["sizes"]
+    log(f"parallel moe: rank 0's local expert groups, layer 0, first batch (routed at world 1 "
+        f"on the same weights and rows): {int(sizes.sum())} rows over {sizes.numel()} experts, "
+        f"the last one holding {int(sizes[-1])} (its own plus the zeroed empty slots), "
+        f"{int((sizes == 0).sum())} empty")
+    gmm_case(dev, sizes, 2048, 768, "EP rank 0 local experts, gate/up: K=2048 N=768",
+             timed=True)
+    gmm_case(dev, sizes, 768, 2048, "EP rank 0 local experts, down: K=768 N=2048")
+    torch.cuda.empty_cache()
+    return by_path, ulysses
 
 
 def random_model(dev, cfg, seed: int = 0):
@@ -4073,15 +4543,18 @@ def post_dpo_lora(dev, card, tmp: str):
 
 
 SERVE_DENSE_PRESET = "qwen3_0p6b"
-# the dense phase's five legs run 16 requests (32 until the remat and int8
-# serving phases joined the script), decode 64 new tokens a request and hold
-# 3 prompts against greedy_generate (its contiguous loop); 128 and 8 until
-# the gpt-oss phases joined the script: cut to keep the whole run near
-# 1000 s of its 1200
-SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=16, wave=8, wave_ticks=4,
+# the dense phase's five legs run 8 requests (16 until the parallel phase
+# joined the script, 32 until the remat and int8 serving phases did), decode
+# 64 new tokens a request and hold 3 prompts against greedy_generate (its
+# contiguous loop); 128 and 8 until the gpt-oss phases joined the script:
+# cut to keep the whole run near 1000 s of its 1200
+SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                    prompt=(64, 1536), shared_prefix=512, max_new=64)
 SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                  prompt=(64, 1024), shared_prefix=0, max_new=64)
+# 24 of Qwen3-30B-A3B's 48 layers (all 48 until the parallel phase ran through
+# the trainer): a decode tick's time is its layers'
+SERVE_MOE_LAYERS = 24
 SERVE_CHUNK = 512
 SERVE_GREEDY_PROMPTS = 3
 SERVE_SPEC_K = 4
@@ -4616,8 +5089,8 @@ def gmm_fwd_rows(dev, sizes, tag, widths=QWEN3_MOE_WIDTHS):
 
 
 def phase_serve_moe(dev, card):
-    """The serving main path at Qwen3-30B-A3B, full width and all 48 layers
-    (bf16 weights, no master copy): leg (a) with K4 on every MoE layer of
+    """The serving main path at Qwen3-30B-A3B, full width and SERVE_MOE_LAYERS
+    of its 48 layers (bf16 weights, no master copy): leg (a) with K4 on every MoE layer of
     every prefill chunk and decode step; then K4 alone at the serving
     shapes. Between them, the int8 tiers' quality gate and one int8 engine
     leg (kv and weights, SERVE_MOE_QUANT_REQUESTS requests). Returns
@@ -4632,12 +5105,12 @@ def phase_serve_moe(dev, card):
         raise AssertionError(f"serve moe: {held / 2**30:.2f} GiB still allocated by earlier phases")
     host_state("serve moe")
     spec = SERVE_MOE
-    cfg = bench_config(MOE_PRESET, param_dtype="bfloat16")
+    cfg = bench_config(MOE_PRESET, param_dtype="bfloat16", num_hidden_layers=SERVE_MOE_LAYERS)
     t0 = time.perf_counter()
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"serve moe: Qwen3-30B-A3B, {cfg.num_hidden_layers} layers, {n_params / 1e9:.2f} B "
+    log(f"serve moe: Qwen3-30B-A3B, {cfg.num_hidden_layers} of 48 layers, {n_params / 1e9:.2f} B "
         f"parameters in bf16 ({torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB) made on the "
         f"card from seed {SEED} in {time.perf_counter() - t0:.1f} s; {spec['slots']} slots, "
         f"block {spec['block']}, max_model_len {spec['max_model_len']}; {spec['requests']} "
@@ -5814,7 +6287,7 @@ def int8_legs(model, cfg, dev, card, prompts, spec, tag, modes, *, spread, want=
 def phase_serve_quant(dev, card):
     """The int8 tiers at Qwen3-0.6B, all 28 layers in bf16: the quality
     gate (noise floor first), the bounds on the toys where the floor breaks
-    them, then the engine over 16 of SERVE_DENSE's requests in each int8
+    them, then the engine over SERVE_DENSE's 8 requests in each int8
     mode, and the capacity the int8 pool buys. Returns the legs' launches
     (none: the dense decode path runs no hand kernel)."""
     from veomni_tpu_torch.models import Transformer
@@ -5852,7 +6325,8 @@ def phase_serve_quant(dev, card):
     return launches
 
 
-ROUTER_SPEC = dict(SERVE_DENSE, slots=8, requests=16, wave=8, max_new=24)
+# 8 requests in waves of 4 (16 and 8 until the parallel phase joined the script)
+ROUTER_SPEC = dict(SERVE_DENSE, slots=8, requests=8, wave=4, max_new=24)
 ROUTER_BURST_LEN = 640  # probation bursts: the shared prefix and 128 tokens
 # the hang drill's wedge deadline: at 1 s healthy replicas were declared
 # wedged too (a tick on one shared card with a respawn's weight copy on the
@@ -5939,14 +6413,15 @@ def write_generation(dev, cfg, root: str, step: int, seed: int):
     return os.path.join(root, f"global_step_{step}"), model
 
 
-# the chaos soak over the router phase's two replicas: a kill at 1.84 s and
-# a publish at 5.45 s of an 8 s storm, two 20 ms delays (seed 6 of
-# build_chaos_plan with these counts); 24 requests at once, then 16 spread
-# over 0.5-6 s, 24 new tokens each
+# the chaos soak over the router phase's two replicas: a kill at 0.92 s and
+# a publish at 2.72 s of a 4 s storm, two 20 ms delays (seed 6 of
+# build_chaos_plan with these counts); 12 requests at once, then 8 spread
+# over 0.5-3 s, 24 new tokens each (halved with the storm when the parallel
+# phase joined the script: 40 requests over 8 s took ~25 s)
 CHAOS_SEED = 6
-CHAOS_PLAN = dict(duration_s=8.0, kills=1, hangs=0, delays=2, exceptions=0, publishes=1,
+CHAOS_PLAN = dict(duration_s=4.0, kills=1, hangs=0, delays=2, exceptions=0, publishes=1,
                   expected_ticks=200)
-CHAOS_BURST, CHAOS_SPREAD = 24, 16
+CHAOS_BURST, CHAOS_SPREAD = 12, 8
 
 
 def router_exporter_and_soak(router, model, cfg, card):
@@ -5981,7 +6456,7 @@ def router_exporter_and_soak(router, model, cfg, card):
     prompts = serve_traffic(cfg.vocab_size, dict(SERVE_DENSE, requests=CHAOS_BURST
                                                  + CHAOS_SPREAD), seed=2)
     reqs = router_requests(prompts, ROUTER_SPEC["max_new"])
-    arrivals = [0.0] * CHAOS_BURST + [0.5 + 5.5 * i / CHAOS_SPREAD for i in range(CHAOS_SPREAD)]
+    arrivals = [0.0] * CHAOS_BURST + [0.5 + 2.5 * i / CHAOS_SPREAD for i in range(CHAOS_SPREAD)]
     payload = host_state(model)
     redispatched = router.metrics()["redispatched"]
     census = census_mark()
@@ -6337,8 +6812,9 @@ def main(argv=None) -> int:
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
                          "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
                          "hf_trainer_qwen2_5_vl, moe (with the MoE monitor), post_training, "
-                         "remat, serve_quant, serve_router, infer_text, vlm_witness (a "
-                         "measurement outside the whole run), and before them main "
+                         "remat, serve_quant, serve_router, infer_text, parallel (two ranks "
+                         "on the card), vlm_witness and parallel_floor (measurements "
+                         "outside the whole run), and before them main "
                          "(the dense loop) or trainer; such a partial run prints no result "
                          "line")
     args = ap.parse_args(argv)
@@ -6381,7 +6857,8 @@ def main(argv=None) -> int:
                   "moe": phase_moe_main, "post_training": phase_post_training,
                   "remat": phase_remat, "serve_quant": phase_serve_quant,
                   "serve_router": phase_serve_router, "infer_text": phase_infer_text,
-                  "vlm_witness": phase_vlm_witness}
+                  "vlm_witness": phase_vlm_witness, "parallel": phase_parallel,
+                  "parallel_floor": phase_parallel_floor}
         for name in names:
             t0 = time.perf_counter()
             phases[name](dev, card)
@@ -6478,6 +6955,16 @@ def run_phases(dev, card, hf_tmp, infer) -> int:
     phase_parity(dev)
     phase_moe_parity(dev)
     lap = lap_clock("parity", lap)
+    # the parallel layer: two ranks on the card (K1-K3 at D 128 in the dense
+    # leg, K4-K6 and K1-K3 in the MoE one)
+    paths, ulysses_rows = phase_parallel(dev, card)
+    for path, launches in paths.items():
+        by_path[path] = (launches, 128, None)
+    for row, uly in zip(flash, ulysses_rows):
+        row["ulysses_layout"] = {k: uly[k] for k in LAYOUT_KEYS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap = lap_clock("parallel", lap)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the dialect phases")
@@ -6566,7 +7053,7 @@ def run_phases(dev, card, hf_tmp, infer) -> int:
     # moe_micro_batch_1 (at Hq=32, Hkv=4 on its first row alone), for D=64
     # micro_batch_1; grouped GEMM K4-K6: k, n and layout
     extra = ("head_dim", "k", "n", "layout", "single_segment_ms", "moe_layout",
-             "moe_micro_batch_1", "micro_batch_1")
+             "moe_micro_batch_1", "micro_batch_1", "ulysses_layout")
     print(json.dumps({"kernels": [{k: row[k] for k in keys + extra if k in row}
                                   for row in table]}), flush=True)
     print(card, flush=True)

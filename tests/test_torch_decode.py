@@ -416,11 +416,12 @@ def test_unsupported_configs_raise():
     # sliding windows and biases are ported (tests/test_torch_dialects.py),
     # the deepseek MoE pieces without MLA (sigmoid and group-limited
     # routing, shared experts, leading dense layers), gpt_oss, the
-    # offloading remat and chunk_mbs (training knobs the decode path does
-    # not read); ulysses_async_chunks and the output gate are not
+    # offloading remat, chunk_mbs and the async Ulysses chunks (training
+    # knobs the decode path does not read); the output gate is not
     tdec.check_decode_supported(TransformerConfig(**DEEPSEEK_MOE))
-    for extra in (dict(remat_policy="offload"), dict(chunk_mbs=64)):
+    for extra in (dict(remat_policy="offload"), dict(chunk_mbs=64),
+                  dict(ulysses_async_chunks=2)):
         tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **extra}))
-    for extra in (dict(ulysses_async_chunks=2), dict(QWEN3_MOE, attn_output_gate=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **extra}))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tdec.check_decode_supported(TransformerConfig(**{**QWEN3, **QWEN3_MOE,
+                                                         "attn_output_gate": True}))

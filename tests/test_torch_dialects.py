@@ -189,7 +189,7 @@ def test_windowed_layers_take_the_plain_dispatch():
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("extra,item", [
     (dict(remat_policy="dots"), None),
-    (dict(ulysses_async_chunks=2), "slice C"),
+    (dict(ulysses_async_chunks=2), None),
     (dict(linear_num_value_heads=4), "slice F"),
     (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8,
           index_topk=4), "slice F"),
@@ -201,7 +201,8 @@ def test_windowed_layers_take_the_plain_dispatch():
         "output-gate", "chunk-mbs", "remat-offload"])
 def test_unported_features_name_their_queue_item(extra, item):
     """Each unported feature raises naming its queue item; the remat
-    policies and chunk_mbs (item None) are ported and pass the gate."""
+    policies, chunk_mbs and the async Ulysses chunks (item None) are ported
+    and pass the gate."""
     from veomni_tpu_torch.models.transformer import check_supported
 
     cfg = TransformerConfig(**{**DIMS, **extra})

@@ -118,8 +118,11 @@ def test_collator_batches_match_jax(family, seq_len):
             assert_same_sample(got, want)
     with pytest.raises(ValueError, match="exceeds max_patches"):
         getattr(tmm, name)(64, 3, tcfg, 32)(samples[3:6])
-    with pytest.raises(NotImplementedError, match="slice C"):
-        getattr(tmm, name)(64, 2, tcfg, 128, per_row=True)
+    # the per-row patch budgets of a batch split over ranks, key by key too
+    for start in range(0, len(samples) - 1, 2):
+        got = getattr(tmm, name)(seq_len, 2, tcfg, 128, per_row=True)(samples[start:start + 2])
+        want = getattr(jmm, name)(seq_len, 2, jcfg, 128, per_row=True)(samples[start:start + 2])
+        assert_same_sample(got, want)
 
 
 @pytest.fixture(scope="module")

@@ -26,9 +26,10 @@
 * The feature gate raises ``NotImplementedError`` naming each knob whose
   module is not ported yet and admits the ported ones (the eval loop, the
   channel loss and W&B among them since the post-training slice; every
-  optimizer, the numerics observatory and the exporter since slice E);
-  ``train.platform`` other than cpu/cuda and a launcher asking for several
-  processes raise too.
+  optimizer, the numerics observatory and the exporter since slice E, the
+  multi-process knobs since slice C); ``train.platform`` other than
+  cpu/cuda raises, a mesh larger than the one process's world raises the
+  reference's size error, and the launcher's environment names the rank.
 """
 
 import dataclasses
@@ -332,8 +333,6 @@ train:
 
 GATED = [
     ("data", "data_type", "qwen2_5_vl", "data.data_type 'qwen2_5_vl'"),
-    ("train", "num_virtual_devices", 4, "train.num_virtual_devices"),
-    ("train", "ulysses_async", True, "train.ulysses_async"),
 ]
 
 
@@ -362,6 +361,9 @@ PORTED = [
     ("train", "optimizer", "sgd", "train.optimizer 'sgd'"),
     ("train", "observability_numerics_interval", 5, "train.observability_numerics_interval"),
     ("train", "observability_port", 9100, "train.observability_port"),
+    # slice C: the multi-process mesh (tests/test_torch_parallel_*.py)
+    ("train", "num_virtual_devices", 4, "train.num_virtual_devices"),
+    ("train", "ulysses_async", True, "train.ulysses_async"),
 ]
 
 
@@ -375,18 +377,39 @@ def test_gate_admits_ported_knob(tmp_path, section, knob, value, name):
 @pytest.mark.parametrize("knob", ["ulysses_parallel_size", "expert_parallel_size",
                                   "tensor_parallel_size", "data_parallel_shard_size"])
 def test_parallel_sizes_above_one_raise(tmp_path, knob):
+    """One process is a world of one rank: a mesh of two raises the
+    reference's size error (the mesh itself runs over several processes,
+    tests/test_torch_parallel_*.py)."""
     _write_dummy_data(tmp_path / "data.jsonl")
-    with pytest.raises(NotImplementedError, match="slice C"):
+    with pytest.raises(ValueError, match="world size 1 not divisible by 2|!= device count 1|"
+                       "ep_size 2 must divide dp_shard 1"):
         TextTrainer(port_args(tmp_path, **{knob: 2}))
 
 
 def test_platform_and_launcher_guards(tmp_path, monkeypatch):
+    """``train.platform`` other than cpu/cuda raises; the launcher's
+    environment names this process's rank, world and rendezvous (the
+    reference's three ``VEOMNI_*`` variables or ``RANK``/``WORLD_SIZE``/
+    ``LOCAL_RANK``/``MASTER_*``), and one process joins no group."""
+    from veomni_tpu_torch.trainer.base import _launcher_world, maybe_initialize_distributed
+
     _write_dummy_data(tmp_path / "data.jsonl")
     with pytest.raises(ValueError, match="platform 'tpu'"):
         TextTrainer(port_args(tmp_path, platform="tpu"))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+              "VEOMNI_COORDINATOR_ADDRESS", "VEOMNI_AUTO_DISTRIBUTED"):
+        monkeypatch.delenv(k, raising=False)
+    assert _launcher_world() is None
+    assert maybe_initialize_distributed(torch.device("cpu")) == torch.device("cpu")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="world size 1"):
-        TextTrainer(port_args(tmp_path))
+    monkeypatch.setenv("RANK", "1")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.setenv("MASTER_PORT", "29555")
+    assert _launcher_world() == (1, 2, 1, "tcp://localhost:29555")
+    monkeypatch.setenv("VEOMNI_COORDINATOR_ADDRESS", "host0:1234")
+    monkeypatch.setenv("VEOMNI_NUM_PROCESSES", "4")
+    monkeypatch.setenv("VEOMNI_PROCESS_ID", "3")
+    assert _launcher_world() == (3, 4, 1, "tcp://host0:1234")
 
 
 def test_yaml_parses_to_the_reference_dataclasses(tmp_path):

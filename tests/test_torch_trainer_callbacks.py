@@ -361,9 +361,13 @@ def test_gate_admits_the_callbacks_and_refuses_other_slices(tmp_path):
     args.train.observability_numerics_interval = 5
     args.train.observability_port = 9100
     check_supported(args)
+    # slice C's knobs are ported too; a multimodal data type of slice F is not
+    args.train.ulysses_async = True
+    args.train.num_virtual_devices = 4
+    check_supported(args)
     for section, knob, value, name in (
-            ("train", "ulysses_async", True, "slice C"),
-            ("train", "num_virtual_devices", 4, "slice C")):
+            ("data", "data_type", "qwen3_vl", "slice F"),
+            ("data", "data_type", "omni", "slice F")):
         bad = port_args(tmp_path)
         setattr(getattr(bad, section), knob, value)
         with pytest.raises(NotImplementedError, match=re.escape(name)):

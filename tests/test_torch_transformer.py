@@ -117,12 +117,12 @@ def test_unported_features_raise():
     (dict(kv_lora_rank=16, qk_nope_head_dim=8, qk_rope_head_dim=8, v_head_dim=8, index_topk=4),
      True),
     (dict(linear_num_value_heads=4), True), (dict(attn_output_gate=True), True),
-    (dict(chunk_mbs=64), False), (dict(ulysses_async_chunks=2), True),
+    (dict(chunk_mbs=64), False), (dict(ulysses_async_chunks=2), False),
 ], ids=["remat-dots", "remat-offload", "mla-dsa", "linear-attention", "output-gate",
         "chunk-mbs", "ulysses-async-chunks"])
 def test_unported_moe_features_raise(extra, raises):
-    """The unported features raise on a MoE config; the remat policies and
-    chunk_mbs (raises False) build."""
+    """The unported features raise on a MoE config; the remat policies,
+    chunk_mbs and the async Ulysses chunks (raises False) build."""
     cfg = TransformerConfig(**{**TOY, **MOE, **extra})
     if not raises:
         Transformer(cfg, torch.Generator(), device="cpu")

@@ -49,6 +49,8 @@ class DistributedDataloader:
         drop_last: bool = True,
         infinite: bool = False,
     ):
+        if not 0 <= dp_rank < dp_size:
+            raise ValueError(f"dp_rank {dp_rank} is not a position along {dp_size} dp shards")
         self.dataset = dataset
         self.collate_fn = collate_fn
         self.micro_batch_size = micro_batch_size

@@ -105,6 +105,8 @@ class DynamicBatchDataloader:
         self.warmup_steps = warmup_steps
         self.warmup_init_ratio = warmup_init_ratio
         self.seed = seed
+        if not 0 <= dp_rank < dp_size:
+            raise ValueError(f"dp_rank {dp_rank} is not a position along {dp_size} dp shards")
         self.dp_rank = dp_rank
         self.dp_size = dp_size
         self.infinite = infinite

@@ -4,11 +4,11 @@ transforms and the packed-patch collators.
 Port of the qwen-vl part of ``veomni_tpu/data/multimodal.py``: ``load_image``
 (``:27-45``), ``frames_to_qwen_patches`` and ``image_to_qwen_patches``
 (``:152-183``), the ``qwen2_vl``/``qwen2_5_vl`` transform (``:186-279``),
-the ``qwen2_5_vl_conversation`` transform (``:282-351``) and the packed mode
-of ``Qwen25VLCollator`` and ``Qwen2VLCollator`` (``:354-542``). The slot
+the ``qwen2_5_vl_conversation`` transform (``:282-351``) and
+``Qwen25VLCollator`` and ``Qwen2VLCollator`` (``:354-542``). The slot
 VLM's ``build_vlm_transform``/``VLMCollator`` and ``Qwen3VLCollator`` wait
-for their models (ROADMAP.md slice F), and the per-row patch budgets of a
-batch split over processes for slice C: ``per_row`` raises.
+for their models (ROADMAP.md slice F). ``per_row`` is the per-row patch
+budgets of a batch split over ranks.
 
 Static shapes: each micro-batch row is one padded sample (no cross-sample
 packing of text), and every image of the micro-batch goes into ONE packed
@@ -229,7 +229,13 @@ def build_qwen25_vl_conversation_transform(tokenizer=None, *, vlm_config=None,
 class Qwen25VLCollator:
     """Pads samples to [B, S] text plus ONE packed, window-ordered patch
     sequence a micro-batch (the static ``max_patches`` budget) with the full
-    index plan (``vision_metadata``) and mrope position ids [B, 3, S]."""
+    index plan (``vision_metadata``) and mrope position ids [B, 3, S].
+
+    ``per_row=True`` is the per-row patch-budget layout of a batch split
+    over ranks (``:366-390``): each row gets its own ``max_patches //
+    micro_batch_size`` buffer and index plan, so the vision arrays gain a
+    row dim ([B, Pr, ...]) and the model flattens them with per-row offsets
+    (``models/qwen2_5_vl.py::flatten_per_row_vision``)."""
 
     def __init__(self, seq_len: int, micro_batch_size: int, vlm_config, max_patches: int,
                  sp_size: int = 1, per_row: bool = False, with_channels: bool = False):
@@ -238,15 +244,20 @@ class Qwen25VLCollator:
         unit = vlm_config.vision.merge_unit
         if max_patches % unit:
             raise ValueError(f"max_patches {max_patches} % merge_unit {unit} != 0")
-        if per_row:
-            raise NotImplementedError(
-                "per-row patch budgets come from a batch split over processes: multi-process "
-                "training is slice C of the port (ROADMAP.md queue 1)")
         self.seq_len = seq_len
         self.micro_batch_size = micro_batch_size
         self.cfg = vlm_config
+        self.per_row = per_row
         self.with_channels = with_channels
-        self.max_patches = max_patches
+        if per_row:
+            row = max_patches // micro_batch_size
+            row -= row % unit
+            if row <= 0:
+                raise ValueError(f"per-row budget {row} (= max_patches {max_patches} / "
+                                 f"micro_batch {micro_batch_size}) too small")
+            self.max_patches = row  # a row's budget in this layout
+        else:
+            self.max_patches = max_patches
 
     def _sync_grids(self, ids, lab, grids):
         """Keep grids and placeholder runs consistent after the seq_len cut:
@@ -280,8 +291,9 @@ class Qwen25VLCollator:
         return ids, lab, grids[:kept], sum(patch_counts[:kept])
 
     def _assemble_text(self, samples) -> Tuple[Dict[str, np.ndarray], np.ndarray, list]:
-        """(text arrays, the patch buffer [max_patches, patch_dim], the
-        micro-batch's grids in reading order)."""
+        """(text arrays, the patch buffer, the grids). Packed: the buffer
+        [max_patches, patch_dim] and the micro-batch's grids in reading
+        order; per row: [B, max_patches, patch_dim] and each row's grids."""
         b, s = self.micro_batch_size, self.seq_len
         vcfg = self.cfg.vision
         out = {
@@ -291,8 +303,8 @@ class Qwen25VLCollator:
         }
         if self.with_channels:
             out["channel_ids"] = np.full((b, s), -1, np.int32)
-        row_patches: List[Any] = []
-        all_grids: list = []
+        row_patches: List[Any] = [None] * b
+        row_grids: List[list] = [[] for _ in range(b)]
         total = 0
         for i, sample in enumerate(samples[:b]):
             ids = np.asarray(sample["input_ids"], np.int32)[:s]
@@ -301,12 +313,14 @@ class Qwen25VLCollator:
             ids, lab, grids, n_keep_patches = self._sync_grids(ids, lab, grids)
             if px is not None and n_keep_patches:
                 px = np.asarray(px)[:n_keep_patches]
-                if total + len(px) > self.max_patches:
-                    raise ValueError(f"micro-batch exceeds max_patches={self.max_patches}; raise "
+                used = len(px) if self.per_row else total + len(px)
+                if used > self.max_patches:
+                    scope = "row" if self.per_row else "micro-batch"
+                    raise ValueError(f"{scope} exceeds max_patches={self.max_patches}; raise "
                                      "data.max_patches or lower image resolution")
                 total += len(px)
-                row_patches.append(px)
-                all_grids += grids
+                row_patches[i] = px
+                row_grids[i] = grids
             shifted = np.concatenate([lab[1:], [IGNORE_INDEX]]).astype(np.int32)
             n = len(ids)
             out["input_ids"][i, :n] = ids
@@ -314,20 +328,41 @@ class Qwen25VLCollator:
             out["segment_ids"][i, :n] = 1
             if self.with_channels:
                 out["channel_ids"][i, :n] = int(sample.get("channel", -1))
+        if self.per_row:
+            px = np.zeros((b, self.max_patches, vcfg.patch_dim), np.float32)
+            for i, rp in enumerate(row_patches):
+                if rp is not None:
+                    px[i, : len(rp)] = rp
+            return out, px, row_grids
         px = np.zeros((self.max_patches, vcfg.patch_dim), np.float32)
-        if row_patches:
-            cat = np.concatenate(row_patches)
+        cat = [rp for rp in row_patches if rp is not None]
+        if cat:
+            cat = np.concatenate(cat)
             px[: len(cat)] = cat
-        return out, px, all_grids
+        return out, px, [g for row in row_grids for g in row]
+
+    def _plan(self, grids, vision_metadata):
+        """The index plan: one for the micro-batch, or each row's stacked."""
+        if not self.per_row:
+            return vision_metadata(grids, self.cfg.vision, self.max_patches)
+        metas = [vision_metadata(g, self.cfg.vision, self.max_patches) for g in grids]
+        return {k: np.stack([m[k] for m in metas]) for k in metas[0]}
+
+    def _flat(self, grids):
+        return [g for row in grids for g in row] if self.per_row else grids
 
     def __call__(self, samples: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
         from veomni_tpu_torch.models.qwen2_5_vl import mrope_position_ids, vision_metadata
 
         out, px, grids = self._assemble_text(samples)
         out["position_ids"] = mrope_position_ids(
-            out["input_ids"].astype(np.int64), grids, self.cfg).astype(np.int32)
-        meta = vision_metadata(grids, self.cfg.vision, self.max_patches)
-        out["pixel_values"] = px[meta["patch_gather"]]
+            out["input_ids"].astype(np.int64), self._flat(grids), self.cfg).astype(np.int32)
+        meta = self._plan(grids, vision_metadata)
+        if self.per_row:
+            out["pixel_values"] = np.take_along_axis(
+                px, meta["patch_gather"][..., None].astype(np.int64), axis=1)
+        else:
+            out["pixel_values"] = px[meta["patch_gather"]]
         out["vis_pos_hw"] = meta["pos_hw"]
         out["vis_seg_window"] = meta["seg_window"]
         out["vis_seg_full"] = meta["seg_full"]
@@ -346,8 +381,8 @@ class Qwen2VLCollator(Qwen25VLCollator):
 
         out, px, grids = self._assemble_text(samples)
         out["position_ids"] = mrope_position_ids(
-            out["input_ids"].astype(np.int64), grids, self.cfg).astype(np.int32)
-        meta = vision_metadata(grids, self.cfg.vision, self.max_patches)
+            out["input_ids"].astype(np.int64), self._flat(grids), self.cfg).astype(np.int32)
+        meta = self._plan(grids, vision_metadata)
         out["pixel_values"] = px
         out["vis_pos_hw"] = meta["pos_hw"]
         out["vis_seg"] = meta["seg"]

@@ -32,13 +32,16 @@ the adapter tree only. Here:
 
 As in the reference, ``scale`` is a leaf of the adapter tree, so it takes a
 gradient and the optimizer updates it (not decayed: it is 0-d). Its
-gradient is 0 while ``B`` is 0, at the first step. ``lora_parallel_plan_rules``
-(adapter sharding over ``ep``) belongs to the parallel layer, slice C.
+gradient is 0 while ``B`` is 0, at the first step. Over a mesh the plan's
+LoRA rules (``parallel/parallel_plan.py::lora_parallel_plan_rules``) split
+the expert adapters over ``ep``; :func:`merge_lora_params` copies the base,
+so the merged model keeps its experts' ep slice.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import json
 import os
@@ -194,9 +197,8 @@ def merge_lora_params(base: Transformer, adapters: LoraAdapters) -> Transformer:
     """A new model holding ``W + scale * A @ B`` for the adapted leaves and
     the base weights elsewhere: a second whole model on the base's device
     (:func:`save_merged_hf` writes the merged model without one)."""
-    merged = Transformer(base.cfg, None, device=base.embed_tokens.device)
-    for (_, dst), src in zip(merged.named_parameters(), base.parameters()):
-        dst.copy_(src)
+    # a copy of the base (over a mesh its experts keep their ep slice), trainable
+    merged = copy.deepcopy(base).requires_grad_(True)
     owners = stacked_leaves(merged)
     for path in adapters.paths:
         stacked = path.split(".")[0] in _STACKED

@@ -122,14 +122,16 @@ class FoundationModel:
     def loss_fn(self, module: torch.nn.Module, batch):
         return module.loss_fn(batch)
 
-    def load_hf(self, model_dir: str, *, device: DeviceLike = None) -> torch.nn.Module:
+    def load_hf(self, model_dir: str, *, device: DeviceLike = None,
+                experts: Optional[range] = None) -> torch.nn.Module:
         """Build the model on ``device`` with the weights of the HF
-        checkpoint in ``model_dir`` (no random init first)."""
+        checkpoint in ``model_dir`` (no random init first); ``experts``, a
+        text MoE's experts this rank holds, reads only theirs."""
         module = self._build(None, device)
         if self.is_vlm:
             self.module = self.vlm_family.load_hf_checkpoint(model_dir, module)
         else:
-            self.module = hf_io.hf_to_params(model_dir, self.config, module)
+            self.module = hf_io.hf_to_params(model_dir, self.config, module, experts=experts)
         return self.module
 
     def save_hf(self, out_dir: str, module: Optional[torch.nn.Module] = None) -> None:

@@ -298,7 +298,8 @@ class LazyHFTensors:
 @torch.no_grad()
 def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.nn.Module,
                  tensors: Optional[Dict[str, torch.Tensor]] = None,
-                 key_map: Optional[Callable[[str], Optional[str]]] = None) -> torch.nn.Module:
+                 key_map: Optional[Callable[[str], Optional[str]]] = None,
+                 experts: Optional[range] = None) -> torch.nn.Module:
     """Fill ``model``'s parameters (``models/transformer.py::Transformer``)
     from an HF checkpoint directory, or from ``tensors`` ({hf name: tensor}),
     one tensor at a time, converted to each parameter's dtype on its device.
@@ -306,7 +307,11 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
     the checkpoint is the embedding transposed (the reference's fallback);
     tensors left over are logged, as the reference does. ``key_map`` (the
     reference's, ``:162``) renames each checkpoint key to its text-model
-    name, or to None for a key this model does not read (a VLM's tower)."""
+    name, or to None for a key this model does not read (a VLM's tower).
+    ``experts``: under expert parallelism the experts this rank holds; the
+    per-expert tensors of the others are not read (their rows stay as they
+    are, for the plan to cut away), as the reference's EP-sliced reads
+    (``module_utils.py:530,867``)."""
     lazy = LazyHFTensors(None if tensors is not None else model_dir, tensors)
     mapped = {k: key_map(k) if key_map else k for k in lazy.keys()}
     alias = {re.sub(r"^model\.", "", m): k for k, m in mapped.items() if m is not None}
@@ -344,8 +349,12 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
             elif pname in _EXPERT_MAP:
                 tmpl = _EXPERT_MAP[pname]
                 for e in range(cfg.num_experts):
-                    put(param[e], fetch(f"layers.{i}.{tmpl.format(e=e)}", True),
-                        f"layers.{i}.{pname}[{e}]")
+                    name = f"layers.{i}.{tmpl.format(e=e)}"
+                    if experts is not None and e not in experts:
+                        if name in alias:
+                            lazy.mark_consumed(alias[name])
+                        continue
+                    put(param[e], fetch(name, True), f"layers.{i}.{pname}[{e}]")
             elif pname in _LAYER_MAP:
                 suffix, transpose = _LAYER_MAP[pname]
                 put(param, fetch(f"layers.{i}.{suffix}", transpose), f"layers.{i}.{pname}")

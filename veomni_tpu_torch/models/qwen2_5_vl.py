@@ -33,14 +33,16 @@ AdamW still decays them, as optax does behind the reference's
 remat policy (``ctx``: the attention kernels' forward is not rerun), where
 the reference checkpoints each block whole; the numbers are the same.
 
-Per-row vision batches (``flatten_per_row_vision``, ``:456``) run only when
-the reference's batch is split over processes; at world size 1 they raise,
-naming slice C. ``sequence_logprob_sums`` (``:532``) belongs to VLM-DPO
-(slice F) and is not here.
+Per-row vision batches (``flatten_per_row_vision``, ``:456``) come from a
+batch split over ranks (``trainer/vlm_trainer.py``). Under sequence
+parallelism the tower's attention runs without it and ``merged_hidden``
+keeps the rank's chunk of the merged sequence. ``sequence_logprob_sums``
+(``:532``) belongs to VLM-DPO (slice F) and is not here.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -52,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from veomni_tpu_torch import ops
 from veomni_tpu_torch.models.config import TransformerConfig
+from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none, use_parallel_state
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.models.transformer import init_params as init_text_params
 from veomni_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -317,7 +320,12 @@ class VisionBlock(nn.Module):
         text = self.text
 
         def attend(q, k, v):
-            return ops.attention(q, k, v, segment_ids=seg, causal=False)
+            # the tower's patches are the rank's whole micro-batch: its
+            # attention runs with sequence parallelism off, also when a remat
+            # backward recomputes it outside the caller's scope
+            ps = get_parallel_state_or_none()
+            with use_parallel_state(ps.without_sp()) if ps is not None else nullcontext():
+                return ops.attention(q, k, v, segment_ids=seg, causal=False)
 
         if not (text.remat and torch.is_grad_enabled()):
             return self._tail(x, attend(*self._qkv(x, cos, sin)))
@@ -430,12 +438,22 @@ def init_vision_params(tower: nn.Module, generator: torch.Generator, std: float)
 # ---------------------------------------------------------------------------
 
 def gather_packed_features(input_ids, feats, merged_mask, image_token_id: int,
-                           video_token_id: int):
+                           video_token_id: int, row_tokens: int = 0):
     """Packed per-token features [M, H] (image order) aligned with the
-    placeholder tokens of ``input_ids`` [B, S], in reading order over the
-    whole batch: (gathered [B*S, H], valid [B*S]) (``:409-437``)."""
+    placeholder tokens of ``input_ids`` [B, S]: (gathered [B*S, H], valid
+    [B*S]) (``:409-437``). ``row_tokens`` 0: the features cover the whole
+    batch in reading order. ``row_tokens`` R (the per-row budgets): they are
+    row-major [B*R, H], each row's placeholders indexing its own R slots."""
     m = feats.shape[0]
-    flat = ((input_ids == image_token_id) | (input_ids == video_token_id)).reshape(-1)
+    is_vis = (input_ids == image_token_id) | (input_ids == video_token_id)
+    flat = is_vis.reshape(-1)
+    if row_tokens:
+        b = input_ids.shape[0]
+        ordinal = torch.cumsum(is_vis.to(torch.int32), 1) - 1
+        in_budget = is_vis & (ordinal < row_tokens)
+        idx = (torch.arange(b, device=input_ids.device)[:, None] * row_tokens
+               + ordinal.clamp(0, row_tokens - 1)).reshape(-1).long()
+        return feats[idx], in_budget.reshape(-1) & merged_mask[idx]
     ordinal = torch.cumsum(flat.to(torch.int32), 0) - 1
     idx = ordinal.clamp(0, m - 1).long()
     valid = flat & (ordinal < m) & merged_mask[idx]
@@ -443,23 +461,39 @@ def gather_packed_features(input_ids, feats, merged_mask, image_token_id: int,
 
 
 def merge_vision_features(embeds, input_ids, feats, merged_mask, image_token_id: int,
-                          video_token_id: int):
+                          video_token_id: int, row_tokens: int = 0):
     """Packed vision features scattered into the placeholder tokens of
     ``embeds`` [B, S, H] (``:440-453``)."""
     b, s, h = embeds.shape
     gathered, valid = gather_packed_features(input_ids, feats, merged_mask, image_token_id,
-                                             video_token_id)
+                                             video_token_id, row_tokens)
     out = torch.where(valid[:, None], gathered.to(embeds.dtype), embeds.reshape(b * s, h))
     return out.reshape(b, s, h)
 
 
-def flatten_per_row_vision(batch, unit: int):
-    """The reference's per-row vision batches (``:456``) come from a batch
-    split over processes (``vlm_trainer.py:42-48``); the port runs at world
-    size 1 and builds packed batches only."""
-    raise NotImplementedError(
-        "per-row vision batches (vision arrays [B, P, ...]) come from a batch split over "
-        "processes: multi-process training is slice C of the port (ROADMAP.md queue 1)")
+def flatten_per_row_vision(batch, unit: int) -> Tuple[Dict[str, torch.Tensor], int]:
+    """Per-row-budget vision arrays [B, Pr, ...] (a batch split over ranks,
+    each row with its own patch budget) -> the packed layout the tower
+    consumes, with per-row segment and index offsets so that the rows stay
+    masked from each other (``:456-488``). Returns (packed arrays, merged
+    tokens a row)."""
+    pv = batch["pixel_values"]
+    b, pr, d = pv.shape
+    mr = pr // unit
+    row = torch.arange(b, dtype=torch.int32, device=pv.device)[:, None]
+    out = {"pixel_values": pv.reshape(b * pr, d)}
+    for key in ("vis_seg_window", "vis_seg_full", "vis_seg"):
+        if key in batch:
+            seg = batch[key]
+            # row seg ids are 1..Pr: a stride of Pr + 1 cannot collide
+            out[key] = torch.where(seg > 0, seg + row * (pr + 1), torch.zeros_like(seg)).reshape(-1)
+    if "vis_pos_hw" in batch:
+        out["vis_pos_hw"] = batch["vis_pos_hw"].reshape(b * pr, 2)
+    if "vis_reverse" in batch:
+        out["vis_reverse"] = (batch["vis_reverse"] + row * mr).reshape(-1)
+    if "vis_merged_mask" in batch:
+        out["vis_merged_mask"] = batch["vis_merged_mask"].reshape(-1)
+    return out, mr
 
 
 class VisionLanguageModel(nn.Module):
@@ -485,34 +519,54 @@ class VisionLanguageModel(nn.Module):
         """({segment-id name: [N] ids}, the reverse gather or None)."""
         return ({k: batch[k] for k in ("vis_seg_window", "vis_seg_full")}, batch["vis_reverse"])
 
-    def vision_features(self, batch) -> torch.Tensor:
-        """[M, H] merged features in image order (no autograd with
-        ``freeze_vision``)."""
+    def vision_features(self, batch) -> Tuple[torch.Tensor, int, Dict[str, torch.Tensor]]:
+        """([M, H] merged features in image order, merged tokens a row in
+        the per-row layout else 0, the batch with its vision arrays packed);
+        no autograd with ``freeze_vision``. The tower's attention runs with
+        sequence parallelism off (``ParallelState.without_sp``, in
+        ``VisionBlock``): its patches are the rank's whole micro-batch."""
+        row_tokens = 0
         if batch["pixel_values"].ndim == 3:
-            flatten_per_row_vision(batch, self.cfg.vision.merge_unit)
+            packed, row_tokens = flatten_per_row_vision(batch, self.cfg.vision.merge_unit)
+            batch = {**batch, **packed}
         segs, reverse = self.tower_inputs(batch)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.freeze_vision):
-            return self.vision_tower(batch["pixel_values"], batch["vis_pos_hw"], segs, reverse)
+            feats = self.vision_tower(batch["pixel_values"], batch["vis_pos_hw"], segs, reverse)
+        return feats, row_tokens, batch
 
     def merged_hidden(self, batch):
-        """(final hidden [B, S, H], router aux loss) of the text transformer
-        on the embeddings with the vision features scattered in."""
+        """(final hidden [B, S(/sp), H], router aux loss, the labels) of the
+        text transformer on the embeddings with the vision features
+        scattered in. ``batch`` holds whole rows; under sequence parallelism
+        the merged embeddings, positions, segments and labels keep this
+        rank's chunk of the sequence (cp outer, ulysses inner)."""
         cfg, lm = self.cfg, self.language_model
-        feats = self.vision_features(batch)
+        feats, row_tokens, batch = self.vision_features(batch)
         embeds = lm.embed(batch["input_ids"])
         embeds = merge_vision_features(embeds, batch["input_ids"], feats,
                                        batch["vis_merged_mask"].bool(), cfg.image_token_id,
-                                       cfg.video_token_id)
-        return lm.forward_hidden(batch["input_ids"], batch["position_ids"],
-                                 batch.get("segment_ids"), inputs_embeds=embeds)
+                                       cfg.video_token_id, row_tokens)
+        ids, pos, seg, labels = (batch["input_ids"], batch["position_ids"],
+                                 batch.get("segment_ids"), batch.get("labels"))
+        ps = get_parallel_state_or_none()
+        if ps is not None and ps.sp_enabled:
+            from veomni_tpu_torch.parallel.sequence_parallel import sp_slice
+
+            embeds, ids = sp_slice(embeds, ps), sp_slice(ids, ps)
+            pos = sp_slice(pos, ps, dim=pos.ndim - 1)
+            seg = None if seg is None else sp_slice(seg, ps)
+            labels = None if labels is None else sp_slice(labels, ps)
+        hidden, aux = lm.forward_hidden(ids, pos, seg, inputs_embeds=embeds)
+        return hidden, aux, labels
 
     def loss_fn(self, batch):
         """Token-sum NLL and metrics, as ``Transformer.loss_fn``; ``batch``:
         input_ids/labels/segment_ids [B,S], position_ids [B,3,S],
         pixel_values [N, patch_dim], vis_pos_hw [N,2], the family's segment
-        ids [N], (Qwen2.5) vis_reverse [M], vis_merged_mask [M]."""
-        hidden, aux = self.merged_hidden(batch)
-        return self.language_model.head_loss(hidden, batch["labels"], aux)
+        ids [N], (Qwen2.5) vis_reverse [M], vis_merged_mask [M]; or the
+        per-row layout's [B, Pr, ...] vision arrays."""
+        hidden, aux, labels = self.merged_hidden(batch)
+        return self.language_model.head_loss(hidden, labels, aux)
 
 
 class Qwen25VLModel(VisionLanguageModel):

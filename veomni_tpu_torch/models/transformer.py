@@ -89,8 +89,10 @@ value (each runs the forward's kernels in the same order, and a saved
 product is the product a recompute gives); ``chunk_mbs`` changes the MLP's
 GEMM shapes, so its sums round in another order.
 
-The MoE path is the single-device, dropless one (no expert parallelism).
-Its combine is deterministic: each sorted expert output goes back to its
+The MoE path is the single-device, dropless one; under an ambient mesh
+with ep > 1 the routed experts are ``parallel/moe.py``'s expert-parallel
+ones, and the router's load-balancing loss is over the mesh's tokens
+whenever the mesh splits them. Its combine is deterministic: each sorted expert output goes back to its
 (token, slot) place by a permutation and the top-k slots are summed, where
 the reference scatter-adds (``.at[token_idx].add``, ``:351``); the token
 dispatch likewise gathers from a k-fold copy of the tokens, so neither
@@ -122,17 +124,15 @@ from veomni_tpu_torch.utils.device import DeviceLike, resolve_device
 
 def check_supported(cfg: TransformerConfig) -> None:
     """Raise for every configured feature the port does not implement, each
-    naming its item in ROADMAP.md queue 1. ``moe_capacity_factor`` is not
-    one: the reference reads it only under expert parallelism (``:563-568``,
-    ``parallel/moe.py``), which ``parallel/parallel_state.py`` refuses, and
-    runs the dropless ``_moe_mlp`` at expert-parallel size 1, as here."""
+    naming its item in ROADMAP.md queue 1. ``moe_capacity_factor`` is read
+    only under expert parallelism (``:563-568``, ``parallel/moe.py``); at
+    expert-parallel size 1 the MoE is the dropless ``_moe_mlp``, as there."""
     missing = [name for name, on in (
         ("DSA indexer, index_topk (slice F)", cfg.use_dsa),
         (f"hidden_act {cfg.hidden_act!r} (no gated activation of the reference; it takes "
          f"{', '.join(ops.GATED_ACTS)})", cfg.hidden_act not in ops.GATED_ACTS),
         ("linear attention / output gate, qwen3_next (slice F)",
          bool(cfg.linear_num_value_heads) or cfg.attn_output_gate),
-        ("ulysses_async_chunks (slice C)", bool(cfg.ulysses_async_chunks)),
     ) if on]
     if missing:
         raise NotImplementedError("not ported yet (ROADMAP.md queue 1): " + "; ".join(missing))
@@ -246,12 +246,12 @@ def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None, router
             topk_w = topk_w / (topk_w.sum(-1, keepdim=True) + 1e-20)
         topk_w = topk_w * cfg.routed_scaling_factor
         probs = scores / scores.sum(-1, keepdim=True).clamp(min=1e-20)
-        return topk_idx, topk_w, ops.load_balancing_loss(probs, topk_idx, e)
+        return topk_idx, topk_w, _balance_loss(probs, topk_idx, e)
     probs = torch.softmax(logits, dim=-1)
     if cfg.model_type == "gpt_oss":
         topk_logits, topk_idx = _top_k(logits, k)
         return (topk_idx, torch.softmax(topk_logits, dim=-1),
-                ops.load_balancing_loss(probs, topk_idx, e))
+                _balance_loss(probs, topk_idx, e))
     choice = probs
     if grouped:
         choice = choice.masked_fill(~_group_mask(choice, cfg, lambda g: g.amax(-1)), 0.0)
@@ -260,7 +260,21 @@ def route_tokens(x, router, cfg: TransformerConfig, correction_bias=None, router
         topk_w = topk_w / topk_w.sum(-1, keepdim=True).clamp(min=1e-9)
     if cfg.routed_scaling_factor != 1.0:
         topk_w = topk_w * cfg.routed_scaling_factor
-    return topk_idx, topk_w, ops.load_balancing_loss(probs, topk_idx, e)
+    return topk_idx, topk_w, _balance_loss(probs, topk_idx, e)
+
+
+def _balance_loss(probs, topk_idx, num_experts: int):
+    """The router's load-balancing loss: over the mesh's every token when
+    the ambient mesh splits the tokens (``parallel/moe.py``), as the
+    reference computes it on its global arrays; else the rank's own."""
+    from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+
+    ps = get_parallel_state_or_none()
+    if ps is not None and ps.group(ps.dp_sp_axes) is not None:
+        from veomni_tpu_torch.parallel.moe import load_balancing_loss
+
+        return load_balancing_loss(probs, topk_idx, num_experts, ps)
+    return ops.load_balancing_loss(probs, topk_idx, num_experts)
 
 
 def expert_counts(flat_expert, num_experts: int):
@@ -311,15 +325,30 @@ ROUTER_CAPTURE: Optional[list] = None
 
 
 def moe_mlp(x, router, experts: "Experts", cfg: TransformerConfig, correction_bias=None,
-            shared=None, shared_gate=None, router_bias=None):
+            shared=None, shared_gate=None, router_bias=None, stats: Optional[dict] = None):
     """Single-device MoE (``_moe_mlp``, ``:333``): route -> stable sort by
     expert -> grouped GEMM -> weighted combine (-> + the shared experts).
-    x [T,H] -> ([T,H], aux)."""
+    x [T,H] -> ([T,H], aux). Under an ambient mesh with ep > 1 the routed
+    experts are the expert-parallel ones (``parallel/moe.py``, ``:560-567``),
+    ``experts`` holding the rank's E/ep; ``stats["dropped"]`` then receives
+    the mesh-mean fraction of assignments the capacity dropped."""
     t, h = x.shape
     k = cfg.num_experts_per_tok
     topk_idx, topk_w, aux = route_tokens(x, router, cfg, correction_bias, router_bias)
     if ROUTER_CAPTURE is not None:
         ROUTER_CAPTURE.append(topk_idx.detach())
+    from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+
+    ps = get_parallel_state_or_none()
+    if ps is not None and ps.ep_enabled:
+        from veomni_tpu_torch.parallel.moe import ep_moe_mlp
+
+        combined, dropped = ep_moe_mlp(x, topk_idx, topk_w, experts, cfg, ps)
+        if stats is not None:
+            stats["dropped"] = dropped.detach()
+        if shared is not None:
+            combined = combined + shared_experts_out(x, shared, cfg, shared_gate)
+        return combined, aux
     flat_expert = topk_idx.reshape(-1)  # [T*K], slot j of token i at i*K + j
     sort_idx = torch.argsort(flat_expert, stable=True)
     # dispatch: sorted row r is token sort_idx[r] // K, gathered from a K-fold copy
@@ -406,6 +435,11 @@ class DecoderLayer(nn.Module):
         # {parameter name: fn(parameter) -> merged weight}, filled by
         # lora/lora.py::LoraAdapters.merged while it is held; empty otherwise
         self.merges: Dict[str, Callable] = {}
+        # {parameter name: fn(shard) -> full weight}: the expert feature
+        # shards' gathers (parallel/parallel_plan.py); empty at world size 1
+        self.gathers: Dict[str, Callable] = {}
+        # the routed layer's last capacity-drop fraction (expert parallelism)
+        self.moe_stats: Dict[str, torch.Tensor] = {}
         self.input_layernorm = p(h)
         if cfg.use_mla:
             nh, dr = cfg.num_attention_heads, cfg.qk_rope_head_dim
@@ -470,7 +504,10 @@ class DecoderLayer(nn.Module):
         forward read goes through here, inside the remat regions, so the
         merged copy lives one layer at a time and backward re-merges it."""
         merge = self.merges.get(name)
+        gather = self.gathers.get(name)
         p = self.get_parameter(name)
+        if gather is not None:
+            p = gather(p)
         return p if merge is None else merge(p)
 
     def _norm(self, x, name: str):
@@ -527,7 +564,8 @@ class DecoderLayer(nn.Module):
         sinks = self.w("sinks").to(self.cfg.dtype) if hasattr(self, "sinks") else None
         return ops.attention(q, k, v, segment_ids=segment_ids, causal=True,
                              softmax_scale=self.scale, sliding_window=self.window or None,
-                             sinks=sinks)
+                             sinks=sinks,
+                             ulysses_async_chunks=self.cfg.ulysses_async_chunks or None)
 
     def mlp_input(self, hidden, attn):
         """(residual stream after attention, the MLP's input norm of it)."""
@@ -559,7 +597,7 @@ class DecoderLayer(nn.Module):
                        correction_bias=optional("e_score_correction_bias"),
                        shared=weights("shared_experts"),
                        shared_gate=optional("shared_expert_gate"),
-                       router_bias=optional("router_bias"))
+                       router_bias=optional("router_bias"), stats=self.moe_stats)
 
     def _dense_mlp(self, x):
         act = ops.gated_act(self._linear(x, "gate_proj", "gate_bias"),
@@ -629,6 +667,7 @@ class Transformer(nn.Module):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype, device=dev))
 
         self.merges: Dict[str, Callable] = {}  # see DecoderLayer.w
+        self.gathers: Dict[str, Callable] = {}
         self.embed_tokens = p(cfg.vocab_size, h)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dev, i)
                                     for i in range(cfg.num_hidden_layers))
@@ -686,8 +725,19 @@ class Transformer(nn.Module):
         tables = self.rotary(position_ids)
         aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for layer in self.layers:
+            layer.moe_stats.clear()
             hidden, aux = layer(hidden, *tables[layer.local_rope], segment_ids)
             aux_total = aux_total + aux
+        drops = [layer.moe_stats["dropped"] for layer in self.layers if layer.moe_stats]
+        # mean capacity-drop fraction over the MoE layers (``:743-745``) and,
+        # under expert parallelism, over the mesh (outside the remat regions)
+        self.moe_dropped_frac = None
+        if drops:
+            from veomni_tpu_torch.parallel.moe import mesh_mean
+            from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+
+            self.moe_dropped_frac = mesh_mean(sum(drops) / len(drops),
+                                              get_parallel_state_or_none())
         return ops.rms_norm(hidden, self.w("norm").to(dt), cfg.rms_norm_eps,
                             zero_centered=cfg.norm_zero_centered), aux_total
 
@@ -711,8 +761,9 @@ class Transformer(nn.Module):
         """lm-head + chunked CE in token-sum space (softcapped logits where
         the config caps them), plus the router aux loss scaled by the token
         count so both terms normalize alike (``:783-802``).
-        ``moe_dropped_frac`` is 0: the single-device MoE is dropless (the
-        reference drops assignments only under expert parallelism)."""
+        ``moe_dropped_frac`` is the last forward's mean capacity-drop
+        fraction over the MoE layers: 0 but under expert parallelism with a
+        capacity factor (the single-device MoE is dropless)."""
         cfg = self.cfg
         b, s, h = hidden.shape
         kernel = self.lm_head_kernel().to(cfg.dtype)
@@ -720,8 +771,10 @@ class Transformer(nn.Module):
             hidden.reshape(b * s, h), kernel, labels.reshape(b * s),
             logit_softcap=cfg.final_logit_softcap or None,
         )
+        dropped = getattr(self, "moe_dropped_frac", None)
         metrics = {"loss_sum": loss_sum, "ntokens": ntokens, "moe_aux_loss": moe_aux,
-                   "moe_dropped_frac": torch.zeros_like(moe_aux)}
+                   "moe_dropped_frac": torch.zeros_like(moe_aux) if dropped is None
+                   else dropped.to(moe_aux.dtype)}
         total = loss_sum
         if cfg.is_moe and cfg.router_aux_loss_coef:
             total = total + cfg.router_aux_loss_coef * moe_aux * ntokens
@@ -729,7 +782,8 @@ class Transformer(nn.Module):
 
     def sequence_logprob_sums(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Per-row sums of the label log-probs [B] f32 (``:763-778``, the
-        DPO trainer's policy and reference scores). The reference runs the
+        DPO trainer's policy and reference scores); under sequence
+        parallelism summed over the row's chunks. The reference runs the
         fused CE over each row (a vmap); here one chunked per-token pass
         over the flattened rows is summed by row, the same sums. The logits
         take the final softcap as ``head_loss``'s do, where the reference
@@ -741,7 +795,16 @@ class Transformer(nn.Module):
         nll = ops.fused_linear_cross_entropy_per_token(
             hidden.reshape(b * s, h), self.lm_head_kernel().to(cfg.dtype),
             batch["labels"].reshape(b * s), logit_softcap=cfg.final_logit_softcap or None)
-        return -nll.view(b, s).sum(-1)
+        sums = -nll.view(b, s).sum(-1)
+        from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+
+        ps = get_parallel_state_or_none()
+        if ps is not None and ps.sp_enabled:
+            # each sp rank holds a chunk of the row: the row's sum is theirs
+            from veomni_tpu_torch.parallel.functional import all_reduce_sum
+
+            sums = all_reduce_sum(sums, ps.group(ps.sp_axes))
+        return sums
 
     def loss_fn(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Sum-NLL (+ the scaled router aux loss) and metrics with the

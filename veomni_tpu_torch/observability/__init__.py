@@ -27,7 +27,6 @@
 * ``fleet``    — heartbeats, the step-time skew exchange and ``/debug/fleet``;
 * ``callback.ObservabilityCallback`` — the trainer's wiring into them.
 
-Not ported: ``comm`` (a census of the collectives in a compiled program):
-the port runs at world size 1 until slice C, so there is no collective to
-count.
+* ``comm``     — the collective census of each counted step (bytes by
+                 kind, the estimated link time behind ``comm_est_frac``).
 """

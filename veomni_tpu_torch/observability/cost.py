@@ -15,7 +15,9 @@ input shapes, it runs the call under :class:`CountingMode`, a
 * FLOPs by ``torch.utils.flop_counter``'s formulas (matrix products,
   convolutions, attention), and
 * bytes as each op's input plus output bytes (views and allocations move
-  none),
+  none), and
+* the collectives (``c10d`` ops) by kind and result bytes, into the
+  collective census (``observability/comm.py``) and ``comm_bytes``,
 
 and records the call's wall as ``compile_s`` and, when the call raised the
 card's allocator peak, that peak above what was allocated before it as
@@ -63,6 +65,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
+from veomni_tpu_torch.observability.comm import (
+    CommCount,
+    collective_bytes,
+    collective_kind,
+    comm_census_enabled,
+    get_comm_census,
+    peak_interconnect_bandwidth,
+)
 from veomni_tpu_torch.observability.metrics import MetricsRegistry, get_registry
 from veomni_tpu_torch.utils.logging import get_logger
 
@@ -102,7 +112,7 @@ class ProgramCost:
     temp_bytes: Optional[float] = None  # None: the pass could not see the peak
     argument_bytes: float = 0.0
     output_bytes: float = 0.0
-    comm_bytes: float = 0.0  # collectives: none at world size 1 (slice C)
+    comm_bytes: float = 0.0  # collective result bytes (observability/comm.py)
     compile_time_s: float = 0.0
     num_devices: int = 1
     calls: int = 0
@@ -322,7 +332,9 @@ class CostWindow:
     ``begin()`` snapshots the call counts; ``end()`` multiplies each
     bucket's new calls by its census FLOPs/bytes and divides by the wall and
     the card's peaks; on the CPU there are none, and the window reports
-    achieved rates with 0 utilization. ``comm_est_frac`` is 0 until the parallel layer (slice C)."""
+    achieved rates with 0 utilization. ``comm_est_frac`` is the share of the
+    wall the buckets' collectives would take unhidden at the peak link
+    bandwidth (``observability/comm.py``)."""
 
     def __init__(self, census: Optional[CostCensus] = None,
                  sites: Optional[Tuple[str, ...]] = None,
@@ -345,7 +357,7 @@ class CostWindow:
         now = time.perf_counter()
         wall = max(now - self._t0, 1e-9)
         cur = self.census.call_counts()
-        flops = bytes_acc = 0.0
+        flops = bytes_acc = comm = 0.0
         ran = 0
         for key, calls in cur.items():
             if self.sites is not None and key[0] not in self.sites:
@@ -360,6 +372,7 @@ class CostWindow:
             if rec is not None:
                 flops += delta * rec.flops
                 bytes_acc += delta * rec.bytes_accessed
+                comm += delta * rec.comm_bytes
         if not ran:
             # no instrumented call: no utilization statement (the train-end
             # window must not overwrite the last real window's gauges)
@@ -372,7 +385,7 @@ class CostWindow:
             "bandwidth_util_pct": 100.0 * bytes_acc / wall / peak_bw,
             "census_tflops_s": flops / wall / 1e12,
             "census_window_s": wall,
-            "comm_est_frac": 0.0,
+            "comm_est_frac": min(1.0, comm / peak_interconnect_bandwidth() / wall),
         }
         self._t0, self._base = now, cur
         return out
@@ -436,10 +449,16 @@ class CountingMode(TorchDispatchMode):
         self.bytes = 0.0
         self.kernel_flops = 0.0
         self.kernel_bytes = 0.0
+        self.comm = CommCount() if comm_census_enabled() else None
         self._lock = threading.Lock()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        kind = collective_kind(func)
+        if kind is not None:  # communication, not device-memory traffic
+            if self.comm is not None:
+                self.comm.add(kind, collective_bytes(func, args))
+            return func(*args, **kwargs)
         fn = self._registry.get(func.overloadpacket)
         if func._schema.name in _DECOMPOSE:
             # under no_grad/inference mode these composites reach the mode
@@ -571,17 +590,26 @@ class InstrumentedSite:
             # shows its own peak
             peak = torch.cuda.max_memory_allocated(dev) if dev is not None else 0
             temp = peak - base if dev is not None and peak > peak0 else None
+            comm = mode.comm.fields() if mode.comm is not None else {}
             self._census.record(
                 self._site, bucket, compile_time_s=dt, program=self._program,
                 flops=mode.flops + mode.kernel_flops,
                 bytes_accessed=mode.bytes + mode.kernel_bytes,
                 kernel_flops=mode.kernel_flops, kernel_bytes=mode.kernel_bytes,
                 temp_bytes=temp, argument_bytes=_tensor_bytes(args),
-                output_bytes=_tensor_bytes(out))
+                output_bytes=_tensor_bytes(out), comm_bytes=comm.get("comm_bytes", 0.0))
+            if comm.get("collectives"):
+                get_comm_census().record(self._site, bucket, num_devices=_world_size(), **comm)
             self._census.note_call(self._site, bucket)
         except Exception as e:  # noqa: BLE001
             self._disable("record", e)
         return out
+
+
+def _world_size() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def _cuda_device(args) -> Optional[torch.device]:

@@ -348,7 +348,7 @@ class FleetMonitor:
 
     def debug_doc(self) -> Dict[str, Any]:
         """``/debug/fleet`` body: local identity + last skew table +
-        heartbeat freshness (the comm census is slice C's)."""
+        heartbeat freshness (the collective census: ``observability/comm.py``)."""
         with self._lock:
             last = dict(self._last) if self._last else None
         doc: Dict[str, Any] = {

@@ -5,7 +5,10 @@ Port of ``veomni_tpu/ops/attention.py``: the plain impls ``_attention_dense``
 name the reference uses, ``:305``), the blockwise ``_attention_xla_chunked``
 (``attention``/``xla_chunked``, ``:65``) that ``_attention_xla`` switches to
 above ``VEOMNI_ATTN_CHUNK_THRESHOLD`` tokens, and the ``attention()`` facade
-without the sequence-parallel branch (the parallel layer is a later slice).
+with its sequence-parallel branch (``parallel/sequence_parallel.py``). The
+reference's facade also takes a ``mask_mod``; no caller of the port passes
+one, so it has none (nor the reference's refusal of a batch-dependent one
+under sequence parallelism, ``:423-440``).
 ``xla_twopass`` is registered for TPUs only in the reference and has no
 port. Every impl takes a causal sliding window and per-head sink logits.
 
@@ -232,11 +235,24 @@ def attention(
     softmax_scale: Optional[float] = None,
     sliding_window=None,
     sinks: Optional[torch.Tensor] = None,
+    ulysses_async_chunks: Optional[int] = None,
 ):
     """Registry-dispatched attention (``attention.py:387``) for tensors on
     ``q.device``: ``cuda_flash`` on a Hopper card, the plain impl elsewhere
-    (or wherever a pin / ``VEOMNI_FORCE_EAGER_OPS`` asks for it)."""
+    (or wherever a pin / ``VEOMNI_FORCE_EAGER_OPS`` asks for it). Under an
+    ambient ParallelState with ulysses or cp above 1, q/k/v are this rank's
+    sequence chunk and the impl runs inside the sequence-parallel wrap
+    (monolithic or async Ulysses per the ``ulysses`` registry op and
+    ``ulysses_async_chunks``, the ring over cp)."""
     inner = resolve_op("attention", q.device)
-    return inner(q, k, v, segment_ids=segment_ids, causal=causal,
-                 softmax_scale=softmax_scale, sliding_window=sliding_window,
-                 sinks=sinks)
+    kwargs = dict(causal=causal, softmax_scale=softmax_scale,
+                  sliding_window=sliding_window, sinks=sinks)
+    from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+
+    pstate = get_parallel_state_or_none()
+    if pstate is not None and (pstate.ulysses_size > 1 or pstate.cp_size > 1):
+        from veomni_tpu_torch.parallel.sequence_parallel import sp_attention
+
+        return sp_attention(inner, q, k, v, segment_ids, pstate,
+                            async_chunks=ulysses_async_chunks, **kwargs)
+    return inner(q, k, v, segment_ids=segment_ids, **kwargs)

@@ -122,22 +122,59 @@ class ParamOptimizer(torch.optim.Optimizer):
 class LeafOptimizer(ParamOptimizer):
     """A :class:`ParamOptimizer` that updates the reference's leaves one at
     a time, a stacked leaf's parameters together. A subclass implements
-    :meth:`update_leaves`."""
+    :meth:`update_leaves`, reading a parameter's state and group through
+    :meth:`key`.
+
+    Muon's Newton–Schulz and Adafactor's block clip and RMS read a whole
+    leaf. Over a mesh (``layout``, set by the trainer) each leaf's
+    parameters and gradients are gathered whole on every rank, updated as
+    at world size 1, and each rank keeps its part; the state stays whole on
+    every rank, keyed by the sharded parameter."""
+
+    layout = None  # parallel/parallel_plan.py::ParallelLayout over a mesh
 
     def __init__(self, groups, lr_schedule: Schedule, leaves: Sequence[Leaf], **defaults):
         super().__init__(groups, lr_schedule, **defaults)
         self.leaves = list(leaves)
+        self._owner: Dict[int, torch.Tensor] = {}
 
     def regrouped(self, groups) -> "LeafOptimizer":
         return type(self)(groups, self.lr_schedule, self.leaves, **self._options)
+
+    def key(self, p: torch.Tensor) -> torch.Tensor:
+        """The parameter whose state and group ``p`` (maybe its whole copy) uses."""
+        return self._owner.get(id(p), p)
 
     @torch.no_grad()
     def step(self, closure=None):
         self._set_lrs()
         group_of = {p: group for group in self.param_groups for p in group["params"]}
         live = [leaf for leaf in self.leaves if leaf[1][0].grad is not None]
-        self.update_leaves(live, group_of, self.num_updates + 1)
+        if self.layout is None:
+            self.update_leaves(live, group_of, self.num_updates + 1)
+        else:
+            self._update_whole(live, group_of)
         self.num_updates += 1
+
+    def _update_whole(self, leaves, group_of) -> None:
+        layout = self.layout
+        whole_leaves, pairs = [], []
+        for path, params, stacked in leaves:
+            copies = []
+            for p in params:
+                w = layout.full_tensor(p, p.detach()).clone()
+                w.grad = layout.full_tensor(p, p.grad)
+                self._owner[id(w)] = p
+                copies.append(w)
+                pairs.append((p, w))
+            whole_leaves.append((path, copies, stacked))
+        try:
+            self.update_leaves(whole_leaves, group_of, self.num_updates + 1)
+        finally:
+            self._owner.clear()
+        for p, w in pairs:
+            local = p.to_local() if hasattr(p, "to_local") else p.data
+            local.copy_(layout.local_slice(p, w))
 
     def update_leaves(self, leaves: List[Leaf], group_of, count: int) -> None:
         raise NotImplementedError
@@ -230,7 +267,7 @@ class Adafactor(LeafOptimizer):
         for _, params, stacked in leaves:
             g = _stack([p.grad for p in params], stacked)
             p = _stack(params, stacked)
-            st = self.state[params[0]]
+            st = self.state[self.key(params[0])]
             sq = g * g + self.EPS
             dims = _factored_dims(tuple(g.shape))
             if dims is not None:
@@ -251,7 +288,7 @@ class Adafactor(LeafOptimizer):
                 u = g * v ** -0.5
                 st["v"] = v
             u = u / torch.clamp(torch.sqrt(torch.mean(u * u)) / self.CLIP, min=1.0)
-            u = u * group_of[params[0]]["lr"]
+            u = u * group_of[self.key(params[0])]["lr"]
             u = u * torch.clamp(torch.sqrt(torch.mean(p * p)), min=self.MIN_SCALE)
             _scatter_update(params, stacked, -u)
 
@@ -275,16 +312,16 @@ class Muon(LeafOptimizer):
         for path, params, stacked in leaves:
             if self.labels[path] == "adamw":
                 for p in params:
-                    group = group_of[p]
-                    u = _adam_direction(p, p.grad, self.state[p], b1, b2, muon_math.ADAMW_EPS,
-                                        count)
+                    group = group_of[self.key(p)]
+                    u = _adam_direction(p, p.grad, self.state[self.key(p)], b1, b2,
+                                        muon_math.ADAMW_EPS, count)
                     if group["weight_decay"]:
                         u = u + group["weight_decay"] * p
                     p.add_(u, alpha=-group["lr"])
                 continue
             effs = []
             for p in params:
-                st = self.state[p]
+                st = self.state[self.key(p)]
                 if not st:
                     st["momentum_buffer"] = torch.zeros_like(p)
                 buf = mom * st["momentum_buffer"] + p.grad
@@ -296,7 +333,7 @@ class Muon(LeafOptimizer):
         for o, (params, stacked) in zip(orth, owners):
             for i, p in enumerate(params):
                 u = o[i] if stacked else o
-                group = group_of[p]
+                group = group_of[self.key(p)]
                 if group["weight_decay"]:
                     u = u + group["weight_decay"] * p
                 p.add_(u, alpha=-group["lr"])
@@ -333,6 +370,24 @@ def build_optimizer(
     if optimizer == "sgd":
         return SGD([{"params": [p for _, p in named]}], schedule)
     raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
+def split_mixed_groups(optimizer: torch.optim.Optimizer) -> torch.optim.Optimizer:
+    """Over a mesh an FSDP2 parameter is a DTensor and a replicated or
+    expert one a plain tensor, and a foreach update (AdamW's on the card)
+    refuses a list that mixes them: each param group is split into its
+    DTensor parameters and the rest, with the same options. The optimizer
+    is returned as it is when no group mixes them; it must not have stepped."""
+    groups = []
+    for group in optimizer.param_groups:
+        opts = {k: v for k, v in group.items() if k != "params"}
+        for sharded in (True, False):
+            params = [p for p in group["params"] if hasattr(p, "to_local") == sharded]
+            if params:
+                groups.append({**opts, "params": params})
+    if len(groups) == len(optimizer.param_groups):
+        return optimizer
+    return optimizer.regrouped(groups)
 
 
 def with_param_groups(

@@ -89,9 +89,8 @@ class ElasticRestoreError(RuntimeError):
 def capture_topology(state: Any = None) -> Dict[str, Any]:
     """Topology document for ``manifest.json``: world size and rank count
     from ``torch.distributed`` (1 when no process group exists), the number
-    of CUDA cards visible, the mesh axis sizes (all 1: the port runs at
-    world size 1, see ``parallel/parallel_state.py``) and the torch and CUDA
-    versions. ``state`` is accepted for the reference's signature; a torch
+    of CUDA cards visible, the mesh axis sizes of the ambient
+    ``parallel/parallel_state.py`` state and the torch and CUDA versions. ``state`` is accepted for the reference's signature; a torch
     train state carries no sharding to read a mesh from."""
     import torch
     import torch.distributed as dist

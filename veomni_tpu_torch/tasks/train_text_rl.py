@@ -12,17 +12,14 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from veomni_tpu_torch.arguments import VeOmniArguments, parse_args, save_args
+from veomni_tpu_torch.trainer.base import run_entry_point
 from veomni_tpu_torch.trainer.rl_trainer import BaseRLTrainer
 
 
-def main(argv: Optional[List[str]] = None) -> BaseRLTrainer:
-    """Train as the command line (or ``argv``) says; returns the trainer."""
-    args = parse_args(VeOmniArguments, argv)
-    save_args(args, args.train.output_dir)
-    trainer = BaseRLTrainer(args)
-    trainer.train()
-    return trainer
+def main(argv: Optional[List[str]] = None) -> Optional[BaseRLTrainer]:
+    """Train as the command line (or ``argv``) says; returns the trainer
+    (None when ``train.num_virtual_devices`` started CPU ranks that trained)."""
+    return run_entry_point(BaseRLTrainer, argv, "veomni_tpu_torch.tasks.train_text_rl")
 
 
 if __name__ == "__main__":

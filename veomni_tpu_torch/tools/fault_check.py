@@ -22,7 +22,10 @@ swap in ``serving/engine.py``, the offload remat policies' hooks in
 ``models/transformer.py``, Muon's orthogonalisation in ``optim/muon.py``,
 the numerics provenance's layer in ``observability/numerics.py``, the
 flash kernels' census report in ``ops/cuda/flash_attention.py`` and the
-redispatch after a chaos kill in ``serving/router.py``) and run the copy's
+redispatch after a chaos kill in ``serving/router.py``, and the parallel
+layer's FSDP2 gradient sum in ``parallel/parallel_plan.py``, its router
+balance loss over the mesh in ``models/transformer.py`` and its all-to-all
+piece order in ``parallel/functional.py``) and run the copy's
 ``chip_smoke.py`` (for a serving fault, its dense serving phase alone:
 ``--phases serve_dense``; for a deepseek one, its Moonlight phase:
 ``--phases hf_trainer_moonlight``; for a gpt_oss one, its gpt-oss-20b phase:
@@ -31,7 +34,7 @@ Qwen2.5-VL-3B phase; for an SFT one, its SFT phase; for the int8 one,
 ``--phases serve_quant``; for the router and publication ones, ``--phases
 serve_router``; for the offload and Muon ones, ``--phases remat``; for the
 numerics and census ones, ``--phases trainer``; for the chaos one,
-``--phases serve_router``). A fault is
+``--phases serve_router``; for the parallel ones, ``--phases parallel``). A fault is
 caught when that run exits non-zero, prints no
 result line and stops at the check named for the fault. Run from the repository root on a
 machine with one NVIDIA Hopper card::
@@ -80,6 +83,8 @@ ENGINE_SOURCE = os.path.join("veomni_tpu_torch", "serving", "engine.py")
 MUON_SOURCE = os.path.join("veomni_tpu_torch", "optim", "muon.py")
 NUMERICS_SOURCE = os.path.join("veomni_tpu_torch", "observability", "numerics.py")
 FLASH_WRAPPER_SOURCE = os.path.join("veomni_tpu_torch", "ops", "cuda", "flash_attention.py")
+PLAN_SOURCE = os.path.join("veomni_tpu_torch", "parallel", "parallel_plan.py")
+FUNCTIONAL_SOURCE = os.path.join("veomni_tpu_torch", "parallel", "functional.py")
 # the int8 KV rows divided by the absmax reduced over the wrong axis (across
 # the kv heads as well as the head dim) while the sidecar keeps each row's own
 # scale: every head but the largest dequantizes shrunk
@@ -435,6 +440,29 @@ FAULTS = (
           "    cost.note_kernel(lambda: flash_work(name, q, k, tensors[3], causal))\n", "",
           "trainer observatories: census kernel FLOPs:", "census kernel FLOPs",
           ("--phases", "trainer")),
+    # the parallel layer (--phases parallel): FSDP2's default mean instead of
+    # the sum the token normalisation needs
+    Fault("fsdp-mean-not-sum", "FSDP2 averages the gradients over its group (its default)",
+          PLAN_SOURCE,
+          "            sub.set_gradient_divide_factor(1.0)\n"
+          "            sub.set_force_sum_reduction_for_comms(True)\n",
+          "            pass\n",
+          "parallel dense step 1:", "parallel dense step 1: world 2 against world 1",
+          ("--phases", "parallel")),
+    # the router's balance loss from each rank's own statistics
+    Fault("ep-aux-per-rank", "the load-balancing loss reads the rank's tokens only",
+          MODEL_SOURCE,
+          "    if ps is not None and ps.group(ps.dp_sp_axes) is not None:\n",
+          "    if False:\n",
+          "parallel moe step 1: moe_aux_loss", "parallel moe step 1: moe_aux_loss",
+          ("--phases", "parallel")),
+    # the all-to-all concatenates the received pieces in reverse rank order
+    Fault("ulysses-head-order", "the all-to-all's pieces concatenated in reverse rank order",
+          FUNCTIONAL_SOURCE,
+          "    return torch.cat(recv.unbind(0), dim=concat_dim)\n",
+          "    return torch.cat(recv.unbind(0)[::-1], dim=concat_dim)\n",
+          "parallel dense step 1:", "parallel dense step 1: world 2 against world 1",
+          ("--phases", "parallel")),
     # the redispatch after the soak's replica kill drops the first stranded request
     Fault("chaos-lost-id", "the redispatch after a chaos kill drops one stranded request",
           ROUTER_SOURCE,

@@ -32,13 +32,22 @@ IGNORE_INDEX = -100
 
 
 def _hidden(module, batch):
-    """(the text Transformer holding the head, final hidden [B,S,H], router aux)."""
+    """(the text Transformer holding the head, final hidden [B,S,H], router
+    aux, labels, channel ids): a VLM composite takes whole rows and keeps
+    its sequence chunk under sequence parallelism, so its labels and channel
+    ids are cut to the same chunk."""
     if hasattr(module, "merged_hidden"):
-        hidden, aux = module.merged_hidden(batch)
-        return module.language_model, hidden, aux
+        hidden, aux, labels = module.merged_hidden(batch)
+        from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
+        from veomni_tpu_torch.parallel.sequence_parallel import sp_slice
+
+        ps = get_parallel_state_or_none()
+        ch = batch["channel_ids"]
+        return (module.language_model, hidden, aux, labels,
+                sp_slice(ch, ps) if ps is not None else ch)
     hidden, aux = module.forward_hidden(batch["input_ids"], batch["position_ids"],
                                         batch.get("segment_ids"))
-    return module, hidden, aux
+    return module, hidden, aux, batch["labels"], batch["channel_ids"]
 
 
 def make_channel_loss_fn(num_channels: int) -> Callable:
@@ -48,16 +57,16 @@ def make_channel_loss_fn(num_channels: int) -> Callable:
     ``channel_ids`` [B,S] (-1 on pad and unchanneled tokens)."""
 
     def loss_fn(module, batch):
-        lm, hidden, moe_aux = _hidden(module, batch)
+        lm, hidden, moe_aux, labels, channel_ids = _hidden(module, batch)
         cfg = lm.cfg
         b, s, h = hidden.shape
-        labels = batch["labels"].reshape(-1)
+        labels = labels.reshape(-1)
         nll = ops.fused_linear_cross_entropy_per_token(
             hidden.reshape(b * s, h), lm.lm_head_kernel().to(cfg.dtype), labels,
             logit_softcap=cfg.final_logit_softcap or None)
         valid = labels != IGNORE_INDEX
         ntokens = valid.sum()
-        ch = batch["channel_ids"].reshape(-1).long()
+        ch = channel_ids.reshape(-1).long()
         slot = torch.where(valid & (ch >= 0), ch, torch.full_like(ch, num_channels))
         sums = nll.new_zeros(num_channels + 1).index_add(0, slot, nll)[:-1]
         counts = nll.new_zeros(num_channels + 1).index_add(0, slot, valid.float())[:-1]

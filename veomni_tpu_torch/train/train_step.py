@@ -22,6 +22,18 @@ The step updates the model and optimizer in place (the reference returns a
 new state; PyTorch's idiom is in-place, which also saves a copy of the
 weights and optimizer state).
 
+Over a mesh (``layout``, ``parallel/parallel_plan.py::ParallelLayout``) the
+reference's one program becomes one per rank, and the step reproduces its
+global arithmetic: each rank's token-sum gradients are summed over the
+ranks (FSDP2's reduce-scatter with a divide factor of 1, then
+``layout.finish_grads`` for the parameters FSDP does not hold), the token
+count and the loss sum are all-reduced over dp×sp, and the gradients are
+divided once by the global count. The global-norm clip reads the norm of
+every shard (``layout.grad_norm``), so ``step_ok`` and the skip gate agree
+on every rank. The loss fn's scalar extras are averaged over dp×sp (a
+global one, like the router's aux loss, stays what it is), ``loss_sum``
+and vector extras summed.
+
 ``numerics_spec`` builds the numerics observatory's instrumented sibling
 (``:176-216``): the same update, plus the per-group health summary of
 ``observability/numerics.py::tree_health`` over the token-normalized,
@@ -64,6 +76,7 @@ def build_train_step(
     scope: Optional[Callable[[nn.Module], ContextManager]] = None,
     skip_nonfinite: bool = False,
     numerics_spec=None,
+    layout=None,
 ) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -82,8 +95,14 @@ def build_train_step(
     recomputes remat regions reads the merged weights again).
 
     With ``numerics_spec`` the step is ``train_step(state, batch,
-    apply=True) -> (state, metrics, health)`` (see the module docstring)."""
+    apply=True) -> (state, metrics, health)`` (see the module docstring).
+
+    ``layout``: the model's ``ParallelLayout`` over a mesh of several ranks
+    (None at world size 1)."""
     masked = {id(p) for p in grad_mask or ()}
+    group = None
+    if layout is not None:
+        group = layout.pstate.group(layout.pstate.dp_sp_axes)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], apply: bool = True):
         params = [p for p in state.model.parameters() if p.requires_grad]
@@ -108,14 +127,22 @@ def build_train_step(
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         for p, g in zip(params, grads):
             p.grad = g
+        if layout is not None:
+            layout.finish_grads()
+            loss_sum, ntokens, extras = _reduce_metrics(loss_sum, ntokens, extras, group)
+        # the rank's part of each gradient (an FSDP2 gradient is a DTensor shard)
+        shards = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
         denom = ntokens.clamp(min=1).float()
-        torch._foreach_div_(grads, denom)
+        torch._foreach_div_(shards, denom)
         if masked:
-            torch._foreach_mul_([g for p, g in zip(params, grads) if id(p) in masked], 0.0)
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            torch._foreach_mul_([g for p, g in zip(params, shards) if id(p) in masked], 0.0)
+        if layout is not None:
+            grad_norm = layout.grad_norm(params, grads)
+        else:
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         health_grads = [g.clone() for g in grads] if numerics_spec is not None else None
         if max_grad_norm:
-            torch._foreach_mul_(grads, torch.clamp(max_grad_norm / (grad_norm + 1e-6), max=1.0))
+            torch._foreach_mul_(shards, torch.clamp(max_grad_norm / (grad_norm + 1e-6), max=1.0))
         step_ok = torch.isfinite(loss_sum) & torch.isfinite(grad_norm)
         applies = apply and (not skip_nonfinite or bool(step_ok))
         health = None
@@ -123,7 +150,8 @@ def build_train_step(
             if applies:
                 state.optimizer.step()
         else:
-            health = _instrumented_update(state, params, health_grads, numerics_spec, applies)
+            health = _instrumented_update(state, params, health_grads, numerics_spec, applies,
+                                          layout)
         if apply:
             state.step += 1
         metrics = {
@@ -140,12 +168,36 @@ def build_train_step(
     return train_step
 
 
+def _reduce_metrics(loss_sum, ntokens, extras, group):
+    """The step's metrics over dp×sp: the loss and token sums and vector
+    extras summed, scalar extras averaged (``loss_sum`` is a sum)."""
+    import torch.distributed as dist
+
+    if group is None:
+        return loss_sum, ntokens, extras
+    n = dist.get_world_size(group)
+    names = sorted(extras)
+    flat = torch.cat([loss_sum.double().reshape(1), ntokens.double().reshape(1)]
+                     + [extras[k].reshape(-1).double() for k in names])
+    dist.all_reduce(flat, group=group)
+    out, offset = {}, 2
+    for k in names:
+        v = extras[k]
+        piece = flat[offset:offset + v.numel()].view_as(v)
+        offset += v.numel()
+        out[k] = (piece if (v.ndim > 0 or k == "loss_sum") else piece / n).to(v.dtype)
+    return flat[0].to(loss_sum.dtype), flat[1].round().to(ntokens.dtype), out
+
+
 @torch.no_grad()
-def _instrumented_update(state: TrainState, params, health_grads, spec, applies: bool):
+def _instrumented_update(state: TrainState, params, health_grads, spec, applies: bool,
+                         layout=None):
     """The optimizer update with a parameter snapshot around it, then the
     health summary on the reference's leaves. When ``applies`` is false
     the update is undone: parameters copied back, the optimizer's state
-    and update count restored to their snapshot."""
+    and update count restored to their snapshot. Over a mesh the summary
+    reads the unsharded parameters, gradients and updates (gathered on
+    every rank)."""
     from veomni_tpu_torch.models.jax_weights import reference_leaves
     from veomni_tpu_torch.observability.numerics import tree_health
 
@@ -176,6 +228,8 @@ def _instrumented_update(state: TrainState, params, health_grads, spec, applies:
     def values(table, ps, stacked):
         # a parameter outside the step (no gradient) reads as a zero gradient
         vals = [table[p] if p in table else torch.zeros_like(p) for p in ps]
+        if layout is not None:
+            vals = [layout.full_tensor(p, v) for p, v in zip(ps, vals)]
         return vals if stacked else vals[0]
 
     return tree_health(

@@ -1,6 +1,6 @@
 """BaseTrainer: builds the training stack and runs the loop.
 
-Port of ``veomni_tpu/trainer/base.py`` at world size 1: the build sequence
+Port of ``veomni_tpu/trainer/base.py``: the build sequence
 of ``__init__`` (``:92-103``: setup -> model -> data transform -> dataset
 -> dataloader -> train state -> callbacks), ``_inner_loss_fn``
 (``:441-456``), ``try_resume`` and ``apply_restored_extra``
@@ -12,8 +12,17 @@ eager ``build_train_step``, which update the model and its AdamW in place.
 
 The device is the card unless ``train.platform`` is ``cpu``, the caller's
 explicit request (``utils/device.py::resolve_device`` raises when no card
-is present). Host syncs follow the reference: metrics are fetched only on
-log steps (``ctl.synced``); in between, callbacks see device tensors.
+is present). Several processes (a launcher's ``RANK``/``WORLD_SIZE``/
+``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT`` or the reference's
+``VEOMNI_COORDINATOR_ADDRESS``/``VEOMNI_NUM_PROCESSES``/``VEOMNI_PROCESS_ID``)
+join one process group (:func:`maybe_initialize_distributed`); the mesh is
+``parallel/parallel_state.py``'s, each rank loads its dp slice of the data
+and its sp chunk of each row, the model is laid out by
+``parallel/parallel_plan.py`` and the step reduces over the mesh
+(``train/train_step.py``). Only rank 0 logs and writes the checkpoint's
+payload and the exports. Host syncs follow the reference: metrics are
+fetched only on log steps (``ctl.synced``); in between, callbacks see
+device tensors.
 (With ``resilience_skip_nonfinite``, the port's step itself reads its
 finite flag on the host once per step before the optimizer update.)
 
@@ -77,8 +86,15 @@ from veomni_tpu_torch.observability.flight_recorder import (
 )
 from veomni_tpu_torch.observability.spans import span
 from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
-from veomni_tpu_torch.optim.optimizer import with_param_groups
+from veomni_tpu_torch.optim.optimizer import split_mixed_groups, with_param_groups
 from veomni_tpu_torch.parallel import init_parallel_state, use_parallel_state
+from veomni_tpu_torch.parallel.parallel_plan import (
+    ParallelPlan,
+    apply_parallel_plan,
+    lora_parallel_plan_rules,
+    model_parallel_plan,
+)
+from veomni_tpu_torch.parallel.sequence_parallel import sp_slice
 from veomni_tpu_torch.train import build_train_state, build_train_step
 from veomni_tpu_torch.trainer.callbacks import (
     CheckpointCallback,
@@ -112,9 +128,6 @@ def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> N
         (f"data.data_type {d.data_type!r}", "the qwen2-vl and qwen2.5-vl transforms run "
          "through VLMTrainer, tasks/train_vlm.py; the other multimodal ones are slice F",
          d.data_type not in data_types),
-        ("train.num_virtual_devices", "virtual devices are a JAX CPU-mesh feature; the "
-         "multi-process mesh is slice C", t.num_virtual_devices > 0),
-        ("train.ulysses_async", "parallel/async_ulysses.py: slice C", t.ulysses_async),
     ) if on]
     if missing:
         raise NotImplementedError("not ported yet: " + "; ".join(missing))
@@ -130,19 +143,91 @@ def resolve_platform(platform: str) -> torch.device:
     raise ValueError(f"train.platform {platform!r}: the port runs on 'cuda' (default) or 'cpu'")
 
 
-def maybe_initialize_distributed() -> None:
-    """The reference joins a cluster here when the launcher's environment
-    says so (``:57``). The port runs at world size 1, so an environment
-    that asks for more than one process raises instead of training on a
-    slice of the data."""
-    asks = {k: os.environ[k] for k in ("WORLD_SIZE", "VEOMNI_NUM_PROCESSES")
-            if os.environ.get(k, "1") not in ("", "1")}
-    if os.environ.get("VEOMNI_AUTO_DISTRIBUTED") == "1":
-        asks["VEOMNI_AUTO_DISTRIBUTED"] = "1"
-    if asks:
-        raise NotImplementedError(
-            f"launcher environment {asks} asks for several processes: the port runs at "
-            "world size 1; multi-process training is slice C of the port")
+def _launcher_world():
+    """(rank, world size, local rank, init method) from the environment, or
+    None when it asks for one process: the reference's three ``VEOMNI_*``
+    variables (``:57-90``), a launcher's ``RANK``/``WORLD_SIZE``/
+    ``LOCAL_RANK``/``MASTER_ADDR``/``MASTER_PORT``, or
+    ``VEOMNI_AUTO_DISTRIBUTED=1`` (the launcher's ``env://``)."""
+    env = os.environ
+    coord = env.get("VEOMNI_COORDINATOR_ADDRESS")
+    if coord:
+        world = int(env["VEOMNI_NUM_PROCESSES"])
+        rank = int(env["VEOMNI_PROCESS_ID"])
+        return rank, world, int(env.get("LOCAL_RANK", rank)), f"tcp://{coord}"
+    if int(env.get("WORLD_SIZE", "1") or 1) > 1:
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        init = (f"tcp://{env.get('MASTER_ADDR', 'localhost')}:{env['MASTER_PORT']}"
+                if env.get("MASTER_PORT") else "env://")
+        return rank, world, int(env.get("LOCAL_RANK", rank)), init
+    if env.get("VEOMNI_AUTO_DISTRIBUTED") == "1":
+        return int(env["RANK"]), int(env["WORLD_SIZE"]), int(env.get("LOCAL_RANK", 0)), "env://"
+    return None
+
+
+def maybe_initialize_distributed(device: torch.device) -> torch.device:
+    """Join the process group the launcher's environment asks for and
+    return this rank's device: ``cuda:(LOCAL_RANK % cards)`` on the card,
+    the CPU when asked. The backend is NCCL when every local rank has a card
+    of its own, else gloo (the CPU, or ranks sharing a card: NCCL refuses
+    two ranks on one device); the choice is logged. A no-op (the device
+    unchanged) for one process or a group that exists already."""
+    import torch.distributed as dist
+
+    world = _launcher_world()
+    if device.type == "cuda" and world is not None:
+        device = torch.device("cuda", world[2] % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if world is None or (dist.is_available() and dist.is_initialized()):
+        return device
+    rank, size, local_rank, init = world
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", size))
+    own_cards = device.type == "cuda" and local_world <= torch.cuda.device_count()
+    backend = "nccl" if own_cards else "gloo"
+    logger.info("rank %d of %d joins %s over %s on %s (%s)", rank, size, init, backend, device,
+                "one card a rank" if own_cards else
+                "ranks share a card: NCCL keeps one rank a device" if device.type == "cuda"
+                else "CPU ranks")
+    kwargs = {"device_id": device} if backend == "nccl" else {}
+    dist.init_process_group(backend, init_method=init, rank=rank, world_size=size, **kwargs)
+    return device
+
+
+def spawn_virtual_devices(args: VeOmniArguments, module: str, argv) -> Optional[int]:
+    """``train.num_virtual_devices: N`` with ``platform: cpu`` is the JAX
+    package's simulated CPU mesh of N devices; its counterpart here is N CPU
+    ranks over gloo. Outside a launcher's world, an entry point re-runs
+    itself as those N processes and returns their exit code; inside one
+    (or without the knob) this returns None and the caller trains."""
+    n = args.train.num_virtual_devices
+    if n <= 0 or args.train.platform != "cpu" or _launcher_world() is not None:
+        return None
+    import sys
+
+    from veomni_tpu_torch.parallel.launch import spawn_entry_point
+
+    logger.info_rank0("train.num_virtual_devices %d: starting %d CPU ranks over gloo", n, n)
+    return spawn_entry_point(n, list(sys.argv[1:] if argv is None else argv), module)
+
+
+def run_entry_point(trainer_cls, argv, module: str):
+    """The task entry points' body: parse the command line (or ``argv``),
+    start the ``num_virtual_devices`` CPU ranks when asked
+    (:func:`spawn_virtual_devices`; then None is returned once they exit
+    cleanly), else build ``trainer_cls`` and train; returns the trainer."""
+    from veomni_tpu_torch.arguments import parse_args, save_args
+
+    args = parse_args(VeOmniArguments, argv)
+    code = spawn_virtual_devices(args, module, argv)
+    if code is not None:
+        if code:
+            raise SystemExit(code)
+        return None
+    if _process_index() == 0:
+        save_args(args, args.train.output_dir)
+    trainer = trainer_cls(args)
+    trainer.train()
+    return trainer
 
 
 class _HostValue:
@@ -181,8 +266,7 @@ class BaseTrainer:
     # ------------------------------------------------------------------ setup
     def _setup(self):
         t = self.args.train
-        self.device = resolve_platform(t.platform)
-        maybe_initialize_distributed()
+        self.device = maybe_initialize_distributed(resolve_platform(t.platform))
         if t.enable_full_determinism:
             from veomni_tpu_torch.utils.determinism import enable_full_determinism
 
@@ -203,7 +287,13 @@ class BaseTrainer:
             cp_size=t.context_parallel_size,
             tp_size=t.tensor_parallel_size,
             pp_size=t.pipeline_parallel_size,
+            device_type=self.device.type,
         )
+        if t.num_virtual_devices and t.num_virtual_devices != self.parallel_state.world_size:
+            logger.warning_rank0(
+                "train.num_virtual_devices %d: a rank is one process here, and the mesh has "
+                "the world's %d ranks (start N ranks through the entry point)",
+                t.num_virtual_devices, self.parallel_state.world_size)
         os.makedirs(t.output_dir, exist_ok=True)
         if _process_index() == 0:
             from veomni_tpu_torch.arguments import save_args
@@ -226,6 +316,10 @@ class BaseTrainer:
             ops_pins["attention"] = m.attn_implementation
         if m.moe_implementation not in ("auto", ""):
             ops_pins["group_gemm"] = m.moe_implementation
+        if self.args.train.ulysses_async:
+            # the chunked all-to-all/attention pipeline of the Ulysses wrap
+            ops_pins.setdefault("ulysses", "ulysses_async")
+            overrides.setdefault("ulysses_async_chunks", self.args.train.ulysses_async_chunks)
         if m.config_path:  # config.json, with the overrides on top
             self.model = build_foundation_model(
                 m.config_path, ops_implementation=ops_pins, **overrides)
@@ -260,11 +354,21 @@ class BaseTrainer:
             d.dataset_type, path=d.train_path, transform=self.data_transform, **kwargs,
         )
 
+    def data_shard(self) -> Dict[str, int]:
+        """This rank's share of the data: ``micro_batch_size`` rows a
+        micro-batch from its dp slice (``dp_rank`` is its position along the
+        dp axes, not its process rank: the sp peers of one dp index load the
+        same rows and each keeps its sequence chunk, ``_ship_batch``)."""
+        ps = self.parallel_state
+        return {"rows": self.args.train.micro_batch_size, "dp_rank": ps.data_parallel_index(),
+                "dp_size": ps.dp_size}
+
     def _build_dataloader(self):
         t, d = self.args.train, self.args.data
         ps = self.parallel_state
+        shard = self.data_shard()
         self.grad_accum_steps = self.args.compute_grad_accum(ps.dp_size)
-        local_mb = t.micro_batch_size * ps.dp_size
+        local_mb = shard["rows"]
         collator = TextPackingCollator(
             seq_len=d.max_seq_len,
             micro_batch_size=local_mb,
@@ -281,8 +385,8 @@ class BaseTrainer:
                 grad_accum_steps=self.grad_accum_steps,
                 buffer_size=d.dyn_bsz_buffer_size,
                 seed=t.seed,
-                dp_rank=0,
-                dp_size=1,
+                dp_rank=shard["dp_rank"],
+                dp_size=shard["dp_size"],
             )
         else:
             self.dataloader = build_dataloader(
@@ -293,16 +397,17 @@ class BaseTrainer:
                 grad_accum_steps=self.grad_accum_steps,
                 samples_per_micro_batch=max(1, d.samples_per_micro_batch * local_mb),
                 seed=t.seed,
-                dp_rank=0,
-                dp_size=1,
+                dp_rank=shard["dp_rank"],
+                dp_size=shard["dp_size"],
                 drop_last=d.drop_last,
                 infinite=True,
             )
 
     def _build_parallelized_state(self):
-        """Schedule, model init on the run's device, AdamW, train state,
-        train step, meter and checkpointer (the reference's ``:283``
-        without sharding: the state lives whole on one device)."""
+        """Schedule, model init on the run's device, the parallel plan
+        applied over the mesh (``parallel/parallel_plan.py``: FSDP2 shards,
+        expert slices; nothing at world size 1), optimizer, train state,
+        train step, meter and checkpointer (the reference's ``:283``)."""
         t = self.args.train
         steps = t.train_steps or max(1, len(self.dataloader) * t.num_train_epochs)
         self.train_steps = steps
@@ -311,24 +416,41 @@ class BaseTrainer:
             lr_warmup_ratio=t.lr_warmup_ratio, lr_min=t.lr_min,
         )
         m = self.args.model
+        ps = self.parallel_state
         if m.model_path:
-            # train.broadcast_weights_from_rank0 is a no-op at world size 1:
-            # the one process reads every tensor itself
-            module = self.model.load_hf(m.model_path, device=self.device)
+            # each rank reads the tensors itself (train.broadcast_weights_
+            # from_rank0 is not read), under expert parallelism only its
+            # experts'; the plan then keeps its part
+            experts = None
+            n_experts = getattr(getattr(self.model.config, "text", self.model.config),
+                                "num_experts", 0)
+            if ps.ep_enabled and n_experts:
+                e_loc = n_experts // ps.ep_size
+                r = ps.coords["ep"]
+                experts = range(r * e_loc, (r + 1) * e_loc)
+            module = self.model.load_hf(m.model_path, device=self.device, experts=experts)
         else:
             module = self.model.init(self.generator, device=self.device)
         self.lora_config = LoraConfig.from_dict(m.lora)
         if self.lora_config is not None:
-            # frozen base + trainable adapters (reference :312-373)
+            # frozen base + trainable adapters (reference :312-373); over a
+            # mesh the plan's LoRA rules merge in (:350-357)
             self.base_model = module
             trainable = init_lora_params(self.generator, module, self.lora_config)
             if m.lora_adapter_path:
                 load_adapter(m.lora_adapter_path, trainable)
+            self.base_layout = apply_parallel_plan(module, ps, frozen=True)
+            self.layout = apply_parallel_plan(trainable, ps, model_parallel_plan(
+                self.model.config).merge(ParallelPlan(rules=lora_parallel_plan_rules())))
             loss_fn = apply_lora_to_loss_fn(self._inner_loss_fn(), module)
         else:
-            self.base_model = None
+            self.base_model = self.base_layout = None
             trainable = module
+            self.layout = apply_parallel_plan(module, ps)
             loss_fn = self._inner_loss_fn()
+        if self.layout is not None:
+            # the root's FSDP2 forward: its own parameters gathered for the call
+            loss_fn = self.layout.entry(loss_fn)
         self.optimizer = build_optimizer(
             trainable, optimizer=t.optimizer, lr=self.lr_schedule, betas=tuple(t.betas),
             weight_decay=t.weight_decay,
@@ -341,12 +463,16 @@ class BaseTrainer:
         # frozen modules' grads are zeroed before the clip (reference :398-410)
         self.grad_mask = [p for path, p in named
                           if any(re.search(pat, path) for pat in m.freeze_modules)]
+        if self.layout is not None:
+            self.optimizer = split_mixed_groups(self.optimizer)
+            if hasattr(self.optimizer, "leaves"):
+                self.optimizer.layout = self.layout  # whole leaves over the mesh
         self.train_state = build_train_state(trainable, self.optimizer)
         # the hot step and, built on first use, the numerics sibling
         self._step_options = dict(
             max_grad_norm=t.max_grad_norm, grad_mask=self.grad_mask or None,
             scope=LoraAdapters.merged if self.base_model is not None else None,
-            skip_nonfinite=t.resilience_skip_nonfinite,
+            skip_nonfinite=t.resilience_skip_nonfinite, layout=self.layout,
         )
         # the cost census counts each batch shape's first step (observability/cost.py)
         self.train_step = instrument_site("train_step", build_train_step(
@@ -358,6 +484,7 @@ class BaseTrainer:
             flops_counter=FlopsCounter.from_config(self.model.config),
             world_size=self.parallel_state.world_size,
             device=self.device,
+            reduce=self._dp_sum if self.parallel_state.world_size > 1 else None,
         )
         self.checkpointer = build_checkpointer(
             t.load_checkpoint_path or os.path.join(t.output_dir, "checkpoints"),
@@ -368,7 +495,51 @@ class BaseTrainer:
             retry_base_s=t.resilience_retry_base_s,
             verify_mode=t.ckpt_verify,
             elastic=t.ckpt_elastic,
+            layout=self.layout,
         )
+
+    def _dp_sum(self, values):
+        """Per-rank batch stats summed over the dp shards: over dp×sp, where
+        the sp peers of a dp index count the same rows, then over sp."""
+        import torch.distributed as dist
+
+        ps = self.parallel_state
+        group = ps.group(ps.dp_sp_axes)
+        if group is None:  # one dp shard, no sp: tp or pp ranks repeat the work
+            return values
+        t = torch.tensor(values, dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, group=group)
+        return (t / ps.sp_size).tolist()
+
+    def barrier(self) -> None:
+        """Every rank waits for the others (a no-op for one process)."""
+        import torch.distributed as dist
+
+        if self.parallel_state.world_size > 1:
+            dist.barrier()
+
+    def unsharded_for_export(self):
+        """(the trained module, the frozen LoRA base or None) whole on rank 0
+        for an export; over a mesh, copies on the host gathered from the
+        shards (a collective: every rank calls it), and (None, None) on the
+        other ranks."""
+        import torch.distributed as dist
+
+        module, base = self.train_state.model, self.base_model
+        if self.layout is None:
+            return module, base
+        full = self.layout.full_state_dict()
+        full_base = self.base_layout.full_state_dict() if base is not None else None
+        if dist.get_rank() != 0:
+            return None, None
+        copy = self.model._build(None, "cpu")
+        if base is None:
+            copy.load_state_dict({k: v.cpu() for k, v in full.items()})
+            return copy, None
+        copy.load_state_dict({k: v.cpu() for k, v in full_base.items()})
+        adapters = init_lora_params(None, copy, self.lora_config)
+        adapters.load_state_dict({k: v.cpu() for k, v in full.items()})
+        return adapters, copy
 
     def _inner_loss_fn(self):
         """``loss_fn(module, batch)`` over the full model (a LoRA merge
@@ -493,15 +664,24 @@ class BaseTrainer:
                 ntok += float(metrics["ntokens"])
         return total / max(ntok, 1.0)
 
+    #: batch keys whose sequence dim stays whole under sequence parallelism
+    SP_WHOLE_KEYS: tuple = ()
+
     def _ship_batch(self, batch_np):
         """Host batch -> device tensors: numpy -> pinned host tensor ->
         asynchronous copy to the card (plain tensors on the CPU). The
-        class's keys, and ``channel_ids`` under ``data.channel_list``."""
+        class's keys, and ``channel_ids`` under ``data.channel_list``.
+        Under sequence parallelism each [A, B, S, ...] tensor keeps this
+        rank's chunk of S (mrope positions [A, B, 3, S] their last dim);
+        labels come pre-shifted from the collator, so no shift is needed."""
+        ps = self.parallel_state
         out = {}
         for k in self.BATCH_KEYS + (("channel_ids",) if self.args.data.channel_list else ()):
             if k not in batch_np:
                 continue
             t = torch.from_numpy(batch_np[k])
+            if ps.sp_enabled and k not in self.SP_WHOLE_KEYS and t.ndim >= 3:
+                t = sp_slice(t, ps, dim=3 if k == "position_ids" and t.ndim == 4 else 2)
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
             out[k] = t

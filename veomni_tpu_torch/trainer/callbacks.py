@@ -227,14 +227,16 @@ class HFCheckpointCallback(Callback):
 
     def on_train_end(self, trainer, state):
         out_dir = trainer.args.train.output_dir
-        module = trainer.train_state.model
-        if getattr(trainer, "base_model", None) is None:
-            trainer.model.save_hf(os.path.join(out_dir, "hf_ckpt"), module=module)
-            return
-        from veomni_tpu_torch.lora import save_adapter, save_merged_hf
+        module, base = trainer.unsharded_for_export()
+        if module is not None:  # rank 0 writes (over a mesh, the gathered copies)
+            if base is None:
+                trainer.model.save_hf(os.path.join(out_dir, "hf_ckpt"), module=module)
+            else:
+                from veomni_tpu_torch.lora import save_adapter, save_merged_hf
 
-        save_adapter(module, trainer.lora_config, os.path.join(out_dir, "lora_adapter"))
-        save_merged_hf(trainer.base_model, module, os.path.join(out_dir, "hf_ckpt"))
+                save_adapter(module, trainer.lora_config, os.path.join(out_dir, "lora_adapter"))
+                save_merged_hf(base, module, os.path.join(out_dir, "hf_ckpt"))
+        trainer.barrier()
 
 
 class ProfileCallback(Callback):

@@ -126,7 +126,7 @@ class DistillTrainer(BaseTrainer):
 
     def _build_dataloader(self):
         t, d = self.args.train, self.args.data
-        rows = t.micro_batch_size * self.parallel_state.dp_size
+        rows = self.data_shard()["rows"]
         self.dataloader = one_sample_dataloader(
             self, DistillCollator(d.max_seq_len, rows, topk=t.distill_topk,
                                   sp_size=self.parallel_state.sp_size), rows)

@@ -106,11 +106,13 @@ def one_sample_dataloader(trainer, collator, rows: int):
     """The native dataloader offering ``rows`` samples to ``collator`` a
     micro-batch (one sample a row, no packing)."""
     t, d = trainer.args.train, trainer.args.data
+    shard = trainer.data_shard()
     trainer.grad_accum_steps = trainer.args.compute_grad_accum(trainer.parallel_state.dp_size)
     return build_dataloader(
         d.dataloader_type, dataset=trainer.dataset, collate_fn=collator,
         micro_batch_size=rows, grad_accum_steps=trainer.grad_accum_steps,
-        samples_per_micro_batch=rows, seed=t.seed, dp_rank=0, dp_size=1, infinite=True,
+        samples_per_micro_batch=rows, seed=t.seed, dp_rank=shard["dp_rank"],
+        dp_size=shard["dp_size"], infinite=True,
     )
 
 
@@ -136,7 +138,7 @@ class TextDPOTrainer(BaseTrainer):
             "dpo", tokenizer=self.tokenizer, max_seq_len=self.args.data.max_seq_len)
 
     def _build_dataloader(self):
-        pairs = self.args.train.micro_batch_size * self.parallel_state.dp_size
+        pairs = self.data_shard()["rows"]
         self.dataloader = one_sample_dataloader(
             self, DPOPairCollator(self.args.data.max_seq_len, pairs,
                                   sp_size=self.parallel_state.sp_size), pairs)
@@ -151,7 +153,17 @@ class TextDPOTrainer(BaseTrainer):
         it is fixed."""
         if self.reference is not None:
             return
-        if self.base_model is None:
+        if self.base_model is None and self.layout is not None:
+            # over a mesh: a whole copy on every rank (its experts keep their
+            # ep slice), from the state gathered out of the shards
+            from veomni_tpu_torch.parallel.parallel_plan import apply_parallel_plan
+
+            full = self.layout.full_state_dict()
+            ref = self.model._build(None, self.device)
+            ref.load_state_dict({k: v.to(self.device) for k, v in full.items()})
+            apply_parallel_plan(ref, self.parallel_state, frozen=True)
+            self.reference = ref.requires_grad_(False)
+        elif self.base_model is None:
             self.reference = copy.deepcopy(self.train_state.model).requires_grad_(False)
         elif self.args.model.lora_adapter_path:
             from veomni_tpu_torch.lora import merge_lora_params

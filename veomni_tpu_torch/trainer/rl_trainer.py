@@ -126,7 +126,7 @@ class BaseRLTrainer(BaseTrainer):
             "rl", tokenizer=self.tokenizer, max_seq_len=self.args.data.max_seq_len)
 
     def _build_dataloader(self):
-        rows = self.args.train.micro_batch_size * self.parallel_state.dp_size
+        rows = self.data_shard()["rows"]
         self.dataloader = one_sample_dataloader(
             self, RLSampleCollator(self.args.data.max_seq_len, rows,
                                    sp_size=self.parallel_state.sp_size), rows)

@@ -1,6 +1,6 @@
 """VLMTrainer: vision-language SFT for Qwen2-VL and Qwen2.5-VL.
 
-Port of ``veomni_tpu/trainer/vlm_trainer.py`` (``:33-230``) at world size 1,
+Port of ``veomni_tpu/trainer/vlm_trainer.py`` (``:33-230``),
 for the two families that share one data contract: the family's row
 transform (``data/multimodal.py``, whatever ``data.data_type`` names, as in
 the reference) and its packed-patch collator, one sample a micro-batch row
@@ -9,11 +9,14 @@ the reference) and its packed-patch collator, one sample a micro-batch row
 (``model.config_overrides``): the tower runs without autograd and AdamW
 still decays it (``models/qwen2_5_vl.py``).
 
-The reference's ``_batch_sharding_map`` has no twin: at world size 1 every
-batch array ships whole to the one device, and the packed vision arrays
-are what the reference replicates. Its per-row vision batches come only
-from a batch split over processes (slice C). qwen3_vl, qwen3_vl_moe and
-the slot VLM raise when the model is built (``models/auto.py``).
+Over several ranks (``:44-49``) each rank's rows take the per-row patch
+budgets (``per_row``: every row its own buffer and index plan, which the
+model flattens), as the reference does when its batch is split over
+processes; the rows ship whole, and under sequence parallelism the model
+keeps its sequence chunk after the vision merge (``models/qwen2_5_vl.py``).
+The reference's ``_batch_sharding_map`` has no twin: each rank's arrays
+are its own. qwen3_vl, qwen3_vl_moe and the slot VLM raise when the model
+is built (``models/auto.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ class VLMTrainer(BaseTrainer):
                                "vis_seg_full", "vis_reverse", "vis_merged_mask")
     SUPPORTED_DATA_TYPES = SUPPORTED_DATA_TYPES + ("qwen2_vl", "qwen2_5_vl",
                                                    "qwen2_5_vl_conversation")
+    # whole rows ship to the model, which cuts the sequence after the merge
+    SP_WHOLE_KEYS = BATCH_KEYS
+
+    @property
+    def _vlm_per_row(self) -> bool:
+        """Per-row patch budgets whenever the batch is split over ranks."""
+        return self.parallel_state.world_size > 1
 
     @property
     def _real_vl(self):
@@ -54,14 +64,16 @@ class VLMTrainer(BaseTrainer):
     def _build_data_transform(self):
         d = self.args.data
         key, _ = self._real_vl
-        local_mb = max(1, self.args.train.micro_batch_size * self.parallel_state.dp_size)
-        # packed mode: the budget is per micro-batch; each sample is capped to
-        # its share, so that legitimate data never overflows the static shape
+        global_mb = max(1, self.args.train.micro_batch_size * self.parallel_state.dp_size)
+        local_mb = max(1, self.data_shard()["rows"])
+        # the budget is per micro-batch (packed) or per row (per-row); each
+        # sample is capped to its share, so legitimate data never overflows
+        # the static shape
         self.data_transform = build_data_transform(
             key, tokenizer=self.tokenizer, vlm_config=self.model.config,
             max_seq_len=d.max_seq_len,
-            max_patches_per_sample=max(self.model.config.vision.merge_unit,
-                                       d.max_patches // local_mb),
+            max_patches_per_sample=max(self.model.config.vision.merge_unit, d.max_patches // (
+                global_mb if self._vlm_per_row else local_mb)),
             text_keys=d.text_keys, channel_list=d.channel_list,
         )
 
@@ -69,14 +81,17 @@ class VLMTrainer(BaseTrainer):
         t, d = self.args.train, self.args.data
         ps = self.parallel_state
         self.grad_accum_steps = self.args.compute_grad_accum(ps.dp_size)
-        local_mb = t.micro_batch_size * ps.dp_size
+        shard = self.data_shard()
+        local_mb = shard["rows"]
         _, collator_cls = self._real_vl
         collator = collator_cls(seq_len=d.max_seq_len, micro_batch_size=local_mb,
                                 vlm_config=self.model.config, max_patches=d.max_patches,
-                                sp_size=ps.sp_size, with_channels=bool(d.channel_list))
+                                sp_size=ps.sp_size, per_row=self._vlm_per_row,
+                                with_channels=bool(d.channel_list))
         self.dataloader = build_dataloader(
             d.dataloader_type, dataset=self.dataset, collate_fn=collator,
             micro_batch_size=local_mb, grad_accum_steps=self.grad_accum_steps,
             samples_per_micro_batch=local_mb,  # 1:1, no packing
-            seed=t.seed, dp_rank=0, dp_size=1, drop_last=d.drop_last, infinite=True,
+            seed=t.seed, dp_rank=shard["dp_rank"], dp_size=shard["dp_size"],
+            drop_last=d.drop_last, infinite=True,
         )

@@ -20,6 +20,12 @@ ENV_DEFAULTS: Dict[str, Any] = {
     # online-softmax form (``ops/attention.py::_attention_xla_chunked``)
     # instead of materializing the [B, H, S, S] score tensor.
     "VEOMNI_ATTN_CHUNK_THRESHOLD": "2048",
+    # Route Ulysses SP attention through the chunked async a2a/compute
+    # pipeline (parallel/async_ulysses.py) instead of the monolithic a2a.
+    "VEOMNI_ULYSSES_ASYNC": "0",
+    # Head-chunk count for the async Ulysses pipeline (clamped to the
+    # feasible maximum of the model's head layout).
+    "VEOMNI_ULYSSES_ASYNC_CHUNKS": "4",
 }
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -29,15 +29,18 @@ logger = get_logger(__name__)
 class EnvironMeter:
     """Accumulates per-step tokens/FLOPs and derives MFU + throughput.
 
-    At world size 1 the batch stats are global already; ``device`` is the
-    card whose published peak is the MFU denominator (``None`` or a CPU
-    device: no MFU).
+    At world size 1 the batch stats are global already; over a mesh each
+    rank adds its own batch's and ``reduce`` (set by the trainer) sums a
+    window's stats over the ranks at the roll-up, so the rates and the MFU
+    are the mesh's. ``device`` is the card whose published peak is the MFU
+    denominator (``None`` or a CPU device: no MFU).
     """
 
     flops_counter: Optional[FlopsCounter] = None
     world_size: int = 1
     device: Optional[torch.device] = None
     empty_cache_steps: int = 0
+    reduce: Optional[Callable[[List[float]], List[float]]] = None
     consumed_tokens: int = 0
     _step_tokens: int = 0
     _step_token_seq: float = 0.0
@@ -59,6 +62,11 @@ class EnvironMeter:
     def step(self) -> Dict[str, float]:
         now = time.perf_counter()
         dt = max(now - self._t_start, 1e-9)
+        if self.reduce is not None:
+            tokens, token_seq, extra = self.reduce(
+                [self._step_tokens, self._step_token_seq, self._step_extra_flops])
+            self._step_tokens, self._step_token_seq = int(round(tokens)), token_seq
+            self._step_extra_flops = extra
         tokens = self._step_tokens
         self.consumed_tokens += tokens
         metrics: Dict[str, float] = {
