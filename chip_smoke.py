@@ -42,7 +42,7 @@ Phases (any failure exits non-zero and prints no result line):
    then K and N multiples of 8 but not of the tiles (small cases at K=136
    N=200 and K=776 N=64, and the MoE routing at (K, N) = (2048, 776),
    (776, 2048) and the reference CLI config's (2048, 64));
-5. drive the dense main path: Qwen3-0.6B (full width, 28 layers, f32 master
+5. drive the dense main path: Qwen3-0.6B (full width, 14 of 28 layers, f32 master
    weights, bf16 compute, ``ctx`` remat, AdamW) for 3 SFT train steps on
    packed seq-4096 batches of micro-batch 4, with every kernel launch
    counter set to 0 just before and read just after;
@@ -220,11 +220,18 @@ Phases (any failure exits non-zero and prints no result line):
 19. the same at Qwen2.5-VL-3B-Instruct's published widths (tower 32 blocks
    of 1280 with windows of 112 pixels and full attention at blocks 7, 15,
    23 and 31; LM hidden 2048, 16/2 heads), the LM cut to 18 of 36 layers,
-   K1-K3 on the per-window segments, 2 steps, no export;
+   K1-K3 on the per-window segments, 2 steps, no export; then VLM-DPO with
+   LoRA (rank 16) on its HF directory through ``tasks/train_vlm_dpo.py``, a
+   pair a step, 2 steps: step 1's loss ln 2; the trained policy's and the
+   reference's per-row label log-prob sums on the last micro-batch against
+   the plain attention's; the same run with the plain attention giving step
+   1's loss equal, its grad norm and step 2's loss and grad norm within
+   VLM_DPO_TOL (4x measured floors); the adapter's save and load bit-equal,
+   K1-K3 at D 80 and D 128 as reckoned;
 20. the post-training trainers (run after the SFT phases of 16), each the
    class its entry point (``veomni_tpu_torch.tasks.train_text_{dpo,
-   distill,rl}``) builds from the trainer phase's YAML (Qwen3-0.6B, full
-   width, 28 layers, random weights from seed 0, seq 4096, ctx remat,
+   distill,rl}``) builds from the trainer phase's YAML cut to 14 layers
+   (Qwen3-0.6B, full width, random weights from seed 0, seq 4096, ctx remat,
    deterministic algorithms; no final checkpoint): DPO with 2 pairs a
    micro-batch of random ids and ``data.eval_path`` at ``eval_steps`` 2 for
    3 steps (step 1's loss ln 2 a pair with ``dpo_acc`` 0, K1 twice a layer
@@ -248,7 +255,7 @@ Phases (any failure exits non-zero and prints no result line):
    as reckoned on every leg, ``FALLBACK_CALLS`` 0.
 
 21. the remat policies (after the dense main path of 5): the bare loop at
-   Qwen3-0.6B (28 layers, seq 4096 x micro-batch 4) for 2 steps under each
+   Qwen3-0.6B (14 layers, seq 4096 x micro-batch 4) for 2 steps under each
    of ``nothing``, ``ctx``, ``dots``, ``offload`` and ``ctx_offload``, and
    under ``ctx`` with ``chunk_mbs`` 1024: K1-K3 as reckoned (K1 twice a layer
    and step under ``nothing``, once under the others), step 1's loss
@@ -257,9 +264,9 @@ Phases (any failure exits non-zero and prints no result line):
    ``dots``'s and ``ctx``'s; step ms and peak memory a policy; then under
    ``ctx`` 2 steps with ``optimizer: muon`` and one with each of
    ``anyprecision_adamw``, ``adafactor`` and ``sgd``: step 1's loss equal to
-   the AdamW leg's, K1-K3 28 times a step, and step 2's Muon update of
-   ``q_proj`` (layer 5), ``down_proj`` (20), ``o_proj`` (27) and the stacked
-   ``[28, 1024]`` ``input_layernorm`` (orthogonalised jointly) against this
+   the AdamW leg's, K1-K3 14 times a step, and step 2's Muon update of
+   ``q_proj`` (layer 5), ``down_proj`` (10), ``o_proj`` (13) and the stacked
+   ``[14, 1024]`` ``input_layernorm`` (orthogonalised jointly) against this
    script's own float64 Newton-Schulz of the same momentum (MUON_TOL);
 22. the int8 serving tiers (after the dense serving phase of 12) at
    Qwen3-0.6B, 28 layers in bf16: the quality gate's noise floor (the dense
@@ -300,12 +307,15 @@ Phases (any failure exits non-zero and prints no result line):
    (``parallel/launch.py::run_ranks`` with the launcher's environment),
    each building ``TextTrainer`` from a YAML, which joins the world itself
    and picks gloo (NCCL refuses two ranks on one device): Qwen3-0.6B at
-   full depth, seq 4096, 4 rows, ulysses 2 (K1-K3 at a rank's 8/4 heads
+   8 of 28 layers, seq 4096, 4 rows, ulysses 2 (K1-K3 at a rank's 8/4 heads
    after the all-to-all), trained a step and checkpointed there, then a
    fresh trainer restores that checkpoint and trains step 2; then
    Qwen3-30B-A3B's widths at 2 layers, one row a rank, ep 2 (64 experts a
    rank, dropless buckets, K4-K6 on the capacity-padded local groups);
-   FSDP2 shards the dense weights. Each leg's loss, grad norm (and the
+   then Qwen3-0.6B at 8 layers, FSDP 2, a row a rank, with LoRA (its frozen
+   base sharded) and under Muon (its moments cut to each rank's part), each
+   rank's resident base or optimizer bytes at most PARALLEL_RESIDENT_MAX of
+   world 1's; FSDP2 shards the dense weights. Each leg's loss, grad norm (and the
    balance loss) at steps 1-2 against the same trainer at world size 1 on
    the same documents within PARALLEL_TOL (4x a measured floor), both ranks
    equal, the restart's state equal to the saved one, K1-K6 launching in
@@ -315,7 +325,16 @@ Phases (any failure exits non-zero and prints no result line):
    K1-K3 at the rank's head layout on the dense batch and K4-K6 at rank 0's
    local expert groups (routed at world 1 on the same weights and rows)
    against their plain versions (timed at the gate/up shape). Each leg's
-   transport is printed from what the ranks report.
+   transport is printed from what the ranks report;
+26. the same as 18 at Qwen3-VL-30B-A3B-Instruct's published widths: the
+   whole 27-block tower (1152 wide, 16 heads of 72, deepstack taps after
+   blocks 8, 16 and 24), the text Qwen3-30B-A3B's (2048, 32/4 heads of
+   128, 128 experts top-8 of width 768) cut to 4 of 48 layers, the experts
+   written in HF's fused gate | up layout; K1-K3 at D 72 on the tower's
+   per-frame segments and causal on one segment against their plain
+   versions; 2 steps on images of two sizes; launches at D 72, D 128 and
+   K4-K6 as reckoned; step 1 against the plain attention and grouped GEMM
+   within QWEN3_VL_TOL (4x a measured floor).
 
 ``--phases serve_dense,serve_quant,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -324,7 +343,8 @@ hf_trainer_gemma3,serve_gemma3,dialects`` runs the dense dialects' phases
 (11 and 13) alone, ``--phases hf_trainer_moonlight,deepseek_v2_lite`` the
 deepseek ones (15), ``--phases sft_lora_dense,sft_lora_moe`` the SFT ones
 (16), ``--phases hf_trainer_gpt_oss,serve_gpt_oss`` the gpt_oss ones (17),
-``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl`` the VLM ones (18, 19),
+``--phases hf_trainer_qwen2_vl,hf_trainer_qwen2_5_vl,hf_trainer_qwen3_vl_moe`` the
+VLM ones (18, 19 with the VLM-DPO leg, 26),
 ``--phases moe,post_training`` the MoE path with its monitor (6) and the
 post-training trainers (20), ``--phases parallel`` the parallel layer (25),
 ``--phases parallel_floor``, which no whole run includes, the floors its
@@ -334,7 +354,10 @@ infer_text`` the phases 21-24 (``serve_moe`` needs ``serve_quant`` named before
 it: the MoE gate reads its noise floor), and ``--phases vlm_witness``, which
 no whole run includes, the VLM step-1 parity's witness: the step at other
 text depths and weight seeds, with the attention of the tower and of the
-text layers each pinned to the plain version in turn. Each partial run logs each phase's seconds
+text layers each pinned to the plain version in turn, and ``--phases
+qwen3_vl_floor,vlm_dpo_floor``, which no whole run includes either, the
+floors of the Qwen3-VL step-1 parity and of the VLM-DPO leg's parity
+(QWEN3_VL_TOL, VLM_DPO_TOL). Each partial run logs each phase's seconds
 (``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
@@ -408,7 +431,12 @@ TOL_LEAF_REL = 5e-2
 # expert) of its size: each breaks the rule many times over.
 GMM_RTOL = 2.0 ** -7
 GMM_ATOL_MAX = 1e-4
-LAYERS = 28
+# Qwen3-0.6B's depth on the dense main path, the remat and optimizer legs
+# and the post-training trainers: 14 of its 28 layers, cut with the Qwen3-VL
+# phase's arrival to keep the whole run inside its limit. The trainer phase
+# keeps all 28: its census MFU band is reckoned at that depth (MFU_BAND)
+LAYERS = 14
+TRAINER_LAYERS = 28
 MOE_PRESET = "qwen3_30b_a3b"
 MOE_LAYERS = 4
 MAIN_STEPS = 3
@@ -1029,7 +1057,7 @@ def phase_main(dev, card):
     from veomni_tpu_torch.train_text_step import run_train_steps
 
     reset_all_counts()
-    records = run_train_steps(4096, 4, MAIN_STEPS, device=dev)
+    records = run_train_steps(4096, 4, MAIN_STEPS, num_layers=LAYERS, device=dev)
     launches, fallbacks = read_counts()
     for i, r in enumerate(records):
         log(f"main step {i}: loss={r['loss']:.6f} grad_norm={r['grad_norm']:.6f} "
@@ -1344,14 +1372,14 @@ def observatory_checks(dev, card, trainer, observe, first_batch):
         f"{[f'{v:.3e}' for v in first_doc.get('layers.q_proj', {}).get('grad_rms', [])[:4]]}..., "
         f"update_ratio max {max(first_doc.get('layers.q_proj', {}).get('update_ratio', [0])):.3e}")
     checks.append(("numerics history", [h["step"] for h in hist] == [2, 4, 6] and not bad
-                   and len(first_doc.get("layers.q_proj", {}).get("grad_rms", [])) == LAYERS,
+                   and len(first_doc.get("layers.q_proj", {}).get("grad_rms", [])) == TRAINER_LAYERS,
                    f"steps {[h['step'] for h in hist]}, non-finite groups {sorted(bad)}"))
     # the census: the train step's bucket, its hand-kernel share reckoned by
     # this script's own pair count, not the port's
     rec = get_cost_census().latest("train_step")
     seg = torch.from_numpy(first_batch["segment_ids"][0])
     pairs = visible_pairs(seg)
-    want_kernel = LAYERS * 18 * 128 * 16 * pairs
+    want_kernel = TRAINER_LAYERS * 18 * 128 * 16 * pairs
     log(f"trainer cost census: train_step/{rec.bucket} {rec.flops / 1e12:.3f} TFLOPs "
         f"({rec.kernel_flops / 1e12:.3f} from K1-K3), {rec.bytes_accessed / 1e9:.1f} GB accessed, "
         f"temp {'unknown' if rec.temp_bytes is None else f'{rec.temp_bytes / 2**30:.2f} GiB'}, "
@@ -1359,7 +1387,7 @@ def observatory_checks(dev, card, trainer, observe, first_batch):
         f"{rec.calls}, {rec.bound()}-bound; {pairs} visible pairs "
         f"({pairs / seg.numel():.1f} a token) [{card}]")
     checks.append(("census kernel FLOPs", rec.kernel_flops == want_kernel,
-                   f"{rec.kernel_flops:.6g} against {LAYERS} x 18 x D x Hq x pairs = "
+                   f"{rec.kernel_flops:.6g} against {TRAINER_LAYERS} x 18 x D x Hq x pairs = "
                    f"{want_kernel:.6g}"))
     ratios = {i: c / m for i, (c, m) in observe.mfu.items() if i % 2 == 1 and i > 1 and m}
     log(f"trainer MFU: census train.mfu_pct / meter mfu at the hot steps {ratios} (per step "
@@ -1416,6 +1444,21 @@ def observatory_checks(dev, card, trainer, observe, first_batch):
     log_checks("trainer drills", checks)
 
 
+def write_dense_config(tmp: str, **kw) -> str:
+    """``tools/trainer_profile.py``'s corpus and YAML (Qwen3-0.6B) with the
+    text cut to LAYERS. Returns the YAML's path."""
+    from veomni_tpu_torch.tools.trainer_profile import write_config
+
+    path = write_config(tmp, **kw)
+    with open(path) as f:
+        text = f.read()
+    if text.count("num_hidden_layers: 28") != 1:
+        raise AssertionError(f"{path}: no num_hidden_layers: 28 to cut")
+    with open(path, "w") as f:
+        f.write(text.replace("num_hidden_layers: 28", f"num_hidden_layers: {LAYERS}"))
+    return path
+
+
 def phase_trainer(dev, card):
     """The trainer path: see phase 8 of the module docstring. Returns the
     straight leg's launch counts."""
@@ -1427,8 +1470,8 @@ def phase_trainer(dev, card):
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
     from veomni_tpu_torch.tasks.train_text import main as train_text_main
     from veomni_tpu_torch.tools.trainer_profile import SEED as TRAINER_SEED
-    from veomni_tpu_torch.tools.trainer_profile import STEPS as TRAINER_STEPS
     from veomni_tpu_torch.tools.trainer_profile import write_config
+    from veomni_tpu_torch.tools.trainer_profile import STEPS as TRAINER_STEPS
     from veomni_tpu_torch.train import build_train_state, build_train_step
     from veomni_tpu_torch.train_text_step import bench_config
     from veomni_tpu_torch.trainer import TextTrainer
@@ -1511,7 +1554,7 @@ def phase_trainer(dev, card):
             f"[{card}]")
         check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
                      for r in a.values()], "trainer")
-        n = LAYERS * TRAINER_STEPS
+        n = TRAINER_LAYERS * TRAINER_STEPS
         check_counts(launches, fallbacks, {"flash_fwd": n, "flash_bwd_dkv": n,
                                            "flash_bwd_dq": n}, "trainer")
         # the drills below train leg A's trainer on: its records stop here
@@ -1524,7 +1567,7 @@ def phase_trainer(dev, card):
 
         # step-1 parity: train_text_step's build_train_step on the same
         # initial weights (same seed, same init) and the trainer's first batch
-        cfg = bench_config("qwen3_0p6b")
+        cfg = bench_config("qwen3_0p6b", num_hidden_layers=TRAINER_LAYERS)
         model = Transformer(cfg, torch.Generator(device=dev).manual_seed(TRAINER_SEED), device=dev)
         state = build_train_state(model, build_optimizer(
             model, lr=build_lr_scheduler(lr=1e-4, train_steps=TRAINER_STEPS)))
@@ -1601,7 +1644,7 @@ def phase_trainer(dev, card):
             f"parameters, AdamW moments and num_updates ({digest_a[-1]}) equal the straight "
             f"leg's bit for bit ({len(digest_a) - 1} tensors), the numerics sibling on steps "
             f"2, 4 and 6 of both legs")
-        half = LAYERS * TRAINER_SAVE_AT
+        half = TRAINER_LAYERS * TRAINER_SAVE_AT
         for tag, got_l, got_f in (("trainer leg B1", b1_launches, b1_fallbacks),
                                   ("trainer leg B2", b2_launches, b2_fallbacks)):
             check_counts(got_l, got_f, {"flash_fwd": half, "flash_bwd_dkv": half,
@@ -1988,10 +2031,10 @@ GEMMA_PRESET = "gemma3_1b"
 GEMMA_STEPS = 3  # was 6, then 4: cut to make room for the VLM, then the serving phases
 DIALECT_STEPS = 2  # cut with the remat and int8 serving phases (was 3)
 DIALECT_PRESETS = ("llama3p2_1b", "qwen2p5_1p5b")
-# half the published depth (26, 16, 28 layers), cut when slice E's checks
-# joined the script, to keep the whole run under 1100 s: the layouts, the
-# window pattern (2 of Gemma's 13 layers full attention) and every check stay
-DIALECT_LAYERS = {"gemma3_1b": 13, "llama3p2_1b": 8, "qwen2p5_1p5b": 14}
+# a quarter of the published depth (26, 16, 28 layers; half since slice E,
+# a quarter since slice F1 to pay for its phases): the layouts, the window
+# pattern (layer 5 of Gemma's 7 full attention) and every check stay
+DIALECT_LAYERS = {"gemma3_1b": 7, "llama3p2_1b": 4, "qwen2p5_1p5b": 7}
 DIALECT_NAMES = {"gemma3_1b": "Gemma-3-1B", "llama3p2_1b": "Llama-3.2-1B",
                  "qwen2p5_1p5b": "Qwen2.5-1.5B"}
 
@@ -2021,23 +2064,43 @@ PARALLEL_STEPS = 2
 PARALLEL_SEQ = 4096
 PARALLEL_DOC = 1024
 PARALLEL_MOE_LAYERS = 2
+# Qwen3-0.6B's depth in the dense, LoRA and Muon legs: cut from 28 (the
+# dense leg's 28 layers of gloo traffic and its 7.2 GB checkpoint took ~95 s)
+PARALLEL_DENSE_LAYERS = 8
 PARALLEL_LEGS = {
-    # Qwen3-0.6B at full depth, 4 rows, ulysses 2 (dp 1: both ranks read the
-    # same rows; each keeps half of every row's sequence and, after the
+    # Qwen3-0.6B widths, 4 rows, ulysses 2 (dp 1: both ranks read the same
+    # rows; each keeps half of every row's sequence and, after the
     # all-to-all, 8 of 16 q heads and 4 of 8 kv heads): step 1 and a
     # checkpoint there, then a fresh trainer restores it and runs step 2
-    "dense": dict(rows=4, rank_rows=4, resume=True,
+    "dense": dict(rows=4, rank_rows=4, resume=True, census=True,
                   flags=("--train.ulysses_parallel_size=2",)),
     # Qwen3-30B-A3B widths, 2 rows, ep 2 = dp 2 (one row a rank, 64 of 128
     # experts a rank, dropless buckets); cut to PARALLEL_MOE_LAYERS (the MoE
     # phase runs 4): at 4 two ranks ran the card out of memory
-    "moe": dict(rows=2, rank_rows=1, resume=False,
+    "moe": dict(rows=2, rank_rows=1, resume=False, census=True,
                 flags=("--train.expert_parallel_size=2",)),
+    # Qwen3-0.6B widths at FSDP 2 (a row a rank): LoRA (AdamW on the
+    # adapters), whose frozen base FSDP2 shards, and the full model under
+    # Muon, whose moments each rank keeps its part of; each rank's resident
+    # bytes of the base (LoRA) and of the optimizer state against world 1's.
+    # Their step also gathers the base or the Muon leaves, which the plan's
+    # reckoning of a step does not count, so the census is not held
+    "lora": dict(rows=2, rank_rows=1, resume=False, census=False, resident="params",
+                 flags=(), model_flags=('--model.lora={"rank": 16, "alpha": 32}',)),
+    "muon": dict(rows=2, rank_rows=1, resume=False, census=False, resident="state",
+                 flags=(), model_flags=("--train.optimizer=muon",)),
 }
-# floors (largest of nine draws): dense loss 9.09e-6, grad norm 2.87e-4; MoE
-# loss 4.01e-5, grad norm 9.95e-4, balance loss 5.56e-5
-PARALLEL_TOL = {"dense": {"loss": 3.7e-5, "grad_norm": 1.2e-3},
-                "moe": {"moe_aux_loss": 2.3e-4, "loss": 1.7e-4, "grad_norm": 4e-3}}
+# each rank's part of the base (LoRA) or of the Muon state: about half of
+# world 1's (the whole); the replicated norms and the scale keep it over 0.5
+PARALLEL_RESIDENT_MAX = 0.55
+# floors (largest of nine draws, --phases parallel_floor): dense (8 layers)
+# loss 7.93e-6, grad norm 1.39e-4; MoE loss 4.01e-5, grad norm 9.95e-4,
+# balance loss 5.56e-5; LoRA loss 7.56e-6, grad norm 3.76e-4; Muon loss
+# 9.99e-6, grad norm 3.25e-4; the limits are 4x the floors
+PARALLEL_TOL = {"dense": {"loss": 3.2e-5, "grad_norm": 5.6e-4},
+                "moe": {"moe_aux_loss": 2.3e-4, "loss": 1.7e-4, "grad_norm": 4e-3},
+                "lora": {"loss": 3.1e-5, "grad_norm": 1.6e-3},
+                "muon": {"loss": 4e-5, "grad_norm": 1.3e-3}}
 PARALLEL_AUX_STEP = 1  # the step whose balance loss is held
 PARALLEL_FLOOR_SEEDS = (0, 1, 2)  # the floor's corpora (the legs read seed 0's)
 PARALLEL_YAML = """
@@ -2074,10 +2137,12 @@ def parallel_models() -> dict:
     from veomni_tpu_torch.tools.trainer_profile import TRAINER_YAML
     from veomni_tpu_torch.train_text_step import BENCH_PRESETS
 
-    dense = yaml.safe_load(TRAINER_YAML.format(data="corpus.jsonl", steps=1, seed=0))["model"][
+    full = yaml.safe_load(TRAINER_YAML.format(data="corpus.jsonl", steps=1, seed=0))["model"][
         "config_overrides"]
-    return {"dense": dense, "moe": {**dense, **BENCH_PRESETS[MOE_PRESET],
-                                    "num_hidden_layers": PARALLEL_MOE_LAYERS}}
+    dense = {**full, "num_hidden_layers": PARALLEL_DENSE_LAYERS}
+    return {"dense": dense, "moe": {**full, **BENCH_PRESETS[MOE_PRESET],
+                                    "num_hidden_layers": PARALLEL_MOE_LAYERS},
+            "lora": dense, "muon": dense}
 
 
 def write_parallel_run(tmp: str, leg: str, model: dict, rows: int, *, seq: int = PARALLEL_SEQ,
@@ -2147,7 +2212,22 @@ def parallel_train(cfg_path: str, flags, *, stop_at=None, checkpoints: bool = Tr
     trainer.callbacks.append(Record())
     trainer.train()
     trainer.checkpointer.close()
+    records["resident"] = resident_bytes(trainer)
     return trainer, records, begin["step"], begin["digest"]
+
+
+def resident_bytes(trainer) -> dict:
+    """This rank's bytes of the model's parameters (the frozen base under
+    LoRA) and of the optimizer state, shards as they lie on the rank."""
+    def size(t):
+        local = t.to_local() if hasattr(t, "to_local") else t
+        return local.numel() * local.element_size()
+
+    model = trainer.base_model if trainer.base_model is not None else trainer.train_state.model
+    state = trainer.train_state.optimizer.state
+    return {"params": sum(size(p) for p in model.parameters()),
+            "state": sum(size(v) for st in state.values() for v in st.values()
+                         if torch.is_tensor(v) and v.ndim)}
 
 
 def parallel_ranks(rank: int, world: int, payload: dict) -> dict:
@@ -2184,7 +2264,7 @@ def parallel_ranks(rank: int, world: int, payload: dict) -> dict:
         s //= ps.sp_size
         rec = get_comm_census().get("train_step", f"{a}x{b}x{s}")
         res = {"census": dict(rec.bytes_by_kind) if rec is not None else {},
-               "plan": plan_step_bytes(trainer.layout, a, b, s),
+               "plan": plan_step_bytes(trainer.layout, a, b, s) if run["census"] else None,
                "backend": torch.distributed.get_backend(), "device": str(trainer.device),
                "sp_rank": ps.sp_rank(), "dp_rank": trainer.dataloader.dp_rank,
                "dp_size": trainer.dataloader.dp_size}
@@ -2211,7 +2291,8 @@ def parallel_ranks(rank: int, world: int, payload: dict) -> dict:
             torch.cuda.empty_cache()
             os.environ["VEOMNI_COST_CENSUS"] = "1"
         launches, fallbacks = read_counts()
-        res.update(records={str(k): v for k, v in records.items()}, launches=launches,
+        res.update(records={str(k): v for k, v in records.items()},
+                   resident=records["resident"], launches=launches,
                    fallbacks=fallbacks, host_staged=functional.HOST_STAGED_CALLS - staged0,
                    peak_bytes=int(torch.cuda.max_memory_allocated())
                    if torch.cuda.is_available() else 0, wall_s=time.perf_counter() - t0)
@@ -2225,22 +2306,24 @@ def parallel_launch_want(leg: str) -> dict:
     """Launches of K1-K6 in one rank's PARALLEL_STEPS steps of a leg (``ctx``:
     the attention is not rerun; the MoE layer's K4s are, in the recompute of
     the post-attention block)."""
-    if leg == "dense":
-        n = LAYERS * PARALLEL_STEPS
+    if leg != "moe":
+        n = PARALLEL_DENSE_LAYERS * PARALLEL_STEPS
         return {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n}
     n = PARALLEL_MOE_LAYERS * PARALLEL_STEPS
     return {"flash_fwd": n, "flash_bwd_dkv": n, "flash_bwd_dq": n, "gmm_fwd": 6 * n,
             "gmm_dlhs": 3 * n, "gmm_t": 3 * n}
 
 
-def parallel_world1(dev, yaml_path: str, out: str, rows: int, micro_rows=None, first_step=None):
+def parallel_world1(dev, yaml_path: str, out: str, rows: int, micro_rows=None, first_step=None,
+                    model_flags=()):
     """A leg's PARALLEL_STEPS steps through TextTrainer at world size 1,
     ``rows`` a step in micro-batches of ``micro_rows`` (all of them by
-    default): {step: record}."""
+    default), with the leg's ``model_flags``: {step: record, "resident":
+    its bytes}."""
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
 
     flags = [f"--train.output_dir={out}", f"--train.micro_batch_size={micro_rows or rows}",
-             f"--train.global_batch_size={rows}"]
+             f"--train.global_batch_size={rows}", *model_flags]
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     try:
         trainer, records, _, _ = parallel_train(yaml_path, flags, checkpoints=False,
@@ -2281,7 +2364,8 @@ def phase_parallel_floor(dev, card):
                     d = os.path.join(tmp, f"{leg}-{seed}-{name}")
                     os.makedirs(d)
                     path = write_parallel_run(d, leg, mdl, rows, reverse=reverse, seed=seed)
-                    return parallel_world1(dev, path, os.path.join(d, "out"), rows, micro_rows)
+                    return parallel_world1(dev, path, os.path.join(d, "out"), rows, micro_rows,
+                                           model_flags=PARALLEL_LEGS[leg].get("model_flags", ()))
 
                 base = run("base", model)
                 split_base = run("no_aux", split_model) if split_model is not model else base
@@ -2345,11 +2429,14 @@ def parallel_legs(dev, card, tmp, run_ranks):
 
     for leg, opts in PARALLEL_LEGS.items():
         yaml_path = write_parallel_run(tmp, leg, models[leg], opts["rows"])
+        model_flags = opts.get("model_flags", ())
         ref[leg] = parallel_world1(dev, yaml_path, os.path.join(tmp, f"{leg}1"), opts["rows"],
-                                   first_step=dense_batch if leg == "dense" else moe_groups)
+                                   first_step={"dense": dense_batch, "moe": moe_groups}.get(leg),
+                                   model_flags=model_flags)
         legs[leg] = {"yaml": yaml_path, "out": os.path.join(tmp, f"{leg}2"),
-                     "resume": opts["resume"],
-                     "flags": [*opts["flags"], f"--train.micro_batch_size={opts['rank_rows']}"]}
+                     "resume": opts["resume"], "census": opts["census"],
+                     "flags": [*opts["flags"], *model_flags,
+                               f"--train.micro_batch_size={opts['rank_rows']}"]}
     t0 = time.perf_counter()
     ranks = run_ranks(2, "chip_smoke:parallel_ranks", {"legs": legs}, device="cuda",
                       timeout=600, join=False,
@@ -2401,10 +2488,23 @@ def parallel_legs(dev, card, tmp, run_ranks):
             log(f"parallel {leg} rank {rank}: sp_rank {r['sp_rank']}, dp_rank {r['dp_rank']} "
                 f"of {r['dp_size']}, launches {r['launches']}, FALLBACK_CALLS "
                 f"{r['fallbacks']}, peak {r['peak_bytes'] / 2**30:.2f} GiB; collective census "
-                f"of step 1 (bytes by kind) {r['census']}, the plan's reckoning {r['plan']}")
-            if r["census"] != r["plan"]:
+                f"of step 1 (bytes by kind) {r['census']}, the plan's reckoning "
+                f"{r['plan'] if r['plan'] is not None else '(not reckoned for this leg)'}")
+            if r["plan"] is not None and r["census"] != r["plan"]:
                 raise AssertionError(f"parallel {leg} rank {rank}: census {r['census']} != "
                                      f"the plan's {r['plan']}")
+            kind = PARALLEL_LEGS[leg].get("resident")
+            if kind:
+                mine, whole = r["resident"][kind], ref[leg]["resident"][kind]
+                other = "state" if kind == "params" else "params"
+                log(f"parallel {leg} rank {rank}: resident {'base parameters' if kind == 'params' else 'optimizer state'} "
+                    f"{mine / 2**20:.1f} MiB against world 1's {whole / 2**20:.1f} MiB "
+                    f"({mine / whole:.3f}, limit {PARALLEL_RESIDENT_MAX}); {other} "
+                    f"{r['resident'][other] / 2**20:.1f} MiB against "
+                    f"{ref[leg]['resident'][other] / 2**20:.1f} MiB [{card}]")
+                if not 0 < mine <= PARALLEL_RESIDENT_MAX * whole:
+                    raise AssertionError(f"parallel {leg} rank {rank}: resident {kind} {mine} "
+                                         f"bytes against world 1's {whole}")
             if "resume" in r:
                 z = r["resume"]
                 log(f"parallel {leg} rank {rank}: checkpoint of step 1 ({z['ckpt_bytes'] / 1e9:.3f}"
@@ -3840,8 +3940,9 @@ def check_merged_layer(tag: str, trainer, index: int):
 
 
 def phase_sft_lora_dense(dev, card):
-    """TinyLlama-1.1B (the published config.json, random bf16 weights from
-    seed 0 in an HF directory with the byte-fallback fixture tokenizer) at
+    """TinyLlama-1.1B (the published config.json at HF_LAYERS of its 22
+    layers, random bf16 weights from seed 0 in an HF directory with the
+    byte-fallback fixture tokenizer) at
     ``lora_sft.yaml``'s knobs: LoRA rank 16, alpha 32, conversation data at
     seq 4096 x micro-batch 2, lr 1e-4, the default ``nothing`` remat, 4
     steps with the llama2 template; then the parameter-group leg. Returns
@@ -3855,7 +3956,9 @@ def phase_sft_lora_dense(dev, card):
     try:
         t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
-        cfg = write_random_hf_dir(dev, hf_dir, HF_PRESET)
+        # at the HF trainer phase's depth (HF_LAYERS of 22), cut for the
+        # script's time budget
+        cfg = write_random_hf_dir(dev, hf_dir, HF_PRESET, HF_LAYERS)
         for name in ("tokenizer.json", "tokenizer_config.json"):
             shutil.copy(os.path.join(TOKENIZER_FIXTURES, "bytefallback", name), hf_dir)
         data = os.path.join(tmp, "chat.jsonl")
@@ -4272,13 +4375,12 @@ def phase_post_training(dev, card):
     """The post-training trainers (see phase 20 of the module docstring).
     Returns {path: (launches, head dim, layout)} for the kernels line."""
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
-    from veomni_tpu_torch.tools.trainer_profile import write_config
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_post_")
     was_deterministic = torch.are_deterministic_algorithms_enabled()
     paths = {}
     try:
-        cfg_path = write_config(tmp, steps=POST_STEPS)
+        cfg_path = write_dense_config(tmp, steps=POST_STEPS)
         rng = np.random.default_rng(0)
         init = initial_policy(cfg_path, os.path.join(tmp, "init"))
         before = params_digest(init)
@@ -4550,11 +4652,15 @@ SERVE_DENSE_PRESET = "qwen3_0p6b"
 # cut to keep the whole run near 1000 s of its 1200
 SERVE_DENSE = dict(slots=16, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                    prompt=(64, 1536), shared_prefix=512, max_new=64)
+# the dense, int8 and router phases' depth: 14 of Qwen3-0.6B's 28 layers
+# (all 28 until slice F1's phases joined the script); a decode tick is
+# host-bound, its time its layers'
+SERVE_DENSE_LAYERS = 14
 SERVE_MOE = dict(slots=8, block=16, max_model_len=4096, requests=8, wave=4, wave_ticks=4,
                  prompt=(64, 1024), shared_prefix=0, max_new=64)
-# 24 of Qwen3-30B-A3B's 48 layers (all 48 until the parallel phase ran through
-# the trainer): a decode tick's time is its layers'
-SERVE_MOE_LAYERS = 24
+# 12 of Qwen3-30B-A3B's 48 layers (all 48 until the parallel phase ran through
+# the trainer, then 24 until slice F1): a decode tick's time is its layers'
+SERVE_MOE_LAYERS = 12
 SERVE_CHUNK = 512
 SERVE_GREEDY_PROMPTS = 3
 SERVE_SPEC_K = 4
@@ -4910,7 +5016,8 @@ def common_prefix(a, b):
 
 
 def phase_serve_dense(dev, card):
-    """The serving main path at Qwen3-0.6B, full width and depth: legs (a)
+    """The serving main path at Qwen3-0.6B, full width, SERVE_DENSE_LAYERS
+    deep: legs (a)
     prefix cache + chunked prefill, (b) cache off + monolithic prefill,
     (c) = (a) + ngram speculation, (d) (a) and (c) sampled."""
     from veomni_tpu_torch.models import Transformer
@@ -4919,7 +5026,8 @@ def phase_serve_dense(dev, card):
 
     host_state("serve dense")
     spec = SERVE_DENSE
-    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16",
+                       num_hidden_layers=SERVE_DENSE_LAYERS)
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = serve_traffic(cfg.vocab_size, spec)
     allowed = shared_blocks(prompts, spec["block"])
@@ -5253,6 +5361,34 @@ QWEN2_5_VL_3B = {
     "rope_scaling": {"type": "mrope", "mrope_section": [16, 24, 24]},
     "vocab_size": 151936,
 }
+# Qwen/Qwen3-VL-30B-A3B-Instruct's config.json as published: the deepstack
+# tower (27 blocks of 1152, 16 heads of 72, taps after blocks 8/16/24) over
+# Qwen3-30B-A3B's text (2048 wide, 32/4 heads of 128, 128 experts top-8 of
+# width 768) with interleaved mrope
+QWEN3_VL_30B_A3B = {
+    "architectures": ["Qwen3VLMoeForConditionalGeneration"], "image_token_id": 151655,
+    "model_type": "qwen3_vl_moe",
+    "text_config": {
+        "attention_bias": False, "attention_dropout": 0.0, "bos_token_id": 151643,
+        "decoder_sparse_step": 1, "dtype": "bfloat16", "eos_token_id": 151645, "head_dim": 128,
+        "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+        "intermediate_size": 6144, "max_position_embeddings": 262144, "mlp_only_layers": [],
+        "model_type": "qwen3_vl_moe_text", "moe_intermediate_size": 768, "norm_topk_prob": True,
+        "num_attention_heads": 32, "num_experts": 128, "num_experts_per_tok": 8,
+        "num_hidden_layers": 48, "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+        "rope_scaling": {"mrope_interleaved": True, "mrope_section": [24, 20, 20],
+                         "rope_type": "default"},
+        "rope_theta": 5000000, "use_cache": True, "vocab_size": 151936},
+    "tie_word_embeddings": False, "transformers_version": "4.57.0.dev0",
+    "video_token_id": 151656,
+    "vision_config": {
+        "deepstack_visual_indexes": [8, 16, 24], "depth": 27, "hidden_act": "gelu_pytorch_tanh",
+        "hidden_size": 1152, "in_channels": 3, "initializer_range": 0.02,
+        "intermediate_size": 4304, "model_type": "qwen3_vl_moe", "num_heads": 16,
+        "num_position_embeddings": 2304, "out_hidden_size": 2048, "patch_size": 16,
+        "spatial_merge_size": 2, "temporal_patch_size": 2},
+    "vision_end_token_id": 151653, "vision_start_token_id": 151652,
+}
 VLM_YAML = """
 model:
   config_path: {hf}
@@ -5283,6 +5419,10 @@ VLM_MAX_PATCHES = 3072
 # (height, width) in pixels of each corpus row's images, in turn: 448 x 448 is
 # 32 x 32 patches (256 merged tokens), 336 x 672 24 x 48 (288), 224 x 224 256
 # patches (64)
+# Qwen3-VL's 16-pixel patches in 2 x 2 merges take sides that are multiples
+# of 32: 448 x 448 is 28 x 28 patches (196 merged tokens), 256 x 256 16 x 16
+# (64), 320 x 640 20 x 40 (200); every step's micro-batch holds two grids
+QWEN3_VL_ROW_IMAGES = [[(448, 448)], [(256, 256), (320, 640)]]
 VLM_ROW_IMAGES = [[(448, 448), (224, 224)], [(336, 672)], [(224, 224), (336, 672)],
                   [(448, 448)]]
 # block 0's q/k and text layer 0's q_proj/k_proj are redrawn at std
@@ -5297,11 +5437,25 @@ QWEN2_5_VL_STEPS = 2
 # step-1 loss left the plain attention's by rel 1.59e-4, over its 1e-4)
 QWEN2_5_VL_LAYERS = 18
 QWEN2_VL_LAYERS = 14  # of 28 (all 28 until the same PR)
+# of 48: three text layers take every deepstack residual (three taps, added
+# after text layers 0-2); a fourth fits the card (56.6 GiB peak at 3); the
+# whole tower
+QWEN3_VL_MOE_LAYERS = 4
+QWEN3_VL_MOE_STEPS = 2
+# its step-1 parity against the plain attention and grouped GEMM (loss rel,
+# grad norm rel): 4x the largest of three draws of ``--phases
+# qwen3_vl_floor``, rounded up (loss 1.85e-5, grad norm 3.31e-4; PERF.md
+# §6); the Qwen2-VL phases hold TOL_LOSS_REL and TOL_GRAD_NORM_REL
+QWEN3_VL_TOL = (7.5e-5, 1.4e-3)
 VLM_SPECS = {
     "qwen2_vl": dict(name="Qwen2-VL-2B", published=QWEN2_VL_2B, layers=QWEN2_VL_LAYERS,
-                     steps=QWEN2_VL_STEPS, export=True),
+                     steps=QWEN2_VL_STEPS, export=True, tol=(TOL_LOSS_REL, TOL_GRAD_NORM_REL)),
     "qwen2_5_vl": dict(name="Qwen2.5-VL-3B", published=QWEN2_5_VL_3B, layers=QWEN2_5_VL_LAYERS,
-                       steps=QWEN2_5_VL_STEPS, export=False),
+                       steps=QWEN2_5_VL_STEPS, export=False,
+                       tol=(TOL_LOSS_REL, TOL_GRAD_NORM_REL)),
+    "qwen3_vl_moe": dict(name="Qwen3-VL-30B-A3B", published=QWEN3_VL_30B_A3B,
+                         layers=QWEN3_VL_MOE_LAYERS, steps=QWEN3_VL_MOE_STEPS, export=False,
+                         tol=QWEN3_VL_TOL),
 }
 
 
@@ -5311,6 +5465,20 @@ def vlm_param_count(cfg) -> int:
     biases, tied or untied head)."""
     v, t = cfg.vision, cfg.text
     d, md = v.width, v.width * v.merge_unit
+    if cfg.model_type == "qwen3_vl_moe":
+        # LayerNorm blocks with biased fc1/fc2, a post-norm merger and K
+        # post-shuffle-norm ones; the qwen3_moe text (q/k norms, no biases)
+        block = 4 * d + 3 * d * d + 3 * d + d * d + d + 2 * d * v.intermediate_size \
+            + v.intermediate_size + d
+        tower = (v.patch_dim * d + d + v.num_position_embeddings * d + v.depth * block
+                 + 2 * d + (len(v.deepstack_visual_indexes) + 1)
+                 * (md * md + md + md * v.out_hidden_size + v.out_hidden_size)
+                 + len(v.deepstack_visual_indexes) * 2 * md)
+        h, q, kv = t.hidden_size, t.num_attention_heads * t.head_dim, \
+            t.num_key_value_heads * t.head_dim
+        layer = (2 * h + h * q + 2 * h * kv + q * h + 2 * t.head_dim + h * t.num_experts
+                 + 3 * t.num_experts * h * t.moe_intermediate_size)
+        return tower + t.vocab_size * h * 2 + h + t.num_hidden_layers * layer
     if cfg.model_type == "qwen2_vl":
         block = 4 * d + 3 * d * d + 3 * d + d * d + d + 2 * d * v.intermediate_size \
             + v.intermediate_size + d
@@ -5331,9 +5499,10 @@ def vlm_rows(cfg, n_rows: int, seed: int = 0):
     images drawn from ``seed`` (VLM_ROW_IMAGES, in turn), passed as arrays."""
     rng = np.random.default_rng(seed)
     m2 = cfg.vision.patch_size ** 2 * cfg.vision.merge_unit
+    cycle = QWEN3_VL_ROW_IMAGES if cfg.model_type.startswith("qwen3_vl") else VLM_ROW_IMAGES
     rows = []
     for i in range(n_rows):
-        sizes = VLM_ROW_IMAGES[i % len(VLM_ROW_IMAGES)]
+        sizes = cycle[i % len(cycle)]
         images = [rng.integers(0, 256, (hh, ww, 3), dtype=np.uint8) for hh, ww in sizes]
         header = sum(1 + hh * ww // m2 for hh, ww in sizes)
         n_text = int(rng.integers(3000, 3601)) - header
@@ -5354,7 +5523,11 @@ def write_vlm_run(dev, tmp: str, spec, family, seed: int = 0):
 
     published = dict(spec["published"])
     if spec["layers"] is not None:
-        published["num_hidden_layers"] = spec["layers"]
+        if "text_config" in published:  # Qwen3-VL nests its text keys
+            published["text_config"] = dict(published["text_config"],
+                                             num_hidden_layers=spec["layers"])
+        else:
+            published["num_hidden_layers"] = spec["layers"]
     cfg = family.config_from_hf(published, param_dtype=torch.bfloat16)
     hf_dir = os.path.join(tmp, "hf")
     written = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -5390,12 +5563,14 @@ def vlm_first_batch(cfg, rows):
     """The micro-batch the port's transform and collator make of ``rows``
     (the trainer's data path at this run's settings)."""
     from veomni_tpu_torch.data.data_transform import build_data_transform
-    from veomni_tpu_torch.data.multimodal import Qwen2VLCollator, Qwen25VLCollator
+    from veomni_tpu_torch.data.multimodal import Qwen2VLCollator, Qwen3VLCollator, Qwen25VLCollator
 
-    transform = build_data_transform(cfg.model_type, vlm_config=cfg, max_seq_len=VLM_SEQ,
+    key, collator_cls = {"qwen2_vl": ("qwen2_vl", Qwen2VLCollator),
+                         "qwen2_5_vl": ("qwen2_5_vl", Qwen25VLCollator),
+                         "qwen3_vl_moe": ("qwen3_vl", Qwen3VLCollator)}[cfg.model_type]
+    transform = build_data_transform(key, vlm_config=cfg, max_seq_len=VLM_SEQ,
                                      max_patches_per_sample=VLM_MAX_PATCHES // VLM_MICRO_BS)
-    collator = (Qwen2VLCollator if cfg.model_type == "qwen2_vl" else Qwen25VLCollator)(
-        VLM_SEQ, VLM_MICRO_BS, cfg, VLM_MAX_PATCHES)
+    collator = collator_cls(VLM_SEQ, VLM_MICRO_BS, cfg, VLM_MAX_PATCHES)
     samples = [transform(row) for row in rows]
     return collator(samples), [g for s in samples for g in s["vis_grids"]]
 
@@ -5608,15 +5783,17 @@ def phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids):
 
 def phase_hf_vlm(dev, card, model_type: str):
     """One vision-language model at its published widths through
-    ``VLMTrainer`` from an HF directory: K1-K3 at D 80 on the first
-    micro-batch's tower segments, the loaded parameters against the
-    written ones and the config's count, ``phase_vlm_checks``, then
+    ``VLMTrainer`` from an HF directory: K1-K3 at the tower's head dim (80;
+    72 for Qwen3-VL, also causal on one segment) on the first micro-batch's
+    tower segments, the loaded parameters against the written ones and the
+    config's count, ``phase_vlm_checks`` (the Qwen2-VL towers), then
     ``steps`` steps at seq 4096 x micro-batch 2 (f32 master, bf16 compute,
     ctx remat, AdamW), launches by head dim as reckoned (the tower's blocks
-    at D 80, the text layers at D 128, once per micro-batch each, no plain
-    dispatch), the HF export (where on) read back bit-equal, and step 1's
-    loss and grad norm against the plain attention's. Returns ({path:
-    (launches, head dim, layout)}, the D-80 kernel rows)."""
+    at its head dim, the text layers at D 128, once per micro-batch each,
+    K4-K6 on every MoE layer, no plain dispatch), the HF export (where on)
+    read back bit-equal, and step 1's loss and grad norm against the plain
+    attention's (and the plain grouped GEMM's). Returns ({path: (launches,
+    head dim, layout)}, the tower's kernel rows)."""
     from veomni_tpu_torch.arguments import VeOmniArguments, parse_args
     from veomni_tpu_torch.models.auto import VLM_FAMILIES, build_foundation_model
     from veomni_tpu_torch.ops.cuda import flash_attention as fa
@@ -5655,16 +5832,25 @@ def phase_hf_vlm(dev, card, model_type: str):
         hf_dir = os.path.join(tmp, "hf")
         cfg = written.cfg
         batch, grids = vlm_first_batch(cfg, first_rows)
-        # K1-K3 at D 80 on the tower's segments of this micro-batch
-        vseg = batch["vis_seg"] if model_type == "qwen2_vl" else batch["vis_seg_window"]
+        # K1-K3 at the tower's head dim (80; Qwen3-VL 72) on its segments of
+        # this micro-batch
+        qwen3 = model_type == "qwen3_vl_moe"
+        vseg = batch["vis_seg_window" if model_type == "qwen2_5_vl" else
+                     "vis_seg_full" if qwen3 else "vis_seg"]
         seg = torch.from_numpy(vseg)[None].to(dev)
-        heads = cfg.vision.num_heads
-        what = "per-frame" if model_type == "qwen2_vl" else "per-window"
-        rows = phase_flash(dev, seg, heads, heads, f"{name} tower, {what} segments",
-                           d=cfg.vision.head_dim, causal=False)
+        heads, hd = cfg.vision.num_heads, cfg.vision.head_dim
+        what = "per-window" if model_type == "qwen2_5_vl" else "per-frame"
+        rows = phase_flash(dev, seg, heads, heads, f"{name} tower, {what} segments", d=hd,
+                           causal=False)
         for row in rows:
             row["path_layout"] = model_type
         torch.cuda.empty_cache()
+        if qwen3:
+            # D 72 causal and dense too (one segment over the tower's length):
+            # checks only, the path's rows are the ones above
+            phase_flash(dev, torch.ones_like(seg), heads, heads, f"D {hd}, one segment, causal",
+                        d=hd, causal=True)
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev)
         load_s = time.perf_counter() - t0
@@ -5672,7 +5858,8 @@ def phase_hf_vlm(dev, card, model_type: str):
         n_params = sum(w.numel() for w in model.parameters())
         want_params = vlm_param_count(fm.config)
         v, tc = fm.config.vision, fm.config.text
-        cut = f" (of {spec['published']['num_hidden_layers']})" if spec["layers"] else ""
+        pub = spec["published"].get("text_config", spec["published"])
+        cut = f" (of {pub['num_hidden_layers']})" if spec["layers"] else ""
         log(f"{tag}: tower depth {v.depth}, width {v.width}, {v.num_heads} heads of "
             f"{v.head_dim}; text {tc.num_hidden_layers} layers{cut}, hidden {tc.hidden_size}, heads {tc.num_attention_heads}/"
             f"{tc.num_key_value_heads} of {tc.head_dim}, vocab {tc.vocab_size}, mrope "
@@ -5681,6 +5868,9 @@ def phase_hf_vlm(dev, card, model_type: str):
             f"loaded in {load_s:.1f} s [{card}]")
         bad = [n for (n, x), (_, y) in zip(model.named_parameters(), written.named_parameters())
                if not torch.equal(x, y.to(x.dtype))]
+        # the loaded weights on the host, for the step-1 parity's model (a
+        # second read of the directory took 13-19 s a phase)
+        initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         log(f"{tag}: the loaded parameters against the written ones: "
             + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
         if bad or n_params != want_params:
@@ -5688,7 +5878,12 @@ def phase_hf_vlm(dev, card, model_type: str):
                                  f"({bad[:3]}) or the count {n_params} != {want_params}")
         del written
         torch.cuda.empty_cache()
-        phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids)
+        if qwen3:
+            log(f"{tag}: the fused gate | up experts, the deepstack mergers and the position "
+                f"table went through the family's HF export and its reader bit-equal (the "
+                f"round trip above); chip_smoke's own f32 pieces cover the Qwen2-VL towers")
+        else:
+            phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids)
         del fm, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -5712,14 +5907,20 @@ def phase_hf_vlm(dev, card, model_type: str):
                      for r in a.values()], tag)
         micro = first["input_ids"].shape[0]  # micro-batches a step
         lm_layers, depth = cfg.text.num_hidden_layers, cfg.vision.depth
-        want = {80: micro * depth * steps, 128: micro * lm_layers * steps}
-        per_kernel = {k: want[80] + want[128] for k in fa.LAUNCHES}
+        want = {hd: micro * depth * steps, 128: micro * lm_layers * steps}
+        per_kernel = {k: want[hd] + want[128] for k in fa.LAUNCHES}
+        if qwen3:  # per MoE layer and micro-batch: K4 x 6 (gate, up, down, ctx recompute)
+            per_kernel.update(gmm_fwd=6 * micro * lm_layers * steps,
+                              gmm_dlhs=3 * micro * lm_layers * steps,
+                              gmm_t=3 * micro * lm_layers * steps)
         bad = {k: n for k, n in launches.items() if n != per_kernel.get(k, 0)}
         bad_dim = {d: c for d, c in by_dim.items()
                    if any(n != want.get(d, 0) for n in c.values())}
-        log(f"{tag}: launches {launches}, by head dim {by_dim} (expected at D 80 {want[80]} = "
+        log(f"{tag}: launches {launches}, by head dim {by_dim} (expected at D {hd} {want[hd]} = "
             f"{micro} micro-batch x {depth} tower blocks x {steps} steps, at D 128 {want[128]} = "
-            f"{micro} x {lm_layers} text layers x {steps}); FALLBACK_CALLS {fallbacks}")
+            f"{micro} x {lm_layers} text layers x {steps}; K4-K6 {per_kernel.get('gmm_fwd', 0)}/"
+            f"{per_kernel.get('gmm_dlhs', 0)}/{per_kernel.get('gmm_t', 0)}); FALLBACK_CALLS "
+            f"{fallbacks}")
         if bad or bad_dim or fallbacks["flash"]:
             raise AssertionError(f"{tag}: launches {launches} / by head dim {by_dim} differ from "
                                  f"the reckoned counts, or FALLBACK_CALLS {fallbacks} is not 0")
@@ -5767,10 +5968,12 @@ def phase_hf_vlm(dev, card, model_type: str):
 
         # step-1 parity: the same weights and batch with the plain attention
         # pinned (the text layers through its blockwise form at S 4096, the
-        # tower's at S 3072)
-        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev,
-                                    ops_implementation={"attention": "xla"}, remat_policy="ctx")
-        model = fm.module
+        # tower's at S 3072), and the MoE's plain ragged grouped GEMM
+        plain_ops = {"attention": "xla", **({"group_gemm": "xla"} if qwen3 else {})}
+        fm = build_foundation_model(hf_dir, ops_implementation=plain_ops, remat_policy="ctx")
+        model = fm.module = fm._build(None, dev)
+        model.load_state_dict(initial)
+        del initial
         state = build_train_state(model, build_optimizer(
             model, lr=build_lr_scheduler(lr=1e-4, train_steps=steps)))
         tb = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
@@ -5782,21 +5985,239 @@ def phase_hf_vlm(dev, card, model_type: str):
         plain_launches, _ = read_counts()
         loss_rel = abs(a[1]["loss"] - float(m["loss"])) / abs(float(m["loss"]))
         gn_rel = abs(a[1]["grad_norm"] - float(m["grad_norm"])) / abs(float(m["grad_norm"]))
+        tol_loss, tol_gn = spec["tol"]
         log(f"{tag} step-1 parity: trainer (kernels) loss {a[1]['loss']:.6f} grad norm "
-            f"{a[1]['grad_norm']:.6f}, plain attention {float(m['loss']):.6f} / "
+            f"{a[1]['grad_norm']:.6f}, plain {'+'.join(plain_ops)} {float(m['loss']):.6f} / "
             f"{float(m['grad_norm']):.6f} (rel {loss_rel:.2e} / {gn_rel:.2e}, tol "
-            f"{TOL_LOSS_REL} / {TOL_GRAD_NORM_REL}; the plain leg launched {plain_launches})")
-        if (not loss_rel <= TOL_LOSS_REL or not gn_rel <= TOL_GRAD_NORM_REL
+            f"{tol_loss} / {tol_gn}; the plain leg launched {plain_launches})")
+        if (not loss_rel <= tol_loss or not gn_rel <= tol_gn
                 or any(plain_launches.values())):
             raise AssertionError(f"{tag}: step 1 departs from the plain attention's or the "
                                  f"plain leg launched kernels")
         del fm, model, state, tb, m
         gc.collect()
         torch.cuda.empty_cache()
-        paths = {f"hf_trainer_{model_type}": (by_dim[80], 80, model_type)}
+        paths = {f"hf_trainer_{model_type}": (by_dim[hd], hd, model_type)}
+        if model_type == "qwen2_5_vl":
+            paths["vlm_dpo_lora"] = (vlm_dpo_lora_leg(dev, card, tmp, hf_dir, cfg), hd,
+                                     model_type)
+        if qwen3:  # K4-K6 at the Qwen3-30B-A3B widths: the main MoE rows
+            paths[f"hf_trainer_{model_type}_experts"] = (
+                {k: launches[k] for k in ("gmm_fwd", "gmm_dlhs", "gmm_t")}, 128, None)
         return paths, rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+VLM_DPO_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+  tokenizer_path: {tok}
+  lora: {{rank: 16, alpha: 32}}
+  ops_implementation: {ops}
+data:
+  train_path: {data}
+  data_type: dpo
+  max_seq_len: {seq}
+  max_patches: {patches}
+train:
+  micro_batch_size: 1
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  seed: 0
+  save_hf_weights: false
+  prefetch_depth: 0
+  log_steps: 1
+"""
+VLM_DPO_STEPS = 2
+VLM_DPO_SEQ = 2048
+VLM_DPO_PATCHES = 2048  # 1024 a row: a 448 x 448 image, or 224 x 224 and 448 x 224
+VLM_DPO_SEED = 2  # the leg's corpus
+# the leg against the same leg with the plain attention: 4x the largest of
+# three draws of ``--phases vlm_dpo_floor``, rounded up (PERF.md §6). Step
+# 1's loss is ln 2 on both sides. Everything else carries the bf16 rounding
+# of 18 text layers: the per-row label log-prob sums of the trained policy
+# and of the reference on the last micro-batch (kernels against plain on the
+# same model, rows of -680 to -1310 nats) part by up to 1.63e-3, ~1 nat a
+# row; step 1's grad norm by up to 1.62e-3; step 2's loss and grad norm by
+# up to 3.70e-2 and 2.51e-2, where those nats move the pair's margin.
+VLM_DPO_TOL = {"logps": 6.6e-3, "grad_norm_1": 6.5e-3, "loss_2": 0.15, "grad_norm_2": 0.11}
+
+
+def write_vlm_dpo_corpus(tmp: str, seed: int) -> str:
+    """The leg's preference rows, drawn from ``seed``: a pair a step, a user
+    turn with its images and a question, chosen and rejected answers of the
+    repo's docs. Returns the corpus's path."""
+    rng = np.random.default_rng(seed)
+    paras = []
+    for name in SFT_DOCS:
+        with open(name, encoding="utf-8") as f:
+            paras += [p.strip() for p in f.read().split("\n\n") if len(p.strip()) > 80]
+    rows = []
+    for sizes in ([(448, 448)], [(224, 224), (448, 224)])[:VLM_DPO_STEPS]:
+        pick = rng.choice(len(paras), size=3, replace=False)
+        images = [{"type": "image", "image": rng.integers(0, 256, (h, w, 3)).tolist()}
+                  for h, w in sizes]
+        rows.append({"messages": [{"role": "user", "content": images + [
+            {"type": "text", "text": paras[pick[0]][:400]}]}],
+            "chosen": paras[pick[1]][:800], "rejected": paras[pick[2]][:800]})
+    data = os.path.join(tmp, f"vlm_dpo_{seed}.jsonl")
+    write_jsonl(data, rows)
+    return data
+
+
+def vlm_dpo_run(tmp: str, hf_dir: str, data: str, name: str, ops):
+    """``VLM_DPO_STEPS`` steps of VLM-DPO with LoRA (rank 16, alpha 32)
+    through ``tasks/train_vlm_dpo.py`` with the byte-level fixture
+    tokenizer, ``ops`` pinned. Returns (the trainer, {step: (loss, grad
+    norm)}, the launches, FALLBACK_CALLS, the launches by head dim, the
+    run's seconds)."""
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.tasks import train_vlm_dpo
+
+    path = os.path.join(tmp, f"vlm_dpo_{name}.yaml")
+    with open(path, "w") as f:
+        f.write(VLM_DPO_YAML.format(hf=hf_dir, tok=os.path.join(TOKENIZER_FIXTURES, "bytelevel"),
+                                    ops=json.dumps(ops), data=data, seq=VLM_DPO_SEQ,
+                                    patches=VLM_DPO_PATCHES, steps=VLM_DPO_STEPS))
+    out_dir = os.path.join(tmp, f"vlm_dpo_{name}")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    trainer = train_vlm_dpo.main([path, f"--train.output_dir={out_dir}"])
+    wall = time.perf_counter() - t0
+    launches, fallbacks = read_counts()
+    by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+    with open(os.path.join(out_dir, "metrics_rank0.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    seen = {int(r["step"]): (float(r["loss"]), float(r["grad_norm"])) for r in lines
+            if "loss" in r}
+    return trainer, seen, launches, fallbacks, by_dim, wall
+
+
+def vlm_dpo_gaps(kern, plain):
+    """{"grad_norm_1", "loss_2", "grad_norm_2": the relative gap} of two
+    runs' {step: (loss, grad norm)}."""
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    return {"grad_norm_1": rel(kern[1][1], plain[1][1]), "loss_2": rel(kern[2][0], plain[2][0]),
+            "grad_norm_2": rel(kern[2][1], plain[2][1])}
+
+
+def vlm_dpo_logprob_gap(trainer, dev):
+    """The per-row label log-prob sums of the trained policy (adapters
+    merged) and of the reference (the bare base) on the last step's first
+    micro-batch, with the kernels and with the plain attention pinned:
+    (the largest relative gap over the rows, the kernels' sums, the launches
+    of the kernels' pass)."""
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+
+    batch = {k: torch.from_numpy(v[0]).to(dev) for k, v in trainer.current_batch.items()}
+    adapters, base = trainer.train_state.model, trainer.base_model
+
+    @torch.no_grad()
+    def sums():
+        with adapters.merged():
+            policy = base.sequence_logprob_sums(batch)
+        return torch.cat([policy, base.sequence_logprob_sums(batch)]).double().cpu()
+
+    reset_all_counts()
+    kern = sums()
+    launches, _ = read_counts()
+    apply_ops_config({"attention": "xla"})
+    try:
+        plain = sums()
+    finally:
+        apply_ops_config(None)
+    return float(((kern - plain).abs() / plain.abs()).max()), kern.tolist(), launches
+
+
+def release_trainer() -> None:
+    """After the caller drops its last reference to a trainer: its parallel
+    state, host garbage and cached device blocks."""
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+
+    destroy_parallel_state()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def vlm_dpo_lora_leg(dev, card, tmp: str, hf_dir: str, cfg):
+    """VLM-DPO with LoRA through ``tasks/train_vlm_dpo.py`` on the
+    Qwen2.5-VL phase's HF directory (``write_vlm_dpo_corpus``,
+    ``vlm_dpo_run``). Step 1's loss is ln 2 (the reference policy is the
+    bare base); the same run with the plain attention pinned gives step 1's
+    loss equal, and its grad norm, step 2's loss and grad norm (where the
+    policy has left the reference and both sides' log-probs pass through
+    the kernels) and the trained policy's and the reference's per-row
+    log-prob sums on the last micro-batch (kernels against plain on the
+    same model) within VLM_DPO_TOL; the adapter's save and load are bit-equal; K1-K3 launch at D 80 (the
+    tower) and D 128 (the text), the policy's forward and the reference's a
+    step, the backward through the adapted text alone. Returns the launches
+    at D 80."""
+    from veomni_tpu_torch.lora import LoraConfig, init_lora_params, load_adapter, save_adapter
+
+    tag = "vlm dpo lora Qwen2.5-VL-3B"
+    data = write_vlm_dpo_corpus(tmp, VLM_DPO_SEED)
+    trainer, seen, launches, fallbacks, by_dim, built = vlm_dpo_run(tmp, hf_dir, data,
+                                                                    "kernels", {})
+    depth, layers = cfg.vision.depth, cfg.text.num_hidden_layers
+    # the default targets adapt the text alone: no gradient reaches the tower
+    tower_bwd = depth * VLM_DPO_STEPS * any(
+        p.startswith("vision_tower.") for p in trainer.train_state.model.paths)
+    want = {80: {"flash_fwd": 2 * depth * VLM_DPO_STEPS, "flash_bwd_dkv": tower_bwd,
+                 "flash_bwd_dq": tower_bwd},
+            128: {"flash_fwd": 2 * layers * VLM_DPO_STEPS,
+                  "flash_bwd_dkv": layers * VLM_DPO_STEPS, "flash_bwd_dq": layers * VLM_DPO_STEPS}}
+    bad = {d: c for d, c in by_dim.items() if c != want.get(d, dict.fromkeys(c, 0))}
+    log(f"{tag}: built and trained in {built:.1f} s; steps " + "; ".join(
+        f"{i}: loss {l:.9f} grad norm {g:.6f}" for i, (l, g) in sorted(seen.items()))
+        + f"; launches by head dim {by_dim} (expected {want}: the policy's forward and "
+        f"the reference's a step, one backward through the adapted layers), FALLBACK_CALLS "
+        f"{fallbacks} [{card}]")
+    if (bad or fallbacks["flash"] or len(seen) != VLM_DPO_STEPS
+            or seen[1][0] != np.float32(math.log(2))
+            or not all(math.isfinite(g) for _, g in seen.values())):
+        raise AssertionError(f"{tag}: launches {by_dim} (expected {want}), FALLBACK_CALLS "
+                             f"{fallbacks}, or step 1's loss {seen.get(1)} is not ln 2")
+    adapters, base = trainer.train_state.model, trainer.base_model
+    out = os.path.join(tmp, "vlm_dpo_adapter")
+    save_adapter(adapters, trainer.lora_config, out)
+    back = load_adapter(out, init_lora_params(None, base, LoraConfig(rank=16, alpha=32)))
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(adapters.named_jax_parameters(),
+                                                           back.named_jax_parameters()))
+    n_leaves = len(adapters.paths)
+    log(f"{tag}: adapter ({n_leaves} adapted leaves) saved and loaded: "
+        + ("bit-equal" if same else "DIFFERENT"))
+    if not same:
+        raise AssertionError(f"{tag}: the adapter's save and load differ")
+    by80 = by_dim[80]
+    gaps = {}
+    gaps["logps"], logps, logp_launches = vlm_dpo_logprob_gap(trainer, trainer.device)
+    log(f"{tag}: label log-prob sums of the last micro-batch's rows, policy then reference, "
+        f"with the kernels {[round(x, 4) for x in logps]} (launches {logp_launches}); the "
+        f"largest relative gap to the plain attention's {gaps['logps']:.2e}")
+    del adapters, base, back, trainer
+    release_trainer()
+    trainer, plain, plain_launches, _, _, _ = vlm_dpo_run(tmp, hf_dir, data, "plain",
+                                                          {"attention": "xla"})
+    del trainer
+    release_trainer()
+    gaps.update(vlm_dpo_gaps(seen, plain))
+    log(f"{tag} parity: kernels / plain attention step 1 loss {seen[1][0]:.9f} / "
+        f"{plain[1][0]:.9f}, grad norm {seen[1][1]:.6f} / {plain[1][1]:.6f}; step 2 loss "
+        f"{seen[2][0]:.9f} / {plain[2][0]:.9f}, grad norm {seen[2][1]:.6f} / {plain[2][1]:.6f}; "
+        + ", ".join(f"{k} rel {v:.2e} (tol {VLM_DPO_TOL[k]})" for k, v in gaps.items())
+        + f"; the plain leg launched {plain_launches}")
+    if (plain[1][0] != seen[1][0] or any(not v <= VLM_DPO_TOL[k] for k, v in gaps.items())
+            or any(plain_launches.values()) or not logp_launches["flash_fwd"]):
+        raise AssertionError(f"{tag}: the leg departs from the plain attention's")
+    return by80
 
 
 def phase_hf_trainer_qwen2_vl(dev, card):
@@ -5809,6 +6230,13 @@ def phase_hf_trainer_qwen2_5_vl(dev, card):
     """Qwen2.5-VL-3B at its published widths, the text model cut to 18 of 36
     layers, 2 steps, no export (phase 19)."""
     return phase_hf_vlm(dev, card, "qwen2_5_vl")
+
+
+def phase_hf_trainer_qwen3_vl_moe(dev, card):
+    """Qwen3-VL-30B-A3B at its published widths: the whole 27-block tower at
+    head dim 72 with its deepstack taps, the text cut to 4 of 48 layers,
+    2 steps, K1-K3 at D 72 and D 128 and K4-K6 on the experts (phase 26)."""
+    return phase_hf_vlm(dev, card, "qwen3_vl_moe")
 
 
 # the VLM step-1 parity's second witness (``--phases vlm_witness``, not in
@@ -5885,6 +6313,110 @@ def phase_vlm_witness(dev, card):
                 shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the draws of ``--phases qwen3_vl_floor`` and ``vlm_dpo_floor`` (not in the
+# whole run)
+VLM_FLOOR_SEEDS = (0, 1, 2)
+
+
+def log_floor(what: str, draws, card):
+    """Each quantity of ``draws`` (a list of {name: relative gap}) with 4x
+    its largest draw."""
+    for name in draws[0]:
+        got = [d[name] for d in draws]
+        log(f"vlm floor {what} {name}: draws " + ", ".join(f"{x:.3e}" for x in got)
+            + f"; 4x the largest {4 * max(got):.2e} [{card}]")
+
+
+def phase_qwen3_vl_floor(dev, card):
+    """The floor of the Qwen3-VL phase's step-1 parity (a measurement: it
+    checks nothing): Qwen3-VL-30B-A3B at the phase's depth, weights drawn
+    from each of VLM_FLOOR_SEEDS as ``phase_hf_vlm`` draws them, one train
+    step on the first micro-batch with K1-K6 and with the plain attention
+    and grouped GEMM; the loss and grad-norm gaps, with 4x the largest, the
+    rule QWEN3_VL_TOL is set by."""
+    from veomni_tpu_torch.data.data_collator import stack_micro_batches
+    from veomni_tpu_torch.models.auto import VLM_FAMILIES, build_foundation_model
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+
+    spec = VLM_SPECS["qwen3_vl_moe"]
+    plain_ops = {"attention": "xla", "group_gemm": "xla"}
+    draws = []
+    for seed in VLM_FLOOR_SEEDS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_floor_qwen3_vl_")
+        try:
+            _, written, first_rows = write_vlm_run(dev, tmp, spec, VLM_FAMILIES["qwen3_vl_moe"],
+                                                   seed=seed)
+            cfg = written.cfg
+            del written
+            torch.cuda.empty_cache()
+            batch, _ = vlm_first_batch(cfg, first_rows)
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in stack_micro_batches([batch]).items()}
+            hf_dir = os.path.join(tmp, "hf")
+            got = {}
+            for way, pins in (("kernels", None), ("plain", plain_ops)):
+                fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev,
+                                            remat_policy="ctx", ops_implementation=pins)
+                state = build_train_state(fm.module, build_optimizer(
+                    fm.module, lr=build_lr_scheduler(lr=1e-4, train_steps=2)))
+                reset_all_counts()
+                try:
+                    _, m = build_train_step(fm.loss_fn)(state, tb)
+                finally:
+                    apply_ops_config(None)
+                launches, _ = read_counts()
+                got[way] = (float(m["loss"]), float(m["grad_norm"]), launches)
+                del fm, state, m
+                gc.collect()
+                torch.cuda.empty_cache()
+            (kl, kg, kn), (pl, pg, pn) = got["kernels"], got["plain"]
+            draws.append({"loss": abs(kl - pl) / abs(pl), "grad norm": abs(kg - pg) / abs(pg)})
+            log(f"vlm floor {spec['name']} weight seed {seed}: kernels loss {kl:.6f} grad norm "
+                f"{kg:.6f} (launches {kn}), plain {pl:.6f} / {pg:.6f} (launches {pn}): rel "
+                f"{draws[-1]['loss']:.3e} / {draws[-1]['grad norm']:.3e} [{card}]")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log_floor(spec["name"], draws, card)
+
+
+def phase_vlm_dpo_floor(dev, card):
+    """The floors of the VLM-DPO leg's parity (a measurement: it checks
+    nothing): the leg on Qwen2.5-VL-3B's directory (seed 0, as the phase
+    writes it), its corpus drawn from each of VLM_FLOOR_SEEDS, with the
+    kernels and with the plain attention: step 1's grad-norm gap, step 2's
+    loss and grad-norm gaps and the per-row log-prob sums' gap
+    (``vlm_dpo_logprob_gap``), with 4x the largest, the rule VLM_DPO_TOL is
+    set by."""
+    from veomni_tpu_torch.models.auto import VLM_FAMILIES
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_floor_vlm_dpo_")
+    try:
+        _, written, _ = write_vlm_run(dev, tmp, VLM_SPECS["qwen2_5_vl"],
+                                      VLM_FAMILIES["qwen2_5_vl"])
+        del written
+        torch.cuda.empty_cache()
+        hf_dir = os.path.join(tmp, "hf")
+        draws = []
+        for seed in VLM_FLOOR_SEEDS:
+            data = write_vlm_dpo_corpus(tmp, seed)
+            runs, launched, gap = {}, {}, {}
+            for way, ops in (("kernels", {}), ("plain", {"attention": "xla"})):
+                trainer, runs[way], launched[way], _, _, _ = vlm_dpo_run(tmp, hf_dir, data,
+                                                                         f"{way}_{seed}", ops)
+                if way == "kernels":
+                    gap["logps"], _, _ = vlm_dpo_logprob_gap(trainer, dev)
+                del trainer
+                release_trainer()
+            draws.append({**gap, **vlm_dpo_gaps(runs["kernels"], runs["plain"])})
+            log(f"vlm floor VLM-DPO corpus seed {seed}: kernels {runs['kernels']} (launches "
+                f"{launched['kernels']}), plain {runs['plain']} (launches {launched['plain']}): "
+                + ", ".join(f"{k} rel {v:.3e}" for k, v in draws[-1].items()) + f" [{card}]")
+        log_floor("VLM-DPO", draws, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 REMAT_POLICIES = ("nothing", "ctx", "dots", "offload", "ctx_offload")
 REMAT_STEPS = 2
 REMAT_CHUNK = 1024
@@ -5927,7 +6459,7 @@ def phase_remat(dev, card):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()
-        records = run_train_steps(4096, 4, REMAT_STEPS, device=dev,
+        records = run_train_steps(4096, 4, REMAT_STEPS, num_layers=LAYERS, device=dev,
                                   cfg_overrides={"remat_policy": policy, "chunk_mbs": chunk})
         launches, fallbacks = read_counts()
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -5976,7 +6508,7 @@ def phase_remat(dev, card):
 MUON_TOL = 1e-2
 # (reference leaf path, layer or None for a leaf stacked over the layers and
 # orthogonalised jointly)
-MUON_CHECKED = (("layers.q_proj", 5), ("layers.down_proj", 20), ("layers.o_proj", 27),
+MUON_CHECKED = (("layers.q_proj", 5), ("layers.down_proj", 10), ("layers.o_proj", LAYERS - 1),
                 ("layers.input_layernorm", None))
 OTHER_OPTIMIZERS = ("anyprecision_adamw", "adafactor", "sgd")
 
@@ -6016,7 +6548,7 @@ def optimizer_legs(dev, card, ctx_loss):
     torch.cuda.empty_cache()
     reset_all_counts()
     keep = {}
-    it = iter_train_steps(4096, 4, device=dev, optimizer="muon", keep=keep,
+    it = iter_train_steps(4096, 4, num_layers=LAYERS, device=dev, optimizer="muon", keep=keep,
                           cfg_overrides=overrides)
     try:
         r1 = next(it)
@@ -6070,7 +6602,8 @@ def optimizer_legs(dev, card, ctx_loss):
         gc.collect()
         torch.cuda.empty_cache()
         reset_all_counts()
-        rec = run_train_steps(4096, 4, 1, device=dev, optimizer=name, cfg_overrides=overrides)
+        rec = run_train_steps(4096, 4, 1, num_layers=LAYERS, device=dev, optimizer=name,
+                              cfg_overrides=overrides)
         launches, fallbacks = read_counts()
         add(launches)
         check_steps(rec, name)
@@ -6296,7 +6829,8 @@ def phase_serve_quant(dev, card):
 
     host_state("serve quant")
     spec = SERVE_QUANT
-    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16",
+                       num_hidden_layers=SERVE_DENSE_LAYERS)
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     quality_gate(model, cfg, "serve quant", card, floor=True)
     if not GATE_FLOOR_OK["serve quant"]:
@@ -6332,7 +6866,7 @@ ROUTER_BURST_LEN = 640  # probation bursts: the shared prefix and 128 tokens
 # wedged too (a tick on one shared card with a respawn's weight copy on the
 # router thread ran past it), at 3 s only the hung one is
 ROUTER_STALL_S = 3.0
-ROUTER_HANG_S = 10.0
+ROUTER_HANG_S = 6.0  # was 10: the wedge is detected in ~3.1 s
 
 
 def router_requests(prompts, max_new):
@@ -6513,7 +7047,8 @@ def phase_serve_router(dev, card):
 
     host_state("serve router")
     spec = ROUTER_SPEC
-    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16")
+    cfg = bench_config(SERVE_DENSE_PRESET, param_dtype="bfloat16",
+                       num_hidden_layers=SERVE_DENSE_LAYERS)
     model = Transformer(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     prompts = serve_traffic(cfg.vocab_size, SERVE_DENSE)[:spec["requests"]]
     spread = first_token_spread(model, cfg, tdec._compute_cast(model, cfg), prompts,
@@ -6811,9 +7346,11 @@ def main(argv=None) -> int:
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
                          "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
-                         "hf_trainer_qwen2_5_vl, moe (with the MoE monitor), post_training, "
+                         "hf_trainer_qwen2_5_vl, hf_trainer_qwen3_vl_moe, moe (with the MoE "
+                         "monitor), post_training, "
                          "remat, serve_quant, serve_router, infer_text, parallel (two ranks "
-                         "on the card), vlm_witness and parallel_floor (measurements "
+                         "on the card), vlm_witness, qwen3_vl_floor, vlm_dpo_floor and "
+                         "parallel_floor (measurements "
                          "outside the whole run), and before them main "
                          "(the dense loop) or trainer; such a partial run prints no result "
                          "line")
@@ -6854,10 +7391,13 @@ def main(argv=None) -> int:
                   "serve_gpt_oss": phase_serve_gpt_oss,
                   "hf_trainer_qwen2_vl": phase_hf_trainer_qwen2_vl,
                   "hf_trainer_qwen2_5_vl": phase_hf_trainer_qwen2_5_vl,
+                  "hf_trainer_qwen3_vl_moe": phase_hf_trainer_qwen3_vl_moe,
                   "moe": phase_moe_main, "post_training": phase_post_training,
                   "remat": phase_remat, "serve_quant": phase_serve_quant,
                   "serve_router": phase_serve_router, "infer_text": phase_infer_text,
-                  "vlm_witness": phase_vlm_witness, "parallel": phase_parallel,
+                  "vlm_witness": phase_vlm_witness, "qwen3_vl_floor": phase_qwen3_vl_floor,
+                  "vlm_dpo_floor": phase_vlm_dpo_floor,
+                  "parallel": phase_parallel,
                   "parallel_floor": phase_parallel_floor}
         for name in names:
             t0 = time.perf_counter()
@@ -7027,7 +7567,8 @@ def run_phases(dev, card, hf_tmp, infer) -> int:
     # the vision-language trainer, after the serving phases for the same
     # reason: Qwen2-VL-2B and Qwen2.5-VL-3B (their K1-K3 rows at D 80 are
     # held and timed inside the phase, before its trainer)
-    for phase in (phase_hf_trainer_qwen2_vl, phase_hf_trainer_qwen2_5_vl):
+    for phase in (phase_hf_trainer_qwen2_vl, phase_hf_trainer_qwen2_5_vl,
+                  phase_hf_trainer_qwen3_vl_moe):
         gc.collect()
         torch.cuda.empty_cache()
         paths, rows = phase(dev, card)

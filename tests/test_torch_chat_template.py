@@ -42,11 +42,14 @@ def test_registry_covers_reference_names():
         assert name in CHAT_TEMPLATE_REGISTRY, name
     with pytest.raises(ValueError, match="unknown chat template"):
         build_chat_template("nope", FakeTok())
-    # the qwen-vl templates are ported (tests/test_torch_multimodal.py); the
-    # others wait for their models
-    for name in ("qwen3vl", "janus", "qwen2_5omni"):
+    # the qwen-vl templates, qwen3vl's included, are ported
+    # (tests/test_torch_multimodal.py); the others wait for their models
+    for name in ("janus", "qwen2_5omni"):
         with pytest.raises(NotImplementedError, match="slice F"):
             build_chat_template(name, FakeTok(), object())
+    from veomni_tpu_torch.models.qwen3_vl import Qwen3VLConfig
+
+    assert build_chat_template("qwen3vl", FakeTok(), Qwen3VLConfig()).min_patch_block == 4
     with pytest.raises(ValueError, match="needs the model config"):
         build_chat_template("qwen2vl", FakeTok())
     # a text template has no media expander, as in the reference

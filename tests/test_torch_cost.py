@@ -149,6 +149,35 @@ def test_trainer_records_its_train_step(tmp_path):
     assert rec.flops > 0 and rec.bytes_accessed > rec.argument_bytes > 0
 
 
+@pytest.mark.parametrize("lora", [False, True], ids=["full", "lora"])
+def test_census_changes_no_loss_or_grad_norm(tmp_path, monkeypatch, lora):
+    """The census's counting pass runs beside the trainer's step: with it on
+    and off the trainer's losses and grad norms are bit-equal."""
+    from veomni_tpu_torch.observability.cost import get_cost_census
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.trainer import TextTrainer
+
+    from test_e2e_training import _write_dummy_data
+    from test_torch_trainer import port_args, record_steps
+
+    _write_dummy_data(tmp_path / "data.jsonl")
+    seen = {}
+    for on in ("1", "0"):
+        get_cost_census().reset()
+        monkeypatch.setenv("VEOMNI_COST_CENSUS", on)
+        args = port_args(tmp_path, out_name=f"census{on}", train_steps=3)
+        if lora:
+            args.model.lora = {"rank": 4, "alpha": 8}
+        trainer = TextTrainer(args)
+        seen[on] = record_steps(trainer)
+        trainer.train()
+        trainer.checkpointer.close()
+        destroy_parallel_state()
+        rec = get_cost_census().latest("train_step")
+        assert (rec is not None and rec.calls == 3) if on == "1" else rec is None
+    assert len(seen["1"]) == 3 and seen["1"] == seen["0"]
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_visible_pairs_match_a_loop(causal):
     rng = np.random.default_rng(0)

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card:
-flash attention (K1-K3, at head dims 64, 80, 128 and 256), grouped GEMM (K4-K6,
+flash attention (K1-K3, at head dims 64, 72, 80, 128 and 256), grouped GEMM (K4-K6,
 at K and N multiples of the tiles and of 8 only) and the probe (K7).
 
 Every test here needs an NVIDIA Hopper GPU and skips without one: a CUDA
@@ -84,12 +84,13 @@ def test_kernels_match_plain_on_card(cuda_device, packed, causal, heads):
 @pytest.mark.parametrize("split", ["wrapper", 2], ids=["wrapper-split", "split2"])
 @pytest.mark.parametrize("heads", [(4, 2), (32, 4)], ids=["gqa2", "gqa8"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
-@pytest.mark.parametrize("d", [64, 80, 256], ids=["d64", "d80", "d256"])
+@pytest.mark.parametrize("d", [64, 72, 80, 256], ids=["d64", "d72", "d80", "d256"])
 def test_kernels_match_plain_on_card_at_head_dims(cuda_device, monkeypatch, d, causal, heads,
                                                   split):
-    """K1-K3 at head dims 64 (TinyLlama), 80 (the Qwen2-VL / Qwen2.5-VL
-    vision towers: D = 128's tiles over 3-D maps that read zeros past the
-    head's 80 columns; split 2 writes the f32 workspace at 80 columns) and
+    """K1-K3 at head dims 64 (TinyLlama), 72 and 80 (the Qwen3-VL and the
+    Qwen2-VL / Qwen2.5-VL vision towers: D = 128's tiles over 3-D maps that
+    read zeros past the head's columns; split 2 writes the f32 workspace at
+    72 or 80 columns) and
     256 (Gemma-7B; K1 on 64-key tiles, K2 in two 128-column halves, 1-stage
     rings) on packed segments,
     with the wrapper's group split and with the group split in two; K2 and

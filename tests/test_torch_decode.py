@@ -165,8 +165,11 @@ def test_paged_steps_match_jax(name):
     table[:5] = [3, 7, 1, 12, 5]
     tokens = np.zeros(16, np.int32)
     tokens[:9] = _prompts((9,), seed=2)[0]
-    want, jpools = jdec.paged_prefill_step(params, jcfg, jpools, jnp.asarray(table), 11,
-                                           jnp.asarray(tokens), 9, 16)
+    # the JAX steps as compiled programs (the engine's form; faster on the
+    # CPU than their op-by-op trace)
+    want, jpools = jax.jit(lambda p, pools, t, tok: jdec.paged_prefill_step(
+        p, jcfg, pools, t, 11, tok, 9, 16))(params, jpools, jnp.asarray(table),
+                                            jnp.asarray(tokens))
     got = tdec.paged_prefill_step(compute, cfg, tpools, T(table).long(), 11, T(tokens).long(), 9,
                                   16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -179,8 +182,8 @@ def test_paged_steps_match_jax(name):
     tables[1, :2] = [9, 14]
     positions = np.array([14, 4, 0], np.int32)
     tok = np.array([17, 99, 0], np.int32)
-    want, jpools = jdec.paged_decode_step(params, jcfg, jpools, jnp.asarray(tables),
-                                          jnp.asarray(positions), jnp.asarray(tok))
+    want, jpools = jax.jit(lambda p, pools, *a: jdec.paged_decode_step(p, jcfg, pools, *a))(
+        params, jpools, jnp.asarray(tables), jnp.asarray(positions), jnp.asarray(tok))
     got = tdec.paged_decode_step(compute, cfg, tpools, T(tables).long(), T(positions).long(),
                                  T(tok).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -194,9 +197,9 @@ def test_paged_steps_match_jax(name):
     vtables[1, :2] = [9, 14]
     vtables[2, :3] = [16, 18, 20]
     vpos = np.array([15, 5, 8], np.int32)
-    want, jpools = jdec.paged_verify_step(params, jcfg, jpools, jnp.asarray(vtables),
-                                          jnp.asarray(vpos), jnp.asarray(vt),
-                                          jnp.asarray(n_input))
+    want, jpools = jax.jit(lambda p, pools, *a: jdec.paged_verify_step(p, jcfg, pools, *a))(
+        params, jpools, jnp.asarray(vtables), jnp.asarray(vpos), jnp.asarray(vt),
+        jnp.asarray(n_input))
     got = tdec.paged_verify_step(compute, cfg, tpools, T(vtables).long(), T(vpos).long(),
                                  T(vt).long(), T(n_input).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -209,7 +212,8 @@ def test_paged_steps_match_jax(name):
     prompt = _prompts((13,), seed=4)[0]
     ptoks = np.zeros((1, 16), np.int32)
     ptoks[0, :13] = prompt
-    jl, jcaches = jdec._prefill_impl(params, jcfg, jnp.asarray(ptoks), 13, 16, 16)
+    jl, jcaches = jax.jit(lambda p, t: jdec._prefill_impl(p, jcfg, t, 13, 16, 16))(
+        params, jnp.asarray(ptoks))
     tl, tcaches = tdec._prefill_impl(compute, cfg, T(ptoks).long(), 13, 16, 16)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     ids = np.array([22, 23, 2, 0], np.int32)  # 4 blocks of 4, the last a pad

@@ -235,7 +235,8 @@ def test_capacity_factor_at_ep_size_1_is_dropless():
         load_jax_params(model, jax.tree.map(np.asarray, params))
         losses[factor] = model.loss_fn({k: T(np.asarray(v)) for k, v in data.items()})[0].item()
     jcfg = JaxConfig(dtype=jnp.float32, moe_capacity_factor=2.0, **MOE_TOY)
-    loss_j, _ = jtf.loss_fn(params, jcfg, {k: jnp.asarray(v) for k, v in data.items()})
+    loss_j, _ = jax.jit(lambda p, b: jtf.loss_fn(p, jcfg, b))(
+        params, {k: jnp.asarray(v) for k, v in data.items()})
     np.testing.assert_allclose(losses[2.0], losses[0.0], rtol=RTOL)
     np.testing.assert_allclose(losses[2.0], float(loss_j), rtol=RTOL)
 
@@ -258,7 +259,8 @@ def test_ported_features_are_admitted(dialect, extra):
     model = Transformer(TransformerConfig(dtype=torch.float32, **fields), None, device="cpu")
     load_jax_params(model, jax.tree.map(np.asarray, params))
     data = batch()
-    loss_j, _ = jtf.loss_fn(params, jcfg, {k: jnp.asarray(v) for k, v in data.items()})
+    loss_j, _ = jax.jit(lambda p, b: jtf.loss_fn(p, jcfg, b))(
+        params, {k: jnp.asarray(v) for k, v in data.items()})
     loss, _ = model.loss_fn({k: T(v) for k, v in data.items()})
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(loss_j), rtol=RTOL)

@@ -100,10 +100,10 @@ def test_dkv_group_split_rule(layout):
         assert np.prod(shape) * 4 == 2 * split * b * s * hkv * 128 * 4
 
 
-@pytest.mark.parametrize("d", [64, 256], ids=["d64", "d256"])
+@pytest.mark.parametrize("d", [64, 72, 256], ids=["d64", "d72", "d256"])
 def test_plain_flash_matches_pallas_at_head_dims(d):
     """The head dims the kernels now take besides 128 (TinyLlama's 64,
-    Gemma-7B's 256): forward O and LSE (2e-5) and dQ/dK/dV (5e-4) of the
+    the Qwen3-VL tower's 72, Gemma-7B's 256): forward O and LSE (2e-5) and dQ/dK/dV (5e-4) of the
     plain version against the Pallas kernel in interpret mode, GQA 2/1."""
     q, k, v, seg = _inputs(b=1, s=256, hq=2, hkv=1, d=d, seed=d)
     o_j, lse_j = jax_fwd(jnp.swapaxes(q, 1, 2), jnp.swapaxes(k, 1, 2), jnp.swapaxes(v, 1, 2),

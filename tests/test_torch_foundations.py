@@ -423,9 +423,11 @@ def test_models_auto_text_branch(tmp_path):
         assert fm.module is module and len(module.layers) == 1
     finally:
         apply_ops_config(None)
-    # qwen2_vl and qwen2_5_vl are ported (tests/test_torch_qwen2_vl.py); qwen3_vl waits
+    # the qwen-vl families are ported (tests/test_torch_qwen2_vl.py,
+    # tests/test_torch_qwen3_vl.py); the slot VLM waits
+    assert build_config("qwen3_vl_moe").text.expert_layout == "fused_chunked"
     with pytest.raises(NotImplementedError, match="slice F"):
-        build_config("qwen3_vl")
+        build_config("slot_vlm")
     # an HF directory: config.json and weights round-trip through the family
     with pytest.raises(FileNotFoundError):
         build_foundation_model(str(tmp_path / "missing"))

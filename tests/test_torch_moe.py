@@ -93,10 +93,9 @@ def test_route_tokens_match_jax(norm_topk_prob, scaling):
 def test_moe_loss_and_grads_match_jax(group_gemm_impl, remat_policy):
     jcfg, params, model = moe_models(remat_policy=remat_policy)
     batch = toy_batch(True)
-    (loss_j, metrics_j), grads_j = jax.value_and_grad(
-        functools.partial(jtf.loss_fn, cfg=jcfg, batch={k: jnp.asarray(v) for k, v in batch.items()}),
-        has_aux=True,
-    )(params)
+    (loss_j, metrics_j), grads_j = jax.jit(jax.value_and_grad(
+        functools.partial(jtf.loss_fn, cfg=jcfg), has_aux=True))(
+        params, batch={k: jnp.asarray(v) for k, v in batch.items()})
     gg.reset_counts()
     apply_ops_config({"group_gemm": group_gemm_impl})
     try:

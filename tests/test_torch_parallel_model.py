@@ -67,6 +67,13 @@ WORLD2 = {
     "dense-ulysses2": ("dense", dict(ulysses_size=2, dp_shard_size=1), {}),
     "moe-ep2": ("moe", dict(ep_size=2, dp_shard_size=2), {}),
 }
+# two steps at FSDP 2 of a LoRA model (AdamW on the adapters) and of the
+# full model under the whole-leaf optimizers: name -> (model, optimizer, lora)
+WORLD2_TRAIN = {
+    "dense-fsdp2-lora": ("dense", "adamw", True),
+    "dense-fsdp2-muon": ("dense", "muon", False),
+    "dense-fsdp2-adafactor": ("dense", "adafactor", False),
+}
 
 
 def batch(bsz=8, seq=64, vocab=256, seed=0):
@@ -121,16 +128,26 @@ def inputs(tmp_path_factory):
         models[kind] = {"cfg": dict(kw), "params": str(path / f"{kind}.npz"),
                         "tree": jax.tree.map(np.asarray, params)}
     save_tree(str(path / "batch.npz"), batch())
+    from veomni_tpu.lora import LoraConfig, init_lora_params
+
+    adapters = init_lora_params(jax.random.PRNGKey(1), models["dense"]["tree"],
+                                LoraConfig(rank=4, alpha=8))
+    save_tree(str(path / "adapters.npz"), jax.tree.map(np.asarray, adapters))
     return path, models
 
 
-def run_world(inputs, world, layouts, census=False):
+def run_world(inputs, world, layouts, census=False, train_layouts=None):
     path, models = inputs
     return run_ranks(world, "torch_parallel_fixtures:model_world", {
         "models": {k: {"cfg": m["cfg"], "params": m["params"]} for k, m in models.items()},
         "batch": str(path / "batch.npz"), "census": census,
+        "adapters": str(path / "adapters.npz"),
         "layouts": {name: {"model": kind, "mesh": mesh, "cfg": cfg}
-                    for name, (kind, mesh, cfg) in layouts.items()}}, env=ENV, timeout=600)
+                    for name, (kind, mesh, cfg) in layouts.items()},
+        "train_layouts": {name: {"model": kind, "mesh": dict(dp_shard_size=world),
+                                 "optimizer": opt, "lora": lora}
+                          for name, (kind, opt, lora) in (train_layouts or {}).items()}},
+        env=ENV, timeout=600)
 
 
 @pytest.fixture(scope="module")
@@ -140,7 +157,7 @@ def world4(inputs):
 
 @pytest.fixture(scope="module")
 def world2(inputs):
-    return run_world(inputs, 2, WORLD2, census=True)
+    return run_world(inputs, 2, WORLD2, census=True, train_layouts=WORLD2_TRAIN)
 
 
 def check_against_jax(ranks, name, layouts, devices):
@@ -200,3 +217,72 @@ def test_world2_step_matches_jax_and_its_census_the_plan(world2, world4, name):
     kinds = set(got["census"])
     assert {"all-gather", "reduce-scatter", "all-reduce"} <= kinds
     assert ("all-to-all" in kinds) == (name != "dense-fsdp2")
+
+
+def jax_two_steps(inputs, kind, optimizer, lora):
+    """(losses, grad norms) of two steps (lr 1e-2) of the JAX package at
+    FSDP 2 on 2 devices: the LoRA adapters under AdamW, or the full model
+    under ``optimizer``."""
+    from veomni_tpu.lora import apply_lora_to_loss_fn
+    from veomni_tpu.optim import build_optimizer as j_build_optimizer
+    from veomni_tpu.parallel import init_parallel_state, use_parallel_state
+    from veomni_tpu.parallel.parallel_state import destroy_parallel_state
+
+    path, models = inputs
+    cfg = JConfig(**{**MODELS[kind], "dtype": jnp.float32})
+    destroy_parallel_state()
+    ps = init_parallel_state(devices=jax.devices()[:2], dp_shard_size=2)
+    model = build_foundation_model(config=cfg)
+    try:
+        with use_parallel_state(ps):
+            params = jax.jit(lambda p: p, out_shardings=model.get_parallel_plan().resolve(
+                jax.tree.map(jnp.asarray, models[kind]["tree"]), ps))(
+                jax.tree.map(jnp.asarray, models[kind]["tree"]))
+            b = {k: jax.device_put(jnp.asarray(v), ps.batch_sharding())
+                 for k, v in batch().items()}
+            loss_fn = model.loss_fn
+            if lora:
+                from torch_parallel_fixtures import load_tree
+
+                loss_fn = apply_lora_to_loss_fn(model.loss_fn, params)
+                params = jax.tree.map(jnp.asarray, load_tree(str(path / "adapters.npz")))
+            tx = j_build_optimizer(params, optimizer=optimizer, lr=1e-2)
+            opt_state = tx.init(params)
+
+            @jax.jit
+            def step(p, s):
+                def norm_loss(q):
+                    loss_sum, metrics = loss_fn(q, b)
+                    return loss_sum / jnp.maximum(metrics["ntokens"], 1)
+
+                loss, grads = jax.value_and_grad(norm_loss)(p)
+                updates, s = tx.update(grads, s, p)
+                return optax.apply_updates(p, updates), s, loss, optax.global_norm(grads)
+
+            losses, norms = [], []
+            for _ in range(2):
+                params, opt_state, loss, gn = step(params, opt_state)
+                losses.append(float(loss))
+                norms.append(float(gn))
+            return losses, norms
+    finally:
+        destroy_parallel_state()
+
+
+@pytest.mark.parametrize("name", list(WORLD2_TRAIN))
+def test_world2_lora_and_whole_leaf_optimizers_match_jax_and_shard_their_memory(
+        world2, inputs, name):
+    """Two steps at FSDP 2 against the JAX package at the same mesh (loss
+    rtol 2e-5, grad norm 2e-4); each rank holds at most 0.55 of the whole
+    frozen base (LoRA) or of the whole optimizer state (Muon, Adafactor);
+    the state after step 1 saved and restored gives step 2 bit for bit."""
+    kind, optimizer, lora = WORLD2_TRAIN[name]
+    losses, norms = jax_two_steps(inputs, kind, optimizer, lora)
+    for r in world2:
+        got = r[name]
+        np.testing.assert_allclose(got["loss"], losses, rtol=2e-5, err_msg="loss")
+        np.testing.assert_allclose(got["grad_norm"], norms, rtol=2e-4, err_msg="grad norm")
+        local, whole = got["base_bytes" if lora else "state_bytes"]
+        assert 0 < local <= 0.55 * whole, (local, whole)
+        assert got["resumed_loss"] == got["loss"][1] and got["resumed_digest"]
+    assert world2[0][name]["loss"] == world2[1][name]["loss"]

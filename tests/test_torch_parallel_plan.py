@@ -176,7 +176,7 @@ def test_mesh_sizes_groups_and_indices():
         assert no_sp.data_parallel_index() == st.data_parallel_index()
 
 
-@pytest.mark.parametrize("family", ["qwen2_5_vl"])
+@pytest.mark.parametrize("family", ["qwen2_5_vl", "qwen3_vl"])
 def test_vlm_per_row_matches_packed_and_jax(family):
     """``tests/test_vlm_per_row.py``: the per-row patch budgets (a batch split
     over ranks; ``models/qwen2_5_vl.py::flatten_per_row_vision``) give the
@@ -184,16 +184,20 @@ def test_vlm_per_row_matches_packed_and_jax(family):
     Qwen2-VL's per-row batches are held key by key to the reference's in
     ``tests/test_torch_multimodal.py``, and its per-row training in
     ``tests/test_torch_parallel_trainer.py`` runs through the same
-    ``flatten_per_row_vision``."""
+    ``flatten_per_row_vision``. Qwen3-VL's plan adds the position
+    embedding's bilinear plan ([B, 4, Pr] a row) and its deepstack taps."""
     import jax.numpy as jnp
 
     from veomni_tpu.data import multimodal as jmm
     from veomni_tpu.data.data_transform import build_data_transform as j_transform
     from veomni_tpu_torch.data import multimodal as tmm
 
-    vision = VL_VISION if family == "qwen2_5_vl" else dict(
-        depth=2, embed_dim=32, hidden_size=64, mlp_ratio=2, num_heads=2, patch_size=2,
-        spatial_merge_size=2)
+    vision = {"qwen2_5_vl": VL_VISION,
+              "qwen3_vl": dict(depth=3, hidden_size=32, intermediate_size=48, num_heads=2,
+                               patch_size=2, spatial_merge_size=2, out_hidden_size=64,
+                               num_position_embeddings=16, deepstack_visual_indexes=[0, 1])
+              }.get(family) or dict(depth=2, embed_dim=32, hidden_size=64, mlp_ratio=2,
+                                    num_heads=2, patch_size=2, spatial_merge_size=2)
     kw = {**VL_TEXT, "vision": vision}
     jcfg, params, _ = jax_tree(family, kw)
     tcfg = build_config(family, **kw)
@@ -204,8 +208,10 @@ def test_vlm_per_row_matches_packed_and_jax(family):
                             max_patches_per_sample=32, text_keys="text")
     samples = [transform({"input_ids": rng.integers(11, 256, int(rng.integers(8, 24))).tolist(),
                           "images": [rng.random((8 + 4 * (i % 2), 8, 3))]}) for i in range(4)]
-    name = {"qwen2_vl": "Qwen2VLCollator", "qwen2_5_vl": "Qwen25VLCollator"}[family]
-    jloss_fn = j_build(config=jcfg).family.loss_fn
+    name = {"qwen2_vl": "Qwen2VLCollator", "qwen2_5_vl": "Qwen25VLCollator",
+            "qwen3_vl": "Qwen3VLCollator"}[family]
+    family_loss = j_build(config=jcfg).family.loss_fn
+    jloss_fn = jax.jit(lambda p, b: family_loss(p, jcfg, b))
     losses = {}
     for per_row in (False, True):
         got = getattr(tmm, name)(64, 4, tcfg, 128, per_row=per_row)(samples)
@@ -213,7 +219,7 @@ def test_vlm_per_row_matches_packed_and_jax(family):
             loss, metrics = module.loss_fn({k: torch.from_numpy(v) for k, v in got.items()})
         losses[per_row] = float(loss), float(metrics["ntokens"])
     jb = getattr(jmm, name)(64, 4, jcfg, 128, per_row=True)(samples)
-    jl, jm = jloss_fn(params, jcfg, {k: jnp.asarray(v) for k, v in jb.items()})
+    jl, jm = jloss_fn(params, {k: jnp.asarray(v) for k, v in jb.items()})
     assert losses[True][1] == losses[False][1] == float(jm["ntokens"])
     np.testing.assert_allclose(losses[True][0], losses[False][0], rtol=1e-5)
     np.testing.assert_allclose(losses[True][0], float(jl), rtol=1e-5)

@@ -20,7 +20,9 @@ One world of 2 gloo ranks (``parallel/launch.py::run_ranks``) runs, in turn:
   against world 1 within rtol 2e-4;
 * the DPO trainer (its reference policy a whole copy on each rank) at
   FSDP 2 and at ulysses 2, where each row's log-prob sum is summed over its
-  sequence chunks; the HF export of the MoE run at ep 2 (rank 0 writes
+  sequence chunks; with LoRA at FSDP 2, its reference the sharded bare base,
+  and with ``model.lora_adapter_path`` (world 1's exported adapter), its
+  reference the gathered base merged with the gathered adapter; the HF export of the MoE run at ep 2 (rank 0 writes
   the gathered model) against the world-1 run's; LoRA on the MoE at ep 2
   (the adapters replicated but for the expert ones' ep slice);
 * the Qwen2.5-VL trainer on per-row patch budgets against the packed
@@ -122,9 +124,14 @@ def runs(tmp_path_factory):
         return {"model": VLM, "data": vlm_data, "out": str(tmp / name), "trainer": "vlm",
                 "data_args": {"max_patches": 128}, "train": train}
 
-    def dpo_run(name, **train):
+    def dpo_run(name, model_args=None, **train):
         return {"model": TOY, "data": pairs, "out": str(tmp / name), "trainer": "dpo",
-                "data_type": "dpo", "train": {"lr": 1e-2, **train}}
+                "data_type": "dpo", "model_args": model_args or {},
+                "train": {"lr": 1e-2, **train}}
+
+    lora = {"lora": {"rank": 4}}
+    # the adapter the world-1 LoRA run exports, loaded by both worlds' next runs
+    adapter = dict(lora, lora_adapter_path=str(tmp / "w1dpolora" / "lora_adapter"))
 
     w1_first = dict(run("w1to2", train_steps=4, save_steps=2, micro_batch_size=4), stop_at=2)
     one = trainer_world(0, 1, {"runs": {
@@ -133,6 +140,10 @@ def runs(tmp_path_factory):
         "u2": run("w1u2", train_steps=2),
         "moe_ep2": run("w1moe", MOE, train_steps=3, micro_batch_size=4, save_hf_weights=True),
         "dpo": dpo_run("w1dpo", train_steps=3, micro_batch_size=2),
+        "dpo_lora": dpo_run("w1dpolora", lora, train_steps=3, micro_batch_size=2,
+                            save_hf_weights=True),
+        "dpo_lora_adapter": dpo_run("w1dpoadapter", adapter, train_steps=3,
+                                    micro_batch_size=2),
         "lora_moe_ep2": dict(run("w1lora", MOE, train_steps=3, micro_batch_size=4, lr=1e-2),
                              model_args={"lora": {"rank": 4}}),
         "muon": run("w1muon", train_steps=3, optimizer="muon", micro_batch_size=4),
@@ -152,6 +163,9 @@ def runs(tmp_path_factory):
         "moe_ep2": run("w2moe", MOE, train_steps=3, expert_parallel_size=2,
                        save_hf_weights=True),
         "dpo": dpo_run("w2dpo", train_steps=3, micro_batch_size=1),
+        "dpo_lora": dpo_run("w2dpolora", lora, train_steps=3, micro_batch_size=1),
+        "dpo_lora_adapter": dpo_run("w2dpoadapter", adapter, train_steps=3,
+                                    micro_batch_size=1),
         "lora_moe_ep2": dict(run("w2lora", MOE, train_steps=3, expert_parallel_size=2, lr=1e-2),
                              model_args={"lora": {"rank": 4}}),
         "dpo_u2": dpo_run("w2dpou2", train_steps=3, micro_batch_size=2,
@@ -194,7 +208,8 @@ def test_resume_is_bit_identical_to_the_straight_run(runs):
 
 
 @pytest.mark.parametrize("name", ["straight", "u2", "u2_async", "moe_ep2", "muon", "adafactor",
-                                  "numerics", "vlm", "vlm_u2", "dpo", "dpo_u2", "lora_moe_ep2"])
+                                  "numerics", "vlm", "vlm_u2", "dpo", "dpo_u2", "dpo_lora",
+                                  "dpo_lora_adapter", "lora_moe_ep2"])
 def test_world2_trains_as_world1(runs, name):
     want = {"u2_async": "u2", "vlm_u2": "vlm", "dpo_u2": "dpo"}.get(name, name)
     got, want = runs["w2"][0][name], runs["w1"][want]

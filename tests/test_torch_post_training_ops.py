@@ -146,7 +146,7 @@ def test_sequence_logprob_sums_match_jax():
         sums = jtf.sequence_logprob_sums(p, jcfg, jb)
         return (sums * w).sum(), sums
 
-    (_, sums_j), grads_j = jax.value_and_grad(j_objective, has_aux=True)(params)
+    (_, sums_j), grads_j = jax.jit(jax.value_and_grad(j_objective, has_aux=True))(params)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     sums = model.sequence_logprob_sums(tb)
     (sums * torch.from_numpy(w)).sum().backward()
@@ -164,11 +164,12 @@ def test_softcap_sums_follow_head_loss_where_the_reference_drops_the_cap():
     jcfg, params, model = toy(softcap=0.1)  # the toy's logits have a std of ~0.16
     batch = rows_batch(seed=3)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    ref_sums = np.asarray(jtf.sequence_logprob_sums(params, jcfg, jb))
-    hidden, aux, _ = jtf.forward_hidden(params, jcfg, jb["input_ids"], jb["position_ids"],
-                                        jb["segment_ids"])
-    head = np.array([float(jtf.head_loss(params, jcfg, hidden[i:i + 1], jb["labels"][i:i + 1],
-                                         aux)[0]) for i in range(4)])
+    ref_sums = np.asarray(jax.jit(lambda p, b: jtf.sequence_logprob_sums(p, jcfg, b))(params, jb))
+    hidden, aux, _ = jax.jit(lambda p, b: jtf.forward_hidden(
+        p, jcfg, b["input_ids"], b["position_ids"], b["segment_ids"]))(params, jb)
+    head_loss = jax.jit(lambda p, h, lab, a: jtf.head_loss(p, jcfg, h, lab, a)[0])
+    head = np.array([float(head_loss(params, hidden[i:i + 1], jb["labels"][i:i + 1], aux))
+                     for i in range(4)])
     with torch.no_grad():
         got = model.sequence_logprob_sums({k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(-got.numpy(), head, rtol=1e-5)  # the port follows head_loss

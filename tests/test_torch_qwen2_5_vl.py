@@ -83,8 +83,8 @@ def test_tower_and_merger_match_jax(toy):
     jcfg, tcfg, params, module = toy
     batch = vl_batch(jq25, jcfg, GRIDS_25, seed=1)
     names = ("pixel_values", "vis_pos_hw", "vis_seg_window", "vis_seg_full", "vis_reverse")
-    ref = jq25.vision_forward(params["vision_tower"], jcfg.vision,
-                              *(jnp.asarray(batch[k]) for k in names), dtype=jnp.float32)
+    ref = jax.jit(lambda p, *a: jq25.vision_forward(p, jcfg.vision, *a, dtype=jnp.float32))(
+        params["vision_tower"], *(jnp.asarray(batch[k]) for k in names))
     t = {k: torch.from_numpy(batch[k]) for k in names}
     with torch.no_grad():
         got = module.vision_tower(t["pixel_values"], t["vis_pos_hw"],

@@ -74,11 +74,9 @@ def test_zero_router_loss_and_grads_match_jax():
         for layer in model.layers:
             layer.router.zero_()
     batch = toy_batch(True)
-    (loss_j, metrics_j), grads_j = jax.value_and_grad(
-        functools.partial(jtf.loss_fn, cfg=jcfg,
-                          batch={k: jnp.asarray(v) for k, v in batch.items()}),
-        has_aux=True,
-    )(params)
+    (loss_j, metrics_j), grads_j = jax.jit(jax.value_and_grad(
+        functools.partial(jtf.loss_fn, cfg=jcfg), has_aux=True))(
+        params, batch={k: jnp.asarray(v) for k, v in batch.items()})
     loss_t, metrics_t = model.loss_fn({k: T(v) for k, v in batch.items()})
     loss_t.backward()
     np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-5)

@@ -366,7 +366,7 @@ def test_gate_admits_the_callbacks_and_refuses_other_slices(tmp_path):
     args.train.num_virtual_devices = 4
     check_supported(args)
     for section, knob, value, name in (
-            ("data", "data_type", "qwen3_vl", "slice F"),
+            ("data", "data_type", "vlm", "slice F"),
             ("data", "data_type", "omni", "slice F")):
         bad = port_args(tmp_path)
         setattr(getattr(bad, section), knob, value)

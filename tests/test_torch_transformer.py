@@ -77,10 +77,9 @@ def assert_tree_close(got, ref, rel_to_max, path=""):
 def test_loss_and_grads_match_jax(packed, attention_impl, remat_policy, tie):
     jcfg, params, model = jax_and_torch_models(tie=tie, remat_policy=remat_policy)
     batch = toy_batch(packed)
-    (loss_j, metrics_j), grads_j = jax.value_and_grad(
-        functools.partial(jtf.loss_fn, cfg=jcfg, batch={k: jnp.asarray(v) for k, v in batch.items()}),
-        has_aux=True,
-    )(params)
+    (loss_j, metrics_j), grads_j = jax.jit(jax.value_and_grad(
+        functools.partial(jtf.loss_fn, cfg=jcfg), has_aux=True))(
+        params, batch={k: jnp.asarray(v) for k, v in batch.items()})
     apply_ops_config({"attention": attention_impl})
     try:
         loss_t, metrics_t = model.loss_fn({k: torch.from_numpy(v) for k, v in batch.items()})

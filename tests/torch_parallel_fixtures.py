@@ -145,8 +145,90 @@ def model_world(rank: int, world: int, payload: Dict[str, Any]):
                 res["comm_est_frac"] = _window_frac(f"train_step_{name}", step, model, opt,
                                                     rank_batch)
         results[name] = res
+    for name, layout in payload.get("train_layouts", {}).items():
+        destroy_parallel_state()
+        ps = init_parallel_state(**layout["mesh"])
+        with use_parallel_state(ps):
+            results[name] = _two_steps(payload, layout, ps, _rank_batch(batch, ps))
     destroy_parallel_state()
     return results
+
+
+def _local_bytes(tensors) -> int:
+    return sum((t.to_local() if hasattr(t, "to_local") else t).numel() * t.element_size()
+               for t in tensors if torch.is_tensor(t) and t.ndim)
+
+
+def _build_step(payload, layout, ps):
+    """(train state, step, layout, the frozen base's layout or None,
+    optimizer) of one ``train_layouts`` entry, from the JAX weights (and
+    adapters)."""
+    from veomni_tpu_torch.lora import LoraAdapters, LoraConfig, apply_lora_to_loss_fn
+    from veomni_tpu_torch.lora import init_lora_params
+    from veomni_tpu_torch.models import Transformer, TransformerConfig
+    from veomni_tpu_torch.models.jax_weights import load_jax_adapters, load_jax_params
+    from veomni_tpu_torch.optim import build_optimizer
+    from veomni_tpu_torch.optim.optimizer import split_mixed_groups
+    from veomni_tpu_torch.parallel.parallel_plan import (
+        ParallelPlan, apply_parallel_plan, lora_parallel_plan_rules, model_parallel_plan)
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+
+    spec = payload["models"][layout["model"]]
+    cfg = TransformerConfig(**{**spec["cfg"], "dtype": torch.float32})
+    model = Transformer(cfg, None, device="cpu")
+    load_jax_params(model, load_tree(spec["params"]))
+    base = base_plan = None
+    if layout.get("lora"):
+        base = model.requires_grad_(False)
+        model = init_lora_params(None, base, LoraConfig(rank=4, alpha=8))
+        load_jax_adapters(model, load_tree(payload["adapters"]))
+        base_plan = apply_parallel_plan(base, ps)
+        plan = apply_parallel_plan(model, ps, model_parallel_plan(cfg).merge(
+            ParallelPlan(rules=lora_parallel_plan_rules())))
+        loss_fn = apply_lora_to_loss_fn(base_plan.entry(lambda m, b: m.loss_fn(b)), base)
+    else:
+        plan = apply_parallel_plan(model, ps)
+        loss_fn = lambda m, b: m.loss_fn(b)  # noqa: E731
+    opt = split_mixed_groups(build_optimizer(model, optimizer=layout.get("optimizer", "adamw"),
+                                             lr=1e-2))
+    if hasattr(opt, "leaves"):
+        opt.layout = plan
+    step = build_train_step(plan.entry(loss_fn), max_grad_norm=0.0, layout=plan,
+                            scope=LoraAdapters.merged if base is not None else None)
+    return build_train_state(model, opt), step, plan, base_plan, opt
+
+
+def _two_steps(payload, layout, ps, batch):
+    """Two steps (lr 1e-2) of a LoRA model (AdamW on the adapters) or of the
+    full model under a whole-leaf optimizer, with each rank's resident bytes
+    of the base's parameters and of the optimizer state beside the whole
+    ones (world 1's), and the state after step 1 saved and restored into a
+    fresh model and optimizer (the checkpointer's gather and cut) whose step
+    2 must equal the straight one bit for bit."""
+    from veomni_tpu_torch.checkpoint.checkpointer import load_state_into, snapshot_state
+
+    state, step, plan, base_plan, opt = _build_step(payload, layout, ps)
+    res = {"loss": [], "grad_norm": []}
+    state, m = step(state, batch)
+    res["loss"].append(float(m["loss"]))
+    res["grad_norm"].append(float(m["grad_norm"]))
+    saved = snapshot_state(state, plan)
+    whole_state = [v for st in saved["optimizer"]["state"].values() for v in st.values()]
+    local_state = [v for st in opt.state.values() for v in st.values()]
+    res["state_bytes"] = [_local_bytes(local_state), _local_bytes(whole_state)]
+    if base_plan is not None:
+        res["base_bytes"] = [
+            _local_bytes(base_plan.module.parameters()),
+            sum(int(np.prod(r.full_shape)) * p.element_size() for p, r in base_plan.rules.items())]
+    state, m = step(state, batch)
+    res["loss"].append(float(m["loss"]))
+    res["grad_norm"].append(float(m["grad_norm"]))
+    fresh, fresh_step, fresh_plan, _, _ = _build_step(payload, layout, ps)
+    load_state_into(fresh, saved, fresh_plan)
+    fresh, m = fresh_step(fresh, batch)
+    res["resumed_loss"] = float(m["loss"])
+    res["resumed_digest"] = _param_digest(fresh.model) == _param_digest(state.model)
+    return res
 
 
 def _window_frac(site, step, model, opt, batch):

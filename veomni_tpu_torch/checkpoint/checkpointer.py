@@ -122,12 +122,16 @@ def _optimizer_params(optimizer) -> List[torch.Tensor]:
 
 
 def _full_optimizer_state(opt_state: Dict[str, Any], optimizer, layout) -> Dict[str, Any]:
-    """The optimizer state with every tensor laid out as its parameter
-    gathered whole (collective). A whole-leaf optimizer (Muon, Adafactor)
-    keeps its state whole already."""
-    if layout is None or getattr(optimizer, "leaves", None) is not None:
+    """The optimizer state with every tensor gathered whole (collective):
+    a moment laid out as its parameter, and a whole-leaf optimizer's (Muon,
+    Adafactor) statistics cut over the world, as it cut them
+    (``optim/optimizer.py::LeafOptimizer.gather_state``)."""
+    if layout is None:
         return opt_state["state"]
     params = _optimizer_params(optimizer)
+    if getattr(optimizer, "leaves", None) is not None:
+        return {i: {k: optimizer.gather_state(params[i], k, v) for k, v in st.items()}
+                for i, st in opt_state["state"].items()}
     return {i: {k: layout.full_tensor(params[i], v) if torch.is_tensor(v) and v.ndim else v
                 for k, v in st.items()} for i, st in opt_state["state"].items()}
 
@@ -179,8 +183,12 @@ def load_state_into(train_state, payload: Dict[str, Any], layout=None) -> None:
         train_state.model.load_state_dict(payload["model"])
     else:
         layout.load_full_state_dict(payload["model"])
-        if getattr(optimizer, "leaves", None) is None:
-            params = _optimizer_params(optimizer)
+        params = _optimizer_params(optimizer)
+        if getattr(optimizer, "leaves", None) is not None:
+            # this rank's part of each whole state tensor, cut as the update cuts it
+            state = {int(i): {k: optimizer.cut_state(params[int(i)], k, v) for k, v in st.items()}
+                     for i, st in state.items()}
+        else:
             state = {int(i): {k: layout.to_layout(params[int(i)], v)
                               if torch.is_tensor(v) and v.ndim else v for k, v in st.items()}
                      for i, st in state.items()}

@@ -18,21 +18,23 @@
 // facade layout, so the reference wrapper's [B,S,H,D] <-> [B,H,S,D] swaps are
 // not copies here), seg [B,S] int32, lse/delta [B,Hq,S] f32, seg_rng
 // [B,S/32,2] int32 (per 32-token block: min and max segment id). D is 64,
-// 80, 128 or 256: each kernel is a template on the head dim it computes at
-// (D) and the one it reads and writes (DA), instantiated at (64, 64),
-// (128, 80), (128, 128) and (256, 256).
+// 72, 80, 128 or 256: each kernel is a template on the head dim it computes
+// at (D) and the one it reads and writes (DA), instantiated at (64, 64),
+// (128, 72), (128, 80), (128, 128) and (256, 256).
 //
-// Head dim 80 (the Qwen2-VL / Qwen2.5-VL vision towers: 16 heads of 80) is
-// not a whole number of 64-column boxes, so a 2-D map over [B*S, H*80] would
-// put head h + 1's first 48 columns into head h's second box: wrong numbers,
-// not a crash. At DA != D the loads and stores go through 3-D maps over
-// [B*S, H, DA] instead (head_map_3d): a box at column 64 holds head
-// columns 64..79 and zeros past them (TMA fills a box's out-of-bounds
-// elements with zeros on load and leaves them out on store), and the
-// kernels compute at D = 128's tiles. The zero columns add nothing to
-// Q K^T, dP = dO V^T, P V, dS K, P^T dO or dS^T Q, and the output columns
-// past 80 are computed as zeros and never stored. The price is D = 128's
-// MMA work: 1.6x the operations of the exact width.
+// Head dims 72 (the Qwen3-VL vision towers: 16 heads of 72) and 80 (the
+// Qwen2-VL / Qwen2.5-VL towers: 16 heads of 80) are not a whole number of
+// 64-column boxes, so a 2-D map over [B*S, H*DA] would put head h + 1's
+// first columns into head h's second box: wrong numbers, not a crash. At
+// DA != D the loads and stores go through 3-D maps over [B*S, H, DA]
+// instead (head_map_3d): a box at column 64 holds head columns 64..DA-1 and
+// zeros past them (TMA fills a box's out-of-bounds elements with zeros on
+// load and leaves them out on store; a row of 72 or 80 bf16 values is 144
+// or 160 bytes, a multiple of the 16-byte stride TMA needs), and the kernels
+// compute at D = 128's tiles. The zero columns add nothing to Q K^T,
+// dP = dO V^T, P V, dS K, P^T dO or dS^T Q, and the output columns past DA
+// are computed as zeros and never stored. The price is D = 128's MMA work:
+// 1.78x (D 72) and 1.6x (D 80) the operations of the exact width.
 //
 // Head dims. TMA and wgmma see a row of D bf16 values as D / 64 boxes of 64
 // columns (one 128-byte swizzled row each), so D changes how many boxes a
@@ -133,7 +135,7 @@ __device__ __forceinline__ int2 seg_range(const int* rng, int b, int S, int t0, 
 __device__ __forceinline__ bool disjoint(int2 a, int2 b) { return a.y < b.x || b.y < a.x; }
 
 // Whether a kernel computing at head dim D reads and writes head dim DA
-// through 3-D maps [B*S, H, DA] (the header's head dim 80), or through 2-D
+// through 3-D maps [B*S, H, DA] (the header's head dims 72 and 80), or through 2-D
 // maps [B*S, H*DA] in boxes of 64 whole head dims.
 __host__ __device__ constexpr bool head_map_3d(int D, int DA) { return DA != D; }
 
@@ -1037,6 +1039,7 @@ int vt_flash_fwd(const void* q, const void* k, const void* v, const void* seg,
   const cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
     case 64: return launch_flash_fwd<64, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
+    case 72: return launch_flash_fwd<128, FWD_CW, 72>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
     case 80: return launch_flash_fwd<128, FWD_CW, 80>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
     case 128: return launch_flash_fwd<128, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
     case 256: return launch_flash_fwd<256, FWD_CW>(q, k, v, seg, seg_rng, o, lse, B, S, Hq, Hkv, scale, causal, st);
@@ -1053,6 +1056,8 @@ int vt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* se
   switch (D) {
     case 64: return launch_flash_bwd_dkv<64>(q, k, v, seg, seg_rng, dout, lse, delta,
                                              dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
+    case 72: return launch_flash_bwd_dkv<128, 72>(q, k, v, seg, seg_rng, dout, lse, delta,
+                                                  dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
     case 80: return launch_flash_bwd_dkv<128, 80>(q, k, v, seg, seg_rng, dout, lse, delta,
                                                   dk, dv, ws, split, B, S, Hq, Hkv, scale, causal, st);
     case 128: return launch_flash_bwd_dkv<128>(q, k, v, seg, seg_rng, dout, lse, delta,
@@ -1071,6 +1076,8 @@ int vt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* seg
   switch (D) {
     case 64: return launch_flash_bwd_dq<64>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,
                                             scale, causal, st);
+    case 72: return launch_flash_bwd_dq<128, 72>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq,
+                                                 Hkv, scale, causal, st);
     case 80: return launch_flash_bwd_dq<128, 80>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq,
                                                  Hkv, scale, causal, st);
     case 128: return launch_flash_bwd_dq<128>(q, k, v, seg, seg_rng, dout, lse, delta, dq, B, S, Hq, Hkv,

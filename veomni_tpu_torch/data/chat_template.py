@@ -4,9 +4,10 @@ Port of ``veomni_tpu/data/chat_template.py``: ``MultimodalChatTemplate``
 (``:65-134``) with its media expanders, ``qwen_vl_chat_template``
 (``:137-265``; still images, resized down to a per-item patch budget),
 ``ChatmlTemplate`` (``:338``), ``Llama2Template`` (``:347-395``), the
-registry and ``build_chat_template`` (``:388-430``). Video expansion needs
-``data/media.py::load_video`` and its decoders, and the omni, janus and
-qwen3vl templates their models: those are slice F of the port and raise
+registry and ``build_chat_template`` (``:388-430``); ``qwen3vl`` is the
+qwen-vl template over a Qwen3-VL config (``:393``). Video expansion needs
+``data/media.py::load_video`` and its decoders, and the omni and janus
+templates their models: those are slice F of the port and raise
 ``NotImplementedError``.
 
 Message format (HF-conversations style): ``{"role": ..., "content": str or
@@ -102,8 +103,8 @@ def qwen_vl_chat_template(tokenizer, vlm_config, *, video_kwargs: Optional[Dict[
     call's ``patch_budget=``) is first shrunk to fit: the grid comes from
     the resized array, so the placeholders stay consistent. Video parts
     raise (``data/media.py::load_video`` is slice F); the reference's
-    ``set_patch_budget``/``min_patch_block`` serve only its VLM-DPO
-    transform and are not here."""
+    stateful ``set_patch_budget`` is not here (its VLM-DPO transform passes
+    the per-call ``patch_budget=``), its ``min_patch_block`` is.""" 
     from veomni_tpu_torch.data.multimodal import image_to_qwen_patches, load_image
 
     cfg = vlm_config
@@ -150,8 +151,12 @@ def qwen_vl_chat_template(tokenizer, vlm_config, *, video_kwargs: Optional[Dict[
         raise NotImplementedError(f"video content parts need data/media.py::load_video and its "
                                   f"decoders: {_SLICE_F}")
 
-    return MultimodalChatTemplate(tokenizer=tokenizer,
-                                  expanders={"image": expand_image, "video": expand_video})
+    template = MultimodalChatTemplate(tokenizer=tokenizer,
+                                      expanders={"image": expand_image, "video": expand_video})
+    # the smallest per-item budget, one merge block: the VLM-DPO transform
+    # drops trailing media when its per-sample budget splits below it
+    template.min_patch_block = m * m
+    return template
 
 
 def ChatmlTemplate(tokenizer) -> MultimodalChatTemplate:
@@ -211,8 +216,8 @@ CHAT_TEMPLATE_REGISTRY: Dict[str, Callable] = {
     "qwen2vl": lambda tok, cfg, **kw: qwen_vl_chat_template(tok, cfg, **kw),
     "qwen2_5vl": lambda tok, cfg, **kw: qwen_vl_chat_template(tok, cfg, **kw),
     "qwen25_vl": lambda tok, cfg, **kw: qwen_vl_chat_template(tok, cfg, **kw),
-    **{name: _not_ported_template(name) for name in ("qwen3vl", "qwen2_5omni", "qwen3omni",
-                                                      "janus")},
+    "qwen3vl": lambda tok, cfg, **kw: qwen_vl_chat_template(tok, cfg, **kw),
+    **{name: _not_ported_template(name) for name in ("qwen2_5omni", "qwen3omni", "janus")},
     "chatml": lambda tok, cfg=None, **kw: ChatmlTemplate(tok),
     "llama2": lambda tok, cfg=None, **kw: Llama2Template(tok),
 }

@@ -3,11 +3,12 @@ transforms and the packed-patch collators.
 
 Port of the qwen-vl part of ``veomni_tpu/data/multimodal.py``: ``load_image``
 (``:27-45``), ``frames_to_qwen_patches`` and ``image_to_qwen_patches``
-(``:152-183``), the ``qwen2_vl``/``qwen2_5_vl`` transform (``:186-279``),
-the ``qwen2_5_vl_conversation`` transform (``:282-351``) and
-``Qwen25VLCollator`` and ``Qwen2VLCollator`` (``:354-542``). The slot
-VLM's ``build_vlm_transform``/``VLMCollator`` and ``Qwen3VLCollator`` wait
-for their models (ROADMAP.md slice F). ``per_row`` is the per-row patch
+(``:152-183``), the ``qwen2_vl``/``qwen2_5_vl``/``qwen3_vl`` transform
+(``:186-279``), the ``qwen2_5_vl_conversation`` transform (``:282-351``),
+``Qwen25VLCollator`` and ``Qwen2VLCollator`` (``:354-542``) and
+``Qwen3VLCollator`` (``:545-569``). The slot VLM's
+``build_vlm_transform``/``VLMCollator`` wait for their model (ROADMAP.md
+slice F). ``per_row`` is the per-row patch
 budgets of a batch split over ranks.
 
 Static shapes: each micro-batch row is one padded sample (no cross-sample
@@ -91,6 +92,7 @@ def _as_image(im) -> np.ndarray:
 
 @DATA_TRANSFORM_REGISTRY.register("qwen2_vl")
 @DATA_TRANSFORM_REGISTRY.register("qwen2_5_vl")
+@DATA_TRANSFORM_REGISTRY.register("qwen3_vl")
 def build_qwen25_vl_transform(tokenizer=None, *, vlm_config=None, max_seq_len: int = 0,
                               max_patches_per_sample: int = 0, text_keys: str = "text",
                               channel_list=None, **_):
@@ -386,5 +388,26 @@ class Qwen2VLCollator(Qwen25VLCollator):
         out["pixel_values"] = px
         out["vis_pos_hw"] = meta["pos_hw"]
         out["vis_seg"] = meta["seg"]
+        out["vis_merged_mask"] = meta["merged_mask"]
+        return out
+
+
+class Qwen3VLCollator(Qwen25VLCollator):
+    """Qwen3-VL: the patches stay in processor (merge-block) order, and the
+    plan carries the bilinear plan of the learnable position embedding in
+    place of window segments (``:545-569``)."""
+
+    def __call__(self, samples: Sequence[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+        from veomni_tpu_torch.models.qwen3_vl import mrope_position_ids, vision_metadata
+
+        out, px, grids = self._assemble_text(samples)
+        out["position_ids"] = mrope_position_ids(
+            out["input_ids"].astype(np.int64), self._flat(grids), self.cfg).astype(np.int32)
+        meta = self._plan(grids, vision_metadata)
+        out["pixel_values"] = px
+        out["vis_pos_hw"] = meta["pos_hw"]
+        out["vis_pos_interp_idx"] = meta["pos_interp_idx"]
+        out["vis_pos_interp_w"] = meta["pos_interp_w"]
+        out["vis_seg_full"] = meta["seg_full"]
         out["vis_merged_mask"] = meta["merged_mask"]
         return out

@@ -32,10 +32,11 @@ the adapter tree only. Here:
 
 As in the reference, ``scale`` is a leaf of the adapter tree, so it takes a
 gradient and the optimizer updates it (not decayed: it is 0-d). Its
-gradient is 0 while ``B`` is 0, at the first step. Over a mesh the plan's
-LoRA rules (``parallel/parallel_plan.py::lora_parallel_plan_rules``) split
-the expert adapters over ``ep``; :func:`merge_lora_params` copies the base,
-so the merged model keeps its experts' ep slice.
+gradient is 0 while ``B`` is 0, at the first step. Over a mesh FSDP2 shards the
+frozen base by the model's plan and the adapters by it with the LoRA rules
+(``parallel/parallel_plan.py::lora_parallel_plan_rules``) merged in, which
+split the expert adapters over ``ep``; :func:`merge_lora_params` takes a
+whole base and adapters (the DPO trainer gathers both first).
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ from torch import nn
 
 from veomni_tpu_torch.lora.config import LoraConfig
 from veomni_tpu_torch.models import hf_io
-from veomni_tpu_torch.models.jax_weights import stacked_leaves
+from veomni_tpu_torch.models.jax_weights import is_stacked_path, stacked_leaves
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.utils.logging import get_logger
 
@@ -61,7 +62,6 @@ logger = get_logger(__name__)
 
 ADAPTER_WEIGHTS = "adapter_model.safetensors"
 ADAPTER_CONFIG = "adapter_config.json"
-_STACKED = ("layers", "dense_layers")
 
 
 def _match(cfg: LoraConfig, path: str) -> Optional[Tuple[int, float]]:
@@ -136,7 +136,7 @@ class LoraAdapters(nn.Module):
         is the merged one; it nests, and the outermost exit detaches."""
         if self._depth == 0:
             for path in self.paths:
-                stacked = path.split(".")[0] in _STACKED
+                stacked = is_stacked_path(path)
                 for i, (owner, name) in enumerate(self._owners[path]):
                     owner.merges[name] = functools.partial(
                         _merge_layer, self.leaf(path), i if stacked else None)
@@ -175,7 +175,7 @@ def init_lora_params(generator: Optional[torch.Generator], base: Transformer,
     for path, owners in stacked_leaves(base).items():
         m = _match(cfg, path)
         p = owners[0][0].get_parameter(owners[0][1])
-        shape = ((len(owners), *p.shape) if path.split(".")[0] in _STACKED else tuple(p.shape))
+        shape = (len(owners), *p.shape) if is_stacked_path(path) else tuple(p.shape)
         if m is None or len(shape) < 2:
             continue
         rank, alpha = m
@@ -197,11 +197,11 @@ def merge_lora_params(base: Transformer, adapters: LoraAdapters) -> Transformer:
     """A new model holding ``W + scale * A @ B`` for the adapted leaves and
     the base weights elsewhere: a second whole model on the base's device
     (:func:`save_merged_hf` writes the merged model without one)."""
-    # a copy of the base (over a mesh its experts keep their ep slice), trainable
+    # a copy of the whole base (not FSDP2-sharded: FSDP2 refuses a deepcopy)
     merged = copy.deepcopy(base).requires_grad_(True)
     owners = stacked_leaves(merged)
     for path in adapters.paths:
-        stacked = path.split(".")[0] in _STACKED
+        stacked = is_stacked_path(path)
         for i, (owner, name) in enumerate(owners[path]):
             w = owner.get_parameter(name)
             w.copy_(_merge_layer(adapters.leaf(path), i if stacked else None, w))
@@ -227,7 +227,7 @@ def save_merged_hf(base: Transformer, adapters: LoraAdapters, out_dir: str) -> N
         return held[name]
 
     with adapters.merged():
-        hf_io.save_hf_checkpoint(base, base.cfg, out_dir, read=read)
+        base.save_hf(out_dir, read=read)
 
 
 def apply_lora_to_loss_fn(loss_fn: Callable, base: Transformer) -> Callable:

@@ -1,5 +1,5 @@
 """Model registry and build entry points: the text families and the
-Qwen2-VL / Qwen2.5-VL vision-language composites.
+Qwen2-VL / Qwen2.5-VL / Qwen3-VL / Qwen3-VL-MoE vision-language composites.
 
 Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``, the VLM
 branch ``:329-357``), ``FoundationModel`` (``:411``),
@@ -7,11 +7,11 @@ branch ``:329-357``), ``FoundationModel`` (``:411``),
 ``:471-``) and ``build_tokenizer`` (through ``data/tokenizer.py``). A text
 family is the port's ``Transformer`` module (``models/transformer.py``),
 which raises ``NotImplementedError`` for any configured feature it does not
-have (``check_supported``); ``qwen2_vl`` and ``qwen2_5_vl``
-(``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``) wrap it with their
-vision towers. The reference's other families (qwen3_vl and qwen3_vl_moe,
-the slot VLM, omni, janus, deepseek_v4, diffusion) belong to slice F of the
-port and raise here instead of building something else. A config and
+have (``check_supported``); ``qwen2_vl``, ``qwen2_5_vl``, ``qwen3_vl`` and
+``qwen3_vl_moe`` (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``,
+``models/qwen3_vl.py``) wrap it with their vision towers. The reference's
+other families (the slot VLM, omni, janus, deepseek_v4, diffusion) belong
+to slice F of the port and raise here instead of building something else. A config and
 weights from an HF directory (``config_path``, ``weights_path``) go
 through ``TransformerConfig.from_hf_config`` (a VLM's ``config_from_hf``)
 and ``models/hf_io.py``, the family's ``load_hf`` and ``save_hf``
@@ -27,7 +27,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from veomni_tpu_torch.models import hf_io, qwen2_5_vl, qwen2_vl
+from veomni_tpu_torch.models import hf_io, qwen2_5_vl, qwen2_vl, qwen3_vl
 from veomni_tpu_torch.models.config import TransformerConfig
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.utils.device import DeviceLike
@@ -48,16 +48,20 @@ TEXT_MODEL_TYPES = (
 
 # the vision-language families (auto.py:152-200): model_type -> the module
 # with its config classes, model, HF reader and writer
-VLM_FAMILIES = {"qwen2_vl": qwen2_vl, "qwen2_5_vl": qwen2_5_vl}
-_VLM_CONFIGS = {"qwen2_vl": qwen2_vl.Qwen2VLConfig, "qwen2_5_vl": qwen2_5_vl.Qwen25VLConfig}
-_VLM_MODELS = {"qwen2_vl": qwen2_vl.Qwen2VLModel, "qwen2_5_vl": qwen2_5_vl.Qwen25VLModel}
-VLMConfig = Union[qwen2_vl.Qwen2VLConfig, qwen2_5_vl.Qwen25VLConfig]
+VLM_FAMILIES = {"qwen2_vl": qwen2_vl, "qwen2_5_vl": qwen2_5_vl, "qwen3_vl": qwen3_vl,
+                "qwen3_vl_moe": qwen3_vl}
+_VLM_CONFIGS = {"qwen2_vl": qwen2_vl.Qwen2VLConfig, "qwen2_5_vl": qwen2_5_vl.Qwen25VLConfig,
+                "qwen3_vl": qwen3_vl.Qwen3VLConfig, "qwen3_vl_moe": qwen3_vl.Qwen3VLConfig}
+_VLM_MODELS = {"qwen2_vl": qwen2_vl.Qwen2VLModel, "qwen2_5_vl": qwen2_5_vl.Qwen25VLModel,
+               "qwen3_vl": qwen3_vl.Qwen3VLModel, "qwen3_vl_moe": qwen3_vl.Qwen3VLModel}
+# the text dialect of each family (``:333-341``)
+_VLM_TEXT_TYPES = {"qwen2_vl": "qwen2", "qwen2_5_vl": "qwen2", "qwen3_vl": "qwen3",
+                   "qwen3_vl_moe": "qwen3_moe"}
+VLMConfig = Union[qwen2_vl.Qwen2VLConfig, qwen2_5_vl.Qwen25VLConfig, qwen3_vl.Qwen3VLConfig]
 
 # the reference's other families (auto.py:66-297), slice F of the port: each
 # names the ROADMAP.md item that ports it
 NOT_PORTED_MODEL_TYPES = {
-    "qwen3_vl": "slice F: Qwen3-VL (deepstack, interleaved mrope)",
-    "qwen3_vl_moe": "slice F: Qwen3-VL-MoE",
     "slot_vlm": "slice F: the slot VLM, models/{vision,vlm}.py",
     **{mt: "slice F" for mt in ("qwen3_next", "deepseek_v4", "janus", "qwen2_5_omni",
                                 "qwen3_omni_moe", "wan_t2v", "qwen_image", "flux", "ltx2")},
@@ -74,8 +78,9 @@ def _not_ported(model_type: str, where: str = "") -> NotImplementedError:
 
 def build_config(model_type: str = "", **overrides) -> Union[TransformerConfig, VLMConfig]:
     """The config of a model_type from keyword fields: a VLM's top-level
-    text keys flow into ``text`` (its dialect defaults to qwen2), its
-    ``vision`` dict and token ids stay at the top (``auto.py:329-357``);
+    text keys flow into ``text`` (its dialect defaults to the family's),
+    its ``vision`` dict and token ids stay at the top, and Qwen3-VL's mrope
+    is interleaved, its MoE's experts fused-chunked (``auto.py:329-360``);
     a text model_type is the reference's last branch (``:408``)."""
     overrides.pop("model_type", None)
     if model_type in NOT_PORTED_MODEL_TYPES:
@@ -86,7 +91,12 @@ def build_config(model_type: str = "", **overrides) -> Union[TransformerConfig, 
               if k in overrides}
         text = dict(overrides.pop("text", {}) or {})
         text.update(overrides)
-        text.setdefault("model_type", "qwen2")
+        text.setdefault("model_type", _VLM_TEXT_TYPES[model_type])
+        if model_type.startswith("qwen3_vl") and text.get("rope_scaling"):
+            text["rope_scaling"] = {"mrope_interleaved": True, **text["rope_scaling"]}
+        if model_type == "qwen3_vl_moe":
+            text.setdefault("expert_layout", "fused_chunked")
+            kw["model_type"] = model_type
         return _VLM_CONFIGS[model_type](text=text, **kw)
     return TransformerConfig(model_type=model_type or "llama", **overrides)
 
@@ -137,11 +147,7 @@ class FoundationModel:
     def save_hf(self, out_dir: str, module: Optional[torch.nn.Module] = None) -> None:
         """HF-format export of ``module`` (default: this model's) with its
         config.json."""
-        module = module if module is not None else self.module
-        if self.is_vlm:
-            self.vlm_family.save_hf_checkpoint(module, out_dir)
-        else:
-            hf_io.save_hf_checkpoint(module, self.config, out_dir)
+        (module if module is not None else self.module).save_hf(out_dir)
 
 
 def build_foundation_model(

@@ -19,6 +19,10 @@ up in the odd ones, its bias ``gate_up_proj_bias`` [E, 2I] likewise, and
 ``down_proj`` [E, I, H] with ``down_proj_bias`` [E, H], none transposed).
 The stride-2 split reads a layer's whole fused tensor once for both
 halves, and the export interleaves a layer's gate and up as it writes it.
+qwen3_vl_moe's text (``expert_layout: fused_chunked``, ``:336-357``,
+``:489-497``) fuses its experts the same way but with gate and up as the two
+halves of ``gate_up_proj``'s last dim, and reads its router from the
+generic ``mlp.gate.weight``.
 
 The card's machine has neither ``safetensors`` nor ``transformers``, so this
 module reads and writes the safetensors format itself: an 8-byte
@@ -112,6 +116,18 @@ _FUSED_MAP: Dict[str, Tuple[str, bool, Optional[int]]] = {
 # each fused HF tensor -> (our gate name, our up name)
 _INTERLEAVED = {"mlp.experts.gate_up_proj": ("experts.gate_proj", "experts.up_proj"),
                 "mlp.experts.gate_up_proj_bias": ("experts.gate_bias", "experts.up_bias")}
+
+# qwen3_vl_moe's fused experts (``expert_layout: fused_chunked``, reference
+# ``:336-357``, ``:489-497``): ``mlp.experts.gate_up_proj`` [E, H, 2I] with
+# gate in the first half of the last dim and up in the second, and
+# ``mlp.experts.down_proj`` [E, I, H], neither transposed. Our name -> (hf
+# suffix, the half or None)
+_CHUNKED_GATE_UP = "mlp.experts.gate_up_proj"
+_CHUNKED: Dict[str, Tuple[str, Optional[int]]] = {
+    "experts.gate_proj": (_CHUNKED_GATE_UP, 0),
+    "experts.up_proj": (_CHUNKED_GATE_UP, 1),
+    "experts.down_proj": ("mlp.experts.down_proj", None),
+}
 
 INDEX_NAME = "model.safetensors.index.json"
 
@@ -334,9 +350,22 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
     for i, layer in enumerate(model.layers):
         # gpt_oss's fused experts (the reference's test, ``:366-370``)
         fused = f"layers.{i}.mlp.router.weight" in alias
+        # qwen3_vl_moe's: gate | up halves, the router the generic mlp.gate
+        chunked = not fused and f"layers.{i}.{_CHUNKED_GATE_UP}" in alias
         halves: Dict[str, torch.Tensor] = {}  # a fused tensor, read once for both halves
         for pname, param in layer.named_parameters():
-            if fused and pname in _FUSED_MAP:
+            if chunked and pname in _CHUNKED:
+                name = f"layers.{i}.{_CHUNKED[pname][0]}"
+                if name not in halves:
+                    halves[name] = fetch(name, False)
+                x = halves[name]
+                half = _CHUNKED[pname][1]
+                if half is not None:
+                    width = x.shape[-1] // 2
+                    x = x[..., half * width:(half + 1) * width]
+                for e in (experts if experts is not None else range(cfg.num_experts)):
+                    put(param[e], x[e], f"layers.{i}.{pname}[{e}]")
+            elif fused and pname in _FUSED_MAP:
                 suffix, transpose, parity = _FUSED_MAP[pname]
                 name = f"layers.{i}.{suffix}"
                 if parity is None:
@@ -406,19 +435,36 @@ def hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
 
         out.append((name, gate.dtype, shape, produce))
 
+    def add_chunked(name: str, owner: torch.nn.Module):
+        gate = owner.get_parameter("experts.gate_proj")
+        shape = tuple(gate.shape[:-1]) + (2 * gate.shape[-1],)
+
+        def produce():
+            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach().to("cpu")
+                    for n in ("experts.gate_proj", "experts.up_proj"))
+            return torch.cat([g, u], dim=-1)
+
+        out.append((name, gate.dtype, shape, produce))
+
     add("model.embed_tokens.weight", model, "embed_tokens", False)
     add("model.norm.weight", model, "norm", False)
     if not cfg.tie_word_embeddings:
         add("lm_head.weight", model, "lm_head", True)
-    fused = cfg.model_type == "gpt_oss"  # the reference's choice, ``:489-492``
+    fused = cfg.model_type == "gpt_oss"  # the reference's choice, ``:485-492``
+    chunked = cfg.expert_layout == "fused_chunked"
     for i, layer in enumerate(model.layers):
         names = dict(layer.named_parameters())
         if fused and "router" in names:
             for suffix, pair in _INTERLEAVED.items():
                 if pair[0] in names:
                     add_interleaved(f"model.layers.{i}.{suffix}", layer, pair)
+        if chunked and "experts.gate_proj" in names:
+            add_chunked(f"model.layers.{i}.{_CHUNKED_GATE_UP}", layer)
         for pname in names:
-            if fused and pname in _FUSED_MAP:
+            if chunked and pname in _CHUNKED:
+                if _CHUNKED[pname][1] is None:
+                    add(f"model.layers.{i}.{_CHUNKED[pname][0]}", layer, pname, False)
+            elif fused and pname in _FUSED_MAP:
                 suffix, transpose, parity = _FUSED_MAP[pname]
                 if parity is None:
                     add(f"model.layers.{i}.{suffix}", layer, pname, transpose)

@@ -18,7 +18,8 @@ port's ``lora.LoraAdapters``, which keep it stacked. The tree's leaves are
 numpy arrays (``np.asarray`` of the JAX arrays); this module imports no
 JAX.
 
-A VLM composite (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``) is the
+A VLM composite (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``,
+``models/qwen3_vl.py``) is the
 tree ``{language_model: <the text tree>, vision_tower: {patch_embed,
 blocks: {name: [L, ...]}, merger: {...}}}``: the text tree moves across as
 above, the tower's ``blocks`` unstacked into its block modules.
@@ -71,14 +72,20 @@ def _segments(model: Transformer):
     return segments
 
 
+# a vision tower's module lists that the reference stacks on a leading axis:
+# its blocks and Qwen3-VL's deepstack mergers (stacked over the K taps)
+_TOWER_STACKS = ("blocks", "deepstack_mergers")
+
+
 def _tower_leaves(tower: nn.Module) -> Dict[str, List[Tuple[nn.Module, str]]]:
     """A vision tower's leaves: its own (``patch_embed``), ``blocks.<name>``
-    stacked over its blocks, and each other submodule's (``merger.fc1_w``)."""
+    stacked over its blocks (and ``deepstack_mergers.<name>`` over its
+    mergers), and each other submodule's (``merger.fc1_w``)."""
     out = {name: [(tower, name)] for name, _ in tower.named_parameters(recurse=False)}
     for sub_name, sub in tower.named_children():
-        if sub_name == "blocks":
+        if sub_name in _TOWER_STACKS:
             for name, _ in sub[0].named_parameters():
-                out[f"blocks.{name}"] = [(block, name) for block in sub]
+                out[f"{sub_name}.{name}"] = [(block, name) for block in sub]
         else:
             for name, _ in sub.named_parameters():
                 out[f"{sub_name}.{name}"] = [(sub, name)]
@@ -121,7 +128,7 @@ def is_stacked_path(path: str) -> bool:
     ``[L, ...]`` axis): the text layers and dense layers of a
     ``Transformer`` and a VLM tower's blocks."""
     return (path.removeprefix("language_model.").startswith(("layers.", "dense_layers."))
-            or path.startswith("vision_tower.blocks."))
+            or path.startswith(tuple(f"vision_tower.{s}." for s in _TOWER_STACKS)))
 
 
 def reference_leaves(module: nn.Module) -> List[Tuple[str, List[torch.Tensor], bool]]:
@@ -149,11 +156,12 @@ def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> None:
             raise KeyError(f"vision_tower keys differ: {sorted(set(flat) ^ set(leaves))}")
         for path, owners in leaves.items():
             value = np.asarray(flat[path])
-            if len(owners) > 1 and value.shape[0] != len(owners):
+            stacked = path.startswith(tuple(f"{s}." for s in _TOWER_STACKS))
+            if stacked and value.shape[0] != len(owners):
                 raise ValueError(f"vision_tower.{path}: {value.shape[0]} blocks, model has "
                                  f"{len(owners)}")
             for i, (owner, name) in enumerate(owners):
-                _copy(owner.get_parameter(name), value[i] if len(owners) > 1 else value,
+                _copy(owner.get_parameter(name), value[i] if stacked else value,
                       f"vision_tower.{path}")
         return
     top = _top_level(model)
@@ -198,7 +206,8 @@ def to_jax_tree(model: nn.Module, *, grads: bool = False) -> Dict[str, Any]:
         tower = {}
         for path, owners in _tower_leaves(model.vision_tower).items():
             vals = [val(owner.get_parameter(name)) for owner, name in owners]
-            tower[path] = np.stack(vals) if path.startswith("blocks.") else vals[0]
+            tower[path] = (np.stack(vals) if path.startswith(tuple(f"{s}." for s in _TOWER_STACKS))
+                           else vals[0])
         return {"language_model": to_jax_tree(model.language_model, grads=grads),
                 "vision_tower": _nest(tower)}
 

@@ -36,8 +36,7 @@ the reference checkpoints each block whole; the numbers are the same.
 Per-row vision batches (``flatten_per_row_vision``, ``:456``) come from a
 batch split over ranks (``trainer/vlm_trainer.py``). Under sequence
 parallelism the tower's attention runs without it and ``merged_hidden``
-keeps the rank's chunk of the merged sequence. ``sequence_logprob_sums``
-(``:532``) belongs to VLM-DPO (slice F) and is not here.
+keeps the rank's chunk of the merged sequence.
 """
 
 from __future__ import annotations
@@ -289,7 +288,22 @@ def _param(device, dtype, *shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-class VisionBlock(nn.Module):
+class MergedReads(nn.Module):
+    """A tower module whose forward reads each of its parameters through
+    :meth:`w`, where a LoRA adapter (``lora/lora.py``) merges into it, as
+    ``DecoderLayer.w`` does."""
+
+    def __init__(self):
+        super().__init__()
+        self.merges: Dict[str, Any] = {}
+
+    def w(self, name: str) -> torch.Tensor:
+        merge = self.merges.get(name)
+        p = self.get_parameter(name)
+        return p if merge is None else merge(p)
+
+
+class VisionBlock(MergedReads):
     """One tower block; the family's subclass names its norm and MLP
     parameters and computes them (``_norm``, ``_mlp``)."""
 
@@ -297,21 +311,21 @@ class VisionBlock(nn.Module):
         super().__init__()
         self.vcfg, self.text = cfg, text
 
-    def _linear(self, x, w, b):
+    def _linear(self, x, w: str, b: str):
         dt = x.dtype
-        return x @ w.to(dt) + b.to(dt)
+        return x @ self.w(w).to(dt) + self.w(b).to(dt)
 
     def _qkv(self, x, cos, sin):
         n, _ = x.shape
         cfg = self.vcfg
-        qkv = self._linear(self._norm(x, 1), self.qkv_w, self.qkv_b)
+        qkv = self._linear(self._norm(x, 1), "qkv_w", "qkv_b")
         q, k, v = qkv.view(1, n, 3 * cfg.num_heads, cfg.head_dim).chunk(3, dim=2)
         q, k = ops.apply_rotary(q, k, cos, sin)
         return q, k, v
 
     def _tail(self, x, attn):
         n, d = x.shape
-        x = x + self._linear(attn.reshape(n, d), self.proj_w, self.proj_b)
+        x = x + self._linear(attn.reshape(n, d), "proj_w", "proj_b")
         return x + self._mlp(self._norm(x, 2))
 
     def forward(self, x, cos, sin, seg):
@@ -352,16 +366,14 @@ class Qwen25VisionBlock(VisionBlock):
         self.down_w, self.down_b = p(i, d), p(d)
 
     def _norm(self, x, which: int):
-        w = self.norm1 if which == 1 else self.norm2
-        return ops.rms_norm(x, w.to(x.dtype), 1e-6)
+        return ops.rms_norm(x, self.w(f"norm{which}").to(x.dtype), 1e-6)
 
     def _mlp(self, y):
-        act = F.silu(self._linear(y, self.gate_w, self.gate_b)) * self._linear(y, self.up_w,
-                                                                              self.up_b)
-        return self._linear(act, self.down_w, self.down_b)
+        act = F.silu(self._linear(y, "gate_w", "gate_b")) * self._linear(y, "up_w", "up_b")
+        return self._linear(act, "down_w", "down_b")
 
 
-class Qwen25Merger(nn.Module):
+class Qwen25Merger(MergedReads):
     """RMSNorm, then each 2x2 group of patches concatenated and through
     fc1 -> GELU (tanh form, ``jax.nn.gelu``'s default) -> fc2."""
 
@@ -374,30 +386,32 @@ class Qwen25Merger(nn.Module):
         self.fc2_w, self.fc2_b = p(md, cfg.out_hidden_size), p(cfg.out_hidden_size)
 
     def _norm(self, x):
-        return ops.rms_norm(x, self.ln_q.to(x.dtype), 1e-6)
+        return ops.rms_norm(x, self.w("ln_q").to(x.dtype), 1e-6)
 
     def forward(self, x, merge_unit: int):
         dt = x.dtype
         y = self._norm(x)
         y = y.reshape(x.shape[0] // merge_unit, merge_unit * x.shape[1])
-        y = F.gelu(y @ self.fc1_w.to(dt) + self.fc1_b.to(dt), approximate="tanh")
-        return y @ self.fc2_w.to(dt) + self.fc2_b.to(dt)
+        y = F.gelu(y @ self.w("fc1_w").to(dt) + self.w("fc1_b").to(dt), approximate="tanh")
+        return y @ self.w("fc2_w").to(dt) + self.w("fc2_b").to(dt)
 
 
-class VisionTower(nn.Module):
+class VisionTower(MergedReads):
     """``patch_embed`` [patch_dim, D], ``blocks`` and ``merger``; the
     family's subclass builds them and says which segment ids each layer
     attends with (``layer_segments``)."""
+
+    PATCH_EMBED = "patch_embed"  # the reference's name of the patch-embed matrix
 
     def __init__(self, cfg, text: TransformerConfig):
         super().__init__()
         self.cfg, self.text = cfg, text
 
-    def forward(self, pixel_values, pos_hw, segs: Dict[str, torch.Tensor], reverse=None):
+    def forward(self, pixel_values, pos_hw, segs: Dict[str, torch.Tensor], reverse=None, **_):
         """pixel_values [N, patch_dim] (padded) -> merged features
         [N / merge_unit, out] in image order, in the text's compute dtype."""
         cfg, dt = self.cfg, self.text.dtype
-        x = pixel_values.to(dt) @ self.patch_embed.to(dt)
+        x = pixel_values.to(dt) @ self.w(self.PATCH_EMBED).to(dt)
         cos, sin = vision_rope(pos_hw, cfg.head_dim)
         for i, block in enumerate(self.blocks):
             x = block(x, cos, sin, segs[self.layer_segments(i)][None])
@@ -423,7 +437,7 @@ def init_vision_params(tower: nn.Module, generator: torch.Generator, std: float)
     1, biases at 0, matrices ~ N(0, std)."""
     for name, param in tower.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf.startswith(("norm", "ln_q")) and not leaf.endswith("_b"):
+        if leaf.startswith(("norm", "ln_")) and not leaf.endswith("_b"):
             param.fill_(1.0)
         elif leaf.endswith("_b"):
             param.zero_()
@@ -493,6 +507,10 @@ def flatten_per_row_vision(batch, unit: int) -> Tuple[Dict[str, torch.Tensor], i
         out["vis_reverse"] = (batch["vis_reverse"] + row * mr).reshape(-1)
     if "vis_merged_mask" in batch:
         out["vis_merged_mask"] = batch["vis_merged_mask"].reshape(-1)
+    if "vis_pos_interp_idx" in batch:
+        # [B, 4, Pr] -> [4, B*Pr]: the indices address the one shared table
+        for key in ("vis_pos_interp_idx", "vis_pos_interp_w"):
+            out[key] = batch[key].transpose(0, 1).reshape(4, b * pr)
     return out, mr
 
 
@@ -519,6 +537,10 @@ class VisionLanguageModel(nn.Module):
         """({segment-id name: [N] ids}, the reverse gather or None)."""
         return ({k: batch[k] for k in ("vis_seg_window", "vis_seg_full")}, batch["vis_reverse"])
 
+    def tower_kwargs(self, batch) -> Dict[str, Any]:
+        """The family's other tower inputs (Qwen3-VL: the position plan)."""
+        return {}
+
     def vision_features(self, batch) -> Tuple[torch.Tensor, int, Dict[str, torch.Tensor]]:
         """([M, H] merged features in image order, merged tokens a row in
         the per-row layout else 0, the batch with its vision arrays packed);
@@ -531,7 +553,8 @@ class VisionLanguageModel(nn.Module):
             batch = {**batch, **packed}
         segs, reverse = self.tower_inputs(batch)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.freeze_vision):
-            feats = self.vision_tower(batch["pixel_values"], batch["vis_pos_hw"], segs, reverse)
+            feats = self.vision_tower(batch["pixel_values"], batch["vis_pos_hw"], segs, reverse,
+                                      **self.tower_kwargs(batch))
         return feats, row_tokens, batch
 
     def merged_hidden(self, batch):
@@ -542,12 +565,22 @@ class VisionLanguageModel(nn.Module):
         rank's chunk of the sequence (cp outer, ulysses inner)."""
         cfg, lm = self.cfg, self.language_model
         feats, row_tokens, batch = self.vision_features(batch)
-        embeds = lm.embed(batch["input_ids"])
-        embeds = merge_vision_features(embeds, batch["input_ids"], feats,
-                                       batch["vis_merged_mask"].bool(), cfg.image_token_id,
-                                       cfg.video_token_id, row_tokens)
-        ids, pos, seg, labels = (batch["input_ids"], batch["position_ids"],
-                                 batch.get("segment_ids"), batch.get("labels"))
+        # a deepstack tower (Qwen3-VL) gives its taps beside the merged features
+        feats, deepstack = feats if isinstance(feats, tuple) else (feats, None)
+        ids, mask = batch["input_ids"], batch["vis_merged_mask"].bool()
+        embeds = lm.embed(ids)
+
+        def scatter(into, f):
+            return merge_vision_features(into, ids, f, mask, cfg.image_token_id,
+                                         cfg.video_token_id, row_tokens)
+
+        embeds = scatter(embeds, feats)
+        residuals = None
+        if deepstack is not None and deepstack.shape[0]:
+            # each tap scattered to its positions, zeros elsewhere (``:511-517``)
+            zeros = torch.zeros_like(embeds)
+            residuals = torch.stack([scatter(zeros, f) for f in deepstack])
+        pos, seg, labels = batch["position_ids"], batch.get("segment_ids"), batch.get("labels")
         ps = get_parallel_state_or_none()
         if ps is not None and ps.sp_enabled:
             from veomni_tpu_torch.parallel.sequence_parallel import sp_slice
@@ -556,7 +589,9 @@ class VisionLanguageModel(nn.Module):
             pos = sp_slice(pos, ps, dim=pos.ndim - 1)
             seg = None if seg is None else sp_slice(seg, ps)
             labels = None if labels is None else sp_slice(labels, ps)
-        hidden, aux = lm.forward_hidden(ids, pos, seg, inputs_embeds=embeds)
+            residuals = None if residuals is None else sp_slice(residuals, ps, dim=2)
+        hidden, aux = lm.forward_hidden(ids, pos, seg, inputs_embeds=embeds,
+                                        post_layer_residuals=residuals)
         return hidden, aux, labels
 
     def loss_fn(self, batch):
@@ -568,9 +603,20 @@ class VisionLanguageModel(nn.Module):
         hidden, aux, labels = self.merged_hidden(batch)
         return self.language_model.head_loss(hidden, labels, aux)
 
+    def sequence_logprob_sums(self, batch) -> torch.Tensor:
+        """Per-row sums of the label log-probs [B] f32 through the whole
+        composite (``sequence_logprob_sums``, ``:532-545``: the VLM-DPO
+        trainer's policy and reference scores), with the final softcap as
+        the text model's (ROADMAP.md queue 3, diverges on purpose 7)."""
+        hidden, _, labels = self.merged_hidden(batch)
+        return self.language_model.logprob_sums(hidden, labels)
+
 
 class Qwen25VLModel(VisionLanguageModel):
     TOWER = Qwen25VisionTower
+
+    def save_hf(self, out_dir: str, read=None) -> None:
+        save_hf_checkpoint(self, out_dir, read=read)
 
 
 # ---------------------------------------------------------------------------
@@ -625,10 +671,11 @@ def patch_embed_to_hf(w: torch.Tensor, vcfg) -> torch.Tensor:
 
 @torch.no_grad()
 def hf_to_params(model_dir: Optional[str], model: VisionLanguageModel, block_map,
-                 merger_map, tensors=None) -> VisionLanguageModel:
+                 merger_map, tensors=None, tower_map=()) -> VisionLanguageModel:
     """Fill a composite from an HF checkpoint: the text tree through
     ``hf_io.hf_to_params`` with the text key map, then the tower, one tensor
-    at a time (``:581-637``)."""
+    at a time (``:581-637``). ``tower_map``: (tower parameter path, HF
+    suffix, transpose) of the family's other tower tensors."""
     from veomni_tpu_torch.models import hf_io
 
     cfg = model.cfg
@@ -651,20 +698,24 @@ def hf_to_params(model_dir: Optional[str], model: VisionLanguageModel, block_map
         param.copy_(x)
 
     tower = model.vision_tower
-    put(tower.patch_embed, patch_embed_from_hf(read("patch_embed.proj.weight"), cfg.vision.width),
-        "patch_embed")
+    put(tower.get_parameter(tower.PATCH_EMBED),
+        patch_embed_from_hf(read("patch_embed.proj.weight"), cfg.vision.width), "patch_embed")
     for i, block in enumerate(tower.blocks):
         for ours, suffix, transpose in block_map:
             put(getattr(block, ours), read(f"blocks.{i}.{suffix}", transpose), f"blocks.{i}.{ours}")
     for ours, (suffix, transpose) in merger_map.items():
         put(getattr(tower.merger, ours), read(suffix, transpose), f"merger.{ours}")
+    for ours, suffix, transpose in tower_map:
+        put(tower.get_parameter(ours), read(suffix, transpose), ours)
     return model
 
 
-def hf_sources(model: VisionLanguageModel, block_map, merger_map, read=None):
+def hf_sources(model: VisionLanguageModel, block_map, merger_map, read=None, tower_map=()):
     """Every HF tensor of the composite as ``hf_io`` tensor sources: the
     text's under ``model.language_model.`` (``lm_head`` at the top), the
-    tower's under ``model.visual.`` (``:640-666``)."""
+    tower's under ``model.visual.`` (``:640-666``). ``read(owner, name)``,
+    where given, gives each tensor in place of the parameter (LoRA's merged
+    export)."""
     from veomni_tpu_torch.models import hf_io
 
     cfg = model.cfg
@@ -675,22 +726,34 @@ def hf_sources(model: VisionLanguageModel, block_map, merger_map, read=None):
         out.append((name, dtype, shape, produce))
     tower, pfx = model.vision_tower, "model.visual"
     vcfg = cfg.vision
-    pe = tower.patch_embed
+
+    def value(owner, pname):
+        return (read(owner, pname) if read else owner.get_parameter(pname)).detach()
+
+    pe = tower.get_parameter(tower.PATCH_EMBED)
     out.append((f"{pfx}.patch_embed.proj.weight", pe.dtype,
                 (vcfg.width, vcfg.in_channels, vcfg.temporal_patch_size, vcfg.patch_size,
                  vcfg.patch_size),
-                lambda: patch_embed_to_hf(pe.detach(), vcfg).cpu()))
+                lambda: patch_embed_to_hf(value(tower, tower.PATCH_EMBED), vcfg).cpu()))
 
-    def add(name, param, transpose):
+    def add(name, owner, pname, transpose):
+        param = owner.get_parameter(pname)
         shape = tuple(reversed(param.shape)) if transpose else tuple(param.shape)
-        out.append((name, param.dtype, shape,
-                    lambda: (param.detach().t() if transpose else param.detach()).cpu()))
+
+        def produce():
+            x = value(owner, pname)
+            return (x.t() if transpose else x).cpu()
+
+        out.append((name, param.dtype, shape, produce))
 
     for i, block in enumerate(tower.blocks):
         for ours, suffix, transpose in block_map:
-            add(f"{pfx}.blocks.{i}.{suffix}", getattr(block, ours), transpose)
+            add(f"{pfx}.blocks.{i}.{suffix}", block, ours, transpose)
     for ours, (suffix, transpose) in merger_map.items():
-        add(f"{pfx}.{suffix}", getattr(tower.merger, ours), transpose)
+        add(f"{pfx}.{suffix}", tower.merger, ours, transpose)
+    for ours, suffix, transpose in tower_map:
+        owner, _, pname = ours.rpartition(".")
+        add(f"{pfx}.{suffix}", tower.get_submodule(owner) if owner else tower, pname, transpose)
     return sorted(out, key=lambda s: s[0])
 
 
@@ -699,11 +762,11 @@ def load_hf_checkpoint(model_dir: Optional[str], model: Qwen25VLModel,
     return hf_to_params(model_dir, model, _VIS_BLOCK_MAP, _MERGER_MAP, tensors)
 
 
-def save_hf_checkpoint(model: Qwen25VLModel, out_dir: str, **kw) -> None:
+def save_hf_checkpoint(model: Qwen25VLModel, out_dir: str, read=None, **kw) -> None:
     from veomni_tpu_torch.models import hf_io
 
-    hf_io.write_hf_checkpoint(hf_sources(model, _VIS_BLOCK_MAP, _MERGER_MAP), hf_config(model.cfg),
-                              out_dir, **kw)
+    hf_io.write_hf_checkpoint(hf_sources(model, _VIS_BLOCK_MAP, _MERGER_MAP, read),
+                              hf_config(model.cfg), out_dir, **kw)
 
 
 def hf_config(cfg: Qwen25VLConfig) -> Dict[str, Any]:

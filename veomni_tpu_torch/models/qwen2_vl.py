@@ -181,16 +181,13 @@ class Qwen2VisionBlock(VisionBlock):
         self.fc2_w, self.fc2_b = p(i, d), p(d)
 
     def _norm(self, x, which: int):
-        if which == 1:
-            return layer_norm(x, self.norm1_w, self.norm1_b)
-        return layer_norm(x, self.norm2_w, self.norm2_b)
+        return layer_norm(x, self.w(f"norm{which}_w"), self.w(f"norm{which}_b"))
 
     def _mlp(self, y):
-        return self._linear(quick_gelu(self._linear(y, self.fc1_w, self.fc1_b)), self.fc2_w,
-                            self.fc2_b)
+        return self._linear(quick_gelu(self._linear(y, "fc1_w", "fc1_b")), "fc2_w", "fc2_b")
 
 
-class Qwen2Merger(nn.Module):
+class Qwen2Merger(q25.MergedReads):
     """LayerNorm, then each 2x2 group of patches concatenated and through
     fc1 -> GELU (tanh form, ``jax.nn.gelu``'s default) -> fc2 into the LM
     width (``:285-290``)."""
@@ -205,10 +202,10 @@ class Qwen2Merger(nn.Module):
 
     def forward(self, x, merge_unit: int):
         dt = x.dtype
-        y = layer_norm(x, self.ln_q_w, self.ln_q_b)
+        y = layer_norm(x, self.w("ln_q_w"), self.w("ln_q_b"))
         y = y.reshape(x.shape[0] // merge_unit, merge_unit * x.shape[1])
-        y = F.gelu(y @ self.fc1_w.to(dt) + self.fc1_b.to(dt), approximate="tanh")
-        return y @ self.fc2_w.to(dt) + self.fc2_b.to(dt)
+        y = F.gelu(y @ self.w("fc1_w").to(dt) + self.w("fc1_b").to(dt), approximate="tanh")
+        return y @ self.w("fc2_w").to(dt) + self.w("fc2_b").to(dt)
 
 
 class Qwen2VisionTower(VisionTower):
@@ -228,6 +225,9 @@ class Qwen2VLModel(VisionLanguageModel):
 
     def tower_inputs(self, batch):
         return {"vis_seg": batch["vis_seg"]}, None
+
+    def save_hf(self, out_dir: str, read=None) -> None:
+        save_hf_checkpoint(self, out_dir, read=read)
 
 
 # ---------------------------------------------------------------------------
@@ -263,10 +263,10 @@ def load_hf_checkpoint(model_dir: Optional[str], model: Qwen2VLModel,
     return q25.hf_to_params(model_dir, model, _VIS_BLOCK_MAP, _MERGER_MAP, tensors)
 
 
-def save_hf_checkpoint(model: Qwen2VLModel, out_dir: str, **kw) -> None:
+def save_hf_checkpoint(model: Qwen2VLModel, out_dir: str, read=None, **kw) -> None:
     from veomni_tpu_torch.models import hf_io
 
-    hf_io.write_hf_checkpoint(q25.hf_sources(model, _VIS_BLOCK_MAP, _MERGER_MAP),
+    hf_io.write_hf_checkpoint(q25.hf_sources(model, _VIS_BLOCK_MAP, _MERGER_MAP, read),
                               hf_config(model.cfg), out_dir, **kw)
 
 

@@ -711,7 +711,8 @@ class Transformer(nn.Module):
         """(token embeddings [B,S,H], the global rotary cos, sin) in cfg.dtype."""
         return (self.embed(input_ids), *self.rotary(position_ids)[False])
 
-    def forward_hidden(self, input_ids, position_ids, segment_ids=None, inputs_embeds=None):
+    def forward_hidden(self, input_ids, position_ids, segment_ids=None, inputs_embeds=None,
+                       post_layer_residuals=None):
         """[B,S] ids/segments and [B,S] positions (mrope: [B,3,S]) -> (final
         hidden [B,S,H] in cfg.dtype, router aux loss summed over the layers).
         ``inputs_embeds`` [B,S,H], where given, replace the token embeddings
@@ -719,15 +720,21 @@ class Transformer(nn.Module):
         embedding scale is applied to them, as there). Each layer attends
         with its own window and rope (``:641-668``): a full-attention layer
         keeps the ``cuda_flash`` kernels, a windowed one takes the plain
-        attention."""
+        attention. ``post_layer_residuals`` [K,B,S,H] (Qwen3-VL's deepstack
+        features, scattered to their positions, zeros elsewhere): residual
+        ``i`` is added to the hidden state after decoder layer ``i`` for the
+        first K layers (``:605-622``, ``:734-736``)."""
         cfg, dt = self.cfg, self.cfg.dtype
         hidden = self.embed(input_ids) if inputs_embeds is None else inputs_embeds.to(dt)
         tables = self.rotary(position_ids)
         aux_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-        for layer in self.layers:
+        n_inject = 0 if post_layer_residuals is None else post_layer_residuals.shape[0]
+        for i, layer in enumerate(self.layers):
             layer.moe_stats.clear()
             hidden, aux = layer(hidden, *tables[layer.local_rope], segment_ids)
             aux_total = aux_total + aux
+            if i < n_inject:
+                hidden = hidden + post_layer_residuals[i].to(hidden.dtype)
         drops = [layer.moe_stats["dropped"] for layer in self.layers if layer.moe_stats]
         # mean capacity-drop fraction over the MoE layers (``:743-745``) and,
         # under expert parallelism, over the mesh (outside the remat regions)
@@ -788,13 +795,19 @@ class Transformer(nn.Module):
         over the flattened rows is summed by row, the same sums. The logits
         take the final softcap as ``head_loss``'s do, where the reference
         leaves it out (ROADMAP.md queue 3, diverges on purpose 7)."""
-        cfg = self.cfg
         hidden, _ = self.forward_hidden(batch["input_ids"], batch["position_ids"],
                                         batch.get("segment_ids"))
+        return self.logprob_sums(hidden, batch["labels"])
+
+    def logprob_sums(self, hidden, labels) -> torch.Tensor:
+        """Per-row sums of the label log-probs [B] f32 of final hidden
+        states [B, S, H] (a VLM composite's too), summed over the row's
+        chunks under sequence parallelism."""
+        cfg = self.cfg
         b, s, h = hidden.shape
         nll = ops.fused_linear_cross_entropy_per_token(
             hidden.reshape(b * s, h), self.lm_head_kernel().to(cfg.dtype),
-            batch["labels"].reshape(b * s), logit_softcap=cfg.final_logit_softcap or None)
+            labels.reshape(b * s), logit_softcap=cfg.final_logit_softcap or None)
         sums = -nll.view(b, s).sum(-1)
         from veomni_tpu_torch.parallel.parallel_state import get_parallel_state_or_none
 
@@ -815,6 +828,13 @@ class Transformer(nn.Module):
             batch["input_ids"], batch["position_ids"], batch.get("segment_ids")
         )
         return self.head_loss(hidden, batch["labels"], moe_aux)
+
+    def save_hf(self, out_dir: str, read=None) -> None:
+        """HF-format export with its config.json (``models/hf_io.py``);
+        ``read(owner, name)``, where given, gives each weight."""
+        from veomni_tpu_torch.models import hf_io
+
+        hf_io.save_hf_checkpoint(self, self.cfg, out_dir, read=read)
 
 
 @torch.no_grad()

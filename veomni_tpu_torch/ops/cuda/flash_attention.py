@@ -15,11 +15,11 @@ Beside each kernel sits its plain PyTorch version (``flash_fwd_plain``,
 plain version only for tensors on the CPU; for CUDA tensors it launches its
 kernel or raises. ``LAUNCHES`` counts kernel launches, one per launch, and
 ``LAUNCHES_BY_HEAD_DIM`` the same by head dim. The kernels take head dims
-64, 80, 128 and 256 (``HEAD_DIMS``) in bf16; other head dims and dtypes
-raise, naming the ``ops_config`` pin to the plain attention. Head dim 80
-(the Qwen2-VL / Qwen2.5-VL vision towers) runs D = 128's tiles over 3-D
-tensor maps [B*S, H, 80] whose boxes read zeros past the head's 80 columns
-and store none of them (the .cu's header).
+64, 72, 80, 128 and 256 (``HEAD_DIMS``) in bf16; other head dims and dtypes
+raise, naming the ``ops_config`` pin to the plain attention. Head dims 72
+(the Qwen3-VL vision towers) and 80 (the Qwen2-VL / Qwen2.5-VL towers) run
+D = 128's tiles over 3-D tensor maps [B*S, H, D] whose boxes read zeros
+past the head's D columns and store none of them (the .cu's header).
 
 ``flash_attention`` (registered as ``attention``/``cuda_flash``) keeps the
 reference's feature rule (``:367-380``): sliding window, sinks, an
@@ -48,7 +48,7 @@ from veomni_tpu_torch.ops.attention import _attention_xla
 from veomni_tpu_torch.ops.kernel_registry import KERNEL_REGISTRY
 
 SOURCE = "flash_attention.cu"
-HEAD_DIMS = (64, 80, 128, 256)  # the head dims the kernels are built for
+HEAD_DIMS = (64, 72, 80, 128, 256)  # the head dims the kernels are built for
 BLOCK = 128      # the reference's block size: S must be a multiple of it
 # tokens per segment-range block; the .cu's RB, checked when the library loads
 SEG_RANGE_BLOCK = 32

@@ -127,9 +127,16 @@ class LeafOptimizer(ParamOptimizer):
 
     Muon's Newton–Schulz and Adafactor's block clip and RMS read a whole
     leaf. Over a mesh (``layout``, set by the trainer) each leaf's
-    parameters and gradients are gathered whole on every rank, updated as
-    at world size 1, and each rank keeps its part; the state stays whole on
-    every rank, keyed by the sharded parameter."""
+    parameters and gradients are gathered whole on every rank and updated
+    as at world size 1, and each rank keeps its part of the parameters and
+    of the state, as the reference's ``resolve_state_shardings``
+    (``veomni_tpu/train/train_step.py:71``) lays the state out: a state
+    tensor of the parameter's shape (a moment) takes the parameter's layout
+    (``ParallelLayout.to_layout``: FSDP2's shard, an expert's slice, whole
+    where the parameter is replicated), and any other (Adafactor's factored
+    row and column statistics, a stacked leaf's whole second moment) is cut
+    along its first dim that the world divides. The state is gathered with
+    the leaf for the update and cut again after it."""
 
     layout = None  # parallel/parallel_plan.py::ParallelLayout over a mesh
 
@@ -137,6 +144,9 @@ class LeafOptimizer(ParamOptimizer):
         super().__init__(groups, lr_schedule, **defaults)
         self.leaves = list(leaves)
         self._owner: Dict[int, torch.Tensor] = {}
+        # (id of the parameter, state name) -> the dim a statistic is cut
+        # along, or "param" for a moment laid out as its parameter
+        self._cut: Dict[Tuple[int, str], Union[int, str, None]] = {}
 
     def regrouped(self, groups) -> "LeafOptimizer":
         return type(self)(groups, self.lr_schedule, self.leaves, **self._options)
@@ -168,6 +178,9 @@ class LeafOptimizer(ParamOptimizer):
                 copies.append(w)
                 pairs.append((p, w))
             whole_leaves.append((path, copies, stacked))
+        owners = [p for p, _ in pairs if self.state.get(p)]
+        for p in owners:
+            self.state[p] = {k: self.gather_state(p, k, v) for k, v in self.state[p].items()}
         try:
             self.update_leaves(whole_leaves, group_of, self.num_updates + 1)
         finally:
@@ -175,6 +188,42 @@ class LeafOptimizer(ParamOptimizer):
         for p, w in pairs:
             local = p.to_local() if hasattr(p, "to_local") else p.data
             local.copy_(layout.local_slice(p, w))
+            if self.state.get(p):
+                self.state[p] = {k: self.cut_state(p, k, v) for k, v in self.state[p].items()}
+
+    # ------------------------------------------------- the state over a mesh
+    def gather_state(self, p: torch.Tensor, name: str, t):
+        """State ``name`` of parameter ``p`` whole (collective: every rank
+        calls it for the same tensors in the same order)."""
+        if not torch.is_tensor(t) or t.ndim == 0 or self.layout is None:
+            return t
+        dim = self._cut.get((id(p), name))
+        if dim == "param":
+            return self.layout.full_tensor(p, t)
+        if dim is None:
+            return t
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        part = t.movedim(dim, 0).contiguous()
+        out = part.new_empty((world * part.shape[0],) + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(out, part)
+        return out.movedim(0, dim)
+
+    def cut_state(self, p: torch.Tensor, name: str, t):
+        """This rank's part of the whole state ``name`` of parameter ``p``."""
+        if not torch.is_tensor(t) or t.ndim == 0 or self.layout is None:
+            return t
+        rule = self.layout.rules[p]
+        if tuple(t.shape) == tuple(rule.full_shape):
+            self._cut[(id(p), name)] = "param"
+            return self.layout.to_layout(p, t)
+        import torch.distributed as dist
+
+        world, rank = dist.get_world_size(), dist.get_rank()
+        dim = next((d for d, n in enumerate(t.shape) if n % world == 0 and n >= world), None)
+        self._cut[(id(p), name)] = dim
+        return t if dim is None else t.chunk(world, dim)[rank].clone()
 
     def update_leaves(self, leaves: List[Leaf], group_of, count: int) -> None:
         raise NotImplementedError

@@ -31,9 +31,10 @@ parameter's per-layer spec (the stacked dim dropped) is one of three kinds:
 * **replicated**: no dim sharded (the router's ``()`` rule, a dim nothing
   divides). FSDP ignores it; its gradient is summed over dp×sp.
 
-The LoRA rules merge in as in the reference (``trainer/base.py:350-357``);
-under a multi-process mesh the adapters are replicated but for the expert
-dim of an expert adapter, which follows its base weight over ``ep``
+The LoRA rules merge in as in the reference (``trainer/base.py:342-357``):
+FSDP2 shards the frozen base like any model and the adapter tree
+(``LoraAdapters``, one FSDP2 root of whole leaves) by the merged plan; an
+expert adapter keeps its base weight's ``ep`` slice, its feature dim whole
 (``ROADMAP.md`` queue 3). A vision tower's stacked ``blocks`` are not a
 stacked-layer prefix of the reference's plan, so the reference shards that
 leaf's block dim; the port, one module per block, gives each block's
@@ -224,7 +225,7 @@ def _rule(path: str, shape, spec: Spec, pstate: ParallelState, lora: bool) -> Pa
         return ParamRule("expert", path, shape, ep_dim=ep_dim, feature_dim=feature,
                          grad_axes=axes, copies=world // (ep * f))
     fsdp = [d for d, ax in enumerate(spec) if ax is not None]
-    if fsdp and not lora:
+    if fsdp:
         if len(fsdp) > 1 or spec[fsdp[0]] != pstate.fsdp_axes:
             raise NotImplementedError(f"param {path}: spec {spec} shards over axes no plan "
                                       "of the reference uses (tp, pp)")
@@ -424,9 +425,13 @@ def apply_parallel_plan(module: nn.Module, pstate: ParallelState,
                         plan: Optional[ParallelPlan] = None,
                         frozen: bool = False) -> Optional[ParallelLayout]:
     """Lay ``module`` out over the mesh per ``plan`` (the model family's by
-    default). None at world size 1, where nothing changes. ``frozen``: a
-    frozen LoRA base, whose dense weights stay replicated and whose experts
-    keep only their ``ep`` split."""
+    default). None at world size 1, where nothing changes. A LoRA model's
+    frozen base and its adapters (``LoraAdapters``, with the LoRA rules
+    merged into the plan) are laid out like any model: FSDP2 shards the
+    frozen parameters too (the reference's ``:342-357``). ``frozen``: a
+    whole frozen copy (the DPO trainer's reference policy), whose dense
+    weights stay replicated and whose experts keep only their ``ep``
+    split."""
     if pstate.world_size == 1:
         return None
     from torch.distributed.fsdp import fully_shard
@@ -436,7 +441,6 @@ def apply_parallel_plan(module: nn.Module, pstate: ParallelState,
     plan = plan or model_parallel_plan(cfg)
     rules = param_rules(module, plan, pstate)
     names = {p: n for n, p in module.named_parameters()}
-    lora = getattr(module, "named_jax_parameters", None) is not None
     layout = ParallelLayout(module, pstate, rules)
     # each expert keeps its slice: E/ep experts, and its feature shard,
     # which the owning decoder layer gathers where it reads the weight
@@ -452,9 +456,9 @@ def apply_parallel_plan(module: nn.Module, pstate: ParallelState,
         if rule.feature_dim is not None:
             owner = _layer_of(module, p)
             owner.gathers[_qualified(owner, p)] = _expert_gather(rule, pstate)
-    # a frozen base, or a mesh whose fsdp axes and dp_replicate are 1, shards
+    # a frozen copy, or a mesh whose fsdp axes and dp_replicate are 1, shards
     # no dense weight: each stays whole on every rank
-    mesh = None if lora or frozen else _fsdp_mesh(pstate)
+    mesh = None if frozen else _fsdp_mesh(pstate)
     if mesh is None:
         for rule in rules.values():
             if rule.kind == "fsdp":

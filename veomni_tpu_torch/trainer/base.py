@@ -125,8 +125,9 @@ def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> N
     data transforms the calling trainer runs."""
     d, t = args.data, args.train
     missing = [f"{knob} ({why})" for knob, why, on in (
-        (f"data.data_type {d.data_type!r}", "the qwen2-vl and qwen2.5-vl transforms run "
-         "through VLMTrainer, tasks/train_vlm.py; the other multimodal ones are slice F",
+        (f"data.data_type {d.data_type!r}", "the qwen2-vl, qwen2.5-vl and qwen3-vl transforms "
+         "run through VLMTrainer, tasks/train_vlm.py, vlm_dpo through VLMDPOTrainer, "
+         "tasks/train_vlm_dpo.py; the other multimodal ones are slice F",
          d.data_type not in data_types),
     ) if on]
     if missing:
@@ -434,15 +435,20 @@ class BaseTrainer:
         self.lora_config = LoraConfig.from_dict(m.lora)
         if self.lora_config is not None:
             # frozen base + trainable adapters (reference :312-373); over a
-            # mesh the plan's LoRA rules merge in (:350-357)
-            self.base_model = module
+            # mesh the base is sharded by the model's plan and the adapters
+            # by it with the LoRA rules merged in (:342-357)
+            self.base_model = module.requires_grad_(False)
             trainable = init_lora_params(self.generator, module, self.lora_config)
             if m.lora_adapter_path:
                 load_adapter(m.lora_adapter_path, trainable)
-            self.base_layout = apply_parallel_plan(module, ps, frozen=True)
+            self.base_layout = apply_parallel_plan(module, ps)
             self.layout = apply_parallel_plan(trainable, ps, model_parallel_plan(
                 self.model.config).merge(ParallelPlan(rules=lora_parallel_plan_rules())))
-            loss_fn = apply_lora_to_loss_fn(self._inner_loss_fn(), module)
+            inner = self._inner_loss_fn()
+            if self.base_layout is not None:
+                # the base's root FSDP2 forward: its own weights gathered for the call
+                inner = self.base_layout.entry(inner)
+            loss_fn = apply_lora_to_loss_fn(inner, module)
         else:
             self.base_model = self.base_layout = None
             trainable = module

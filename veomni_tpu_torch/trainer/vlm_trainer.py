@@ -1,7 +1,8 @@
-"""VLMTrainer: vision-language SFT for Qwen2-VL and Qwen2.5-VL.
+"""VLMTrainer: vision-language SFT for Qwen2-VL, Qwen2.5-VL, Qwen3-VL and
+Qwen3-VL-MoE.
 
 Port of ``veomni_tpu/trainer/vlm_trainer.py`` (``:33-230``),
-for the two families that share one data contract: the family's row
+for the families that share one data contract: the family's row
 transform (``data/multimodal.py``, whatever ``data.data_type`` names, as in
 the reference) and its packed-patch collator, one sample a micro-batch row
 (no text packing), the micro-batch's images in one padded patch sequence of
@@ -15,28 +16,33 @@ model flattens), as the reference does when its batch is split over
 processes; the rows ship whole, and under sequence parallelism the model
 keeps its sequence chunk after the vision merge (``models/qwen2_5_vl.py``).
 The reference's ``_batch_sharding_map`` has no twin: each rank's arrays
-are its own. qwen3_vl, qwen3_vl_moe and the slot VLM raise when the model
-is built (``models/auto.py``).
+are its own. ``model.lora`` adapts the composite's leaves its target
+regexes match, the tower's included (``lora/lora.py``), as the reference's
+generic adapter tree does. The slot VLM raises when the model is built
+(``models/auto.py``).
 """
 
 from __future__ import annotations
 
 from veomni_tpu_torch.data.data_loader import build_dataloader
 from veomni_tpu_torch.data.data_transform import build_data_transform
-from veomni_tpu_torch.data.multimodal import Qwen2VLCollator, Qwen25VLCollator
+from veomni_tpu_torch.data.multimodal import Qwen2VLCollator, Qwen3VLCollator, Qwen25VLCollator
 from veomni_tpu_torch.trainer.base import BATCH_KEYS, SUPPORTED_DATA_TYPES, BaseTrainer
 
 # model_type -> (the data transform's key, the collator)
 _REAL_VL = {
     "qwen2_vl": ("qwen2_vl", Qwen2VLCollator),
     "qwen2_5_vl": ("qwen2_5_vl", Qwen25VLCollator),
+    "qwen3_vl": ("qwen3_vl", Qwen3VLCollator),
+    "qwen3_vl_moe": ("qwen3_vl", Qwen3VLCollator),  # the same tower and data contract
 }
 
 
 class VLMTrainer(BaseTrainer):
     BATCH_KEYS = BATCH_KEYS + ("pixel_values", "vis_pos_hw", "vis_seg", "vis_seg_window",
-                               "vis_seg_full", "vis_reverse", "vis_merged_mask")
-    SUPPORTED_DATA_TYPES = SUPPORTED_DATA_TYPES + ("qwen2_vl", "qwen2_5_vl",
+                               "vis_seg_full", "vis_reverse", "vis_merged_mask",
+                               "vis_pos_interp_idx", "vis_pos_interp_w")
+    SUPPORTED_DATA_TYPES = SUPPORTED_DATA_TYPES + ("qwen2_vl", "qwen2_5_vl", "qwen3_vl",
                                                    "qwen2_5_vl_conversation")
     # whole rows ship to the model, which cuts the sequence after the merge
     SP_WHOLE_KEYS = BATCH_KEYS
@@ -57,9 +63,6 @@ class VLMTrainer(BaseTrainer):
             raise NotImplementedError(
                 f"VLMTrainer: model_type {model_type!r} is not a vision-language family the port "
                 f"has ({', '.join(_REAL_VL)}); the others are slice F (ROADMAP.md queue 1)")
-        if self.args.model.lora:
-            raise NotImplementedError("model.lora on a vision-language model: the adapters of "
-                                      "the composite are slice F of the port (ROADMAP.md queue 1)")
 
     def _build_data_transform(self):
         d = self.args.data
