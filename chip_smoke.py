@@ -334,7 +334,28 @@ Phases (any failure exits non-zero and prints no result line):
    per-frame segments and causal on one segment against their plain
    versions; 2 steps on images of two sizes; launches at D 72, D 128 and
    K4-K6 as reckoned; step 1 against the plain attention and grouped GEMM
-   within QWEN3_VL_TOL (4x a measured floor).
+   within QWEN3_VL_TOL (4x a measured floor);
+27. the Qwen3-Omni-30B-A3B thinker at its published widths (the AuT audio
+   tower whole: 32 layers of 1280, 20 heads of 64; the vision tower of 26
+   whole too; the text cut to 3 of 48 layers) from an HF directory the script
+   writes with the full model's ``thinker.`` prefix (random bf16 weights
+   from seed 0), through ``tasks/train_omni_model.py``'s ``OmniTrainer``:
+   K1-K3 at D 64, non-causal, on the first batch's audio windows (S 1664,
+   20/20 heads, 8-chunk windows straddling the 128-row tiles, padding at
+   segment 0) against their plain versions, timed, K2 and K3 bit-identical
+   over two launches; the parameter count against the config's; 2 steps on
+   4 rows of a 40-63.5 s 16-bit wav (every other one at 44.1 kHz), an
+   image and text to 4096 tokens, micro-batch 2, ``max_audio_chunks`` 128,
+   ``max_patches`` 3072; launches at D 64, 72 and 128 and K4-K6 as
+   reckoned, FALLBACK_CALLS 0; the audio tower's features against an f32
+   copy of it on the plain attention; step 1 against the plain attention
+   and grouped GEMM within QWEN3_OMNI_TOL (4x a measured floor);
+28. the Qwen2.5-Omni-7B thinker at its published widths (text 28 -> 2
+   layers, both towers whole) built by ``build_foundation_model`` with
+   random weights: one loss and backward on two rows (a 6400-frame audio
+   slot, a 448 x 448 image, text to 4096) with K1-K3 at D 64, 80 and 128
+   as reckoned, against the same with the plain attention: the loss and
+   each tower's gradient norm within TOL_LOSS_REL / TOL_GRAD_NORM_REL.
 
 ``--phases serve_dense,serve_quant,serve_moe`` runs the build and those phases alone
 (after ``main`` or ``trainer``, the dense loop or the trainer, when named
@@ -357,8 +378,10 @@ text depths and weight seeds, with the attention of the tower and of the
 text layers each pinned to the plain version in turn, and ``--phases
 qwen3_vl_floor,vlm_dpo_floor``, which no whole run includes either, the
 floors of the Qwen3-VL step-1 parity and of the VLM-DPO leg's parity
-(QWEN3_VL_TOL, VLM_DPO_TOL). Each partial run logs each phase's seconds
-(``phase clock``).
+(QWEN3_VL_TOL, VLM_DPO_TOL); ``--phases qwen3_omni,qwen2_5_omni`` runs the
+omni thinkers (27, 28) and ``--phases qwen3_omni_floor``, which no whole
+run includes, the floor of QWEN3_OMNI_TOL. Each partial run logs each
+phase's seconds (``phase clock``).
 
 The last three lines are the kernel table as JSON, the card's name and power
 limit as ``nvidia-smi`` gives them, and the device record
@@ -5465,7 +5488,7 @@ def vlm_param_count(cfg) -> int:
     biases, tied or untied head)."""
     v, t = cfg.vision, cfg.text
     d, md = v.width, v.width * v.merge_unit
-    if cfg.model_type == "qwen3_vl_moe":
+    if cfg.model_type in ("qwen3_vl_moe", "qwen3_omni_moe"):
         # LayerNorm blocks with biased fc1/fc2, a post-norm merger and K
         # post-shuffle-norm ones; the qwen3_moe text (q/k norms, no biases)
         block = 4 * d + 3 * d * d + 3 * d + d * d + d + 2 * d * v.intermediate_size \
@@ -5781,13 +5804,31 @@ def phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids):
         del ref, out, embeds, feats, cap, merged
 
 
+def check_loaded(tag: str, model, written, want_params: int):
+    """The trainer's model as it loaded the HF directory (at train begin)
+    against the written one (on the host), parameter by parameter, and its
+    count against the config's; returns the loaded state on the host (the
+    step-1 parity's weights). One read of the directory serves the
+    trainer and this check."""
+    n_params = sum(w.numel() for w in model.parameters())
+    bad = [n for (n, x), (_, y) in zip(model.named_parameters(), written.named_parameters())
+           if not torch.equal(x, y.to(x.device, x.dtype))]
+    log(f"{tag}: the trainer's loaded parameters ({n_params}; counted from the config: "
+        f"{want_params}) against the written ones: "
+        + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
+    if bad or n_params != want_params:
+        raise AssertionError(f"{tag}: loaded parameters differ from the written ones "
+                             f"({bad[:3]}) or the count {n_params} != {want_params}")
+    return {k: t.detach().cpu() for k, t in model.state_dict().items()}
+
+
 def phase_hf_vlm(dev, card, model_type: str):
     """One vision-language model at its published widths through
     ``VLMTrainer`` from an HF directory: K1-K3 at the tower's head dim (80;
     72 for Qwen3-VL, also causal on one segment) on the first micro-batch's
-    tower segments, the loaded parameters against the written ones and the
-    config's count, ``phase_vlm_checks`` (the Qwen2-VL towers), then
-    ``steps`` steps at seq 4096 x micro-batch 2 (f32 master, bf16 compute,
+    tower segments; at train begin, the trainer's loaded parameters against
+    the written ones and the config's count and ``phase_vlm_checks`` (the
+    Qwen2-VL towers); ``steps`` steps at seq 4096 x micro-batch 2 (f32 master, bf16 compute,
     ctx remat, AdamW), launches by head dim as reckoned (the tower's blocks
     at its head dim, the text layers at D 128, once per micro-batch each,
     K4-K6 on every MoE layer, no plain dispatch), the HF export (where on)
@@ -5811,8 +5852,11 @@ def phase_hf_vlm(dev, card, model_type: str):
     tag = f"hf vlm {name}"
 
     class Record(Callback):
-        def __init__(self):
-            self.steps, self.first_batch = {}, None
+        def __init__(self, check):
+            self.steps, self.first_batch, self.check, self.initial = {}, None, check, None
+
+        def on_train_begin(self, trainer, state):
+            self.initial = self.check(trainer.train_state.model)
 
         def on_step_begin(self, trainer, state):
             if self.first_batch is None:
@@ -5851,53 +5895,48 @@ def phase_hf_vlm(dev, card, model_type: str):
             phase_flash(dev, torch.ones_like(seg), heads, heads, f"D {hd}, one segment, causal",
                         d=hd, causal=True)
             torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        fm = build_foundation_model(hf_dir, weights_path=hf_dir, device=dev)
-        load_s = time.perf_counter() - t0
-        model = fm.module
-        n_params = sum(w.numel() for w in model.parameters())
-        want_params = vlm_param_count(fm.config)
-        v, tc = fm.config.vision, fm.config.text
+        v, tc = cfg.vision, cfg.text
+        want_params = vlm_param_count(cfg)
         pub = spec["published"].get("text_config", spec["published"])
         cut = f" (of {pub['num_hidden_layers']})" if spec["layers"] else ""
         log(f"{tag}: tower depth {v.depth}, width {v.width}, {v.num_heads} heads of "
             f"{v.head_dim}; text {tc.num_hidden_layers} layers{cut}, hidden {tc.hidden_size}, heads {tc.num_attention_heads}/"
             f"{tc.num_key_value_heads} of {tc.head_dim}, vocab {tc.vocab_size}, mrope "
-            f"{tc.rope_scaling['mrope_section']}; {n_params} parameters (counted from the "
-            f"config: {want_params}); HF directory, corpus and YAML written in {write_s:.1f} s, "
-            f"loaded in {load_s:.1f} s [{card}]")
-        bad = [n for (n, x), (_, y) in zip(model.named_parameters(), written.named_parameters())
-               if not torch.equal(x, y.to(x.dtype))]
-        # the loaded weights on the host, for the step-1 parity's model (a
-        # second read of the directory took 13-19 s a phase)
-        initial = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-        log(f"{tag}: the loaded parameters against the written ones: "
-            + ("bit-equal" if not bad else f"{len(bad)} differ, e.g. {bad[:3]} FAILED"))
-        if bad or n_params != want_params:
-            raise AssertionError(f"{tag}: loaded parameters differ from the written ones "
-                                 f"({bad[:3]}) or the count {n_params} != {want_params}")
-        del written
-        torch.cuda.empty_cache()
+            f"{tc.rope_scaling['mrope_section']}; HF directory, corpus and YAML written in "
+            f"{write_s:.1f} s [{card}]")
+        # the trainer's own read of the directory is the one held to the
+        # written weights and checked (at train begin, before any update): a
+        # second read took 10-19 s a phase
+        written.cpu()
         if qwen3:
             log(f"{tag}: the fused gate | up experts, the deepstack mergers and the position "
-                f"table went through the family's HF export and its reader bit-equal (the "
-                f"round trip above); chip_smoke's own f32 pieces cover the Qwen2-VL towers")
-        else:
-            phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids)
-        del fm, model
+                f"table go through the family's HF export and the trainer's reader, held "
+                f"bit-equal at train begin; chip_smoke's own f32 pieces cover the Qwen2-VL towers")
         gc.collect()
         torch.cuda.empty_cache()
+
+        def check(model):
+            state = check_loaded(tag, model, written, want_params)
+            if not qwen3:
+                phase_vlm_checks(dev, card, tag, hf_dir, model, batch, grids)
+            # the checks' own forwards are not the path's: its counts start at step 1
+            reset_all_counts()
+            return state
 
         args = parse_args(VeOmniArguments, [yaml_path, f"--train.output_dir={tmp}/out"])
         torch.cuda.reset_peak_memory_stats(dev)
         reset_all_counts()
+        t0 = time.perf_counter()
         trainer = VLMTrainer(args)
+        log(f"{tag}: VLMTrainer built (its HF read included) in {time.perf_counter() - t0:.1f} s")
         trainer.callbacks = [cb for cb in trainer.callbacks
                              if not isinstance(cb, CheckpointCallback)]
-        rec = Record()
+        rec = Record(check=check)
         trainer.callbacks.append(rec)
         trainer.train()
         trainer.checkpointer.close()
+        initial = rec.initial
+        del written
         launches, fallbacks = read_counts()
         by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
         peak = torch.cuda.max_memory_allocated(dev)
@@ -6415,6 +6454,669 @@ def phase_vlm_dpo_floor(dev, card):
         log_floor("VLM-DPO", draws, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the omni thinkers: Qwen3-Omni-30B-A3B through OmniTrainer, Qwen2.5-Omni-7B
+# ---------------------------------------------------------------------------
+
+# Qwen/Qwen3-Omni-30B-A3B-Instruct's config.json, its thinker part as
+# published (the talker and code2wav configs, which the thinker does not
+# read, left out): the AuT audio tower (32 layers of 1280, 20 heads of 64,
+# 128 mel bins, chunks of 100 frames, attention windows of 800 frames = 8
+# chunks), the Qwen3-VL deepstack tower (27 blocks of 1152, 16 heads of 72,
+# taps after blocks 8/16/24) and the Qwen3-30B-A3B text (2048 wide, 32/4
+# heads of 128, 128 experts top-8 of width 768) with interleaved mrope
+QWEN3_OMNI_30B_A3B = {
+    "architectures": ["Qwen3OmniMoeForConditionalGeneration"], "model_type": "qwen3_omni_moe",
+    "thinker_config": {
+        "audio_config": {
+            "activation_dropout": 0, "activation_function": "gelu", "attention_dropout": 0,
+            "conv_chunksize": 500, "d_model": 1280, "downsample_hidden_size": 480, "dropout": 0,
+            "encoder_attention_heads": 20, "encoder_ffn_dim": 5120, "encoder_layers": 32,
+            "max_source_positions": 1500, "model_type": "qwen3_omni_moe_audio_encoder",
+            "n_window": 50, "n_window_infer": 800, "num_hidden_layers": 32, "num_mel_bins": 128,
+            "output_dim": 2048, "scale_embedding": False},
+        "audio_end_token_id": 151670, "audio_start_token_id": 151669, "audio_token_id": 151675,
+        "image_token_id": 151655, "model_type": "qwen3_omni_moe_thinker",
+        "position_id_per_seconds": 13, "seconds_per_chunk": 2,
+        "text_config": {
+            "attention_bias": False, "attention_dropout": 0.0, "decoder_sparse_step": 1,
+            "head_dim": 128, "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+            "intermediate_size": 768, "max_position_embeddings": 65536, "mlp_only_layers": [],
+            "model_type": "qwen3_omni_moe_text", "moe_intermediate_size": 768,
+            "norm_topk_prob": True, "num_attention_heads": 32, "num_experts": 128,
+            "num_experts_per_tok": 8, "num_hidden_layers": 48, "num_key_value_heads": 4,
+            "rms_norm_eps": 1e-06, "rope_scaling": {"interleaved": True,
+                                                    "mrope_section": [24, 20, 20],
+                                                    "rope_type": "default"},
+            "rope_theta": 1000000, "router_aux_loss_coef": 0.001,
+            "shared_expert_intermediate_size": 0, "sliding_window": None,
+            "tie_word_embeddings": False, "use_cache": True, "use_sliding_window": False,
+            "vocab_size": 152064},
+        "video_token_id": 151656,
+        "vision_config": {
+            "apply_vit_abs_pos_embed": True, "deepstack_visual_indexes": [8, 16, 24], "depth": 27,
+            "hidden_act": "gelu_pytorch_tanh", "hidden_size": 1152, "image_size": 768,
+            "in_channels": 3, "in_chans": 3, "initializer_range": 0.02, "intermediate_size": 4304,
+            "model_type": "qwen3_omni_moe_vision_encoder", "num_heads": 16,
+            "num_position_embeddings": 2304, "out_hidden_size": 2048, "patch_size": 16,
+            "spatial_merge_size": 2, "spatial_patch_size": 16, "temporal_patch_size": 2,
+            "tokens_per_second": 2},
+        "vision_end_token_id": 151653, "vision_start_token_id": 151652,
+    },
+    "tie_word_embeddings": False,
+}
+# Qwen/Qwen2.5-Omni-7B's config.json, its thinker part: the Whisper-style
+# encoder (32 layers of 1280, 20 heads of 64, chunks of 200 mel frames), the
+# Qwen2.5-VL tower (32 blocks of 1280, 16 heads of 80, 112-pixel windows) and
+# the Qwen2.5-7B text (3584 wide, 28/4 heads of 128)
+QWEN2_5_OMNI_7B = {
+    "architectures": ["Qwen2_5OmniModel"], "model_type": "qwen2_5_omni",
+    "thinker_config": {
+        "audio_config": {
+            "activation_function": "gelu", "d_model": 1280, "encoder_attention_heads": 20,
+            "encoder_ffn_dim": 5120, "encoder_layers": 32, "max_source_positions": 1500,
+            "model_type": "qwen2_5_omni_audio_encoder", "n_window": 100, "num_mel_bins": 128,
+            "output_dim": 3584, "scale_embedding": False},
+        "audio_end_token_id": 151648, "audio_start_token_id": 151647,
+        "audio_token_index": 151646, "image_token_index": 151655,
+        "model_type": "qwen2_5_omni_thinker", "position_id_per_seconds": 25,
+        "seconds_per_chunk": 2,
+        "text_config": {
+            "hidden_act": "silu", "hidden_size": 3584, "intermediate_size": 18944,
+            "max_position_embeddings": 32768, "model_type": "qwen2_5_omni_text",
+            "num_attention_heads": 28, "num_hidden_layers": 28, "num_key_value_heads": 4,
+            "rms_norm_eps": 1e-06, "rope_scaling": {"mrope_section": [16, 24, 24],
+                                                    "rope_type": "default", "type": "default"},
+            "rope_theta": 1000000.0, "sliding_window": 32768, "tie_word_embeddings": False,
+            "use_sliding_window": False, "vocab_size": 152064},
+        "video_token_index": 151656,
+        "vision_config": {
+            "depth": 32, "embed_dim": 1280, "fullatt_block_indexes": [7, 15, 23, 31],
+            "hidden_act": "silu", "hidden_size": 1280, "in_channels": 3, "in_chans": 3,
+            "intermediate_size": 3420, "model_type": "qwen2_5_omni_vision_encoder",
+            "num_heads": 16, "out_hidden_size": 3584, "patch_size": 14, "spatial_merge_size": 2,
+            "spatial_patch_size": 14, "temporal_patch_size": 2, "tokens_per_second": 25,
+            "window_size": 112},
+        "vision_end_token_id": 151653, "vision_start_token_id": 151652,
+    },
+}
+OMNI_YAML = """
+model:
+  config_path: {hf}
+  model_path: {hf}
+data:
+  train_path: {data}
+  data_type: pretokenized
+  max_seq_len: {seq}
+  max_patches: {patches}
+  max_audio_chunks: {chunks}
+train:
+  micro_batch_size: {micro_bs}
+  train_steps: {steps}
+  bf16: true
+  param_dtype: float32
+  enable_gradient_checkpointing: true
+  gradient_checkpointing_policy: ctx
+  lr: 1.0e-4
+  lr_decay_style: cosine
+  seed: 0
+  save_hf_weights: false
+  log_steps: 1
+"""
+# of 48: three text layers take every deepstack residual; both towers whole
+QWEN3_OMNI_LAYERS = 3
+QWEN3_OMNI_STEPS = 2
+OMNI_ROWS = 4
+OMNI_SEQ = 4096
+OMNI_MICRO_BS = 2
+OMNI_MAX_PATCHES = 3072
+# 128 chunks of 13 frames: a 1664-frame audio buffer, 13 x 128, so the
+# tower's attention takes K1-K3 (64 chunks, 832 frames, would not)
+OMNI_MAX_AUDIO_CHUNKS = 128
+# each row's wav (seconds, drawn uniformly; at most 63.5 s: a row's share
+# of the mel budget is 6400 frames, and a 64-s wav gives 6401) and its
+# image, in turn (QWEN3_VL_ROW_IMAGES' sizes)
+OMNI_WAV_SECONDS = (40.0, 63.5)
+OMNI_ROW_IMAGES = [(448, 448), (256, 256), (320, 640), (448, 448)]
+# step-1 parity against the plain attention and grouped GEMM (loss rel, grad
+# norm rel): 4x the largest of three draws of ``--phases qwen3_omni_floor``,
+# rounded up (loss 1.097e-5, grad norm 5.430e-4; PERF.md §6)
+QWEN3_OMNI_TOL = (4.4e-5, 2.2e-3)
+# the audio tower's bf16 features (K1-K3) against an f32 copy of the tower on
+# the plain attention, on the first batch: |got - ref| over |ref|, Frobenius
+# (set before the first run; 1.221e-2 measured there, PERF.md §6)
+OMNI_TOWER_TOL = 5e-2
+# Qwen2.5-Omni-7B: text 28 -> 2 layers, both towers whole; an audio slot of
+# 6400 mel frames (32 chunks of 200; 3200 frames after the stride-2 conv, 25
+# x 128) and a 448 x 448 image (1024 patches) a row
+QWEN2_5_OMNI_LAYERS = 2
+QWEN2_5_OMNI_FRAMES = 6400
+QWEN2_5_OMNI_IMAGE = (448, 448)
+
+
+def omni_wav(path: str, rng, seconds: float, rate: int) -> str:
+    """A 16-bit PCM wav: two chirps (200 Hz -> 3 kHz, 500 Hz -> 60 Hz) and
+    noise."""
+    from scipy.io import wavfile
+
+    t = np.arange(int(rate * seconds)) / rate
+    sweep = 0.4 * np.sin(2 * np.pi * (200 + 1400 * t / seconds) * t)
+    sweep += 0.3 * np.sin(2 * np.pi * (500 - 220 * t / seconds) * t)
+    x = sweep + 0.05 * rng.standard_normal(len(t))
+    wavfile.write(path, rate, (np.clip(x, -1, 1) * 32000).astype(np.int16))
+    return path
+
+
+def omni_rows(tmp: str, cfg, seed: int = 0):
+    """OMNI_ROWS pretokenized rows from ``seed``: a wav of 40-63.5 s (every
+    other one at 44.1 kHz, which the transform resamples to 16 kHz), an
+    image (OMNI_ROW_IMAGES, uint8, as nested lists) and token ids uniform
+    over the vocabulary filling the row to OMNI_SEQ with the placeholders."""
+    from veomni_tpu_torch.models.qwen3_omni_moe import audio_output_lengths
+
+    rng = np.random.default_rng(seed)
+    m2 = cfg.vision.patch_size ** 2 * cfg.vision.merge_unit
+    rows = []
+    for i in range(OMNI_ROWS):
+        rate = 44100 if i % 2 else 16000
+        seconds = float(rng.uniform(*OMNI_WAV_SECONDS))
+        wav = omni_wav(os.path.join(tmp, f"row{i}.wav"), rng, seconds, rate)
+        hh, ww = OMNI_ROW_IMAGES[i % len(OMNI_ROW_IMAGES)]
+        image = rng.integers(0, 256, (hh, ww, 3), dtype=np.uint8)
+        mel = 1 + int(seconds * 16000) // 160
+        header = 2 + audio_output_lengths(mel) + hh * ww // m2
+        rows.append({"input_ids": rng.integers(0, cfg.vocab_size, OMNI_SEQ - header).tolist(),
+                     "images": [image.tolist()], "audios": [wav]})
+    return rows
+
+
+def omni_param_count(cfg) -> int:
+    """The thinker's parameter count from its config, counted here: the
+    Qwen3-VL tower and the qwen3_moe text as ``vlm_param_count`` counts
+    them, plus the AuT tower (three convolutions, ``conv_out``, the layers
+    with biased q/k/v/o and fc1/fc2 and two LayerNorms, ``ln_post``,
+    ``proj1`` and ``proj2``)."""
+    a = cfg.audio
+    d, ds, f = a.d_model, a.downsample_hidden_size, a.encoder_ffn_dim
+    convs = ds * 9 + ds + 2 * (ds * ds * 9 + ds) + ds * a.freq_out * d
+    layer = 4 * d + 4 * (d * d + d) + d * f + f + f * d + d
+    audio = convs + a.encoder_layers * layer + 2 * d + d * d + d + d * a.output_dim + a.output_dim
+    return vlm_param_count(cfg) + audio
+
+
+def write_omni_run(dev, tmp: str, seed: int = 0):
+    """The phase's inputs under ``tmp``: the HF directory (random bf16 weights
+    from ``seed`` written by the port's ``save_hf_checkpoint`` under the
+    full model's ``thinker.`` prefix, then the published config.json with
+    the text cut to QWEN3_OMNI_LAYERS), the wavs, the corpus and the YAML.
+    Returns (the YAML's path, the written model, the rows)."""
+    from veomni_tpu_torch.models import qwen3_omni_moe
+    from veomni_tpu_torch.models.auto import FoundationModel
+
+    published = json.loads(json.dumps(QWEN3_OMNI_30B_A3B))
+    published["thinker_config"]["text_config"]["num_hidden_layers"] = QWEN3_OMNI_LAYERS
+    cfg = qwen3_omni_moe.config_from_hf(published, param_dtype=torch.bfloat16)
+    hf_dir = os.path.join(tmp, "hf")
+    written = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    qwen3_omni_moe.save_hf_checkpoint(written, hf_dir, prefix="thinker.")
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump(published, f, indent=2)
+    rows = omni_rows(tmp, cfg, seed)
+    data = os.path.join(tmp, "corpus.jsonl")
+    with open(data, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    path = os.path.join(tmp, "omni.yaml")
+    with open(path, "w") as f:
+        f.write(OMNI_YAML.format(hf=hf_dir, data=data, seq=OMNI_SEQ, patches=OMNI_MAX_PATCHES,
+                                 chunks=OMNI_MAX_AUDIO_CHUNKS, micro_bs=OMNI_MICRO_BS,
+                                 steps=QWEN3_OMNI_STEPS))
+    return path, written, rows
+
+
+def omni_batch(cfg, rows):
+    """The micro-batch the port's ``qwen3_omni`` transform and collator make
+    of ``rows`` at the phase's budgets (the trainer's data path)."""
+    from veomni_tpu_torch.data.data_transform import build_data_transform
+    from veomni_tpu_torch.data.omni_data import Qwen3OmniCollator
+
+    transform = build_data_transform(
+        "qwen3_omni", omni_config=cfg, max_seq_len=OMNI_SEQ,
+        max_patches_per_sample=OMNI_MAX_PATCHES // OMNI_MICRO_BS,
+        max_mel_frames_per_sample=OMNI_MAX_AUDIO_CHUNKS * cfg.audio.chunk_len // OMNI_MICRO_BS)
+    collator = Qwen3OmniCollator(cfg, OMNI_SEQ, len(rows), OMNI_MAX_PATCHES,
+                                 OMNI_MAX_AUDIO_CHUNKS)
+    return collator([transform(r) for r in rows])
+
+
+def omni_tower_check(dev, card, tag, model, first):
+    """The trained path's audio tower (bf16, K1-K3) against an f32 copy of
+    it on the plain attention, on the first batch's chunks: the relative
+    Frobenius gap of the valid frames' features."""
+    from veomni_tpu_torch.models import qwen3_omni_moe
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+
+    cfg = model.cfg
+    names = ("audio_chunks", "aud_frame_gather", "aud_seg")
+    inputs = [torch.from_numpy(first[k][0]).to(dev) for k in names]
+    mask = torch.from_numpy(first["aud_frame_mask"][0]).to(dev)
+    with torch.no_grad():
+        got = model.audio_tower(*inputs).float()[mask]
+        text32 = dataclasses.replace(cfg.text, dtype=torch.float32, param_dtype=torch.float32)
+        tower = qwen3_omni_moe.Qwen3OmniAudioTower(cfg.audio, text32, dev)
+        tower.load_state_dict({k: v.float() for k, v in model.audio_tower.state_dict().items()})
+        apply_ops_config({"attention": "xla"})
+        try:
+            ref = tower(*inputs)[mask]
+        finally:
+            apply_ops_config(None)
+    gap = float((got - ref).norm() / ref.norm())
+    log(f"{tag}: the audio tower's features ({int(mask.sum())} frames x {ref.shape[1]}) against "
+        f"an f32 copy of the tower on the plain attention: rel gap {gap:.3e} (limit "
+        f"{OMNI_TOWER_TOL}) [{card}]")
+    if not gap <= OMNI_TOWER_TOL:
+        raise AssertionError(f"{tag}: the audio tower departs from its f32 plain version")
+    del tower, got, ref
+    torch.cuda.empty_cache()
+
+
+def omni_step_pair(dev, fm, tb, pins):
+    """One train step of ``fm`` (AdamW) on ``tb`` with ``pins`` pinned:
+    (loss, grad norm, the launches)."""
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+    from veomni_tpu_torch.optim import build_lr_scheduler, build_optimizer
+    from veomni_tpu_torch.train import build_train_state, build_train_step
+
+    state = build_train_state(fm.module, build_optimizer(
+        fm.module, lr=build_lr_scheduler(lr=1e-4, train_steps=QWEN3_OMNI_STEPS)))
+    apply_ops_config(pins)
+    reset_all_counts()
+    try:
+        _, m = build_train_step(fm.loss_fn)(state, tb)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+    finally:
+        apply_ops_config(None)
+    launches, _ = read_counts()
+    del state, m
+    return loss, gn, launches
+
+
+def phase_hf_trainer_qwen3_omni(dev, card):
+    """The Qwen3-Omni-30B-A3B thinker at its published widths (text cut to 3
+    of 48 layers, both towers whole) from an HF directory through
+    ``tasks/train_omni_model.py``'s ``OmniTrainer``: K1-K3 at head dim 64,
+    non-causal, on the first batch's audio windows (S 1664, 20/20 heads),
+    the loaded parameters against the written ones and the config's count,
+    2 steps at seq 4096 x micro-batch 2 on wavs and images (f32 master,
+    bf16 compute, ctx remat, AdamW), launches by head dim as reckoned (64:
+    the audio layers, 72: the vision blocks, 128: the text layers, once a
+    micro-batch each; K4-K6 on every MoE layer; no plain dispatch), the
+    audio tower against its f32 plain version, and step 1's loss and grad
+    norm against the plain attention's and grouped GEMM's within
+    QWEN3_OMNI_TOL. Returns ({path: (launches, head dim, layout)}, the D 64
+    kernel rows)."""
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.observability.metrics import get_registry
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
+    from veomni_tpu_torch.tasks import train_omni_model
+    from veomni_tpu_torch.trainer.callbacks import Callback, CheckpointCallback
+    from veomni_tpu_torch.utils.count_flops import FlopsCounter, vit_flops_fwd
+    from veomni_tpu_torch.utils.device import get_device_peak_flops
+
+    name, steps = "Qwen3-Omni-30B-A3B", QWEN3_OMNI_STEPS
+    tag = f"hf omni {name}"
+
+    class Record(Callback):
+        def __init__(self):
+            self.steps, self.first_batch, self.initial, self.written = {}, None, None, None
+
+        def on_train_begin(self, trainer, state):
+            self.initial = check_loaded(tag, trainer.train_state.model, self.written,
+                                        omni_param_count(trainer.model.config))
+
+        def on_step_begin(self, trainer, state):
+            if self.first_batch is None:
+                self.first_batch = {k: v.copy() for k, v in trainer.current_batch.items()}
+
+        def on_step_end(self, trainer, state):
+            m = state.metrics
+            self.steps[state.global_step] = dict(loss=float(m["loss"]),
+                                                 grad_norm=float(m["grad_norm"]),
+                                                 t=time.perf_counter())
+
+    rec = Record()
+
+    class RecordedOmniTrainer(train_omni_model.OmniTrainer):
+        """The entry point's trainer with the phase's recorder, and without
+        its final checkpoint (~44 GB of f32 state, which no check reads)."""
+
+        def _init_callbacks(self):
+            super()._init_callbacks()
+            self.callbacks = [cb for cb in self.callbacks
+                              if not isinstance(cb, CheckpointCallback)] + [rec]
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_qwen3_omni_")
+    try:
+        t0 = time.perf_counter()
+        yaml_path, written, rows = write_omni_run(dev, tmp)
+        write_s = time.perf_counter() - t0
+        hf_dir = os.path.join(tmp, "hf")
+        cfg = written.cfg
+        acfg = cfg.audio
+        t0 = time.perf_counter()
+        batch = omni_batch(cfg, rows[:OMNI_MICRO_BS])
+        data_s = time.perf_counter() - t0
+        seg = torch.from_numpy(batch["aud_seg"])[None].to(dev)
+        frames = int(batch["aud_frame_mask"].sum())
+        log(f"{tag}: the first two rows' audio plan: {frames} valid frames of "
+            f"{seg.shape[1]}, {int(seg.max())} windows of up to "
+            f"{acfg.n_window_infer // acfg.chunk_len * acfg.chunk_out_len} frames (the "
+            f"transform and collator took {data_s:.1f} s)")
+        rows_d64 = phase_flash(dev, seg, acfg.encoder_attention_heads,
+                               acfg.encoder_attention_heads,
+                               f"{name} audio tower, window segments", d=acfg.head_dim,
+                               causal=False)
+        for row in rows_d64:
+            row["path_layout"] = "omni_audio"
+        torch.cuda.empty_cache()
+        v, tc = cfg.vision, cfg.text
+        log(f"{tag}: audio tower {acfg.encoder_layers} layers of {acfg.d_model}, "
+            f"{acfg.encoder_attention_heads} heads of {acfg.head_dim}, {acfg.num_mel_bins} mel "
+            f"bins, windows of {acfg.n_window_infer} mel frames; vision tower {v.depth} blocks of "
+            f"{v.width}, {v.num_heads} heads of {v.head_dim}; text {tc.num_hidden_layers} layers "
+            f"(of 48), hidden {tc.hidden_size}, heads {tc.num_attention_heads}/"
+            f"{tc.num_key_value_heads} of {tc.head_dim}, {tc.num_experts} experts top-"
+            f"{tc.num_experts_per_tok} of {tc.moe_intermediate_size}, vocab {tc.vocab_size}; "
+            f"HF directory (thinker. prefix), wavs, corpus and YAML written in {write_s:.1f} s; "
+            f"the trainer's read of it is held to the written weights at train begin [{card}]")
+        rec.written = written.cpu()
+        del written
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reg = get_registry()
+        wait0 = reg.histogram_sum("span.data.wait")
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_all_counts()
+        entry = train_omni_model.OmniTrainer
+        train_omni_model.OmniTrainer = RecordedOmniTrainer
+        t0 = time.perf_counter()
+        try:
+            trainer = train_omni_model.main([yaml_path, f"--train.output_dir={tmp}/out"])
+        finally:
+            train_omni_model.OmniTrainer = entry
+        trainer.checkpointer.close()
+        initial, rec.written = rec.initial, None
+        log(f"{tag}: train_omni_model.main (the trainer's build and HF read, the check at "
+            f"train begin, {steps} steps) took {time.perf_counter() - t0:.1f} s")
+        wait_s = reg.histogram_sum("span.data.wait") - wait0
+        launches, fallbacks = read_counts()
+        by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+        peak = torch.cuda.max_memory_allocated(dev)
+        first, a = rec.first_batch, rec.steps
+        check_steps([dict(loss=r["loss"], grad_norm=r["grad_norm"], step_ok=True)
+                     for r in a.values()], tag)
+        micro = first["input_ids"].shape[0]
+        lm_layers = cfg.text.num_hidden_layers
+        want = {acfg.head_dim: micro * acfg.encoder_layers * steps,
+                v.head_dim: micro * v.depth * steps, 128: micro * lm_layers * steps}
+        per_kernel = {k: sum(want.values()) for k in fa.LAUNCHES}
+        per_kernel.update(gmm_fwd=6 * micro * lm_layers * steps,
+                          gmm_dlhs=3 * micro * lm_layers * steps,
+                          gmm_t=3 * micro * lm_layers * steps)
+        bad = {k: n for k, n in launches.items() if n != per_kernel.get(k, 0)}
+        bad_dim = {d: c for d, c in by_dim.items()
+                   if any(n != want.get(d, 0) for n in c.values())}
+        log(f"{tag}: launches {launches}, by head dim {by_dim} (expected a kernel at D 64 "
+            f"{want[64]} = {micro} micro-batch x {acfg.encoder_layers} audio layers x {steps} "
+            f"steps, at D 72 {want[72]} = {micro} x {v.depth} vision blocks x {steps}, at D 128 "
+            f"{want[128]} = {micro} x {lm_layers} text layers x {steps}; K4-K6 "
+            f"{per_kernel['gmm_fwd']}/{per_kernel['gmm_dlhs']}/{per_kernel['gmm_t']}); "
+            f"FALLBACK_CALLS {fallbacks}")
+        if bad or bad_dim or fallbacks["flash"]:
+            raise AssertionError(f"{tag}: launches {launches} / by head dim {by_dim} differ from "
+                                 f"the reckoned counts, or FALLBACK_CALLS {fallbacks} is not 0")
+        tokens = int((first["labels"] != -100).sum())
+        patches = int(first["vis_merged_mask"].sum()) * v.merge_unit
+        frames = int(first["aud_frame_mask"].sum())
+        flops = (FlopsCounter.from_config(cfg).batch_flops(micro * OMNI_MICRO_BS * OMNI_SEQ,
+                                                            OMNI_SEQ)
+                 + 3 * micro * vit_flops_fwd(v, patches))
+        peak_flops = get_device_peak_flops(dev)
+        ms = [(a[i]["t"] - a[i - 1]["t"]) * 1e3 for i in range(2, steps + 1)]
+        for i in range(1, steps + 1):
+            extra = (f" step_ms={ms[i - 2]:.1f} mfu={flops / (ms[i - 2] / 1e3) / peak_flops:.4f}"
+                     if i >= 2 else " (first step: warm-up, not timed)")
+            log(f"{tag} step {i}: loss={a[i]['loss']:.6f} grad_norm={a[i]['grad_norm']:.6f}"
+                f"{extra} [{card}]")
+        med = sorted(ms)[len(ms) // 2]
+        tok_all = micro * OMNI_MICRO_BS * OMNI_SEQ
+        log(f"{tag}: warm steps 2-{steps} {', '.join(f'{x:.1f}' for x in ms)} ms, median "
+            f"{med:.1f} ms, {tok_all / med * 1e3:.1f} tokens/s (padded rows; {tokens} supervised "
+            f"tokens in the first micro-batch), {frames} audio frames of "
+            f"{OMNI_MAX_AUDIO_CHUNKS * acfg.chunk_out_len} and {patches} patches of "
+            f"{OMNI_MAX_PATCHES} a micro-batch; data.wait {wait_s:.2f} s over the run; MFU "
+            f"{flops / (med / 1e3) / peak_flops:.4f} (text and vision tower as the reference "
+            f"counts them, no audio term); peak device memory {peak / 2**30:.2f} GiB [{card}]")
+        omni_tower_check(dev, card, tag, trainer.train_state.model, first)
+        del trainer
+        destroy_parallel_state()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # step-1 parity: the same weights and batch with the plain attention
+        # (every tower and the text) and the plain ragged grouped GEMM
+        plain_ops = {"attention": "xla", "group_gemm": "xla"}
+        fm = build_foundation_model(hf_dir, remat_policy="ctx")
+        fm.module = fm._build(None, dev)
+        fm.module.load_state_dict(initial)
+        del initial
+        tb = {k: torch.from_numpy(x).to(dev) for k, x in first.items()}
+        pl, pg, plain_launches = omni_step_pair(dev, fm, tb, plain_ops)
+        loss_rel = abs(a[1]["loss"] - pl) / abs(pl)
+        gn_rel = abs(a[1]["grad_norm"] - pg) / abs(pg)
+        tol_loss, tol_gn = QWEN3_OMNI_TOL
+        log(f"{tag} step-1 parity: trainer (kernels) loss {a[1]['loss']:.6f} grad norm "
+            f"{a[1]['grad_norm']:.6f}, plain attention + grouped GEMM {pl:.6f} / {pg:.6f} (rel "
+            f"{loss_rel:.2e} / {gn_rel:.2e}, tol {tol_loss} / {tol_gn}; the plain leg launched "
+            f"{plain_launches})")
+        if not loss_rel <= tol_loss or not gn_rel <= tol_gn or any(plain_launches.values()):
+            raise AssertionError(f"{tag}: step 1 departs from the plain ops' or the plain leg "
+                                 f"launched kernels")
+        del fm, tb
+        gc.collect()
+        torch.cuda.empty_cache()
+        paths = {"hf_trainer_qwen3_omni_audio": (by_dim[64], 64, "omni_audio"),
+                 "hf_trainer_qwen3_omni_vision": (by_dim[72], 72, "qwen3_vl_moe"),
+                 "hf_trainer_qwen3_omni_text": (by_dim[128], 128, None),
+                 "hf_trainer_qwen3_omni_experts": (
+                     {k: launches[k] for k in ("gmm_fwd", "gmm_dlhs", "gmm_t")}, 128, None)}
+        return paths, rows_d64
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_qwen3_omni_floor(dev, card):
+    """The floor of the Qwen3-Omni phase's step-1 parity (a measurement: it
+    checks nothing): the thinker at the phase's depth, weights drawn from
+    each of VLM_FLOOR_SEEDS as ``write_omni_run`` draws them (bf16, kept in
+    f32 master, as the phase's load gives them; no HF directory), one train
+    step on the first micro-batch of that seed's corpus with K1-K6 and with
+    the plain attention and grouped GEMM; the loss and grad-norm gaps, with
+    4x the largest, the rule QWEN3_OMNI_TOL is set by."""
+    from veomni_tpu_torch.data.data_collator import stack_micro_batches
+    from veomni_tpu_torch.models import qwen3_omni_moe
+    from veomni_tpu_torch.models.auto import FoundationModel, build_foundation_model
+
+    published = json.loads(json.dumps(QWEN3_OMNI_30B_A3B))
+    published["thinker_config"]["text_config"]["num_hidden_layers"] = QWEN3_OMNI_LAYERS
+    draws = []
+    for seed in VLM_FLOOR_SEEDS:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_floor_qwen3_omni_")
+        try:
+            cfg = qwen3_omni_moe.config_from_hf(published, param_dtype=torch.bfloat16)
+            drawn = FoundationModel(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                                              device=dev)
+            initial = {k: t.detach().float().cpu() for k, t in drawn.state_dict().items()}
+            del drawn
+            torch.cuda.empty_cache()
+            batch = omni_batch(cfg, omni_rows(tmp, cfg, seed)[:OMNI_MICRO_BS])
+            tb = {k: torch.from_numpy(x).to(dev) for k, x in stack_micro_batches([batch]).items()}
+            got = {}
+            for way, pins in (("kernels", None), ("plain", {"attention": "xla",
+                                                            "group_gemm": "xla"})):
+                fm = build_foundation_model(None, config=qwen3_omni_moe.config_from_hf(
+                    published, remat_policy="ctx"))
+                fm.module = fm._build(None, dev)
+                fm.module.load_state_dict(initial)
+                got[way] = omni_step_pair(dev, fm, tb, pins)
+                del fm
+                gc.collect()
+                torch.cuda.empty_cache()
+            (kl, kg, kn), (pl, pg, pn) = got["kernels"], got["plain"]
+            draws.append({"loss": abs(kl - pl) / abs(pl), "grad norm": abs(kg - pg) / abs(pg)})
+            log(f"omni floor Qwen3-Omni-30B-A3B weight seed {seed}: kernels loss {kl:.6f} grad "
+                f"norm {kg:.6f} (launches {kn}), plain {pl:.6f} / {pg:.6f} (launches {pn}): rel "
+                f"{draws[-1]['loss']:.3e} / {draws[-1]['grad norm']:.3e} [{card}]")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    log_floor("Qwen3-Omni-30B-A3B", draws, card)
+
+
+def qwen2_5_omni_batch(cfg, seed: int = 0):
+    """Two rows of OMNI_SEQ tokens, each an audio slot (a 64-s chirp wav's
+    log-mel, cut to the QWEN2_5_OMNI_FRAMES slot: 1600 placeholders between
+    audio_start and audio_end), a 448 x 448 image (256 merged placeholders
+    after vision_start) and token ids uniform over the vocabulary: the
+    Qwen2.5-VL plan over both images, mrope positions (the audio runs take
+    text positions) and the audio features [2, frames, mels]."""
+    from veomni_tpu_torch.data.media import load_audio, log_mel_spectrogram
+    from veomni_tpu_torch.data.multimodal import image_to_qwen_patches
+    from veomni_tpu_torch.models.qwen2_5_vl import mrope_position_ids, vision_metadata
+
+    rng = np.random.default_rng(seed)
+    acfg, vcfg = cfg.audio, cfg.vision
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_qwen2_5_omni_")
+    try:
+        feats, patches, grids, rows = [], [], [], []
+        for i in range(2):
+            wav = load_audio(omni_wav(os.path.join(tmp, f"a{i}.wav"), rng, 64.5, 16000))
+            feats.append(log_mel_spectrogram(wav, n_mels=acfg.num_mel_bins)[:acfg.max_frames])
+            image = rng.integers(0, 256, QWEN2_5_OMNI_IMAGE + (3,)).astype(np.float32) / 255
+            px, grid = image_to_qwen_patches(image, vcfg)
+            patches.append(px)
+            grids.append(grid)
+            n_img = grid[0] * grid[1] * grid[2] // vcfg.merge_unit
+            head = ([cfg.audio_start_token_id] + [cfg.audio_token_id] * acfg.tokens_per_audio
+                    + [cfg.audio_end_token_id] + [cfg.vision_start_token_id]
+                    + [cfg.image_token_id] * n_img)
+            rows.append(head + rng.integers(0, cfg.vocab_size, OMNI_SEQ - len(head)).tolist())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ids = np.asarray(rows, np.int64)
+    labels = np.where((ids == cfg.audio_token_id) | (ids == cfg.image_token_id), -100, ids)
+    px = np.concatenate(patches)
+    meta = vision_metadata(grids, vcfg, len(px))
+    return {
+        "input_ids": ids.astype(np.int32),
+        "labels": np.concatenate([labels[:, 1:], np.full((2, 1), -100)], 1).astype(np.int32),
+        "position_ids": mrope_position_ids(ids, grids, cfg).astype(np.int32),
+        "segment_ids": np.ones_like(ids, np.int32),
+        "pixel_values": px[meta["patch_gather"]], "vis_pos_hw": meta["pos_hw"],
+        "vis_seg_window": meta["seg_window"], "vis_seg_full": meta["seg_full"],
+        "vis_reverse": meta["reverse"], "vis_merged_mask": meta["merged_mask"],
+        "audio_features": np.stack(feats), "audio_mask": np.ones(2, bool),
+    }
+
+
+def phase_qwen2_5_omni(dev, card):
+    """The Qwen2.5-Omni-7B thinker at its published widths (text 28 -> 2
+    layers, both towers whole; ~2.9 B parameters) built through
+    ``build_foundation_model`` with random weights from seed 0: one loss and
+    backward on a micro-batch of two rows (an audio slot, an image and
+    text each) with K1-K3 (D 64 the encoder, D 80 the tower, D 128 the
+    text, launches as reckoned, no plain dispatch), then the same with the
+    plain attention pinned: the loss, the grad norm and each tower's
+    gradient norm within TOL_LOSS_REL / TOL_GRAD_NORM_REL (gradients only,
+    no optimizer state). Returns {path: (launches, head dim, layout)}."""
+    from veomni_tpu_torch.models import qwen2_5_omni
+    from veomni_tpu_torch.models.auto import build_foundation_model
+    from veomni_tpu_torch.ops.cuda import flash_attention as fa
+    from veomni_tpu_torch.ops.kernel_registry import apply_ops_config
+
+    tag = "omni Qwen2.5-Omni-7B"
+    published = json.loads(json.dumps(QWEN2_5_OMNI_7B))
+    published["thinker_config"]["text_config"]["num_hidden_layers"] = QWEN2_5_OMNI_LAYERS
+    cfg = qwen2_5_omni.config_from_hf(published, audio_max_frames=QWEN2_5_OMNI_FRAMES,
+                                      dtype=torch.bfloat16, remat=True, remat_policy="ctx")
+    fm = build_foundation_model(None, config=cfg)
+    model = fm.init(torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(w.numel() for w in model.parameters())
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(x).to(dev) for k, x in qwen2_5_omni_batch(cfg).items()}
+    a, v, tc = cfg.audio, cfg.vision, cfg.text
+    log(f"{tag}: audio encoder {a.encoder_layers} layers of {a.d_model}, "
+        f"{a.encoder_attention_heads} heads of {a.head_dim}, a {a.max_frames}-frame slot "
+        f"({a.chunks} chunks, {a.max_frames // 2} frames after the conv, {a.tokens_per_audio} "
+        f"tokens); tower {v.depth} blocks of {v.hidden_size}, {v.num_heads} heads of "
+        f"{v.head_dim}; text {tc.num_hidden_layers} layers (of 28), hidden {tc.hidden_size}, "
+        f"heads {tc.num_attention_heads}/{tc.num_key_value_heads}; {n_params} parameters; the "
+        f"batch (2 rows, {int(batch['vis_merged_mask'].sum()) * v.merge_unit} patches) made in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    def step(pins):
+        model.zero_grad(set_to_none=True)
+        apply_ops_config(pins)
+        reset_all_counts()
+        try:
+            t0 = time.perf_counter()
+            loss_sum, metrics = fm.loss_fn(model, batch)
+            loss = loss_sum / metrics["ntokens"]
+            loss.backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            apply_ops_config(None)
+        launches, fallbacks = read_counts()
+        by_dim = {d: dict(c) for d, c in fa.LAUNCHES_BY_HEAD_DIM.items()}
+        norms = {part: float(torch.sqrt(sum(p.grad.float().pow(2).sum()
+                                            for p in getattr(model, part).parameters())))
+                 for part in ("audio_tower", "vision_tower", "language_model")}
+        norms["all"] = math.sqrt(sum(x * x for x in norms.values()))
+        return float(loss.detach()), norms, launches, fallbacks, by_dim, wall
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    kl, kn, launches, fallbacks, by_dim, k_wall = step(None)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {64: a.encoder_layers, 80: v.depth, 128: tc.num_hidden_layers}
+    bad_dim = {d: c for d, c in by_dim.items() if any(n != want.get(d, 0) for n in c.values())}
+    log(f"{tag}: kernels loss {kl:.6f}, grad norms {kn} in {k_wall:.1f} s (the first call), "
+        f"launches by head dim {by_dim} (expected a kernel at D 64 {want[64]} audio layers, D 80 "
+        f"{want[80]} tower blocks, D 128 {want[128]} text layers), FALLBACK_CALLS {fallbacks}; "
+        f"peak device memory {peak / 2**30:.2f} GiB [{card}]")
+    if bad_dim or fallbacks["flash"]:
+        raise AssertionError(f"{tag}: launches by head dim {by_dim} differ from the reckoned "
+                             f"counts, or FALLBACK_CALLS {fallbacks} is not 0")
+    pl, pn, plain_launches, _, _, _ = step({"attention": "xla"})
+    rel = {k: abs(kn[k] - pn[k]) / abs(pn[k]) for k in kn}
+    loss_rel = abs(kl - pl) / abs(pl)
+    log(f"{tag} step parity: plain attention loss {pl:.6f}, grad norms {pn}; rel loss "
+        f"{loss_rel:.2e}, grad norms " + ", ".join(f"{k} {x:.2e}" for k, x in rel.items())
+        + f" (tol {TOL_LOSS_REL} / {TOL_GRAD_NORM_REL}; the plain leg launched "
+        f"{plain_launches})")
+    if (not loss_rel <= TOL_LOSS_REL or not all(x <= TOL_GRAD_NORM_REL for x in rel.values())
+            or any(plain_launches.values())):
+        raise AssertionError(f"{tag}: the step departs from the plain attention's, or the plain "
+                             f"leg launched kernels")
+    del fm, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"qwen2_5_omni_audio": (by_dim[64], 64, "omni_audio"),
+            "qwen2_5_omni_vision": (by_dim[80], 80, "qwen2_5_vl"),
+            "qwen2_5_omni_text": (by_dim[128], 128, None)}
 
 
 REMAT_POLICIES = ("nothing", "ctx", "dots", "offload", "ctx_offload")
@@ -7346,11 +8048,12 @@ def main(argv=None) -> int:
                          "serve_moe, hf_trainer_gemma3, serve_gemma3, dialects, "
                          "hf_trainer_moonlight, deepseek_v2_lite, hf_trainer_gpt_oss, "
                          "serve_gpt_oss, sft_lora_dense, sft_lora_moe, hf_trainer_qwen2_vl, "
-                         "hf_trainer_qwen2_5_vl, hf_trainer_qwen3_vl_moe, moe (with the MoE "
+                         "hf_trainer_qwen2_5_vl, hf_trainer_qwen3_vl_moe, qwen3_omni, "
+                         "qwen2_5_omni, moe (with the MoE "
                          "monitor), post_training, "
                          "remat, serve_quant, serve_router, infer_text, parallel (two ranks "
                          "on the card), vlm_witness, qwen3_vl_floor, vlm_dpo_floor and "
-                         "parallel_floor (measurements "
+                         "parallel_floor, qwen3_omni_floor (measurements "
                          "outside the whole run), and before them main "
                          "(the dense loop) or trainer; such a partial run prints no result "
                          "line")
@@ -7398,7 +8101,10 @@ def main(argv=None) -> int:
                   "vlm_witness": phase_vlm_witness, "qwen3_vl_floor": phase_qwen3_vl_floor,
                   "vlm_dpo_floor": phase_vlm_dpo_floor,
                   "parallel": phase_parallel,
-                  "parallel_floor": phase_parallel_floor}
+                  "parallel_floor": phase_parallel_floor,
+                  "qwen3_omni": phase_hf_trainer_qwen3_omni,
+                  "qwen3_omni_floor": phase_qwen3_omni_floor,
+                  "qwen2_5_omni": phase_qwen2_5_omni}
         for name in names:
             t0 = time.perf_counter()
             phases[name](dev, card)
@@ -7568,13 +8274,18 @@ def run_phases(dev, card, hf_tmp, infer) -> int:
     # reason: Qwen2-VL-2B and Qwen2.5-VL-3B (their K1-K3 rows at D 80 are
     # held and timed inside the phase, before its trainer)
     for phase in (phase_hf_trainer_qwen2_vl, phase_hf_trainer_qwen2_5_vl,
-                  phase_hf_trainer_qwen3_vl_moe):
+                  phase_hf_trainer_qwen3_vl_moe, phase_hf_trainer_qwen3_omni):
         gc.collect()
         torch.cuda.empty_cache()
         paths, rows = phase(dev, card)
         by_path.update(paths)
         table += rows
         lap = lap_clock(phase.__name__, lap)
+    # the Qwen2.5-Omni thinker: its D 64 launches count on the audio rows of 27
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(phase_qwen2_5_omni(dev, card))
+    lap = lap_clock("qwen2_5_omni", lap)
     log(f"phase clock: {time.perf_counter() - t0:.1f} s to the end")
 
     for row in table:

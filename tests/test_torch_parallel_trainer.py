@@ -28,7 +28,10 @@ One world of 2 gloo ranks (``parallel/launch.py::run_ranks``) runs, in turn:
 * the Qwen2.5-VL trainer on per-row patch budgets against the packed
   world-1 run (the reference's two-process VLM test, rtol 2e-4), at FSDP 2
   and at ulysses 2, where the text layers split the sequence and the tower
-  runs without sequence parallelism (``tests/test_heterogeneous_sp.py``).
+  runs without sequence parallelism (``tests/test_heterogeneous_sp.py``);
+* the Qwen3-Omni-MoE trainer (``tests/test_torch_qwen3_omni.py``'s toy) at
+  FSDP 2, each rank packing its row's image and audio into its share of
+  the patch and chunk buffers, against world 1 packing both rows.
 And ``configs/text/qwen3_toy_cpu.yaml`` (4 virtual devices, ulysses 2)
 trains 2 steps through ``python -m veomni_tpu_torch.tasks.train_text``,
 which starts 4 CPU ranks over gloo; and an HF checkpoint loaded at ep 2
@@ -64,6 +67,20 @@ VLM = {"model_type": "qwen2_5_vl", "vocab_size": 256, "hidden_size": 64,
        "vision": {"depth": 2, "hidden_size": 32, "intermediate_size": 64, "num_heads": 2,
                   "patch_size": 2, "spatial_merge_size": 2, "window_size": 8,
                   "fullatt_block_indexes": [1], "out_hidden_size": 64}}
+OMNI = {"model_type": "qwen3_omni_moe", "vocab_size": 256, "hidden_size": 64,
+        "intermediate_size": 128, "moe_intermediate_size": 32, "num_experts": 4,
+        "num_experts_per_tok": 2, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "num_key_value_heads": 2, "head_dim": 16,
+        "rope_scaling": {"rope_type": "default", "mrope_section": [2, 3, 3]},
+        "image_token_id": 9, "video_token_id": 10, "audio_token_id": 11,
+        "vision_start_token_id": 8, "audio_start_token_id": 7,
+        "vision": {"depth": 2, "hidden_size": 32, "intermediate_size": 64, "num_heads": 2,
+                   "patch_size": 2, "spatial_merge_size": 2, "out_hidden_size": 64,
+                   "num_position_embeddings": 16, "deepstack_visual_indexes": [0]},
+        "audio": {"d_model": 32, "encoder_layers": 2, "encoder_attention_heads": 2,
+                  "encoder_ffn_dim": 64, "num_mel_bins": 32, "max_source_positions": 64,
+                  "n_window": 50, "n_window_infer": 200, "downsample_hidden_size": 16,
+                  "output_dim": 64}}
 RTOL = 2e-4
 
 
@@ -106,6 +123,17 @@ def write_vlm_data(path, rows=2, seed=0):
                 "images": [rng.random((8 + 4 * (i % 2), 8, 3)).tolist()]}) + "\n")
 
 
+def write_omni_data(path, rows=2, seed=0):
+    """Rows with an image and a two-chunk mel each."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(rows):
+            f.write(json.dumps({
+                "input_ids": rng.integers(12, 256, int(rng.integers(8, 20))).tolist(),
+                "images": [rng.random((8, 8 + 4 * i, 3)).tolist()],
+                "audios": [rng.standard_normal((32, 130 - 40 * i)).tolist()]}) + "\n")
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every run, each once: {name: record}; world-1 runs in this process,
@@ -113,9 +141,11 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("trainer")
     data, vlm_data, pairs = (str(tmp / "data.jsonl"), str(tmp / "vlm.jsonl"),
                              str(tmp / "pairs.jsonl"))
+    omni_data = str(tmp / "omni.jsonl")
     write_data(data)
     write_vlm_data(vlm_data)
     write_pairs(pairs)
+    write_omni_data(omni_data)
 
     def run(name, model=TOY, **train):
         return {"model": model, "data": data, "out": str(tmp / name), "train": train}
@@ -123,6 +153,10 @@ def runs(tmp_path_factory):
     def vlm_run(name, **train):
         return {"model": VLM, "data": vlm_data, "out": str(tmp / name), "trainer": "vlm",
                 "data_args": {"max_patches": 128}, "train": train}
+
+    def omni_run(name, **train):
+        return {"model": OMNI, "data": omni_data, "out": str(tmp / name), "trainer": "omni",
+                "data_args": {"max_patches": 128, "max_audio_chunks": 4}, "train": train}
 
     def dpo_run(name, model_args=None, **train):
         return {"model": TOY, "data": pairs, "out": str(tmp / name), "trainer": "dpo",
@@ -151,6 +185,7 @@ def runs(tmp_path_factory):
         "numerics": run("w1num", train_steps=3, observability_numerics_interval=2,
                         micro_batch_size=4),
         "vlm": vlm_run("w1vlm", train_steps=3, micro_batch_size=2),
+        "omni": omni_run("w1omni", train_steps=3, micro_batch_size=2),
     }})
     ranks = run_ranks(2, "torch_parallel_fixtures:trainer_world", {"runs": {
         "straight": run("w2", train_steps=4, save_steps=2),
@@ -176,6 +211,7 @@ def runs(tmp_path_factory):
         "vlm": vlm_run("w2vlm", train_steps=3, micro_batch_size=1),
         "vlm_u2": vlm_run("w2vlmu2", train_steps=3, micro_batch_size=2,
                           ulysses_parallel_size=2),
+        "omni": omni_run("w2omni", train_steps=3, micro_batch_size=1),
     }}, env=ENV, timeout=600)
     # the world-2 checkpoint of step 2, alone, restored at world 1
     src = tmp / "w2resume" / "checkpoints" / "global_step_2"
@@ -209,7 +245,7 @@ def test_resume_is_bit_identical_to_the_straight_run(runs):
 
 @pytest.mark.parametrize("name", ["straight", "u2", "u2_async", "moe_ep2", "muon", "adafactor",
                                   "numerics", "vlm", "vlm_u2", "dpo", "dpo_u2", "dpo_lora",
-                                  "dpo_lora_adapter", "lora_moe_ep2"])
+                                  "dpo_lora_adapter", "lora_moe_ep2", "omni"])
 def test_world2_trains_as_world1(runs, name):
     want = {"u2_async": "u2", "vlm_u2": "vlm", "dpo_u2": "dpo"}.get(name, name)
     got, want = runs["w2"][0][name], runs["w1"][want]

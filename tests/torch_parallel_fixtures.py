@@ -279,13 +279,14 @@ def _param_digest(model) -> str:
 
 def trainer_world(rank: int, world: int, payload: Dict[str, Any]):
     """Each run of ``payload["runs"]`` in turn through the port's trainer
-    (``run["trainer"]`` "vlm": ``VLMTrainer``, "dpo": ``TextDPOTrainer``) in
+    (``run["trainer"]`` "vlm": ``VLMTrainer``, "dpo": ``TextDPOTrainer``,
+    "omni": ``OmniTrainer``) in
     this world: {run name:
     {losses, grad_norms, digest, dp_rank, dp_size, first step}}; a run
     resumes from its output directory like a restart, and one with
     ``stop_at`` stops after that step."""
     from veomni_tpu_torch.parallel.parallel_state import destroy_parallel_state
-    from veomni_tpu_torch.trainer import TextDPOTrainer, TextTrainer, VLMTrainer
+    from veomni_tpu_torch.trainer import OmniTrainer, TextDPOTrainer, TextTrainer, VLMTrainer
     from veomni_tpu_torch.trainer.callbacks import Callback
 
     out = {}
@@ -308,8 +309,8 @@ def trainer_world(rank: int, world: int, payload: Dict[str, Any]):
 
         args = trainer_args(run)
         args.train.log_steps = 1
-        trainer = {"vlm": VLMTrainer, "dpo": TextDPOTrainer}.get(run.get("trainer"),
-                                                                TextTrainer)(args)
+        trainer = {"vlm": VLMTrainer, "dpo": TextDPOTrainer, "omni": OmniTrainer}.get(
+            run.get("trainer"), TextTrainer)(args)
         trainer.callbacks.append(Capture())
         trainer.train()
         trainer.checkpointer.close()

@@ -1,17 +1,21 @@
-"""Model registry and build entry points: the text families and the
-Qwen2-VL / Qwen2.5-VL / Qwen3-VL / Qwen3-VL-MoE vision-language composites.
+"""Model registry and build entry points: the text families, the
+Qwen2-VL / Qwen2.5-VL / Qwen3-VL / Qwen3-VL-MoE vision-language composites
+and the Qwen3-Omni-MoE / Qwen2.5-Omni thinkers.
 
 Port of ``veomni_tpu/models/auto.py``: ``build_config`` (``:303``, the VLM
 branch ``:329-357``), ``FoundationModel`` (``:411``),
-``build_foundation_model`` (``:446``, its VLM ``config.json`` readers
-``:471-``) and ``build_tokenizer`` (through ``data/tokenizer.py``). A text
+``build_foundation_model`` (``:446``, its VLM and omni ``config.json``
+readers ``:471-494``) and ``build_tokenizer`` (through ``data/tokenizer.py``). A text
 family is the port's ``Transformer`` module (``models/transformer.py``),
 which raises ``NotImplementedError`` for any configured feature it does not
 have (``check_supported``); ``qwen2_vl``, ``qwen2_5_vl``, ``qwen3_vl`` and
 ``qwen3_vl_moe`` (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``,
-``models/qwen3_vl.py``) wrap it with their vision towers. The reference's
-other families (the slot VLM, omni, janus, deepseek_v4, diffusion) belong
-to slice F of the port and raise here instead of building something else. A config and
+``models/qwen3_vl.py``) wrap it with their vision towers, and
+``qwen3_omni_moe`` and ``qwen2_5_omni`` (``models/qwen3_omni_moe.py``,
+``models/qwen2_5_omni.py``) with an audio tower beside it (``build_config``'s
+omni branches ``:361-392``). The reference's other families (the slot VLM,
+seed_omni, janus, deepseek_v4, qwen3_next, diffusion) belong to slice F of the
+port and raise here instead of building something else. A config and
 weights from an HF directory (``config_path``, ``weights_path``) go
 through ``TransformerConfig.from_hf_config`` (a VLM's ``config_from_hf``)
 and ``models/hf_io.py``, the family's ``load_hf`` and ``save_hf``
@@ -27,7 +31,9 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from veomni_tpu_torch.models import hf_io, qwen2_5_vl, qwen2_vl, qwen3_vl
+from veomni_tpu_torch.models import (
+    hf_io, qwen2_5_omni, qwen2_5_vl, qwen2_vl, qwen3_omni_moe, qwen3_vl,
+)
 from veomni_tpu_torch.models.config import TransformerConfig
 from veomni_tpu_torch.models.transformer import Transformer
 from veomni_tpu_torch.utils.device import DeviceLike
@@ -46,25 +52,49 @@ TEXT_MODEL_TYPES = (
     "gpt_oss", "seed_oss", "glm_moe", "glm4_moe", "glm_moe_dsa",
 )
 
-# the vision-language families (auto.py:152-200): model_type -> the module
-# with its config classes, model, HF reader and writer
+# the vision-language and omni families (auto.py:152-200): model_type -> the
+# module with its config classes, model, HF reader and writer
 VLM_FAMILIES = {"qwen2_vl": qwen2_vl, "qwen2_5_vl": qwen2_5_vl, "qwen3_vl": qwen3_vl,
-                "qwen3_vl_moe": qwen3_vl}
+                "qwen3_vl_moe": qwen3_vl, "qwen3_omni_moe": qwen3_omni_moe,
+                "qwen2_5_omni": qwen2_5_omni}
 _VLM_CONFIGS = {"qwen2_vl": qwen2_vl.Qwen2VLConfig, "qwen2_5_vl": qwen2_5_vl.Qwen25VLConfig,
-                "qwen3_vl": qwen3_vl.Qwen3VLConfig, "qwen3_vl_moe": qwen3_vl.Qwen3VLConfig}
+                "qwen3_vl": qwen3_vl.Qwen3VLConfig, "qwen3_vl_moe": qwen3_vl.Qwen3VLConfig,
+                "qwen3_omni_moe": qwen3_omni_moe.Qwen3OmniMoeConfig,
+                "qwen2_5_omni": qwen2_5_omni.Qwen25OmniConfig}
 _VLM_MODELS = {"qwen2_vl": qwen2_vl.Qwen2VLModel, "qwen2_5_vl": qwen2_5_vl.Qwen25VLModel,
-               "qwen3_vl": qwen3_vl.Qwen3VLModel, "qwen3_vl_moe": qwen3_vl.Qwen3VLModel}
-# the text dialect of each family (``:333-341``)
+               "qwen3_vl": qwen3_vl.Qwen3VLModel, "qwen3_vl_moe": qwen3_vl.Qwen3VLModel,
+               "qwen3_omni_moe": qwen3_omni_moe.Qwen3OmniMoeModel,
+               "qwen2_5_omni": qwen2_5_omni.Qwen25OmniModel}
+# the text dialect of each family (``:333-341``, ``:375``, ``:389``)
 _VLM_TEXT_TYPES = {"qwen2_vl": "qwen2", "qwen2_5_vl": "qwen2", "qwen3_vl": "qwen3",
-                   "qwen3_vl_moe": "qwen3_moe"}
-VLMConfig = Union[qwen2_vl.Qwen2VLConfig, qwen2_5_vl.Qwen25VLConfig, qwen3_vl.Qwen3VLConfig]
+                   "qwen3_vl_moe": "qwen3_moe", "qwen3_omni_moe": "qwen3_moe",
+                   "qwen2_5_omni": "qwen2"}
+# the composite-level keys of each family's config (the rest go to its text)
+_COMPOSITE_KEYS = ("vision", "image_token_id", "video_token_id", "vision_start_token_id",
+                   "freeze_vision")
+_OMNI_KEYS = {
+    "qwen3_omni_moe": _COMPOSITE_KEYS + ("audio", "audio_token_id", "audio_start_token_id",
+                                         "position_id_per_seconds", "freeze_audio"),
+    "qwen2_5_omni": _COMPOSITE_KEYS + ("audio", "audio_token_id", "audio_start_token_id",
+                                       "audio_end_token_id", "position_id_per_seconds",
+                                       "freeze_audio"),
+}
+# an HF config.json's model_type -> the family reading it (``:487-494``)
+_HF_MODEL_TYPES = {**{mt: mt for mt in VLM_FAMILIES},
+                   "qwen3_omni_moe_thinker": "qwen3_omni_moe",
+                   "qwen2_5_omni_thinker": "qwen2_5_omni"}
+VLMConfig = Union[qwen2_vl.Qwen2VLConfig, qwen2_5_vl.Qwen25VLConfig, qwen3_vl.Qwen3VLConfig,
+                  qwen3_omni_moe.Qwen3OmniMoeConfig, qwen2_5_omni.Qwen25OmniConfig]
 
 # the reference's other families (auto.py:66-297), slice F of the port: each
 # names the ROADMAP.md item that ports it
 NOT_PORTED_MODEL_TYPES = {
     "slot_vlm": "slice F: the slot VLM, models/{vision,vlm}.py",
-    **{mt: "slice F" for mt in ("qwen3_next", "deepseek_v4", "janus", "qwen2_5_omni",
-                                "qwen3_omni_moe", "wan_t2v", "qwen_image", "flux", "ltx2")},
+    "seed_omni": "slice F: the slot VLM with seed_omni, models/{vision,vlm,omni}.py",
+    "janus": "slice F: DiT and the generators with Janus",
+    **{mt: "slice F: deepseek_v4 and qwen3_next" for mt in ("qwen3_next", "deepseek_v4")},
+    **{mt: "slice F: DiT and the generators"
+       for mt in ("wan_t2v", "qwen_image", "flux", "ltx2")},
 }
 
 
@@ -81,18 +111,19 @@ def build_config(model_type: str = "", **overrides) -> Union[TransformerConfig, 
     text keys flow into ``text`` (its dialect defaults to the family's),
     its ``vision`` dict and token ids stay at the top, and Qwen3-VL's mrope
     is interleaved, its MoE's experts fused-chunked (``auto.py:329-360``);
-    a text model_type is the reference's last branch (``:408``)."""
+    the omni thinkers' ``audio`` dict and audio token ids stay at the top
+    too, and Qwen3-Omni's mrope is interleaved (``:361-392``); a text
+    model_type is the reference's last branch (``:408``)."""
     overrides.pop("model_type", None)
     if model_type in NOT_PORTED_MODEL_TYPES:
         raise _not_ported(model_type)
     if model_type in VLM_FAMILIES:
-        kw = {k: overrides.pop(k) for k in ("vision", "image_token_id", "video_token_id",
-                                            "vision_start_token_id", "freeze_vision")
+        kw = {k: overrides.pop(k) for k in _OMNI_KEYS.get(model_type, _COMPOSITE_KEYS)
               if k in overrides}
         text = dict(overrides.pop("text", {}) or {})
         text.update(overrides)
         text.setdefault("model_type", _VLM_TEXT_TYPES[model_type])
-        if model_type.startswith("qwen3_vl") and text.get("rope_scaling"):
+        if model_type.startswith(("qwen3_vl", "qwen3_omni")) and text.get("rope_scaling"):
             text["rope_scaling"] = {"mrope_interleaved": True, **text["rope_scaling"]}
         if model_type == "qwen3_vl_moe":
             text.setdefault("expert_layout", "fused_chunked")
@@ -171,12 +202,11 @@ def build_foundation_model(
         with open(os.path.join(config_path, "config.json")) as f:
             hf_dict = json.load(f)
         model_type = hf_dict.get("model_type", "")
-        if (model_type in tuple(NOT_PORTED_MODEL_TYPES) + ("qwen2_5_omni_thinker",
-                                                           "qwen3_omni_moe_thinker")
-                or hf_dict.get("_class_name")):
+        if model_type in NOT_PORTED_MODEL_TYPES or hf_dict.get("_class_name"):
             raise _not_ported(model_type or hf_dict.get("_class_name"), f"{config_path}: ")
-        if model_type in VLM_FAMILIES:
-            config = VLM_FAMILIES[model_type].config_from_hf(hf_dict, **config_overrides)
+        if model_type in _HF_MODEL_TYPES:
+            config = VLM_FAMILIES[_HF_MODEL_TYPES[model_type]].config_from_hf(
+                hf_dict, **config_overrides)
         else:
             config = TransformerConfig.from_hf_config(hf_dict, **config_overrides)
     if config.model_type not in TEXT_MODEL_TYPES + tuple(VLM_FAMILIES):

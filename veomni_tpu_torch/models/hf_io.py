@@ -35,9 +35,11 @@ PyTorch idiom: the port's model is an ``nn.Module`` whose parameters keep
 the reference's names and ``[in, out]`` layout (one module per layer, where
 the reference stacks layers), so ``hf_to_params`` fills a model's parameters
 in place, one HF tensor at a time, on whatever device they live on: the host
-holds one tensor at a time, never the whole model. ``save_hf_checkpoint``
-streams the same way, writing each tensor's bytes as it is copied off the
-device.
+holds one tensor at a time, never the whole model. A tensor goes to the
+parameter's device as it is stored, and is cast and transposed there (on
+the host, the cast and the transpose were most of a read's time).
+``save_hf_checkpoint`` streams the same way: each tensor is laid out on
+its device, copied off it and written from that copy.
 """
 
 from __future__ import annotations
@@ -228,7 +230,7 @@ def write_file(path: str, sources: List[TensorSource],
             if tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: produced shape {tuple(t.shape)}, declared {tuple(shape)}")
             if t.numel():
-                f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+                f.write(memoryview(t.reshape(-1).view(torch.uint8).numpy()))
     os.replace(tmp, path)
 
 
@@ -343,7 +345,8 @@ def hf_to_params(model_dir: Optional[str], cfg: TransformerConfig, model: torch.
         if tuple(x.shape) != tuple(param.shape):
             raise ValueError(f"{what}: checkpoint shape {tuple(x.shape)} (after the layout "
                              f"conversion), model {tuple(param.shape)}")
-        param.copy_(x)
+        # onto the parameter's device as stored, then cast and transpose there
+        param.copy_(x.to(param.device))
 
     put(model.embed_tokens, fetch("embed_tokens.weight", False), "embed_tokens")
     put(model.norm, fetch("norm.weight", False), "norm")
@@ -417,7 +420,8 @@ def hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
         def produce():
             x = (read(owner, pname) if read else param).detach()
             x = x if index is None else x[index]
-            return (x.t() if transpose else x).to("cpu")
+            # laid out on the parameter's device, then copied off it
+            return (x.t() if transpose else x).contiguous().to("cpu")
 
         out.append((name, param.dtype, shape, produce))
 
@@ -426,12 +430,10 @@ def hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
         shape = tuple(gate.shape[:-1]) + (2 * gate.shape[-1],)
 
         def produce():
-            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach().to("cpu")
+            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach()
                     for n in pair)
-            both = torch.empty(shape, dtype=g.dtype)
-            both[..., 0::2] = g
-            both[..., 1::2] = u
-            return both
+            # gate in the even columns, up in the odd ones
+            return torch.stack([g, u], dim=-1).reshape(shape).to("cpu")
 
         out.append((name, gate.dtype, shape, produce))
 
@@ -440,9 +442,9 @@ def hf_sources(model: torch.nn.Module, cfg: TransformerConfig,
         shape = tuple(gate.shape[:-1]) + (2 * gate.shape[-1],)
 
         def produce():
-            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach().to("cpu")
+            g, u = ((read(owner, n) if read else owner.get_parameter(n)).detach()
                     for n in ("experts.gate_proj", "experts.up_proj"))
-            return torch.cat([g, u], dim=-1)
+            return torch.cat([g, u], dim=-1).to("cpu")
 
         out.append((name, gate.dtype, shape, produce))
 

@@ -22,7 +22,13 @@ A VLM composite (``models/qwen2_vl.py``, ``models/qwen2_5_vl.py``,
 ``models/qwen3_vl.py``) is the
 tree ``{language_model: <the text tree>, vision_tower: {patch_embed,
 blocks: {name: [L, ...]}, merger: {...}}}``: the text tree moves across as
-above, the tower's ``blocks`` unstacked into its block modules.
+above, the tower's ``blocks`` unstacked into its block modules. The omni
+thinkers (``models/qwen3_omni_moe.py``, ``models/qwen2_5_omni.py``) add
+``audio_tower: {conv*, layers: {name: [L, ...]}, ...}``, its ``layers``
+unstacked alike; a tower module's ``JAX_LAYOUT`` names the leaves it keeps
+in torch's layout (the conv kernels: OIHW where the reference keeps HWIO,
+``[out, in, k]`` where it keeps ``[k, in, out]``) with the permutation
+from the reference's.
 """
 
 from __future__ import annotations
@@ -72,15 +78,29 @@ def _segments(model: Transformer):
     return segments
 
 
-# a vision tower's module lists that the reference stacks on a leading axis:
-# its blocks and Qwen3-VL's deepstack mergers (stacked over the K taps)
-_TOWER_STACKS = ("blocks", "deepstack_mergers")
+# a tower's module lists that the reference stacks on a leading axis: a
+# vision tower's blocks, Qwen3-VL's deepstack mergers (stacked over the K
+# taps) and an audio tower's layers
+_TOWER_STACKS = ("blocks", "deepstack_mergers", "layers")
+# a composite's towers, each a subtree of the reference's tree
+_TOWERS = ("vision_tower", "audio_tower")
+
+
+def _towers(model: nn.Module) -> Dict[str, nn.Module]:
+    return {name: getattr(model, name) for name in _TOWERS if hasattr(model, name)}
+
+
+def _layout(owner: nn.Module, name: str):
+    """The permutation from the reference's layout of leaf ``name`` to the
+    module's, or None where they agree."""
+    return getattr(owner, "JAX_LAYOUT", {}).get(name)
 
 
 def _tower_leaves(tower: nn.Module) -> Dict[str, List[Tuple[nn.Module, str]]]:
-    """A vision tower's leaves: its own (``patch_embed``), ``blocks.<name>``
+    """A tower's leaves: its own (``patch_embed``), ``blocks.<name>``
     stacked over its blocks (and ``deepstack_mergers.<name>`` over its
-    mergers), and each other submodule's (``merger.fc1_w``)."""
+    mergers, ``layers.<name>`` over an audio tower's layers), and each other
+    submodule's (``merger.fc1_w``)."""
     out = {name: [(tower, name)] for name, _ in tower.named_parameters(recurse=False)}
     for sub_name, sub in tower.named_children():
         if sub_name in _TOWER_STACKS:
@@ -99,10 +119,12 @@ def stacked_leaves(model: nn.Module) -> Dict[str, List[Tuple[nn.Module, str]]]:
     its segment, in layer order. The paths are the reference's
     ``param_path_str`` of its tree, which its regexes (LoRA targets,
     ``freeze_modules``, ``module_lr_scales``) are matched against. A VLM
-    composite's paths start with ``language_model.`` or ``vision_tower.``."""
-    if hasattr(model, "vision_tower"):
+    composite's paths start with ``language_model.``, ``vision_tower.`` or
+    ``audio_tower.``."""
+    if hasattr(model, "language_model"):
         out = {f"language_model.{k}": v for k, v in stacked_leaves(model.language_model).items()}
-        out.update({f"vision_tower.{k}": v for k, v in _tower_leaves(model.vision_tower).items()})
+        for tname, tower in _towers(model).items():
+            out.update({f"{tname}.{k}": v for k, v in _tower_leaves(tower).items()})
         return out
     out: Dict[str, List[Tuple[nn.Module, str]]] = {
         name: [(model, name)] for name in _top_level(model)}
@@ -126,9 +148,9 @@ def named_jax_parameters(module: nn.Module) -> List[Tuple[str, torch.Tensor]]:
 def is_stacked_path(path: str) -> bool:
     """Whether the reference stacks this leaf over layers (a leading
     ``[L, ...]`` axis): the text layers and dense layers of a
-    ``Transformer`` and a VLM tower's blocks."""
+    ``Transformer``, a VLM tower's blocks and an audio tower's layers."""
     return (path.removeprefix("language_model.").startswith(("layers.", "dense_layers."))
-            or path.startswith(tuple(f"vision_tower.{s}." for s in _TOWER_STACKS)))
+            or path.startswith(tuple(f"{t}.{s}." for t in _TOWERS for s in _TOWER_STACKS)))
 
 
 def reference_leaves(module: nn.Module) -> List[Tuple[str, List[torch.Tensor], bool]]:
@@ -146,23 +168,28 @@ def reference_leaves(module: nn.Module) -> List[Tuple[str, List[torch.Tensor], b
 @torch.no_grad()
 def load_jax_params(model: nn.Module, tree: Dict[str, Any]) -> None:
     """Copy a JAX param tree (numpy leaves) into ``model`` in place."""
-    if hasattr(model, "vision_tower"):
-        if set(tree) != {"language_model", "vision_tower"}:
-            raise KeyError(f"VLM param tree keys {sorted(tree)} != language_model, vision_tower")
+    if hasattr(model, "language_model"):
+        towers = _towers(model)
+        if set(tree) != {"language_model", *towers}:
+            raise KeyError(f"composite param tree keys {sorted(tree)} != language_model, "
+                           f"{', '.join(towers)}")
         load_jax_params(model.language_model, tree["language_model"])
-        leaves = _tower_leaves(model.vision_tower)
-        flat = _flatten(tree["vision_tower"])
-        if set(flat) != set(leaves):
-            raise KeyError(f"vision_tower keys differ: {sorted(set(flat) ^ set(leaves))}")
-        for path, owners in leaves.items():
-            value = np.asarray(flat[path])
-            stacked = path.startswith(tuple(f"{s}." for s in _TOWER_STACKS))
-            if stacked and value.shape[0] != len(owners):
-                raise ValueError(f"vision_tower.{path}: {value.shape[0]} blocks, model has "
-                                 f"{len(owners)}")
-            for i, (owner, name) in enumerate(owners):
-                _copy(owner.get_parameter(name), value[i] if stacked else value,
-                      f"vision_tower.{path}")
+        for tname, tower in towers.items():
+            leaves = _tower_leaves(tower)
+            flat = _flatten(tree[tname])
+            if set(flat) != set(leaves):
+                raise KeyError(f"{tname} keys differ: {sorted(set(flat) ^ set(leaves))}")
+            for path, owners in leaves.items():
+                value = np.asarray(flat[path])
+                stacked = path.startswith(tuple(f"{s}." for s in _TOWER_STACKS))
+                if stacked and value.shape[0] != len(owners):
+                    raise ValueError(f"{tname}.{path}: {value.shape[0]} blocks, model has "
+                                     f"{len(owners)}")
+                for i, (owner, name) in enumerate(owners):
+                    v = value[i] if stacked else value
+                    perm = _layout(owner, name)
+                    _copy(owner.get_parameter(name), v if perm is None else v.transpose(perm),
+                          f"{tname}.{path}")
         return
     top = _top_level(model)
     segments = _segments(model)
@@ -202,14 +229,21 @@ def to_jax_tree(model: nn.Module, *, grads: bool = False) -> Dict[str, Any]:
             t = torch.zeros_like(p)
         return t.detach().float().cpu().numpy()
 
-    if hasattr(model, "vision_tower"):
-        tower = {}
-        for path, owners in _tower_leaves(model.vision_tower).items():
-            vals = [val(owner.get_parameter(name)) for owner, name in owners]
-            tower[path] = (np.stack(vals) if path.startswith(tuple(f"{s}." for s in _TOWER_STACKS))
-                           else vals[0])
-        return {"language_model": to_jax_tree(model.language_model, grads=grads),
-                "vision_tower": _nest(tower)}
+    def jax_val(owner, name):
+        perm = _layout(owner, name)
+        v = val(owner.get_parameter(name))
+        return v if perm is None else v.transpose(np.argsort(perm))
+
+    if hasattr(model, "language_model"):
+        out = {"language_model": to_jax_tree(model.language_model, grads=grads)}
+        for tname, tower in _towers(model).items():
+            leaves = {}
+            for path, owners in _tower_leaves(tower).items():
+                vals = [jax_val(owner, name) for owner, name in owners]
+                leaves[path] = (np.stack(vals) if path.startswith(
+                    tuple(f"{s}." for s in _TOWER_STACKS)) else vals[0])
+            out[tname] = _nest(leaves)
+        return out
 
     tree: Dict[str, Any] = {name: val(p) for name, p in _top_level(model).items()}
     for seg, layers in _segments(model).items():

@@ -557,6 +557,16 @@ class VisionLanguageModel(nn.Module):
                                       **self.tower_kwargs(batch))
         return feats, row_tokens, batch
 
+    def has_vision(self, batch) -> bool:
+        """Whether the tower runs on this batch (a VLM's always does; the
+        omni thinkers', where the batch holds pixels)."""
+        return True
+
+    def merge_media(self, embeds, batch):
+        """The embeddings with the family's other media scattered in after
+        the vision features (the omni thinkers' audio); as they are here."""
+        return embeds
+
     def merged_hidden(self, batch):
         """(final hidden [B, S(/sp), H], router aux loss, the labels) of the
         text transformer on the embeddings with the vision features
@@ -564,22 +574,25 @@ class VisionLanguageModel(nn.Module):
         the merged embeddings, positions, segments and labels keep this
         rank's chunk of the sequence (cp outer, ulysses inner)."""
         cfg, lm = self.cfg, self.language_model
-        feats, row_tokens, batch = self.vision_features(batch)
-        # a deepstack tower (Qwen3-VL) gives its taps beside the merged features
-        feats, deepstack = feats if isinstance(feats, tuple) else (feats, None)
-        ids, mask = batch["input_ids"], batch["vis_merged_mask"].bool()
+        ids = batch["input_ids"]
         embeds = lm.embed(ids)
-
-        def scatter(into, f):
-            return merge_vision_features(into, ids, f, mask, cfg.image_token_id,
-                                         cfg.video_token_id, row_tokens)
-
-        embeds = scatter(embeds, feats)
         residuals = None
-        if deepstack is not None and deepstack.shape[0]:
-            # each tap scattered to its positions, zeros elsewhere (``:511-517``)
-            zeros = torch.zeros_like(embeds)
-            residuals = torch.stack([scatter(zeros, f) for f in deepstack])
+        if self.has_vision(batch):
+            feats, row_tokens, batch = self.vision_features(batch)
+            # a deepstack tower (Qwen3-VL) gives its taps beside the merged features
+            feats, deepstack = feats if isinstance(feats, tuple) else (feats, None)
+            mask = batch["vis_merged_mask"].bool()
+
+            def scatter(into, f):
+                return merge_vision_features(into, ids, f, mask, cfg.image_token_id,
+                                             cfg.video_token_id, row_tokens)
+
+            embeds = scatter(embeds, feats)
+            if deepstack is not None and deepstack.shape[0]:
+                # each tap scattered to its positions, zeros elsewhere (``:511-517``)
+                zeros = torch.zeros_like(embeds)
+                residuals = torch.stack([scatter(zeros, f) for f in deepstack])
+        embeds = self.merge_media(embeds, batch)
         pos, seg, labels = batch["position_ids"], batch.get("segment_ids"), batch.get("labels")
         ps = get_parallel_state_or_none()
         if ps is not None and ps.sp_enabled:
@@ -671,7 +684,8 @@ def patch_embed_to_hf(w: torch.Tensor, vcfg) -> torch.Tensor:
 
 @torch.no_grad()
 def hf_to_params(model_dir: Optional[str], model: VisionLanguageModel, block_map,
-                 merger_map, tensors=None, tower_map=()) -> VisionLanguageModel:
+                 merger_map, tensors=None, tower_map=(),
+                 text_key_map=_text_key_map) -> VisionLanguageModel:
     """Fill a composite from an HF checkpoint: the text tree through
     ``hf_io.hf_to_params`` with the text key map, then the tower, one tensor
     at a time (``:581-637``). ``tower_map``: (tower parameter path, HF
@@ -680,7 +694,7 @@ def hf_to_params(model_dir: Optional[str], model: VisionLanguageModel, block_map
 
     cfg = model.cfg
     hf_io.hf_to_params(model_dir, cfg.text, model.language_model, tensors=tensors,
-                       key_map=_text_key_map)
+                       key_map=text_key_map)
     lazy = hf_io.LazyHFTensors(None if tensors is not None else model_dir, tensors)
     alias = {k[k.index("visual.") + len("visual."):]: k for k in lazy.keys() if _is_visual_key(k)}
 
@@ -695,7 +709,7 @@ def hf_to_params(model_dir: Optional[str], model: VisionLanguageModel, block_map
         if tuple(x.shape) != tuple(param.shape):
             raise ValueError(f"{what}: checkpoint shape {tuple(x.shape)} (after the layout "
                              f"conversion), model {tuple(param.shape)}")
-        param.copy_(x)
+        param.copy_(x.to(param.device))  # cast and transposed on the parameter's device
 
     tower = model.vision_tower
     put(tower.get_parameter(tower.PATCH_EMBED),
@@ -734,7 +748,8 @@ def hf_sources(model: VisionLanguageModel, block_map, merger_map, read=None, tow
     out.append((f"{pfx}.patch_embed.proj.weight", pe.dtype,
                 (vcfg.width, vcfg.in_channels, vcfg.temporal_patch_size, vcfg.patch_size,
                  vcfg.patch_size),
-                lambda: patch_embed_to_hf(value(tower, tower.PATCH_EMBED), vcfg).cpu()))
+                lambda: patch_embed_to_hf(value(tower, tower.PATCH_EMBED),
+                                          vcfg).contiguous().cpu()))
 
     def add(name, owner, pname, transpose):
         param = owner.get_parameter(pname)
@@ -742,7 +757,7 @@ def hf_sources(model: VisionLanguageModel, block_map, merger_map, read=None, tow
 
         def produce():
             x = value(owner, pname)
-            return (x.t() if transpose else x).cpu()
+            return (x.t() if transpose else x).contiguous().cpu()
 
         out.append((name, param.dtype, shape, produce))
 

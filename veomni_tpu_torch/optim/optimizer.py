@@ -56,9 +56,10 @@ Leaf = Tuple[str, List[torch.Tensor], bool]  # (reference path, parameters, stac
 def _decayed(name: str, param: torch.Tensor) -> bool:
     """``ndim > 1`` on the reference's tree: every stacked per-layer leaf
     (the text layers; a VLM's ``language_model.layers`` and tower
-    ``blocks``) and every matrix."""
+    ``blocks``, an omni thinker's audio ``layers``) and every matrix."""
     name = name.removeprefix("language_model.")
-    return param.ndim > 1 or name.startswith(("layers.", "vision_tower.blocks."))
+    return param.ndim > 1 or name.startswith(("layers.", "vision_tower.blocks.",
+                                              "audio_tower.layers."))
 
 
 class AdamW(torch.optim.AdamW):

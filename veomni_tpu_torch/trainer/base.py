@@ -127,7 +127,8 @@ def check_supported(args: VeOmniArguments, data_types=SUPPORTED_DATA_TYPES) -> N
     missing = [f"{knob} ({why})" for knob, why, on in (
         (f"data.data_type {d.data_type!r}", "the qwen2-vl, qwen2.5-vl and qwen3-vl transforms "
          "run through VLMTrainer, tasks/train_vlm.py, vlm_dpo through VLMDPOTrainer, "
-         "tasks/train_vlm_dpo.py; the other multimodal ones are slice F",
+         "tasks/train_vlm_dpo.py, qwen3_omni through OmniTrainer, tasks/train_omni_model.py; "
+         "the other multimodal ones are slice F",
          d.data_type not in data_types),
     ) if on]
     if missing:

@@ -79,6 +79,11 @@ class FlopsCounter:
 
     @classmethod
     def from_config(cls, cfg) -> "FlopsCounter":
+        """A composite config (a VLM or an omni thinker) counts its text
+        model (``cfg.text``), as the reference does (``:142``); the towers'
+        FLOPs are fed separately (``vit_flops_fwd``)."""
+        if hasattr(cfg, "text") and hasattr(cfg.text, "hidden_size"):
+            cfg = cfg.text
         return cls(
             hidden_size=cfg.hidden_size,
             intermediate_size=cfg.intermediate_size,
